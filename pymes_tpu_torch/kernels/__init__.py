@@ -1,0 +1,28 @@
+"""Hand-written Hopper kernels of the port, each beside its plain twin.
+
+* :mod:`.block_ladder` — K1, the momentum-sector ladder GEMM (CUDA C++,
+  ``pymes_tpu_torch/csrc/block_ladder.cu``, built by :mod:`._build`).
+* :mod:`.ccd_tail` — K2/K3, the per-iteration Jacobi + DIIS + energy passes
+  over T2 (Triton).
+
+A wrapper given a CUDA tensor launches its kernel (or raises); given a CPU
+tensor it runs the twin.  Each launch of a kernel adds one to its entry in
+:data:`LAUNCHES`, so a run can show that the main path went through it.
+"""
+
+LAUNCHES = {"block_ladder": 0, "ccd_jacobi_diis": 0, "ccd_mix_energy": 0}
+
+
+def reset_launches():
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def check_device(t):
+    """True for a CUDA tensor (launch the kernel), False for a CPU tensor
+    (run the twin); any other device raises."""
+    if t.device.type == "cuda":
+        return True
+    if t.device.type == "cpu":
+        return False
+    raise RuntimeError(f"no kernel or twin for device {t.device}")

@@ -1,0 +1,202 @@
+"""Matrix-free particle-particle ladder for the UEG: the momentum-sector plan.
+
+Counterpart of the ``BlockLadder`` part of ``pymes_tpu/ops/ueg_ladder.py``.
+``V[p,q,c,d] = w(k_c − k_p) δ(k_p+k_q = k_c+k_d)`` is block-diagonal in the
+total momentum K = k_p+k_q, so the ladder ``R_ijpq = Σ_cd V_pqcd T_ijcd`` is
+a set of small dense sector GEMMs and no nv⁴ tensor exists.  The plan is
+built on the host (numpy, as in the JAX package) and lives on ``device``;
+:func:`block_ladder_apply_ij` runs kernel K1
+(:mod:`pymes_tpu_torch.kernels.block_ladder`) on a CUDA tensor and its
+plain twin on a CPU tensor.
+
+Not ported: the Ozaki presliced form (``preslice``; the H100 has native f64
+GEMMs), the gather-scan ``UEGLadder`` (no path of the package runs it), the
+OVVV plans and the T1-dressed ladder (CCSD, ROADMAP queue A), and the
+transcorrelated weight classes.
+"""
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from pymes_tpu_torch.config import resolve_device
+from pymes_tpu_torch.kernels import block_ladder as _k1
+
+
+class BlockGroup(NamedTuple):
+    """One padded-size bucket of total-momentum sectors."""
+
+    blocks: torch.Tensor      # (nS, mB, mK) — V values, 0 on padding
+    perm_ket: torch.Tensor    # (nS, mK) int32 — ket-pair flat ids (pad→0)
+    bra_of_row: torch.Tensor  # (nS, mB) int32 — bra-pair id of each row
+    #                           (−1 on padding rows); inverse of inv_bra
+
+
+class BlockLadder(NamedTuple):
+    """Momentum-block-diagonal ladder plan (see the module docstring).
+
+    ``inv_bra`` gathers the twin's concatenated sector columns (+ a trailing
+    zero column for bra pairs whose K has no ket pair) back to bra order;
+    the kernel writes each row to its bra pair through ``bra_of_row``
+    instead.  ``packed`` holds the kernel's flat view of the groups."""
+
+    groups: tuple          # of BlockGroup
+    inv_bra: torch.Tensor  # (n_bra²,) int64 into concat-R columns
+    n_bra: int
+    nv: int
+    w0: float              # zero-transfer weight w(q=0)
+    packed: _k1.LadderPack
+
+
+def _pad_to(m):
+    """Bucket size for a sector dimension (the JAX package's "fine"
+    schedule): multiples of 8 up to 64, of 16 up to 128, of 32 up to 256,
+    of 64 above."""
+    if m <= 8:
+        return 8
+    step = 8 if m <= 64 else 16 if m <= 128 else 32 if m <= 256 else 64
+    return -(-m // step) * step
+
+
+def _transfer_weights(ueg_model, q_vecs):
+    """w(q) = 4π/|q|²/Ω (0 at q = 0) on integer transfer vectors (n, 3):
+    the Coulomb class (the transcorrelated classes are ROADMAP queue A)."""
+    qp = q_vecs * 2.0 * np.pi / ueg_model.L
+    q2 = np.einsum("nx,nx->n", qp, qp)
+    with np.errstate(divide="ignore"):
+        coul = np.where(q2 > 0, 4.0 * np.pi / np.where(q2 > 0, q2, 1.0),
+                        0.0)
+    return coul / ueg_model.Omega
+
+
+def bra_of_row_from_inv_bra(shapes, inv_bra):
+    """Invert the bra permutation: for groups of ``shapes`` [(nS, mB), ...]
+    in concat order, the bra-pair id that each padded row holds (−1 on
+    padding rows).  Columns at or past the total are the zero column."""
+    inv_bra = np.asarray(inv_bra, dtype=np.int64)
+    total = sum(nS * mB for nS, mB in shapes)
+    flat = np.full(total, -1, np.int32)
+    live = inv_bra < total
+    flat[inv_bra[live]] = np.nonzero(live)[0]
+    out, off = [], 0
+    for nS, mB in shapes:
+        out.append(flat[off:off + nS * mB].reshape(nS, mB))
+        off += nS * mB
+    return out
+
+
+def plan_from_arrays(group_arrays, inv_bra, n_bra, nv, w0, device):
+    """Assemble a :class:`BlockLadder` on ``device`` from host arrays
+    ``[(blocks (nS,mB,mK), perm_ket (nS,mK)), ...]`` in concat order and the
+    bra permutation ``inv_bra`` (n_bra²,)."""
+    dev = resolve_device(device)
+    bra = bra_of_row_from_inv_bra(
+        [np.shape(b)[:2] for b, _ in group_arrays], inv_bra)
+    packed, views = _k1.pack_groups(
+        [(b, p, r) for (b, p), r in zip(group_arrays, bra)], dev)
+    groups = tuple(BlockGroup(blocks=b, perm_ket=p, bra_of_row=r)
+                   for b, p, r in views)
+    return BlockLadder(
+        groups=groups,
+        inv_bra=torch.as_tensor(np.asarray(inv_bra, np.int64), device=dev),
+        n_bra=int(n_bra), nv=int(nv), w0=float(w0), packed=packed)
+
+
+def build_block_ladder(ueg_model, device, bra="virtual"):
+    """Build a :class:`BlockLadder` on ``device`` (host numpy build, the
+    algorithm of ``pymes_tpu.ops.ueg_ladder.build_block_ladder`` with
+    ``preslice=None`` and the Coulomb weights; its leaves are held identical
+    by the tests).
+
+    ``bra="virtual"`` spans virtual bra pairs (the CCD ladder); ``"all"``
+    spans all orbitals on the bra side."""
+    no = ueg_model.n_ele // 2
+    n_p = ueg_model.n_spatial
+    nv = n_p - no
+    k_int = np.asarray(ueg_model.basis.k_int)
+    k_ket = k_int[no:]
+    k_bra = k_int if bra == "all" else k_int[no:]
+    n_bra = len(k_bra)
+
+    # total-momentum keys of every bra / ket pair
+    span = 2 * int(np.abs(k_int).max()) + 1
+
+    def enc(K):
+        off = K + (span // 2) * 2  # guard: K in [-2 kmax, 2 kmax]
+        return (off[..., 0] * (2 * span) + off[..., 1]) * (2 * span) \
+            + off[..., 2]
+
+    K_ket = enc((k_ket[:, None, :] + k_ket[None, :, :]).reshape(-1, 3))
+    K_bra = enc((k_bra[:, None, :] + k_bra[None, :, :]).reshape(-1, 3))
+
+    # weight table over the transfer cube t = k_c − k_p
+    tmax = int(np.abs(k_ket[:, None, :] - k_bra[None, :, :]).max())
+    grid = np.arange(-tmax, tmax + 1)
+    T3 = np.stack(np.meshgrid(grid, grid, grid, indexing="ij"),
+                  axis=-1).reshape(-1, 3)
+    wtab = _transfer_weights(ueg_model, T3).reshape(
+        2 * tmax + 1, 2 * tmax + 1, 2 * tmax + 1)
+
+    def w_of(tvec):
+        i = tvec + tmax
+        return wtab[i[..., 0], i[..., 1], i[..., 2]]
+
+    # sector membership
+    order_k = np.argsort(K_ket, kind="stable")
+    keys_k, starts_k = np.unique(K_ket[order_k], return_index=True)
+    order_b = np.argsort(K_bra, kind="stable")
+    keys_b, starts_b = np.unique(K_bra[order_b], return_index=True)
+    ends_k = np.append(starts_k[1:], len(order_k))
+    ends_b = np.append(starts_b[1:], len(order_b))
+    pos_b = {k: i for i, k in enumerate(keys_b)}
+
+    buckets = {}
+    for si, key in enumerate(keys_k):
+        ket_ids = order_k[starts_k[si]:ends_k[si]]
+        bi = pos_b[key]  # ket pairs ⊆ bra pairs for both bra modes
+        bra_ids = order_b[starts_b[bi]:ends_b[bi]]
+        mB, mK = _pad_to(len(bra_ids)), _pad_to(len(ket_ids))
+        buckets.setdefault((mB, mK), []).append((bra_ids, ket_ids))
+
+    # assemble groups + global output-column offsets
+    group_arrays = []
+    col0 = 0
+    inv_bra = np.full(n_bra * n_bra, -1, np.int64)
+    for (mB, mK), secs in sorted(buckets.items()):
+        nS = len(secs)
+        blocks = np.zeros((nS, mB, mK), np.float64)
+        perm_ket = np.zeros((nS, mK), np.int32)
+        for t, (bra_ids, ket_ids) in enumerate(secs):
+            nb_, nk_ = len(bra_ids), len(ket_ids)
+            tvec = (k_ket[ket_ids // nv][None, :, :]
+                    - k_bra[bra_ids // n_bra][:, None, :])
+            blocks[t, :nb_, :nk_] = w_of(tvec)
+            perm_ket[t, :nk_] = ket_ids
+            inv_bra[bra_ids] = col0 + t * mB + np.arange(nb_)
+        group_arrays.append((blocks, perm_ket))
+        col0 += nS * mB
+    inv_bra[inv_bra < 0] = col0  # zero column: bra K with no ket pair
+    return plan_from_arrays(group_arrays, inv_bra, n_bra, nv,
+                            wtab[tmax, tmax, tmax], device)
+
+
+def block_ladder_apply_ij(plan: BlockLadder, T_ijab, twin=False):
+    """``R_ijpq = Σ_cd V_pqcd T_ijcd`` with T carried ``[i,j,c,d]``.
+
+    K1 on a CUDA tensor (``twin=True`` forces the plain twin, for the
+    on-card comparisons), the twin on a CPU tensor.  Returns
+    (no, no, n_bra, n_bra); from the kernel it is a strided view of the
+    bra-major output."""
+    no_i, no_j, nv = T_ijab.shape[0], T_ijab.shape[1], T_ijab.shape[-1]
+    R = _k1.block_ladder(plan, T_ijab.reshape(no_i * no_j, nv * nv),
+                         twin=twin)
+    return R.reshape(no_i, no_j, plan.n_bra, plan.n_bra)
+
+
+def ladder_apply_ij(plan, T_ijab, twin=False):
+    """Occupied-leading dispatch on the plan type (only
+    :class:`BlockLadder` is ported)."""
+    if not isinstance(plan, BlockLadder):
+        raise TypeError(f"unsupported ladder plan {type(plan).__name__}")
+    return block_ladder_apply_ij(plan, T_ijab, twin=twin)

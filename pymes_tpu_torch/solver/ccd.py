@@ -1,0 +1,297 @@
+"""CCD / DCD (+ Brueckner) ground-state solver, occupied-leading layout.
+
+Counterpart of ``pymes_tpu/solver/ccd.py`` for the ``ijab`` loop layout:
+``CCDBlocks``/``CCDBlocksIJ``/``blocks_ij_from``, ``doubles_residual_ij``
+with the dense-``abcd`` and matrix-free-ladder branches and the
+``is_dcd``/``is_bruekner`` flags, ``ccd_energy_ij``, the fixed point
+:func:`ccd_solve` (the ``ccd_solve_jit`` body as a Python loop) and the
+:class:`CCD` API.
+
+The ring and exchange contractions are plain f64 products (``torch.einsum``,
+cuBLAS DGEMM on the card).  The particle-particle ladder runs through
+kernel K1 and the per-iteration Jacobi + DIIS + energy tail through K2/K3
+(:mod:`pymes_tpu_torch.kernels`) on a CUDA tensor; on a CPU tensor both run
+their plain twins.
+
+Not ported: the ``abij`` loop layout, drCCD, the Ozaki/sliced contraction
+modes, the ring-collective path, the T1-dressing hooks (``t_T_ai``,
+``ex_half``, ``ladder_W``) and mixed precision.
+"""
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from pymes_tpu_torch.config import DTYPE, resolve_device
+from pymes_tpu_torch.kernels import ccd_tail
+from pymes_tpu_torch.log import print_logging_info
+from pymes_tpu_torch.mixer import diis
+from pymes_tpu_torch.ops.ueg_ladder import ladder_apply_ij
+from pymes_tpu_torch.solver import mp2
+
+
+class CCDBlocks(NamedTuple):
+    """The integral blocks entering the doubles amplitude equation;
+    ``ladder`` (a :class:`~pymes_tpu_torch.ops.ueg_ladder.BlockLadder`) may
+    replace the dense ``abcd`` (set ``abcd=None`` then)."""
+
+    klij: torch.Tensor
+    ijab: torch.Tensor
+    abij: torch.Tensor
+    iajb: torch.Tensor
+    iabj: torch.Tensor
+    abcd: torch.Tensor
+    ladder: object = None
+
+
+def blocks_from_full(no, t_V_pqrs):
+    o, v = slice(None, no), slice(no, None)
+    return CCDBlocks(klij=t_V_pqrs[o, o, o, o], ijab=t_V_pqrs[o, o, v, v],
+                     abij=t_V_pqrs[v, v, o, o], iajb=t_V_pqrs[o, v, o, v],
+                     iabj=t_V_pqrs[o, v, v, o], abcd=t_V_pqrs[v, v, v, v])
+
+
+def blocks_from_dict(dict_t_V):
+    return CCDBlocks(klij=dict_t_V["klij"], ijab=dict_t_V["ijab"],
+                     abij=dict_t_V["abij"], iajb=dict_t_V["iajb"],
+                     iabj=dict_t_V["iabj"], abcd=dict_t_V.get("abcd"),
+                     ladder=dict_t_V.get("ladder"))
+
+
+class CCDBlocksIJ(NamedTuple):
+    """Loop-invariant blocks pre-permuted (contiguous) for the
+    occupied-leading layout; built once per solve by
+    :func:`blocks_ij_from`."""
+
+    klij: torch.Tensor    # V[k,l,i,j]
+    ijab: torch.Tensor    # V[i,j,a,b]
+    ijab_x: torch.Tensor  # V[i,j,b,a] (exchange image, for the energy)
+    abij_t: torch.Tensor  # V[a,b,i,j] -> [i,j,a,b]
+    ikac: torch.Tensor    # V_iajb[k,a,i,c] -> [i,k,a,c]
+    kjcb: torch.Tensor    # V_iabj[k,b,c,j] -> [k,j,c,b]
+    abcd: torch.Tensor    # dense ladder block (None with a ladder plan)
+    ladder: object = None
+
+
+def blocks_ij_from(blocks: CCDBlocks):
+    return CCDBlocksIJ(
+        klij=blocks.klij.contiguous(),
+        ijab=blocks.ijab.contiguous(),
+        ijab_x=blocks.ijab.permute(0, 1, 3, 2).contiguous(),
+        abij_t=blocks.abij.permute(2, 3, 0, 1).contiguous(),
+        ikac=blocks.iajb.permute(2, 0, 1, 3).contiguous(),
+        kjcb=blocks.iabj.permute(0, 3, 2, 1).contiguous(),
+        abcd=blocks.abcd,
+        ladder=blocks.ladder,
+    )
+
+
+def doubles_residual_ij(t_fock_ab, t_fock_ij, t_T_ijab, V: CCDBlocksIJ,
+                        is_dcd=False, is_bruekner=False, twin=False):
+    """CCD/DCD doubles residual R_ijab in the occupied-leading layout (the
+    diagrams of ``pymes_tpu.solver.ccd.doubles_residual_ij``).  ``twin``
+    routes the ladder through K1's plain twin on the card."""
+    es = torch.einsum
+    t = t_T_ijab
+    tilde = 2.0 * t - t.transpose(2, 3)  # 2T - T^(a<->b)
+
+    I_klij = V.klij
+    if not is_dcd:
+        I_klij = I_klij + es("klcd,ijcd->klij", V.ijab, t)
+
+    R = es("klij,klab->ijab", I_klij, t) + V.abij_t
+
+    # particle-particle ladder: R_ij,ab += T_ij,cd V_ab,cd
+    if V.ladder is not None:
+        W = ladder_apply_ij(V.ladder, t, twin=twin)
+        if W.shape[-1] != t.shape[-1]:  # all-bra plan: take the vv corner
+            no_ = t.shape[0]
+            W = W[:, :, no_:, no_:]
+        R = R + W
+    else:
+        R = R + es("ijcd,abcd->ijab", t, V.abcd)
+
+    if not is_dcd:
+        X_ljac = es("klcd,kjad->ljac", V.ijab, t)
+        R = R + es("ljac,ilcb->ijab", X_ljac, t)
+
+    # quadratic ring with spin-adapted amplitudes
+    X_kjcb = es("klcd,ljdb->kjcb", V.ijab, tilde)
+    R = R + es("ikac,kjcb->ijab", tilde, X_kjcb)
+
+    # dressed one-particle intermediates (net factor 1 for CCD, 1/2 for
+    # DCD, 0 for Brueckner; see the JAX package)
+    coeff = (0.0 if is_bruekner else 0.5) + (0.0 if is_dcd else 0.5)
+    X_ac = t_fock_ab - coeff * es("klad,lkdc->ac", tilde, V.ijab)
+    X_ki = t_fock_ij + coeff * es("ilcd,lkdc->ki", tilde, V.ijab)
+
+    Ex = es("ac,ijcb->ijab", X_ac, t)
+    Ex = Ex - es("ki,kjab->ijab", X_ki, t)
+    Ex = Ex - es("ikac,kjcb->ijab", V.ikac, t)
+    Ex = Ex - es("ikbc,kjac->ijab", V.ikac, t)
+    Ex = Ex + es("ikac,kjcb->ijab", tilde, V.kjcb)
+
+    if not is_dcd:
+        X_lica = es("klcd,kida->lica", V.ijab, t)
+        Ex = Ex - es("lica,ljcb->ijab", X_lica, t)
+        Ex = Ex + es("lica,ljbc->ijab", X_lica, t)
+
+    return R + Ex + Ex.permute(1, 0, 3, 2)  # P(ab,ij)
+
+
+def ccd_energy_ij(t_T_ijab, t_V_ijab, t_V_ijab_x):
+    """(direct, exchange) energy in the occupied-leading layout."""
+    e_dir = 2.0 * torch.sum(t_T_ijab * t_V_ijab)
+    e_exc = -1.0 * torch.sum(t_T_ijab * t_V_ijab_x)
+    return e_dir, e_exc
+
+
+def ccd_solve(t_fock_pq, blocks: CCDBlocks, no, t_T0_abij,
+              level_shift=0.0, delta_e=1e-8, max_iter=50, is_dcd=False,
+              is_diis=True, is_bruekner=False, dim_space=6, twin=False):
+    """CCD fixed point, Jacobi + DIIS, T2 carried ``[i,j,a,b]``.
+
+    Loop semantics of ``pymes_tpu.solver.ccd.ccd_solve_jit``: iterate while
+    ``|dE| > delta_e and it <= max_iter`` (so up to ``max_iter + 1``
+    iterations), ``e_hist[min(it, max_iter)] = e``.  With ``delta_e >= 0``
+    the loop reads dE on the host once per iteration; with ``delta_e < 0``
+    it runs to the cap without any host sync inside the loop.  The DIIS
+    solve's ``info`` is checked once, after the loop.  ``twin=True`` runs
+    the ladder and the tail through the plain twins (on-card comparison).
+
+    Returns ``(e_corr, T_abij, eps_i, eps_a, dE, n_iter, e_hist)`` with
+    device tensors and ``n_iter`` a Python int.
+    """
+    no = int(no)
+    eps_i0 = torch.diagonal(t_fock_pq)[:no].contiguous()
+    eps_a0 = torch.diagonal(t_fock_pq)[no:].contiguous()
+    f_ab = t_fock_pq[no:, no:]
+    f_ij = t_fock_pq[:no, :no]
+    if blocks.abcd is None and blocks.ladder is None:
+        raise ValueError("need the dense abcd block or a ladder plan")
+
+    V_ij = blocks_ij_from(blocks)
+    T = t_T0_abij.permute(2, 3, 0, 1).contiguous()
+    e0_dir, e0_exc = ccd_energy_ij(T, V_ij.ijab, V_ij.ijab_x)
+    e_last = e0_dir + e0_exc
+    dE = torch.abs(e_last) + 1.0
+
+    # without DIIS the ring has one slot and the coefficient 1: the tail
+    # then writes T + dT (exactly) through the same two passes
+    m = dim_space if is_diis else 1
+    state = diis.init_state(m, T.numel(), T.dtype, T.device)
+    ones = torch.ones(1, dtype=T.dtype, device=T.device)
+    info = torch.zeros((), dtype=torch.int32, device=T.device)
+    e_hist = torch.full((max_iter + 1,), float("nan"), dtype=T.dtype,
+                        device=T.device)
+    eps_i, eps_a = eps_i0, eps_a0
+    it = 0
+    while it <= max_iter:
+        if delta_e >= 0 and not float(torch.abs(dE)) > delta_e:
+            break
+        R = doubles_residual_ij(f_ab, f_ij, T, V_ij, is_dcd=is_dcd,
+                                is_bruekner=is_bruekner, twin=twin)
+        if is_bruekner:
+            # quasi-particle energies from the CURRENT amplitudes on top of
+            # the canonical ε₀ (as the JAX package; the reference compounds
+            # the correction and diverges)
+            tilde = 2.0 * T - T.transpose(2, 3)
+            eps_i = eps_i0 + 0.5 * torch.einsum("ilcd,ilcd->i",
+                                                V_ij.ijab, tilde)
+            eps_a = eps_a0 - 0.5 * torch.einsum("klad,klad->a",
+                                                V_ij.ijab, tilde)
+
+        slot = state.count % m
+        n_valid = min(state.count + 1, m)
+        row = ccd_tail.jacobi_diis_insert(R, T, eps_i, eps_a, level_shift,
+                                          state.errs, state.amps, slot,
+                                          n_valid, twin=twin)
+        if is_diis:
+            B, coeff, info_it = diis.coefficients(state.B, row, slot,
+                                                  n_valid)
+            info = torch.maximum(info, info_it.abs())
+        else:
+            B, coeff = state.B, ones
+        state = diis.DIISState(amps=state.amps, errs=state.errs,
+                               count=state.count + 1, B=B)
+        e_dir, e_exc = ccd_tail.diis_mix_energy(
+            state.amps, coeff, n_valid, T, V_ij.ijab, V_ij.ijab_x, twin=twin)
+        e = e_dir + e_exc
+        dE = e - e_last
+        e_last = e
+        e_hist[min(it, max_iter)] = e
+        it += 1
+
+    if int(info) != 0:
+        raise RuntimeError("DIIS bordered system singular during the solve")
+    return (e_last, T.permute(2, 3, 0, 1), eps_i, eps_a, dE, it, e_hist)
+
+
+class CCD:
+    """Reference-API CCD/DCD solver on ``device``.
+
+    ``solve(t_fock_pq, t_V_pqrs, level_shift=0, amps=None, **kwargs)``
+    returns ``{"ccd e", "t2 amp" (abij), "hole e", "particle e", "dE",
+    "e history"}``.  ``t_V_pqrs`` is the full tensor, a dict of named
+    blocks (optionally with ``"ladder"``) or :class:`CCDBlocks`."""
+
+    def __init__(self, no, device, delta_e=1e-8, is_dcd=False, is_diis=True,
+                 is_bruekner=False):
+        self.no = int(no)
+        self.device = resolve_device(device)
+        self.delta_e = delta_e
+        self.is_dcd = is_dcd
+        self.is_diis = is_diis
+        self.is_bruekner = is_bruekner
+        self.max_iter = 50
+        self.dim_space = 6
+
+    def _on_device(self, x):
+        if x is None or not isinstance(x, (torch.Tensor, np.ndarray)):
+            return x
+        return torch.as_tensor(x, dtype=DTYPE, device=self.device)
+
+    def solve(self, t_fock_pq, t_V_pqrs, level_shift=0.0, amps=None,
+              **kwargs):
+        max_iter = int(kwargs.get("max_iter", self.max_iter))
+        delta_e = float(kwargs.get("delta_e", self.delta_e))
+        no = self.no
+        t_fock_pq = self._on_device(t_fock_pq)
+        if isinstance(t_V_pqrs, dict):
+            blocks = blocks_from_dict(t_V_pqrs)
+        elif isinstance(t_V_pqrs, CCDBlocks):
+            blocks = t_V_pqrs
+        else:
+            blocks = blocks_from_full(no, self._on_device(t_V_pqrs))
+        blocks = blocks._replace(**{
+            f: self._on_device(getattr(blocks, f))
+            for f in ("klij", "ijab", "abij", "iajb", "iabj", "abcd")})
+
+        eps_i = torch.diagonal(t_fock_pq)[:no]
+        eps_a = torch.diagonal(t_fock_pq)[no:]
+        print_logging_info("ccd.solve")
+        print_logging_info("Using DCD: ", self.is_dcd, level=1)
+        print_logging_info("Using DIIS mixer: ", self.is_diis, level=1)
+        print_logging_info("Using Brueckner: ", self.is_bruekner, level=1)
+
+        e_mp2, t_T_abij = mp2.solve(eps_i, eps_a, blocks.ijab, blocks.abij,
+                                    level_shift)
+        print_logging_info("MP2 energy = {:.12f}".format(float(e_mp2)),
+                           level=1)
+        if amps is not None:
+            t_T_abij = self._on_device(amps)
+
+        e, T, eps_i, eps_a, dE, n_iter, e_hist = ccd_solve(
+            t_fock_pq, blocks, no, t_T_abij, level_shift=level_shift,
+            delta_e=delta_e, max_iter=max_iter, is_dcd=self.is_dcd,
+            is_diis=self.is_diis, is_bruekner=self.is_bruekner,
+            dim_space=self.dim_space)
+        if n_iter > max_iter:
+            print_logging_info("A converged solution is not found!", level=1)
+        print_logging_info(
+            "CCD correlation energy = {:.12f} ({} iterations)".format(
+                float(e), n_iter), level=1)
+        return {"ccd e": float(e), "t2 amp": T, "hole e": eps_i,
+                "particle e": eps_a, "dE": float(dE),
+                "e history": e_hist[:n_iter].cpu().numpy()}
