@@ -1,23 +1,35 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``pymes_tpu_torch``) on one GPU.
 
-Drives the port's main path — UEG 14 electrons, rs = 0.5: integrals →
-named o/v blocks on the card → HF orbital energies → momentum-sector ladder
-plan → MP2 guess → matrix-free CCD to |dE| < 1e-8 — at cutoff 5 (nP=57)
-and cutoff 14 (nP=219), through the port's own kernels:
+Drives the port's main paths through its own kernels:
 
-* K1 ``block_ladder`` (CUDA C++, built with nvcc for sm_90a at first use);
-* K2 ``ccd_jacobi_diis`` and K3 ``ccd_mix_energy`` (Triton).
+* CCD — UEG 14 electrons, rs = 0.5: integrals → named o/v blocks on the
+  card → HF orbital energies → momentum-sector ladder plan → MP2 guess →
+  matrix-free CCD to |dE| < 1e-8, at cutoff 5 (nP=57) and cutoff 14
+  (nP=219);
+* dense CCSD — LiH/3-21G, H₂/STO-6G, and the transcorrelated TC-LiH and
+  TC-H₂ (FCIDUMP ``.tc`` + TCDUMP through the port's readers and
+  contractions), each against its oracle;
+* matrix-free CCSD at nP=219 — all-bra ladder plan + OVVV gather plans, no
+  ``abcd`` and no ovvv-class block on the card: the canonical Fock (T1 ≡ 0,
+  so E equals the CCD energy) and the seeded non-canonical Fock (T1 ≠ 0,
+  against the JAX package's energy for the same system).
+
+Kernels: K1 ``block_ladder`` (CUDA C++, built with nvcc for sm_90a at first
+use); K2 ``ccd_jacobi_diis``, K3 ``ccd_mix_energy``, K4 ``ovvv_gather``,
+K2′ ``ccsd_jacobi_diis`` and K3′ ``ccsd_mix_energy`` (Triton).
 
 Phases: (0) card and versions; (1) kernel builds; (2) each kernel against
-its plain twin on the card at both plans, seeded inputs, bound
-max|kernel − twin| ≤ 1e-12·max|twin| (both f64, only the summation order
-differs); (3, 4) the converged solves, with launch counts reset just before
-and read just after; (5) timing: kernel vs twin per call, and ms/iteration
-of fixed-61-iteration solves (min of 5) through the kernels and through the
-twins.  Prints a JSON line of the kernels, the nvidia-smi line, and as the
-last line ``{"ok": true, "device": {...}}``.  Any failed check raises and
-the script exits nonzero; without CUDA it exits nonzero at once.
+its plain twin on the card at the main paths' shapes (K2′/K3′ at nP=219
+and at each molecule's), seeded inputs, bound max|kernel − twin| ≤
+1e-12·max|twin| (both f64, only the summation order differs); (3, 4)
+the converged CCD solves; (6) the dense molecular CCSD solves; (7) the matrix-free CCSD solves — for each path the launch counts
+are reset just before and read just after; (5, 8) timing: kernel vs twin
+per call, and ms/iteration of fixed-61-iteration solves (min of 5) through
+the kernels and through the twins.  Prints a JSON line of the kernels, the
+nvidia-smi line, and as the last line ``{"ok": true, "device": {...}}``.
+Any failed check raises and the script exits nonzero; without CUDA it
+exits nonzero at once.
 
 Run from the repository root: ``python3 chip_smoke.py``.
 """
@@ -26,15 +38,35 @@ import json
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 
 NO = 7
-NEED = ("klij", "ijab", "abij", "iajb", "iabj", "aibj", "aijb")
+NEED = ("klij", "ijab", "abij", "iajb", "iabj", "aibj", "aijb", "ijka",
+        "ijak", "iajk")
 # converged CCD energies of the JAX package (f64, CPU) and the reference
 # oracle (BASELINE.md)
 E_JAX = {5: -0.5120153543911, 14: -0.5767206765319}
 ORACLE_NP57 = -0.5120153512190824
+# matrix-free CCSD of the JAX package (f64, CPU) at nP=219 with the seeded
+# non-canonical Fock of setup_ccsd (level shift -1, |dE| < 1e-10): 11
+# iterations, |T1|max = 0.01188
+E_JAX_CCSD_NONCANONICAL = -0.664928068966791
+N_IT_JAX_CCSD_NONCANONICAL = 11
+DATA = Path(__file__).resolve().parent / "tests" / "data"
+# dense molecular CCSD: (FCIDUMP, TCDUMP or None, oracle correlation
+# energy, oracle HF energy or None, tolerance) — BASELINE.md and
+# tests/test_tc_ccsd.py
+MOLECULES = {
+    "LiH": ("FCIDUMP.LiH.321g", None, -0.01908832712812761,
+            -7.92958534362757, 1e-8),
+    "H2": ("FCIDUMP.H2.sto6g", None, -0.1012250926230937, None, 1e-8),
+    "TC-LiH": ("FCIDUMP.LiH.tc", "TCDUMP.LiH_FNO", -0.010563160683828635,
+               -8.044059106879612, 1e-7),
+    "TC-H2": ("FCIDUMP.H2.tc", "TCDUMP.H2.tc", -0.005914233662984753,
+              -1.166009516046628, 1e-7),
+}
 REL_TOL = 1e-12
 KERNELS = {
     "block_ladder": ("cuda", "pymes_tpu_torch/csrc/block_ladder.cu",
@@ -43,7 +75,17 @@ KERNELS = {
                         "pymes_tpu/solver/ccd.py:525"),
     "ccd_mix_energy": ("triton", "pymes_tpu_torch/kernels/ccd_tail.py",
                        "pymes_tpu/mixer/diis.py:107"),
+    "ovvv_gather": ("triton", "pymes_tpu_torch/kernels/ovvv_gather.py",
+                    "pymes_tpu/ops/ueg_ladder.py:150"),
+    "ccsd_jacobi_diis": ("triton", "pymes_tpu_torch/kernels/ccsd_tail.py",
+                         "pymes_tpu/solver/ccsd.py:615"),
+    "ccsd_mix_energy": ("triton", "pymes_tpu_torch/kernels/ccsd_tail.py",
+                        "pymes_tpu/solver/ccsd.py:393"),
 }
+CCD_KERNELS = ("block_ladder", "ccd_jacobi_diis", "ccd_mix_energy")
+DENSE_CCSD_KERNELS = ("ccsd_jacobi_diis", "ccsd_mix_energy")
+MF_CCSD_KERNELS = ("block_ladder", "ovvv_gather", "ccsd_jacobi_diis",
+                   "ccsd_mix_energy")
 
 
 def check(cond, msg):
@@ -80,7 +122,41 @@ def setup(cutoff, device):
     print(f"setup cutoff {cutoff}: nP={n_p} nnz={len(vals)} "
           f"buckets [{buckets}] ({time.time() - t0:.2f} s)", flush=True)
     return {"cutoff": cutoff, "nP": n_p, "nv": n_p - NO, "fock": fock,
-            "blocks": blocks, "T0": T0, "eps_i": eps_i, "eps_a": eps_a}
+            "blocks": blocks, "T0": T0, "eps_i": eps_i, "eps_a": eps_a,
+            "ueg": u, "dict": d}
+
+
+def setup_ccsd(p, device):
+    """The matrix-free CCSD inputs on top of a CCD set-up: the all-bra
+    ladder plan, the OVVV gather plans, the V dict (no abcd, no ovvv-class
+    block), the canonical Fock and the seeded non-canonical one (noise
+    rng(5)·0.02, symmetrised), and the MP2 guess of each."""
+    import torch
+
+    from pymes_tpu_torch.ops import ueg_ladder
+    from pymes_tpu_torch.solver import mp2
+
+    t0 = time.time()
+    u, n_p = p["ueg"], p["nP"]
+    d = dict(p["dict"])
+    d["_ovvv_plans"] = ueg_ladder.build_ovvv_plans(u, device)
+    plan = ueg_ladder.build_block_ladder(u, device, bra="all")
+    eps = torch.cat([p["eps_i"], p["eps_a"]]).cpu().numpy()
+    noise = np.random.default_rng(5).standard_normal((n_p, n_p)) * 0.02
+    focks = {"canonical": p["fock"],
+             "non-canonical": torch.as_tensor(
+                 np.diag(eps) + noise + noise.T, device=p["fock"].device)}
+    T0 = {}
+    for kind, f in focks.items():
+        diag = torch.diagonal(f)
+        T0[kind] = mp2.solve(diag[:NO], diag[NO:], d["ijab"], d["abij"],
+                             -1.0)[1]
+    torch.cuda.synchronize()
+    print(f"setup CCSD nP={n_p}: all-bra plan n_bra={plan.n_bra}, OVVV "
+          f"plans {sorted(d['_ovvv_plans'])} "
+          f"({time.time() - t0:.2f} s)", flush=True)
+    return {**p, "plan_all": plan, "mf_dict": d, "focks": focks,
+            "T2_0": T0}
 
 
 def inputs(p, seed):
@@ -106,6 +182,9 @@ def inputs(p, seed):
 def rel_err(got, want, what):
     err = float((got - want).abs().max())
     scale = float(want.abs().max())
+    # a zero reference would pass any kernel: every compared output must
+    # carry signal
+    check(scale > 0, f"{what}: the twin's output is all zero")
     check(err <= REL_TOL * scale,
           f"{what}: max|kernel - twin| = {err:.3e} > {REL_TOL} * {scale:.3e}")
     return err
@@ -190,7 +269,270 @@ def time_kernels(p, seed):
     return out
 
 
-def solve_fixed(p, twin):
+def tail_inputs(no, V, seed):
+    """Seeded T1/T2/residuals, the CCSD DIIS rings over [T1 | T2],
+    coefficients and a one-body operand F1 = f_ovᵀ at the shapes of one
+    CCSD path: ``no`` occupied orbitals, ``V`` its V_ijab block.  F1 is
+    seeded too, since a canonical Fock has f_ov = 0 and would leave K3′'s
+    one-body energy unchecked."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    nv, dev = V.shape[2], V.device
+    n = nv * no + no * no * nv * nv
+
+    def t(shape, scale=0.01):
+        return torch.as_tensor(rng.standard_normal(shape) * scale,
+                               dtype=torch.float64, device=dev)
+
+    V = V.contiguous()
+    return {"T1": t((nv, no)), "R1": t((nv, no)),
+            "T2": t((no, no, nv, nv)), "R2": t((no, no, nv, nv)),
+            "errs": t((6, n)), "amps": t((6, n)), "coeff": t(6, 1.0),
+            "F1": t((nv, no), 0.1), "V": V,
+            "Vx": V.transpose(2, 3).contiguous()}
+
+
+def compare_ccsd_tail(x, eps_i, eps_a, label):
+    """K2′ and K3′ vs their twins on the inputs of :func:`tail_inputs`:
+    slot 0 with n_valid 1 (first insertion) and slot 2 with n_valid 6
+    (full ring); returns their max abs errors."""
+    from pymes_tpu_torch.kernels import ccsd_tail
+
+    e_k2 = 0.0
+    for slot, n_valid in ((0, 1), (2, 6)):
+        rings = [(x["errs"].clone(), x["amps"].clone()) for _ in range(2)]
+        rows = [ccsd_tail.jacobi_diis_insert(
+            x["R1"], x["T1"], x["R2"], x["T2"], eps_i, eps_a, -1.0, e, a,
+            slot, n_valid, twin=tw)
+            for (e, a), tw in zip(rings, (False, True))]
+        e_k2 = max(e_k2,
+                   rel_err(rows[0], rows[1], f"K2' Gram row, {label}"),
+                   rel_err(rings[0][0], rings[1][0],
+                           f"K2' error ring, {label}"),
+                   rel_err(rings[0][1], rings[1][1],
+                           f"K2' amplitude ring, {label}"))
+
+    e_k3 = 0.0
+    for n_valid in (1, 6):
+        Ts = [(x["T1"].clone(), x["T2"].clone()) for _ in range(2)]
+        es = [ccsd_tail.diis_mix_energy(x["amps"], x["coeff"], n_valid, T1,
+                                        T2, x["F1"], x["V"], x["Vx"],
+                                        twin=tw)
+              for (T1, T2), tw in zip(Ts, (False, True))]
+        e_k3 = max(e_k3, rel_err(Ts[0][0], Ts[1][0], f"K3' mixed T1, {label}"),
+                   rel_err(Ts[0][1], Ts[1][1], f"K3' mixed T2, {label}"),
+                   *(rel_err(a, b, f"K3' energy {piece}, {label}")
+                     for piece, a, b in zip(("e_1b", "e_dir", "e_exc"),
+                                            *es)))
+    return e_k2, e_k3
+
+
+def compare_ccsd_kernels(q, seed):
+    """K4, K2′/K3′ and K1 with the stacked CCSD operand vs their twins on
+    the card at nP=219; returns max abs errors."""
+    import torch
+
+    from pymes_tpu_torch.ops import ueg_ladder
+
+    x = tail_inputs(NO, q["dict"]["ijab"], seed)
+    errs = {}
+    e_k4 = 0.0
+    for pat, plan in q["mf_dict"]["_ovvv_plans"].items():
+        got = ueg_ladder.ovvv_t1_apply_j(plan, x["T1"])
+        want = ueg_ladder.ovvv_t1_apply_j(plan, x["T1"], twin=True)
+        e_k4 = max(e_k4, rel_err(got, want, f"K4 {pat}"))
+    errs["ovvv_gather"] = e_k4
+    errs["ccsd_jacobi_diis"], errs["ccsd_mix_energy"] = compare_ccsd_tail(
+        x, q["eps_i"], q["eps_a"], f"nP={q['nP']}")
+
+    X = torch.einsum("ci,dj->ijcd", x["T1"], x["T1"])
+    TX = torch.stack([x["T2"].reshape(NO * NO, q["nv"], q["nv"]),
+                      X.reshape(NO * NO, q["nv"], q["nv"])])
+    errs["block_ladder"] = rel_err(
+        ueg_ladder.block_ladder_apply_ij(q["plan_all"], TX),
+        ueg_ladder.block_ladder_apply_ij(q["plan_all"], TX, twin=True),
+        "K1 stacked (2 no^2, nv^2) operand, all-bra plan")
+    print(f"kernel vs twin, CCSD nP={q['nP']}: " + ", ".join(
+        f"{k} max_abs_err={v:.3e}" for k, v in errs.items()), flush=True)
+    return errs
+
+
+def time_ccsd_kernels(q, seed):
+    """ms per call of K4 (mean over the three plans), K2′ and K3′ and of
+    their twins at nP=219 (plain, kernel, kernel, plain)."""
+    from pymes_tpu_torch.kernels import ccsd_tail
+    from pymes_tpu_torch.ops import ueg_ladder
+
+    x = tail_inputs(NO, q["dict"]["ijab"], seed)
+    plans = list(q["mf_dict"]["_ovvv_plans"].values())
+    calls = {
+        "ovvv_gather": lambda tw: [ueg_ladder.ovvv_t1_apply_j(
+            plan, x["T1"], twin=tw) for plan in plans],
+        "ccsd_jacobi_diis": lambda tw: ccsd_tail.jacobi_diis_insert(
+            x["R1"], x["T1"], x["R2"], x["T2"], q["eps_i"], q["eps_a"],
+            -1.0, x["errs"], x["amps"], 2, 6, twin=tw),
+        "ccsd_mix_energy": lambda tw: ccsd_tail.diis_mix_energy(
+            x["amps"], x["coeff"], 6, x["R1"], x["R2"], x["F1"], x["V"],
+            x["Vx"], twin=tw),
+    }
+    out = {}
+    for name, fn in calls.items():
+        t = [cuda_ms(lambda: fn(tw)) for tw in (True, False, False, True)]
+        per = len(plans) if name == "ovvv_gather" else 1
+        out[name] = ((t[1] + t[2]) / 2 / per, (t[0] + t[3]) / 2 / per)
+    return out
+
+
+def solve_ccsd_fixed(q, twin, max_iter=60):
+    """ms/iteration of ``max_iter + 1`` matrix-free CCSD iterations with the
+    non-canonical Fock (host clock, synchronised)."""
+    import torch
+
+    from pymes_tpu_torch.solver import ccsd
+
+    fock = q["focks"]["non-canonical"]
+    T1 = torch.zeros((q["nv"], NO), dtype=torch.float64, device=fock.device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = ccsd.ccsd_solve(fock, q["mf_dict"], NO, T1,
+                          q["T2_0"]["non-canonical"], level_shift=-1.0,
+                          delta_e=-1.0, max_iter=max_iter,
+                          ladder_all=q["plan_all"], twin=twin)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / out[4], out[4]
+
+
+def load_molecule(name, device):
+    """(no, Fock, V, HF energy, solve options) of one molecule of
+    ``MOLECULES`` through the port's own FCIDUMP and TCDUMP readers and
+    3-body contractions, on ``device``."""
+    import torch
+
+    from pymes_tpu_torch.integral import contraction
+    from pymes_tpu_torch.mean_field import hf
+    from pymes_tpu_torch.util import fcidump, tcdump
+
+    fdump, tdump = MOLECULES[name][:2]
+    n_elec, _, e_core, _, h, V = fcidump.read(str(DATA / fdump),
+                                              is_tc=tdump is not None)
+    no = n_elec // 2
+    h = torch.as_tensor(h, device=device)
+    Vt = torch.as_tensor(V, device=device)
+    hf_e = float(hf.calc_hf_e(no, e_core, h, Vt))
+    fock = hf.construct_hf_matrix(no, h, Vt)
+    kw = {}
+    if tdump is not None:
+        L = tcdump.read(str(DATA / tdump))
+        hf_e += contraction.get_triple_contraction(no, L)
+        fock = fock + torch.as_tensor(
+            contraction.get_double_contraction(no, L), device=device)
+        Vt = Vt + torch.as_tensor(
+            contraction.get_single_contraction(no, L), device=device)
+        kw["delta_e"] = 1e-11
+    return {"no": no, "fock": fock, "V": Vt, "hf_e": hf_e, "kw": kw}
+
+
+def compare_molecular_kernels(mols, seed):
+    """K2′/K3′ vs their twins at each molecule's shapes (e.g. LiH/3-21G
+    no=2, nv=9; H₂/STO-6G no=1, nv=1, so one program holds both segments),
+    with the molecule's orbital energies and V_ijab; returns max abs
+    errors."""
+    e_k2 = e_k3 = 0.0
+    for name, m in mols.items():
+        no = m["no"]
+        eps = m["fock"].diagonal()
+        x = tail_inputs(no, m["V"][:no, :no, no:, no:], seed)
+        k2, k3 = compare_ccsd_tail(x, eps[:no].contiguous(),
+                                   eps[no:].contiguous(), name)
+        print(f"kernel vs twin, {name} (no={no}, nv={x['T1'].shape[0]}): "
+              f"ccsd_jacobi_diis max_abs_err={k2:.3e}, ccsd_mix_energy "
+              f"max_abs_err={k3:.3e}", flush=True)
+        e_k2, e_k3 = max(e_k2, k2), max(e_k3, k3)
+    return {"ccsd_jacobi_diis": e_k2, "ccsd_mix_energy": e_k3}
+
+
+def molecular_ccsd(mols, device):
+    """Dense CCSD on the four molecules of :func:`load_molecule`, each
+    against its oracle."""
+    import torch
+
+    from pymes_tpu_torch.solver import ccsd
+
+    for name, m in mols.items():
+        e_ref, hf_ref, tol = MOLECULES[name][2:]
+        t0 = time.time()
+        no, fock, hf_e = m["no"], m["fock"], m["hf_e"]
+        if hf_ref is not None:
+            check(abs(hf_e - hf_ref) <= 1e-8,
+                  f"{name}: HF {hf_e} vs oracle {hf_ref}")
+        res = ccsd.CCSD(no, device).solve(fock, m["V"], **m["kw"])
+        e = res["ccsd e"]
+        check(bool(torch.isfinite(res["t2"]).all())
+              and res["t1"].shape == (fock.shape[0] - no, no),
+              f"{name}: amplitudes not finite or of the wrong shape")
+        check(abs(e - e_ref) <= tol,
+              f"{name}: CCSD E={e} vs oracle {e_ref} (tol {tol})")
+        print(f"CCSD {name}: E={e:.13f} in {len(res['e history'])} "
+              f"iterations, |E - oracle|={abs(e - e_ref):.2e} (tol {tol})"
+              + (f", HF |E - oracle|={abs(hf_e - hf_ref):.2e}"
+                 if hf_ref is not None else "")
+              + f", {time.time() - t0:.2f} s", flush=True)
+
+
+def mf_ccsd(q, device):
+    """Matrix-free CCSD at nP=219: canonical (T1 ≡ 0, E = the CCD energy)
+    and the seeded non-canonical Fock (against the JAX package)."""
+    import torch
+
+    from pymes_tpu_torch.solver import ccsd
+
+    for kind, fock in q["focks"].items():
+        t0 = time.time()
+        res = ccsd.CCSD(NO, device).solve(
+            fock, q["mf_dict"], level_shift=-1.0, ladder=q["plan_all"],
+            delta_e=1e-10 if kind == "non-canonical" else 1e-8,
+            max_iter=100)
+        e, n_it = res["ccsd e"], len(res["e history"])
+        t1max = float(res["t1"].abs().max())
+        check(res["t2"].shape == (q["nv"], q["nv"], NO, NO)
+              and bool(torch.isfinite(res["t2"]).all())
+              and bool(torch.isfinite(res["t1"]).all()),
+              f"mf-CCSD {kind}: amplitudes not finite or of the wrong shape")
+        if kind == "canonical":
+            ref = E_JAX[q["cutoff"]]
+            check(t1max <= 1e-12, f"canonical |T1|max = {t1max:.3e}")
+        else:
+            ref = E_JAX_CCSD_NONCANONICAL
+            check(t1max > 1e-4, f"non-canonical |T1|max = {t1max:.3e}")
+            check(n_it == N_IT_JAX_CCSD_NONCANONICAL,
+                  f"non-canonical took {n_it} iterations, the JAX package "
+                  f"{N_IT_JAX_CCSD_NONCANONICAL}")
+        check(abs(e - ref) <= 1e-9,
+              f"mf-CCSD {kind} nP={q['nP']}: E={e:.13f} vs {ref}")
+        print(f"mf-CCSD {kind} nP={q['nP']}: E={e:.13f} in {n_it} "
+              f"iterations, |E - ref|={abs(e - ref):.2e}, |T1|max="
+              f"{t1max:.3e}, {time.time() - t0:.2f} s", flush=True)
+
+
+def path_launches(label, run, expect):
+    """Run one main path with the launch counts reset just before and read
+    just after; every kernel in ``expect`` must have launched."""
+    from pymes_tpu_torch import kernels
+
+    kernels.reset_launches()
+    run()
+    launches = dict(kernels.LAUNCHES)
+    print(f"launches on the {label} path: {launches}", flush=True)
+    for name in expect:
+        check(launches[name] > 0,
+              f"kernel {name} never launched on the {label} path")
+    return launches
+
+
+def solve_fixed(p, twin, max_iter=60):
+    """ms/iteration of ``max_iter + 1`` CCD iterations (host clock,
+    synchronised)."""
     import torch
 
     from pymes_tpu_torch.solver import ccd
@@ -198,7 +540,7 @@ def solve_fixed(p, twin):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     out = ccd.ccd_solve(p["fock"], p["blocks"], NO, p["T0"],
-                        level_shift=-1.0, delta_e=-1.0, max_iter=60,
+                        level_shift=-1.0, delta_e=-1.0, max_iter=max_iter,
                         twin=twin)
     torch.cuda.synchronize()
     return (time.perf_counter() - t0) * 1e3 / out[5], out[5]
@@ -221,54 +563,72 @@ def main():
           f"CUDA {torch.version.cuda}", flush=True)
     device = "cuda"
 
-    from pymes_tpu_torch import kernels
     from pymes_tpu_torch.kernels import _build
     from pymes_tpu_torch.solver import ccd
 
-    # phase 1: builds (nvcc for K1; Triton JIT for K2/K3 at their first
-    # launch, which phase 2 makes)
+    # phase 1: builds (nvcc for K1; Triton JIT for the others at their
+    # first launch, which phase 2 makes)
     t0 = time.time()
     _build.library()
     print(f"K1 nvcc build + load: {time.time() - t0:.2f} s", flush=True)
     problems = {c: setup(c, device) for c in (5, 14)}
+    q = setup_ccsd(problems[14], device)
     t0 = time.time()
     compare = [compare_kernels(problems[5], 1)]
-    print(f"first kernel launches (Triton JIT of K2/K3 included): "
+    print(f"first CCD kernel launches (Triton JIT of K2/K3 included): "
           f"{time.time() - t0:.2f} s", flush=True)
-    # phase 2: kernel vs twin at the nP=219 plan too
+    t0 = time.time()
+    compare.append(compare_ccsd_kernels(q, 4))
+    print(f"first CCSD kernel launches at nP={q['nP']} (Triton JIT of K4, "
+          f"K2' and K3' included): {time.time() - t0:.2f} s", flush=True)
+    # phase 2: kernel vs twin at the nP=219 CCD plan and at the dense
+    # CCSD path's molecular shapes too
     compare.append(compare_kernels(problems[14], 2))
-    max_err = {k: max(c[k] for c in compare) for k in KERNELS}
+    t0 = time.time()
+    mols = {name: load_molecule(name, device) for name in MOLECULES}
+    print(f"molecular integrals read: {time.time() - t0:.2f} s", flush=True)
+    compare.append(compare_molecular_kernels(mols, 6))
+    max_err = {k: max(c[k] for c in compare if k in c) for k in KERNELS}
 
-    # phases 3-4: the main path, converged, launch counts over this run
-    kernels.reset_launches()
+    # phases 3-4: the CCD path, converged
     results = {}
-    for c, p in problems.items():
-        t0 = time.time()
-        res = ccd.CCD(NO, device).solve(p["fock"], p["blocks"],
-                                        level_shift=-1.0, max_iter=60)
-        n_it = len(res["e history"])
-        e = res["ccd e"]
-        T = res["t2 amp"]
-        check(T.shape == (p["nv"], p["nv"], NO, NO)
-              and bool(torch.isfinite(T).all()),
-              f"nP={p['nP']}: amplitudes not finite or of the wrong shape")
-        check(abs(e - E_JAX[c]) <= 1e-9,
-              f"nP={p['nP']}: E={e:.13f} vs JAX {E_JAX[c]}")
-        print(f"CCD nP={p['nP']}: E={e:.13f} in {n_it} iterations, "
-              f"|E - E_jax|={abs(e - E_JAX[c]):.2e}, "
-              f"{time.time() - t0:.2f} s", flush=True)
-        results[c] = (e, n_it)
-    launches = dict(kernels.LAUNCHES)
+
+    def run_ccd():
+        for c, p in problems.items():
+            t0 = time.time()
+            res = ccd.CCD(NO, device).solve(p["fock"], p["blocks"],
+                                            level_shift=-1.0, max_iter=60)
+            n_it = len(res["e history"])
+            e = res["ccd e"]
+            T = res["t2 amp"]
+            check(T.shape == (p["nv"], p["nv"], NO, NO)
+                  and bool(torch.isfinite(T).all()),
+                  f"nP={p['nP']}: amplitudes not finite or of the wrong "
+                  "shape")
+            check(abs(e - E_JAX[c]) <= 1e-9,
+                  f"nP={p['nP']}: E={e:.13f} vs JAX {E_JAX[c]}")
+            print(f"CCD nP={p['nP']}: E={e:.13f} in {n_it} iterations, "
+                  f"|E - E_jax|={abs(e - E_JAX[c]):.2e}, "
+                  f"{time.time() - t0:.2f} s", flush=True)
+            results[c] = (e, n_it)
+
+    launches = {"CCD": path_launches("CCD", run_ccd, CCD_KERNELS)}
     e57, it57 = results[5]
     check(it57 == 6, f"nP=57 took {it57} iterations, expected 6")
     check(abs(e57 - ORACLE_NP57) <= 1e-8,
           f"nP=57 E={e57} vs oracle {ORACLE_NP57}")
     print(f"nP=57 |E - oracle| = {abs(e57 - ORACLE_NP57):.2e}", flush=True)
-    print(f"launches on the main path: {launches}", flush=True)
-    for name, n in launches.items():
-        check(n > 0, f"kernel {name} never launched on the main path")
 
-    # phase 5: timing
+    # phase 6: dense molecular CCSD (molecular and transcorrelated)
+    launches["dense CCSD"] = path_launches(
+        "dense CCSD", lambda: molecular_ccsd(mols, device),
+        DENSE_CCSD_KERNELS)
+    # phase 7: matrix-free CCSD at nP=219
+    launches["matrix-free CCSD"] = path_launches(
+        "matrix-free CCSD", lambda: mf_ccsd(q, device), MF_CCSD_KERNELS)
+    total = {k: sum(run[k] for run in launches.values()) for k in KERNELS}
+
+    # phase 5: CCD timing
     kernel_ms = {}
     for c, p in problems.items():
         kernel_ms[c] = time_kernels(p, 3)
@@ -284,10 +644,26 @@ def main():
         print(f"[{card}] nP={p['nP']} fixed-{n_fixed}-iteration CCD, min of "
               f"5: kernels {min(walls[False]):.3f} ms/iter, twins "
               f"{min(walls[True]):.3f} ms/iter", flush=True)
+    # phase 8: CCSD timing at nP=219
+    kernel_ms[14].update(time_ccsd_kernels(q, 5))
+    for name in ("ovvv_gather", "ccsd_jacobi_diis", "ccsd_mix_energy"):
+        ms, plain = kernel_ms[14][name]
+        print(f"[{card}] nP={q['nP']} {name}: kernel {ms:.4f} ms, twin "
+              f"{plain:.4f} ms per call", flush=True)
+    walls = {False: [], True: []}
+    n_fixed = 0
+    for _ in range(5):
+        for twin in (False, True):
+            ms, n_fixed = solve_ccsd_fixed(q, twin)
+            walls[twin].append(ms)
+    print(f"[{card}] nP={q['nP']} fixed-{n_fixed}-iteration matrix-free "
+          f"CCSD (non-canonical), min of 5: kernels "
+          f"{min(walls[False]):.3f} ms/iter, twins {min(walls[True]):.3f} "
+          "ms/iter", flush=True)
 
     print(json.dumps({"kernels": [
         {"name": name, "route": route, "source": src, "replaces": rep,
-         "launches": launches[name], "max_abs_err": max_err[name],
+         "launches": total[name], "max_abs_err": max_err[name],
          "ms": kernel_ms[14][name][0], "plain_ms": kernel_ms[14][name][1]}
         for name, (route, src, rep) in KERNELS.items()]}))
     print(smi)

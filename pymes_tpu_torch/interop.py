@@ -6,15 +6,18 @@ helpers turn them into the port's tensors on a given device.  They call only
 """
 
 import numpy as np
+import torch
 
-from pymes_tpu_torch.config import as_tensor
-from pymes_tpu_torch.ops.ueg_ladder import plan_from_arrays
+from pymes_tpu_torch.config import as_tensor, resolve_device
+from pymes_tpu_torch.ops.ueg_ladder import OVVVPlan, plan_from_arrays
 
 
 def blocks_from_numpy(blocks, device):
-    """dict name → array (e.g. ``sparse_to_blocks`` output) → dict of f64
-    tensors on ``device``."""
-    return {name: as_tensor(np.asarray(b), device)
+    """dict name → array (e.g. ``sparse_to_blocks`` output, or a CCSD V
+    dict) → dict of f64 tensors on ``device``; a ``"_ovvv_plans"`` entry
+    goes through :func:`ovvv_plans_from_numpy`."""
+    return {name: (ovvv_plans_from_numpy(b, device) if name == "_ovvv_plans"
+                   else as_tensor(np.array(b), device))
             for name, b in blocks.items()}
 
 
@@ -28,3 +31,14 @@ def block_ladder_from_numpy(plan, device):
     return plan_from_arrays(group_arrays, np.asarray(plan.inv_bra),
                             int(plan.n_bra), int(plan.nv), float(plan.w0),
                             device)
+
+
+def ovvv_plans_from_numpy(plans, device):
+    """The JAX package's ``build_ovvv_plans`` dict (pattern → plan with
+    ``S``, ``W``) → the port's :class:`~pymes_tpu_torch.ops.ueg_ladder.
+    OVVVPlan` dict on ``device`` (``S`` int32, ``W`` f64)."""
+    dev = resolve_device(device)
+    return {pat: OVVVPlan(
+        S=torch.as_tensor(np.array(p.S, dtype=np.int32), device=dev),
+        W=as_tensor(np.array(p.W), dev)) for pat, p in plans.items()}
+

@@ -4,13 +4,18 @@
   ``pymes_tpu_torch/csrc/block_ladder.cu``, built by :mod:`._build`).
 * :mod:`.ccd_tail` — K2/K3, the per-iteration Jacobi + DIIS + energy passes
   over T2 (Triton).
+* :mod:`.ovvv_gather` — K4, the momentum gather of T1 that replaces the
+  ovvv blocks of the matrix-free CCSD dressing (Triton).
+* :mod:`.ccsd_tail` — K2′/K3′, the Jacobi + DIIS + energy passes over the
+  CCSD carry [T1 | T2] (Triton).
 
 A wrapper given a CUDA tensor launches its kernel (or raises); given a CPU
 tensor it runs the twin.  Each launch of a kernel adds one to its entry in
 :data:`LAUNCHES`, so a run can show that the main path went through it.
 """
 
-LAUNCHES = {"block_ladder": 0, "ccd_jacobi_diis": 0, "ccd_mix_energy": 0}
+LAUNCHES = {"block_ladder": 0, "ccd_jacobi_diis": 0, "ccd_mix_energy": 0,
+            "ovvv_gather": 0, "ccsd_jacobi_diis": 0, "ccsd_mix_energy": 0}
 
 
 def reset_launches():

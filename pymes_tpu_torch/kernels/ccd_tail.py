@@ -95,7 +95,7 @@ def _kernels():
 def _check(*tensors):
     for t in tensors:
         if t.dtype != torch.float64 or not t.is_contiguous():
-            raise TypeError("the CCD tail kernels take contiguous float64 "
+            raise TypeError("the tail kernels take contiguous float64 "
                             "tensors")
     if len({t.device for t in tensors}) != 1:
         raise ValueError("tensors lie on different devices")

@@ -9,10 +9,14 @@ built on the host (numpy, as in the JAX package) and lives on ``device``;
 (:mod:`pymes_tpu_torch.kernels.block_ladder`) on a CUDA tensor and its
 plain twin on a CPU tensor.
 
+The matrix-free CCSD adds the OVVV gather plans (:class:`OVVVPlan`, built
+on the host like the ladder plan) with :func:`ovvv_t1_apply_j` running
+kernel K4 (:mod:`pymes_tpu_torch.kernels.ovvv_gather`), and the T1-dressed
+ladder :func:`dressed_ladder_apply_ij` on the all-bra plan.
+
 Not ported: the Ozaki presliced form (``preslice``; the H100 has native f64
-GEMMs), the gather-scan ``UEGLadder`` (no path of the package runs it), the
-OVVV plans and the T1-dressed ladder (CCSD, ROADMAP queue A), and the
-transcorrelated weight classes.
+GEMMs), the gather-scan ``UEGLadder`` (no path of the package runs it) and
+the transcorrelated weight classes.
 """
 
 from typing import NamedTuple
@@ -22,6 +26,7 @@ import torch
 
 from pymes_tpu_torch.config import resolve_device
 from pymes_tpu_torch.kernels import block_ladder as _k1
+from pymes_tpu_torch.kernels import ovvv_gather as _k4
 
 
 class BlockGroup(NamedTuple):
@@ -200,3 +205,76 @@ def ladder_apply_ij(plan, T_ijab, twin=False):
     if not isinstance(plan, BlockLadder):
         raise TypeError(f"unsupported ladder plan {type(plan).__name__}")
     return block_ladder_apply_ij(plan, T_ijab, twin=twin)
+
+
+class OVVVPlan(NamedTuple):
+    """Gather plan for ``out[j,p,q,r] = Σ_s V[p,q,r,s] T1[s,j]`` on a
+    momentum-structured block whose LAST axis is virtual:
+    ``V[p,q,r,s] = w(k_r − k_p) δ(k_p+k_q = k_r+k_s)`` fixes s given
+    (p,q,r).  With it no nv³·no-sized ovvv block exists on the device."""
+
+    S: torch.Tensor   # (n0, n1, n2) int32 — virtual index of k_p+k_q−k_r
+    #                   (−1 = outside the basis)
+    W: torch.Tensor   # (n0, n2) f64 — w(k_r − k_p)
+
+
+def build_ovvv_t1_plan(ueg_model, ranges, device):
+    """Build an :class:`OVVVPlan` on ``device`` for leading-axis orbital
+    ``ranges`` (3-char string of 'o'/'v'/'a'; the contracted 4th axis is
+    virtual).  Host numpy, the algorithm of
+    ``pymes_tpu.ops.ueg_ladder.build_ovvv_t1_plan`` with the Coulomb
+    weights."""
+    dev = resolve_device(device)
+    no = ueg_model.n_ele // 2
+    k_int = ueg_model.basis.k_int
+    sel = {"o": k_int[:no], "v": k_int[no:], "a": k_int}
+    k0, k1, k2 = (sel[c] for c in ranges)
+
+    ksum = (k0[:, None, None, :] + k1[None, :, None, :]
+            - k2[None, None, :, :])
+    S = ueg_model._lookup_flat(ksum)
+    S = np.where(S >= no, S - no, -1)
+
+    d = (k2[None, :, :] - k0[:, None, :]).reshape(-1, 3)
+    q_vecs, inv = np.unique(d, axis=0, return_inverse=True)
+    W = _transfer_weights(ueg_model, q_vecs)[inv].reshape(len(k0), len(k2))
+    return OVVVPlan(
+        S=torch.as_tensor(S.astype(np.int32), device=dev),
+        W=torch.as_tensor(W, dtype=torch.float64, device=dev))
+
+
+def build_ovvv_plans(ueg_model, device):
+    """The three ovvv gather plans the matrix-free CCSD dressing needs
+    (leading-range patterns vvo/ovv/vov), keyed for
+    ``dict_t_V["_ovvv_plans"]``."""
+    return {pat: build_ovvv_t1_plan(ueg_model, pat, device)
+            for pat in ("vvo", "ovv", "vov")}
+
+
+def ovvv_t1_apply_j(plan: OVVVPlan, T1, twin=False):
+    """``out[j,p,q,r] = Σ_s V[p,q,r,s] T1[s,j]`` through the gather plan:
+    K4 on a CUDA tensor (``twin=True`` forces the plain twin), the twin on a
+    CPU tensor.  ``T1`` is (nv, no); returns (no, n0, n1, n2)."""
+    return _k4.ovvv_gather(plan.S, plan.W, T1, twin=twin)
+
+
+def dressed_ladder_apply_ij(plan, T_ai, T_ijab, no, W=None, twin=False):
+    """T1-dressed ladder ``R_ijab = Σ_cd V̄_abcd T_ijcd`` without V̄_abcd:
+    the bra dressing is rank-1, so with the all-bra
+    ``W[i,j,p,q] = Σ_cd V_pqcd T_ijcd``
+
+    ``R = W_vv − T1·W_ov − W_vo·T1 + T1·W_oo·T1``.
+
+    ``W`` may come precomputed (the CCSD iteration shares it with the
+    singles residual); otherwise K1 computes it on ``plan`` (all-bra)."""
+    if W is None:
+        W = ladder_apply_ij(plan, T_ijab, twin=twin)
+    W_vv = W[:, :, no:, no:]
+    W_ov = W[:, :, :no, no:]
+    W_vo = W[:, :, no:, :no]
+    W_oo = W[:, :, :no, :no]
+    R = W_vv
+    R = R - torch.einsum("ak,ijkb->ijab", T_ai, W_ov)
+    R = R - torch.einsum("bl,ijal->ijab", T_ai, W_vo)
+    R = R + torch.einsum("ak,bl,ijkl->ijab", T_ai, T_ai, W_oo)
+    return R

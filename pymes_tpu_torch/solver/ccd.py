@@ -13,9 +13,14 @@ kernel K1 and the per-iteration Jacobi + DIIS + energy tail through K2/K3
 (:mod:`pymes_tpu_torch.kernels`) on a CUDA tensor; on a CPU tensor both run
 their plain twins.
 
+The T1-dressing hooks that CCSD (:mod:`pymes_tpu_torch.solver.ccsd`) feeds
+through the same residual are here too: ``t_T_ai`` (the dressed ladder on
+the all-bra plan), ``ladder_W`` (its precomputed all-bra image), ``ex_half``
+(the half-symmetric dressing of ``abij``, added before the P(ab,ij)
+symmetrisation) and ``abij_t=None``.
+
 Not ported: the ``abij`` loop layout, drCCD, the Ozaki/sliced contraction
-modes, the ring-collective path, the T1-dressing hooks (``t_T_ai``,
-``ex_half``, ``ladder_W``) and mixed precision.
+modes, the ring-collective path and mixed precision.
 """
 
 from typing import NamedTuple
@@ -27,7 +32,8 @@ from pymes_tpu_torch.config import DTYPE, resolve_device
 from pymes_tpu_torch.kernels import ccd_tail
 from pymes_tpu_torch.log import print_logging_info
 from pymes_tpu_torch.mixer import diis
-from pymes_tpu_torch.ops.ueg_ladder import ladder_apply_ij
+from pymes_tpu_torch.ops.ueg_ladder import (dressed_ladder_apply_ij,
+                                            ladder_apply_ij)
 from pymes_tpu_torch.solver import mp2
 
 
@@ -67,11 +73,15 @@ class CCDBlocksIJ(NamedTuple):
     klij: torch.Tensor    # V[k,l,i,j]
     ijab: torch.Tensor    # V[i,j,a,b]
     ijab_x: torch.Tensor  # V[i,j,b,a] (exchange image, for the energy)
-    abij_t: torch.Tensor  # V[a,b,i,j] -> [i,j,a,b]
+    abij_t: torch.Tensor  # V[a,b,i,j] -> [i,j,a,b] (may be None)
     ikac: torch.Tensor    # V_iajb[k,a,i,c] -> [i,k,a,c]
     kjcb: torch.Tensor    # V_iabj[k,b,c,j] -> [k,j,c,b]
     abcd: torch.Tensor    # dense ladder block (None with a ladder plan)
     ladder: object = None
+    ladder_W: object = None  # precomputed all-bra W[i,j,p,q] (CCSD)
+    ex_half: object = None   # extra Ex term, added BEFORE the P(ab,ij)
+    #   symmetrisation: the half-symmetric T1 dressing S of abij with
+    #   S + P(S) = full dressing (ccsd.dressed_block(half_symmetric=True))
 
 
 def blocks_ij_from(blocks: CCDBlocks):
@@ -88,10 +98,12 @@ def blocks_ij_from(blocks: CCDBlocks):
 
 
 def doubles_residual_ij(t_fock_ab, t_fock_ij, t_T_ijab, V: CCDBlocksIJ,
-                        is_dcd=False, is_bruekner=False, twin=False):
+                        is_dcd=False, is_bruekner=False, t_T_ai=None,
+                        twin=False):
     """CCD/DCD doubles residual R_ijab in the occupied-leading layout (the
-    diagrams of ``pymes_tpu.solver.ccd.doubles_residual_ij``).  ``twin``
-    routes the ladder through K1's plain twin on the card."""
+    diagrams of ``pymes_tpu.solver.ccd.doubles_residual_ij``).  With
+    ``t_T_ai`` (CCSD) the ladder is T1-dressed on the all-bra plan.
+    ``twin`` routes the ladder through K1's plain twin on the card."""
     es = torch.einsum
     t = t_T_ijab
     tilde = 2.0 * t - t.transpose(2, 3)  # 2T - T^(a<->b)
@@ -100,10 +112,15 @@ def doubles_residual_ij(t_fock_ab, t_fock_ij, t_T_ijab, V: CCDBlocksIJ,
     if not is_dcd:
         I_klij = I_klij + es("klcd,ijcd->klij", V.ijab, t)
 
-    R = es("klij,klab->ijab", I_klij, t) + V.abij_t
+    R = es("klij,klab->ijab", I_klij, t)
+    if V.abij_t is not None:
+        R = R + V.abij_t
 
     # particle-particle ladder: R_ij,ab += T_ij,cd V_ab,cd
-    if V.ladder is not None:
+    if V.ladder is not None and t_T_ai is not None:
+        R = R + dressed_ladder_apply_ij(V.ladder, t_T_ai, t, t.shape[0],
+                                        W=V.ladder_W, twin=twin)
+    elif V.ladder is not None:
         W = ladder_apply_ij(V.ladder, t, twin=twin)
         if W.shape[-1] != t.shape[-1]:  # all-bra plan: take the vv corner
             no_ = t.shape[0]
@@ -137,6 +154,8 @@ def doubles_residual_ij(t_fock_ab, t_fock_ij, t_T_ijab, V: CCDBlocksIJ,
         Ex = Ex - es("lica,ljcb->ijab", X_lica, t)
         Ex = Ex + es("lica,ljbc->ijab", X_lica, t)
 
+    if V.ex_half is not None:  # half-symmetric T1 dressing of abij
+        Ex = Ex + V.ex_half
     return R + Ex + Ex.permute(1, 0, 3, 2)  # P(ab,ij)
 
 

@@ -1,0 +1,99 @@
+"""TCDUMP (transcorrelated 3-body integral) reader (host numpy).
+
+A copy of ``read``, ``read_sparse`` and :class:`SparseL` from
+``pymes_tpu/util/tcdump.py``: text dumps hold ``norb`` on the first line
+then ``value o p q r s t`` records (1-based, physicists' <opq|rst>) storing
+one representative of the 6-fold electron-permutation symmetry; values
+carry the ``−1/3`` factor, so the in-memory tensor is ``−3×`` the file
+values.  The dense tensor interleaves electron pairs: axes
+(o, r, p, s, q, t).  ``tests/test_torch_ccsd_io.py`` holds the copy equal
+to the original.
+"""
+
+import itertools
+from typing import NamedTuple
+
+import numpy as np
+
+from pymes_tpu_torch.log import print_logging_info
+
+
+class SparseL(NamedTuple):
+    """6-index L tensor as its deduplicated nonzero list: ``idx`` (n, 6)
+    int64 in the dense axis order (o, r, p, s, q, t), 0-based, all 6-fold
+    images expanded; ``vals`` with the −3× convention."""
+
+    idx: np.ndarray
+    vals: np.ndarray
+    nb: int
+
+
+def _expand_6_fold(idx, vals):
+    """All 6 electron-permutation images of physicists' records (n, 6)
+    (o, p, q, r, s, t), deduplicated, in the dense axis order."""
+    ket = [idx[:, 0], idx[:, 1], idx[:, 2]]
+    bra = [idx[:, 3], idx[:, 4], idx[:, 5]]
+    rows, val_list = [], []
+    for per in itertools.permutations(range(3)):
+        rows.append(np.stack([ket[per[0]], bra[per[0]],
+                              ket[per[1]], bra[per[1]],
+                              ket[per[2]], bra[per[2]]], axis=1))
+        val_list.append(vals)
+    rows = np.concatenate(rows, axis=0)
+    allv = np.concatenate(val_list)
+    uniq, first = np.unique(rows, axis=0, return_index=True)
+    return uniq, allv[first]
+
+
+def _scatter_6_fold(t_L, idx, vals):
+    """Scatter physicists' records into all 6 electron-permutation images
+    of the dense tensor."""
+    ket = [idx[:, 0], idx[:, 1], idx[:, 2]]
+    bra = [idx[:, 3], idx[:, 4], idx[:, 5]]
+    for per in itertools.permutations(range(3)):
+        t_L[ket[per[0]], bra[per[0]],
+            ket[per[1]], bra[per[1]],
+            ket[per[2]], bra[per[2]]] = vals
+    return t_L
+
+
+def _read_txt(file_name):
+    with open(file_name) as reader:
+        nb = int(reader.readline().strip())
+        body = reader.read()
+    rows = np.array(body.split(), dtype=object).reshape(-1, 7)
+    vals = -3.0 * rows[:, 0].astype(np.float64)
+    idx = rows[:, 1:].astype(np.int64) - 1
+    return vals, idx, nb
+
+
+def _read_hdf5(file_name):
+    import h5py
+
+    with h5py.File(file_name, "r") as f:
+        vals = -3.0 * np.asarray(f["tcdump"]["values"]).reshape(-1)
+        idx = np.asarray(f["tcdump"]["indices"], dtype=np.int64) - 1
+        nb = int(f["tcdump"].attrs["nOrbs"])
+    return vals, idx, nb
+
+
+def _read_records(file_name):
+    if "h5" in file_name or "hdf5" in file_name:
+        return _read_hdf5(file_name)
+    return _read_txt(file_name)
+
+
+def read_sparse(file_name="TCDUMP"):
+    """Read a TCDUMP into a :class:`SparseL` nonzero list (no nb⁶ array)."""
+    print_logging_info("Reading in TCDUMP (sparse)", level=1)
+    vals, idx, nb = _read_records(file_name)
+    rows, v = _expand_6_fold(idx, vals)
+    return SparseL(idx=rows, vals=v, nb=nb)
+
+
+def read(file_name="TCDUMP"):
+    """Read a TCDUMP into the dense (nb,)*6 array ``L[o,r,p,s,q,t]``
+    (−3× file values, 6-fold symmetry restored)."""
+    print_logging_info("Reading in TCDUMP", level=1)
+    vals, idx, nb = _read_records(file_name)
+    return _scatter_6_fold(np.zeros([nb] * 6), idx, vals)

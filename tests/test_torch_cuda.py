@@ -1,9 +1,10 @@
 """The port's hand-written kernels on the card, each against its plain twin.
 
-K1 (CUDA C++ ladder) and K2/K3 (Triton CCD tail) run only on an NVIDIA
-card: these tests carry the ``cuda`` marker and skip where torch sees no
-card.  The card has no jax, so this file imports only the port; run it there
-without the repository's conftest (which sets up jax):
+K1 (CUDA C++ ladder), K2/K3 (Triton CCD tail), K4 (Triton ovvv gather) and
+K2′/K3′ (Triton CCSD tail) run only on an NVIDIA card: these tests carry
+the ``cuda`` marker and skip where torch sees no card.  The card has no
+jax, so this file imports only the port; run it there without the
+repository's conftest (which sets up jax):
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
@@ -16,11 +17,12 @@ import pytest
 import torch
 
 from pymes_tpu_torch import kernels
-from pymes_tpu_torch.kernels import ccd_tail
+from pymes_tpu_torch.integral.partition import part_2_body_int
+from pymes_tpu_torch.kernels import ccd_tail, ccsd_tail
 from pymes_tpu_torch.mean_field import hf
 from pymes_tpu_torch.models import ueg
 from pymes_tpu_torch.ops import ueg_ladder
-from pymes_tpu_torch.solver import ccd, mp2
+from pymes_tpu_torch.solver import ccd, ccsd, mp2
 
 pytestmark = pytest.mark.cuda
 
@@ -134,7 +136,10 @@ def test_solve_on_card_matches_cpu(device):
     n_it = out["cpu"][5]
     hist = (out["cuda"][6][:n_it].cpu() - out["cpu"][6][:n_it]).abs()
     assert float(hist.max()) <= 1e-10
-    assert all(launches[k] == n_it for k in launches), launches
+    ccd_kernels = ("block_ladder", "ccd_jacobi_diis", "ccd_mix_energy")
+    assert all(launches[k] == n_it for k in ccd_kernels), launches
+    assert all(launches[k] == 0 for k in launches
+               if k not in ccd_kernels), launches
 
 
 def test_kernels_refuse_what_they_do_not_take(device):
@@ -154,3 +159,131 @@ def test_kernels_refuse_what_they_do_not_take(device):
     with pytest.raises(TypeError):
         ccd_tail.jacobi_diis_insert(T32, T32, eps, eps, 0.0, ring, ring,
                                     0, 1)
+
+
+@pytest.mark.parametrize("pat", ["vvo", "ovv", "vov"])
+@pytest.mark.parametrize("cutoff", [5, 14])
+def test_ovvv_gather_kernel_matches_twin(device, cutoff, pat):
+    u = ueg.UEG(14, 7, 7, 0.5)
+    u.init_single_basis(cutoff)
+    plan = ueg_ladder.build_ovvv_t1_plan(u, pat, device)
+    T1 = _randn(np.random.default_rng(cutoff), (u.n_spatial - NO, NO),
+                device)
+    before = kernels.LAUNCHES["ovvv_gather"]
+    got = ueg_ladder.ovvv_t1_apply_j(plan, T1)
+    want = ueg_ladder.ovvv_t1_apply_j(plan, T1, twin=True)
+    assert kernels.LAUNCHES["ovvv_gather"] == before + 1
+    assert got.shape == want.shape == (NO,) + tuple(plan.S.shape)
+    _close(got, want)
+
+
+def test_block_ladder_kernel_stacked_operand_np219(device):
+    """K1 on the all-bra plan with T2 stacked over T1⊗T1, (2·no², nv²):
+    the operand of the matrix-free CCSD iteration."""
+    u = ueg.UEG(14, 7, 7, 0.5)
+    u.init_single_basis(14)
+    plan = ueg_ladder.build_block_ladder(u, device, bra="all")
+    nv = u.n_spatial - NO
+    rng = np.random.default_rng(219)
+    T2 = _randn(rng, (NO, NO, nv, nv), device, 0.01)
+    T1 = _randn(rng, (nv, NO), device, 0.01)
+    X = torch.einsum("ci,dj->ijcd", T1, T1)
+    TX = torch.stack([T2.reshape(NO * NO, nv, nv),
+                      X.reshape(NO * NO, nv, nv)])
+    got = ueg_ladder.block_ladder_apply_ij(plan, TX)
+    want = ueg_ladder.block_ladder_apply_ij(plan, TX, twin=True)
+    assert got.shape == (2, NO * NO, plan.n_bra, plan.n_bra)
+    _close(got, want)
+
+
+def _ccsd_ring(rng, nv, m, device):
+    n = nv * NO + NO * NO * nv * nv
+    return (_randn(rng, (m, n), device), _randn(rng, (m, n), device))
+
+
+@pytest.mark.parametrize("slot,n_valid", [(0, 1), (3, 4), (2, 6)])
+def test_ccsd_jacobi_diis_kernel_matches_twin(device, slot, n_valid):
+    _, _, eps_i, eps_a = _problem(2, device)
+    rng = np.random.default_rng(slot)
+    nv = eps_a.shape[0]
+    R1, T1 = _randn(rng, (nv, NO), device), _randn(rng, (nv, NO), device)
+    R2 = _randn(rng, (NO, NO, nv, nv), device)
+    T2 = _randn(rng, (NO, NO, nv, nv), device)
+    ring = _ccsd_ring(rng, nv, 6, device)
+    rings = [tuple(r.clone() for r in ring) for _ in range(2)]
+    before = kernels.LAUNCHES["ccsd_jacobi_diis"]
+    rows = [ccsd_tail.jacobi_diis_insert(R1, T1, R2, T2, eps_i, eps_a, -1.0,
+                                         e, a, slot, n_valid, twin=tw)
+            for (e, a), tw in zip(rings, (False, True))]
+    assert kernels.LAUNCHES["ccsd_jacobi_diis"] == before + 1
+    _close(rows[0], rows[1])
+    assert bool((rows[0][n_valid:] == 0).all())
+    _close(rings[0][0], rings[1][0])
+    _close(rings[0][1], rings[1][1])
+
+
+@pytest.mark.parametrize("n_valid", [1, 4, 6])
+def test_ccsd_mix_energy_kernel_matches_twin(device, n_valid):
+    rng = np.random.default_rng(n_valid)
+    nv = 12
+    amps, _ = _ccsd_ring(rng, nv, 6, device)
+    coeff = _randn(rng, (6,), device)
+    F1 = _randn(rng, (nv, NO), device)
+    V = _randn(rng, (NO, NO, nv, nv), device)
+    Vx = V.transpose(2, 3).contiguous()
+    outs = [(torch.zeros((nv, NO), dtype=torch.float64, device=device),
+             torch.zeros((NO, NO, nv, nv), dtype=torch.float64,
+                         device=device)) for _ in range(2)]
+    before = kernels.LAUNCHES["ccsd_mix_energy"]
+    es = [ccsd_tail.diis_mix_energy(amps, coeff, n_valid, T1, T2, F1, V, Vx,
+                                    twin=tw)
+          for (T1, T2), tw in zip(outs, (False, True))]
+    assert kernels.LAUNCHES["ccsd_mix_energy"] == before + 1
+    _close(outs[0][0], outs[1][0])
+    _close(outs[0][1], outs[1][1])
+    for a, b in zip(*es):
+        _close(a, b)
+
+
+def test_mf_ccsd_on_card_matches_cpu(device):
+    """Matrix-free CCSD, nP=19 (rs=1.0, cutoff 2) with the seeded
+    non-canonical Fock: card (K1, K4, K2′, K3′) vs CPU (twins)."""
+    u = ueg.UEG(14, 7, 7, 1.0)
+    u.init_single_basis(2)
+    V = torch.as_tensor(u.eval_2b_integrals())
+    fock = hf.construct_hf_matrix(
+        NO, torch.diag(torch.as_tensor(u.kinetic_energies())), V)
+    noise = np.random.default_rng(5).standard_normal(tuple(fock.shape))
+    fock = fock + torch.as_tensor(0.02 * noise + 0.02 * noise.T)
+    out = {}
+    for dev in (device, torch.device("cpu")):
+        d = {k: v.to(dev) for k, v in part_2_body_int(NO, V).items()
+             if k not in ("abcd", "abci", "iabc", "aibc", "abic")}
+        d["_ovvv_plans"] = ueg_ladder.build_ovvv_plans(u, dev)
+        plan = ueg_ladder.build_block_ladder(u, dev, bra="all")
+        kernels.reset_launches()
+        out[dev.type] = ccsd.CCSD(NO, dev).solve(
+            fock.to(dev), d, ladder=plan, delta_e=1e-10, max_iter=100)
+        if dev.type == "cuda":
+            launches = dict(kernels.LAUNCHES)
+    n_it = len(out["cpu"]["e history"])
+    assert len(out["cuda"]["e history"]) == n_it
+    hist = np.abs(out["cuda"]["e history"] - out["cpu"]["e history"])
+    assert float(hist.max()) <= 1e-10
+    assert float(out["cpu"]["t1"].abs().max()) > 1e-3
+    for k in ("block_ladder", "ccsd_jacobi_diis", "ccsd_mix_energy"):
+        assert launches[k] == n_it, launches
+    assert launches["ovvv_gather"] >= 2 * n_it, launches
+    assert launches["ccd_jacobi_diis"] == launches["ccd_mix_energy"] == 0
+
+
+def test_ovvv_gather_refuses_what_it_does_not_take(device):
+    u = ueg.UEG(14, 7, 7, 0.5)
+    u.init_single_basis(2)
+    plan = ueg_ladder.build_ovvv_t1_plan(u, "vvo", device)
+    T1 = torch.zeros((u.n_spatial - NO, NO), dtype=torch.float64,
+                     device=device)
+    with pytest.raises(TypeError):
+        ueg_ladder.ovvv_t1_apply_j(plan._replace(S=plan.S.long()), T1)
+    with pytest.raises(TypeError):
+        ueg_ladder.ovvv_t1_apply_j(plan, T1.float())

@@ -37,7 +37,12 @@ def test_port_never_imports_jax():
     code = ("import sys\n"
             "import pymes_tpu_torch, pymes_tpu_torch.solver.ccd, "
             "pymes_tpu_torch.ops.ueg_ladder, pymes_tpu_torch.interop, "
-            "pymes_tpu_torch.kernels.ccd_tail\n"
+            "pymes_tpu_torch.kernels.ccd_tail, "
+            "pymes_tpu_torch.solver.ccsd, pymes_tpu_torch.util.fcidump, "
+            "pymes_tpu_torch.util.tcdump, "
+            "pymes_tpu_torch.integral.contraction, "
+            "pymes_tpu_torch.kernels.ovvv_gather, "
+            "pymes_tpu_torch.kernels.ccsd_tail\n"
             "bad = sorted(m for m in sys.modules "
             "if m == 'jax' or m.startswith(('jax.', 'pymes_tpu.')) "
             "or m == 'pymes_tpu')\n"
