@@ -13,20 +13,32 @@ Drives the port's main paths through its own kernels:
 * matrix-free CCSD at nP=219 — all-bra ladder plan + OVVV gather plans, no
   ``abcd`` and no ovvv-class block on the card: the canonical Fock (T1 ≡ 0,
   so E equals the CCD energy) and the seeded non-canonical Fock (T1 ≠ 0,
-  against the JAX package's energy for the same system).
+  against the JAX package's energy for the same system);
+* EOM-CCSD — the matrix-free no-ovvv operator (all-bra ladder, OVVV plans,
+  no ``abcd``/ovvv block), n_excit=2, max_dim=16, f64 with MOM root
+  tracking from unit-vector guesses: nP=57 and nP=219 on the CCD
+  amplitudes of phase 3/4, nP=219 on the canonical CCSD amplitudes of
+  phase 7, each against the JAX package's roots and iteration count; and
+  LiH/3-21G on the dressed CCSD operator against its oracle.
 
 Kernels: K1 ``block_ladder`` (CUDA C++, built with nvcc for sm_90a at first
 use); K2 ``ccd_jacobi_diis``, K3 ``ccd_mix_energy``, K4 ``ovvv_gather``,
-K2′ ``ccsd_jacobi_diis`` and K3′ ``ccsd_mix_energy`` (Triton).
+K2′ ``ccsd_jacobi_diis``, K3′ ``ccsd_mix_energy``, K5 ``pair_symmetrize``
+and K6 ``davidson_residual`` (Triton).
 
 Phases: (0) card and versions; (1) kernel builds; (2) each kernel against
 its plain twin on the card at the main paths' shapes (K2′/K3′ at nP=219
-and at each molecule's), seeded inputs, bound max|kernel − twin| ≤
-1e-12·max|twin| (both f64, only the summation order differs); (3, 4)
-the converged CCD solves; (6) the dense molecular CCSD solves; (7) the matrix-free CCSD solves — for each path the launch counts
-are reset just before and read just after; (5, 8) timing: kernel vs twin
-per call, and ms/iteration of fixed-61-iteration solves (min of 5) through
-the kernels and through the twins.  Prints a JSON line of the kernels, the
+and at each molecule's; K5 at the CCD and the EOM shapes, K6 and the
+batched K1/K4 entries at the nP=219 EOM shapes), seeded inputs, bound
+max|kernel − twin| ≤ 1e-12·max|twin| (both f64, only the summation order
+differs); (3, 4) the converged CCD solves; (6) the dense molecular CCSD
+solves; (7) the matrix-free CCSD solves; (9) the EOM solves (the LiH
+ground state they dress is solved before) — for each path the launch
+counts are reset just before and read just after, and each EOM solve's
+launches must match its count of sigma calls exactly; (5, 8, 10)
+timing: kernel vs twin per call, ms/iteration of fixed-61-iteration CCD and
+CCSD solves (min of 5) and of 8 Davidson iterations at nP=219, through the
+kernels and through the twins.  Prints a JSON line of the kernels, the
 nvidia-smi line, and as the last line ``{"ok": true, "device": {...}}``.
 Any failed check raises and the script exits nonzero; without CUDA it
 exits nonzero at once.
@@ -54,6 +66,18 @@ ORACLE_NP57 = -0.5120153512190824
 # iterations, |T1|max = 0.01188
 E_JAX_CCSD_NONCANONICAL = -0.664928068966791
 N_IT_JAX_CCSD_NONCANONICAL = 11
+# EOM-CCSD of the JAX package on a CPU: its f64 path (precision="f64",
+# root_tracking="guess", contract_mode="xla", n_excit=2, max_dim=16,
+# unit-vector guesses) on the matrix-free no-ovvv operator and the mf-CCD
+# amplitudes of benchmarks/_setup.build_ueg_mf(cutoff, contract_mode="xla")
+# (and at nP=219 also on its canonical mf-CCSD amplitudes): sorted roots
+# and iteration counts
+EOM_JAX = {5: ((5.2429519002247345, 5.2429519002247424), 10),
+           14: ((5.239661269908714, 5.239701177870126), 9)}
+EOM_JAX_CCSD_AMPS_NP219 = ((5.239661269908716, 5.239701177870117), 9)
+EOM_RECORDED_NP219 = (5.2396613, 5.2397012)   # benchmarks/RESULTS.md:491
+LIH_EOM_ORACLE = (0.1180867117168979, 0.154376205595602)   # BASELINE.md
+EOM_KEYS = ("klij", "ijab", "abij", "iajb", "iabj", "ijka", "ijak", "iajk")
 DATA = Path(__file__).resolve().parent / "tests" / "data"
 # dense molecular CCSD: (FCIDUMP, TCDUMP or None, oracle correlation
 # energy, oracle HF energy or None, tolerance) — BASELINE.md and
@@ -81,11 +105,19 @@ KERNELS = {
                          "pymes_tpu/solver/ccsd.py:615"),
     "ccsd_mix_energy": ("triton", "pymes_tpu_torch/kernels/ccsd_tail.py",
                         "pymes_tpu/solver/ccsd.py:393"),
+    "pair_symmetrize": ("triton", "pymes_tpu_torch/kernels/pair_sym.py",
+                        "pymes_tpu/solver/ccd.py:349"),
+    "davidson_residual": ("triton", "pymes_tpu_torch/kernels/davidson.py",
+                          "pymes_tpu/solver/eom_ccsd.py:697"),
 }
-CCD_KERNELS = ("block_ladder", "ccd_jacobi_diis", "ccd_mix_energy")
-DENSE_CCSD_KERNELS = ("ccsd_jacobi_diis", "ccsd_mix_energy")
+CCD_KERNELS = ("block_ladder", "ccd_jacobi_diis", "ccd_mix_energy",
+               "pair_symmetrize")
+DENSE_CCSD_KERNELS = ("ccsd_jacobi_diis", "ccsd_mix_energy",
+                      "pair_symmetrize")
 MF_CCSD_KERNELS = ("block_ladder", "ovvv_gather", "ccsd_jacobi_diis",
-                   "ccsd_mix_energy")
+                   "ccsd_mix_energy", "pair_symmetrize")
+EOM_KERNELS = ("block_ladder", "ovvv_gather", "pair_symmetrize",
+               "davidson_residual")
 
 
 def check(cond, msg):
@@ -482,14 +514,16 @@ def molecular_ccsd(mols, device):
 
 def mf_ccsd(q, device):
     """Matrix-free CCSD at nP=219: canonical (T1 ≡ 0, E = the CCD energy)
-    and the seeded non-canonical Fock (against the JAX package)."""
+    and the seeded non-canonical Fock (against the JAX package); returns
+    each solve's result by kind."""
     import torch
 
     from pymes_tpu_torch.solver import ccsd
 
+    out = {}
     for kind, fock in q["focks"].items():
         t0 = time.time()
-        res = ccsd.CCSD(NO, device).solve(
+        res = out[kind] = ccsd.CCSD(NO, device).solve(
             fock, q["mf_dict"], level_shift=-1.0, ladder=q["plan_all"],
             delta_e=1e-10 if kind == "non-canonical" else 1e-8,
             max_iter=100)
@@ -513,6 +547,237 @@ def mf_ccsd(q, device):
         print(f"mf-CCSD {kind} nP={q['nP']}: E={e:.13f} in {n_it} "
               f"iterations, |E - ref|={abs(e - ref):.2e}, |T1|max="
               f"{t1max:.3e}, {time.time() - t0:.2f} s", flush=True)
+    return out
+
+
+def eom_operator(p, device, plan_all=None, plans=None):
+    """The matrix-free no-ovvv EOM operator of one UEG set-up: the small
+    blocks, no ``abcd``, the all-bra ladder plan and the OVVV plans."""
+    from pymes_tpu_torch.ops import ueg_ladder
+
+    V = {k: p["dict"][k] for k in EOM_KEYS}
+    V["abcd"] = None
+    V["abcd_ladder"] = plan_all or ueg_ladder.build_block_ladder(
+        p["ueg"], device, bra="all")
+    V["_ovvv_plans"] = plans or ueg_ladder.build_ovvv_plans(p["ueg"], device)
+    return V
+
+
+def eom_inputs(V, nv, seed):
+    """Seeded K5/K6 operands and a trial batch at the EOM shapes of one
+    set-up (n_excit = 2, max_dim = 16): X, Y (2, nv, nv, no, no), the
+    Davidson buffers U, W (16, N) with v (16, 2), e (2,) and diag (N,)
+    (three denominators inside the clamp), U1 (2, nv, no)."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    dev = V["ijab"].device
+    N = nv * NO + nv * nv * NO * NO
+
+    def t(shape, scale=1.0):
+        return torch.as_tensor(rng.standard_normal(shape) * scale,
+                               dtype=torch.float64, device=dev)
+
+    e = t(2) + 5.0
+    diag = t(N) + 5.0
+    diag[:3] = e[0] + torch.tensor([0.0, 3e-6, -4e-6], dtype=torch.float64,
+                                   device=dev)
+    return {"X": t((2, nv, nv, NO, NO), 0.01), "Y": t((2, nv, nv, NO, NO),
+                                                      0.01),
+            "U": t((16, N)), "W": t((16, N)), "v": t((16, 2)), "e": e,
+            "diag": diag, "U1": t((2, nv, NO))}
+
+
+def compare_eom_kernels(q, V, seed):
+    """K5 at the CCD (ijab, with Y) and the EOM (abij batch of 2, with and
+    without Y) shapes, K6 at the EOM buffer shapes (all 16 rows and 9), and
+    the batched cd-major K1 and batched K4 entries, against their twins at
+    nP=219; returns max abs errors."""
+    from pymes_tpu_torch.kernels import davidson, pair_sym
+    from pymes_tpu_torch.ops import ueg_ladder
+
+    x = eom_inputs(V, q["nv"], seed)
+    ij = inputs(q, seed)
+    e5 = max(rel_err(pair_sym.pair_symmetrize(ij["T"], ij["R"]),
+                     pair_sym.pair_symmetrize(ij["T"], ij["R"], twin=True),
+                     "K5 ijab with Y"),
+             *(rel_err(pair_sym.pair_symmetrize(x["X"], Y),
+                       pair_sym.pair_symmetrize(x["X"], Y, twin=True),
+                       f"K5 abij batch, Y={Y is not None}")
+               for Y in (None, x["Y"])))
+    e6 = 0.0
+    for m in (16, 9):
+        U, W = x["U"].clone(), x["W"].clone()
+        U[m:], W[m:] = 0.0, 0.0
+        v = x["v"].clone()
+        v[m:] = 0.0
+        args = (U, W, v, x["e"], x["diag"], m)
+        got = davidson.davidson_residual(*args)
+        want = davidson.davidson_residual(*args, twin=True)
+        # the three clamped columns are ~1e5 larger than the rest: each
+        # part is held to 1e-12 of its own scale
+        e6 = max(e6, rel_err(got[:, :3], want[:, :3],
+                             f"K6 m={m}, clamped columns"),
+                 rel_err(got[:, 3:], want[:, 3:], f"K6 m={m}, the rest"))
+    e1 = rel_err(ueg_ladder.ladder_apply(V["abcd_ladder"], x["X"]),
+                 ueg_ladder.ladder_apply(V["abcd_ladder"], x["X"],
+                                         twin=True),
+                 "K1 cd-major batch (nv^2, 2 no^2)")
+    e4 = max(rel_err(ueg_ladder.ovvv_t1_apply(plan, x["U1"]),
+                     ueg_ladder.ovvv_t1_apply(plan, x["U1"], twin=True),
+                     f"K4 batched {pat}")
+             for pat, plan in V["_ovvv_plans"].items())
+    errs = {"pair_symmetrize": e5, "davidson_residual": e6,
+            "block_ladder": e1, "ovvv_gather": e4}
+    print(f"kernel vs twin, EOM nP={q['nP']}: " + ", ".join(
+        f"{k} max_abs_err={v:.3e}" for k, v in errs.items()), flush=True)
+    return errs
+
+
+def time_eom_kernels(q, V, seed):
+    """ms per call of K5 (abij batch of 2, the EOM sigma's operand; and
+    ijab with Y, the CCD/CCSD residual's) and K6 (16 valid rows, k = 2)
+    and of their twins at nP=219 (plain, kernel, kernel, plain)."""
+    from pymes_tpu_torch.kernels import davidson, pair_sym
+
+    x = eom_inputs(V, q["nv"], seed)
+    ij = inputs(q, seed)
+    calls = {
+        "pair_symmetrize": lambda tw: pair_sym.pair_symmetrize(x["X"],
+                                                               twin=tw),
+        "pair_symmetrize ijab+Y": lambda tw: pair_sym.pair_symmetrize(
+            ij["T"], ij["R"], twin=tw),
+        "davidson_residual": lambda tw: davidson.davidson_residual(
+            x["U"], x["W"], x["v"], x["e"], x["diag"], 16, twin=tw),
+    }
+    out = {}
+    for name, fn in calls.items():
+        t = [cuda_ms(lambda: fn(tw)) for tw in (True, False, False, True)]
+        out[name] = ((t[1] + t[2]) / 2, (t[0] + t[3]) / 2)
+    return out
+
+
+def eom_solver(no, device):
+    """An EOM_CCSD (n_excit = 2, the defaults: max_dim 16, f64, MOM) that
+    counts in ``n_sigma`` the calls of the ``_batched_sigma`` hook, which
+    every sigma of a solve goes through."""
+    from pymes_tpu_torch.solver import eom_ccsd
+
+    class Counted(eom_ccsd.EOM_CCSD):
+        n_sigma = 0
+
+        def _batched_sigma(self, *args):
+            self.n_sigma += 1
+            return super()._batched_sigma(*args)
+
+    return Counted(no, device, n_excit=2)
+
+
+def eom_solve(fock, V, T2, device, max_iter=300, twin=False, eps=None,
+              no=NO):
+    """EOM-CCSD through :func:`eom_solver`; returns the solver and its
+    sorted real roots."""
+    solver = eom_solver(no, device)
+    solver.max_iter = max_iter
+    solver.twin = twin
+    if eps is not None:
+        solver.e_epsilon = eps
+    roots = np.sort(np.real(solver.solve(fock, V, T2)))
+    return solver, roots
+
+
+def lih_dressed(m, device):
+    """The LiH EOM input: converged CCSD (|dE| < 1e-12), then the
+    T1-dressed Fock and operator; returns (Fock, V, T2)."""
+    from pymes_tpu_torch.integral.partition import part_2_body_int
+    from pymes_tpu_torch.solver import ccsd
+
+    cc = ccsd.CCSD(m["no"], device)
+    res = cc.solve(m["fock"], m["V"], delta_e=1e-12, max_iter=200)
+    dV = part_2_body_int(m["no"], m["V"])
+    return (cc.get_T1_dressed_fock(m["fock"], res["t1"], dV),
+            cc.get_T1_dressed_V(res["t1"], dV,
+                                {k: None for k in ccsd.EOM_DRESSED}),
+            res["t2"])
+
+
+def check_eom_launches(label, before, solver, ladder):
+    """The launches of one EOM solve against its count n of sigma calls:
+    K5 once per sigma; K6 n − 1 times (each Davidson step ends in one
+    sigma, and the solve's first sigma precedes every step); on the
+    matrix-free operator (``ladder``) K1 once per sigma plus once for
+    H̄'s W_laji, and K4 three times per sigma (ovv, vov, vvo)."""
+    from pymes_tpu_torch import kernels
+
+    n = solver.n_sigma
+    got = {k: kernels.LAUNCHES[k] - before[k] for k in EOM_KERNELS}
+    want = {"block_ladder": n + 1 if ladder else 0,
+            "ovvv_gather": 3 * n if ladder else 0,
+            "pair_symmetrize": n, "davidson_residual": n - 1}
+    check(n > 1 and got == want,
+          f"EOM {label}: launches {got}, expected {want} for {n} sigma calls")
+
+
+def eom_runs(cases, lih, device):
+    """The EOM path: each UEG case (label, fock, operator, T2, JAX roots,
+    JAX iterations) against the JAX package, then LiH on the dressed CCSD
+    operator ``lih`` = (Fock, V, T2) against its oracle; each solve's
+    launches against its sigma calls.  Returns the roots by label."""
+    import torch
+
+    from pymes_tpu_torch import kernels
+
+    out = {}
+    for label, fock, V, T2, ref, n_ref in cases:
+        t0 = time.time()
+        before = dict(kernels.LAUNCHES)
+        solver, roots = eom_solve(fock, V, T2, device)
+        check_eom_launches(label, before, solver, ladder=True)
+        nv = T2.shape[0]
+        check(all(bool(torch.isfinite(u).all()) for u in
+                  solver.u_singles + solver.u_doubles)
+              and solver.u_singles[0].shape == (nv, NO)
+              and solver.u_doubles[0].shape == (nv, nv, NO, NO),
+              f"EOM {label}: Ritz vectors not finite or of the wrong shape")
+        err = float(np.abs(roots - np.asarray(ref)).max())
+        n_it = solver.n_iterations
+        check(err <= 1e-8, f"EOM {label}: roots {roots} vs JAX {ref}")
+        check(abs(n_it - n_ref) <= 1,
+              f"EOM {label}: {n_it} iterations, the JAX package {n_ref}")
+        print(f"EOM {label}: roots {roots[0]:.13f} {roots[1]:.13f} in {n_it} "
+              f"iterations (JAX {n_ref}), |roots - JAX|={err:.2e}, "
+              f"{time.time() - t0:.2f} s", flush=True)
+        out[label] = roots
+
+    t0 = time.time()
+    fd, Vd, t2 = lih
+    before = dict(kernels.LAUNCHES)
+    solver, roots = eom_solve(fd, Vd, t2, device, max_iter=1000,
+                              no=t2.shape[-1])
+    check_eom_launches("LiH", before, solver, ladder=False)
+    err = float(np.abs(roots - np.asarray(LIH_EOM_ORACLE)).max())
+    check(err <= 1e-7, f"EOM LiH: roots {roots} vs oracle {LIH_EOM_ORACLE}")
+    print(f"EOM LiH/3-21G: roots {roots[0]:.13f} {roots[1]:.13f} in "
+          f"{solver.n_iterations} iterations, |roots - oracle|={err:.2e}, "
+          f"{time.time() - t0:.2f} s", flush=True)
+    return out
+
+
+def eom_ms_per_iter(fock, V, T2, device, twin, n=8):
+    """ms per Davidson iteration at one set-up: the host wall (synchronised)
+    of a solve of 2 + n iterations minus that of a solve of 2 (the set-up
+    cancels), over n; with no stopping test (``e_epsilon`` < 0), so a
+    restart at max_dim falls inside the n."""
+    import torch
+
+    walls = []
+    for n_iter in (2, 2 + n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eom_solve(fock, V, T2, device, max_iter=n_iter, twin=twin, eps=-1.0)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    return (walls[1] - walls[0]) * 1e3 / n
 
 
 def path_launches(label, run, expect):
@@ -588,6 +853,13 @@ def main():
     mols = {name: load_molecule(name, device) for name in MOLECULES}
     print(f"molecular integrals read: {time.time() - t0:.2f} s", flush=True)
     compare.append(compare_molecular_kernels(mols, 6))
+    t0 = time.time()
+    eom_ops = {5: eom_operator(problems[5], device),
+               14: eom_operator(problems[14], device, q["plan_all"],
+                                q["mf_dict"]["_ovvv_plans"])}
+    compare.append(compare_eom_kernels(q, eom_ops[14], 7))
+    print(f"EOM operators + first K5/K6 launches (Triton JIT included): "
+          f"{time.time() - t0:.2f} s", flush=True)
     max_err = {k: max(c[k] for c in compare if k in c) for k in KERNELS}
 
     # phases 3-4: the CCD path, converged
@@ -610,10 +882,10 @@ def main():
             print(f"CCD nP={p['nP']}: E={e:.13f} in {n_it} iterations, "
                   f"|E - E_jax|={abs(e - E_JAX[c]):.2e}, "
                   f"{time.time() - t0:.2f} s", flush=True)
-            results[c] = (e, n_it)
+            results[c] = (e, n_it, T)
 
     launches = {"CCD": path_launches("CCD", run_ccd, CCD_KERNELS)}
-    e57, it57 = results[5]
+    e57, it57 = results[5][:2]
     check(it57 == 6, f"nP=57 took {it57} iterations, expected 6")
     check(abs(e57 - ORACLE_NP57) <= 1e-8,
           f"nP=57 E={e57} vs oracle {ORACLE_NP57}")
@@ -624,8 +896,36 @@ def main():
         "dense CCSD", lambda: molecular_ccsd(mols, device),
         DENSE_CCSD_KERNELS)
     # phase 7: matrix-free CCSD at nP=219
+    ccsd_res = {}
     launches["matrix-free CCSD"] = path_launches(
-        "matrix-free CCSD", lambda: mf_ccsd(q, device), MF_CCSD_KERNELS)
+        "matrix-free CCSD", lambda: ccsd_res.update(mf_ccsd(q, device)),
+        MF_CCSD_KERNELS)
+    # phase 9: EOM-CCSD, the no-ovvv operator at nP=57 and nP=219, and LiH
+    T2_ccsd = ccsd_res["canonical"]["t2"]
+    cases = [(f"nP={problems[c]['nP']} CCD amplitudes", problems[c]["fock"],
+              eom_ops[c], results[c][2], *EOM_JAX[c]) for c in (5, 14)]
+    cases.append((f"nP={q['nP']} CCSD amplitudes", q["fock"], eom_ops[14],
+                  T2_ccsd, *EOM_JAX_CCSD_AMPS_NP219))
+    # the LiH ground state and its dressing run before the EOM path's
+    # counted window, so that the window holds EOM solves alone
+    t0 = time.time()
+    lih = lih_dressed(mols["LiH"], device)
+    print(f"LiH CCSD + T1 dressing for EOM: {time.time() - t0:.2f} s",
+          flush=True)
+    eom_roots = {}
+    launches["EOM"] = path_launches(
+        "EOM", lambda: eom_roots.update(eom_runs(cases, lih, device)),
+        EOM_KERNELS)
+    r_ccd, r_ccsd = (eom_roots[c[0]] for c in cases[1:])
+    for label, r in (("CCD", r_ccd), ("CCSD", r_ccsd)):
+        dev = float(np.abs(r - np.asarray(EOM_RECORDED_NP219)).max())
+        check(dev <= 1e-6, f"EOM nP={q['nP']} {label} amplitudes: roots {r} "
+              f"vs recorded {EOM_RECORDED_NP219}")
+    gap = float(np.abs(r_ccd - r_ccsd).max())
+    check(gap <= 1e-7, f"EOM nP={q['nP']}: CCD- vs CCSD-amplitude roots "
+          f"differ by {gap:.3e}")
+    print(f"EOM nP={q['nP']}: |roots - recorded| <= 1e-6, |roots(CCD amps)"
+          f" - roots(CCSD amps)| = {gap:.2e}", flush=True)
     total = {k: sum(run[k] for run in launches.values()) for k in KERNELS}
 
     # phase 5: CCD timing
@@ -660,6 +960,21 @@ def main():
           f"CCSD (non-canonical), min of 5: kernels "
           f"{min(walls[False]):.3f} ms/iter, twins {min(walls[True]):.3f} "
           "ms/iter", flush=True)
+
+    # phase 10: EOM timing at nP=219
+    kernel_ms[14].update(time_eom_kernels(q, eom_ops[14], 8))
+    for name in ("pair_symmetrize", "pair_symmetrize ijab+Y",
+                 "davidson_residual"):
+        ms, plain = kernel_ms[14][name]
+        print(f"[{card}] nP={q['nP']} {name}: kernel {ms:.4f} ms, twin "
+              f"{plain:.4f} ms per call", flush=True)
+    it_ms = {True: [], False: []}
+    for twin in (True, False, False, True):
+        it_ms[twin].append(eom_ms_per_iter(q["fock"], eom_ops[14],
+                                           results[14][2], device, twin))
+    print(f"[{card}] nP={q['nP']} EOM-CCSD Davidson (k=2, max_dim=16), mean "
+          f"of 2: kernels {np.mean(it_ms[False]):.3f} ms/iter, twins "
+          f"{np.mean(it_ms[True]):.3f} ms/iter", flush=True)
 
     print(json.dumps({"kernels": [
         {"name": name, "route": route, "source": src, "replaces": rep,

@@ -42,3 +42,23 @@ def ovvv_plans_from_numpy(plans, device):
         S=torch.as_tensor(np.array(p.S, dtype=np.int32), device=dev),
         W=as_tensor(np.array(p.W), dev)) for pat, p in plans.items()}
 
+
+def eom_operator_from_numpy(Vd, device):
+    """The JAX package's EOM operator dict → the port's on ``device``:
+    named blocks (``None`` stays ``None``), ``"abcd_t1"``, the bare blocks
+    ``"_bare"``, the ladder plan ``"abcd_ladder"`` (through
+    :func:`block_ladder_from_numpy`) and ``"_ovvv_plans"``."""
+    out = {}
+    for name, b in Vd.items():
+        if b is None:
+            out[name] = None
+        elif name == "abcd_ladder":
+            out[name] = block_ladder_from_numpy(b, device)
+        elif name == "_ovvv_plans":
+            out[name] = ovvv_plans_from_numpy(b, device)
+        elif name == "_bare":
+            out[name] = {k: as_tensor(np.array(v), device)
+                         for k, v in b.items()}
+        else:
+            out[name] = as_tensor(np.array(b), device)
+    return out

@@ -8,6 +8,10 @@
   ovvv blocks of the matrix-free CCSD dressing (Triton).
 * :mod:`.ccsd_tail` — K2′/K3′, the Jacobi + DIIS + energy passes over the
   CCSD carry [T1 | T2] (Triton).
+* :mod:`.pair_sym` — K5, the P(ab,ij) pair symmetrisation ``Y + X + P(X)``
+  of the CCD/CCSD residual and the EOM doubles sigma (Triton).
+* :mod:`.davidson` — K6, the preconditioned Davidson residual pass of the
+  EOM solver (Triton).
 
 A wrapper given a CUDA tensor launches its kernel (or raises); given a CPU
 tensor it runs the twin.  Each launch of a kernel adds one to its entry in
@@ -15,7 +19,8 @@ tensor it runs the twin.  Each launch of a kernel adds one to its entry in
 """
 
 LAUNCHES = {"block_ladder": 0, "ccd_jacobi_diis": 0, "ccd_mix_energy": 0,
-            "ovvv_gather": 0, "ccsd_jacobi_diis": 0, "ccsd_mix_energy": 0}
+            "ovvv_gather": 0, "ccsd_jacobi_diis": 0, "ccsd_mix_energy": 0,
+            "pair_symmetrize": 0, "davidson_residual": 0}
 
 
 def reset_launches():

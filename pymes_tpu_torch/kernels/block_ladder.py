@@ -90,37 +90,44 @@ def block_ladder_twin(groups, inv_bra, T2):
 _ROW_TILE_CHECKED = False
 
 
-def block_ladder_kernel(pack: LadderPack, T2, n_bra, nv):
-    """Launch K1 on ``T2`` (no², nv²), a CUDA f64 tensor; returns the
-    (no², n_bra²) result as the transposed view of the bra-major output."""
+def block_ladder_kernel_cd(pack: LadderPack, Tt, n_bra, nv):
+    """Launch K1 on a cd-major operand ``Tt`` (nv², n), a contiguous CUDA
+    f64 tensor; returns the bra-major output (n_bra², n)."""
     global _ROW_TILE_CHECKED
-    if T2.dtype != torch.float64 or pack.blocks.dtype != torch.float64:
+    if Tt.dtype != torch.float64 or pack.blocks.dtype != torch.float64:
         raise TypeError("the ladder kernel takes float64 amplitudes/blocks")
-    if pack.blocks.device != T2.device:
+    if pack.blocks.device != Tt.device:
         raise ValueError("plan and amplitudes lie on different devices")
-    if T2.dim() != 2 or T2.shape[1] != nv * nv:
-        raise ValueError(f"amplitudes of shape {tuple(T2.shape)} do not "
-                         f"fit a plan with nv={nv}")
+    if Tt.dim() != 2 or Tt.shape[0] != nv * nv or not Tt.is_contiguous():
+        raise ValueError(f"operand of shape {tuple(Tt.shape)} is not a "
+                         f"contiguous cd-major (nv², n) with nv={nv}")
     lib = _build.library()
     if not _ROW_TILE_CHECKED:
         if lib.pymes_block_ladder_row_tile() != ROW_TILE:
             raise RuntimeError("ROW_TILE differs from TM in "
                                "csrc/block_ladder.cu")
         _ROW_TILE_CHECKED = True
-    no2 = T2.shape[0]
-    Tt = T2.t().contiguous()                       # (nv², no²), cd-major
-    outT = torch.zeros((n_bra * n_bra, no2), dtype=T2.dtype,
-                       device=T2.device)
-    with torch.cuda.device(T2.device):
+    n = Tt.shape[1]
+    outT = torch.zeros((n_bra * n_bra, n), dtype=Tt.dtype, device=Tt.device)
+    with torch.cuda.device(Tt.device):
         rc = lib.pymes_block_ladder(
             Tt.data_ptr(), pack.blocks.data_ptr(), pack.perm.data_ptr(),
             pack.bra_of_row.data_ptr(), pack.gtab.data_ptr(),
             pack.work.data_ptr(), int(pack.work.shape[0]), outT.data_ptr(),
-            int(no2), torch.cuda.current_stream(T2.device).cuda_stream)
+            int(n), torch.cuda.current_stream(Tt.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"block_ladder launch failed: cudaError {rc}")
     kernels.LAUNCHES["block_ladder"] += 1
-    return outT.t()
+    return outT
+
+
+def block_ladder_kernel(pack: LadderPack, T2, n_bra, nv):
+    """Launch K1 on ``T2`` (no², nv²), a CUDA f64 tensor; returns the
+    (no², n_bra²) result as the transposed view of the bra-major output."""
+    if T2.dim() != 2 or T2.shape[1] != nv * nv:
+        raise ValueError(f"amplitudes of shape {tuple(T2.shape)} do not "
+                         f"fit a plan with nv={nv}")
+    return block_ladder_kernel_cd(pack, T2.t().contiguous(), n_bra, nv).t()
 
 
 def block_ladder(plan, T2, twin=False):
@@ -130,3 +137,14 @@ def block_ladder(plan, T2, twin=False):
     if kernels.check_device(T2) and not twin:
         return block_ladder_kernel(plan.packed, T2, plan.n_bra, plan.nv)
     return block_ladder_twin(plan.groups, plan.inv_bra, T2)
+
+
+def block_ladder_cd(plan, Tt, twin=False):
+    """R[pq, x] = Σ_cd V[pq, cd] Tt[cd, x] on a cd-major operand (nv², n),
+    e.g. abij amplitudes of any batch flattened to (nv², batch·no²): K1 for
+    a CUDA tensor, with no transpose of the operand, the twin for a CPU
+    tensor or with ``twin=True``.  Returns (n_bra², n)."""
+    if kernels.check_device(Tt) and not twin:
+        return block_ladder_kernel_cd(plan.packed, Tt.contiguous(),
+                                      plan.n_bra, plan.nv)
+    return block_ladder_twin(plan.groups, plan.inv_bra, Tt.t()).t()

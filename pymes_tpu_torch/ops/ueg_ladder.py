@@ -14,6 +14,12 @@ on the host like the ladder plan) with :func:`ovvv_t1_apply_j` running
 kernel K4 (:mod:`pymes_tpu_torch.kernels.ovvv_gather`), and the T1-dressed
 ladder :func:`dressed_ladder_apply_ij` on the all-bra plan.
 
+The EOM sigma works in the ``abij`` layout over a batch of trial vectors:
+:func:`block_ladder_apply` / :func:`ladder_apply` /
+:func:`dressed_ladder_apply` take ``[..., c, d, i, j]`` amplitudes and run
+K1 once on the batch flattened cd-major to (nv², batch·no²);
+:func:`ovvv_t1_apply` gathers a batch of T1 columns through K4 at once.
+
 Not ported: the Ozaki presliced form (``preslice``; the H100 has native f64
 GEMMs), the gather-scan ``UEGLadder`` (no path of the package runs it) and
 the transcorrelated weight classes.
@@ -199,6 +205,31 @@ def block_ladder_apply_ij(plan: BlockLadder, T_ijab, twin=False):
     return R.reshape(no_i, no_j, plan.n_bra, plan.n_bra)
 
 
+def block_ladder_apply(plan: BlockLadder, T_abij, twin=False):
+    """abij-layout variant: ``R_pqij = Σ_cd V_pqcd T_cdij`` with T carried
+    ``[..., c, d, i, j]`` (any leading batch axes).  The batch goes to K1
+    as ONE cd-major operand (nv², batch·no²) — no copy without a batch, one
+    permute copy with it — and the bra-major output comes back as a view
+    ``[..., p, q, i, j]`` of shape (..., n_bra, n_bra, no, no)."""
+    lead = tuple(T_abij.shape[:-4])
+    nv, _, no_i, no_j = T_abij.shape[-4:]
+    nb = int(np.prod(lead, dtype=np.int64))
+    Tt = T_abij.reshape((nb, nv * nv, no_i * no_j)).transpose(0, 1)
+    Tt = Tt.reshape(nv * nv, nb * no_i * no_j)
+    R = _k1.block_ladder_cd(plan, Tt, twin=twin)          # (n_bra², nb·no²)
+    R = R.reshape(plan.n_bra, plan.n_bra, nb, no_i, no_j).permute(
+        2, 0, 1, 3, 4)
+    return R.reshape(lead + (plan.n_bra, plan.n_bra, no_i, no_j))
+
+
+def ladder_apply(plan, T_abij, twin=False):
+    """abij-layout dispatch on the plan type (only :class:`BlockLadder` is
+    ported)."""
+    if not isinstance(plan, BlockLadder):
+        raise TypeError(f"unsupported ladder plan {type(plan).__name__}")
+    return block_ladder_apply(plan, T_abij, twin=twin)
+
+
 def ladder_apply_ij(plan, T_ijab, twin=False):
     """Occupied-leading dispatch on the plan type (only
     :class:`BlockLadder` is ported)."""
@@ -256,6 +287,39 @@ def ovvv_t1_apply_j(plan: OVVVPlan, T1, twin=False):
     K4 on a CUDA tensor (``twin=True`` forces the plain twin), the twin on a
     CPU tensor.  ``T1`` is (nv, no); returns (no, n0, n1, n2)."""
     return _k4.ovvv_gather(plan.S, plan.W, T1, twin=twin)
+
+
+def ovvv_t1_apply(plan: OVVVPlan, T1, twin=False):
+    """``out[..., p,q,r,j] = Σ_s V[p,q,r,s] T1[..., s,j]`` (the JAX
+    package's ``[p,q,r,j]`` layout, any leading batch axes of T1): one K4
+    launch on the batch as (nv, batch·no) columns.  Returns a view of K4's
+    j-leading output, (..., n0, n1, n2, no)."""
+    lead = tuple(T1.shape[:-2])
+    nv, no = T1.shape[-2:]
+    cols = T1.reshape(-1, nv, no).transpose(0, 1).reshape(nv, -1)
+    out = _k4.ovvv_gather(plan.S, plan.W, cols, twin=twin)
+    return out.reshape(lead + (no,) + tuple(plan.S.shape)).movedim(-4, -1)
+
+
+def dressed_ladder_apply(plan, T_ai, T_abij, no, W=None, twin=False):
+    """T1-dressed ladder ``R_abij = Σ_cd V̄_abcd T_cdij`` in the abij layout
+    (any leading batch axes): with the all-bra ``W[..., p,q,i,j]``
+
+    ``R = W_vv − T1·W_ov − W_vo·T1 + T1·W_oo·T1``
+
+    (``pymes_tpu/ops/ueg_ladder.py:643``).  ``W`` may come precomputed (the
+    EOM sigma shares it with the singles); otherwise K1 computes it."""
+    if W is None:
+        W = ladder_apply(plan, T_abij, twin=twin)
+    W_vv = W[..., no:, no:, :, :]
+    W_ov = W[..., :no, no:, :, :]
+    W_vo = W[..., no:, :no, :, :]
+    W_oo = W[..., :no, :no, :, :]
+    R = W_vv
+    R = R - torch.einsum("ak,...kbij->...abij", T_ai, W_ov)
+    R = R - torch.einsum("bl,...alij->...abij", T_ai, W_vo)
+    R = R + torch.einsum("ak,bl,...klij->...abij", T_ai, T_ai, W_oo)
+    return R
 
 
 def dressed_ladder_apply_ij(plan, T_ai, T_ijab, no, W=None, twin=False):

@@ -9,9 +9,10 @@ with the dense-``abcd`` and matrix-free-ladder branches and the
 
 The ring and exchange contractions are plain f64 products (``torch.einsum``,
 cuBLAS DGEMM on the card).  The particle-particle ladder runs through
-kernel K1 and the per-iteration Jacobi + DIIS + energy tail through K2/K3
-(:mod:`pymes_tpu_torch.kernels`) on a CUDA tensor; on a CPU tensor both run
-their plain twins.
+kernel K1, the P(ab,ij) symmetrisation ``R + Ex + P(Ex)`` through K5 and the
+per-iteration Jacobi + DIIS + energy tail through K2/K3
+(:mod:`pymes_tpu_torch.kernels`) on a CUDA tensor; on a CPU tensor all of
+them run their plain twins.
 
 The T1-dressing hooks that CCSD (:mod:`pymes_tpu_torch.solver.ccsd`) feeds
 through the same residual are here too: ``t_T_ai`` (the dressed ladder on
@@ -29,7 +30,7 @@ import numpy as np
 import torch
 
 from pymes_tpu_torch.config import DTYPE, resolve_device
-from pymes_tpu_torch.kernels import ccd_tail
+from pymes_tpu_torch.kernels import ccd_tail, pair_sym
 from pymes_tpu_torch.log import print_logging_info
 from pymes_tpu_torch.mixer import diis
 from pymes_tpu_torch.ops.ueg_ladder import (dressed_ladder_apply_ij,
@@ -103,7 +104,8 @@ def doubles_residual_ij(t_fock_ab, t_fock_ij, t_T_ijab, V: CCDBlocksIJ,
     """CCD/DCD doubles residual R_ijab in the occupied-leading layout (the
     diagrams of ``pymes_tpu.solver.ccd.doubles_residual_ij``).  With
     ``t_T_ai`` (CCSD) the ladder is T1-dressed on the all-bra plan.
-    ``twin`` routes the ladder through K1's plain twin on the card."""
+    ``twin`` routes the ladder (K1) and the symmetrisation (K5) through
+    their plain twins on the card."""
     es = torch.einsum
     t = t_T_ijab
     tilde = 2.0 * t - t.transpose(2, 3)  # 2T - T^(a<->b)
@@ -156,7 +158,7 @@ def doubles_residual_ij(t_fock_ab, t_fock_ij, t_T_ijab, V: CCDBlocksIJ,
 
     if V.ex_half is not None:  # half-symmetric T1 dressing of abij
         Ex = Ex + V.ex_half
-    return R + Ex + Ex.permute(1, 0, 3, 2)  # P(ab,ij)
+    return pair_sym.pair_symmetrize(Ex, R, twin=twin)  # R + Ex + P(Ex)
 
 
 def ccd_energy_ij(t_T_ijab, t_V_ijab, t_V_ijab_x):

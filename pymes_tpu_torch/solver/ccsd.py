@@ -39,6 +39,8 @@ from pymes_tpu_torch.solver import mp2
 
 # blocks the doubles residual needs in dressed form
 DOUBLES_DRESSED = ("abij", "klij", "ijab", "iajb", "iabj", "abcd")
+# additional dressed blocks needed by the EOM-CCSD sigma builds
+EOM_DRESSED = DOUBLES_DRESSED + ("ijka", "ijak", "iabc", "abic", "iajk")
 
 
 def _pattern_key(pattern):

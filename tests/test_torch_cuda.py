@@ -1,7 +1,8 @@
 """The port's hand-written kernels on the card, each against its plain twin.
 
-K1 (CUDA C++ ladder), K2/K3 (Triton CCD tail), K4 (Triton ovvv gather) and
-K2′/K3′ (Triton CCSD tail) run only on an NVIDIA card: these tests carry
+K1 (CUDA C++ ladder), K2/K3 (Triton CCD tail), K4 (Triton ovvv gather),
+K2′/K3′ (Triton CCSD tail), K5 (Triton pair symmetrisation) and K6 (Triton
+Davidson residual) run only on an NVIDIA card: these tests carry
 the ``cuda`` marker and skip where torch sees no card.  The card has no
 jax, so this file imports only the port; run it there without the
 repository's conftest (which sets up jax):
@@ -18,11 +19,11 @@ import torch
 
 from pymes_tpu_torch import kernels
 from pymes_tpu_torch.integral.partition import part_2_body_int
-from pymes_tpu_torch.kernels import ccd_tail, ccsd_tail
+from pymes_tpu_torch.kernels import ccd_tail, ccsd_tail, davidson, pair_sym
 from pymes_tpu_torch.mean_field import hf
 from pymes_tpu_torch.models import ueg
 from pymes_tpu_torch.ops import ueg_ladder
-from pymes_tpu_torch.solver import ccd, ccsd, mp2
+from pymes_tpu_torch.solver import ccd, ccsd, eom_ccsd, mp2
 
 pytestmark = pytest.mark.cuda
 
@@ -136,7 +137,8 @@ def test_solve_on_card_matches_cpu(device):
     n_it = out["cpu"][5]
     hist = (out["cuda"][6][:n_it].cpu() - out["cpu"][6][:n_it]).abs()
     assert float(hist.max()) <= 1e-10
-    ccd_kernels = ("block_ladder", "ccd_jacobi_diis", "ccd_mix_energy")
+    ccd_kernels = ("block_ladder", "ccd_jacobi_diis", "ccd_mix_energy",
+                   "pair_symmetrize")
     assert all(launches[k] == n_it for k in ccd_kernels), launches
     assert all(launches[k] == 0 for k in launches
                if k not in ccd_kernels), launches
@@ -287,3 +289,82 @@ def test_ovvv_gather_refuses_what_it_does_not_take(device):
         ueg_ladder.ovvv_t1_apply_j(plan._replace(S=plan.S.long()), T1)
     with pytest.raises(TypeError):
         ueg_ladder.ovvv_t1_apply_j(plan, T1.float())
+
+
+@pytest.mark.parametrize("with_y", [False, True])
+@pytest.mark.parametrize("batch", [None, 2])
+@pytest.mark.parametrize("layout", ["ijab", "abij"])
+def test_pair_symmetrize_kernel_matches_twin(device, layout, batch, with_y):
+    """K5 on the CCD/CCSD residual layout (no, no, nv, nv) and the EOM
+    sigma layout (nv, nv, no, no), with and without a batch axis and Y."""
+    nv = 12
+    shape = (NO, NO, nv, nv) if layout == "ijab" else (nv, nv, NO, NO)
+    if batch is not None:
+        shape = (batch,) + shape
+    rng = np.random.default_rng(len(shape) + 2 * with_y)
+    X = _randn(rng, shape, device)
+    Y = _randn(rng, shape, device) if with_y else None
+    before = kernels.LAUNCHES["pair_symmetrize"]
+    got = pair_sym.pair_symmetrize(X, Y)
+    want = pair_sym.pair_symmetrize(X, Y, twin=True)
+    assert kernels.LAUNCHES["pair_symmetrize"] == before + 1
+    assert got.shape == want.shape
+    _close(got, want)
+
+
+@pytest.mark.parametrize("m", [16, 5])
+@pytest.mark.parametrize("k", [1, 2])
+def test_davidson_residual_kernel_matches_twin(device, k, m):
+    """K6 with m < max_dim valid rows (zero past them) and k = 1, 2, with
+    denominators inside the clamp."""
+    rng = np.random.default_rng(10 * k + m)
+    max_dim, N = 16, 5000
+    U = torch.zeros((max_dim, N), dtype=torch.float64, device=device)
+    W = torch.zeros_like(U)
+    U[:m], W[:m] = _randn(rng, (m, N), device), _randn(rng, (m, N), device)
+    v = torch.zeros((max_dim, k), dtype=torch.float64, device=device)
+    v[:m] = _randn(rng, (m, k), device)
+    e = _randn(rng, (k,), device) + 2.0
+    diag = _randn(rng, (N,), device) + 2.0
+    diag[:3] = e[0] + torch.tensor([0.0, 3e-6, -4e-6], dtype=torch.float64,
+                                   device=device)
+    before = kernels.LAUNCHES["davidson_residual"]
+    got = davidson.davidson_residual(U, W, v, e, diag, m)
+    want = davidson.davidson_residual(U, W, v, e, diag, m, twin=True)
+    assert kernels.LAUNCHES["davidson_residual"] == before + 1
+    assert got.shape == (k, N)
+    # the clamped columns are ~1e5 larger: each part to its own scale
+    _close(got[:, :3], want[:, :3])
+    _close(got[:, 3:], want[:, 3:])
+
+
+def test_eom_on_card_matches_cpu(device):
+    """EOM-CCSD on the matrix-free no-ovvv operator, nP=19 (rs=1.0,
+    cutoff 2, MP2 amplitudes): card (K1, K4, K5, K6) vs CPU (twins), the
+    same roots and iteration count."""
+    u = ueg.UEG(14, 7, 7, 1.0)
+    u.init_single_basis(2)
+    V = torch.as_tensor(u.eval_2b_integrals())
+    fock = hf.construct_hf_matrix(
+        NO, torch.diag(torch.as_tensor(u.kinetic_energies())), V)
+    out = {}
+    for dev in (device, torch.device("cpu")):
+        d = {k: v.to(dev) for k, v in part_2_body_int(NO, V).items()
+             if k not in ("abcd", "abci", "iabc", "aibc", "abic")}
+        d["abcd"] = None
+        d["abcd_ladder"] = ueg_ladder.build_block_ladder(u, dev, bra="all")
+        d["_ovvv_plans"] = ueg_ladder.build_ovvv_plans(u, dev)
+        f = fock.to(dev)
+        eps = torch.diagonal(f)
+        _, T2 = mp2.solve(eps[:NO], eps[NO:], d["ijab"], d["abij"], 0.0)
+        kernels.reset_launches()
+        solver = eom_ccsd.EOM_CCSD(NO, dev, n_excit=2)
+        out[dev.type] = (np.sort(solver.solve(f, d, T2)),
+                         solver.n_iterations)
+        if dev.type == "cuda":
+            launches = dict(kernels.LAUNCHES)
+    assert out["cuda"][1] == out["cpu"][1]
+    assert np.abs(out["cuda"][0] - out["cpu"][0]).max() <= 1e-10
+    for k in ("block_ladder", "ovvv_gather", "pair_symmetrize",
+              "davidson_residual"):
+        assert launches[k] > 0, launches
