@@ -19,12 +19,20 @@ Drives the port's main paths through its own kernels:
   tracking from unit-vector guesses: nP=57 and nP=219 on the CCD
   amplitudes of phase 3/4, nP=219 on the canonical CCSD amplitudes of
   phase 7, each against the JAX package's roots and iteration count; and
-  LiH/3-21G on the dressed CCSD operator against its oracle.
+  LiH/3-21G on the dressed CCSD operator against its oracle;
+* FEAST-EOM-CCSD — the nP=57 window of ``probe_r5_feast57b`` (16 nodes ×
+  4 trials as 64 lanes of f64 GMRES(120)) on the no-ovvv operator and the
+  CCD amplitudes, against the JAX Davidson level; LiH/3-21G against its
+  oracle;
+* RT-EOM-CCSD — nP=123 (cutoff 10): the port's Davidson, then 3 CIF steps
+  (32 nodes as lanes of GMRES(20)) seeded with its Ritz vector, each
+  step's phase energy against the root.
 
 Kernels: K1 ``block_ladder`` (CUDA C++, built with nvcc for sm_90a at first
 use); K2 ``ccd_jacobi_diis``, K3 ``ccd_mix_energy``, K4 ``ovvv_gather``,
-K2′ ``ccsd_jacobi_diis``, K3′ ``ccsd_mix_energy``, K5 ``pair_symmetrize``
-and K6 ``davidson_residual`` (Triton).
+K2′ ``ccsd_jacobi_diis``, K3′ ``ccsd_mix_energy``, K5 ``pair_symmetrize``,
+K6 ``davidson_residual``, K7 ``arnoldi_cgs2`` and K8 ``shifted_precond``
+(Triton).
 
 Phases: (0) card and versions; (1) kernel builds; (2) each kernel against
 its plain twin on the card at the main paths' shapes (K2′/K3′ at nP=219
@@ -38,8 +46,15 @@ counts are reset just before and read just after, and each EOM solve's
 launches must match its count of sigma calls exactly; (5, 8, 10)
 timing: kernel vs twin per call, ms/iteration of fixed-61-iteration CCD and
 CCSD solves (min of 5) and of 8 Davidson iterations at nP=219, through the
-kernels and through the twins.  Prints a JSON line of the kernels, the
-nvidia-smi line, and as the last line ``{"ok": true, "device": {...}}``.
+kernels and through the twins; (11) K7/K8 against their twins and per
+call at the FEAST nP=57 and RT nP=123 lane shapes; (12) FEAST nP=57,
+(13) RT nP=123 (its CCD and Davidson run before the counted window) and
+(14) FEAST LiH, each window's launches held exactly to what its solves
+did; then ms per Arnoldi step of one GMRES cycle over all lanes (kernels
+and twins) and the walls per FEAST iteration and RT step.  Prints a JSON
+line of the kernels (launches, errors, times, bounds at the H100's HBM
+and FP64 peaks), the nvidia-smi line, and as the last line
+``{"ok": true, "device": {...}}``.
 Any failed check raises and the script exits nonzero; without CUDA it
 exits nonzero at once.
 
@@ -109,6 +124,10 @@ KERNELS = {
                         "pymes_tpu/solver/ccd.py:349"),
     "davidson_residual": ("triton", "pymes_tpu_torch/kernels/davidson.py",
                           "pymes_tpu/solver/eom_ccsd.py:697"),
+    "arnoldi_cgs2": ("triton", "pymes_tpu_torch/kernels/arnoldi.py",
+                     "pymes_tpu/ops/gmres.py:87"),
+    "shifted_precond": ("triton", "pymes_tpu_torch/kernels/shifted.py",
+                        "pymes_tpu/solver/feast_eom_ccsd.py:67"),
 }
 CCD_KERNELS = ("block_ladder", "ccd_jacobi_diis", "ccd_mix_energy",
                "pair_symmetrize")
@@ -118,6 +137,29 @@ MF_CCSD_KERNELS = ("block_ladder", "ovvv_gather", "ccsd_jacobi_diis",
                    "ccsd_mix_energy", "pair_symmetrize")
 EOM_KERNELS = ("block_ladder", "ovvv_gather", "pair_symmetrize",
                "davidson_residual")
+KRYLOV_KERNELS = ("block_ladder", "ovvv_gather", "pair_symmetrize",
+                  "arnoldi_cgs2", "shifted_precond")
+# FEAST at nP=57: the window of benchmarks/probe_r5_feast57b.py (e_c at the
+# 3-fold level of EOM_JAX[5], e_r excluding 5.2652816 and 5.2789029), f64
+# GMRES(120) x 6 on all 16 nodes x 4 trials as lanes.  GMRES stops on the
+# preconditioned residual M(b - Ax), M = 1/(z - diag + 0.01): at
+# ls_conv_tol 1e-8 (the probe's) the honest residual |b - (z - H)x|/|b|
+# reached 8.9e-7 on an H100, so 1e-10 holds it <= 1e-7
+FEAST57 = dict(e_c=5.2429519002247, e_r=0.018, n_trial=4, n_quad=16,
+               ls_conv_tol=1e-10, seed=7, n_excit=4, max_iter=4, tol=1e-10)
+FEAST57_GMRES = (120, 6)                 # ls_restart, ls_max_iter
+# RT at nP=123 (cutoff 10): benchmarks/probe_r4_rt123.py's contour, seeded
+# with the port's Davidson Ritz vector; the recorded root is
+# benchmarks/RESULTS.md:555
+RT123 = dict(cutoff=10, n_quad=32, dt=0.1, e_r=0.5, steps=3, ls_restart=20,
+             ls_conv_tol=1e-10)
+RT_RECORDED_NP123 = 5.24025234
+# FEAST on LiH/3-21G (tests/test_feast_rt.py:183-201), against the oracle
+LIH_FEAST = dict(e_c=0.12, e_r=0.025, n_trial=2, max_iter=60, tol=1e-11,
+                 seed=7)
+# H100 SXM peaks (NVIDIA's data sheet): HBM3 bandwidth and FP64 tensor rate
+HBM_BYTES_S = 3.35e12
+FP64_FLOPS_S = 67e12
 
 
 def check(cond, msg):
@@ -811,6 +853,411 @@ def solve_fixed(p, twin, max_iter=60):
     return (time.perf_counter() - t0) * 1e3 / out[5], out[5]
 
 
+def bound(nbytes, flops):
+    """(bound_ms, bound_by): the least time of a call that moves ``nbytes``
+    (each input read once, each output written once) and does ``flops``
+    f64 operations, at the H100's HBM and FP64 tensor peaks."""
+    t_b, t_f = nbytes / HBM_BYTES_S, flops / FP64_FLOPS_S
+    return max(t_b, t_f) * 1e3, "bytes" if t_b >= t_f else "operations"
+
+
+def kernel_bounds(p14, q, krylov):
+    """Bytes and flops of each kernel's timed call (the shapes of the
+    ``ms`` column of the JSON line), from this run's inputs: K1-K6 at
+    nP=219, K7/K8 at the FEAST nP=57 lane shapes of ``krylov``."""
+    nv = p14["nv"]
+    n = NO * NO * nv * nv                      # one T2
+    nc = nv * NO + n                            # the CCSD carry [T1 | T2]
+    plan = p14["blocks"].ladder
+    blocks = sum(g.blocks.numel() for g in plan.groups)
+    idx = sum(g.perm_ket.numel() + g.bra_of_row.numel() for g in plan.groups)
+    macs = sum(g.blocks.numel() for g in plan.groups) * NO * NO
+    plans = list(q["mf_dict"]["_ovvv_plans"].values())
+    g_bytes = np.mean([p.S.numel() * 4 + p.W.numel() * 8 + nv * NO * 8
+                       + NO * p.S.numel() * 8 for p in plans])
+    g_flops = np.mean([NO * p.S.numel() for p in plans])
+    N = nv * NO + n
+    La, R1, m, n2 = krylov["La"], krylov["R1"], krylov["m"], krylov["n"]
+    return {
+        # T read, R written, the plan's blocks and index arrays read once
+        "block_ladder": bound(8 * (2 * n + blocks) + 4 * idx, 2 * macs),
+        # R, T and the 5 other valid error rows read; 2 ring rows written
+        "ccd_jacobi_diis": bound(8 * 9 * n, 17 * n),
+        # 6 ring rows, V and Vx read; T written
+        "ccd_mix_energy": bound(8 * 9 * n, 16 * n),
+        "ovvv_gather": bound(g_bytes, g_flops),
+        "ccsd_jacobi_diis": bound(8 * 9 * nc, 17 * nc),
+        "ccsd_mix_energy": bound(8 * 9 * nc, 16 * nc),
+        # EOM sigma operand (2, nv, nv, no, no): X read, out written
+        "pair_symmetrize": bound(8 * 2 * 2 * n, 2 * n),
+        # 16 valid rows of U and W, diag read; k = 2 rows written
+        "davidson_residual": bound(8 * (2 * 16 * N + N + 2 * N),
+                                   2 * N * (4 * 16 + 4)),
+        # the m valid basis rows and w read, row m written (CGS2 itself
+        # must read V three times: three times this floor)
+        "arnoldi_cgs2": bound(8 * (La * m * n2 + 2 * La * n2),
+                              8 * La * m * n2),
+        # H (2La, N), x (La, 2N), diag read; the pair (La, 2N) written
+        "shifted_precond": bound(8 * (3 * La * n2 + n2 // 2), 20 * La * n2),
+    }
+
+
+def counted(cls, *args, **kw):
+    """An instance of the solver class ``cls`` that counts in ``n_sigma``
+    the calls of the ``_batched_sigma`` hook, which every sigma goes
+    through."""
+    class Counted(cls):
+        n_sigma = 0
+
+        def _batched_sigma(self, *a):
+            self.n_sigma += 1
+            return super()._batched_sigma(*a)
+
+    return Counted(*args, **kw)
+
+
+def add_stats(total, st):
+    for k in ("chunks", "calls", "cycle_ends", "projections"):
+        total[k] = total.get(k, 0) + st[k]
+    total["steps"] = total.get("steps", []) + list(st["steps"])
+    return total
+
+
+def check_krylov_launches(label, before, n_sigma, st, ladder):
+    """The launches of a FEAST/RT window against what its solves did.
+    Per chunk of lanes the lane-batched GMRES makes one K8 pass for Mb,
+    then per Arnoldi step one sigma, one K8 (apply) and one K7 (CGS2), per
+    cycle end two K7 combines (x and r), and the honest residual makes one
+    sigma and one K8 (residual mode); each FEAST iteration's projected H̄
+    is one more sigma without K8.  So K8 = sigma calls − projections +
+    chunks, K7 = Arnoldi steps + 2·cycle ends, K5 = sigma calls, and on
+    the matrix-free operator K1 = sigma calls + 1 (H̄'s W_laji, built once
+    per operator) and K4 = 3·sigma calls."""
+    from pymes_tpu_torch import kernels
+
+    got = {k: kernels.LAUNCHES[k] - before[k] for k in KRYLOV_KERNELS}
+    want = {"block_ladder": n_sigma + 1 if ladder else 0,
+            "ovvv_gather": 3 * n_sigma if ladder else 0,
+            "pair_symmetrize": n_sigma,
+            "arnoldi_cgs2": st["calls"] + 2 * st["cycle_ends"],
+            "shifted_precond": n_sigma - st["projections"] + st["chunks"]}
+    check(st["calls"] > 0 and got == want,
+          f"{label}: launches {got}, expected {want} for {n_sigma} sigma "
+          f"calls and {st}")
+
+
+def krylov_inputs(La, R1, n, N1, seed, device):
+    """Seeded K7/K8 operands at one lane shape: a Krylov basis V (La, R1,
+    n) of random rows (a torch generator on the card: 15 GB at nP=57), w
+    and x pairs (La, n), sigma parts H1 (2La, N1), H2 (2La, n/2 − N1),
+    shifts near the window and a diagonal."""
+    import torch
+
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    def r(*shape):
+        return torch.randn(shape, generator=g, dtype=torch.float64,
+                           device=device)
+
+    N = n // 2
+    V = r(La, R1, n)
+    V /= float(np.sqrt(n))
+    return {"V": V, "w": r(La, n), "X": r(La, n), "B": r(La, n),
+            "H1": r(2 * La, N1), "H2": r(2 * La, N - N1),
+            "zr": r(La) * 0.01 + 5.24, "zi": r(La).abs() * 0.01 + 1e-3,
+            "diag": r(N) + 5.0, "C": r(La, R1),
+            "lanes": torch.arange(La, device=device)}
+
+
+def compare_krylov_kernels(x, label, ms):
+    """K7 (projection at each m of ``ms`` for all lanes; combine at m + 1
+    with and without x0) and K8 (FEAST, RT and residual modes,
+    preconditioner) against their twins on ``x``; the twin of K7 reads
+    the rows below m that the kernel left untouched, and writes row m
+    again.  Returns the max abs errors."""
+    import torch
+
+    from pymes_tpu_torch.kernels import arnoldi, shifted
+
+    V, lanes = x["V"], x["lanes"]
+    e7 = 0.0
+    for m in ms:
+        mt = torch.full_like(lanes, m)
+        # a fresh w per m: the row that an earlier m wrote lies in the span
+        # of w, and projecting w on it again leaves only rounding noise
+        g = torch.Generator(device=V.device).manual_seed(1000 + m)
+        w = torch.randn(x["w"].shape, generator=g, dtype=V.dtype,
+                        device=V.device)
+        hk = arnoldi.arnoldi_cgs2(V, w.clone(), lanes, mt)
+        row_k = V[lanes, mt].clone()
+        ht = arnoldi.arnoldi_cgs2(V, w, lanes, mt, twin=True)
+        # the projections h[:m] and the norm h[m] each at their own scale
+        e7 = max(e7, rel_err(hk[:, :m], ht[:, :m], f"K7 h, m={m}, {label}"),
+                 rel_err(hk[:, m], ht[:, m], f"K7 norm, m={m}, {label}"),
+                 rel_err(row_k, V[lanes, mt], f"K7 row m={m}, {label}"))
+        m1 = torch.full_like(lanes, min(m + 1, V.shape[1]))
+        for x0 in (None, x["X"]):
+            e7 = max(e7, rel_err(
+                arnoldi.krylov_combine(V, x["C"], m1, lanes, x0=x0),
+                arnoldi.krylov_combine(V, x["C"], m1, lanes, x0=x0,
+                                       twin=True),
+                f"K7 combine m={m + 1}, x0={x0 is not None}, {label}"))
+    e8 = 0.0
+    args = (x["H1"], x["H2"], x["X"], x["zr"], x["zi"], x["diag"])
+    for mode, rt in (("apply", False), ("apply", True), ("residual", False),
+                     ("residual", True), ("precond", False)):
+        kw = dict(dt=0.1, rt=rt, mode=mode, B=x["B"])
+        got = shifted.shifted_precond(*args, **kw)
+        want = shifted.shifted_precond(*args, twin=True, **kw)
+        if mode != "residual":
+            got, want = (got,), (want,)
+        for a, b in zip(got, want):
+            e8 = max(e8, rel_err(a, b, f"K8 {mode} rt={rt}, {label}"))
+    print(f"kernel vs twin, {label}: arnoldi_cgs2 max_abs_err={e7:.3e}, "
+          f"shifted_precond max_abs_err={e8:.3e}", flush=True)
+    return {"arnoldi_cgs2": e7, "shifted_precond": e8}
+
+
+def time_krylov_kernels(x, m):
+    """ms per call of K7 (all lanes at m valid rows; and the combine at
+    m rows, beside ``torch.baddbmm``, the one PyTorch call of the same
+    function) and K8 (FEAST apply) and of their twins."""
+    import torch
+
+    from pymes_tpu_torch.kernels import arnoldi, shifted
+
+    V, lanes = x["V"], x["lanes"]
+    mt = torch.full_like(lanes, m)
+    w = x["w"].clone()
+    args = (x["H1"], x["H2"], x["X"], x["zr"], x["zi"], x["diag"])
+    calls = {
+        "arnoldi_cgs2": lambda tw: arnoldi.arnoldi_cgs2(V, w, lanes, mt,
+                                                        twin=tw),
+        "krylov_combine": lambda tw: arnoldi.krylov_combine(
+            V, x["C"], mt, lanes, x0=x["X"], twin=tw),
+        "shifted_precond": lambda tw: shifted.shifted_precond(*args,
+                                                              twin=tw),
+    }
+    out = {}
+    for name, fn in calls.items():
+        t = [cuda_ms(lambda: fn(tw), n=10) for tw in (True, False, False,
+                                                      True)]
+        out[name] = ((t[1] + t[2]) / 2, (t[0] + t[3]) / 2)
+    Vm = V[:, :m]
+    out["krylov_combine library"] = cuda_ms(
+        lambda: torch.baddbmm(x["X"][:, None], x["C"][:, None, :m], Vm),
+        n=10)
+    return out
+
+
+def krylov_phase(label, shape, device):
+    """Phase 11 at one lane shape (La lanes, R1 basis rows, pair length n,
+    singles length N1, the valid-row counts ms): compare and time K7/K8;
+    returns (max errors, per-call times)."""
+    import torch
+
+    La, R1, n, N1, ms = shape
+    t0 = time.time()
+    x = krylov_inputs(La, R1, n, N1, 11 + La, device)
+    errs = compare_krylov_kernels(x, label, ms)
+    times = time_krylov_kernels(x, ms[len(ms) // 2])
+    del x
+    torch.cuda.empty_cache()
+    print(f"K7/K8 at {label} ({La} lanes, {R1} basis rows, 2N={n}): "
+          f"{time.time() - t0:.2f} s", flush=True)
+    return errs, times
+
+
+def feast_run(fock, V, T2, device, cfg, gmres_cfg, no=NO):
+    """FEAST through :func:`counted`; returns the solver and its roots."""
+    from pymes_tpu_torch.solver import feast_eom_ccsd
+
+    s = counted(feast_eom_ccsd.FEAST_EOM_CCSD, no, device, **cfg)
+    s.ls_restart, s.ls_max_iter = gmres_cfg
+    roots = np.sort_complex(np.asarray(s.solve(fock, V, T2)))
+    return s, roots
+
+
+def feast57(p5, V, T2, device, out):
+    """Phase 12: the nP=57 window on the no-ovvv operator and the CCD
+    amplitudes; every returned root inside the window must lie within
+    1e-7 of the JAX Davidson level EOM_JAX[5], and the largest honest
+    residual must be ≤ 1e-7."""
+    from pymes_tpu_torch import kernels
+
+    t0 = time.time()
+    before = dict(kernels.LAUNCHES)
+    s, roots = feast_run(p5["fock"], V, T2, device, FEAST57, FEAST57_GMRES)
+    st = s.ls_stats
+    check_krylov_launches("FEAST nP=57", before, s.n_sigma, st, ladder=True)
+    e_c, e_r = FEAST57["e_c"], FEAST57["e_r"]
+    inside = roots[np.abs(roots.real - e_c) < e_r]
+    outside = roots[np.abs(roots.real - e_c) >= e_r]
+    level = EOM_JAX[5][0][0]
+    dev = float(np.abs(inside - level).max()) if len(inside) else np.inf
+    res = float(np.max(s.last_ls_residuals))
+    check(len(inside) >= 1 and dev <= 1e-7,
+          f"FEAST nP=57: roots {roots} vs the JAX level {level}")
+    check(res <= 1e-7, f"FEAST nP=57: largest honest ls residual {res:.3e}")
+    steps = np.concatenate([np.atleast_1d(a) for a in st["steps"]])
+    print(f"FEAST nP=57: {len(inside)} roots in the window, max |root - "
+          f"JAX level| = {dev:.2e}, outside the window {outside}, "
+          f"{s.n_iterations} FEAST iterations, largest honest ls residual "
+          f"{res:.2e}, Arnoldi steps per lane and FEAST iteration: mean "
+          f"{steps.mean():.1f}, max {steps.max()}, walls per iteration "
+          f"{[round(w, 3) for w in s.iter_walls]} s, {time.time() - t0:.2f} "
+          "s", flush=True)
+    out.update(solver=s, roots=roots)
+
+
+def rt123_seed(device):
+    """Phase 13 set-up, outside the counted window: nP=123 CCD, its
+    no-ovvv operator and the port's Davidson (n_excit=2)."""
+    from pymes_tpu_torch.solver import ccd
+
+    t0 = time.time()
+    p = setup(RT123["cutoff"], device)
+    res = ccd.CCD(NO, device).solve(p["fock"], p["blocks"], level_shift=-1.0,
+                                    max_iter=60)
+    V = eom_operator(p, device)
+    solver, roots = eom_solve(p["fock"], V, res["t2 amp"], device, eps=1e-10)
+    err = abs(roots[0] - RT_RECORDED_NP123)
+    check(err <= 1e-6, f"Davidson nP={p['nP']}: root {roots[0]} vs recorded "
+          f"{RT_RECORDED_NP123}")
+    print(f"Davidson nP={p['nP']}: roots {roots[0]:.13f} {roots[1]:.13f} in "
+          f"{solver.n_iterations} iterations (recorded {RT_RECORDED_NP123}, "
+          f"|diff|={err:.2e}), CCD E={res['ccd e']:.10f}, "
+          f"{time.time() - t0:.2f} s", flush=True)
+    u = (solver.u_singles[0].cpu().numpy(), solver.u_doubles[0].cpu().numpy())
+    return p, V, res["t2 amp"], float(roots[0]), u
+
+
+def rt123(p, V, T2, root, u0, device, out):
+    """Phase 13: three CIF steps seeded with the Ritz vector; each step's
+    phase energy angle(c_t/c_{t−1})/dt within 1e-7 of the root and unit
+    norm to 1e-10."""
+    from pymes_tpu_torch import kernels
+    from pymes_tpu_torch.solver import rt_eom_ccsd
+
+    dt = RT123["dt"]
+    before = dict(kernels.LAUNCHES)
+    s = counted(rt_eom_ccsd.RT_EOM_CCSD, NO, device, e_c=root,
+                e_r=RT123["e_r"], n_quad=RT123["n_quad"],
+                ls_conv_tol=RT123["ls_conv_tol"])
+    s.ls_restart = RT123["ls_restart"]
+    q = (u0[0].astype(complex), u0[1].astype(complex))
+    c_prev, st, walls = 1.0, {}, []
+    for k in range(RT123["steps"]):
+        t0 = time.time()
+        q = s.solve(p["fock"], V, T2, dt=dt, u_singles=q[0], u_doubles=q[1])
+        walls.append(time.time() - t0)
+        add_stats(st, s.ls_stats)
+        norm = float(np.vdot(q[0], q[0]).real + np.vdot(q[1], q[1]).real)
+        c_t = (np.tensordot(u0[0], q[0], axes=2)
+               + np.tensordot(u0[1], q[1], axes=4))
+        e_step = float(np.angle(c_t / c_prev) / dt)
+        res = float(np.max(s.last_ls_residuals))
+        check(abs(norm - 1.0) <= 1e-10, f"RT step {k}: norm {norm}")
+        check(abs(e_step - root) <= 1e-7,
+              f"RT step {k}: phase energy {e_step} vs root {root}")
+        steps = np.concatenate([np.atleast_1d(a) for a in s.ls_stats["steps"]])
+        print(f"RT nP={p['nP']} step {k}: phase energy {e_step:.13f}, "
+              f"|E - root|={abs(e_step - root):.2e}, |norm - 1|="
+              f"{abs(norm - 1):.1e}, |c_t|={abs(c_t):.12f}, largest honest "
+              f"ls residual {res:.2e}, Arnoldi steps per lane mean "
+              f"{steps.mean():.1f} max {steps.max()}, {walls[-1]:.2f} s",
+              flush=True)
+        c_prev = c_t
+    check_krylov_launches(f"RT nP={p['nP']}", before, s.n_sigma, st,
+                          ladder=True)
+    out.update(solver=s, walls=walls, q=q)
+
+
+def lih_feast(lih, device, out):
+    """Phase 14: FEAST on LiH/3-21G, a root within 1e-6 of the oracle."""
+    from pymes_tpu_torch import kernels
+
+    t0 = time.time()
+    fd, Vd, t2 = lih
+    before = dict(kernels.LAUNCHES)
+    s, roots = feast_run(fd, Vd, t2, device, LIH_FEAST, (120, 60),
+                         no=t2.shape[-1])
+    check_krylov_launches("FEAST LiH", before, s.n_sigma, s.ls_stats,
+                          ladder=False)
+    err = float(np.min(np.abs(roots.real - LIH_EOM_ORACLE[0])))
+    check(err <= 1e-6, f"FEAST LiH: roots {roots} vs {LIH_EOM_ORACLE[0]}")
+    print(f"FEAST LiH/3-21G: roots {roots}, |root - oracle|={err:.2e}, "
+          f"{s.n_iterations} iterations, {time.time() - t0:.2f} s",
+          flush=True)
+    out.update(solver=s)
+
+
+def arnoldi_step_ms(s, B, zr, zi, restart, rt=False, dt=0.0):
+    """ms per Arnoldi step (sigma + K8 + K7 + host) of one GMRES(restart)
+    cycle over all lanes of ``B`` on the operator of solver ``s``: no
+    early exit (tol 0), so every lane takes ``restart`` steps; the wall
+    includes the Mb pass and the cycle end, amortised over the steps.
+    Kernels and twins in turns (twin, kernel, kernel, twin); also the
+    sigma and K8 alone per call."""
+    import torch
+
+    from pymes_tpu_torch.ops import gmres
+    from pymes_tpu_torch.solver.feast_eom_ccsd import _NodeOps
+
+    out = {True: [], False: []}
+    for twin in (True, False, False, True):
+        s.twin = twin
+        node = _NodeOps(s, s._op, zr, zi, rt, dt)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        gmres.gmres_lanes(node.apply, B, node.precond, tol=0.0,
+                          restart=restart, max_outer=1, twin=twin)
+        torch.cuda.synchronize()
+        out[twin].append((time.perf_counter() - t0) * 1e3 / restart)
+    s.twin = False
+    node = _NodeOps(s, s._op, zr, zi, rt, dt)
+    lanes = torch.arange(B.shape[0], device=B.device)
+    H1, H2 = node.sigma(B)
+    parts = {"sigma": cuda_ms(lambda: node.sigma(B), n=5),
+             "K8": cuda_ms(lambda: node._k8(H1, H2, B, lanes, "apply"),
+                           n=5)}
+    return np.mean(out[False]), np.mean(out[True]), parts
+
+
+def feast57_lanes(s, device, seed=3):
+    """The lanes of one FEAST nP=57 iteration: 16 nodes x 4 orthonormal
+    seeded trials, as (B, zr, zi)."""
+    import torch
+
+    nv = s._op[2].shape[0]
+    N = nv * NO + nv * nv * NO * NO
+    m, nq = FEAST57["n_trial"], FEAST57["n_quad"]
+    x, _ = np.polynomial.legendre.leggauss(nq)
+    z = FEAST57["e_c"] + FEAST57["e_r"] * np.exp(-1j * np.pi / 2 * (x - 1))
+    trials = np.linalg.qr(np.random.default_rng(seed).standard_normal(
+        (N, m)))[0].T
+    B = torch.zeros((nq * m, 2 * N), dtype=torch.float64, device=device)
+    B[:, :N] = torch.as_tensor(np.tile(trials, (nq, 1)), device=device)
+    return (B, torch.as_tensor(np.repeat(z.real, m), device=device),
+            torch.as_tensor(np.repeat(z.imag, m), device=device))
+
+
+def rt123_lanes(s, u0, root, device):
+    """The 32 node lanes of one RT nP=123 step from the Ritz vector."""
+    import torch
+
+    nq, dt, e_r = RT123["n_quad"], RT123["dt"], RT123["e_r"]
+    x, _ = np.polynomial.legendre.leggauss(nq)
+    z = (root * 1j + e_r * np.exp(-1j * np.pi * x)) * dt
+    b = np.concatenate([u0[0].ravel(), u0[1].ravel()])
+    ph = np.exp(z)
+    B = torch.as_tensor(np.concatenate([np.outer(ph.real, b),
+                                        np.outer(ph.imag, b)], 1),
+                        device=device)
+    return (B, torch.as_tensor(z.real, device=device),
+            torch.as_tensor(z.imag, device=device))
+
+
 def main():
     import torch
 
@@ -860,8 +1307,6 @@ def main():
     compare.append(compare_eom_kernels(q, eom_ops[14], 7))
     print(f"EOM operators + first K5/K6 launches (Triton JIT included): "
           f"{time.time() - t0:.2f} s", flush=True)
-    max_err = {k: max(c[k] for c in compare if k in c) for k in KERNELS}
-
     # phases 3-4: the CCD path, converged
     results = {}
 
@@ -926,7 +1371,6 @@ def main():
           f"differ by {gap:.3e}")
     print(f"EOM nP={q['nP']}: |roots - recorded| <= 1e-6, |roots(CCD amps)"
           f" - roots(CCSD amps)| = {gap:.2e}", flush=True)
-    total = {k: sum(run[k] for run in launches.values()) for k in KERNELS}
 
     # phase 5: CCD timing
     kernel_ms = {}
@@ -976,10 +1420,82 @@ def main():
           f"of 2: kernels {np.mean(it_ms[False]):.3f} ms/iter, twins "
           f"{np.mean(it_ms[True]):.3f} ms/iter", flush=True)
 
+    # phase 13 set-up (outside every counted window): nP=123 CCD, its
+    # no-ovvv operator and the port's Davidson, the RT seed
+    p123, V123, T123, root123, u123 = rt123_seed(device)
+    # phase 11: K7/K8 vs their twins and per call, at the lane shapes of
+    # the FEAST nP=57 (64 lanes of GMRES(120)) and RT nP=123 (32 lanes of
+    # GMRES(20)) solves
+    krylov_shapes = {
+        f"FEAST nP={problems[5]['nP']}": (
+            FEAST57["n_quad"] * FEAST57["n_trial"], FEAST57_GMRES[0] + 1,
+            2 * (problems[5]["nv"] * NO + problems[5]["nv"] ** 2 * NO * NO),
+            problems[5]["nv"] * NO, (1, 60, FEAST57_GMRES[0])),
+        f"RT nP={p123['nP']}": (
+            RT123["n_quad"], RT123["ls_restart"] + 1,
+            2 * (p123["nv"] * NO + p123["nv"] ** 2 * NO * NO),
+            p123["nv"] * NO, (1, 10, RT123["ls_restart"]))}
+    krylov_ms = {}
+    for label, shape in krylov_shapes.items():
+        errs, krylov_ms[label] = krylov_phase(label, shape, device)
+        compare.append(errs)
+        for name, t in krylov_ms[label].items():
+            if name.endswith("library"):
+                print(f"[{card}] {label} torch.baddbmm (the combine's "
+                      f"library call): {t:.4f} ms per call", flush=True)
+            else:
+                print(f"[{card}] {label} {name}: kernel {t[0]:.4f} ms, "
+                      f"twin {t[1]:.4f} ms per call", flush=True)
+    max_err = {k: max(c[k] for c in compare if k in c) for k in KERNELS}
+
+    # phase 12: FEAST nP=57; phase 13: RT nP=123; phase 14: FEAST LiH
+    runs = {"FEAST": {}, "RT": {}, "LiH": {}}
+    launches["FEAST nP=57"] = path_launches(
+        "FEAST nP=57", lambda: feast57(problems[5], eom_ops[5],
+                                       results[5][2], device, runs["FEAST"]),
+        KRYLOV_KERNELS)
+    launches["RT nP=123"] = path_launches(
+        "RT nP=123", lambda: rt123(p123, V123, T123, root123, u123, device,
+                                   runs["RT"]), KRYLOV_KERNELS)
+    launches["FEAST LiH"] = path_launches(
+        "FEAST LiH", lambda: lih_feast(lih, device, runs["LiH"]),
+        ("arnoldi_cgs2", "shifted_precond"))
+    total = {k: sum(run.get(k, 0) for run in launches.values())
+             for k in KERNELS}
+
+    # timing: ms per Arnoldi step of one GMRES cycle over all lanes, wall
+    # per FEAST iteration and per RT step
+    fs, rs = runs["FEAST"]["solver"], runs["RT"]["solver"]
+    for label, s_, lanes_, restart, rt, dt in (
+            ("FEAST nP=57 x 64 lanes", fs, feast57_lanes(fs, device),
+             FEAST57_GMRES[0], False, 0.0),
+            (f"RT nP={p123['nP']} x 32 lanes", rs,
+             rt123_lanes(rs, u123, root123, device), RT123["ls_restart"],
+             True, RT123["dt"])):
+        k_ms, t_ms, parts = arnoldi_step_ms(s_, *lanes_, restart, rt, dt)
+        print(f"[{card}] {label}: GMRES({restart}) cycle, kernels "
+              f"{k_ms:.3f} ms per Arnoldi step, twins {t_ms:.3f}; sigma "
+              f"{parts['sigma']:.3f} ms and K8 {parts['K8']:.4f} ms per "
+              "call", flush=True)
+    print(f"[{card}] FEAST nP=57: wall per iteration "
+          f"{[round(w, 3) for w in fs.iter_walls]} s; RT nP={p123['nP']}: "
+          f"wall per step {[round(w, 3) for w in runs['RT']['walls']]} s",
+          flush=True)
+
+    kernel_ms = {name: kernel_ms[14][name] for name in KERNELS
+                 if name in kernel_ms[14]}
+    feast_label = f"FEAST nP={problems[5]['nP']}"
+    for name in ("arnoldi_cgs2", "shifted_precond"):
+        kernel_ms[name] = krylov_ms[feast_label][name]
+    La, R1, n2 = krylov_shapes[feast_label][:3]
+    bounds = kernel_bounds(problems[14], q, {"La": La, "R1": R1, "n": n2,
+                                             "m": 60})
     print(json.dumps({"kernels": [
         {"name": name, "route": route, "source": src, "replaces": rep,
          "launches": total[name], "max_abs_err": max_err[name],
-         "ms": kernel_ms[14][name][0], "plain_ms": kernel_ms[14][name][1]}
+         "ms": kernel_ms[name][0], "plain_ms": kernel_ms[name][1],
+         "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
+         "library_ms": None}
         for name, (route, src, rep) in KERNELS.items()]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -12,6 +12,11 @@
   of the CCD/CCSD residual and the EOM doubles sigma (Triton).
 * :mod:`.davidson` — K6, the preconditioned Davidson residual pass of the
   EOM solver (Triton).
+* :mod:`.arnoldi` — K7, the CGS2 Arnoldi projection and the Krylov row
+  combines of the lane-batched GMRES (Triton).
+* :mod:`.shifted` — K8, the shifted-operator assembly, diagonal
+  preconditioner and honest residual of the FEAST/RT contour solves
+  (Triton).
 
 A wrapper given a CUDA tensor launches its kernel (or raises); given a CPU
 tensor it runs the twin.  Each launch of a kernel adds one to its entry in
@@ -20,7 +25,8 @@ tensor it runs the twin.  Each launch of a kernel adds one to its entry in
 
 LAUNCHES = {"block_ladder": 0, "ccd_jacobi_diis": 0, "ccd_mix_energy": 0,
             "ovvv_gather": 0, "ccsd_jacobi_diis": 0, "ccsd_mix_energy": 0,
-            "pair_symmetrize": 0, "davidson_residual": 0}
+            "pair_symmetrize": 0, "davidson_residual": 0, "arnoldi_cgs2": 0,
+            "shifted_precond": 0}
 
 
 def reset_launches():

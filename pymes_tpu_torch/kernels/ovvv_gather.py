@@ -17,7 +17,10 @@ n = 212·212·7 ≈ 315 k (p, q, r) entries and the output no·n ≈ 2.2 M f64
 T1ᵀ (12 KB) stay in L2.  The design: one program per tile of the flat
 (p, q, r) index; it loads S and W once and loops over j inside, so
 consecutive threads store consecutive (p, q, r) of out[j, ·].  T1 goes in
-as T1ᵀ (no, nv), contiguous, and W as an f64 tensor.
+as T1ᵀ (no, nv), contiguous, and W as an f64 tensor.  The j loop runs to a
+runtime count: the EOM and FEAST sigmas pass a batch of k trials as k·no
+columns (896 for 64 FEAST lanes), and a loop unrolled to that many
+iterations takes Triton minutes to compile.
 
 Triton is imported inside the launching function: the module must import
 where there is no Triton.
@@ -38,9 +41,9 @@ def _kernel():
         import triton
         import triton.language as tl
 
-        @triton.jit
-        def ovvv_gather_kernel(S, W, T1t, out, n, n12, n2, nv,
-                               NO: tl.constexpr, BLOCK: tl.constexpr):
+        @triton.jit(do_not_specialize=["ncol"])
+        def ovvv_gather_kernel(S, W, T1t, out, n, n12, n2, nv, ncol,
+                               BLOCK: tl.constexpr):
             pid = tl.program_id(0)
             offs = pid * BLOCK + tl.arange(0, BLOCK)
             mask = offs < n
@@ -49,7 +52,7 @@ def _kernel():
             r = offs % n2
             w = tl.load(W + p * n2 + r, mask=mask, other=0.0)
             live = mask & (s >= 0)
-            for j in tl.static_range(NO):
+            for j in range(ncol):
                 t = tl.load(T1t + j * nv + s, mask=live, other=0.0)
                 tl.store(out + j * n + offs, t * w, mask=mask)
 
@@ -88,7 +91,7 @@ def ovvv_gather(S, W, T1, twin=False):
     Wc = W.contiguous()
     out = torch.empty((no, n0, n1, n2), dtype=T1.dtype, device=T1.device)
     n = S.numel()
-    _kernel()[(-(-n // BLOCK),)](S, Wc, T1t, out, n, n1 * n2, n2, nv,
-                                 NO=no, BLOCK=BLOCK)
+    _kernel()[(-(-n // BLOCK),)](S, Wc, T1t, out, n, n1 * n2, n2, nv, no,
+                                 BLOCK=BLOCK)
     kernels.LAUNCHES["ovvv_gather"] += 1
     return out

@@ -1,0 +1,376 @@
+"""FEAST-EOM-CCSD: contour-integral energy-filtered excited states.
+
+Counterpart of ``pymes_tpu/solver/feast_eom_ccsd.py`` (its f64 Krylov path,
+``ls_precision="f64"``): the spectral projector onto the window
+[e_c − e_r, e_c + e_r] is Gauss-Legendre quadrature of the resolvent over
+a half circle, ``Q = −Σ_e w_e/2 · Re[e_r e^{iθ_e} (z_e − H̄)⁻¹ U]``; every
+(node, trial) pair is one shifted solve, and the tiny oblique projected
+eigenproblem is solved on the host.
+
+A complex system is kept in its real embedding: the unknown is the
+(Re x, Im x) pair of length 2N with the real inner product
+(``feast_eom_ccsd.py:116-123``).  H̄ is real, so the sigma of a pair is one
+batched sigma on its two rows either way; GMRES on the pair builds the JAX
+package's Krylov space, so iteration counts and FEAST trajectories can be
+held to it; and the kernels stay f64.
+
+All (node, trial) systems of a FEAST iteration are lanes of one
+:func:`pymes_tpu_torch.ops.gmres.gmres_lanes` call (chunked only to fit
+``krylov_mem_budget_bytes``): each Arnoldi step applies ONE batched sigma
+(``_batched_sigma``, the EOM hook) to the (Re, Im) rows of the active
+lanes, then kernel K8 (:mod:`pymes_tpu_torch.kernels.shifted`) assembles
+M(z − H̄)x, then K7 projects.  The honest residual ‖b − (z − H̄)x‖/‖b‖ of
+every lane is one more batched sigma and a K8 pass in residual mode.  The
+quadrature sum runs on the card, so only Q (m, N) comes down.  The trial
+QR, the SVD truncation and ``scipy.linalg.eig(H_proj, B)`` run on the host.
+
+Not ported: the f32-Krylov + f64-refinement engine (``ls_precision=
+"mixed"``, for the TPU's emulated f64), the ``jsp`` backend (jax.scipy),
+``node_mesh``, the compile-watchdog knobs ``max_nodes_per_dispatch`` /
+``max_nodes_per_scan`` / ``max_trials_per_batch``, the Ozaki slices, and
+the per-node ``_solve_node`` fallback (a fake Hamiltonian goes through the
+``_batched_sigma`` hook instead).  One JAX fault is not copied: after a
+"replace" step the trial set holds exactly the new Ritz vectors — the JAX
+package keeps the stale slots past ``len(eigvals)``
+(``feast_eom_ccsd.py:951-958``).
+"""
+
+import time
+import warnings
+
+import numpy as np
+import torch
+from scipy.linalg import eig
+
+from pymes_tpu_torch.kernels import shifted
+from pymes_tpu_torch.log import print_logging_info, print_title
+from pymes_tpu_torch.ops import gmres as _gmres
+from pymes_tpu_torch.solver.eom_ccsd import EOM_CCSD
+
+
+def get_gauss_legendre_quadrature(n):
+    return np.polynomial.legendre.leggauss(n)
+
+
+def normalize_amps(u_singles, u_doubles):
+    norm = np.tensordot(np.conj(u_singles), u_singles, axes=2)
+    norm += np.tensordot(np.conj(u_doubles), u_doubles, axes=4)
+    scale = np.sqrt(norm)
+    return u_singles / scale, u_doubles / scale
+
+
+class _NodeOps:
+    """The shifted operators of one chunk of lanes (``_node_ops``,
+    ``feast_eom_ccsd.py:46-108``): lane ℓ solves (z_ℓ − H̄)x = b_ℓ, or
+    (z_ℓ − i·dt·H̄)x = b_ℓ with ``rt``; rows are (La, 2N) pairs."""
+
+    def __init__(self, solver, op, zr, zi, rt, dt):
+        self.solver, self.op = solver, op
+        self.zr, self.zi, self.rt, self.dt = zr, zi, rt, dt
+
+    def sigma(self, X):
+        """H̄ on the Re and Im rows of each pair: one batched sigma over
+        the 2La rows (Re_0, Im_0, Re_1, ...)."""
+        return self.solver._sigma_parts(self.op,
+                                        X.reshape(2 * X.shape[0], -1))
+
+    def _k8(self, H1, H2, X, lanes, mode, B=None):
+        return shifted.shifted_precond(
+            H1, H2, X, self.zr[lanes], self.zi[lanes], self.op[3], self.dt,
+            self.rt, mode, B=B, twin=self.solver.twin)
+
+    def apply(self, X, lanes):
+        """M(A x): the preconditioned operator GMRES calls."""
+        H1, H2 = self.sigma(X)
+        return self._k8(H1, H2, X, lanes, "apply")
+
+    def precond(self, X, lanes):
+        return self._k8(None, None, X.contiguous(), lanes, "precond")
+
+    def residual(self, X, lanes, B):
+        """(b − A x, ‖b − A x‖, ‖b‖) per lane."""
+        H1, H2 = self.sigma(X)
+        return self._k8(H1, H2, X.contiguous(), lanes, "residual",
+                        B=B.contiguous())
+
+
+class FEAST_EOM_CCSD(EOM_CCSD):
+    """FEAST eigensolver in an energy window on ``device`` (reference API:
+    ``feast_eom_ccsd.py:29``; the JAX package's ``FEAST_EOM_CCSD`` with
+    ``ls_precision="f64"``).
+
+    ``ls_backend``: "inhouse" (lane-batched GMRES; "opt" is its alias, as
+    in the JAX package) or "jacobi" (lane-batched Richardson).
+    ``ls_restart`` defaults to 120: GMRES(20) stalls on the near-axis
+    nodes of tight UEG windows.  ``krylov_mem_budget_bytes`` bounds the
+    Krylov bases of one chunk of lanes, (ls_restart+1)·2N·8 bytes a lane;
+    None means half the card's free memory at the start of a solve (2 GB
+    on the CPU).  Chunking changes how lanes are batched, never a result.
+    ``twin=True`` runs every kernel through its plain twin."""
+
+    def __init__(self, no, device, e_c=0.0, e_r=1.0, n_trial=5, max_iter=20,
+                 tol=1e-12, n_quad=8, seed=None, n_excit=2, ls_conv_tol=1e-4):
+        super().__init__(no, device, n_excit=int(n_excit))
+        self.algo_name = "FEAST-EOM-CCSD"
+        self.e_c = e_c
+        self.e_r = e_r
+        self.n_trial = n_trial
+        self.max_iter = max_iter
+        self.tol = tol
+        self.n_quad = n_quad
+        self.ls_backend = "inhouse"
+        self.ls_max_iter = 20
+        self.ls_restart = 120
+        self.ls_conv_tol = float(ls_conv_tol)
+        self.ls_damping = 1.0
+        self.krylov_mem_budget_bytes = None
+        # relative singular-value floor of the filtered set (None: 10 ×
+        # ls_conv_tol, floored at 1e-12; feast_eom_ccsd.py:468)
+        self.svd_drop_tol = None
+        self.trial_update = "replace"
+        self.last_ls_residuals = None
+        self.ls_stats = None
+        self.u_singles = []
+        self.u_doubles = []
+        self.eigvals = np.array([e_c - e_r, e_c + e_r])
+        self.eigvecs = None
+        self._rng = np.random.default_rng(seed)
+
+    # --- operator ---------------------------------------------------------
+    def _operator(self, f, dict_t_V, T2):
+        """(f, V, T2, diag) on the device, built once per (f, V, T2) triple
+        with the H̄ intermediates: the RT propagator calls solve() once per
+        step with the same operator (``feast_eom_ccsd.py:479``)."""
+        key = (id(f), id(dict_t_V), id(T2))
+        if getattr(self, "_op_key", None) != key:
+            self._hbar = None
+            fd = self._on_device(f)
+            Vd = self._operator_on_device(dict_t_V)
+            Td = self._on_device(T2).contiguous()
+            self._op = (fd, Vd, Td, self._diag(fd, Vd, Td))
+            self._op_key = key
+        return self._op
+
+    def _krylov_budget(self):
+        if self.krylov_mem_budget_bytes is not None:
+            return float(self.krylov_mem_budget_bytes)
+        if self.device.type == "cuda":
+            return torch.cuda.mem_get_info(self.device)[0] / 2
+        return 2e9
+
+    def _warn_unconverged(self, rel_res):
+        """Surface non-converged shifted solves instead of silently
+        polluting the spectral projector (``feast_eom_ccsd.py:537``)."""
+        rel_res = np.atleast_1d(np.asarray(rel_res))
+        self.last_ls_residuals = rel_res
+        bad = np.nonzero(rel_res > 10 * self.ls_conv_tol)[0]
+        if len(bad):
+            warnings.warn(
+                "FEAST shifted solve(s) not converged: nodes "
+                f"{bad.tolist()} rel. residuals "
+                f"{rel_res[bad].tolist()} (ls_conv_tol={self.ls_conv_tol}, "
+                f"ls_restart={self.ls_restart}, "
+                f"ls_max_iter={self.ls_max_iter}) — near-real-axis nodes "
+                "stagnate under short restarts: raise ls_restart, raise "
+                "ls_max_iter, or loosen the window", stacklevel=3)
+
+    def _new_stats(self):
+        self.ls_stats = {"chunks": 0, "calls": 0, "cycle_ends": 0,
+                         "projections": 0, "steps": []}
+
+    def _solve_lanes(self, op, B, zr, zi, rt=False, dt=0.0):
+        """The shifted solves of all lanes: ``B`` (L, 2N) right-hand-side
+        pairs, ``zr``/``zi`` (L,) shifts.  Lanes go in chunks whose Krylov
+        bases fit ``self._budget``; per chunk, one lane-batched solve and
+        the honest residual (one batched sigma + K8 in residual mode,
+        ``_residual_impl`` :360).  Returns X (L, 2N) and the honest
+        relative residuals (numpy)."""
+        L, n = B.shape
+        restart = int(self.ls_restart)
+        per = max(1, int(self._budget // ((restart + 1) * n * 8)))
+        per = -(-L // (-(-L // per)))     # even chunks
+        X = torch.empty_like(B)
+        rel = np.empty(L)
+        st = self.ls_stats
+        backend = self.ls_backend
+        if backend not in ("inhouse", "opt", "jacobi"):
+            raise ValueError(f"unknown ls_backend {backend!r}")
+        for lo in range(0, L, per):
+            sl = slice(lo, lo + per)
+            Bc = B[sl]
+            node = _NodeOps(self, op, zr[sl], zi[sl], rt, dt)
+            if backend == "jacobi":
+                # ls_max_iter counts restart-sized work units (:206-210)
+                x, _, it = _gmres.richardson_lanes(
+                    lambda Xa, la: node.residual(Xa, la, Bc[la])[:2], Bc,
+                    node.precond, tol=self.ls_conv_tol,
+                    damping=self.ls_damping,
+                    max_iter=self.ls_max_iter * restart)
+                st["steps"].append(it)
+            else:
+                x, _, info = _gmres.gmres_lanes(
+                    node.apply, Bc, node.precond, tol=self.ls_conv_tol,
+                    restart=restart, max_outer=self.ls_max_iter,
+                    twin=self.twin)
+                st["steps"].append(info["steps"])
+                st["calls"] += info["calls"]
+                st["cycle_ends"] += info["cycle_ends"]
+            lanes = torch.arange(x.shape[0], device=B.device)
+            _, res, bn = node.residual(x, lanes, Bc)
+            rel[sl] = (res / torch.clamp(bn, min=1e-300)).cpu().numpy()
+            X[sl] = x
+            st["chunks"] += 1
+        return X, rel
+
+    def _sigma_parts(self, op, rows):
+        """H̄ on the rows (k, N) on the device: one batched sigma through
+        the ``_batched_sigma`` hook; returns its singles and doubles parts
+        as (k, n1), (k, N − n1)."""
+        f, V, T2, _ = op
+        nv, no = T2.shape[0], T2.shape[-1]
+        n1 = nv * no
+        k = rows.shape[0]
+        W1, W2 = self._batched_sigma(f, V, rows[:, :n1].reshape(k, nv, no),
+                                     rows[:, n1:].reshape(k, nv, nv, no, no),
+                                     T2)
+        return (self._on_device(W1).reshape(k, n1).contiguous(),
+                self._on_device(W2).reshape(k, -1).contiguous())
+
+    def _sigma_rows(self, op, Q):
+        """H̄ on the rows of ``Q`` (k, N) numpy → (k, N) numpy: one batched
+        sigma (``_apply_H`` of the JAX package, over all m_eff rows)."""
+        self.ls_stats["projections"] += 1
+        return torch.cat(self._sigma_parts(op, self._on_device(Q)),
+                         dim=1).cpu().numpy()
+
+    def _filter(self, op, Bset, z, node_weight):
+        """Q_l = −Re Σ_e w_e (z_e − H̄)⁻¹ b_l for the m trials ``Bset``
+        (m, N): one lane per (node, trial), node-major; the quadrature sum
+        runs on the card and only Q comes down."""
+        m, N = Bset.shape
+        nq = len(z)
+        dev = self.device
+        B = torch.zeros((nq * m, 2 * N), dtype=torch.float64, device=dev)
+        B[:, :N] = self._on_device(Bset).repeat(nq, 1)
+        zr = torch.as_tensor(np.repeat(z.real, m), device=dev)
+        zi = torch.as_tensor(np.repeat(z.imag, m), device=dev)
+        X, rel = self._solve_lanes(op, B, zr, zi)
+        self._warn_unconverged(rel.reshape(nq, m))
+        X = X.view(nq, m, 2, N)
+        Q = torch.zeros((m, N), dtype=torch.float64, device=dev)
+        for e in range(nq):
+            Q = Q + (float(node_weight[e].real) * X[e, :, 0]
+                     - float(node_weight[e].imag) * X[e, :, 1])
+        return (-Q).cpu().numpy()
+
+    # --- FEAST iteration ----------------------------------------------------
+    def solve(self, t_fock_dressed_pq, dict_t_V_dressed, t_T_abij):
+        """FEAST iteration (``feast_eom_ccsd.py:818-972``); returns the
+        eigenvalues of the last projected problem (numpy)."""
+        print_title("FEAST-EOM-CCSD Solver")
+        time_init = time.time()
+        no = self.no
+        op = self._operator(t_fock_dressed_pq, dict_t_V_dressed, t_T_abij)
+        self._budget = self._krylov_budget()
+        self._new_stats()
+        nv = op[2].shape[0]
+        n1 = nv * no
+
+        print_logging_info("Initialising u tensors...", level=1)
+        # random trials drawn in the JAX order, so both packages start
+        # from the same vectors; a second solve() starts clean
+        self.u_singles = []
+        self.u_doubles = []
+        for _ in range(self.n_excit):
+            self.u_singles.append(0.5 - self._rng.random((nv, no)))
+            self.u_doubles.append(
+                (0.5 - self._rng.random((nv, nv, no, no))) * 0.01)
+        for l in range(len(self.u_singles)):
+            self.u_singles[l], self.u_doubles[l] = normalize_amps(
+                self.u_singles[l], self.u_doubles[l])
+
+        x, w = get_gauss_legendre_quadrature(self.n_quad)
+        theta = -np.pi / 2 * (x - 1)
+        z = self.e_c + self.e_r * np.exp(1j * theta)
+        node_weight = w / 2 * self.e_r * np.exp(1j * theta)
+
+        e_norm_prev = 1e10
+        self.iter_walls = []
+        for it in range(self.max_iter):
+            t_iter0 = time.time()
+            m = len(self.u_singles)
+            # orthonormalise the trial SET (feast_eom_ccsd.py:856-869)
+            U_set = np.stack([np.concatenate([s.ravel(), d.ravel()])
+                              for s, d in zip(self.u_singles,
+                                              self.u_doubles)])
+            q_set = np.linalg.qr(U_set.T)[0].T
+            for l in range(m):
+                self.u_singles[l] = q_set[l, :n1].reshape(nv, no)
+                self.u_doubles[l] = q_set[l, n1:].reshape(nv, nv, no, no)
+            Q = self._filter(op, q_set, z, node_weight)
+
+            # rank-revealing orthonormalisation of the filtered set
+            # (feast_eom_ccsd.py:888-896)
+            drop = (self.svd_drop_tol if self.svd_drop_tol is not None
+                    else max(10.0 * self.ls_conv_tol, 1e-12))
+            _, sv, vt = np.linalg.svd(Q, full_matrices=False)
+            m_eff = max(int(np.count_nonzero(sv > drop * sv[0])), 1)
+            Q = [vt[i] for i in range(m_eff)]
+
+            # projected oblique eigenproblem (B == I to machine precision
+            # after the SVD; kept for parity with the reference)
+            W = self._sigma_rows(op, np.stack(Q))
+            H_proj = np.zeros((m_eff, m_eff))
+            B = np.zeros((m_eff, m_eff))
+            for i in range(m_eff):
+                for j in range(m_eff):
+                    H_proj[j, i] = Q[j] @ W[i]
+                    B[j, i] = Q[j] @ Q[i]
+            self.eigvals, self.eigvecs = eig(H_proj, B)
+            # a singular B yields inf/nan pairs: drop those columns (each
+            # eigenvector still has m_eff rows)
+            finite = np.isfinite(self.eigvals)
+            if not finite.all():
+                self.eigvals = self.eigvals[finite]
+                self.eigvecs = self.eigvecs[:, finite]
+            if len(self.eigvals) == 0:
+                print_logging_info(
+                    "No finite eigenvalues in the energy window.", level=1)
+                break
+
+            ritz = [sum(np.real(self.eigvecs[i, l]) * Q[i]
+                        for i in range(len(Q)))
+                    for l in range(len(self.eigvals))]
+            if m < self.n_trial:
+                # extend the trial space with the filtered Ritz vectors
+                for new in ritz:
+                    self.u_singles.append(new[:n1].reshape(nv, no))
+                    self.u_doubles.append(new[n1:].reshape(nv, nv, no, no))
+            elif self.trial_update == "accumulate":
+                # the reference's damped update (feast_eom_ccsd.py:936-950)
+                for l, upd in enumerate(ritz):
+                    self.u_singles[l] = self.u_singles[l] \
+                        + upd[:n1].reshape(nv, no)
+                    self.u_doubles[l] = self.u_doubles[l] \
+                        + upd[n1:].reshape(nv, nv, no, no)
+            else:
+                # classical FEAST subspace iteration: the trial set
+                # becomes exactly the Ritz rotation of the filtered set
+                self.u_singles = [u[:n1].reshape(nv, no) for u in ritz]
+                self.u_doubles = [u[n1:].reshape(nv, nv, no, no)
+                                  for u in ritz]
+
+            self.iter_walls.append(time.time() - t_iter0)
+            e_norm = np.linalg.norm(self.eigvals)
+            if np.abs(e_norm - e_norm_prev) < self.tol:
+                break
+            print_logging_info(
+                f"Iter = {it}, Eigenvalues: {self.eigvals}", level=1)
+            e_norm_prev = e_norm
+
+        self.n_iterations = len(self.iter_walls)
+        print_logging_info(
+            f"FEAST-EOM-CCSD finished in {time.time() - time_init:.2f} "
+            "seconds.", level=0)
+        self.e_excit = self.eigvals
+        return self.eigvals

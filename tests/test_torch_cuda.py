@@ -1,9 +1,10 @@
 """The port's hand-written kernels on the card, each against its plain twin.
 
 K1 (CUDA C++ ladder), K2/K3 (Triton CCD tail), K4 (Triton ovvv gather),
-K2′/K3′ (Triton CCSD tail), K5 (Triton pair symmetrisation) and K6 (Triton
-Davidson residual) run only on an NVIDIA card: these tests carry
-the ``cuda`` marker and skip where torch sees no card.  The card has no
+K2′/K3′ (Triton CCSD tail), K5 (Triton pair symmetrisation), K6 (Triton
+Davidson residual), K7 (Triton Arnoldi CGS2 and Krylov combines) and K8
+(Triton shifted operator and preconditioner) run only on an NVIDIA card:
+these tests carry the ``cuda`` marker and skip where torch sees no card.  The card has no
 jax, so this file imports only the port; run it there without the
 repository's conftest (which sets up jax):
 
@@ -367,4 +368,135 @@ def test_eom_on_card_matches_cpu(device):
     assert np.abs(out["cuda"][0] - out["cpu"][0]).max() <= 1e-10
     for k in ("block_ladder", "ovvv_gather", "pair_symmetrize",
               "davidson_residual"):
+        assert launches[k] > 0, launches
+
+
+def _krylov(rng, L, R1, n, device):
+    """Seeded Krylov bases (L, R1, n) with orthonormal rows, new vectors
+    (L, n) and the lanes in reverse order (so lane ≠ row index)."""
+    V = torch.linalg.qr(_randn(rng, (L, n, R1), device))[0].transpose(1, 2)
+    return V.contiguous(), _randn(rng, (L, n), device), \
+        torch.arange(L - 1, -1, -1, device=device)
+
+
+@pytest.mark.parametrize("R1,n", [(121, 9000), (21, 70001)])
+def test_arnoldi_cgs2_kernel_matches_twin(device, R1, n):
+    """K7 with m = 1, a middle value and restart (the last step): the
+    Hessenberg columns and the written row V[lane, m] against the twin."""
+    from pymes_tpu_torch.kernels import arnoldi
+    rng = np.random.default_rng(R1)
+    L = 4
+    V0, w, lanes = _krylov(rng, L, R1, n, device)
+    for ms in ([1, 1, 1, 1], [1, R1 // 2, R1 - 1, 7]):
+        m = torch.as_tensor(ms, device=device)
+        Vk, Vt = V0.clone(), V0.clone()
+        before = kernels.LAUNCHES["arnoldi_cgs2"]
+        hk = arnoldi.arnoldi_cgs2(Vk, w.clone(), lanes, m)
+        ht = arnoldi.arnoldi_cgs2(Vt, w.clone(), lanes, m, twin=True)
+        assert kernels.LAUNCHES["arnoldi_cgs2"] == before + 1
+        assert hk.shape == (L, R1)
+        _close(hk, ht)
+        rows = Vt[lanes, m]
+        _close(Vk[lanes, m], rows)
+        assert torch.equal(Vk[lanes, 0], V0[lanes, 0])   # only row m moved
+        assert float(rows.abs().max()) > 0
+
+
+@pytest.mark.parametrize("with_x0", [False, True])
+def test_krylov_combine_kernel_matches_twin(device, with_x0):
+    from pymes_tpu_torch.kernels import arnoldi
+    rng = np.random.default_rng(5 + with_x0)
+    L, R1, n = 3, 121, 30001
+    V, x0, lanes = _krylov(rng, L, R1, n, device)
+    m = torch.as_tensor([1, 60, 121], device=device)
+    C = _randn(rng, (L, R1), device)
+    args = (V, C, m, lanes)
+    x0 = x0 if with_x0 else None
+    _close(arnoldi.krylov_combine(*args, x0=x0),
+           arnoldi.krylov_combine(*args, x0=x0, twin=True))
+
+
+def test_arnoldi_cgs2_int64_offsets(device):
+    """L·(restart+1)·n > 2³¹: the last lane's rows lie past the int32
+    range (17.4 GB of f64 basis)."""
+    from pymes_tpu_torch.kernels import arnoldi
+    L, R1, n = 2, 121, 9_000_000
+    assert L * R1 * n > 2 ** 31
+    V = torch.zeros((L, R1, n), dtype=torch.float64, device=device)
+    rng = np.random.default_rng(31)
+    m = torch.as_tensor([3, 3], device=device)
+    lanes = torch.as_tensor([1, 0], device=device)
+    V[:, :3] = _randn(rng, (L, 3, n), device) / 3000.0
+    w = _randn(rng, (L, n), device)
+    Vt = V[:, :4].clone()
+    hk = arnoldi.arnoldi_cgs2(V, w.clone(), lanes, m)
+    ht = arnoldi.arnoldi_cgs2(Vt, w.clone(), lanes, m, twin=True)
+    _close(hk[:, :4], ht[:, :4])
+    _close(V[1, 3], Vt[1, 3])
+    C = _randn(rng, (L, R1), device)
+    _close(arnoldi.krylov_combine(V, C, m, lanes),
+           arnoldi.krylov_combine(V, C, m, lanes, twin=True))
+
+
+@pytest.mark.parametrize("mode,rt", [("apply", False), ("apply", True),
+                                     ("residual", False),
+                                     ("residual", True),
+                                     ("precond", False), ("precond", True)])
+def test_shifted_precond_kernel_matches_twin(device, mode, rt):
+    """K8 in its FEAST, RT, residual and preconditioner modes on 3 lanes
+    (singles 84 columns, doubles 7056: the nP=19 split)."""
+    from pymes_tpu_torch.kernels import shifted
+    rng = np.random.default_rng(len(mode) + rt)
+    La, n1, n2 = 3, 84, 7056
+    N = n1 + n2
+    X = _randn(rng, (La, 2 * N), device)
+    H1 = _randn(rng, (2 * La, n1), device)
+    H2 = _randn(rng, (2 * La, n2), device)
+    zr = _randn(rng, (La,), device, 0.1) + 0.5
+    zi = _randn(rng, (La,), device, 0.1) + 0.3
+    diag = _randn(rng, (N,), device) + 1.0
+    B = _randn(rng, (La, 2 * N), device) if mode == "residual" else None
+    kw = dict(dt=0.1, rt=rt, mode=mode, B=B)
+    before = kernels.LAUNCHES["shifted_precond"]
+    got = shifted.shifted_precond(H1, H2, X, zr, zi, diag, **kw)
+    want = shifted.shifted_precond(H1, H2, X, zr, zi, diag, twin=True, **kw)
+    assert kernels.LAUNCHES["shifted_precond"] == before + 1
+    if mode != "residual":
+        got, want = (got,), (want,)
+    for a, b in zip(got, want):
+        assert a.shape == b.shape
+        _close(a, b)
+
+
+def test_feast_on_card_matches_cpu(device):
+    """FEAST on the nP=19 no-ovvv operator (MP2 amplitudes): card (K1, K4,
+    K5, K7, K8) vs CPU (twins), the same roots."""
+    from pymes_tpu_torch.solver import feast_eom_ccsd
+    u = ueg.UEG(14, 7, 7, 1.0)
+    u.init_single_basis(2)
+    V = torch.as_tensor(u.eval_2b_integrals())
+    fock = hf.construct_hf_matrix(
+        NO, torch.diag(torch.as_tensor(u.kinetic_energies())), V)
+    out = {}
+    for dev in (device, torch.device("cpu")):
+        d = {k: v.to(dev) for k, v in part_2_body_int(NO, V).items()
+             if k not in ("abcd", "abci", "iabc", "aibc", "abic")}
+        d["abcd"] = None
+        d["abcd_ladder"] = ueg_ladder.build_block_ladder(u, dev, bra="all")
+        d["_ovvv_plans"] = ueg_ladder.build_ovvv_plans(u, dev)
+        f = fock.to(dev)
+        eps = torch.diagonal(f)
+        _, T2 = mp2.solve(eps[:NO], eps[NO:], d["ijab"], d["abij"], 0.0)
+        e0 = float(eom_ccsd.EOM_CCSD(NO, dev, n_excit=1).solve(f, d, T2)[0])
+        kernels.reset_launches()
+        s = feast_eom_ccsd.FEAST_EOM_CCSD(NO, dev, e_c=e0, e_r=0.3,
+                                          n_trial=2, max_iter=2, tol=-1.0,
+                                          seed=3, ls_conv_tol=1e-8)
+        s.ls_restart, s.ls_max_iter = 40, 4
+        out[dev.type] = np.sort_complex(s.solve(f, d, T2))
+        if dev.type == "cuda":
+            launches = dict(kernels.LAUNCHES)
+    np.testing.assert_allclose(out["cuda"], out["cpu"], rtol=0, atol=1e-8)
+    for k in ("block_ladder", "ovvv_gather", "pair_symmetrize",
+              "arnoldi_cgs2", "shifted_precond"):
         assert launches[k] > 0, launches

@@ -42,7 +42,11 @@ def test_port_never_imports_jax():
             "pymes_tpu_torch.util.tcdump, "
             "pymes_tpu_torch.integral.contraction, "
             "pymes_tpu_torch.kernels.ovvv_gather, "
-            "pymes_tpu_torch.kernels.ccsd_tail\n"
+            "pymes_tpu_torch.kernels.ccsd_tail, "
+            "pymes_tpu_torch.kernels.arnoldi, "
+            "pymes_tpu_torch.kernels.shifted, pymes_tpu_torch.ops.gmres, "
+            "pymes_tpu_torch.solver.feast_eom_ccsd, "
+            "pymes_tpu_torch.solver.rt_eom_ccsd\n"
             "bad = sorted(m for m in sys.modules "
             "if m == 'jax' or m.startswith(('jax.', 'pymes_tpu.')) "
             "or m == 'pymes_tpu')\n"
