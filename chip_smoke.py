@@ -26,13 +26,22 @@ Drives the port's main paths through its own kernels:
   oracle;
 * RT-EOM-CCSD — nP=123 (cutoff 10): the port's Davidson, then 3 CIF steps
   (32 nodes as lanes of GMRES(20)) seeded with its Ritz vector, each
-  step's phase energy against the root.
+  step's phase energy against the root;
+* ring CCD — the dense ``abcd`` scattered on the card and cut on its a axis
+  over a mesh that lists the one card P times (``make_mesh(P, "cuda",
+  devices=["cuda:0"] * P)``, the counterpart of the JAX package's virtual
+  devices): the ring-accumulated ladder at nP=57 (5 shards) and nP=219
+  (4 shards, 16.2 GB of ``abcd``), every shard, step and copy at full
+  width;
+* sector-sharded matrix-free CCD and CCSD at nP=219 — the virtual and the
+  all-bra plans built with ``pad_sectors=4`` and cut over 4 shards of the
+  card (one K1 launch per shard), CCD and the seeded non-canonical CCSD.
 
 Kernels: K1 ``block_ladder`` (CUDA C++, built with nvcc for sm_90a at first
 use); K2 ``ccd_jacobi_diis``, K3 ``ccd_mix_energy``, K4 ``ovvv_gather``,
 K2′ ``ccsd_jacobi_diis``, K3′ ``ccsd_mix_energy``, K5 ``pair_symmetrize``,
 K6 ``davidson_residual``, K7 ``arnoldi_cgs2`` and K8 ``shifted_precond``
-(Triton).
+(Triton); K9 ``ring_step`` (CUDA C++, built with K1).
 
 Phases: (0) card and versions; (1) kernel builds; (2) each kernel against
 its plain twin on the card at the main paths' shapes (K2′/K3′ at nP=219
@@ -51,10 +60,20 @@ call at the FEAST nP=57 and RT nP=123 lane shapes; (12) FEAST nP=57,
 (13) RT nP=123 (its CCD and Davidson run before the counted window) and
 (14) FEAST LiH, each window's launches held exactly to what its solves
 did; then ms per Arnoldi step of one GMRES cycle over all lanes (kernels
-and twins) and the walls per FEAST iteration and RT step.  Prints a JSON
-line of the kernels (launches, errors, times, bounds at the H100's HBM
-and FP64 peaks), the nvidia-smi line, and as the last line
-``{"ok": true, "device": {...}}``.
+and twins) and the walls per FEAST iteration and RT step; (15) K9
+against its twin at the nP=57 (5 shards) and nP=219 (4 shards) ring
+shapes, every panel offset, ijab and abij forms, then per call beside its
+twin and ``torch.addmm``; (16) ring CCD at nP=57 and nP=219 to |dE| < 1e-8
+against the JAX package (and the oracle), in the matrix-free iteration
+count, K9 launched exactly P² times per residual, the peak device memory,
+then ms per iteration of the fixed-61-iteration ring CCD at nP=219
+(kernels and twins, min of 5); (17) the sector-sharded K1 bit-equal to K1
+on the padded and the unpadded plans, then sector-sharded matrix-free CCD
+and non-canonical CCSD at nP=219 against the JAX package, K1 launched 4
+times per iteration. Prints a JSON line of the kernels (launches, errors,
+times, bounds at the H100's HBM and FP64 peaks, the library call where one
+computes the same function), the nvidia-smi line, and as the
+last line ``{"ok": true, "device": {...}}``.
 Any failed check raises and the script exits nonzero; without CUDA it
 exits nonzero at once.
 
@@ -128,6 +147,8 @@ KERNELS = {
                      "pymes_tpu/ops/gmres.py:87"),
     "shifted_precond": ("triton", "pymes_tpu_torch/kernels/shifted.py",
                         "pymes_tpu/solver/feast_eom_ccsd.py:67"),
+    "ring_step": ("cuda", "pymes_tpu_torch/csrc/ring_step.cu",
+                  "pymes_tpu/parallel/ring_ladder.py:69"),
 }
 CCD_KERNELS = ("block_ladder", "ccd_jacobi_diis", "ccd_mix_energy",
                "pair_symmetrize")
@@ -139,6 +160,10 @@ EOM_KERNELS = ("block_ladder", "ovvv_gather", "pair_symmetrize",
                "davidson_residual")
 KRYLOV_KERNELS = ("block_ladder", "ovvv_gather", "pair_symmetrize",
                   "arnoldi_cgs2", "shifted_precond")
+RING_KERNELS = ("ring_step", "ccd_jacobi_diis", "ccd_mix_energy",
+                "pair_symmetrize")
+# shards of the sector-sharded BlockLadder at nP=219 (pad_sectors)
+SECTOR_SHARDS = 4
 # FEAST at nP=57: the window of benchmarks/probe_r5_feast57b.py (e_c at the
 # 3-fold level of EOM_JAX[5], e_r excluding 5.2652816 and 5.2789029), f64
 # GMRES(120) x 6 on all 16 nodes x 4 trials as lanes.  GMRES stops on the
@@ -197,7 +222,7 @@ def setup(cutoff, device):
           f"buckets [{buckets}] ({time.time() - t0:.2f} s)", flush=True)
     return {"cutoff": cutoff, "nP": n_p, "nv": n_p - NO, "fock": fock,
             "blocks": blocks, "T0": T0, "eps_i": eps_i, "eps_a": eps_a,
-            "ueg": u, "dict": d}
+            "ueg": u, "dict": d, "sparse": (idx, vals)}
 
 
 def setup_ccsd(p, device):
@@ -837,18 +862,19 @@ def path_launches(label, run, expect):
     return launches
 
 
-def solve_fixed(p, twin, max_iter=60):
+def solve_fixed(p, twin, max_iter=60, blocks=None, ring_mesh=None):
     """ms/iteration of ``max_iter + 1`` CCD iterations (host clock,
-    synchronised)."""
+    synchronised), on ``p``'s blocks or on ``blocks`` (the ring path with
+    ``ring_mesh``)."""
     import torch
 
     from pymes_tpu_torch.solver import ccd
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    out = ccd.ccd_solve(p["fock"], p["blocks"], NO, p["T0"],
+    out = ccd.ccd_solve(p["fock"], blocks or p["blocks"], NO, p["T0"],
                         level_shift=-1.0, delta_e=-1.0, max_iter=max_iter,
-                        twin=twin)
+                        twin=twin, ring_mesh=ring_mesh)
     torch.cuda.synchronize()
     return (time.perf_counter() - t0) * 1e3 / out[5], out[5]
 
@@ -861,10 +887,11 @@ def bound(nbytes, flops):
     return max(t_b, t_f) * 1e3, "bytes" if t_b >= t_f else "operations"
 
 
-def kernel_bounds(p14, q, krylov):
+def kernel_bounds(p14, q, krylov, ring):
     """Bytes and flops of each kernel's timed call (the shapes of the
     ``ms`` column of the JSON line), from this run's inputs: K1-K6 at
-    nP=219, K7/K8 at the FEAST nP=57 lane shapes of ``krylov``."""
+    nP=219, K7/K8 at the FEAST nP=57 lane shapes of ``krylov``, K9 at the
+    nP=219 ring step of ``ring`` (M, N, K)."""
     nv = p14["nv"]
     n = NO * NO * nv * nv                      # one T2
     nc = nv * NO + n                            # the CCSD carry [T1 | T2]
@@ -899,7 +926,254 @@ def kernel_bounds(p14, q, krylov):
                               8 * La * m * n2),
         # H (2La, N), x (La, 2N), diag read; the pair (La, 2N) written
         "shifted_precond": bound(8 * (3 * La * n2 + n2 // 2), 20 * La * n2),
+        # the (N, K) V panel and T (M, K) read, R (M, N) read and written
+        "ring_step": bound(8 * (ring["N"] * ring["K"] + ring["M"] * ring["K"]
+                                + 2 * ring["M"] * ring["N"]),
+                           2 * ring["M"] * ring["N"] * ring["K"]),
     }
+
+
+def ring_mesh(nv, device):
+    """The ring's mesh for ``nv`` virtual orbitals: the largest count ≤ 8
+    that divides nv (the JAX tests' choice), all on one card."""
+    from pymes_tpu_torch.parallel import mesh
+
+    P = mesh.largest_dividing_mesh(nv, 8)
+    return mesh.make_mesh(P, device, devices=[device] * P)
+
+
+def ring_inputs(nv, P, seed, device):
+    """Seeded K9 operands at one ring shape: shard 0's V block (nv/P, nv,
+    nv, nv) and the held T shard and R of both layouts, (T, R) ijab
+    (no, no, nv/P, nv) and abij (nv/P, nv, no, no)."""
+    import torch
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    csz = nv // P
+
+    def r(*shape):
+        return torch.randn(shape, generator=g, dtype=torch.float64,
+                           device=device)
+
+    return {"V": r(csz, nv, nv, nv), "P": P,
+            "ijab": (r(NO, NO, csz, nv), r(NO, NO, csz, nv)),
+            "abij": (r(csz, nv, NO, NO), r(csz, nv, NO, NO))}
+
+
+def ring_views(layout, T, R):
+    """K9's (M, K) and (M, N) views: row-major for ijab, the transposed
+    views of the cd-major abij tensors (no copy)."""
+    if layout == "ijab":
+        return T.view(NO * NO, -1), R.view(NO * NO, -1)
+    return T.view(-1, NO * NO).t(), R.view(-1, NO * NO).t()
+
+
+def compare_ring_step(x, label):
+    """K9 vs its twin at every panel offset src of shard 0, both layouts,
+    accumulating into the seeded R: the products (R − R0) compared."""
+    from pymes_tpu_torch.kernels import ring_step
+
+    V, P = x["V"], x["P"]
+    csz, nv = V.shape[:2]
+    Vm = V.view(csz * nv, nv * nv)
+    err = 0.0
+    for layout in ("ijab", "abij"):
+        T, R0 = x[layout]
+        for src in range(P):
+            prods = []
+            for twin in (False, True):
+                R = R0.clone()
+                Tv, Rv = ring_views(layout, T, R)
+                ring_step.ring_step(Rv, Tv, Vm, src * csz * nv, twin=twin)
+                prods.append(R - R0)
+            err = max(err, rel_err(*prods, f"K9 {layout} src={src}, {label}"))
+    print(f"kernel vs twin, {label} ({P} shards, M={NO * NO}, N=K="
+          f"{csz * nv}): ring_step max_abs_err={err:.3e}", flush=True)
+    return err
+
+
+def time_ring_step(x):
+    """ms per call of K9 and of its twin (plain, kernel, kernel, plain) and
+    of ``torch.addmm``, the one PyTorch call of the same function, at the
+    ijab step on panel src = 1."""
+    import torch
+
+    from pymes_tpu_torch.kernels import ring_step
+
+    V = x["V"]
+    csz, nv = V.shape[:2]
+    Vm = V.view(csz * nv, nv * nv)
+    T, R = x["ijab"]
+    Tv, Rv = ring_views("ijab", T, R.clone())
+    c0, K = csz * nv, Tv.shape[1]
+    t = [cuda_ms(lambda: ring_step.ring_step(Rv, Tv, Vm, c0, twin=tw))
+         for tw in (True, False, False, True)]
+    lib = cuda_ms(lambda: torch.addmm(Rv, Tv, Vm[:, c0:c0 + K].t()))
+    return (t[1] + t[2]) / 2, (t[0] + t[3]) / 2, lib, {
+        "M": Tv.shape[0], "N": Rv.shape[1], "K": K}
+
+
+def ring_setup(p, device):
+    """The dense ``abcd`` of one set-up scattered on the card and cut over
+    its ring mesh; returns (mesh, CCD blocks with the cut abcd)."""
+    import torch
+
+    from pymes_tpu_torch.models import ueg
+    from pymes_tpu_torch.parallel import mesh as pmesh
+
+    t0 = time.time()
+    m = ring_mesh(p["nv"], device)
+    abcd = ueg.sparse_to_blocks(*p["sparse"], p["nP"], NO, device,
+                                names=("abcd",))["abcd"]
+    blocks = p["blocks"]._replace(
+        abcd=pmesh.shard_blocks(m, {"abcd": abcd})["abcd"], ladder=None)
+    torch.cuda.synchronize()
+    P = m.shape["a"]
+    print(f"ring set-up nP={p['nP']}: dense abcd {abcd.numel() * 8 / 1e9:.2f}"
+          f" GB on the card, {P} shards of {abcd.shape[0] // P} rows "
+          f"({time.time() - t0:.2f} s)", flush=True)
+    return m, blocks
+
+
+def ring_ccd(p, m, blocks, n_ref, device):
+    """Phase 16 at one set-up: CCD with the ring ladder to |dE| < 1e-8;
+    E within 1e-9 of the JAX package (nP=57 also within 1e-8 of the
+    oracle), the matrix-free solve's iteration count, and the launches
+    held exactly: K9 P² per residual, K2/K3/K5 one per iteration, K1
+    none.  Returns the peak device memory of the solve."""
+    import torch
+
+    from pymes_tpu_torch import kernels
+    from pymes_tpu_torch.solver import ccd
+
+    t0 = time.time()
+    c, P = p["cutoff"], m.shape["a"]
+    torch.cuda.reset_peak_memory_stats()
+    before = dict(kernels.LAUNCHES)
+    res = ccd.CCD(NO, device).solve(p["fock"], blocks, level_shift=-1.0,
+                                    max_iter=60, ring_mesh=m)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    n_it, e, T = len(res["e history"]), res["ccd e"], res["t2 amp"]
+    got = {k: kernels.LAUNCHES[k] - before[k]
+           for k in RING_KERNELS + ("block_ladder",)}
+    want = {"ring_step": P * P * n_it, "ccd_jacobi_diis": n_it,
+            "ccd_mix_energy": n_it, "pair_symmetrize": n_it,
+            "block_ladder": 0}
+    check(got == want, f"ring CCD nP={p['nP']}: launches {got}, expected "
+          f"{want} for {n_it} iterations on {P} shards")
+    check(T.shape == (p["nv"], p["nv"], NO, NO)
+          and bool(torch.isfinite(T).all()),
+          f"ring CCD nP={p['nP']}: amplitudes not finite or of the wrong "
+          "shape")
+    check(abs(e - E_JAX[c]) <= 1e-9,
+          f"ring CCD nP={p['nP']}: E={e:.13f} vs JAX {E_JAX[c]}")
+    check(n_it == n_ref, f"ring CCD nP={p['nP']}: {n_it} iterations, the "
+          f"matrix-free solve {n_ref}")
+    if c == 5:
+        check(abs(e - ORACLE_NP57) <= 1e-8,
+              f"ring CCD nP=57: E={e} vs oracle {ORACLE_NP57}")
+    print(f"ring CCD nP={p['nP']} ({P} shards of one card): E={e:.13f} in "
+          f"{n_it} iterations (matrix-free {n_ref}), |E - E_jax|="
+          f"{abs(e - E_JAX[c]):.2e}, launches {got}, peak device memory "
+          f"{peak / 1e9:.3f} GB, {time.time() - t0:.2f} s", flush=True)
+    return peak
+
+
+def sharded_plans(q, device, seed):
+    """Phase 17 set-up: the nP=219 virtual and all-bra plans built with
+    ``pad_sectors=SECTOR_SHARDS`` and cut over that many shards of one
+    card; K1 on each sharded plan must equal K1 on the padded and on the
+    unpadded plan bit for bit (T2 and the CCSD's stacked operand).
+    Returns the sharded plans by bra kind."""
+    import torch
+
+    from pymes_tpu_torch.ops import ueg_ladder
+    from pymes_tpu_torch.parallel import mesh
+
+    t0 = time.time()
+    m = mesh.make_mesh(SECTOR_SHARDS, device,
+                       devices=[device] * SECTOR_SHARDS)
+    rng = np.random.default_rng(seed)
+    nv = q["nv"]
+    ops = [torch.as_tensor(rng.standard_normal(shape) * 0.01, device=device)
+           for shape in ((NO, NO, nv, nv), (2, NO * NO, nv, nv))]
+    out = {}
+    for bra, whole in (("virtual", q["blocks"].ladder),
+                       ("all", q["plan_all"])):
+        padded = ueg_ladder.build_block_ladder(q["ueg"], device, bra=bra,
+                                               pad_sectors=SECTOR_SHARDS)
+        sh = out[bra] = ueg_ladder.shard_block_ladder(padded, m)
+        for X in ops:
+            got = ueg_ladder.block_ladder_apply_ij(sh, X)
+            check(float(got.abs().max()) > 0, "sharded K1 output all zero")
+            for ref, what in ((padded, "padded"), (whole, "unpadded")):
+                want = ueg_ladder.block_ladder_apply_ij(ref, X)
+                torch.cuda.synchronize()
+                check(torch.equal(got, want),
+                      f"sector-sharded K1 ({bra}, operand {tuple(X.shape)})"
+                      f" differs from K1 on the {what} plan by "
+                      f"{float((got - want).abs().max()):.3e}")
+    print(f"sector-sharded plans nP={q['nP']} ({SECTOR_SHARDS} shards of one"
+          " card): K1 bit-equal to K1 on the padded and the unpadded plans "
+          f"(virtual and all-bra; T2 and the stacked CCSD operand), "
+          f"{time.time() - t0:.2f} s", flush=True)
+    return out
+
+
+def sharded_mf(q, plans, device, results):
+    """Phase 17: matrix-free CCD (within 1e-9 of the JAX package) and the
+    seeded non-canonical matrix-free CCSD (within 1e-9, in the JAX
+    package's 11 iterations) on the sector-sharded plans, each solve's
+    launches held exactly: K1 SECTOR_SHARDS per ladder apply (one apply
+    per iteration), K4 six per CCSD iteration, the tail and K5 one."""
+    import torch
+
+    from pymes_tpu_torch import kernels
+    from pymes_tpu_torch.solver import ccd, ccsd
+
+    names = ("block_ladder", "ovvv_gather", "ring_step", "ccd_jacobi_diis",
+             "ccd_mix_energy", "ccsd_jacobi_diis", "ccsd_mix_energy",
+             "pair_symmetrize")
+    for kind in ("CCD", "CCSD"):
+        t0 = time.time()
+        before = dict(kernels.LAUNCHES)
+        if kind == "CCD":
+            res = ccd.CCD(NO, device).solve(
+                q["fock"], q["blocks"]._replace(ladder=plans["virtual"]),
+                level_shift=-1.0, max_iter=60)
+            e, ref, T = res["ccd e"], E_JAX[q["cutoff"]], res["t2 amp"]
+        else:
+            res = ccsd.CCSD(NO, device).solve(
+                q["focks"]["non-canonical"], q["mf_dict"], level_shift=-1.0,
+                ladder=plans["all"], delta_e=1e-10, max_iter=100)
+            e, ref, T = res["ccsd e"], E_JAX_CCSD_NONCANONICAL, res["t2"]
+            t1max = float(res["t1"].abs().max())
+            check(t1max > 1e-4, f"sharded CCSD |T1|max = {t1max:.3e}")
+        n = len(res["e history"])
+        got = {k: kernels.LAUNCHES[k] - before[k] for k in names}
+        tail = "ccd" if kind == "CCD" else "ccsd"
+        want = dict.fromkeys(names, 0)
+        want.update({"block_ladder": SECTOR_SHARDS * n,
+                     f"{tail}_jacobi_diis": n, f"{tail}_mix_energy": n,
+                     "pair_symmetrize": n,
+                     "ovvv_gather": 6 * n if kind == "CCSD" else 0})
+        check(got == want, f"sector-sharded {kind}: launches {got}, expected "
+              f"{want} for {n} iterations")
+        check(T.shape == (q["nv"], q["nv"], NO, NO)
+              and bool(torch.isfinite(T).all()),
+              f"sector-sharded {kind}: amplitudes not finite or misshapen")
+        check(abs(e - ref) <= 1e-9,
+              f"sector-sharded {kind} nP={q['nP']}: E={e:.13f} vs {ref}")
+        if kind == "CCSD":
+            check(n == N_IT_JAX_CCSD_NONCANONICAL,
+                  f"sector-sharded CCSD took {n} iterations, the JAX package "
+                  f"{N_IT_JAX_CCSD_NONCANONICAL}")
+        print(f"sector-sharded mf-{kind} nP={q['nP']} ({SECTOR_SHARDS} "
+              f"shards): E={e:.13f} in {n} iterations, |E - ref|="
+              f"{abs(e - ref):.2e}, launches {got}, "
+              f"{time.time() - t0:.2f} s", flush=True)
+        results[kind] = e
 
 
 def counted(cls, *args, **kw):
@@ -1278,11 +1552,11 @@ def main():
     from pymes_tpu_torch.kernels import _build
     from pymes_tpu_torch.solver import ccd
 
-    # phase 1: builds (nvcc for K1; Triton JIT for the others at their
-    # first launch, which phase 2 makes)
+    # phase 1: builds (nvcc for K1 and K9; Triton JIT for the others at
+    # their first launch, which phase 2 makes)
     t0 = time.time()
     _build.library()
-    print(f"K1 nvcc build + load: {time.time() - t0:.2f} s", flush=True)
+    print(f"K1 + K9 nvcc build + load: {time.time() - t0:.2f} s", flush=True)
     problems = {c: setup(c, device) for c in (5, 14)}
     q = setup_ccsd(problems[14], device)
     t0 = time.time()
@@ -1446,7 +1720,6 @@ def main():
             else:
                 print(f"[{card}] {label} {name}: kernel {t[0]:.4f} ms, "
                       f"twin {t[1]:.4f} ms per call", flush=True)
-    max_err = {k: max(c[k] for c in compare if k in c) for k in KERNELS}
 
     # phase 12: FEAST nP=57; phase 13: RT nP=123; phase 14: FEAST LiH
     runs = {"FEAST": {}, "RT": {}, "LiH": {}}
@@ -1460,8 +1733,6 @@ def main():
     launches["FEAST LiH"] = path_launches(
         "FEAST LiH", lambda: lih_feast(lih, device, runs["LiH"]),
         ("arnoldi_cgs2", "shifted_precond"))
-    total = {k: sum(run.get(k, 0) for run in launches.values())
-             for k in KERNELS}
 
     # timing: ms per Arnoldi step of one GMRES cycle over all lanes, wall
     # per FEAST iteration and per RT step
@@ -1482,6 +1753,59 @@ def main():
           f"wall per step {[round(w, 3) for w in runs['RT']['walls']]} s",
           flush=True)
 
+    # phase 15: K9 against its twin at the ring shapes of nP=57 (5
+    # shards) and nP=219 (4 shards, a 4.04 GB V block), every panel
+    # offset, both layouts; then per call at nP=219
+    torch.cuda.empty_cache()
+    meshes = {c: ring_mesh(problems[c]["nv"], device) for c in (5, 14)}
+    e9 = 0.0
+    for c in (5, 14):
+        x = ring_inputs(problems[c]["nv"], meshes[c].shape["a"], 15 + c,
+                        device)
+        e9 = max(e9, compare_ring_step(x, f"ring nP={problems[c]['nP']}"))
+        if c == 14:
+            k9_ms, k9_plain, k9_lib, ring_shape = time_ring_step(x)
+        del x
+    compare.append({"ring_step": e9})
+    torch.cuda.empty_cache()
+    kernel_ms[14]["ring_step"] = (k9_ms, k9_plain)
+    print(f"[{card}] nP={problems[14]['nP']} ring_step {ring_shape}: kernel "
+          f"{k9_ms:.4f} ms, twin {k9_plain:.4f} ms, torch.addmm (library) "
+          f"{k9_lib:.4f} ms per call", flush=True)
+
+    # phase 16: ring CCD on a one-card mesh (dense abcd cut on a), nP=57
+    # (5 shards) and nP=219 (4 shards, 16.2 GB of abcd), converged
+    rings = {c: ring_setup(problems[c], device) for c in (5, 14)}
+    peaks = {}
+    launches["ring CCD"] = path_launches(
+        "ring CCD", lambda: peaks.update(
+            {c: ring_ccd(problems[c], *rings[c], results[c][1], device)
+             for c in rings}), RING_KERNELS)
+    walls = {False: [], True: []}
+    for _ in range(5):
+        for twin in (False, True):
+            ms, n_fixed = solve_fixed(problems[14], twin, blocks=rings[14][1],
+                                      ring_mesh=rings[14][0])
+            walls[twin].append(ms)
+    print(f"[{card}] nP={problems[14]['nP']} fixed-{n_fixed}-iteration ring "
+          f"CCD ({rings[14][0].shape['a']} shards of one card), min of 5: "
+          f"kernels {min(walls[False]):.3f} ms/iter, twins "
+          f"{min(walls[True]):.3f} ms/iter; peak device memory of the "
+          f"converged solve {peaks[14] / 1e9:.3f} GB", flush=True)
+    del rings
+    torch.cuda.empty_cache()
+
+    # phase 17: the sector-sharded BlockLadder at nP=219, matrix-free CCD
+    # and the seeded non-canonical CCSD
+    plans = sharded_plans(q, device, 17)
+    sharded = {}
+    launches["sector-sharded mf-CCD/CCSD"] = path_launches(
+        "sector-sharded mf-CCD/CCSD",
+        lambda: sharded_mf(q, plans, device, sharded), MF_CCSD_KERNELS)
+
+    total = {k: sum(run.get(k, 0) for run in launches.values())
+             for k in KERNELS}
+    max_err = {k: max(c[k] for c in compare if k in c) for k in KERNELS}
     kernel_ms = {name: kernel_ms[14][name] for name in KERNELS
                  if name in kernel_ms[14]}
     feast_label = f"FEAST nP={problems[5]['nP']}"
@@ -1489,13 +1813,22 @@ def main():
         kernel_ms[name] = krylov_ms[feast_label][name]
     La, R1, n2 = krylov_shapes[feast_label][:3]
     bounds = kernel_bounds(problems[14], q, {"La": La, "R1": R1, "n": n2,
-                                             "m": 60})
+                                             "m": 60}, ring_shape)
+    # the one PyTorch call of the same function, where there is one: for
+    # K7 it computes the Krylov combine (its kernel time: combine_ms)
+    library = {
+        "ring_step": {"library_ms": k9_lib,
+                      "library_call": "torch.addmm on the strided panel"},
+        "arnoldi_cgs2": {
+            "library_ms": krylov_ms[feast_label]["krylov_combine library"],
+            "library_call": "torch.baddbmm, the Krylov combine",
+            "combine_ms": krylov_ms[feast_label]["krylov_combine"][0]}}
     print(json.dumps({"kernels": [
         {"name": name, "route": route, "source": src, "replaces": rep,
          "launches": total[name], "max_abs_err": max_err[name],
          "ms": kernel_ms[name][0], "plain_ms": kernel_ms[name][1],
          "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
-         "library_ms": None}
+         "library_ms": None, **library.get(name, {})}
         for name, (route, src, rep) in KERNELS.items()]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -17,6 +17,10 @@
 * :mod:`.shifted` — K8, the shifted-operator assembly, diagonal
   preconditioner and honest residual of the FEAST/RT contour solves
   (Triton).
+* :mod:`.ring_step` — K9, one step of the ring-accumulated ladder over a
+  device mesh: the held T shard against a c-panel of the local V block,
+  accumulated into R in place (CUDA C++, ``pymes_tpu_torch/csrc/
+  ring_step.cu``).
 
 A wrapper given a CUDA tensor launches its kernel (or raises); given a CPU
 tensor it runs the twin.  Each launch of a kernel adds one to its entry in
@@ -26,7 +30,7 @@ tensor it runs the twin.  Each launch of a kernel adds one to its entry in
 LAUNCHES = {"block_ladder": 0, "ccd_jacobi_diis": 0, "ccd_mix_energy": 0,
             "ovvv_gather": 0, "ccsd_jacobi_diis": 0, "ccsd_mix_energy": 0,
             "pair_symmetrize": 0, "davidson_residual": 0, "arnoldi_cgs2": 0,
-            "shifted_precond": 0}
+            "shifted_precond": 0, "ring_step": 0}
 
 
 def reset_launches():

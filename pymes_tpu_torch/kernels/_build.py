@@ -1,7 +1,8 @@
 """Build and load the CUDA C++ kernels at first use.
 
-``nvcc`` compiles ``pymes_tpu_torch/csrc/*.cu`` (plain C interface, no
-PyTorch headers, so the build takes seconds) for ``sm_90a`` into
+``nvcc`` compiles each of ``pymes_tpu_torch/csrc/*.cu`` (plain C interface,
+no PyTorch headers, so the build takes seconds; one process per source, all
+started together) for ``sm_90a`` and links them into one library in
 ``build/torch_kernels/`` of the checkout; the library is loaded with
 ``ctypes``.  Pointers and the stream are passed as ``c_void_p``; every entry
 point returns a ``cudaError_t`` that the wrapper checks.  A failed build
@@ -19,7 +20,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-Xcompiler", "-fPIC"]
 
 _LIB = None
 
@@ -47,11 +48,29 @@ def build() -> Path:
     if lib.exists():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    tag = f"{digest.hexdigest()[:12]}.{os.getpid()}"
+    nvcc = _nvcc()
+    # one nvcc per source, all started together, then one link
+    objs = [BUILD_DIR / f"{src.stem}.{tag}.o" for src in sources]
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj),
+                               str(src)], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for src, obj in zip(sources, objs)]
+    tmp = lib.with_suffix(f".{tag}.tmp")
+    try:
+        logs = [(src.name, p.communicate()[0], p.returncode)
+                for src, p in zip(sources, procs)]
+        failed = [f"{name} ({rc}):\n{log}" for name, log, rc in logs if rc]
+        if failed:
+            raise RuntimeError("nvcc failed: " + "\n".join(failed))
+        proc = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
+                               *map(str, objs)], capture_output=True,
+                              text=True)
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+        raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
                            f"{proc.stdout}\n{proc.stderr}")
     os.replace(tmp, lib)
     return lib
@@ -68,5 +87,11 @@ def library():
         lib.pymes_block_ladder.restype = i32
         lib.pymes_block_ladder_row_tile.argtypes = []
         lib.pymes_block_ladder_row_tile.restype = i32
+        i64 = ctypes.c_longlong
+        lib.pymes_ring_step.argtypes = [vp, i64, i64, vp, i64, vp, i64, i64,
+                                        i32, i32, i32, i32, vp, vp]
+        lib.pymes_ring_step.restype = i32
+        lib.pymes_ring_step_splits.argtypes = [i32, i32, i32]
+        lib.pymes_ring_step_splits.restype = i32
         _LIB = lib
     return _LIB

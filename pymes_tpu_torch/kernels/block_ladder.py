@@ -90,9 +90,11 @@ def block_ladder_twin(groups, inv_bra, T2):
 _ROW_TILE_CHECKED = False
 
 
-def block_ladder_kernel_cd(pack: LadderPack, Tt, n_bra, nv):
+def block_ladder_kernel_cd(pack: LadderPack, Tt, n_out, nv):
     """Launch K1 on a cd-major operand ``Tt`` (nv², n), a contiguous CUDA
-    f64 tensor; returns the bra-major output (n_bra², n)."""
+    f64 tensor; returns the bra-major output (n_out, n): row r holds the
+    pack's rows whose ``bra_of_row`` is r (n_bra² rows for a whole plan,
+    the shard's own rows for a shard of a sector-sharded plan)."""
     global _ROW_TILE_CHECKED
     if Tt.dtype != torch.float64 or pack.blocks.dtype != torch.float64:
         raise TypeError("the ladder kernel takes float64 amplitudes/blocks")
@@ -108,7 +110,7 @@ def block_ladder_kernel_cd(pack: LadderPack, Tt, n_bra, nv):
                                "csrc/block_ladder.cu")
         _ROW_TILE_CHECKED = True
     n = Tt.shape[1]
-    outT = torch.zeros((n_bra * n_bra, n), dtype=Tt.dtype, device=Tt.device)
+    outT = torch.zeros((n_out, n), dtype=Tt.dtype, device=Tt.device)
     with torch.cuda.device(Tt.device):
         rc = lib.pymes_block_ladder(
             Tt.data_ptr(), pack.blocks.data_ptr(), pack.perm.data_ptr(),
@@ -121,21 +123,23 @@ def block_ladder_kernel_cd(pack: LadderPack, Tt, n_bra, nv):
     return outT
 
 
-def block_ladder_kernel(pack: LadderPack, T2, n_bra, nv):
+def block_ladder_kernel(pack: LadderPack, T2, n_out, nv):
     """Launch K1 on ``T2`` (no², nv²), a CUDA f64 tensor; returns the
-    (no², n_bra²) result as the transposed view of the bra-major output."""
+    (no², n_out) result as the transposed view of the bra-major output."""
     if T2.dim() != 2 or T2.shape[1] != nv * nv:
         raise ValueError(f"amplitudes of shape {tuple(T2.shape)} do not "
                          f"fit a plan with nv={nv}")
-    return block_ladder_kernel_cd(pack, T2.t().contiguous(), n_bra, nv).t()
+    return block_ladder_kernel_cd(pack, T2.t().contiguous(), n_out, nv).t()
 
 
 def block_ladder(plan, T2, twin=False):
-    """R[ij, pq] = Σ_cd V[pq, cd] T[ij, cd] through ``plan``: K1 for a CUDA
-    tensor, the twin for a CPU tensor (or when ``twin=True``, which the
-    on-card comparisons use)."""
+    """R[ij, pq] = Σ_cd V[pq, cd] T[ij, cd] through ``plan`` (its
+    ``inv_bra`` has one entry per output column): K1 for a CUDA tensor,
+    the twin for a CPU tensor (or when ``twin=True``, which the on-card
+    comparisons use)."""
     if kernels.check_device(T2) and not twin:
-        return block_ladder_kernel(plan.packed, T2, plan.n_bra, plan.nv)
+        return block_ladder_kernel(plan.packed, T2, plan.inv_bra.shape[0],
+                                   plan.nv)
     return block_ladder_twin(plan.groups, plan.inv_bra, T2)
 
 
@@ -143,8 +147,9 @@ def block_ladder_cd(plan, Tt, twin=False):
     """R[pq, x] = Σ_cd V[pq, cd] Tt[cd, x] on a cd-major operand (nv², n),
     e.g. abij amplitudes of any batch flattened to (nv², batch·no²): K1 for
     a CUDA tensor, with no transpose of the operand, the twin for a CPU
-    tensor or with ``twin=True``.  Returns (n_bra², n)."""
+    tensor or with ``twin=True``.  Returns (n_out, n), one row per entry
+    of ``plan.inv_bra``."""
     if kernels.check_device(Tt) and not twin:
         return block_ladder_kernel_cd(plan.packed, Tt.contiguous(),
-                                      plan.n_bra, plan.nv)
+                                      plan.inv_bra.shape[0], plan.nv)
     return block_ladder_twin(plan.groups, plan.inv_bra, Tt.t()).t()

@@ -20,6 +20,13 @@ The EOM sigma works in the ``abij`` layout over a batch of trial vectors:
 K1 once on the batch flattened cd-major to (nv², batch·no²);
 :func:`ovvv_t1_apply` gathers a batch of T1 columns through K4 at once.
 
+A plan built with ``pad_sectors=P`` splits over a P-device mesh
+(:func:`shard_block_ladder`, ``pymes_tpu/ops/ueg_ladder.py:578-596``): each
+shard holds its slice of every bucket's sector axis with its own K1 pack
+on its device; the apply entries take the :class:`ShardedBlockLadder`
+unchanged and make one K1 launch per shard, each writing only its own bra
+rows, which are copied into the output on the amplitudes' device.
+
 Not ported: the Ozaki presliced form (``preslice``; the H100 has native f64
 GEMMs), the gather-scan ``UEGLadder`` (no path of the package runs it) and
 the transcorrelated weight classes.
@@ -114,14 +121,17 @@ def plan_from_arrays(group_arrays, inv_bra, n_bra, nv, w0, device):
         n_bra=int(n_bra), nv=int(nv), w0=float(w0), packed=packed)
 
 
-def build_block_ladder(ueg_model, device, bra="virtual"):
+def build_block_ladder(ueg_model, device, bra="virtual", pad_sectors=1):
     """Build a :class:`BlockLadder` on ``device`` (host numpy build, the
     algorithm of ``pymes_tpu.ops.ueg_ladder.build_block_ladder`` with
     ``preslice=None`` and the Coulomb weights; its leaves are held identical
     by the tests).
 
     ``bra="virtual"`` spans virtual bra pairs (the CCD ladder); ``"all"``
-    spans all orbitals on the bra side."""
+    spans all orbitals on the bra side.  ``pad_sectors`` rounds every
+    bucket's sector count up to a multiple (zero blocks, all-(−1)
+    ``bra_of_row``), so the sector axis divides a mesh of that size
+    (:func:`shard_block_ladder`)."""
     no = ueg_model.n_ele // 2
     n_p = ueg_model.n_spatial
     nv = n_p - no
@@ -175,7 +185,7 @@ def build_block_ladder(ueg_model, device, bra="virtual"):
     col0 = 0
     inv_bra = np.full(n_bra * n_bra, -1, np.int64)
     for (mB, mK), secs in sorted(buckets.items()):
-        nS = len(secs)
+        nS = -(-len(secs) // int(pad_sectors)) * int(pad_sectors)
         blocks = np.zeros((nS, mB, mK), np.float64)
         perm_ket = np.zeros((nS, mK), np.int32)
         for t, (bra_ids, ket_ids) in enumerate(secs):
@@ -192,6 +202,85 @@ def build_block_ladder(ueg_model, device, bra="virtual"):
                             wtab[tmax, tmax, tmax], device)
 
 
+class ShardedBlockLadder(NamedTuple):
+    """A :class:`BlockLadder` split over a mesh on its sector axis.
+
+    ``shards[p]`` lies on ``mesh.devices[p]`` and holds the p-th slice of
+    every bucket's sectors; its ``bra_of_row`` numbers the shard's live rows
+    0, 1, … in its concat order, its ``inv_bra`` gives their concat columns
+    (for the twin), and ``rows[p]`` their bra-pair ids in the whole
+    output."""
+
+    shards: tuple   # of BlockLadder
+    rows: tuple     # of int64 tensors, one per shard
+    n_bra: int
+    nv: int
+    w0: float
+
+
+def shard_block_ladder(plan: BlockLadder, mesh, axis="a"):
+    """Distribute the plan's sector axis over ``mesh[axis]``
+    (``pymes_tpu/ops/ueg_ladder.py:578-596``): the sectors are independent,
+    so the shards share nothing until the output rows are gathered.  Build
+    the plan with ``pad_sectors`` a multiple of the mesh size so every
+    bucket divides it."""
+    n = mesh.shape[axis]
+    host = [(g.blocks.cpu().numpy(), g.perm_ket.cpu().numpy(),
+             g.bra_of_row.cpu().numpy()) for g in plan.groups]
+    for b, _, _ in host:
+        if b.shape[0] % n:
+            raise ValueError(f"a bucket of {b.shape[0]} sectors does not "
+                             f"divide a mesh of {n}; build the plan with "
+                             f"pad_sectors={n}")
+    shards, rows = [], []
+    for p, dev in enumerate(mesh.devices):
+        parts = []
+        for b, k, r in host:
+            m = b.shape[0] // n
+            parts.append((b[p * m:(p + 1) * m], k[p * m:(p + 1) * m],
+                          r[p * m:(p + 1) * m]))
+        flat = np.concatenate([r.ravel() for _, _, r in parts])
+        live = np.nonzero(flat >= 0)[0]
+        local = np.full(flat.shape, -1, np.int32)
+        local[live] = np.arange(len(live), dtype=np.int32)
+        bra, off = [], 0
+        for _, _, r in parts:
+            bra.append(local[off:off + r.size].reshape(r.shape))
+            off += r.size
+        packed, views = _k1.pack_groups(
+            [(b, k, r) for (b, k, _), r in zip(parts, bra)], dev)
+        shards.append(BlockLadder(
+            groups=tuple(BlockGroup(blocks=b, perm_ket=k, bra_of_row=r)
+                         for b, k, r in views),
+            inv_bra=torch.as_tensor(live, dtype=torch.int64, device=dev),
+            n_bra=plan.n_bra, nv=plan.nv, w0=plan.w0, packed=packed))
+        rows.append(torch.as_tensor(flat[live], dtype=torch.int64,
+                                    device=dev))
+    return ShardedBlockLadder(shards=tuple(shards), rows=tuple(rows),
+                              n_bra=plan.n_bra, nv=plan.nv, w0=plan.w0)
+
+
+def _ladder_cd(plan, Tt, twin):
+    """(n_bra², n) = V·Tt on a cd-major operand (nv², n): one K1 launch (or
+    twin) on a plan, one per shard on a sharded plan, whose rows are copied
+    into the output on ``Tt``'s device."""
+    if not isinstance(plan, ShardedBlockLadder):
+        return _k1.block_ladder_cd(plan, Tt, twin=twin)
+    Tt = Tt.contiguous()
+    out = Tt.new_zeros((plan.n_bra * plan.n_bra, Tt.shape[1]))
+    for shard, rows in zip(plan.shards, plan.rows):
+        part = _k1.block_ladder_cd(shard, Tt.to(rows.device), twin=twin)
+        out.index_copy_(0, rows.to(out.device), part.to(out.device))
+    return out
+
+
+def _ladder_ij(plan, T2, twin):
+    """(no², n_bra²) = T2·Vᵀ on ijab amplitudes (no², nv²)."""
+    if not isinstance(plan, ShardedBlockLadder):
+        return _k1.block_ladder(plan, T2, twin=twin)
+    return _ladder_cd(plan, T2.t(), twin).t()
+
+
 def block_ladder_apply_ij(plan: BlockLadder, T_ijab, twin=False):
     """``R_ijpq = Σ_cd V_pqcd T_ijcd`` with T carried ``[i,j,c,d]``.
 
@@ -200,8 +289,7 @@ def block_ladder_apply_ij(plan: BlockLadder, T_ijab, twin=False):
     (no, no, n_bra, n_bra); from the kernel it is a strided view of the
     bra-major output."""
     no_i, no_j, nv = T_ijab.shape[0], T_ijab.shape[1], T_ijab.shape[-1]
-    R = _k1.block_ladder(plan, T_ijab.reshape(no_i * no_j, nv * nv),
-                         twin=twin)
+    R = _ladder_ij(plan, T_ijab.reshape(no_i * no_j, nv * nv), twin)
     return R.reshape(no_i, no_j, plan.n_bra, plan.n_bra)
 
 
@@ -216,7 +304,7 @@ def block_ladder_apply(plan: BlockLadder, T_abij, twin=False):
     nb = int(np.prod(lead, dtype=np.int64))
     Tt = T_abij.reshape((nb, nv * nv, no_i * no_j)).transpose(0, 1)
     Tt = Tt.reshape(nv * nv, nb * no_i * no_j)
-    R = _k1.block_ladder_cd(plan, Tt, twin=twin)          # (n_bra², nb·no²)
+    R = _ladder_cd(plan, Tt, twin)                        # (n_bra², nb·no²)
     R = R.reshape(plan.n_bra, plan.n_bra, nb, no_i, no_j).permute(
         2, 0, 1, 3, 4)
     return R.reshape(lead + (plan.n_bra, plan.n_bra, no_i, no_j))
@@ -224,16 +312,16 @@ def block_ladder_apply(plan: BlockLadder, T_abij, twin=False):
 
 def ladder_apply(plan, T_abij, twin=False):
     """abij-layout dispatch on the plan type (only :class:`BlockLadder` is
-    ported)."""
-    if not isinstance(plan, BlockLadder):
+    ported, whole or sharded)."""
+    if not isinstance(plan, (BlockLadder, ShardedBlockLadder)):
         raise TypeError(f"unsupported ladder plan {type(plan).__name__}")
     return block_ladder_apply(plan, T_abij, twin=twin)
 
 
 def ladder_apply_ij(plan, T_ijab, twin=False):
     """Occupied-leading dispatch on the plan type (only
-    :class:`BlockLadder` is ported)."""
-    if not isinstance(plan, BlockLadder):
+    :class:`BlockLadder` is ported, whole or sharded)."""
+    if not isinstance(plan, (BlockLadder, ShardedBlockLadder)):
         raise TypeError(f"unsupported ladder plan {type(plan).__name__}")
     return block_ladder_apply_ij(plan, T_ijab, twin=twin)
 

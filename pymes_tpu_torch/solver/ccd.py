@@ -9,10 +9,13 @@ with the dense-``abcd`` and matrix-free-ladder branches and the
 
 The ring and exchange contractions are plain f64 products (``torch.einsum``,
 cuBLAS DGEMM on the card).  The particle-particle ladder runs through
-kernel K1, the P(ab,ij) symmetrisation ``R + Ex + P(Ex)`` through K5 and the
-per-iteration Jacobi + DIIS + energy tail through K2/K3
-(:mod:`pymes_tpu_torch.kernels`) on a CUDA tensor; on a CPU tensor all of
-them run their plain twins.
+kernel K1 (a ladder plan), through the ring-accumulated ladder over a
+device mesh with kernel K9 (``ring_mesh``, the dense ``abcd`` cut over the
+mesh by :func:`pymes_tpu_torch.parallel.mesh.shard_blocks`) or as one
+``torch.einsum`` on the dense ``abcd``.  The P(ab,ij) symmetrisation
+``R + Ex + P(Ex)`` runs through K5 and the per-iteration Jacobi + DIIS +
+energy tail through K2/K3 (:mod:`pymes_tpu_torch.kernels`) on a CUDA
+tensor; on a CPU tensor all of them run their plain twins.
 
 The T1-dressing hooks that CCSD (:mod:`pymes_tpu_torch.solver.ccsd`) feeds
 through the same residual are here too: ``t_T_ai`` (the dressed ladder on
@@ -20,8 +23,12 @@ the all-bra plan), ``ladder_W`` (its precomputed all-bra image), ``ex_half``
 (the half-symmetric dressing of ``abij``, added before the P(ab,ij)
 symmetrisation) and ``abij_t=None``.
 
+With ``ring_mesh`` the JAX package's default loop is the abij layout
+(``pymes_tpu/solver/ccd.py:617-621``); the port keeps its ijab loop, whose
+math is identical (``tests/test_ccd_layout.py``).
+
 Not ported: the ``abij`` loop layout, drCCD, the Ozaki/sliced contraction
-modes, the ring-collective path and mixed precision.
+modes and mixed precision.
 """
 
 from typing import NamedTuple
@@ -35,6 +42,8 @@ from pymes_tpu_torch.log import print_logging_info
 from pymes_tpu_torch.mixer import diis
 from pymes_tpu_torch.ops.ueg_ladder import (dressed_ladder_apply_ij,
                                             ladder_apply_ij)
+from pymes_tpu_torch.parallel.mesh import Sharded
+from pymes_tpu_torch.parallel.ring_ladder import ring_ladder_inside_ij
 from pymes_tpu_torch.solver import mp2
 
 
@@ -48,7 +57,7 @@ class CCDBlocks(NamedTuple):
     abij: torch.Tensor
     iajb: torch.Tensor
     iabj: torch.Tensor
-    abcd: torch.Tensor
+    abcd: torch.Tensor    # or a Sharded cut on axis 0 (the ring path)
     ladder: object = None
 
 
@@ -100,11 +109,13 @@ def blocks_ij_from(blocks: CCDBlocks):
 
 def doubles_residual_ij(t_fock_ab, t_fock_ij, t_T_ijab, V: CCDBlocksIJ,
                         is_dcd=False, is_bruekner=False, t_T_ai=None,
-                        twin=False):
+                        twin=False, ring_mesh=None, ring_axis="a"):
     """CCD/DCD doubles residual R_ijab in the occupied-leading layout (the
     diagrams of ``pymes_tpu.solver.ccd.doubles_residual_ij``).  With
-    ``t_T_ai`` (CCSD) the ladder is T1-dressed on the all-bra plan.
-    ``twin`` routes the ladder (K1) and the symmetrisation (K5) through
+    ``t_T_ai`` (CCSD) the ladder is T1-dressed on the all-bra plan; with
+    ``ring_mesh`` (and no plan) it is the ring-accumulated ladder over the
+    mesh on the cut ``V.abcd`` (``pymes_tpu/solver/ccd.py:305-313``).
+    ``twin`` routes the ladder (K1, K9) and the symmetrisation (K5) through
     their plain twins on the card."""
     es = torch.einsum
     t = t_T_ijab
@@ -128,6 +139,9 @@ def doubles_residual_ij(t_fock_ab, t_fock_ij, t_T_ijab, V: CCDBlocksIJ,
             no_ = t.shape[0]
             W = W[:, :, no_:, no_:]
         R = R + W
+    elif ring_mesh is not None:
+        R = R + ring_ladder_inside_ij(V.abcd, t, ring_mesh, ring_axis,
+                                      twin=twin)
     else:
         R = R + es("ijcd,abcd->ijab", t, V.abcd)
 
@@ -170,7 +184,8 @@ def ccd_energy_ij(t_T_ijab, t_V_ijab, t_V_ijab_x):
 
 def ccd_solve(t_fock_pq, blocks: CCDBlocks, no, t_T0_abij,
               level_shift=0.0, delta_e=1e-8, max_iter=50, is_dcd=False,
-              is_diis=True, is_bruekner=False, dim_space=6, twin=False):
+              is_diis=True, is_bruekner=False, dim_space=6, twin=False,
+              ring_mesh=None, ring_axis="a"):
     """CCD fixed point, Jacobi + DIIS, T2 carried ``[i,j,a,b]``.
 
     Loop semantics of ``pymes_tpu.solver.ccd.ccd_solve_jit``: iterate while
@@ -180,6 +195,9 @@ def ccd_solve(t_fock_pq, blocks: CCDBlocks, no, t_T0_abij,
     it runs to the cap without any host sync inside the loop.  The DIIS
     solve's ``info`` is checked once, after the loop.  ``twin=True`` runs
     the ladder and the tail through the plain twins (on-card comparison).
+    ``ring_mesh`` runs the ladder as the ring over the mesh on
+    ``blocks.abcd`` cut on axis 0 (``pymes_tpu/solver/ccd.py:405-410``); the
+    loop runs on ``ring_mesh.devices[0]``.
 
     Returns ``(e_corr, T_abij, eps_i, eps_a, dE, n_iter, e_hist)`` with
     device tensors and ``n_iter`` a Python int.
@@ -191,6 +209,13 @@ def ccd_solve(t_fock_pq, blocks: CCDBlocks, no, t_T0_abij,
     f_ij = t_fock_pq[:no, :no]
     if blocks.abcd is None and blocks.ladder is None:
         raise ValueError("need the dense abcd block or a ladder plan")
+    if ring_mesh is not None and (blocks.ladder is not None
+                                  or blocks.abcd is None):
+        raise ValueError("the ring path takes the dense abcd block cut over "
+                         "the mesh, and no ladder plan")
+    if ring_mesh is not None and ring_mesh.devices[0] != t_fock_pq.device:
+        raise ValueError(f"the loop runs on {t_fock_pq.device}, the ring "
+                         f"returns R on {ring_mesh.devices[0]}")
 
     V_ij = blocks_ij_from(blocks)
     T = t_T0_abij.permute(2, 3, 0, 1).contiguous()
@@ -212,7 +237,8 @@ def ccd_solve(t_fock_pq, blocks: CCDBlocks, no, t_T0_abij,
         if delta_e >= 0 and not float(torch.abs(dE)) > delta_e:
             break
         R = doubles_residual_ij(f_ab, f_ij, T, V_ij, is_dcd=is_dcd,
-                                is_bruekner=is_bruekner, twin=twin)
+                                is_bruekner=is_bruekner, twin=twin,
+                                ring_mesh=ring_mesh, ring_axis=ring_axis)
         if is_bruekner:
             # quasi-particle energies from the CURRENT amplitudes on top of
             # the canonical ε₀ (as the JAX package; the reference compounds
@@ -252,10 +278,14 @@ def ccd_solve(t_fock_pq, blocks: CCDBlocks, no, t_T0_abij,
 class CCD:
     """Reference-API CCD/DCD solver on ``device``.
 
-    ``solve(t_fock_pq, t_V_pqrs, level_shift=0, amps=None, **kwargs)``
-    returns ``{"ccd e", "t2 amp" (abij), "hole e", "particle e", "dE",
-    "e history"}``.  ``t_V_pqrs`` is the full tensor, a dict of named
-    blocks (optionally with ``"ladder"``) or :class:`CCDBlocks`."""
+    ``solve(t_fock_pq, t_V_pqrs, level_shift=0, amps=None, ring_mesh=None,
+    ring_axis="a", **kwargs)`` returns ``{"ccd e", "t2 amp" (abij),
+    "hole e", "particle e", "dE", "e history"}``.  ``t_V_pqrs`` is the full
+    tensor, a dict of named blocks (optionally with ``"ladder"``; blocks
+    may come as :class:`~pymes_tpu_torch.parallel.mesh.Sharded`, e.g. from
+    ``mesh.shard_blocks``) or :class:`CCDBlocks`.  With ``ring_mesh`` the
+    ladder runs as the ring over the mesh on the ``abcd`` shards; every
+    other sharded block is gathered onto ``device``."""
 
     def __init__(self, no, device, delta_e=1e-8, is_dcd=False, is_diis=True,
                  is_bruekner=False):
@@ -269,12 +299,14 @@ class CCD:
         self.dim_space = 6
 
     def _on_device(self, x):
+        if isinstance(x, Sharded):
+            return x.gather(self.device)
         if x is None or not isinstance(x, (torch.Tensor, np.ndarray)):
             return x
         return torch.as_tensor(x, dtype=DTYPE, device=self.device)
 
     def solve(self, t_fock_pq, t_V_pqrs, level_shift=0.0, amps=None,
-              **kwargs):
+              ring_mesh=None, ring_axis="a", **kwargs):
         max_iter = int(kwargs.get("max_iter", self.max_iter))
         delta_e = float(kwargs.get("delta_e", self.delta_e))
         no = self.no
@@ -285,9 +317,11 @@ class CCD:
             blocks = t_V_pqrs
         else:
             blocks = blocks_from_full(no, self._on_device(t_V_pqrs))
+        fields = ("klij", "ijab", "abij", "iajb", "iabj")
+        if ring_mesh is None:
+            fields += ("abcd",)
         blocks = blocks._replace(**{
-            f: self._on_device(getattr(blocks, f))
-            for f in ("klij", "ijab", "abij", "iajb", "iabj", "abcd")})
+            f: self._on_device(getattr(blocks, f)) for f in fields})
 
         eps_i = torch.diagonal(t_fock_pq)[:no]
         eps_a = torch.diagonal(t_fock_pq)[no:]
@@ -307,7 +341,8 @@ class CCD:
             t_fock_pq, blocks, no, t_T_abij, level_shift=level_shift,
             delta_e=delta_e, max_iter=max_iter, is_dcd=self.is_dcd,
             is_diis=self.is_diis, is_bruekner=self.is_bruekner,
-            dim_space=self.dim_space)
+            dim_space=self.dim_space, ring_mesh=ring_mesh,
+            ring_axis=ring_axis)
         if n_iter > max_iter:
             print_logging_info("A converged solution is not found!", level=1)
         print_logging_info(

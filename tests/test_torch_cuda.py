@@ -3,7 +3,9 @@
 K1 (CUDA C++ ladder), K2/K3 (Triton CCD tail), K4 (Triton ovvv gather),
 K2′/K3′ (Triton CCSD tail), K5 (Triton pair symmetrisation), K6 (Triton
 Davidson residual), K7 (Triton Arnoldi CGS2 and Krylov combines) and K8
-(Triton shifted operator and preconditioner) run only on an NVIDIA card:
+(Triton shifted operator and preconditioner) and K9 (CUDA C++ ring step;
+with the ring over a repeated card and over two cards, and the
+sector-sharded K1) run only on an NVIDIA card:
 these tests carry the ``cuda`` marker and skip where torch sees no card.  The card has no
 jax, so this file imports only the port; run it there without the
 repository's conftest (which sets up jax):
@@ -20,7 +22,8 @@ import torch
 
 from pymes_tpu_torch import kernels
 from pymes_tpu_torch.integral.partition import part_2_body_int
-from pymes_tpu_torch.kernels import ccd_tail, ccsd_tail, davidson, pair_sym
+from pymes_tpu_torch.kernels import (ccd_tail, ccsd_tail, davidson, pair_sym,
+                                     ring_step)
 from pymes_tpu_torch.mean_field import hf
 from pymes_tpu_torch.models import ueg
 from pymes_tpu_torch.ops import ueg_ladder
@@ -500,3 +503,100 @@ def test_feast_on_card_matches_cpu(device):
     for k in ("block_ladder", "ovvv_gather", "pair_symmetrize",
               "arnoldi_cgs2", "shifted_precond"):
         assert launches[k] > 0, launches
+
+
+def _ring_views(layout, T_held, R):
+    """The (M, K) and (M, N) views K9 takes: row-major ijab tensors, or the
+    transposed views of cd-major (abij) ones."""
+    if layout == "ijab":
+        return T_held.view(T_held.shape[0] * T_held.shape[1], -1), \
+            R.view(R.shape[0] * R.shape[1], -1)
+    M = T_held.shape[-1] * T_held.shape[-2]
+    return T_held.view(-1, M).t(), R.view(-1, M).t()
+
+
+@pytest.mark.parametrize("layout", ["ijab", "abij"])
+@pytest.mark.parametrize("nv, n_dev", [(16, 4), (50, 5)])
+def test_ring_step_kernel_matches_twin(device, nv, n_dev, layout):
+    """K9 at every panel offset of a shard, both layouts, accumulating
+    into a nonzero R."""
+    rng = np.random.default_rng(nv)
+    no, csz = 3 if nv == 16 else NO, nv // n_dev
+    V_loc = _randn(rng, (csz, nv, nv, nv), device)
+    Vm = V_loc.view(csz * nv, nv * nv)
+    ij = layout == "ijab"
+    for src in range(n_dev):
+        T = _randn(rng, (no, no, csz, nv) if ij else (csz, nv, no, no),
+                   device)
+        R0 = _randn(rng, (no, no, csz, nv) if ij else (csz, nv, no, no),
+                    device)
+        got, want = R0.clone(), R0.clone()
+        Tv, Rv = _ring_views(layout, T, got)
+        kernels.reset_launches()
+        ring_step.ring_step(Rv, Tv, Vm, src * csz * nv)
+        assert kernels.LAUNCHES["ring_step"] == 1
+        Tv, Rv = _ring_views(layout, T, want)
+        ring_step.ring_step(Rv, Tv, Vm, src * csz * nv, twin=True)
+        assert kernels.LAUNCHES["ring_step"] == 1
+        _close(got - R0, want - R0)
+
+
+def test_ring_ladder_on_a_repeated_card_matches_twin(device):
+    """The ring over ["cuda:0"] * 4: K9 P² times, equal to the twin's ring
+    and to the dense einsum."""
+    from pymes_tpu_torch.parallel import mesh, ring_ladder
+    rng = np.random.default_rng(3)
+    no, nv, P = 3, 16, 4
+    V = _randn(rng, (nv, nv, nv, nv), device)
+    T = _randn(rng, (no, no, nv, nv), device)
+    m = mesh.make_mesh(P, "cuda", devices=[device] * P)
+    Vs = mesh.shard_blocks(m, {"abcd": V})["abcd"]
+    kernels.reset_launches()
+    got = ring_ladder.ring_ladder_inside_ij(Vs, T, m)
+    assert kernels.LAUNCHES["ring_step"] == P * P
+    _close(got, ring_ladder.ring_ladder_inside_ij(Vs, T, m, twin=True))
+    _close(got, torch.einsum("abcd,ijcd->ijab", V, T))
+    Ta = T.permute(2, 3, 0, 1).contiguous()
+    _close(ring_ladder.ring_ladder(V, Ta, m),
+           torch.einsum("abcd,cdij->abij", V, Ta))
+
+
+def test_ring_ladder_over_two_cards(device):
+    """The same ring over two distinct cards (peer copies)."""
+    from pymes_tpu_torch.parallel import mesh, ring_ladder
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards")
+    rng = np.random.default_rng(4)
+    no, nv = 3, 16
+    m = mesh.make_mesh(2, "cuda")
+    V = _randn(rng, (nv, nv, nv, nv), m.devices[0])
+    T = _randn(rng, (no, no, nv, nv), m.devices[0])
+    Vs = mesh.shard_tensor(m, V, 0)
+    assert Vs.shards[1].device == m.devices[1]
+    got = ring_ladder.ring_ladder_inside_ij(Vs, T, m)
+    assert got.device == m.devices[0]
+    _close(got, torch.einsum("abcd,ijcd->ijab", V, T))
+
+
+def test_sharded_block_ladder_kernel_bit_equal(device):
+    """K1 on the sector-sharded all-bra plan (4 shards of one card, one
+    launch each) equals K1 on the whole padded plan bit for bit."""
+    from pymes_tpu_torch.parallel import mesh
+    u = ueg.UEG(14, 7, 7, 0.5)
+    u.init_single_basis(5)
+    nv = u.n_spatial - NO
+    plan = ueg_ladder.build_block_ladder(u, device, bra="all", pad_sectors=4)
+    sh = ueg_ladder.shard_block_ladder(
+        plan, mesh.make_mesh(4, "cuda", devices=[device] * 4))
+    rng = np.random.default_rng(5)
+    T = _randn(rng, (NO, NO, nv, nv), device)
+    Tb = _randn(rng, (2, nv, nv, NO, NO), device)
+    kernels.reset_launches()
+    got = ueg_ladder.block_ladder_apply_ij(sh, T)
+    assert kernels.LAUNCHES["block_ladder"] == 4
+    want = ueg_ladder.block_ladder_apply_ij(plan, T)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert torch.equal(ueg_ladder.block_ladder_apply(sh, Tb),
+                       ueg_ladder.block_ladder_apply(plan, Tb))
+    _close(got, ueg_ladder.block_ladder_apply_ij(sh, T, twin=True))
