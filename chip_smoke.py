@@ -40,8 +40,9 @@ Drives the port's main paths through its own kernels:
 Kernels: K1 ``block_ladder`` (CUDA C++, built with nvcc for sm_90a at first
 use); K2 ``ccd_jacobi_diis``, K3 ``ccd_mix_energy``, K4 ``ovvv_gather``,
 K2′ ``ccsd_jacobi_diis``, K3′ ``ccsd_mix_energy``, K5 ``pair_symmetrize``,
-K6 ``davidson_residual``, K7 ``arnoldi_cgs2`` and K8 ``shifted_precond``
-(Triton); K9 ``ring_step`` (CUDA C++, built with K1).
+K6 ``davidson_residual`` and K8 ``shifted_precond`` (Triton); K7
+``arnoldi_cgs2`` (the CGS2 projection and the fused Krylov combine) and K9
+``ring_step`` (CUDA C++ on the f64 tensor cores), built with K1.
 
 Phases: (0) card and versions; (1) kernel builds; (2) each kernel against
 its plain twin on the card at the main paths' shapes (K2′/K3′ at nP=219
@@ -55,17 +56,22 @@ counts are reset just before and read just after, and each EOM solve's
 launches must match its count of sigma calls exactly; (5, 8, 10)
 timing: kernel vs twin per call, ms/iteration of fixed-61-iteration CCD and
 CCSD solves (min of 5) and of 8 Davidson iterations at nP=219, through the
-kernels and through the twins; (11) K7/K8 against their twins and per
-call at the FEAST nP=57 and RT nP=123 lane shapes; (12) FEAST nP=57,
+kernels and through the twins; (11) K7/K8 against their twins (K7's
+projection and fused combine also rerun bit for bit) and per call at the
+FEAST nP=57 and RT nP=123 lane shapes, the fused combine beside one
+batched ``torch.baddbmm``; (12) FEAST nP=57,
 (13) RT nP=123 (its CCD and Davidson run before the counted window) and
 (14) FEAST LiH, each window's launches held exactly to what its solves
 did; then ms per Arnoldi step of one GMRES cycle over all lanes (kernels
 and twins) and the walls per FEAST iteration and RT step; (15) K9
 against its twin at the nP=57 (5 shards) and nP=219 (4 shards) ring
-shapes, every panel offset, ijab and abij forms, then per call beside its
-twin and ``torch.addmm``; (16) ring CCD at nP=57 and nP=219 to |dE| < 1e-8
-against the JAX package (and the oracle), in the matrix-free iteration
-count, K9 launched exactly P² times per residual, the peak device memory,
+shapes, every panel offset and an odd (unaligned) one, ijab and abij
+forms, and at edge shapes (M, N, K off the tiles, odd offsets and row
+strides, one split and several, reruns bit-equal), then per call beside
+its twin and ``torch.addmm`` at both ring shapes; (16) ring CCD at nP=57
+and nP=219 to |dE| < 1e-8 against the JAX package (and the oracle), in
+the matrix-free iteration count, K9 launched exactly P² times per
+residual, the peak device memory,
 then ms per iteration of the fixed-61-iteration ring CCD at nP=219
 (kernels and twins, min of 5); (17) the sector-sharded K1 bit-equal to K1
 on the padded and the unpadded plans, then sector-sharded matrix-free CCD
@@ -143,7 +149,7 @@ KERNELS = {
                         "pymes_tpu/solver/ccd.py:349"),
     "davidson_residual": ("triton", "pymes_tpu_torch/kernels/davidson.py",
                           "pymes_tpu/solver/eom_ccsd.py:697"),
-    "arnoldi_cgs2": ("triton", "pymes_tpu_torch/kernels/arnoldi.py",
+    "arnoldi_cgs2": ("cuda", "pymes_tpu_torch/csrc/arnoldi.cu",
                      "pymes_tpu/ops/gmres.py:87"),
     "shifted_precond": ("triton", "pymes_tpu_torch/kernels/shifted.py",
                         "pymes_tpu/solver/feast_eom_ccsd.py:67"),
@@ -887,6 +893,25 @@ def bound(nbytes, flops):
     return max(t_b, t_f) * 1e3, "bytes" if t_b >= t_f else "operations"
 
 
+def krylov_bounds(La, m, n):
+    """K7 at La lanes, m valid rows, rows of n: the projection's bound
+    (each input read once), its three-pass floor (CGS2 must read the m
+    rows and w three times, and write w1 and row m) and the fused
+    combine's bound (the m rows and x0 read, x and r written), in ms."""
+    return {"bound": bound(8 * (La * m * n + 2 * La * n), 8 * La * m * n),
+            "floor_ms": 8 * (3 * La * m * n + 3 * La * n + 2 * La * n)
+            / HBM_BYTES_S * 1e3,
+            "combine": bound(8 * (La * m * n + 3 * La * n),
+                             4 * La * m * n)}
+
+
+def ring_bound(ring):
+    """K9 at one ring step (M, N, K): the (N, K) V panel and T (M, K)
+    read, R (M, N) read and written; 2·M·N·K flops."""
+    M, N, K = ring["M"], ring["N"], ring["K"]
+    return bound(8 * (N * K + M * K + 2 * M * N), 2 * M * N * K)
+
+
 def kernel_bounds(p14, q, krylov, ring):
     """Bytes and flops of each kernel's timed call (the shapes of the
     ``ms`` column of the JSON line), from this run's inputs: K1-K6 at
@@ -921,15 +946,11 @@ def kernel_bounds(p14, q, krylov, ring):
         "davidson_residual": bound(8 * (2 * 16 * N + N + 2 * N),
                                    2 * N * (4 * 16 + 4)),
         # the m valid basis rows and w read, row m written (CGS2 itself
-        # must read V three times: three times this floor)
-        "arnoldi_cgs2": bound(8 * (La * m * n2 + 2 * La * n2),
-                              8 * La * m * n2),
+        # must read V three times: krylov_bounds' floor_ms)
+        "arnoldi_cgs2": krylov_bounds(La, m, n2)["bound"],
         # H (2La, N), x (La, 2N), diag read; the pair (La, 2N) written
         "shifted_precond": bound(8 * (3 * La * n2 + n2 // 2), 20 * La * n2),
-        # the (N, K) V panel and T (M, K) read, R (M, N) read and written
-        "ring_step": bound(8 * (ring["N"] * ring["K"] + ring["M"] * ring["K"]
-                                + 2 * ring["M"] * ring["N"]),
-                           2 * ring["M"] * ring["N"] * ring["K"]),
+        "ring_step": ring_bound(ring),
     }
 
 
@@ -969,8 +990,9 @@ def ring_views(layout, T, R):
 
 
 def compare_ring_step(x, label):
-    """K9 vs its twin at every panel offset src of shard 0, both layouts,
-    accumulating into the seeded R: the products (R − R0) compared."""
+    """K9 vs its twin at every panel offset src of shard 0 and at the odd
+    (not 16-byte aligned) offset 1, both layouts, accumulating into the
+    seeded R: the products (R − R0) compared."""
     from pymes_tpu_torch.kernels import ring_step
 
     V, P = x["V"], x["P"]
@@ -979,16 +1001,66 @@ def compare_ring_step(x, label):
     err = 0.0
     for layout in ("ijab", "abij"):
         T, R0 = x[layout]
-        for src in range(P):
+        for c0 in [src * csz * nv for src in range(P)] + [1]:
             prods = []
             for twin in (False, True):
                 R = R0.clone()
                 Tv, Rv = ring_views(layout, T, R)
-                ring_step.ring_step(Rv, Tv, Vm, src * csz * nv, twin=twin)
+                ring_step.ring_step(Rv, Tv, Vm, c0, twin=twin)
                 prods.append(R - R0)
-            err = max(err, rel_err(*prods, f"K9 {layout} src={src}, {label}"))
+            err = max(err, rel_err(*prods, f"K9 {layout} c0={c0}, {label}"))
     print(f"kernel vs twin, {label} ({P} shards, M={NO * NO}, N=K="
           f"{csz * nv}): ring_step max_abs_err={err:.3e}", flush=True)
+    return err
+
+
+# K9 edge shapes: (M, N, K, row length L of V, panel offset c0, layout);
+# M off the 16-row DMMA tile, N and K off the 128/32 column and 32-deep
+# stage tiles, odd offsets and odd row strides (8-byte copies), one split
+# and several (the planner's choice for the shape)
+RING_EDGES = ((9, 100, 37, 101, 3, "ijab"), (9, 100, 37, 101, 3, "abij"),
+              (57, 300, 129, 400, 7, "ijab"), (113, 1000, 999, 2001, 1,
+                                              "abij"),
+              (49, 2000, 3001, 3002, 1, "ijab"), (49, 4000, 4000, 8000, 2,
+                                                  "abij"))
+
+
+def compare_ring_edges(seed, device):
+    """K9 vs its twin at the RING_EDGES shapes on seeded operands (R of
+    the abij form through a transposed view), each kernel result also
+    bit-equal to a second launch; returns the max relative error."""
+    import torch
+
+    from pymes_tpu_torch.kernels import ring_step
+
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    def r(*shape):
+        return torch.randn(shape, generator=g, dtype=torch.float64,
+                           device=device)
+
+    err, plans = 0.0, set()
+    for M, N, K, L, c0, layout in RING_EDGES:
+        V = r(N, L)
+        T = r(M, K) if layout == "ijab" else r(K, M).t()
+        R0 = r(M, N) if layout == "ijab" else r(N, M).t()
+        got = [R0.clone() for _ in range(2)]
+        for R in got:
+            ring_step.ring_step(R, T, V, c0)
+        want = ring_step.ring_step(R0.clone(), T, V, c0, twin=True)
+        torch.cuda.synchronize()
+        what = f"K9 edge M={M} N={N} K={K} L={L} c0={c0} {layout}"
+        check(torch.equal(got[0], got[1]), f"{what}: a rerun changed the "
+              "bits")
+        err = max(err, rel_err(got[0] - R0, want - R0, what))
+        plans.add(ring_step.plan(M, N, K, torch.cuda.get_device_properties(
+            device).multi_processor_count))
+    check(any(s == 1 for _, s in plans) and any(s > 1 for _, s in plans),
+          f"K9 edge shapes ran the split plans {plans}: one split and "
+          "several expected")
+    print(f"kernel vs twin, K9 edge shapes ({len(RING_EDGES)}; plans "
+          f"{sorted(plans)}): max_abs_err={err:.3e}, reruns bit-equal",
+          flush=True)
     return err
 
 
@@ -1201,10 +1273,11 @@ def check_krylov_launches(label, before, n_sigma, st, ladder):
     """The launches of a FEAST/RT window against what its solves did.
     Per chunk of lanes the lane-batched GMRES makes one K8 pass for Mb,
     then per Arnoldi step one sigma, one K8 (apply) and one K7 (CGS2), per
-    cycle end two K7 combines (x and r), and the honest residual makes one
-    sigma and one K8 (residual mode); each FEAST iteration's projected H̄
-    is one more sigma without K8.  So K8 = sigma calls − projections +
-    chunks, K7 = Arnoldi steps + 2·cycle ends, K5 = sigma calls, and on
+    cycle end one fused K7 combine (x and r), and the honest residual
+    makes one sigma and one K8 (residual mode); each FEAST iteration's
+    projected H̄ is one more sigma without K8.  So K8 = sigma calls −
+    projections + chunks, K7 = Arnoldi steps + cycle ends, K5 = sigma
+    calls, and on
     the matrix-free operator K1 = sigma calls + 1 (H̄'s W_laji, built once
     per operator) and K4 = 3·sigma calls."""
     from pymes_tpu_torch import kernels
@@ -1213,7 +1286,7 @@ def check_krylov_launches(label, before, n_sigma, st, ladder):
     want = {"block_ladder": n_sigma + 1 if ladder else 0,
             "ovvv_gather": 3 * n_sigma if ladder else 0,
             "pair_symmetrize": n_sigma,
-            "arnoldi_cgs2": st["calls"] + 2 * st["cycle_ends"],
+            "arnoldi_cgs2": st["calls"] + st["cycle_ends"],
             "shifted_precond": n_sigma - st["projections"] + st["chunks"]}
     check(st["calls"] > 0 and got == want,
           f"{label}: launches {got}, expected {want} for {n_sigma} sigma "
@@ -1224,7 +1297,8 @@ def krylov_inputs(La, R1, n, N1, seed, device):
     """Seeded K7/K8 operands at one lane shape: a Krylov basis V (La, R1,
     n) of random rows (a torch generator on the card: 15 GB at nP=57), w
     and x pairs (La, n), sigma parts H1 (2La, N1), H2 (2La, n/2 − N1),
-    shifts near the window and a diagonal."""
+    shifts near the window, a diagonal and the two rows of combine
+    coefficients C (La, 2, R1)."""
     import torch
 
     g = torch.Generator(device=device).manual_seed(seed)
@@ -1239,16 +1313,18 @@ def krylov_inputs(La, R1, n, N1, seed, device):
     return {"V": V, "w": r(La, n), "X": r(La, n), "B": r(La, n),
             "H1": r(2 * La, N1), "H2": r(2 * La, N - N1),
             "zr": r(La) * 0.01 + 5.24, "zi": r(La).abs() * 0.01 + 1e-3,
-            "diag": r(N) + 5.0, "C": r(La, R1),
+            "diag": r(N) + 5.0, "C": r(La, 2, R1),
             "lanes": torch.arange(La, device=device)}
 
 
 def compare_krylov_kernels(x, label, ms):
-    """K7 (projection at each m of ``ms`` for all lanes; combine at m + 1
-    with and without x0) and K8 (FEAST, RT and residual modes,
-    preconditioner) against their twins on ``x``; the twin of K7 reads
-    the rows below m that the kernel left untouched, and writes row m
-    again.  Returns the max abs errors."""
+    """K7 (projection at each m of ``ms`` for all lanes; the single
+    combine at m + 1 with and without x0, and the fused two-output
+    combine) and K8 (FEAST, RT and residual modes, preconditioner) against
+    their twins on ``x``; the twin of K7 reads the rows below m that the
+    kernel left untouched, and writes row m again.  K7's projection and
+    fused combine are run twice and must repeat their bits.  Returns the
+    max abs errors."""
     import torch
 
     from pymes_tpu_torch.kernels import arnoldi, shifted
@@ -1264,18 +1340,34 @@ def compare_krylov_kernels(x, label, ms):
                         device=V.device)
         hk = arnoldi.arnoldi_cgs2(V, w.clone(), lanes, mt)
         row_k = V[lanes, mt].clone()
+        hk2 = arnoldi.arnoldi_cgs2(V, w.clone(), lanes, mt)
+        torch.cuda.synchronize()
+        check(torch.equal(hk, hk2) and torch.equal(row_k, V[lanes, mt]),
+              f"K7 projection m={m}, {label}: a rerun changed the bits")
         ht = arnoldi.arnoldi_cgs2(V, w, lanes, mt, twin=True)
         # the projections h[:m] and the norm h[m] each at their own scale
         e7 = max(e7, rel_err(hk[:, :m], ht[:, :m], f"K7 h, m={m}, {label}"),
                  rel_err(hk[:, m], ht[:, m], f"K7 norm, m={m}, {label}"),
                  rel_err(row_k, V[lanes, mt], f"K7 row m={m}, {label}"))
         m1 = torch.full_like(lanes, min(m + 1, V.shape[1]))
+        C0 = x["C"][:, 0].contiguous()
         for x0 in (None, x["X"]):
             e7 = max(e7, rel_err(
-                arnoldi.krylov_combine(V, x["C"], m1, lanes, x0=x0),
-                arnoldi.krylov_combine(V, x["C"], m1, lanes, x0=x0,
-                                       twin=True),
+                arnoldi.krylov_combine(V, C0, m1, lanes, x0=x0),
+                arnoldi.krylov_combine(V, C0, m1, lanes, x0=x0, twin=True),
                 f"K7 combine m={m + 1}, x0={x0 is not None}, {label}"))
+            got = arnoldi.krylov_combine_xr(V, x["C"], m1, lanes, x0=x0)
+            again = arnoldi.krylov_combine_xr(V, x["C"], m1, lanes, x0=x0)
+            want = arnoldi.krylov_combine_xr(V, x["C"], m1, lanes, x0=x0,
+                                             twin=True)
+            torch.cuda.synchronize()
+            check(all(torch.equal(a, b) for a, b in zip(got, again)),
+                  f"K7 fused combine m={m + 1}, {label}: a rerun changed "
+                  "the bits")
+            for out, a, b in zip("xr", got, want):
+                e7 = max(e7, rel_err(a, b, f"K7 fused combine {out}, m="
+                                     f"{m + 1}, x0={x0 is not None}, "
+                                     f"{label}"))
     e8 = 0.0
     args = (x["H1"], x["H2"], x["X"], x["zr"], x["zi"], x["diag"])
     for mode, rt in (("apply", False), ("apply", True), ("residual", False),
@@ -1293,8 +1385,9 @@ def compare_krylov_kernels(x, label, ms):
 
 
 def time_krylov_kernels(x, m):
-    """ms per call of K7 (all lanes at m valid rows; and the combine at
-    m rows, beside ``torch.baddbmm``, the one PyTorch call of the same
+    """ms per call of K7 (all lanes at m valid rows: the projection and
+    the fused combine, the latter also beside ``torch.baddbmm`` with a
+    (La, 2, m) coefficient batch, the one PyTorch call of the same
     function) and K8 (FEAST apply) and of their twins."""
     import torch
 
@@ -1307,7 +1400,7 @@ def time_krylov_kernels(x, m):
     calls = {
         "arnoldi_cgs2": lambda tw: arnoldi.arnoldi_cgs2(V, w, lanes, mt,
                                                         twin=tw),
-        "krylov_combine": lambda tw: arnoldi.krylov_combine(
+        "krylov_combine": lambda tw: arnoldi.krylov_combine_xr(
             V, x["C"], mt, lanes, x0=x["X"], twin=tw),
         "shifted_precond": lambda tw: shifted.shifted_precond(*args,
                                                               twin=tw),
@@ -1317,10 +1410,9 @@ def time_krylov_kernels(x, m):
         t = [cuda_ms(lambda: fn(tw), n=10) for tw in (True, False, False,
                                                       True)]
         out[name] = ((t[1] + t[2]) / 2, (t[0] + t[3]) / 2)
-    Vm = V[:, :m]
+    X0 = torch.stack([x["X"], torch.zeros_like(x["X"])], dim=1)
     out["krylov_combine library"] = cuda_ms(
-        lambda: torch.baddbmm(x["X"][:, None], x["C"][:, None, :m], Vm),
-        n=10)
+        lambda: torch.baddbmm(X0, x["C"][:, :, :m], V[:, :m]), n=10)
     return out
 
 
@@ -1709,17 +1801,24 @@ def main():
             RT123["n_quad"], RT123["ls_restart"] + 1,
             2 * (p123["nv"] * NO + p123["nv"] ** 2 * NO * NO),
             p123["nv"] * NO, (1, 10, RT123["ls_restart"]))}
-    krylov_ms = {}
+    krylov_ms, krylov_b = {}, {}
     for label, shape in krylov_shapes.items():
-        errs, krylov_ms[label] = krylov_phase(label, shape, device)
+        errs, t = krylov_ms[label] = krylov_phase(label, shape, device)
         compare.append(errs)
-        for name, t in krylov_ms[label].items():
-            if name.endswith("library"):
-                print(f"[{card}] {label} torch.baddbmm (the combine's "
-                      f"library call): {t:.4f} ms per call", flush=True)
-            else:
-                print(f"[{card}] {label} {name}: kernel {t[0]:.4f} ms, "
-                      f"twin {t[1]:.4f} ms per call", flush=True)
+        La_, _, n_, _, ms_ = shape
+        b = krylov_b[label] = krylov_bounds(La_, ms_[len(ms_) // 2], n_)
+        for name in ("arnoldi_cgs2", "krylov_combine", "shifted_precond"):
+            print(f"[{card}] {label} {name}: kernel {t[name][0]:.4f} ms, "
+                  f"twin {t[name][1]:.4f} ms per call", flush=True)
+        proj = t["arnoldi_cgs2"][0]
+        print(f"[{card}] {label} K7 projection at m={ms_[len(ms_) // 2]}: "
+              f"{proj:.4f} ms, three-pass floor {b['floor_ms']:.4f} ms "
+              f"({proj / b['floor_ms']:.3f}x), once-read bound "
+              f"{b['bound'][0]:.4f} ms; fused "
+              f"combine {t['krylov_combine'][0]:.4f} ms, torch.baddbmm "
+              f"(La, 2, m) {t['krylov_combine library']:.4f} ms, bound "
+              f"{b['combine'][0]:.4f} ms", flush=True)
+    krylov_ms = {label: t for label, (_, t) in krylov_ms.items()}
 
     # phase 12: FEAST nP=57; phase 13: RT nP=123; phase 14: FEAST LiH
     runs = {"FEAST": {}, "RT": {}, "LiH": {}}
@@ -1755,23 +1854,28 @@ def main():
 
     # phase 15: K9 against its twin at the ring shapes of nP=57 (5
     # shards) and nP=219 (4 shards, a 4.04 GB V block), every panel
-    # offset, both layouts; then per call at nP=219
+    # offset and an odd one, both layouts, and at the edge shapes; then
+    # per call at both ring shapes
     torch.cuda.empty_cache()
     meshes = {c: ring_mesh(problems[c]["nv"], device) for c in (5, 14)}
-    e9 = 0.0
+    e9, ring_t = 0.0, {}
     for c in (5, 14):
         x = ring_inputs(problems[c]["nv"], meshes[c].shape["a"], 15 + c,
                         device)
         e9 = max(e9, compare_ring_step(x, f"ring nP={problems[c]['nP']}"))
-        if c == 14:
-            k9_ms, k9_plain, k9_lib, ring_shape = time_ring_step(x)
+        ring_t[c] = time_ring_step(x)
         del x
+    e9 = max(e9, compare_ring_edges(19, device))
     compare.append({"ring_step": e9})
     torch.cuda.empty_cache()
+    k9_ms, k9_plain, k9_lib, ring_shape = ring_t[14]
     kernel_ms[14]["ring_step"] = (k9_ms, k9_plain)
-    print(f"[{card}] nP={problems[14]['nP']} ring_step {ring_shape}: kernel "
-          f"{k9_ms:.4f} ms, twin {k9_plain:.4f} ms, torch.addmm (library) "
-          f"{k9_lib:.4f} ms per call", flush=True)
+    for c, (ms, plain, lib, shape) in ring_t.items():
+        b = ring_bound(shape)
+        print(f"[{card}] nP={problems[c]['nP']} ring_step {shape}: kernel "
+              f"{ms:.4f} ms, twin {plain:.4f} ms, torch.addmm (library) "
+              f"{lib:.4f} ms per call; bound {b[0]:.4f} ms ({b[1]}), the "
+              f"kernel at {b[0] / ms:.3f} of it", flush=True)
 
     # phase 16: ring CCD on a one-card mesh (dense abcd cut on a), nP=57
     # (5 shards) and nP=219 (4 shards, 16.2 GB of abcd), converged
@@ -1815,14 +1919,36 @@ def main():
     bounds = kernel_bounds(problems[14], q, {"La": La, "R1": R1, "n": n2,
                                              "m": 60}, ring_shape)
     # the one PyTorch call of the same function, where there is one: for
-    # K7 it computes the Krylov combine (its kernel time: combine_ms)
+    # K7 it computes the fused Krylov combine (its kernel time:
+    # combine_ms); K7 also carries its three-pass floor and the RT nP=123
+    # lane shape, K9 its nP=57 ring step
+    rt_label = f"RT nP={p123['nP']}"
+
+    def k7_extra(label):
+        t, b = krylov_ms[label], krylov_b[label]
+        return {"floor_ms": b["floor_ms"],
+                "combine_ms": t["krylov_combine"][0],
+                "combine_plain_ms": t["krylov_combine"][1],
+                "combine_bound_ms": b["combine"][0],
+                "library_ms": t["krylov_combine library"]}
+
+    ms57, plain57, lib57, shape57 = ring_t[5]
     library = {
-        "ring_step": {"library_ms": k9_lib,
-                      "library_call": "torch.addmm on the strided panel"},
+        "ring_step": {
+            "library_ms": k9_lib,
+            "library_call": "torch.addmm on the strided panel",
+            f"nP={problems[5]['nP']}": {
+                "shape": shape57, "ms": ms57, "plain_ms": plain57,
+                "library_ms": lib57, "bound_ms": ring_bound(shape57)[0],
+                "bound_by": ring_bound(shape57)[1]}},
         "arnoldi_cgs2": {
-            "library_ms": krylov_ms[feast_label]["krylov_combine library"],
-            "library_call": "torch.baddbmm, the Krylov combine",
-            "combine_ms": krylov_ms[feast_label]["krylov_combine"][0]}}
+            "library_call": "torch.baddbmm with a (La, 2, m) coefficient "
+                            "batch, the fused Krylov combine",
+            **k7_extra(feast_label),
+            rt_label: {"ms": krylov_ms[rt_label]["arnoldi_cgs2"][0],
+                       "plain_ms": krylov_ms[rt_label]["arnoldi_cgs2"][1],
+                       "bound_ms": krylov_b[rt_label]["bound"][0],
+                       **k7_extra(rt_label)}}}
     print(json.dumps({"kernels": [
         {"name": name, "route": route, "source": src, "replaces": rep,
          "launches": total[name], "max_abs_err": max_err[name],

@@ -15,182 +15,262 @@
 // JAX step first materialises transpose(V_slice), a 1.0 GB copy per step at
 // nP=219) and accumulates into R in place.  T and R come with explicit
 // strides, so the ijab form (T (M, K) row-major, R (M, N) row-major) and the
-// abij form (T cd-major (K, M), R (N, M)) run the same kernel, no transpose
-// copy.
+// abij form (T cd-major, seen as (M, K) with m stride 1; R likewise) run the
+// same kernel, no transpose copy.
 //
-// What bounds it on an H100: at nP=219 (nv = 212, 4 shards) one launch
-// reads a 1.01 GB panel once for 12.4 GFLOP (12 FLOP per byte), so HBM
-// bandwidth: 0.30 ms at 3.35 TB/s.  One CCD iteration runs P*P launches and
-// reads all of V_abcd (16.2 GB) once.
-// This first version is simple and deterministic: one block per 64 x 64
-// output tile holding every row of the (padded) M and one split of K, K
-// staged through shared memory 32 at a time with the next stage's loads in
-// flight in registers, f64 FMA in registers (4 x 4 outputs a thread), each
-// output's split summed by one thread in k order, the splits then added in
-// split order by a second pass (no atomics).
-// Row groups past M are skipped warp by warp (M = 49 fills 49 of 64 rows).
-// DMMA (mma.sync f64) and TMA loads are left for later work.
+// What bounds it on an H100: at nP=219 (nv = 212, 4 shards, M = 49,
+// N = K = 11236) one launch reads a 1.01 GB panel once for 12.4 GFLOP, so
+// HBM bandwidth: 0.305 ms at 3.35 TB/s.  f64 FMA on the CUDA cores (~34
+// TFLOP/s) would need 0.364 ms for the arithmetic alone, above that bound,
+// so the products run on the f64 tensor cores (DMMA, 67 TFLOP/s).
+//
+// Design:
+// * DMMA: mma.sync.aligned.m16n8k8.row.col.f64 (a shape new in sm_90,
+//   twice the work of an m8n8k4 instruction), accumulators in registers.
+//   A block holds 64 rows of M (4 m16 tiles; M = 49 is padded to 64, so
+//   the step costs 2*64*N*K = 16.2 GFLOP at nP=219, >= 0.241 ms at 67
+//   TFLOP/s, under the byte bound).  V's rows are k-contiguous: exactly
+//   the .col B operand.  Rows of a tile past M or N hold whatever the
+//   buffer held; they feed only outputs that are never stored (an output
+//   row depends only on its A row, a column only on its B column).  Only
+//   the k tail of the last stage is masked to zero in the fragments.
+// * A 4-stage shared-memory ring of (TN x 32) V and (64 x 32) T tiles,
+//   rows padded to 36 doubles so the fragment loads are free of bank
+//   conflicts.  Two producer warps fill it with 16-byte cp.async (a warp
+//   instruction moves two 256-byte row segments), each thread's copies
+//   arriving on the stage's full mbarrier (cp.async.mbarrier.arrive.noinc);
+//   four consumer warps release a stage through its empty mbarrier.  Where
+//   a row is not 16-byte aligned (an odd panel offset or row stride, an
+//   odd K tail) or T has m stride 1 (abij), the producers move single
+//   doubles with 8-byte cp.async on the same barriers, so any offset runs
+//   on the card (async_copy.cuh says why not cp.async.bulk).
+// * A tile of TN = 128, 64 or 32 output columns (4, 2 or 1 n8 tiles a
+//   consumer warp) and a split of the contraction into contiguous stage
+//   ranges, both chosen per shape by the Python planner
+//   (kernels/ring_step.py plan): at nP=219 TN = 128 (T's re-reads through
+//   L2 are 88 x 4.4 MB beside the 1.01 GB panel) and 3 splits (264 blocks,
+//   two full waves on 132 SMs); at nP=57 TN = 32 and one split (16
+//   blocks, no second launch).  With several splits each writes its
+//   partial to scratch and ring_reduce adds them in split order: no
+//   atomics, and a rerun gives the same bits.
 
 #include <cuda_runtime.h>
 
+#include "async_copy.cuh"
+
 namespace {
 
-constexpr int TM = 64;                 // output rows (i,j) per block
-constexpr int TN = 64;                 // output columns (a,b) per block
-constexpr int TK = 32;                 // contraction depth per stage
-constexpr int NTHREADS = 256;          // 16 x 16 threads, 4 x 4 outputs each
-constexpr int NG = 4;                  // row (and column) groups a thread
+using pymes::aligned16;
 
-static_assert(NTHREADS == 256 && TM == 16 * NG && TN == 16 * NG,
-              "a 16 x 16 thread grid covers the tile");
+constexpr int MT = 4;                  // m16 tiles of a block
+constexpr int BM = 16 * MT;            // rows of M per block
+constexpr int KK = 8;                  // depth of one DMMA (m16n8k8)
+constexpr int TK = 32;                 // contraction depth of a stage
+constexpr int LDS = TK + 4;            // padded shared row, in doubles
+constexpr int STAGES = 4;
+constexpr int CWARPS = 4;              // consumer warps
+constexpr int PTHREADS = 64;           // two producer warps
+constexpr int NTHREADS = 32 * CWARPS + PTHREADS;
 
-// FMA of one shared-memory stage into the accumulators of the first NI row
-// groups (NI is uniform across a warp but for the warp holding row M-1)
-template <int NI>
-__device__ __forceinline__ void stage_fma(const double (&As)[TK][TM + 1],
-                                          const double (&Bs)[TK][TN + 1],
-                                          double (&acc)[NG][NG], int ty,
-                                          int tx)
+template <int NT>
+__host__ __device__ constexpr int tile_n() { return CWARPS * 8 * NT; }
+
+template <int NT>
+__host__ __device__ constexpr int stage_doubles()
 {
-#pragma unroll 8
-    for (int k = 0; k < TK; ++k) {
-        double b[NG];
-#pragma unroll
-        for (int j = 0; j < NG; ++j) b[j] = Bs[k][tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < NI; ++i) {
-            const double a = As[k][ty + 16 * i];
-#pragma unroll
-            for (int j = 0; j < NG; ++j) acc[i][j] = fma(a, b[j], acc[i][j]);
-        }
-    }
+    return (tile_n<NT>() + BM) * LDS;
 }
 
-// Per stage each thread moves LA elements of the T tile and LB of the V tile
-// from device memory through registers: the next stage's loads are issued
-// before the current stage's FMA, so they are in flight together and
-// overlap the arithmetic.
-constexpr int LA = TM * TK / NTHREADS;
-constexpr int LB = TN * TK / NTHREADS;
+template <int NT>
+constexpr size_t smem_bytes()
+{
+    return sizeof(double) * STAGES * stage_doubles<NT>()
+        + 2 * STAGES * sizeof(uint64_t);
+}
 
-struct Operands {
+struct Args {
     const double* T; long long stm, stk;
-    const double* V; long long ldv;
-    int M, N, K, m0, n0;
+    const double* V; long long ldv;    // V points at the panel's column 0
+    double* R; long long srm, srn;
+    int M, N, K, sps;                  // sps: stages of one split
+    double* W;                         // (splits, M, N) partials or null
 };
 
-// UNIT_K: T's k stride is 1 (ijab), so consecutive threads walk k; else
-// (abij, m stride 1) they walk m.  Both keep the loads coalesced.
-template <bool UNIT_K>
-__device__ __forceinline__ void load_stage(const Operands& o, int k0, int tid,
-                                           double (&ra)[LA], double (&rb)[LB])
+// C (16 x 8) += A (16 x 8) B (8 x 8); with g = lane / 4, t = lane % 4 a
+// lane holds A[g + 8h][t + 4q] in a[2q + h], B[t + 4q][g] in b[q] and
+// C[g + 8h][2t + e] in c[2h + e]
+__device__ __forceinline__ void dmma(double (&c)[4], const double (&a)[4],
+                                     const double (&b)[2])
 {
-#pragma unroll
-    for (int u = 0; u < LA; ++u) {
-        const int e = tid + u * NTHREADS;
-        const int k = UNIT_K ? e % TK : e / TM;
-        const int m = UNIT_K ? e / TK : e % TM;
-        ra[u] = (o.m0 + m < o.M && k0 + k < o.K)
-            ? o.T[(o.m0 + m) * o.stm + (k0 + k) * o.stk] : 0.0;
-    }
-#pragma unroll
-    for (int u = 0; u < LB; ++u) {
-        const int e = tid + u * NTHREADS;
-        const int k = e % TK, n = e / TK;
-        rb[u] = (o.n0 + n < o.N && k0 + k < o.K)
-            ? o.V[(o.n0 + n) * o.ldv + (k0 + k)] : 0.0;
-    }
+    asm volatile("mma.sync.aligned.m16n8k8.row.col.f64.f64.f64.f64 "
+                 "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+                 "{%0, %1, %2, %3};"
+                 : "+d"(c[0]), "+d"(c[1]), "+d"(c[2]), "+d"(c[3])
+                 : "d"(a[0]), "d"(a[1]), "d"(a[2]), "d"(a[3]), "d"(b[0]),
+                   "d"(b[1]));
 }
 
-template <bool UNIT_K>
-__device__ __forceinline__ void store_stage(double (&As)[TK][TM + 1],
-                                            double (&Bs)[TK][TN + 1], int tid,
-                                            const double (&ra)[LA],
-                                            const double (&rb)[LB])
+// Rows [0, nrows) x depth [0, kv) of src (row stride ld, unit k stride)
+// into dst (row stride LDS): 16-byte copies when src rows are 16-byte
+// aligned, else 8-byte ones; producer thread p takes every PTHREADS-th.
+__device__ __forceinline__ void copy_rows(double* dst, const double* src,
+                                          long long ld, int nrows, int kv,
+                                          bool al16, int p)
 {
-#pragma unroll
-    for (int u = 0; u < LA; ++u) {
-        const int e = tid + u * NTHREADS;
-        As[UNIT_K ? e % TK : e / TM][UNIT_K ? e / TK : e % TM] = ra[u];
-    }
-#pragma unroll
-    for (int u = 0; u < LB; ++u) {
-        const int e = tid + u * NTHREADS;
-        Bs[e % TK][e / TK] = rb[u];
-    }
-}
-
-// The stages [k_begin, o.K) of one split of the contraction (o.K is the
-// split's end).
-template <bool UNIT_K>
-__device__ __forceinline__ void tile_loop(const Operands& o, int k_begin,
-                                          double (&As)[TK][TM + 1],
-                                          double (&Bs)[TK][TN + 1],
-                                          double (&acc)[NG][NG], int ni,
-                                          int tid, int ty, int tx)
-{
-    double ra[LA], rb[LB];
-    load_stage<UNIT_K>(o, k_begin, tid, ra, rb);
-    for (int k0 = k_begin; k0 < o.K; k0 += TK) {
-        store_stage<UNIT_K>(As, Bs, tid, ra, rb);
-        __syncthreads();
-        if (k0 + TK < o.K) load_stage<UNIT_K>(o, k0 + TK, tid, ra, rb);
-        switch (ni) {
-            case 4: stage_fma<4>(As, Bs, acc, ty, tx); break;
-            case 3: stage_fma<3>(As, Bs, acc, ty, tx); break;
-            case 2: stage_fma<2>(As, Bs, acc, ty, tx); break;
-            case 1: stage_fma<1>(As, Bs, acc, ty, tx); break;
-            default: break;
+    if (al16 && kv == TK) {
+        for (int e = p; e < nrows * (TK / 2); e += PTHREADS) {
+            const int r = e / (TK / 2), c = 2 * (e % (TK / 2));
+            pymes::cp_async16(dst + r * LDS + c, src + r * ld + c);
         }
-        __syncthreads();
-    }
-}
-
-// Block (x, y, z) sums the contraction split z, [z*Kc, (z+1)*Kc), for the
-// output tile (y, x): into R when there is one split (W null), else into
-// its slice W[z] of the (splits, M, N) scratch that ring_reduce adds up.
-__global__ void __launch_bounds__(NTHREADS)
-ring_step_kernel(const double* __restrict__ T, long long stm, long long stk,
-                 const double* __restrict__ V, long long ldv,
-                 double* __restrict__ R, long long srm, long long srn,
-                 int M, int N, int K, int Kc, double* __restrict__ W)
-{
-    __shared__ double As[TK][TM + 1];      // T tile, As[k][m]
-    __shared__ double Bs[TK][TN + 1];      // V tile, Bs[k][n]
-
-    const int k_begin = static_cast<int>(blockIdx.z) * Kc;
-    const Operands o{T, stm, stk, V, ldv, M, N, min(K, k_begin + Kc),
-                     static_cast<int>(blockIdx.y) * TM,
-                     static_cast<int>(blockIdx.x) * TN};
-    const int tid = threadIdx.x;
-    const int tx = tid % 16, ty = tid / 16;
-    // row groups of this thread that hold a row < M
-    int ni = 0;
-    while (ni < NG && o.m0 + ty + 16 * ni < M) ++ni;
-
-    double acc[NG][NG];
-#pragma unroll
-    for (int i = 0; i < NG; ++i)
-#pragma unroll
-        for (int j = 0; j < NG; ++j) acc[i][j] = 0.0;
-
-    // stk is uniform over the grid, so the branch holds every barrier
-    if (stk == 1) tile_loop<true>(o, k_begin, As, Bs, acc, ni, tid, ty, tx);
-    else tile_loop<false>(o, k_begin, As, Bs, acc, ni, tid, ty, tx);
-
-    double* Wz = W ? W + static_cast<long long>(blockIdx.z) * M * N : nullptr;
-#pragma unroll
-    for (int i = 0; i < NG; ++i) {
-        const int m = o.m0 + ty + 16 * i;
-        if (i >= ni) break;
-#pragma unroll
-        for (int j = 0; j < NG; ++j) {
-            const int n = o.n0 + tx + 16 * j;
-            if (n >= N) continue;
-            if (Wz) Wz[static_cast<long long>(m) * N + n] = acc[i][j];
-            else R[m * srm + n * srn] += acc[i][j];
+    } else if (al16 && kv % 2 == 0) {
+        const int cpr = kv / 2;
+        for (int e = p; e < nrows * cpr; e += PTHREADS) {
+            const int r = e / cpr, c = 2 * (e % cpr);
+            pymes::cp_async16(dst + r * LDS + c, src + r * ld + c);
+        }
+    } else {
+        for (int e = p; e < nrows * kv; e += PTHREADS) {
+            const int r = e / kv, k = e % kv;
+            pymes::cp_async8(dst + r * LDS + k, src + r * ld + k);
         }
     }
+}
+
+// The producer warps (thread p of PTHREADS): fill stage u of the block's
+// range [s0, s0 + nst) once the consumers have released its buffer.
+template <int NT>
+__device__ void produce(const Args& a, double* smem, uint64_t* full,
+                        uint64_t* empty, int n0, int m0, int s0, int nst,
+                        int p)
+{
+    constexpr int TN = tile_n<NT>();
+    const int nrows = min(TN, a.N - n0), mrows = min(BM, a.M - m0);
+    const bool v_al = aligned16(a.V) && a.ldv % 2 == 0;
+    const bool t_al = aligned16(a.T) && a.stm % 2 == 0;
+    for (int u = 0; u < nst; ++u) {
+        const int slot = u % STAGES;
+        pymes::mbar_wait(&empty[slot], ((u / STAGES) & 1) ^ 1);
+        const int k0 = (s0 + u) * TK, kv = min(TK, a.K - k0);
+        double* Vs = smem + slot * stage_doubles<NT>();
+        double* Ts = Vs + TN * LDS;
+        copy_rows(Vs, a.V + n0 * a.ldv + k0, a.ldv, nrows, kv, v_al, p);
+        if (a.stk == 1) {
+            copy_rows(Ts, a.T + m0 * a.stm + k0, a.stm, mrows, kv, t_al, p);
+        } else {
+            // m stride 1 (abij): neighbouring threads on neighbouring rows
+            for (int e = p; e < mrows * kv; e += PTHREADS) {
+                const int k = e / mrows, r = e % mrows;
+                pymes::cp_async8(Ts + r * LDS + k,
+                                 a.T + (m0 + r) * a.stm + (k0 + k) * a.stk);
+            }
+        }
+        pymes::cp_async_arrive_noinc(&full[slot]);
+    }
+}
+
+// One stage of products into a consumer warp's accumulators; MASK zeroes
+// the fragments past the valid depth kv of the last stage.
+template <int NT, bool MASK>
+__device__ __forceinline__ void mma_stage(const double* Vs, const double* Ts,
+                                          double (&acc)[MT][NT][4], int g,
+                                          int t, int wn, int kv)
+{
+#pragma unroll
+    for (int ks = 0; ks < TK / KK; ++ks) {
+        if (MASK && ks * KK >= kv) break;
+        double av[MT][4], bv[NT][2];
+#pragma unroll
+        for (int q = 0; q < KK / 4; ++q) {
+            const int k = ks * KK + 4 * q + t;
+            const bool ok = !MASK || k < kv;
+#pragma unroll
+            for (int i = 0; i < MT; ++i)
+#pragma unroll
+                for (int h = 0; h < 2; ++h) {
+                    const double x = Ts[(16 * i + 8 * h + g) * LDS + k];
+                    av[i][2 * q + h] = ok ? x : 0.0;
+                }
+#pragma unroll
+            for (int j = 0; j < NT; ++j) {
+                const double x = Vs[(wn + 8 * j + g) * LDS + k];
+                bv[j][q] = ok ? x : 0.0;
+            }
+        }
+#pragma unroll
+        for (int i = 0; i < MT; ++i)
+#pragma unroll
+            for (int j = 0; j < NT; ++j) dmma(acc[i][j], av[i], bv[j]);
+    }
+}
+
+// Block (x, y, z): output columns [x*TN, (x+1)*TN), rows [y*64, (y+1)*64),
+// contraction stages [z*sps, (z+1)*sps); into R when W is null, else into
+// W[z].
+template <int NT>
+__global__ void __launch_bounds__(NTHREADS) ring_step_kernel(Args a)
+{
+    constexpr int TN = tile_n<NT>();
+    extern __shared__ __align__(128) double smem[];
+    uint64_t* full = reinterpret_cast<uint64_t*>(
+        smem + STAGES * stage_doubles<NT>());
+    uint64_t* empty = full + STAGES;
+    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+    const int n0 = blockIdx.x * TN, m0 = blockIdx.y * BM;
+    const int s0 = blockIdx.z * a.sps;
+    const int nst = min((a.K + TK - 1) / TK, s0 + a.sps) - s0;
+    if (threadIdx.x == 0) {
+        for (int s = 0; s < STAGES; ++s) {
+            pymes::mbar_init(&full[s], PTHREADS);
+            pymes::mbar_init(&empty[s], CWARPS);
+        }
+    }
+    __syncthreads();
+    if (warp >= CWARPS) {
+        produce<NT>(a, smem, full, empty, n0, m0, s0, nst,
+                    threadIdx.x - 32 * CWARPS);
+        return;
+    }
+
+    const int g = lane >> 2, t = lane & 3, wn = warp * 8 * NT;
+    double acc[MT][NT][4];
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.0;
+
+    for (int u = 0; u < nst; ++u) {
+        const int slot = u % STAGES;
+        pymes::mbar_wait(&full[slot], (u / STAGES) & 1);
+        const double* Vs = smem + slot * stage_doubles<NT>();
+        const double* Ts = Vs + TN * LDS;
+        const int kv = min(TK, a.K - (s0 + u) * TK);
+        if (kv == TK) mma_stage<NT, false>(Vs, Ts, acc, g, t, wn, kv);
+        else mma_stage<NT, true>(Vs, Ts, acc, g, t, wn, kv);
+        __syncwarp();
+        if (lane == 0) pymes::mbar_arrive(&empty[slot]);
+    }
+
+    double* Wz = a.W ? a.W + static_cast<long long>(blockIdx.z) * a.M * a.N
+                     : nullptr;
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+            const int m = m0 + 16 * i + 8 * h + g;
+            if (m >= a.M) continue;
+#pragma unroll
+            for (int j = 0; j < NT; ++j)
+#pragma unroll
+                for (int e = 0; e < 2; ++e) {
+                    const int n = n0 + wn + 8 * j + 2 * t + e;
+                    if (n >= a.N) continue;
+                    const double c = acc[i][j][2 * h + e];
+                    if (Wz) Wz[static_cast<long long>(m) * a.N + n] = c;
+                    else a.R[m * a.srm + n * a.srn] += c;
+                }
+        }
 }
 
 // R[m, n] += W[0][m][n] + W[1][m][n] + ... in split order (deterministic)
@@ -207,50 +287,48 @@ __global__ void ring_reduce(const double* __restrict__ W, int splits,
     R[(e / N) * srm + (e % N) * srn] += s;
 }
 
-int stages(int K) { return (K + TK - 1) / TK; }
+template <int NT>
+cudaError_t launch(const Args& a, dim3 grid, cudaStream_t stream)
+{
+    // set on every launch: the attribute belongs to the current device
+    cudaError_t err = cudaFuncSetAttribute(
+        ring_step_kernel<NT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem_bytes<NT>()));
+    if (err != cudaSuccess) return err;
+    ring_step_kernel<NT><<<grid, NTHREADS, smem_bytes<NT>(), stream>>>(a);
+    return cudaGetLastError();
+}
 
 }  // namespace
 
-// The number of K splits for one launch: the output tiles alone fill 132
-// SMs unevenly (176 tiles at nP=219: two waves, the second a third full),
-// so the contraction is cut into up to 8 splits, taking the count that
-// minimises (blocks per SM) x (stages per block), the fewest on a tie.
-extern "C" int pymes_ring_step_splits(int M, int N, int K)
-{
-    if (M <= 0 || N <= 0 || K <= 0) return 1;
-    int dev = 0, sms = 1;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    const long long tiles = static_cast<long long>((N + TN - 1) / TN)
-        * ((M + TM - 1) / TM);
-    int best = 1;
-    long long best_cost = -1;
-    for (int S = 1; S <= 8 && S <= stages(K); ++S) {
-        const long long per_block = (stages(K) + S - 1) / S;
-        const long long cost = (tiles * S + sms - 1) / sms * per_block;
-        if (best_cost < 0 || cost < best_cost) { best = S; best_cost = cost; }
-    }
-    return best;
-}
-
 // R[m*srm + n*srn] += sum_k T[m*stm + k*stk] * V[n*ldv + k] for m < M,
-// n < N, k < K, on `stream`, with the contraction cut into `splits` (W a
-// scratch of splits*M*N doubles when splits > 1, else unused); returns the
+// n < N, k < K (V points at the panel's first column), on `stream`, with
+// output tiles of tn columns (128, 64 or 32) and the contraction cut
+// into `splits` ranges of whole 32-deep stages (W a scratch of splits*M*N
+// doubles when that leaves more than one range, else unused); returns the
 // cudaError_t of the launches.
 extern "C" int pymes_ring_step(const double* T, long long stm, long long stk,
                                const double* V, long long ldv, double* R,
                                long long srm, long long srn, int M, int N,
-                               int K, int splits, double* W,
+                               int K, int tn, int splits, double* W,
                                cudaStream_t stream)
 {
     if (M <= 0 || N <= 0 || K <= 0) return static_cast<int>(cudaSuccess);
     if (splits < 1) return static_cast<int>(cudaErrorInvalidValue);
-    const int Kc = (stages(K) + splits - 1) / splits * TK;
-    const int nz = (K + Kc - 1) / Kc;      // <= splits
-    const dim3 grid((N + TN - 1) / TN, (M + TM - 1) / TM, nz);
-    ring_step_kernel<<<grid, NTHREADS, 0, stream>>>(
-        T, stm, stk, V, ldv, R, srm, srn, M, N, K, Kc, nz > 1 ? W : nullptr);
-    cudaError_t err = cudaGetLastError();
+    const int stages = (K + TK - 1) / TK;
+    const int sps = (stages + splits - 1) / splits;
+    const int nz = (stages + sps - 1) / sps;      // <= splits
+    if (nz > 1 && W == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+    const Args a{T, stm, stk, V, ldv, R, srm, srn, M, N, K, sps,
+                 nz > 1 ? W : nullptr};
+    const dim3 grid((N + tn - 1) / tn, (M + BM - 1) / BM, nz);
+    cudaError_t err;
+    switch (tn) {
+        case tile_n<4>(): err = launch<4>(a, grid, stream); break;
+        case tile_n<2>(): err = launch<2>(a, grid, stream); break;
+        case tile_n<1>(): err = launch<1>(a, grid, stream); break;
+        default: return static_cast<int>(cudaErrorInvalidValue);
+    }
     if (err != cudaSuccess || nz == 1) return static_cast<int>(err);
     const long long MN = static_cast<long long>(M) * N;
     ring_reduce<<<static_cast<unsigned>((MN + 255) / 256), 256, 0, stream>>>(

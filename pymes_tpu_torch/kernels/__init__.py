@@ -1,7 +1,8 @@
 """Hand-written Hopper kernels of the port, each beside its plain twin.
 
 * :mod:`.block_ladder` — K1, the momentum-sector ladder GEMM (CUDA C++,
-  ``pymes_tpu_torch/csrc/block_ladder.cu``, built by :mod:`._build`).
+  ``pymes_tpu_torch/csrc/block_ladder.cu``; every ``csrc/*.cu`` is built by
+  :mod:`._build`).
 * :mod:`.ccd_tail` — K2/K3, the per-iteration Jacobi + DIIS + energy passes
   over T2 (Triton).
 * :mod:`.ovvv_gather` — K4, the momentum gather of T1 that replaces the
@@ -12,15 +13,16 @@
   of the CCD/CCSD residual and the EOM doubles sigma (Triton).
 * :mod:`.davidson` — K6, the preconditioned Davidson residual pass of the
   EOM solver (Triton).
-* :mod:`.arnoldi` — K7, the CGS2 Arnoldi projection and the Krylov row
-  combines of the lane-batched GMRES (Triton).
+* :mod:`.arnoldi` — K7, the CGS2 Arnoldi projection and the fused
+  two-output Krylov combine of the lane-batched GMRES (CUDA C++,
+  ``pymes_tpu_torch/csrc/arnoldi.cu``).
 * :mod:`.shifted` — K8, the shifted-operator assembly, diagonal
   preconditioner and honest residual of the FEAST/RT contour solves
   (Triton).
 * :mod:`.ring_step` — K9, one step of the ring-accumulated ladder over a
   device mesh: the held T shard against a c-panel of the local V block,
-  accumulated into R in place (CUDA C++, ``pymes_tpu_torch/csrc/
-  ring_step.cu``).
+  accumulated into R in place (CUDA C++ on the f64 tensor cores,
+  ``pymes_tpu_torch/csrc/ring_step.cu``).
 
 A wrapper given a CUDA tensor launches its kernel (or raises); given a CPU
 tensor it runs the twin.  Each launch of a kernel adds one to its entry in

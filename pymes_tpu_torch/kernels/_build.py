@@ -1,15 +1,17 @@
 """Build and load the CUDA C++ kernels at first use.
 
 ``nvcc`` compiles each of ``pymes_tpu_torch/csrc/*.cu`` (plain C interface,
-no PyTorch headers, so the build takes seconds; one process per source, all
-started together) for ``sm_90a`` and links them into one library in
-``build/torch_kernels/`` of the checkout; the library is loaded with
-``ctypes``.  Pointers and the stream are passed as ``c_void_p``; every entry
+sharing ``csrc/*.cuh``, no PyTorch headers, so the build takes seconds; one
+process per source, all started together) for ``sm_90a`` and links them
+into one library in ``build/torch_kernels/`` of the checkout; the library
+is loaded with ``ctypes``.  Pointers and the stream are passed as
+``c_void_p``, strides and column counts as ``c_longlong``; every entry
 point returns a ``cudaError_t`` that the wrapper checks.  A failed build
 raises — there is no fallback.
 """
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -41,7 +43,7 @@ def build() -> Path:
     returns its path."""
     sources = sorted(CSRC.glob("*.cu"))
     digest = hashlib.sha1()
-    for src in sources:
+    for src in sources + sorted(CSRC.glob("*.cuh")):
         digest.update(src.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     lib = BUILD_DIR / f"libpymes_torch_kernels_{digest.hexdigest()[:12]}.so"
@@ -76,12 +78,20 @@ def build() -> Path:
     return lib
 
 
+@functools.lru_cache(maxsize=None)
+def sm_count(device):
+    """The number of SMs of a CUDA device (the kernels' planners size their
+    grids by it)."""
+    import torch
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def library():
     """The loaded kernel library (built on first call)."""
     global _LIB
     if _LIB is None:
         lib = ctypes.CDLL(str(build()))
-        vp, i32 = ctypes.c_void_p, ctypes.c_int
+        vp, i32, f64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
         lib.pymes_block_ladder.argtypes = [vp, vp, vp, vp, vp, vp, i32, vp,
                                            i32, vp]
         lib.pymes_block_ladder.restype = i32
@@ -89,9 +99,18 @@ def library():
         lib.pymes_block_ladder_row_tile.restype = i32
         i64 = ctypes.c_longlong
         lib.pymes_ring_step.argtypes = [vp, i64, i64, vp, i64, vp, i64, i64,
-                                        i32, i32, i32, i32, vp, vp]
+                                        i32, i32, i32, i32, i32, vp, vp]
         lib.pymes_ring_step.restype = i32
-        lib.pymes_ring_step_splits.argtypes = [i32, i32, i32]
-        lib.pymes_ring_step_splits.restype = i32
+        # K7: the three CGS2 passes, the guarded scale, the Krylov combine
+        lib.pymes_arnoldi_pass.argtypes = [i32, vp, vp, vp, vp, vp, vp, vp,
+                                           i64, i64, i32, i64, i32, i32, vp]
+        lib.pymes_arnoldi_pass.restype = i32
+        lib.pymes_arnoldi_scale.argtypes = [vp, vp, vp, vp, vp, i64, i64,
+                                            i32, i64, i32, i32, f64, vp]
+        lib.pymes_arnoldi_scale.restype = i32
+        lib.pymes_krylov_combine.argtypes = [vp, vp, vp, vp, i32, vp, vp,
+                                             vp, i64, i64, i32, i64, i32, i32,
+                                             vp]
+        lib.pymes_krylov_combine.restype = i32
         _LIB = lib
     return _LIB

@@ -1,4 +1,4 @@
-"""K7: the CGS2 Arnoldi projection and the Krylov row combines, in Triton.
+"""K7: the CGS2 Arnoldi projection and the Krylov row combines.
 
 Replaces B6, the body of ``pymes_tpu/ops/gmres.py:87-131`` ``gmres``
 (the projection at :101-108) and its two Krylov combines, the solution
@@ -13,178 +13,65 @@ then the new row V[ℓ_a, m_a] = w/‖w‖, or zero when ‖w‖ ≤ 1e-140 (the
 normalised).  The returned Hessenberg column is (h₁ + h₂, ‖w‖) in rows
 0..m_a, zero past them.
 
-What bounds it on an H100: memory bandwidth.  The Krylov basis is
-(L, restart+1, 2N) f64 — 15.2 GB at UEG nP=57 with 64 lanes of GMRES(120)
-— and CGS2 has to read the m valid rows three times (each pass needs the
-finished sums of the one before), against ~4 flops per element read: far
-below the tensor-core balance point, and the product is too skinny
-(K = m ≤ 121) for them anyway.  The design reads only what it must:
+The kernels are CUDA C++ (``pymes_tpu_torch/csrc/arnoldi.cu``, built with
+nvcc for sm_90a at first use): exact CGS2 in three dependent streaming
+passes over the m_a valid rows and a guarded scale (4 launches a
+projection), and one pass over V for both cycle-end combines
+(:func:`krylov_combine_xr`).  The source says what bounds them and how the
+design answers.  :func:`plan` cuts each lane's columns into the blocks'
+ranges; it and :func:`tile_cols` (the tile width the kernel takes for m
+rows) are plain Python so that the CPU tests reach them.
 
-* only the m_a valid rows; ``m`` is a per-lane runtime tensor (not
-  specialised), so one compile serves every Arnoldi step.  The JAX version
-  reads all restart+1 rows and relies on the rows past j being zero; here
-  the stale rows of earlier cycles are never read, so nothing is zeroed;
-* three passes over V.  A program owns a chunk of columns of one lane and
-  holds, per sub-block, the whole [RP, SUB] tile of valid rows in
-  registers, so each pass reads each valid element once:
-  (1) partial V·w; (2) w₁ = w − Vᵀh₁ (stored in place of w) fused with the
-  partial V·w₁; (3) w₂ = w₁ − Vᵀh₂ stored into row m, fused with the
-  partial ‖w₂‖²;
-* the per-chunk partials are reduced between passes by a small kernel in a
-  fixed order, with no atomics, so reruns give the same bits;
-* all offsets are int64: L·(restart+1)·2N is 1.90e9 at nP=57 with 64
-  lanes, 94 % of the int32 range.
-
-``krylov_combine`` is the same tile walk once: x0 + Σ_{i<m} c_i V_i per
-lane.  The twins (``*_twin``) loop over the lanes with ``torch.mv``
-products in the JAX order; a lane's twin result does not depend on the
-other lanes, so the lane-batched GMRES on the CPU equals one-lane solves
-bit for bit.  Triton is imported inside the launching function: the module
-must import where there is no Triton.
+The twins (``*_twin``) loop over the lanes with ``torch.mv`` products in
+the JAX order; a lane's twin result does not depend on the other lanes, so
+the lane-batched GMRES on the CPU equals one-lane solves bit for bit.
 """
+
+import functools
 
 import torch
 
 from pymes_tpu_torch import kernels
+from pymes_tpu_torch.kernels import _build
 
-BREAK = 1e-140     # ops/gmres.py:69, the f64 breakdown guard
-SUB_ELEMS = 4096   # elements of one [RP, SUB] register tile
-CHUNK = 2048       # columns of one program
-RED_ROWS = 32      # partial rows reduced per step
-
-_K7 = None
-
-
-def _kernels():
-    global _K7
-    if _K7 is None:
-        import triton
-        import triton.language as tl
-
-        @triton.jit(do_not_specialize=["n", "nch"])
-        def proj_kernel(V, W, lanes, m, Hin, P, n, stride_lane, nch,
-                        PASS: tl.constexpr, RP: tl.constexpr,
-                        SUB: tl.constexpr, NSUB: tl.constexpr):
-            c = tl.program_id(0).to(tl.int64)
-            a = tl.program_id(1).to(tl.int64)
-            lane = tl.load(lanes + a)
-            mm = tl.load(m + a)
-            rows = tl.arange(0, RP).to(tl.int64)
-            rmask = rows < mm
-            vbase = V + lane * stride_lane
-            wbase = W + a * n
-            h = tl.zeros([RP], dtype=tl.float64)
-            if PASS > 0:
-                h = tl.load(Hin + a * RP + rows, mask=rmask, other=0.0)
-            acc = tl.zeros([RP], dtype=tl.float64)
-            nacc = tl.zeros([SUB], dtype=tl.float64)
-            for s in range(NSUB):
-                cols = (c * NSUB + s) * SUB + tl.arange(0, SUB).to(tl.int64)
-                cmask = cols < n
-                w = tl.load(wbase + cols, mask=cmask, other=0.0)
-                tile = tl.load(vbase + rows[:, None] * n + cols[None, :],
-                               mask=rmask[:, None] & cmask[None, :],
-                               other=0.0)
-                if PASS == 0:
-                    acc += tl.sum(tile * w[None, :], axis=1)
-                elif PASS == 1:
-                    w = w - tl.sum(tile * h[:, None], axis=0)
-                    tl.store(wbase + cols, w, mask=cmask)
-                    acc += tl.sum(tile * w[None, :], axis=1)
-                else:
-                    w = w - tl.sum(tile * h[:, None], axis=0)
-                    tl.store(vbase + mm * n + cols, w, mask=cmask)
-                    nacc += w * w
-            if PASS == 2:
-                tl.store(P + a * nch + c, tl.sum(nacc, axis=0))
-            else:
-                tl.store(P + (a * nch + c) * RP + rows, acc)
-
-        @triton.jit(do_not_specialize=["nch"])
-        def reduce_kernel(P, Hprev, Hout, Hsum, nch, RP: tl.constexpr,
-                          RC: tl.constexpr, ACC: tl.constexpr):
-            # Hout[a] = Σ_c P[a, c, :] in chunk order; with ACC also
-            # Hsum[a] = Hprev[a] + Hout[a] (h = h₁ + h₂, the JAX order)
-            a = tl.program_id(0).to(tl.int64)
-            cols = tl.arange(0, RP)
-            acc = tl.zeros([RP], dtype=tl.float64)
-            for c0 in range(0, nch, RC):
-                r = c0 + tl.arange(0, RC).to(tl.int64)
-                tile = tl.load(P + (a * nch + r[:, None]) * RP + cols[None, :],
-                               mask=(r < nch)[:, None], other=0.0)
-                acc += tl.sum(tile, axis=0)
-            tl.store(Hout + a * RP + cols, acc)
-            if ACC:
-                prev = tl.load(Hprev + a * RP + cols)
-                tl.store(Hsum + a * RP + cols, prev + acc)
-
-        @triton.jit(do_not_specialize=["nch"])
-        def norm_kernel(P, m, H, nch, RP: tl.constexpr, RC: tl.constexpr,
-                        SQRT: tl.constexpr):
-            # H[a, m_a] = Σ_c P[a, c] in chunk order (its sqrt with SQRT)
-            a = tl.program_id(0).to(tl.int64)
-            acc = tl.zeros([RC], dtype=tl.float64)
-            for c0 in range(0, nch, RC):
-                r = c0 + tl.arange(0, RC).to(tl.int64)
-                acc += tl.load(P + a * nch + r, mask=r < nch, other=0.0)
-            tot = tl.sum(acc, axis=0)
-            if SQRT:
-                tot = tl.sqrt(tot)
-            mm = tl.load(m + a)
-            tl.store(H + a * RP + mm, tot)
-
-        @triton.jit(do_not_specialize=["n"])
-        def scale_kernel(V, lanes, m, H, n, stride_lane, brk,
-                         RP: tl.constexpr, BLOCK: tl.constexpr):
-            # V[ℓ_a, m_a] *= 1/max(‖w‖, BREAK) where ‖w‖ > BREAK, else 0
-            c = tl.program_id(0).to(tl.int64)
-            a = tl.program_id(1).to(tl.int64)
-            lane = tl.load(lanes + a)
-            mm = tl.load(m + a)
-            hn = tl.load(H + a * RP + mm)
-            b = tl.load(brk)
-            scale = tl.where(hn > b, 1.0 / tl.maximum(hn, b), 0.0)
-            cols = c * BLOCK + tl.arange(0, BLOCK).to(tl.int64)
-            ptr = V + lane * stride_lane + mm * n + cols
-            v = tl.load(ptr, mask=cols < n, other=0.0)
-            tl.store(ptr, scale * v, mask=cols < n)
-
-        @triton.jit(do_not_specialize=["n"])
-        def combine_kernel(V, lanes, m, C, X0, out, n, stride_lane,
-                           HAS_X0: tl.constexpr, RP: tl.constexpr,
-                           SUB: tl.constexpr, NSUB: tl.constexpr):
-            c = tl.program_id(0).to(tl.int64)
-            a = tl.program_id(1).to(tl.int64)
-            lane = tl.load(lanes + a)
-            mm = tl.load(m + a)
-            rows = tl.arange(0, RP).to(tl.int64)
-            rmask = rows < mm
-            coef = tl.load(C + a * RP + rows, mask=rmask, other=0.0)
-            vbase = V + lane * stride_lane
-            for s in range(NSUB):
-                cols = (c * NSUB + s) * SUB + tl.arange(0, SUB).to(tl.int64)
-                cmask = cols < n
-                tile = tl.load(vbase + rows[:, None] * n + cols[None, :],
-                               mask=rmask[:, None] & cmask[None, :],
-                               other=0.0)
-                acc = tl.sum(tile * coef[:, None], axis=0)
-                if HAS_X0:
-                    acc = tl.load(X0 + a * n + cols, mask=cmask,
-                                  other=0.0) + acc
-                tl.store(out + a * n + cols, acc, mask=cmask)
-
-        _K7 = (proj_kernel, reduce_kernel, norm_kernel, scale_kernel,
-               combine_kernel)
-    return _K7
+BREAK = 1e-140        # ops/gmres.py:69, the f64 breakdown guard
+# the doubles of one tile buffer of the projection and of the combine
+# (csrc/arnoldi.cu PROJ_TILE, COMB_TILE)
+PROJ_TILE = 3072
+COMB_TILE = 4096
+MAX_ROWS = 128        # basis rows a projection or combine takes
+BLOCKS_PER_SM = 2     # two ~99 KB blocks share an SM's shared memory
+MIN_SPAN = 2048       # columns a block takes at least
 
 
-def _rp(n_rows):
-    return max(1 << (int(n_rows) - 1).bit_length(), 2)
+def tile_cols(rows, tile=PROJ_TILE):
+    """Columns of the kernel's tile of ``rows`` rows (the m valid rows,
+    plus w's row in a projection) in a buffer of ``tile`` doubles: a
+    multiple of 16."""
+    return tile // max(rows, 1) // 16 * 16
 
 
-def _tiles(RP):
-    sub = max(16, min(256, SUB_ELEMS // RP))
-    return sub, max(1, CHUNK // sub)
+@functools.lru_cache(maxsize=256)
+def plan(n, La, sms):
+    """(G, span): each lane's n columns cut into G ranges of ``span``
+    columns (even, so every row segment stays 16-byte aligned), G as
+    large as fills ``sms`` SMs two blocks deep with La lanes, and at least
+    ``MIN_SPAN`` columns a range."""
+    G = max(1, min(sms * BLOCKS_PER_SM // max(La, 1), -(-n // MIN_SPAN)))
+    span = -(-n // G)
+    span += span % 2
+    return -(-n // span), span
+
+
+def block_tiles(n, G, span, rows, tile=PROJ_TILE):
+    """The column tiles [c0, c1) that block g of a lane walks, for each g,
+    as the kernel walks them with ``rows`` tile rows."""
+    C = tile_cols(rows, tile)
+    out = []
+    for g in range(G):
+        cb, ce = g * span, min(n, (g + 1) * span)
+        out.append([(c, min(ce, c + C)) for c in range(cb, ce, C)])
+    return out
 
 
 def _check(V, lanes, m, *rows):
@@ -198,9 +85,23 @@ def _check(V, lanes, m, *rows):
         raise ValueError("tensors lie on different devices")
     if V.dim() != 3 or lanes.shape != m.shape or lanes.dim() != 1:
         raise ValueError("K7 takes V (L, rows, n) and per-lane lanes, m")
+    if V.shape[1] > MAX_ROWS:
+        raise ValueError(f"K7 takes at most {MAX_ROWS} basis rows "
+                         "(GMRES restart ≤ 127)")
     for t in rows:
         if t.shape[0] != lanes.shape[0]:
             raise ValueError("one row per active lane")
+
+
+def _launch(V, La):
+    """(library, (G, span), stream) for a K7 launch on V's device."""
+    return (_build.library(), plan(V.shape[2], La, _build.sm_count(V.device)),
+            torch.cuda.current_stream(V.device).cuda_stream)
+
+
+def _rc(rc, what):
+    if rc != 0:
+        raise RuntimeError(f"{what} launch failed: cudaError {rc}")
 
 
 def arnoldi_cgs2_twin(V, w, lanes, m):
@@ -227,8 +128,8 @@ def arnoldi_cgs2(V, w, lanes, m, twin=False):
     """One CGS2 Arnoldi projection for each active lane: ``V`` (L, R+1, n)
     the Krylov bases, ``w`` (La, n) the new operator images of the active
     lanes ``lanes`` (La,) int64, whose first ``m`` (La,) int64 rows are
-    valid.  Writes the guarded normalised row V[lanes, m] in place and
-    returns the Hessenberg columns (La, R+1) (rows < m: h₁ + h₂, row m:
+    valid (m ≤ R).  Writes the guarded normalised row V[lanes, m] in place
+    and returns the Hessenberg columns (La, R+1) (rows < m: h₁ + h₂, row m:
     ‖w‖).  ``w`` is consumed.  K7 on a CUDA tensor, the twin on a CPU
     tensor or with ``twin=True``."""
     if not kernels.check_device(V) or twin:
@@ -238,31 +139,21 @@ def arnoldi_cgs2(V, w, lanes, m, twin=False):
     La = lanes.shape[0]
     if w.shape != (La, n):
         raise ValueError("w must be (active lanes, n)")
-    RP = _rp(R1)
-    SUB, NSUB = _tiles(RP)
-    nch = -(-n // (SUB * NSUB))
-    proj, red, nrm, scale, _ = _kernels()
+    lib, (G, span), stream = _launch(V, La)
     dev = V.device
-    P = torch.empty((La, nch, RP), dtype=V.dtype, device=dev)
-    h1 = torch.empty((La, RP), dtype=V.dtype, device=dev)
-    h2 = torch.empty_like(h1)
-    H = torch.empty_like(h1)
-    stride = R1 * n
-    grid = (nch, La)
-    proj[grid](V, w, lanes, m, h1, P, n, stride, nch, PASS=0, RP=RP,
-               SUB=SUB, NSUB=NSUB)
-    red[(La,)](P, h1, h1, h1, nch, RP=RP, RC=RED_ROWS, ACC=False)
-    proj[grid](V, w, lanes, m, h1, P, n, stride, nch, PASS=1, RP=RP,
-               SUB=SUB, NSUB=NSUB)
-    red[(La,)](P, h1, h2, H, nch, RP=RP, RC=RED_ROWS, ACC=True)
-    proj[grid](V, w, lanes, m, h2, P, n, stride, nch, PASS=2, RP=RP,
-               SUB=SUB, NSUB=NSUB)
-    nrm[(La,)](P, m, H, nch, RP=RP, RC=RED_ROWS, SQRT=True)
-    brk = torch.full((1,), BREAK, dtype=V.dtype, device=dev)
-    scale[(-(-n // 1024), La)](V, lanes, m, H, n, stride, brk, RP=RP,
-                               BLOCK=1024)
+    P = torch.empty((3, La, G, MAX_ROWS), dtype=V.dtype, device=dev)
+    h1 = torch.empty((La, MAX_ROWS), dtype=V.dtype, device=dev)
+    H = torch.empty((La, R1), dtype=V.dtype, device=dev)
+    ptrs = [t.data_ptr() for t in (V, w, lanes, m, P, h1, H)]
+    with torch.cuda.device(dev):
+        for p in range(3):
+            _rc(lib.pymes_arnoldi_pass(p, *ptrs, n, R1 * n, R1, span, G, La,
+                                       stream), f"K7 pass {p}")
+        _rc(lib.pymes_arnoldi_scale(ptrs[0], ptrs[2], ptrs[3], ptrs[4],
+                                    ptrs[6], n, R1 * n, R1, span, G, La,
+                                    BREAK, stream), "K7 scale")
     kernels.LAUNCHES["arnoldi_cgs2"] += 1
-    return H[:, :R1]
+    return H
 
 
 def krylov_combine_twin(V, coeffs, m, lanes, x0=None):
@@ -273,6 +164,36 @@ def krylov_combine_twin(V, coeffs, m, lanes, x0=None):
     return torch.stack(out)
 
 
+def krylov_combine_xr_twin(V, coeffs, m, lanes, x0=None):
+    """The two single combines: ``x0 + Σ coeffs[a, 0, i] V_i`` and
+    ``Σ coeffs[a, 1, i] V_i``."""
+    return (krylov_combine_twin(V, coeffs[:, 0], m, lanes, x0),
+            krylov_combine_twin(V, coeffs[:, 1], m, lanes))
+
+
+def _combine(V, coeffs, m, lanes, x0):
+    """K7's combine of ``coeffs`` (La, nout, k ≤ R+1) on the card; returns
+    the nout outputs (La, n)."""
+    La, nout = coeffs.shape[:2]
+    rows = (coeffs,) if x0 is None else (coeffs, x0)
+    _check(V, lanes, m, *rows)
+    L, R1, n = V.shape
+    if coeffs.shape[2] > R1 or (x0 is not None and x0.shape != (La, n)):
+        raise ValueError("coefficients or x0 do not fit V")
+    C = torch.zeros((La, nout, R1), dtype=V.dtype, device=V.device)
+    C[:, :, :coeffs.shape[2]] = coeffs
+    out = torch.empty((nout, La, n), dtype=V.dtype, device=V.device)
+    lib, (G, span), stream = _launch(V, La)
+    with torch.cuda.device(V.device):
+        _rc(lib.pymes_krylov_combine(
+            V.data_ptr(), lanes.data_ptr(), m.data_ptr(), C.data_ptr(), nout,
+            None if x0 is None else x0.data_ptr(), out[0].data_ptr(),
+            out[nout - 1].data_ptr() if nout > 1 else None, n, R1 * n, R1,
+            span, G, La, stream), "K7 combine")
+    kernels.LAUNCHES["arnoldi_cgs2"] += 1
+    return out
+
+
 def krylov_combine(V, coeffs, m, lanes, x0=None, twin=False):
     """``x0 + Σ_{i<m_a} coeffs[a, i]·V[lanes[a], i]`` per active lane (the
     GMRES solution update and the reconstructed residual, ``x0=None``);
@@ -280,27 +201,16 @@ def krylov_combine(V, coeffs, m, lanes, x0=None, twin=False):
     or with ``twin=True``."""
     if not kernels.check_device(V) or twin:
         return krylov_combine_twin(V, coeffs, m, lanes, x0)
-    rows = (coeffs,) if x0 is None else (coeffs, x0)
-    _check(V, lanes, m, *rows)
-    L, R1, n = V.shape
-    La = lanes.shape[0]
-    RP = _rp(R1)
-    C = torch.zeros((La, RP), dtype=V.dtype, device=V.device)
-    C[:, :coeffs.shape[1]] = coeffs
-    SUB, NSUB = _tiles(RP)
-    out = torch.empty((La, n), dtype=V.dtype, device=V.device)
-    _kernels()[4][(-(-n // (SUB * NSUB)), La)](
-        V, lanes, m, C, out if x0 is None else x0, out, n, R1 * n,
-        HAS_X0=x0 is not None, RP=RP, SUB=SUB, NSUB=NSUB)
-    kernels.LAUNCHES["arnoldi_cgs2"] += 1
-    return out
+    return _combine(V, coeffs[:, None], m, lanes, x0)[0]
 
 
-def row_sums(P):
-    """Σ over the columns of each row of the partials P (La, nch), in K7's
-    fixed chunk order (K8's residual norms use it)."""
-    La, nch = P.shape
-    out = torch.empty((La,), dtype=P.dtype, device=P.device)
-    zero = torch.zeros((La,), dtype=torch.int64, device=P.device)
-    _kernels()[2][(La,)](P, zero, out, nch, RP=1, RC=RED_ROWS, SQRT=False)
-    return out
+def krylov_combine_xr(V, coeffs, m, lanes, x0=None, twin=False):
+    """Both cycle-end combines in one pass over V: ``coeffs`` (La, 2, R+1)
+    holds the solution coefficients y (row 0) and the residual's u (row
+    1); returns ``(x0 + Σ y_i V_i, Σ u_i V_i)``, each summed as the single
+    combine sums it.  K7 on a CUDA tensor, the twin on a CPU tensor or
+    with ``twin=True``."""
+    if not kernels.check_device(V) or twin:
+        return krylov_combine_xr_twin(V, coeffs, m, lanes, x0)
+    x, r = _combine(V, coeffs, m, lanes, x0)
+    return x, r

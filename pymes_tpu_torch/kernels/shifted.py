@@ -31,13 +31,14 @@ module must import where there is no Triton.
 import torch
 
 from pymes_tpu_torch import kernels
-from pymes_tpu_torch.kernels.arnoldi import row_sums
 
 BLOCK = 1024
+RED_ROWS = 32  # partials a row-sum step adds
 SHIFT = 0.01   # feast_eom_ccsd.py:96-99, the preconditioner's real shift
 MODES = ("apply", "residual", "precond")
 
 _K8 = None
+_ROW_SUM = None
 
 
 def _kernel():
@@ -113,6 +114,35 @@ def _kernel():
 
         _K8 = shifted_kernel
     return _K8
+
+
+def _row_sum_kernel():
+    global _ROW_SUM
+    if _ROW_SUM is None:
+        import triton
+        import triton.language as tl
+
+        @triton.jit(do_not_specialize=["nch"])
+        def row_sum_kernel(P, out, nch, RC: tl.constexpr):
+            # out[a] = Σ_c P[a, c], RC partials a step in chunk order
+            a = tl.program_id(0).to(tl.int64)
+            acc = tl.zeros([RC], dtype=tl.float64)
+            for c0 in range(0, nch, RC):
+                r = c0 + tl.arange(0, RC).to(tl.int64)
+                acc += tl.load(P + a * nch + r, mask=r < nch, other=0.0)
+            tl.store(out + a, tl.sum(acc, axis=0))
+
+        _ROW_SUM = row_sum_kernel
+    return _ROW_SUM
+
+
+def row_sums(P):
+    """Σ over the columns of each row of the partials P (La, nch) in a
+    fixed order (the residual mode's norms), on the card."""
+    La, nch = P.shape
+    out = torch.empty((La,), dtype=P.dtype, device=P.device)
+    _row_sum_kernel()[(La,)](P, out, nch, RC=RED_ROWS)
+    return out
 
 
 def _planes(H1, H2, La):

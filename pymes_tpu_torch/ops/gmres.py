@@ -18,8 +18,8 @@ rows of the active lanes only, so a lane's result is that of the one-lane
 solver.  The split between host and card follows the EOM Davidson's:
 
 * the Krylov bases V (L, restart+1, n) and every vector stay on the card;
-  the CGS2 projection and the Krylov combines are kernel K7
-  (:mod:`pymes_tpu_torch.kernels.arnoldi`);
+  the CGS2 projection and the two cycle-end Krylov combines (one pass
+  over V) are kernel K7 (:mod:`pymes_tpu_torch.kernels.arnoldi`);
 * the new Hessenberg column (La, restart+1) comes down once per Arnoldi
   step — it is also the convergence read;
 * the Givens rotations, ``g``, the back-substitution and the reverse
@@ -176,10 +176,10 @@ def gmres_lanes(apply, b, precond=None, tol=1e-5, restart=20, max_outer=20,
         y = np.concatenate([_back_substitute(H, g), np.zeros((Lc, 1))], 1)
         u = _unrotate(g, cs, sn, j)
         m_t = torch.as_tensor(j + 1, device=dev)
-        coef = torch.as_tensor(np.stack([y, u]), dtype=b.dtype, device=dev)
-        x[cyc_t] = arnoldi.krylov_combine(V, coef[0], m_t, cyc_t,
-                                          x0=x[cyc_t], twin=twin)
-        r[cyc_t] = arnoldi.krylov_combine(V, coef[1], m_t, cyc_t, twin=twin)
+        coef = torch.as_tensor(np.stack([y, u], axis=1), dtype=b.dtype,
+                               device=dev)
+        x[cyc_t], r[cyc_t] = arnoldi.krylov_combine_xr(
+            V, coef, m_t, cyc_t, x0=x[cyc_t], twin=twin)
         cycle_ends += 1
         # on early exit the residual sits at g[j_fin], not g[restart]
         res[cyc] = np.abs(g[rows, j])

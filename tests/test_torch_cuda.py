@@ -2,7 +2,7 @@
 
 K1 (CUDA C++ ladder), K2/K3 (Triton CCD tail), K4 (Triton ovvv gather),
 K2′/K3′ (Triton CCSD tail), K5 (Triton pair symmetrisation), K6 (Triton
-Davidson residual), K7 (Triton Arnoldi CGS2 and Krylov combines) and K8
+Davidson residual), K7 (CUDA C++ Arnoldi CGS2 and Krylov combines) and K8
 (Triton shifted operator and preconditioner) and K9 (CUDA C++ ring step;
 with the ring over a repeated card and over two cards, and the
 sector-sharded K1) run only on an NVIDIA card:
@@ -13,7 +13,8 @@ repository's conftest (which sets up jax):
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
 Tolerance: max|kernel − twin| ≤ 1e-12·max|twin| (both f64; only the
-summation order differs).
+summation order differs).  K7 and K9 add no atomics, so a second launch
+must repeat the first bit for bit.
 """
 
 import numpy as np
@@ -600,3 +601,117 @@ def test_sharded_block_ladder_kernel_bit_equal(device):
     assert torch.equal(ueg_ladder.block_ladder_apply(sh, Tb),
                        ueg_ladder.block_ladder_apply(plan, Tb))
     _close(got, ueg_ladder.block_ladder_apply_ij(sh, T, twin=True))
+
+
+# (M, N, K, row length L of V, panel offset c0, layout): M off the 16-row
+# DMMA tile, N and K off the column tiles and the 32-deep stages, odd
+# offsets and odd row strides (8-byte copies), one split and several
+RING_EDGES = [(9, 100, 37, 101, 3, "ijab"), (9, 100, 37, 101, 3, "abij"),
+              (57, 300, 129, 400, 7, "ijab"), (113, 1000, 999, 2001, 1,
+                                              "abij"),
+              (49, 2000, 3001, 3002, 1, "ijab"), (49, 2000, 3001, 3003, 2,
+                                                  "abij"),
+              (49, 4000, 4000, 8000, 0, "ijab")]
+
+
+@pytest.mark.parametrize("M,N,K,L,c0,layout", RING_EDGES)
+def test_ring_step_kernel_edges(device, M, N, K, L, c0, layout):
+    rng = np.random.default_rng(M + N + c0)
+    V = _randn(rng, (N, L), device)
+    T = _randn(rng, (M, K), device) if layout == "ijab" else \
+        _randn(rng, (K, M), device).t()
+    R0 = _randn(rng, (M, N), device) if layout == "ijab" else \
+        _randn(rng, (N, M), device).t()
+    got = [R0.clone() for _ in range(2)]
+    for R in got:
+        ring_step.ring_step(R, T, V, c0)
+    want = ring_step.ring_step(R0.clone(), T, V, c0, twin=True)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], got[1])
+    _close(got[0] - R0, want - R0)
+
+
+def test_ring_step_edges_plan_one_split_and_several(device):
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    splits = {ring_step.plan(M, N, K, sms)[1]
+              for M, N, K, *_ in RING_EDGES}
+    assert 1 in splits and max(splits) > 1
+
+
+def _unit_basis(L, R1, n, device):
+    """Bases whose rows are standard unit vectors (lane l, row i is
+    e_{(7 l + 3 i) mod n}): products with them are exact."""
+    V = torch.zeros((L, R1, n), dtype=torch.float64, device=device)
+    for l in range(L):
+        for i in range(R1):
+            V[l, i, (7 * l + 3 * i) % n] = 1.0
+    return V
+
+
+@pytest.mark.parametrize("R1,n", [(121, 9000), (21, 70002)])
+def test_arnoldi_cgs2_kernel_edges(device, R1, n):
+    """m = 1 and m = R on a lane subset, reruns bit-equal; the row written
+    and the Hessenberg column against the twin."""
+    from pymes_tpu_torch.kernels import arnoldi
+    rng = np.random.default_rng(R1 + 1)
+    L = 5
+    V0, _, _ = _krylov(rng, L, R1, n, device)
+    lanes = torch.as_tensor([3, 0], device=device)
+    w = _randn(rng, (2, n), device)
+    for ms in ([1, 1], [R1 - 1, 1], [R1 - 1, R1 - 1]):
+        m = torch.as_tensor(ms, device=device)
+        Vk, Vk2, Vt = V0.clone(), V0.clone(), V0.clone()
+        hk = arnoldi.arnoldi_cgs2(Vk, w.clone(), lanes, m)
+        hk2 = arnoldi.arnoldi_cgs2(Vk2, w.clone(), lanes, m)
+        ht = arnoldi.arnoldi_cgs2(Vt, w.clone(), lanes, m, twin=True)
+        torch.cuda.synchronize()
+        assert torch.equal(hk, hk2) and torch.equal(Vk, Vk2)
+        _close(hk, ht)
+        _close(Vk[lanes, m], Vt[lanes, m])
+        # the lanes outside the subset are untouched
+        assert torch.equal(Vk[[1, 2, 4]], V0[[1, 2, 4]])
+
+
+def test_arnoldi_cgs2_kernel_breakdown_row(device):
+    """w in the span of the valid rows: CGS2 leaves exactly zero, so the
+    BREAK guard writes a zero row and a zero norm, as the twin does."""
+    from pymes_tpu_torch.kernels import arnoldi
+    L, R1, n, mm = 3, 21, 4000, 6
+    V = _unit_basis(L, R1, n, device)
+    lanes = torch.as_tensor([2, 1], device=device)
+    m = torch.full((2,), mm, dtype=torch.int64, device=device)
+    coef = torch.as_tensor([[1.5, -2.0, 0.25, 3.0, -0.5, 1.0],
+                            [0.5, 1.0, -1.25, 2.0, 4.0, -3.0]],
+                           dtype=torch.float64, device=device)
+    w = torch.einsum("ai,ain->an", coef, V[lanes, :mm])
+    Vt = V.clone()
+    hk = arnoldi.arnoldi_cgs2(V, w.clone(), lanes, m)
+    ht = arnoldi.arnoldi_cgs2(Vt, w.clone(), lanes, m, twin=True)
+    torch.cuda.synchronize()
+    assert torch.equal(hk, ht)
+    assert torch.equal(hk[:, :mm], coef)
+    assert bool((hk[:, mm:] == 0).all())
+    assert bool((V[lanes, mm] == 0).all())
+
+
+@pytest.mark.parametrize("with_x0", [False, True])
+def test_krylov_combine_xr_kernel_matches_twin(device, with_x0):
+    """The fused two-output combine at m = 1 and m = R + 1 on a lane
+    subset, reruns bit-equal, each output against its single twin."""
+    from pymes_tpu_torch.kernels import arnoldi
+    rng = np.random.default_rng(9 + with_x0)
+    L, R1, n = 4, 121, 30002
+    V, x0, _ = _krylov(rng, L, R1, n, device)
+    lanes = torch.as_tensor([1, 3, 0], device=device)
+    m = torch.as_tensor([1, R1, 60], device=device)
+    C = _randn(rng, (3, 2, R1), device)
+    x0 = x0[:3].contiguous() if with_x0 else None
+    before = kernels.LAUNCHES["arnoldi_cgs2"]
+    got = arnoldi.krylov_combine_xr(V, C, m, lanes, x0=x0)
+    again = arnoldi.krylov_combine_xr(V, C, m, lanes, x0=x0)
+    assert kernels.LAUNCHES["arnoldi_cgs2"] == before + 2
+    want = arnoldi.krylov_combine_xr(V, C, m, lanes, x0=x0, twin=True)
+    torch.cuda.synchronize()
+    for a, b, c in zip(got, again, want):
+        assert torch.equal(a, b)
+        _close(a, c)
