@@ -37,26 +37,31 @@ Drives the port's main paths through its own kernels:
   all-bra plans built with ``pad_sectors=4`` and cut over 4 shards of the
   card (one K1 launch per shard), CCD and the seeded non-canonical CCSD.
 
-Kernels: K1 ``block_ladder`` (CUDA C++, built with nvcc for sm_90a at first
-use); K2 ``ccd_jacobi_diis``, K3 ``ccd_mix_energy``, K4 ``ovvv_gather``,
-K2′ ``ccsd_jacobi_diis``, K3′ ``ccsd_mix_energy``, K5 ``pair_symmetrize``,
-K6 ``davidson_residual`` and K8 ``shifted_precond`` (Triton); K7
-``arnoldi_cgs2`` (the CGS2 projection and the fused Krylov combine) and K9
-``ring_step`` (CUDA C++ on the f64 tensor cores), built with K1.
+Kernels: K1 ``block_ladder`` (CUDA C++ on the f64 tensor cores, built with
+nvcc for sm_90a at first use), K5 ``pair_symmetrize``, K7 ``arnoldi_cgs2``
+(the CGS2 projection and the fused Krylov combine) and K9 ``ring_step``
+(CUDA C++, built with K1); K2 ``ccd_jacobi_diis``, K3 ``ccd_mix_energy``,
+K4 ``ovvv_gather``, K2′ ``ccsd_jacobi_diis``, K3′ ``ccsd_mix_energy``, K6
+``davidson_residual`` and K8 ``shifted_precond`` (Triton).
 
 Phases: (0) card and versions; (1) kernel builds; (2) each kernel against
 its plain twin on the card at the main paths' shapes (K2′/K3′ at nP=219
 and at each molecule's; K5 at the CCD and the EOM shapes, K6 and the
 batched K1/K4 entries at the nP=219 EOM shapes), seeded inputs, bound
 max|kernel − twin| ≤ 1e-12·max|twin| (both f64, only the summation order
-differs); (3, 4) the converged CCD solves; (6) the dense molecular CCSD
+differs; K5 sums in the twin's order and must equal it bit for bit); (3, 4) the converged CCD solves; (6) the dense molecular CCSD
 solves; (7) the matrix-free CCSD solves; (9) the EOM solves (the LiH
 ground state they dress is solved before) — for each path the launch
 counts are reset just before and read just after, and each EOM solve's
 launches must match its count of sigma calls exactly; (5, 8, 10)
 timing: kernel vs twin per call, ms/iteration of fixed-61-iteration CCD and
 CCSD solves (min of 5) and of 8 Davidson iterations at nP=219, through the
-kernels and through the twins; (11) K7/K8 against their twins (K7's
+kernels and through the twins, K5 beside one ``torch.add`` of X and its
+strided partner, K1 also at the mf-CCSD stacked and EOM batch widths
+(N = 2 no²) and the FEAST nP=57 lane batch (N = 128 no²), each held to
+its twin first and timed with its bound (K5 is held bit for bit at the
+FEAST sigma's 2·64-lane operand too), and K1 and K5 also on the card alone (``torch.profiler``: their
+per-call time can be the host's); (11) K7/K8 against their twins (K7's
 projection and fused combine also rerun bit for bit) and per call at the
 FEAST nP=57 and RT nP=123 lane shapes, the fused combine beside one
 batched ``torch.baddbmm``; (12) FEAST nP=57,
@@ -74,9 +79,10 @@ the matrix-free iteration count, K9 launched exactly P² times per
 residual, the peak device memory,
 then ms per iteration of the fixed-61-iteration ring CCD at nP=219
 (kernels and twins, min of 5); (17) the sector-sharded K1 bit-equal to K1
-on the padded and the unpadded plans, then sector-sharded matrix-free CCD
-and non-canonical CCSD at nP=219 against the JAX package, K1 launched 4
-times per iteration. Prints a JSON line of the kernels (launches, errors,
+on the padded and the unpadded plans, the sharded apply per call beside K1
+on the whole plan, then sector-sharded matrix-free CCD and non-canonical
+CCSD at nP=219 against the JAX package, K1 launched 4 times per
+iteration. Prints a JSON line of the kernels (launches, errors,
 times, bounds at the H100's HBM and FP64 peaks, the library call where one
 computes the same function), the nvidia-smi line, and as the
 last line ``{"ok": true, "device": {...}}``.
@@ -145,7 +151,7 @@ KERNELS = {
                          "pymes_tpu/solver/ccsd.py:615"),
     "ccsd_mix_energy": ("triton", "pymes_tpu_torch/kernels/ccsd_tail.py",
                         "pymes_tpu/solver/ccsd.py:393"),
-    "pair_symmetrize": ("triton", "pymes_tpu_torch/kernels/pair_sym.py",
+    "pair_symmetrize": ("cuda", "pymes_tpu_torch/csrc/pair_sym.cu",
                         "pymes_tpu/solver/ccd.py:349"),
     "davidson_residual": ("triton", "pymes_tpu_torch/kernels/davidson.py",
                           "pymes_tpu/solver/eom_ccsd.py:697"),
@@ -295,6 +301,20 @@ def rel_err(got, want, what):
     return err
 
 
+def bit_equal(got, want, what):
+    """K5 takes the twin's sum in the twin's order: the bits must agree.
+    Returns the max abs error (0)."""
+    import torch
+
+    check(float(want.abs().max()) > 0, f"{what}: the twin's output is all "
+          "zero")
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    check(torch.equal(got, want), f"{what}: kernel and twin differ by "
+          f"{err:.3e}")
+    return err
+
+
 def compare_kernels(p, seed):
     """Each kernel vs its twin on the card; returns max abs errors."""
     from pymes_tpu_torch.kernels import ccd_tail
@@ -347,6 +367,29 @@ def cuda_ms(fn, n=20, warmup=3):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / n
+
+
+def card_ms(fn, name, n=20, warmup=3):
+    """Mean time on the card of the kernels whose name holds ``name`` in
+    one call of ``fn``: ``n`` calls under ``torch.profiler`` (CUDA
+    activity), their device time summed over the calls.  Unlike
+    :func:`cuda_ms` it leaves out the host time between launches, which a
+    call whose kernels take less time than its Python wrapper shows."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(e, "self_device_time_total", None)
+             or e.self_cuda_time_total
+             for e in prof.key_averages() if name in e.key)
+    check(us > 0, f"the profiler saw no kernel named {name}")
+    return us / 1e3 / n
 
 
 def time_kernels(p, seed):
@@ -671,13 +714,13 @@ def compare_eom_kernels(q, V, seed):
 
     x = eom_inputs(V, q["nv"], seed)
     ij = inputs(q, seed)
-    e5 = max(rel_err(pair_sym.pair_symmetrize(ij["T"], ij["R"]),
-                     pair_sym.pair_symmetrize(ij["T"], ij["R"], twin=True),
-                     "K5 ijab with Y"),
-             *(rel_err(pair_sym.pair_symmetrize(x["X"], Y),
-                       pair_sym.pair_symmetrize(x["X"], Y, twin=True),
-                       f"K5 abij batch, Y={Y is not None}")
-               for Y in (None, x["Y"])))
+    e5 = max(bit_equal(pair_sym.pair_symmetrize(ij["T"], ij["R"]),
+                       pair_sym.pair_symmetrize(ij["T"], ij["R"], twin=True),
+                       "K5 ijab with Y"),
+             *(bit_equal(pair_sym.pair_symmetrize(X, Y),
+                         pair_sym.pair_symmetrize(X, Y, twin=True),
+                         f"K5 abij batch of {X.shape[0]}, Y={Y is not None}")
+               for X in (x["X"], x["X"][:1]) for Y in (None, X + 1.0)))
     e6 = 0.0
     for m in (16, 9):
         U, W = x["U"].clone(), x["W"].clone()
@@ -710,7 +753,11 @@ def compare_eom_kernels(q, V, seed):
 def time_eom_kernels(q, V, seed):
     """ms per call of K5 (abij batch of 2, the EOM sigma's operand; and
     ijab with Y, the CCD/CCSD residual's) and K6 (16 valid rows, k = 2)
-    and of their twins at nP=219 (plain, kernel, kernel, plain)."""
+    and of their twins at nP=219 (plain, kernel, kernel, plain); and of
+    K5's library yardstick, one ``torch.add`` of X and its strided
+    partner view (the twin without Y)."""
+    import torch
+
     from pymes_tpu_torch.kernels import davidson, pair_sym
 
     x = eom_inputs(V, q["nv"], seed)
@@ -727,7 +774,113 @@ def time_eom_kernels(q, V, seed):
     for name, fn in calls.items():
         t = [cuda_ms(lambda: fn(tw)) for tw in (True, False, False, True)]
         out[name] = ((t[1] + t[2]) / 2, (t[0] + t[3]) / 2)
+    X = x["X"]
+
+    def lib():
+        return torch.add(X, X.transpose(-4, -3).transpose(-2, -1))
+
+    out["pair_symmetrize library"] = cuda_ms(lib)
+    # the kernels alone, without the host time between launches
+    out["pair_symmetrize device"] = card_ms(
+        lambda: calls["pair_symmetrize"](False), "pair_sym")
+    out["pair_symmetrize ijab+Y device"] = card_ms(
+        lambda: calls["pair_symmetrize ijab+Y"](False), "pair_sym")
+    out["pair_symmetrize library device"] = card_ms(lib, "elementwise")
     return out
+
+
+def ladder_bound(plan, n):
+    """K1 on one plan at operand width n: the cd-major operand (nv², n)
+    read, the output (rows, n) written, the blocks and index arrays read
+    once; 2 flops a block element a column."""
+    pk = plan.packed
+    blocks = pk.blocks.numel()
+    idx = pk.perm.numel() + pk.bra_of_row.numel()
+    return bound(8 * (plan.nv ** 2 * n + pk.n_rows * n + blocks) + 4 * idx,
+                 2 * blocks * n)
+
+
+def time_ladder(p14, q, plan57, seed):
+    """K1 per call beside its twin (plain, kernel, kernel, plain) at the
+    widths its callers give it: the cd-major kernel alone at the CCD
+    path's N = no² (with the even row stride of the ijab entry's copy),
+    the mf-CCSD stacked operand through the ijab entry (N = 2 no²,
+    all-bra plan), the EOM sigma's batch of 2 on the cd-major entry
+    (N = 2 no²) and the FEAST nP=57 sigma on 2·64 lanes (N = 128 no²,
+    the nP=57 all-bra plan), each held to its twin first; and K5 bit for
+    bit at the FEAST sigma's (2·64, nv, nv, no, no) operand.  Returns
+    ({label: (ms, plain_ms, bound, device_ms)}, max abs errors)."""
+    import torch
+
+    from pymes_tpu_torch.kernels import block_ladder as k1
+    from pymes_tpu_torch.kernels import pair_sym
+    from pymes_tpu_torch.ops import ueg_ladder
+
+    rng = np.random.default_rng(seed)
+    dev = p14["fock"].device
+
+    def operand(plan, n, ld):
+        nv2 = plan.nv ** 2
+        return torch.as_tensor(rng.standard_normal((nv2, ld)) * 0.01,
+                               device=dev)[:, :n]
+
+    virt, full = p14["blocks"].ladder, q["plan_all"]
+    n2 = NO * NO
+    T49, T98 = operand(virt, n2, n2 + 1), operand(full, 2 * n2, 2 * n2)
+    T6272 = operand(plan57, 128 * n2, 128 * n2)
+    TX = torch.as_tensor(rng.standard_normal((2, n2, q["nv"], q["nv"]))
+                         * 0.01, device=dev)
+    cases = {
+        "cd-major, N = no^2": (
+            lambda tw: k1.block_ladder_cd(virt, T49, twin=tw),
+            ladder_bound(virt, n2)),
+        "mf-CCSD stacked operand (ijab entry), N = 2 no^2": (
+            lambda tw: ueg_ladder.block_ladder_apply_ij(full, TX, twin=tw),
+            ladder_bound(full, 2 * n2)),
+        "EOM batch of 2 (cd-major), N = 2 no^2": (
+            lambda tw: k1.block_ladder_cd(full, T98, twin=tw),
+            ladder_bound(full, 2 * n2)),
+        "FEAST nP=57 lanes (cd-major), N = 128 no^2": (
+            lambda tw: k1.block_ladder_cd(plan57, T6272, twin=tw),
+            ladder_bound(plan57, 128 * n2)),
+    }
+    out, e1 = {}, 0.0
+    for label, (fn, b) in cases.items():
+        e1 = max(e1, rel_err(fn(False), fn(True), f"K1 {label}"))
+        t = [cuda_ms(lambda: fn(tw)) for tw in (True, False, False, True)]
+        out[label] = ((t[1] + t[2]) / 2, (t[0] + t[3]) / 2, b,
+                      card_ms(lambda: fn(False), "block_ladder"))
+    x = inputs(p14, seed)
+    out["ijab entry, N = no^2 (the CCD path), K1 alone"] = card_ms(
+        lambda: ueg_ladder.block_ladder_apply_ij(virt, x["T"]),
+        "block_ladder")
+    X = torch.as_tensor(rng.standard_normal(
+        (128, plan57.nv, plan57.nv, NO, NO)) * 0.01, device=dev)
+    e5 = bit_equal(pair_sym.pair_symmetrize(X),
+                   pair_sym.pair_symmetrize(X, twin=True),
+                   "K5 FEAST nP=57 sigma batch of 2·64 lanes")
+    errs = {"block_ladder": e1, "pair_symmetrize": e5}
+    print("kernel vs twin at the time_ladder shapes: " + ", ".join(
+        f"{k} max_abs_err={v:.3e}" for k, v in errs.items()), flush=True)
+    return out, errs
+
+
+def time_sharded(q, plans, seed):
+    """The sector-sharded K1 apply at N = no² (4 launches plus the row
+    copies home) beside K1 on the whole plan and the sharded twin
+    (whole, sharded, sharded, whole; the twin alone); ms per call."""
+    import torch
+
+    from pymes_tpu_torch.ops import ueg_ladder
+
+    T = torch.as_tensor(np.random.default_rng(seed).standard_normal(
+        (NO, NO, q["nv"], q["nv"])) * 0.01, device=q["fock"].device)
+    sh, whole = plans["virtual"], q["blocks"].ladder
+    t = [cuda_ms(lambda: ueg_ladder.block_ladder_apply_ij(p, T))
+         for p in (whole, sh, sh, whole)]
+    twin = cuda_ms(lambda: ueg_ladder.block_ladder_apply_ij(sh, T,
+                                                            twin=True))
+    return (t[1] + t[2]) / 2, (t[0] + t[3]) / 2, twin
 
 
 def eom_solver(no, device):
@@ -920,10 +1073,6 @@ def kernel_bounds(p14, q, krylov, ring):
     nv = p14["nv"]
     n = NO * NO * nv * nv                      # one T2
     nc = nv * NO + n                            # the CCSD carry [T1 | T2]
-    plan = p14["blocks"].ladder
-    blocks = sum(g.blocks.numel() for g in plan.groups)
-    idx = sum(g.perm_ket.numel() + g.bra_of_row.numel() for g in plan.groups)
-    macs = sum(g.blocks.numel() for g in plan.groups) * NO * NO
     plans = list(q["mf_dict"]["_ovvv_plans"].values())
     g_bytes = np.mean([p.S.numel() * 4 + p.W.numel() * 8 + nv * NO * 8
                        + NO * p.S.numel() * 8 for p in plans])
@@ -932,7 +1081,7 @@ def kernel_bounds(p14, q, krylov, ring):
     La, R1, m, n2 = krylov["La"], krylov["R1"], krylov["m"], krylov["n"]
     return {
         # T read, R written, the plan's blocks and index arrays read once
-        "block_ladder": bound(8 * (2 * n + blocks) + 4 * idx, 2 * macs),
+        "block_ladder": ladder_bound(p14["blocks"].ladder, NO * NO),
         # R, T and the 5 other valid error rows read; 2 ring rows written
         "ccd_jacobi_diis": bound(8 * 9 * n, 17 * n),
         # 6 ring rows, V and Vx read; T written
@@ -942,6 +1091,8 @@ def kernel_bounds(p14, q, krylov, ring):
         "ccsd_mix_energy": bound(8 * 9 * nc, 16 * nc),
         # EOM sigma operand (2, nv, nv, no, no): X read, out written
         "pair_symmetrize": bound(8 * 2 * 2 * n, 2 * n),
+        # the CCD/CCSD residual (no, no, nv, nv): X and Y read, out written
+        "pair_symmetrize ijab+Y": bound(8 * 3 * n, 2 * n),
         # 16 valid rows of U and W, diag read; k = 2 rows written
         "davidson_residual": bound(8 * (2 * 16 * N + N + 2 * N),
                                    2 * N * (4 * 16 + 4)),
@@ -1644,11 +1795,12 @@ def main():
     from pymes_tpu_torch.kernels import _build
     from pymes_tpu_torch.solver import ccd
 
-    # phase 1: builds (nvcc for K1 and K9; Triton JIT for the others at
-    # their first launch, which phase 2 makes)
+    # phase 1: builds (nvcc for K1, K5, K7 and K9; Triton JIT for the
+    # others at their first launch, which phase 2 makes)
     t0 = time.time()
     _build.library()
-    print(f"K1 + K9 nvcc build + load: {time.time() - t0:.2f} s", flush=True)
+    print(f"K1 + K5 + K7 + K9 nvcc build + load: {time.time() - t0:.2f} s",
+          flush=True)
     problems = {c: setup(c, device) for c in (5, 14)}
     q = setup_ccsd(problems[14], device)
     t0 = time.time()
@@ -1671,8 +1823,8 @@ def main():
                14: eom_operator(problems[14], device, q["plan_all"],
                                 q["mf_dict"]["_ovvv_plans"])}
     compare.append(compare_eom_kernels(q, eom_ops[14], 7))
-    print(f"EOM operators + first K5/K6 launches (Triton JIT included): "
-          f"{time.time() - t0:.2f} s", flush=True)
+    print("EOM operators + first K5/K6 launches (Triton JIT of K6 "
+          f"included): {time.time() - t0:.2f} s", flush=True)
     # phases 3-4: the CCD path, converged
     results = {}
 
@@ -1778,6 +1930,28 @@ def main():
         ms, plain = kernel_ms[14][name]
         print(f"[{card}] nP={q['nP']} {name}: kernel {ms:.4f} ms, twin "
               f"{plain:.4f} ms per call", flush=True)
+    print(f"[{card}] nP={q['nP']} pair_symmetrize: torch.add(X, X "
+          "transposed) (library) "
+          f"{kernel_ms[14]['pair_symmetrize library']:.4f} ms per call",
+          flush=True)
+    print(f"[{card}] nP={q['nP']} pair_symmetrize on the card alone "
+          "(profiler): kernel "
+          f"{kernel_ms[14]['pair_symmetrize device']:.4f} ms, ijab+Y "
+          f"{kernel_ms[14]['pair_symmetrize ijab+Y device']:.4f} ms, "
+          "torch.add (library) "
+          f"{kernel_ms[14]['pair_symmetrize library device']:.4f} ms",
+          flush=True)
+    ladder_t, errs = time_ladder(problems[14], q, eom_ops[5]["abcd_ladder"],
+                                 9)
+    compare.append(errs)
+    k1_alone = ladder_t.pop("ijab entry, N = no^2 (the CCD path), K1 alone")
+    print(f"[{card}] block_ladder ijab entry N = no^2: K1 on the card alone "
+          f"(profiler) {k1_alone:.4f} ms", flush=True)
+    for label, (ms, plain, b, dev) in ladder_t.items():
+        print(f"[{card}] block_ladder {label}: kernel {ms:.4f} ms per call "
+              f"({dev:.4f} ms on the card alone), twin {plain:.4f} ms; bound "
+              f"{b[0]:.4f} ms ({b[1]}), the kernel alone at "
+              f"{b[0] / dev:.3f} of it", flush=True)
     it_ms = {True: [], False: []}
     for twin in (True, False, False, True):
         it_ms[twin].append(eom_ms_per_iter(q["fock"], eom_ops[14],
@@ -1902,6 +2076,11 @@ def main():
     # phase 17: the sector-sharded BlockLadder at nP=219, matrix-free CCD
     # and the seeded non-canonical CCSD
     plans = sharded_plans(q, device, 17)
+    sharded_t = time_sharded(q, plans, 18)
+    print(f"[{card}] nP={q['nP']} sector-sharded K1 apply ({SECTOR_SHARDS} "
+          f"shards of one card, N = no^2): {sharded_t[0]:.4f} ms per call, "
+          f"K1 on the whole plan {sharded_t[1]:.4f} ms, the sharded twin "
+          f"{sharded_t[2]:.4f} ms", flush=True)
     sharded = {}
     launches["sector-sharded mf-CCD/CCSD"] = path_launches(
         "sector-sharded mf-CCD/CCSD",
@@ -1910,8 +2089,7 @@ def main():
     total = {k: sum(run.get(k, 0) for run in launches.values())
              for k in KERNELS}
     max_err = {k: max(c[k] for c in compare if k in c) for k in KERNELS}
-    kernel_ms = {name: kernel_ms[14][name] for name in KERNELS
-                 if name in kernel_ms[14]}
+    kernel_ms = {name: kernel_ms[14][name] for name in kernel_ms[14]}
     feast_label = f"FEAST nP={problems[5]['nP']}"
     for name in ("arnoldi_cgs2", "shifted_precond"):
         kernel_ms[name] = krylov_ms[feast_label][name]
@@ -1933,7 +2111,28 @@ def main():
                 "library_ms": t["krylov_combine library"]}
 
     ms57, plain57, lib57, shape57 = ring_t[5]
+
+    def sub(ms, plain, b, dev=None, **extra):
+        return {"ms": ms, "plain_ms": plain, "bound_ms": b[0],
+                "bound_by": b[1], "library_ms": None, "device_ms": dev,
+                **extra}
+
     library = {
+        "block_ladder": {
+            "device_ms": k1_alone,
+            **{label: sub(*t) for label, t in ladder_t.items()},
+            f"sector-sharded, {SECTOR_SHARDS} shards, N = no^2": sub(
+                sharded_t[0], sharded_t[2], bounds["block_ladder"],
+                whole_plan_ms=sharded_t[1])},
+        "pair_symmetrize": {
+            "library_ms": kernel_ms["pair_symmetrize library"],
+            "library_call": "torch.add(X, X.transpose(-4, -3)"
+                            ".transpose(-2, -1))",
+            "device_ms": kernel_ms["pair_symmetrize device"],
+            "library_device_ms": kernel_ms["pair_symmetrize library device"],
+            "ijab+Y": sub(*kernel_ms["pair_symmetrize ijab+Y"],
+                          bounds["pair_symmetrize ijab+Y"],
+                          kernel_ms["pair_symmetrize ijab+Y device"])},
         "ring_step": {
             "library_ms": k9_lib,
             "library_call": "torch.addmm on the strided panel",

@@ -5,131 +5,431 @@
 // :533 / _block_ozaki_rows, :517).  For every bucket group g, sector s and
 // padded bra row m with bra_of_row[s,m] >= 0:
 //
-//   outT[bra_of_row[s,m], ij] = sum_{k < mK} blocks[s,m,k] * Tt[perm_ket[s,k], ij]
+//   outT[bra_of_row[s,m], x] = sum_{k < mK} blocks[s,m,k] * Tt[perm_ket[s,k], x]
 //
-// for all N = no*no values of ij.  Bra pairs whose total momentum has no ket
-// pair are never written; the wrapper zero-fills outT (the JAX trailing zero
-// column, ueg_ladder.py:439, :469-472).  Every bra pair is the row of exactly
-// one sector, so rows map one-to-one onto output rows and no atomics are
-// needed.
+// for all x < N.  Every bra pair is the row of exactly one sector, so rows
+// map one-to-one onto output rows and no atomics are needed; rows that no
+// sector holds (a bra momentum with no ket pair) are listed in zero_rows
+// and written as zeros by the same launch.
 //
-// Layout.  The amplitudes arrive cd-major, Tt = (nv*nv, N): in the ijab
-// layout a ket pair's amplitudes are N doubles spaced nv*nv apart, here they
-// are N contiguous doubles, so the perm_ket gather that builds the B tile
-// reads whole 392-byte rows (N = 49).  The output is written bra-major,
-// outT = (n_bra*n_bra, N), for the same reason; the wrapper returns its
-// transposed view.  The perm_ket gather is fused into the B-tile load and
-// the inv_bra permutation into the store.
+// Layout.  The amplitudes arrive cd-major, Tt = (nv*nv, N) with row stride
+// ldt >= N: a ket pair's N amplitudes are contiguous, so the perm_ket
+// gather that builds the B tile reads whole rows.  The output is written
+// bra-major, outT = (n_rows, N).  The perm_ket gather is fused into the
+// B-tile load and the inv_bra permutation into the store.
 //
-// What bounds it on an H100: N = 49 is skinny and most sectors are small
-// (8x8 .. 224x224 after padding), so the work is many small GEMMs whose
-// operands (27 MB of sector blocks at nP=219, one pass, plus 17.6 MB of T
-// in and out) are read once per call for 0.33 GFLOP: device-memory
-// bandwidth and per-tile latency, not f64 FLOPs.
-// One launch covers every group: blocks walk a work list of (group, sector,
-// row tile) entries built once with the plan, largest buckets first.
-// This first version keeps tiles in shared memory and accumulates with f64
-// FMA; DMMA (mma.sync f64) and TMA are left for later work.
+// What bounds it on an H100: the sector blocks (27 MB at nP=219) are read
+// once, and T in, the output out (17.6 MB each at N = 49): 0.019 ms of
+// HBM at 3.35 TB/s against 0.33 GFLOP, 0.005 ms on the f64 tensor cores.
+// Bytes bind at every N the solvers use (N = 49, 98, and the FEAST lane
+// batch 6272, where T and the output dominate), provided the products run
+// on the tensor cores and the loads keep HBM busy.  (Measured on an H100,
+// the kernel stays at about 40 % of that bound: PERF.md.)
+//
+// Design:
+// * DMMA: mma.sync.aligned.m16n8k8.row.col.f64.  A is the sector block,
+//   k-contiguous rows (mK is a multiple of 8 under the "fine" padding);
+//   B the perm_ket-gathered rows of Tt, k-major in shared memory.  Shared
+//   rows are padded (A to 36 doubles, B to 8 NT + 4) so the fragment
+//   loads are free of bank conflicts.
+// * A block has 4 consumer warps; a warp owns one m16 slot of a work unit
+//   and all 8 NT columns of the block's column tile (NT = 7 at N = 49: 56
+//   columns, not 64).  A unit is up to 4 slots of ONE bucket: four m16
+//   tiles of one sector (its ket panel gathered once per 64 rows), or the
+//   leftover tiles of up to 4 sectors, each with its own panel (so 8- and
+//   16-row buckets fill the block).  A stage holds 32 k rows of B split
+//   evenly among the unit's panels (32, 16 or 8 each) and the matching
+//   k columns of A.
+// * A ring of shared stages, filled by four producer warps with 16-byte
+//   cp.async (8-byte copies where a Tt row is only 8-byte aligned: an odd
+//   ldt) completing on per-stage full mbarriers (async_copy.cuh); the
+//   consumer warps release a stage through its empty mbarrier.  The block
+//   is persistent over its bin of units: the producers run on into the
+//   next unit while the consumers finish the last, so small sectors do
+//   not drain the pipeline.
+// * The units, the ket row of every B row of every stage, and their bins
+//   (one bin per SM, balanced by bytes, largest first) are planned in
+//   Python at plan-build time (kernels/block_ladder.py plan_units), the
+//   column tile per N at launch (plan).  So no copy waits on a dependent
+//   load: the producers hold 16 unit descriptors and 32 stage-table rows
+//   in shared memory, and copy each unit's descriptor and bra ids into
+//   the header of its first stage, where the consumers read them.  One
+//   block per bin, which walks its units once per column tile, so the
+//   ring runs on across tiles (the FEAST lane batch has 49 tiles of 128
+//   columns and about one unit a bin).
+// * A row's sum is the sequence of its k8 DMMA steps in k order from
+//   zero, whatever unit, slot or shard holds it, so reruns and the
+//   sector-sharded plan give the same bits.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "async_copy.cuh"
+
 namespace {
 
-constexpr int TM = 16;                       // bra rows per block
-constexpr int TN = 64;                       // ij columns per block
-constexpr int TK = 32;                       // ket pairs per shared-memory stage
-constexpr int NTHREADS = 256;
-constexpr int RPT = TM * TN / NTHREADS;      // rows per thread (4)
+using pymes::aligned16;
 
-static_assert(NTHREADS % TN == 0, "one column per thread");
-static_assert(RPT * (NTHREADS / TN) == TM, "rows cover the tile");
+constexpr int CW = 4;                       // consumer warps = m16 slots
+constexpr int PTHREADS = 128;               // four producer warps
+constexpr int PW = PTHREADS / 32;
+constexpr int NTHREADS = 32 * CW + PTHREADS;
+constexpr int BM = 16 * CW;                 // A rows of a stage
+constexpr int TK = 32;                      // B rows of a stage
+constexpr int LDA = TK + 4;                 // padded A row, doubles
+constexpr int UNIT = 20;                    // ints of a work unit
+constexpr int HDR = 44;                     // a stage's unit header, doubles
+constexpr int SMEM_BUDGET = 227 * 1024;     // a block's shared memory
+constexpr int MAX_STAGES = 6;
+constexpr int KCH = 32;                     // stage-table rows held
+constexpr int UCH = 16;                     // unit descriptors held
+constexpr int KET_BYTES = 4 * TK * KCH;     // TK / PW columns a warp
+constexpr int UDESC_BYTES = 4 * UNIT * UCH;
 
-__global__ void __launch_bounds__(NTHREADS)
-block_ladder_kernel(const double* __restrict__ Tt,        // (nv*nv, N)
-                    const double* __restrict__ blocks,    // groups' (nS, mB, mK), flat
-                    const int* __restrict__ perm,         // groups' (nS, mK), flat
-                    const int* __restrict__ bra_of_row,   // groups' (nS, mB), flat
-                    const long long* __restrict__ gtab,   // (G, 5): blk, perm, bra offsets, mB, mK
-                    const int* __restrict__ work,         // (n_work, 3): group, sector, row0
-                    double* __restrict__ outT,            // (n_bra*n_bra, N)
-                    int N)
+// A unit's descriptor (kernels/block_ladder.py _unit_rows): [0] mK, [1]
+// kd, [2] stages, [4 + w] slot w's first A element, [8 + w] its live rows
+// (0: idle), [12 + w] its first bra_of_row entry, [16 + w] its panel's
+// first B row.  The producers copy it, and the 16 bra ids of each busy
+// slot, into the header of the unit's first stage, so the consumers read
+// both from shared memory.
+template <int NT>
+__host__ __device__ constexpr int ldb() { return 8 * NT + 4; }
+
+template <int NT>
+__host__ __device__ constexpr int stage_doubles()
 {
-    __shared__ double As[TM][TK + 1];
-    __shared__ double Bs[TK][TN];
+    return BM * LDA + TK * ldb<NT>() + HDR;
+}
 
-    const int w = blockIdx.x;
-    const int g = work[3 * w], s = work[3 * w + 1], r0 = work[3 * w + 2];
-    const long long* gt = gtab + 5 * g;
-    const int mB = static_cast<int>(gt[3]);
-    const int mK = static_cast<int>(gt[4]);
-    const double* A = blocks + gt[0] + static_cast<long long>(s) * mB * mK;
-    const int* pk = perm + gt[1] + static_cast<long long>(s) * mK;
-    const int* br = bra_of_row + gt[2] + static_cast<long long>(s) * mB;
+template <int NT>
+__host__ __device__ constexpr int n_stages()
+{
+    return (SMEM_BUDGET - KET_BYTES - UDESC_BYTES - 256)
+        / (8 * stage_doubles<NT>()) < MAX_STAGES
+        ? (SMEM_BUDGET - KET_BYTES - UDESC_BYTES - 256)
+            / (8 * stage_doubles<NT>())
+        : MAX_STAGES;
+}
 
-    const int n0 = blockIdx.y * TN;
-    const int tid = threadIdx.x;
-    const int col = tid % TN;
-    const int rg = tid / TN;
+// the stage ring, the producers' stage-table rows and unit descriptors,
+// the mbarriers
+template <int NT>
+constexpr int smem_bytes()
+{
+    return 8 * n_stages<NT>() * stage_doubles<NT>() + KET_BYTES
+        + UDESC_BYTES
+        + 2 * n_stages<NT>() * static_cast<int>(sizeof(uint64_t));
+}
 
-    double acc[RPT];
-#pragma unroll
-    for (int i = 0; i < RPT; ++i) acc[i] = 0.0;
+struct Args {
+    const double* Tt; long long ldt;
+    const double* blocks;
+    const int* bra;                         // 16 entries of padding after
+    const int* units;                       // (n_units, UNIT)
+    const int* stages;                      // (n_stages, TK) ket rows
+    const int* bins;                        // (n_bins + 1, 2)
+    const int* zero_rows; int n_zero;
+    double* out; int N;
+};
 
-    for (int k0 = 0; k0 < mK; k0 += TK) {
-        // A tile (sector rows): consecutive threads read consecutive k
-        for (int e = tid; e < TM * TK; e += NTHREADS) {
-            const int r = e / TK, k = e % TK;
-            const int m = r0 + r, kk = k0 + k;
-            As[r][k] = (m < mB && kk < mK)
-                ? A[static_cast<long long>(m) * mK + kk] : 0.0;
+// C (16 x 8) += A (16 x 8) B (8 x 8); with g = lane / 4, t = lane % 4 a
+// lane holds A[g + 8h][t + 4q] in a[2q + h], B[t + 4q][g] in b[q] and
+// C[g + 8h][2t + e] in c[2h + e]
+__device__ __forceinline__ void dmma(double (&c)[4], const double (&a)[4],
+                                     const double (&b)[2])
+{
+    asm volatile("mma.sync.aligned.m16n8k8.row.col.f64.f64.f64.f64 "
+                 "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+                 "{%0, %1, %2, %3};"
+                 : "+d"(c[0]), "+d"(c[1]), "+d"(c[2]), "+d"(c[3])
+                 : "d"(a[0]), "d"(a[1]), "d"(a[2]), "d"(a[3]), "d"(b[0]),
+                   "d"(b[1]));
+}
+
+__device__ __forceinline__ void producers_sync()
+{
+    asm volatile("bar.sync 1, %0;" :: "n"(PTHREADS) : "memory");
+}
+
+// The producer warps (thread p of PTHREADS) fill the bin's stages in
+// order, each once the consumers have released its slot.  A thread copies
+// a fixed 16-byte column of 8 of the 64 A rows, and warp wp the TK / PW B
+// rows [wp TK / PW, (wp + 1) TK / PW), its lanes along each row.  They
+// hold UCH unit descriptors and (each warp its columns of) KCH rows of
+// the planned stage table in shared memory, loaded together, so no copy
+// waits on a load of its own.
+template <int NT>
+__device__ void produce(const Args& a, double* smem, int* kets, int* udesc,
+                        uint64_t* full, uint64_t* empty, int u0, int u1,
+                        int st0, int st1, int p)
+{
+    constexpr int SD = stage_doubles<NT>(), S = n_stages<NT>();
+    constexpr int LDB = ldb<NT>(), RPW = TK / PW;
+    constexpr int ROWS_A = BM * 16 / PTHREADS;
+    const int lane = p & 31, wp = p >> 5;
+    const int ac = 2 * (p & 15), ar = p >> 4;   // A column, first row
+    const int nu = u1 - u0, n_it = nu * ((a.N + 8 * NT - 1) / (8 * NT));
+    kets += wp * RPW * KCH;
+    int k_first = 0, d_first = -UCH;            // stage, unit of row 0
+    int st = 0, ring = 0;
+    for (int it = 0; it < n_it; ++it) {
+        const int w = it % nu;                  // the unit, in the bin
+        const int n0 = it / nu * 8 * NT;
+        const int ncols = min(8 * NT, a.N - n0);
+        const bool t_al = aligned16(a.Tt + n0) && a.ldt % 2 == 0;
+        if (w == 0) {                           // the bin again, next tile
+            st = st0;
+            k_first = st0 - KCH;
         }
-        // B tile: ket rows gathered through perm_ket (fused gather)
-        for (int e = tid; e < TK * TN; e += NTHREADS) {
-            const int k = e / TN, c = e % TN;
-            const int kk = k0 + k, n = n0 + c;
-            Bs[k][c] = (kk < mK && n < N)
-                ? Tt[static_cast<long long>(pk[kk]) * N + n] : 0.0;
-        }
-        __syncthreads();
-#pragma unroll 8
-        for (int k = 0; k < TK; ++k) {
-            const double b = Bs[k][col];
-#pragma unroll
-            for (int i = 0; i < RPT; ++i)
-                acc[i] = fma(As[rg * RPT + i][k], b, acc[i]);
-        }
-        __syncthreads();
-    }
-
-    // store through the bra permutation (fused inv_bra scatter)
-    const int n = n0 + col;
-    if (n < N) {
-#pragma unroll
-        for (int i = 0; i < RPT; ++i) {
-            const int m = r0 + rg * RPT + i;
-            if (m < mB) {
-                const int b = br[m];
-                if (b >= 0) outT[static_cast<long long>(b) * N + n] = acc[i];
+        if (w < d_first || w - d_first >= UCH) {
+            producers_sync();
+            for (int e = p; e < UCH * UNIT; e += PTHREADS) {
+                const int uu = w + e / UNIT;
+                udesc[e] = uu < nu
+                    ? __ldg(a.units + static_cast<long long>(u0 + uu) * UNIT
+                            + e % UNIT) : 0;
             }
+            producers_sync();
+            d_first = w;
+        }
+        const int* U = udesc + (w - d_first) * UNIT;
+        const int mK = U[0], kd = U[1], nst = U[2];
+        int a_off[CW], alive[CW];
+#pragma unroll
+        for (int s4 = 0; s4 < CW; ++s4) {
+            a_off[s4] = U[4 + s4];
+            alive[s4] = U[8 + s4];
+        }
+        for (int t = 0; t < nst; ++t, ++st, ++ring) {
+            if (st - k_first == KCH) {
+                // lane l: column l % RPW of rows st + l / RPW + i 32 / RPW
+                k_first = st;
+                constexpr int STEP = 32 / RPW;
+                int v[KCH / STEP];
+#pragma unroll
+                for (int i = 0; i < KCH / STEP; ++i) {
+                    const int row = st + lane / RPW + STEP * i;
+                    v[i] = row < st1 ? __ldg(a.stages + row * TK + wp * RPW
+                                             + lane % RPW) : -1;
+                }
+#pragma unroll
+                for (int i = 0; i < KCH / STEP; ++i)
+                    kets[(lane / RPW + STEP * i) * RPW + lane % RPW] = v[i];
+                __syncwarp();
+            }
+            int kr[RPW];
+#pragma unroll
+            for (int i = 0; i < RPW; ++i)
+                kr[i] = kets[(st - k_first) * RPW + i];
+            const int k0 = t * kd, kv = min(kd, mK - k0);
+            const int slot = ring % S;
+            pymes::mbar_wait(&empty[slot], ((ring / S) & 1) ^ 1);
+            double* As = smem + slot * SD;
+            double* Bs = As + BM * LDA;
+            if (t == 0 && wp == 0) {
+                // the unit's header: its descriptor, each busy slot's rows'
+                // bra ids (16-byte aligned: offsets are multiples of 8)
+                int* hdr = reinterpret_cast<int*>(Bs + TK * LDB);
+                if (lane < UNIT / 4) {
+                    pymes::cp_async16(hdr + 4 * lane,
+                                      a.units + static_cast<long long>(u0 + w)
+                                          * UNIT + 4 * lane);
+                } else if (lane >= 8 && lane < 8 + 4 * CW) {
+                    const int s4 = (lane - 8) / 4, c = 4 * ((lane - 8) % 4);
+                    if (U[8 + s4] > 0)
+                        pymes::cp_async16(hdr + UNIT + 16 * s4 + c,
+                                          a.bra + U[12 + s4] + c);
+                }
+            }
+            if (ac < kv) {
+#pragma unroll
+                for (int i = 0; i < ROWS_A; ++i) {
+                    // row ar + 8 i of the stage: slot i / 2, row of slot
+                    const int w4 = i / 2, m = ar + 8 * (i % 2);
+                    if (m < alive[w4])
+                        pymes::cp_async16(
+                            As + (16 * w4 + m) * LDA + ac,
+                            a.blocks + a_off[w4]
+                                + static_cast<long long>(m) * mK + k0 + ac);
+                }
+            }
+#pragma unroll
+            for (int i = 0; i < RPW; ++i) {
+                if (kr[i] < 0) continue;
+                const double* src = a.Tt + a.ldt * kr[i] + n0;
+                double* dst = Bs + (wp * RPW + i) * LDB;
+                if (t_al) {
+#pragma unroll
+                    for (int c = 2 * lane; c < 8 * NT; c += 64) {
+                        if (c + 1 < ncols) pymes::cp_async16(dst + c, src + c);
+                        else if (c < ncols) pymes::cp_async8(dst + c, src + c);
+                    }
+                } else {
+#pragma unroll
+                    for (int c = lane; c < 8 * NT; c += 32)
+                        if (c < ncols) pymes::cp_async8(dst + c, src + c);
+                }
+            }
+            pymes::cp_async_arrive_noinc(&full[slot]);
         }
     }
 }
 
+// Consumer warp `warp`: its slot of every unit of the bin, the unit's
+// fields and its rows' bra ids read from the header of the unit's first
+// stage, products of each stage into registers, then the store.
+template <int NT>
+__device__ void consume(const Args& a, const double* smem, uint64_t* full,
+                        uint64_t* empty, int u0, int u1, int warp, int lane)
+{
+    constexpr int SD = stage_doubles<NT>(), S = n_stages<NT>();
+    constexpr int LDB = ldb<NT>();
+    const int g8 = lane >> 2, t = lane & 3;
+    const int nu = u1 - u0, n_it = nu * ((a.N + 8 * NT - 1) / (8 * NT));
+    int u = 0;
+    for (int it = 0; it < n_it; ++it) {
+        const int n0 = it / nu * 8 * NT;
+        pymes::mbar_wait(&full[u % S], (u / S) & 1);
+        const int* hdr = reinterpret_cast<const int*>(
+            smem + (u % S) * SD + BM * LDA + TK * LDB);
+        const int mK = hdr[0], kd = hdr[1], nst = hdr[2];
+        const int alive = hdr[8 + warp], b_row = hdr[16 + warp];
+        const int b0 = g8 < alive ? hdr[UNIT + 16 * warp + g8] : -1;
+        const int b1 = g8 + 8 < alive ? hdr[UNIT + 16 * warp + g8 + 8] : -1;
+        double acc[NT][4];
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[j][e] = 0.0;
+        for (int st = 0; st < nst; ++st, ++u) {
+            const int slot = u % S;
+            if (st > 0) pymes::mbar_wait(&full[slot], (u / S) & 1);
+            if (alive > 0) {
+                const double* As = smem + slot * SD + 16 * warp * LDA;
+                const double* Bs = smem + slot * SD + BM * LDA + b_row * LDB;
+                const int kv = min(kd, mK - st * kd);
+                for (int ks = 0; ks < kv; ks += 8) {
+                    double av[4];
+#pragma unroll
+                    for (int q = 0; q < 2; ++q)
+#pragma unroll
+                        for (int h = 0; h < 2; ++h)
+                            av[2 * q + h] =
+                                As[(g8 + 8 * h) * LDA + ks + t + 4 * q];
+#pragma unroll
+                    for (int j = 0; j < NT; ++j) {
+                        double bv[2];
+#pragma unroll
+                        for (int q = 0; q < 2; ++q)
+                            bv[q] = Bs[(ks + t + 4 * q) * LDB + 8 * j + g8];
+                        dmma(acc[j], av, bv);
+                    }
+                }
+            }
+            __syncwarp();
+            if (lane == 0) pymes::mbar_arrive(&empty[slot]);
+        }
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+            const int b = h ? b1 : b0;
+            if (b < 0) continue;
+            double* orow = a.out + static_cast<long long>(b) * a.N;
+#pragma unroll
+            for (int j = 0; j < NT; ++j)
+#pragma unroll
+                for (int e = 0; e < 2; ++e) {
+                    const int n = n0 + 8 * j + 2 * t + e;
+                    if (n < a.N) orow[n] = acc[j][2 * h + e];
+                }
+        }
+    }
+}
+
+// Block x: the units of bin x on each column tile of 8 NT columns in turn,
+// and zeros on every gridDim.x-th row of zero_rows.
+template <int NT>
+__global__ void __launch_bounds__(NTHREADS, 1) block_ladder_kernel(Args a)
+{
+    constexpr int SD = stage_doubles<NT>(), S = n_stages<NT>();
+    extern __shared__ __align__(128) double smem[];
+    int* kets = reinterpret_cast<int*>(smem + S * SD);
+    int* udesc = kets + KET_BYTES / 4;
+    uint64_t* full = reinterpret_cast<uint64_t*>(udesc + UDESC_BYTES / 4);
+    uint64_t* empty = full + S;
+    for (int z = blockIdx.x; z < a.n_zero; z += gridDim.x) {
+        double* orow = a.out + static_cast<long long>(a.zero_rows[z]) * a.N;
+        for (int c = threadIdx.x; c < a.N; c += NTHREADS) orow[c] = 0.0;
+    }
+    const int u0 = a.bins[2 * blockIdx.x], u1 = a.bins[2 * blockIdx.x + 2];
+    if (u0 == u1) return;
+    if (threadIdx.x == 0) {
+        for (int s = 0; s < S; ++s) {
+            pymes::mbar_init(&full[s], PTHREADS);
+            pymes::mbar_init(&empty[s], CW);
+        }
+    }
+    __syncthreads();
+    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+    if (warp >= CW)
+        produce<NT>(a, smem, kets, udesc, full, empty, u0, u1,
+                    a.bins[2 * blockIdx.x + 1], a.bins[2 * blockIdx.x + 3],
+                    threadIdx.x - 32 * CW);
+    else
+        consume<NT>(a, smem, full, empty, u0, u1, warp, lane);
+}
+
+template <int NT>
+cudaError_t launch(const Args& a, int n_bins, cudaStream_t stream)
+{
+    // set on every launch: the attribute belongs to the current device
+    cudaError_t err = cudaFuncSetAttribute(
+        block_ladder_kernel<NT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem_bytes<NT>());
+    if (err != cudaSuccess) return err;
+    block_ladder_kernel<NT><<<n_bins, NTHREADS, smem_bytes<NT>(), stream>>>(
+        a);
+    return cudaGetLastError();
+}
+
 }  // namespace
 
-extern "C" int pymes_block_ladder_row_tile() { return TM; }
+// Shared memory of a block at column tile nt (in n8 tiles), or -1 for a
+// tile the library was not built for; the wrapper holds its planner to it.
+extern "C" int pymes_block_ladder_smem(int nt)
+{
+    switch (nt) {
+        case 1: return smem_bytes<1>();
+        case 2: return smem_bytes<2>();
+        case 4: return smem_bytes<4>();
+        case 7: return smem_bytes<7>();
+        case 8: return smem_bytes<8>();
+        case 13: return smem_bytes<13>();
+        case 16: return smem_bytes<16>();
+        default: return -1;
+    }
+}
 
-// Launch on `stream`; returns the cudaError_t of the launch (0 = success).
-extern "C" int pymes_block_ladder(const double* Tt, const double* blocks,
-                                  const int* perm, const int* bra_of_row,
-                                  const long long* gtab, const int* work,
-                                  int n_work, double* outT, int N,
+// Launch on `stream` with column tiles of nt n8 tiles; returns the
+// cudaError_t of the launch (0 = success).
+extern "C" int pymes_block_ladder(const double* Tt, long long ldt,
+                                  const double* blocks, const int* bra_of_row,
+                                  const int* units, const int* stages,
+                                  const int* bins, int n_bins,
+                                  const int* zero_rows, int n_zero,
+                                  double* outT, int N, int nt,
                                   cudaStream_t stream)
 {
-    if (n_work <= 0 || N <= 0) return static_cast<int>(cudaSuccess);
-    const dim3 grid(n_work, (N + TN - 1) / TN);
-    block_ladder_kernel<<<grid, NTHREADS, 0, stream>>>(
-        Tt, blocks, perm, bra_of_row, gtab, work, outT, N);
-    return static_cast<int>(cudaGetLastError());
+    if (n_bins <= 0 || N <= 0) return static_cast<int>(cudaSuccess);
+    const Args a{Tt, ldt, blocks, bra_of_row, units, stages, bins,
+                 zero_rows, n_zero, outT, N};
+    switch (nt) {
+        case 1: return static_cast<int>(launch<1>(a, n_bins, stream));
+        case 2: return static_cast<int>(launch<2>(a, n_bins, stream));
+        case 4: return static_cast<int>(launch<4>(a, n_bins, stream));
+        case 7: return static_cast<int>(launch<7>(a, n_bins, stream));
+        case 8: return static_cast<int>(launch<8>(a, n_bins, stream));
+        case 13: return static_cast<int>(launch<13>(a, n_bins, stream));
+        case 16: return static_cast<int>(launch<16>(a, n_bins, stream));
+        default: return static_cast<int>(cudaErrorInvalidValue);
+    }
 }

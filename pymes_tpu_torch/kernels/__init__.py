@@ -1,6 +1,7 @@
 """Hand-written Hopper kernels of the port, each beside its plain twin.
 
-* :mod:`.block_ladder` — K1, the momentum-sector ladder GEMM (CUDA C++,
+* :mod:`.block_ladder` — K1, the momentum-sector ladder GEMM on the f64
+  tensor cores, and its planners (CUDA C++,
   ``pymes_tpu_torch/csrc/block_ladder.cu``; every ``csrc/*.cu`` is built by
   :mod:`._build`).
 * :mod:`.ccd_tail` — K2/K3, the per-iteration Jacobi + DIIS + energy passes
@@ -10,7 +11,8 @@
 * :mod:`.ccsd_tail` — K2′/K3′, the Jacobi + DIIS + energy passes over the
   CCSD carry [T1 | T2] (Triton).
 * :mod:`.pair_sym` — K5, the P(ab,ij) pair symmetrisation ``Y + X + P(X)``
-  of the CCD/CCSD residual and the EOM doubles sigma (Triton).
+  of the CCD/CCSD residual and the EOM doubles sigma (CUDA C++,
+  ``pymes_tpu_torch/csrc/pair_sym.cu``).
 * :mod:`.davidson` — K6, the preconditioned Davidson residual pass of the
   EOM solver (Triton).
 * :mod:`.arnoldi` — K7, the CGS2 Arnoldi projection and the fused

@@ -18,6 +18,8 @@ import shutil
 import subprocess
 from pathlib import Path
 
+import torch
+
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
@@ -82,8 +84,21 @@ def build() -> Path:
 def sm_count(device):
     """The number of SMs of a CUDA device (the kernels' planners size their
     grids by it)."""
-    import torch
     return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def launch(device, fn, *args):
+    """Call the library entry ``fn(*args, stream)`` with ``device`` the
+    current CUDA device (the launch and the shared-memory attribute belong
+    to it) and ``stream`` its current stream.  The raw stream handle is
+    read as Triton's launcher reads it: ``torch.cuda.current_stream()``
+    builds a Stream object, several microseconds of host time a launch."""
+    idx = device.index
+    stream = torch._C._cuda_getCurrentRawStream(idx)
+    if idx == torch.cuda.current_device():
+        return fn(*args, stream)
+    with torch.cuda.device(idx):
+        return fn(*args, stream)
 
 
 def library():
@@ -92,12 +107,18 @@ def library():
     if _LIB is None:
         lib = ctypes.CDLL(str(build()))
         vp, i32, f64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-        lib.pymes_block_ladder.argtypes = [vp, vp, vp, vp, vp, vp, i32, vp,
-                                           i32, vp]
-        lib.pymes_block_ladder.restype = i32
-        lib.pymes_block_ladder_row_tile.argtypes = []
-        lib.pymes_block_ladder_row_tile.restype = i32
         i64 = ctypes.c_longlong
+        # K1: cd-major operand and row stride, the pack (blocks,
+        # bra_of_row, units, stages, bins and their count, zero rows and
+        # their count), the output, its width and column tile
+        lib.pymes_block_ladder.argtypes = [vp, i64, vp, vp, vp, vp, vp, i32,
+                                           vp, i32, vp, i32, i32, vp]
+        lib.pymes_block_ladder.restype = i32
+        lib.pymes_block_ladder_smem.argtypes = [i32]
+        lib.pymes_block_ladder_smem.restype = i32
+        # K5: X, Y or null, out, batch, P, R
+        lib.pymes_pair_sym.argtypes = [vp, vp, vp, i32, i32, i32, vp]
+        lib.pymes_pair_sym.restype = i32
         lib.pymes_ring_step.argtypes = [vp, i64, i64, vp, i64, vp, i64, i64,
                                         i32, i32, i32, i32, i32, vp, vp]
         lib.pymes_ring_step.restype = i32

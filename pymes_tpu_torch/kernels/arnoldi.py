@@ -94,12 +94,15 @@ def _check(V, lanes, m, *rows):
 
 
 def _launch(V, La):
-    """(library, (G, span), stream) for a K7 launch on V's device."""
-    return (_build.library(), plan(V.shape[2], La, _build.sm_count(V.device)),
-            torch.cuda.current_stream(V.device).cuda_stream)
+    """(library, (G, span)) for a K7 launch on V's device."""
+    return (_build.library(),
+            plan(V.shape[2], La, _build.sm_count(V.device)))
 
 
-def _rc(rc, what):
+def _rc(dev, fn, what, *args):
+    """Launch ``fn(*args)`` on ``dev``'s current stream; raise on an
+    error."""
+    rc = _build.launch(dev, fn, *args)
     if rc != 0:
         raise RuntimeError(f"{what} launch failed: cudaError {rc}")
 
@@ -139,19 +142,17 @@ def arnoldi_cgs2(V, w, lanes, m, twin=False):
     La = lanes.shape[0]
     if w.shape != (La, n):
         raise ValueError("w must be (active lanes, n)")
-    lib, (G, span), stream = _launch(V, La)
+    lib, (G, span) = _launch(V, La)
     dev = V.device
     P = torch.empty((3, La, G, MAX_ROWS), dtype=V.dtype, device=dev)
     h1 = torch.empty((La, MAX_ROWS), dtype=V.dtype, device=dev)
     H = torch.empty((La, R1), dtype=V.dtype, device=dev)
     ptrs = [t.data_ptr() for t in (V, w, lanes, m, P, h1, H)]
-    with torch.cuda.device(dev):
-        for p in range(3):
-            _rc(lib.pymes_arnoldi_pass(p, *ptrs, n, R1 * n, R1, span, G, La,
-                                       stream), f"K7 pass {p}")
-        _rc(lib.pymes_arnoldi_scale(ptrs[0], ptrs[2], ptrs[3], ptrs[4],
-                                    ptrs[6], n, R1 * n, R1, span, G, La,
-                                    BREAK, stream), "K7 scale")
+    for p in range(3):
+        _rc(dev, lib.pymes_arnoldi_pass, f"K7 pass {p}", p, *ptrs, n, R1 * n,
+            R1, span, G, La)
+    _rc(dev, lib.pymes_arnoldi_scale, "K7 scale", ptrs[0], ptrs[2], ptrs[3],
+        ptrs[4], ptrs[6], n, R1 * n, R1, span, G, La, BREAK)
     kernels.LAUNCHES["arnoldi_cgs2"] += 1
     return H
 
@@ -183,13 +184,12 @@ def _combine(V, coeffs, m, lanes, x0):
     C = torch.zeros((La, nout, R1), dtype=V.dtype, device=V.device)
     C[:, :, :coeffs.shape[2]] = coeffs
     out = torch.empty((nout, La, n), dtype=V.dtype, device=V.device)
-    lib, (G, span), stream = _launch(V, La)
-    with torch.cuda.device(V.device):
-        _rc(lib.pymes_krylov_combine(
-            V.data_ptr(), lanes.data_ptr(), m.data_ptr(), C.data_ptr(), nout,
-            None if x0 is None else x0.data_ptr(), out[0].data_ptr(),
-            out[nout - 1].data_ptr() if nout > 1 else None, n, R1 * n, R1,
-            span, G, La, stream), "K7 combine")
+    lib, (G, span) = _launch(V, La)
+    _rc(V.device, lib.pymes_krylov_combine, "K7 combine", V.data_ptr(),
+        lanes.data_ptr(), m.data_ptr(), C.data_ptr(), nout,
+        None if x0 is None else x0.data_ptr(), out[0].data_ptr(),
+        out[nout - 1].data_ptr() if nout > 1 else None, n, R1 * n, R1, span,
+        G, La)
     kernels.LAUNCHES["arnoldi_cgs2"] += 1
     return out
 

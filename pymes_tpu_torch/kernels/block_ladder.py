@@ -1,16 +1,22 @@
-"""K1 wrapper: the momentum-sector ladder GEMM and its plain twin.
+"""K1 wrapper: the momentum-sector ladder GEMM, its planners and its twin.
 
 Replaces B1, ``pymes_tpu/ops/ueg_ladder.py:450`` ``block_ladder_apply_ij``
 (TPU form ``block_ladder_apply_ij_ozaki``, :533).  The kernel is CUDA C++
-(``pymes_tpu_torch/csrc/block_ladder.cu``, built with nvcc for sm_90a at
-first use); its source says what bounds it and how the design answers.
+on the f64 tensor cores (``pymes_tpu_torch/csrc/block_ladder.cu``, built
+with nvcc for sm_90a at first use); its source says what bounds it and how
+the design answers.
 
 :class:`LadderPack` is the kernel's view of a plan: every group's blocks,
 ``perm_ket`` and ``bra_of_row`` in three flat device buffers (the plan's
-per-group tensors are views into them), a per-group table of offsets and
-padded sizes, and the work list of (group, sector, row tile) entries.
+per-group tensors are views into them), the work units with the ket row
+of every B row of every pipeline stage, binned one bin per SM, and the
+rows that no sector writes.  :func:`plan_units` (at plan-build time) and :func:`plan`
+(the column tile of an operand width, at launch) are plain Python, so the
+CPU tests reach them.
 """
 
+import functools
+import heapq
 from typing import NamedTuple
 
 import numpy as np
@@ -19,54 +25,207 @@ import torch
 from pymes_tpu_torch import kernels
 from pymes_tpu_torch.kernels import _build
 
-# rows of a sector handled by one CUDA block; must equal TM in
-# csrc/block_ladder.cu (checked against the library at first launch)
-ROW_TILE = 16
+# the kernel's geometry; must equal csrc/block_ladder.cu (the shared
+# memory per tile is checked against the library at first launch)
+CW = 4                 # consumer warps: m16 row slots of a work unit
+TK = 32                # B rows of a pipeline stage, split among the panels
+LDA = TK + 4           # padded A row of a stage, doubles
+UNIT = 20              # ints of a work unit
+HDR = 44               # doubles of a stage's unit header (84 ints, padded)
+SMEM_BUDGET = 227 * 1024
+MAX_STAGES = 6
+HELD_BYTES = 4 * TK * 32 + 4 * UNIT * 16   # 32 stage rows, 16 descriptors
+BRA_PAD = 16           # -1 entries after bra_of_row (a header reads 16)
+TILES = (1, 2, 4, 7, 8, 13, 16)   # column tiles built, in n8 tiles
+# H100 SMs: the bins of a plan built for a CPU device
+DEFAULT_SMS = 132
+# planner's cost of a pipeline stage beyond its bytes (the block's turn
+# through the barriers), in bytes
+STAGE_COST = 2048
 
 
 class LadderPack(NamedTuple):
     blocks: torch.Tensor      # f64, all groups' (nS, mB, mK) blocks
     perm: torch.Tensor        # int32, all groups' (nS, mK) ket-pair ids
     bra_of_row: torch.Tensor  # int32, all groups' (nS, mB) bra ids (−1 pad)
-    gtab: torch.Tensor        # int64 (G, 5): offsets of the three, mB, mK
-    work: torch.Tensor        # int32 (n_work, 3): group, sector, row0
+    work: torch.Tensor        # int32 (n_units, UNIT), bin after bin
+    stages: torch.Tensor      # int32 (n_stages, TK): ket row of each B row
+    bins: torch.Tensor        # int32 (n_bins + 1, 2): first unit, stage
+    zero_rows: torch.Tensor   # int32: output rows no sector writes
+    n_rows: int               # output rows (n_bra², or a shard's rows)
 
 
-def pack_groups(group_arrays, device):
+def smem_bytes(nt):
+    """Shared memory of a block at a column tile of ``nt`` n8 tiles: as
+    many stages of (64 A rows × LDA) + (TK B rows × (8 nt + 4)) + HDR
+    doubles as fit the budget beside what the producers hold (at most
+    MAX_STAGES), that, and two mbarriers a stage."""
+    sd = CW * 16 * LDA + TK * (8 * nt + 4) + HDR
+    stages = min(MAX_STAGES, (SMEM_BUDGET - HELD_BYTES - 256) // (8 * sd))
+    return 8 * stages * sd + HELD_BYTES + 16 * stages
+
+
+@functools.lru_cache(maxsize=64)
+def plan(N):
+    """(nt, column tiles) for an operand of N columns: the narrowest built
+    tile that holds N in one (N = 49: 7 n8 tiles, 56 columns), else tiles
+    of 8 or 16 n8 tiles, whichever pads less (ties to the wider)."""
+    if N <= 8 * TILES[-1]:
+        nt = next(t for t in TILES if 8 * t >= N)
+    else:
+        nt = min((16, 8), key=lambda t: -(-N // (8 * t)) * 8 * t - N)
+    return nt, -(-N // (8 * nt))
+
+
+def _parts_cost(mK, parts):
+    """A unit's planning cost: its bytes (A rows; B panels at N = 49)
+    plus STAGE_COST a stage.  ``parts`` lists (sector, [first rows of its
+    m16 tiles]); each part is a panel, each tile a consumer warp's slot."""
+    npan = (1, 1, 2, 4, 4)[len(parts)]
+    slots = sum(len(t) for _, t in parts)
+    return (8 * mK * (16 * slots + 56 * len(parts))
+            + STAGE_COST * -(-mK // (TK // npan)))
+
+
+def _unit_rows(g, shape, offs, parts, perm, bra):
+    """One unit's descriptor and its stages' B rows.
+
+    Descriptor (UNIT ints): [0] mK, [1] kd (B rows of a panel in a stage:
+    TK / panels), [2] stages, [3] group, [4:8] each slot's first A element
+    (row r0 of its sector, column 0) in the blocks buffer, [8:12] its live
+    rows (0: idle slot), [12:16] its first ``bra_of_row`` entry, [16:20]
+    the first B row of its panel in a stage.  Stage t holds k in [t·kd,
+    (t+1)·kd) of every panel: B row j·kd + i is ket ``perm[sector_j,
+    t·kd + i]`` (−1 past mK or past the panels)."""
+    nS, mB, mK = shape
+    o_b, o_p, o_r = offs
+    npan = (1, 1, 2, 4, 4)[len(parts)]
+    kd = TK // npan
+    n_st = -(-mK // kd)
+    row = [mK, kd, n_st, g] + [0] * 16
+    slot = 0
+    for j, (s, tiles) in enumerate(parts):
+        for r0 in tiles:
+            row[4 + slot] = o_b + (s * mB + r0) * mK
+            row[8 + slot] = min(16, mB - r0)
+            row[12 + slot] = o_r + s * mB + r0
+            row[16 + slot] = j * kd
+            slot += 1
+    st = np.full((n_st, TK), -1, np.int64)
+    for j, (s, _) in enumerate(parts):
+        ket = perm[o_p + s * mK:o_p + (s + 1) * mK]
+        for t in range(n_st):
+            k = ket[t * kd:(t + 1) * kd]
+            st[t, j * kd:j * kd + len(k)] = k
+    return row, st
+
+
+def plan_units(shapes, perm, bra, sms):
+    """The work units of a plan, their stages and their bins.
+
+    ``shapes`` lists each group's (nS, mB, mK); ``perm`` and ``bra`` are
+    the flat ``perm_ket`` and ``bra_of_row`` of all groups in order.  A
+    sector's m16 row tiles that hold a bra row go CW at a time into units
+    of their own (one ket panel per CW·16 rows); the leftover tiles of a
+    bucket (fewer than CW a sector) are packed first-fit, most tiles
+    first, into units of up to CW slots and CW panels.  The units are
+    dealt to ``sms`` bins largest first, each to the least loaded bin (by
+    :func:`_parts_cost`), and kept in that order in a bin.  Returns (units
+    (n, UNIT), stages (n_stages, TK), bins (sms + 1, 2): each bin's first
+    unit and first stage), int32."""
+    units = []                                  # (cost, g, parts)
+    offs = np.zeros(3, np.int64)
+    goffs = []
+    for g, (nS, mB, mK) in enumerate(shapes):
+        goffs.append(tuple(int(o) for o in offs))
+        live = bra[offs[2]:offs[2] + nS * mB].reshape(nS, mB) >= 0
+        offs += (nS * mB * mK, nS * mK, nS * mB)
+        pieces = []
+        for s in range(nS):
+            tiles = [r0 for r0 in range(0, mB, 16)
+                     if live[s, r0:r0 + 16].any()]
+            whole = len(tiles) - len(tiles) % CW
+            units.extend((g, [(s, tiles[i:i + CW])])
+                         for i in range(0, whole, CW))
+            if whole < len(tiles):
+                pieces.append((s, tiles[whole:]))
+        pieces.sort(key=lambda pc: -len(pc[1]))
+        packs, free = [], []
+        for pc in pieces:
+            for i, f in enumerate(free):
+                if f >= len(pc[1]):
+                    packs[i].append(pc)
+                    free[i] -= len(pc[1])
+                    break
+            else:
+                packs.append([pc])
+                free.append(CW - len(pc[1]))
+        units.extend((g, pk) for pk in packs)
+    if offs[0] >= 2 ** 31:
+        raise ValueError("sector blocks past int32 offsets")
+    cost = [_parts_cost(shapes[g][2], parts) for g, parts in units]
+    heap = [(0, b) for b in range(sms)]
+    members = [[] for _ in range(sms)]
+    for i in sorted(range(len(units)), key=lambda i: -cost[i]):
+        load, b = heapq.heappop(heap)
+        members[b].append(i)
+        heapq.heappush(heap, (load + cost[i], b))
+    rows, stages, bins = [], [], [(0, 0)]
+    for m in members:
+        for i in m:
+            g, parts = units[i]
+            row, st = _unit_rows(g, shapes[g], goffs[g], parts, perm, bra)
+            rows.append(row)
+            stages.append(st)
+        bins.append((len(rows), sum(len(st) for st in stages)))
+    return (np.asarray(rows, np.int32).reshape(-1, UNIT),
+            np.concatenate(stages).astype(np.int32) if stages
+            else np.zeros((0, TK), np.int32),
+            np.asarray(bins, np.int32))
+
+
+def pack_groups(group_arrays, device, n_rows):
     """Pack host arrays ``[(blocks, perm_ket, bra_of_row), ...]`` (in the
-    plan's concat order) into one :class:`LadderPack` on ``device``.
-    Returns ``(pack, [(blocks, perm_ket, bra_of_row) views per group])``."""
+    plan's concat order) into one :class:`LadderPack` on ``device`` for an
+    output of ``n_rows`` rows.  Returns ``(pack, [(blocks, perm_ket,
+    bra_of_row) views per group])``."""
+    device = torch.device(device)
     blk = [np.asarray(b, dtype=np.float64).ravel() for b, _, _ in group_arrays]
     prm = [np.asarray(p, dtype=np.int32).ravel() for _, p, _ in group_arrays]
     bra = [np.asarray(r, dtype=np.int32).ravel() for _, _, r in group_arrays]
-    gtab, work = [], []
-    offs = np.zeros(3, np.int64)
-    for g, (b, p, r) in enumerate(group_arrays):
-        nS, mB, mK = np.shape(b)
-        gtab.append([offs[0], offs[1], offs[2], mB, mK])
-        offs += (nS * mB * mK, nS * mK, nS * mB)
-        work.extend((g, s, r0) for s in range(nS)
-                    for r0 in range(0, mB, ROW_TILE))
-    # largest buckets first, so their long K loops start early
-    work.sort(key=lambda w: -(gtab[w[0]][3] * gtab[w[0]][4]))
+    shapes = [tuple(np.shape(b)) for b, _, _ in group_arrays]
+    for _, mB, mK in shapes:
+        # the kernel copies ket rows and bra ids 16 bytes at a time
+        if mK % 8 or mB % 8:
+            raise ValueError(f"a bucket of {mB} bra and {mK} ket pairs: K1 "
+                             "takes sectors padded to a multiple of 8")
 
-    def dev(arrs, dt):
-        flat = np.concatenate(arrs) if arrs else np.zeros(0)
-        return torch.as_tensor(flat, dtype=dt, device=device)
+    def cat(arrs, dt):
+        return np.concatenate(arrs).astype(dt) if arrs else np.zeros(0, dt)
+
+    perm_all, bra_all = cat(prm, np.int32), cat(bra, np.int32)
+    sms = (_build.sm_count(device) if device.type == "cuda"
+           else DEFAULT_SMS)
+    work, stages, bins = plan_units(shapes, perm_all, bra_all, sms)
+    written = np.zeros(n_rows, bool)
+    written[bra_all[bra_all >= 0]] = True
+
+    def dev(a, dt=None):
+        return torch.as_tensor(a, dtype=dt, device=device)
 
     pack = LadderPack(
-        blocks=dev(blk, torch.float64), perm=dev(prm, torch.int32),
-        bra_of_row=dev(bra, torch.int32),
-        gtab=torch.as_tensor(np.asarray(gtab, np.int64).reshape(-1, 5),
-                             device=device),
-        work=torch.as_tensor(np.asarray(work, np.int32).reshape(-1, 3),
-                             device=device))
-    views = []
-    for (b, _, _), (o_b, o_p, o_r, mB, mK) in zip(group_arrays, gtab):
-        nS = np.shape(b)[0]
+        blocks=dev(cat(blk, np.float64)), perm=dev(perm_all),
+        bra_of_row=dev(np.concatenate([bra_all, np.full(BRA_PAD, -1,
+                                                         np.int32)])),
+        work=dev(work), stages=dev(stages), bins=dev(bins),
+        zero_rows=dev(np.nonzero(~written)[0].astype(np.int32)),
+        n_rows=int(n_rows))
+    views, o_b, o_p, o_r = [], 0, 0, 0
+    for nS, mB, mK in shapes:
         views.append((pack.blocks[o_b:o_b + nS * mB * mK].view(nS, mB, mK),
                       pack.perm[o_p:o_p + nS * mK].view(nS, mK),
                       pack.bra_of_row[o_r:o_r + nS * mB].view(nS, mB)))
+        o_b, o_p, o_r = o_b + nS * mB * mK, o_p + nS * mK, o_r + nS * mB
     return pack, views
 
 
@@ -87,36 +246,40 @@ def block_ladder_twin(groups, inv_bra, T2):
     return torch.cat(cols, dim=1).index_select(1, inv_bra)
 
 
-_ROW_TILE_CHECKED = False
+_SMEM_CHECKED = set()
 
 
 def block_ladder_kernel_cd(pack: LadderPack, Tt, n_out, nv):
-    """Launch K1 on a cd-major operand ``Tt`` (nv², n), a contiguous CUDA
-    f64 tensor; returns the bra-major output (n_out, n): row r holds the
-    pack's rows whose ``bra_of_row`` is r (n_bra² rows for a whole plan,
-    the shard's own rows for a shard of a sector-sharded plan)."""
-    global _ROW_TILE_CHECKED
+    """Launch K1 on a cd-major operand ``Tt`` (nv², n), a CUDA f64 tensor
+    with unit column stride and any row stride ≥ n; returns the bra-major
+    output (n_out, n): row r holds the pack's rows whose ``bra_of_row`` is
+    r (n_bra² rows for a whole plan, the shard's own rows for a shard of a
+    sector-sharded plan)."""
     if Tt.dtype != torch.float64 or pack.blocks.dtype != torch.float64:
         raise TypeError("the ladder kernel takes float64 amplitudes/blocks")
     if pack.blocks.device != Tt.device:
         raise ValueError("plan and amplitudes lie on different devices")
-    if Tt.dim() != 2 or Tt.shape[0] != nv * nv or not Tt.is_contiguous():
-        raise ValueError(f"operand of shape {tuple(Tt.shape)} is not a "
-                         f"contiguous cd-major (nv², n) with nv={nv}")
-    lib = _build.library()
-    if not _ROW_TILE_CHECKED:
-        if lib.pymes_block_ladder_row_tile() != ROW_TILE:
-            raise RuntimeError("ROW_TILE differs from TM in "
-                               "csrc/block_ladder.cu")
-        _ROW_TILE_CHECKED = True
+    if (Tt.dim() != 2 or Tt.shape[0] != nv * nv or Tt.stride(1) != 1
+            or Tt.stride(0) < Tt.shape[1]):
+        raise ValueError(f"operand of shape {tuple(Tt.shape)}, strides "
+                         f"{Tt.stride()} is not a row-major cd-major "
+                         f"(nv², n) with nv={nv}")
+    if n_out != pack.n_rows:
+        raise ValueError(f"{n_out} output rows for a plan of {pack.n_rows}")
     n = Tt.shape[1]
-    outT = torch.zeros((n_out, n), dtype=Tt.dtype, device=Tt.device)
-    with torch.cuda.device(Tt.device):
-        rc = lib.pymes_block_ladder(
-            Tt.data_ptr(), pack.blocks.data_ptr(), pack.perm.data_ptr(),
-            pack.bra_of_row.data_ptr(), pack.gtab.data_ptr(),
-            pack.work.data_ptr(), int(pack.work.shape[0]), outT.data_ptr(),
-            int(n), torch.cuda.current_stream(Tt.device).cuda_stream)
+    nt, _ = plan(n)
+    lib = _build.library()
+    if nt not in _SMEM_CHECKED:
+        if lib.pymes_block_ladder_smem(nt) != smem_bytes(nt):
+            raise RuntimeError("smem_bytes differs from csrc/block_ladder.cu")
+        _SMEM_CHECKED.add(nt)
+    outT = torch.empty((n_out, n), dtype=Tt.dtype, device=Tt.device)
+    args = (Tt.data_ptr(), Tt.stride(0), pack.blocks.data_ptr(),
+            pack.bra_of_row.data_ptr(), pack.work.data_ptr(),
+            pack.stages.data_ptr(), pack.bins.data_ptr(),
+            int(pack.bins.shape[0]) - 1, pack.zero_rows.data_ptr(),
+            int(pack.zero_rows.shape[0]), outT.data_ptr(), int(n), nt)
+    rc = _build.launch(Tt.device, lib.pymes_block_ladder, *args)
     if rc != 0:
         raise RuntimeError(f"block_ladder launch failed: cudaError {rc}")
     kernels.LAUNCHES["block_ladder"] += 1
@@ -125,11 +288,17 @@ def block_ladder_kernel_cd(pack: LadderPack, Tt, n_out, nv):
 
 def block_ladder_kernel(pack: LadderPack, T2, n_out, nv):
     """Launch K1 on ``T2`` (no², nv²), a CUDA f64 tensor; returns the
-    (no², n_out) result as the transposed view of the bra-major output."""
+    (no², n_out) result as the transposed view of the bra-major output.
+    The cd-major copy of T2 gets an even row stride, so every gathered
+    row starts 16-byte aligned."""
     if T2.dim() != 2 or T2.shape[1] != nv * nv:
         raise ValueError(f"amplitudes of shape {tuple(T2.shape)} do not "
                          f"fit a plan with nv={nv}")
-    return block_ladder_kernel_cd(pack, T2.t().contiguous(), n_out, nv).t()
+    n = T2.shape[0]
+    Tt = torch.empty((nv * nv, n + n % 2), dtype=T2.dtype,
+                     device=T2.device)[:, :n]
+    Tt.copy_(T2.t())
+    return block_ladder_kernel_cd(pack, Tt, n_out, nv).t()
 
 
 def block_ladder(plan, T2, twin=False):
@@ -146,10 +315,13 @@ def block_ladder(plan, T2, twin=False):
 def block_ladder_cd(plan, Tt, twin=False):
     """R[pq, x] = Σ_cd V[pq, cd] Tt[cd, x] on a cd-major operand (nv², n),
     e.g. abij amplitudes of any batch flattened to (nv², batch·no²): K1 for
-    a CUDA tensor, with no transpose of the operand, the twin for a CPU
-    tensor or with ``twin=True``.  Returns (n_out, n), one row per entry
-    of ``plan.inv_bra``."""
+    a CUDA tensor, with no copy of an operand whose rows are contiguous,
+    the twin for a CPU tensor or with ``twin=True``.  Returns (n_out, n),
+    one row per entry of ``plan.inv_bra``."""
     if kernels.check_device(Tt) and not twin:
-        return block_ladder_kernel_cd(plan.packed, Tt.contiguous(),
+        if (Tt.dim() != 2 or Tt.stride(1) != 1
+                or Tt.stride(0) < Tt.shape[1]):
+            Tt = Tt.contiguous()
+        return block_ladder_kernel_cd(plan.packed, Tt,
                                       plan.inv_bra.shape[0], plan.nv)
     return block_ladder_twin(plan.groups, plan.inv_bra, Tt.t()).t()

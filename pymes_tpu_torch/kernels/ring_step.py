@@ -117,13 +117,8 @@ def ring_step_kernel(R, T, V, c0):
     args = (T.data_ptr(), T.stride(0), T.stride(1),
             V.data_ptr() + 8 * c0, V.stride(0), R.data_ptr(), R.stride(0),
             R.stride(1), M, N, K, tile_n, splits,
-            None if W is None else W.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream)
-    if dev.index == torch.cuda.current_device():
-        rc = lib.pymes_ring_step(*args)
-    else:
-        with torch.cuda.device(dev):
-            rc = lib.pymes_ring_step(*args)
+            None if W is None else W.data_ptr())
+    rc = _build.launch(dev, lib.pymes_ring_step, *args)
     if rc != 0:
         raise RuntimeError(f"ring_step launch failed: cudaError {rc}")
     kernels.LAUNCHES["ring_step"] += 1

@@ -112,7 +112,8 @@ def plan_from_arrays(group_arrays, inv_bra, n_bra, nv, w0, device):
     bra = bra_of_row_from_inv_bra(
         [np.shape(b)[:2] for b, _ in group_arrays], inv_bra)
     packed, views = _k1.pack_groups(
-        [(b, p, r) for (b, p), r in zip(group_arrays, bra)], dev)
+        [(b, p, r) for (b, p), r in zip(group_arrays, bra)], dev,
+        n_rows=len(inv_bra))
     groups = tuple(BlockGroup(blocks=b, perm_ket=p, bra_of_row=r)
                    for b, p, r in views)
     return BlockLadder(
@@ -248,7 +249,8 @@ def shard_block_ladder(plan: BlockLadder, mesh, axis="a"):
             bra.append(local[off:off + r.size].reshape(r.shape))
             off += r.size
         packed, views = _k1.pack_groups(
-            [(b, k, r) for (b, k, _), r in zip(parts, bra)], dev)
+            [(b, k, r) for (b, k, _), r in zip(parts, bra)], dev,
+            n_rows=len(live))
         shards.append(BlockLadder(
             groups=tuple(BlockGroup(blocks=b, perm_ket=k, bra_of_row=r)
                          for b, k, r in views),

@@ -1,7 +1,7 @@
 """The port's hand-written kernels on the card, each against its plain twin.
 
 K1 (CUDA C++ ladder), K2/K3 (Triton CCD tail), K4 (Triton ovvv gather),
-K2′/K3′ (Triton CCSD tail), K5 (Triton pair symmetrisation), K6 (Triton
+K2′/K3′ (Triton CCSD tail), K5 (CUDA C++ pair symmetrisation), K6 (Triton
 Davidson residual), K7 (CUDA C++ Arnoldi CGS2 and Krylov combines) and K8
 (Triton shifted operator and preconditioner) and K9 (CUDA C++ ring step;
 with the ring over a repeated card and over two cards, and the
@@ -13,8 +13,9 @@ repository's conftest (which sets up jax):
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
 Tolerance: max|kernel − twin| ≤ 1e-12·max|twin| (both f64; only the
-summation order differs).  K7 and K9 add no atomics, so a second launch
-must repeat the first bit for bit.
+summation order differs); K5 sums in its twin's order and must equal it
+bit for bit.  K1, K7 and K9 add no atomics, so a second launch must
+repeat the first bit for bit.
 """
 
 import numpy as np
@@ -25,6 +26,7 @@ from pymes_tpu_torch import kernels
 from pymes_tpu_torch.integral.partition import part_2_body_int
 from pymes_tpu_torch.kernels import (ccd_tail, ccsd_tail, davidson, pair_sym,
                                      ring_step)
+from pymes_tpu_torch.kernels import block_ladder as k1
 from pymes_tpu_torch.mean_field import hf
 from pymes_tpu_torch.models import ueg
 from pymes_tpu_torch.ops import ueg_ladder
@@ -314,7 +316,31 @@ def test_pair_symmetrize_kernel_matches_twin(device, layout, batch, with_y):
     want = pair_sym.pair_symmetrize(X, Y, twin=True)
     assert kernels.LAUNCHES["pair_symmetrize"] == before + 1
     assert got.shape == want.shape
-    _close(got, want)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)        # the twin's order: bit for bit
+
+
+# (shape, with Y): the EOM sigma's abij batches at nP=219 (nv = 212), the
+# CCD/CCSD residual's ijab with Y, and the edges: R = 1, R = 16 / 17 around
+# the switch from the warp program to the tiled one, odd P, P = 1
+K5_SHAPES = [((1, 212, 212, 7, 7), False), ((2, 212, 212, 7, 7), False),
+             ((1, 212, 212, 7, 7), True), ((2, 212, 212, 7, 7), True),
+             ((7, 7, 212, 212), True), ((2, 7, 7, 212, 212), False),
+             ((5, 5, 1, 1), True), ((2, 9, 9, 16, 16), True),
+             ((2, 9, 9, 17, 17), True), ((3, 3, 33, 33), False),
+             ((13, 13, 7, 7), True), ((1, 1, 7, 7), False),
+             ((1, 1, 40, 40), True), ((2, 1, 1, 17, 17), False)]
+
+
+@pytest.mark.parametrize("shape,with_y", K5_SHAPES)
+def test_pair_symmetrize_kernel_bit_equal_at_edges(device, shape, with_y):
+    rng = np.random.default_rng(sum(shape) + with_y)
+    X = _randn(rng, shape, device)
+    Y = _randn(rng, shape, device) if with_y else None
+    got = pair_sym.pair_symmetrize(X, Y)
+    want = pair_sym.pair_symmetrize(X, Y, twin=True)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("m", [16, 5])
@@ -577,6 +603,86 @@ def test_ring_ladder_over_two_cards(device):
     got = ring_ladder.ring_ladder_inside_ij(Vs, T, m)
     assert got.device == m.devices[0]
     _close(got, torch.einsum("abcd,ijcd->ijab", V, T))
+
+
+def _k1_cd(plan, Tt):
+    """K1 twice on a cd-major operand (reruns must be bit-equal) and its
+    twin; returns (kernel, twin)."""
+    before = kernels.LAUNCHES["block_ladder"]
+    got = k1.block_ladder_cd(plan, Tt)
+    again = k1.block_ladder_cd(plan, Tt)
+    assert kernels.LAUNCHES["block_ladder"] == before + 2
+    want = k1.block_ladder_cd(plan, Tt, twin=True)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert got.shape == want.shape and float(want.abs().max()) > 0
+    return got, want
+
+
+@pytest.mark.parametrize("N", [1, 49, 98, 6272, 33, 77, 129])
+@pytest.mark.parametrize("bra", ["virtual", "all"])
+def test_block_ladder_kernel_widths(device, bra, N):
+    """K1 on the nP=57 plans at operand widths N = no² (one tile of 7 n8
+    tiles), 2 no² (13), the FEAST lane batch 128 no² (tiles of 16), odd
+    widths and one column."""
+    u = ueg.UEG(14, 7, 7, 0.5)
+    u.init_single_basis(5)
+    plan = ueg_ladder.build_block_ladder(u, device, bra=bra)
+    nv = u.n_spatial - NO
+    Tt = _randn(np.random.default_rng(N), (nv * nv, N), device)
+    _close(*_k1_cd(plan, Tt))
+
+
+@pytest.mark.parametrize("N,ld", [(98, 99), (49, 51), (49, 50), (8, 13)])
+def test_block_ladder_kernel_row_stride(device, N, ld):
+    """A cd-major operand whose rows lie ``ld`` doubles apart (odd: 8-byte
+    copies; even: 16-byte ones) gives the contiguous operand's bits."""
+    u = ueg.UEG(14, 7, 7, 0.5)
+    u.init_single_basis(5)
+    plan = ueg_ladder.build_block_ladder(u, device, bra="all")
+    nv = u.n_spatial - NO
+    buf = _randn(np.random.default_rng(ld), (nv * nv, ld), device)
+    got, want = _k1_cd(plan, buf[:, :N])
+    _close(got, want)
+    assert torch.equal(got, k1.block_ladder_cd(
+        plan, buf[:, :N].contiguous()))
+
+
+@pytest.mark.parametrize("N", [49, 98])
+def test_block_ladder_kernel_on_8x8_buckets_only(device, N):
+    """A plan whose only bucket is 8 × 8 (sectors packed four to a unit),
+    with padding rows and bra pairs that no sector holds (zero rows)."""
+    rng = np.random.default_rng(8)
+    nv, nS = 10, 12
+    kets = rng.permutation(nv * nv)[:8 * nS].reshape(nS, 8)
+    bras = rng.permutation(nv * nv)[:8 * nS].reshape(nS, 8)
+    blocks = rng.standard_normal((nS, 8, 8))
+    inv_bra = np.full(nv * nv, 8 * nS, np.int64)       # the zero column
+    for t in range(nS):
+        live = 8 - t % 4                                # padding rows
+        blocks[t, live:] = 0.0
+        inv_bra[bras[t, :live]] = t * 8 + np.arange(live)
+    plan = ueg_ladder.plan_from_arrays([(blocks, kets.astype(np.int32))],
+                                       inv_bra, nv, nv, 0.0, device)
+    assert plan.packed.zero_rows.numel() > 0
+    Tt = _randn(rng, (nv * nv, N), device)
+    got, want = _k1_cd(plan, Tt)
+    _close(got, want)
+    assert bool((got[plan.packed.zero_rows.long()] == 0).all())
+
+
+def test_block_ladder_kernel_np219_widths(device):
+    """K1 at nP=219 (all-bra) on the main path's N = 49 (through the ijab
+    entry's even-stride copy) and the stacked N = 98 cd-major operand."""
+    u = ueg.UEG(14, 7, 7, 0.5)
+    u.init_single_basis(14)
+    plan = ueg_ladder.build_block_ladder(u, device, bra="all")
+    nv = u.n_spatial - NO
+    rng = np.random.default_rng(49)
+    T = _randn(rng, (NO, NO, nv, nv), device, 0.01)
+    got = ueg_ladder.block_ladder_apply_ij(plan, T)
+    _close(got, ueg_ladder.block_ladder_apply_ij(plan, T, twin=True))
+    _close(*_k1_cd(plan, _randn(rng, (nv * nv, 2 * NO * NO), device, 0.01)))
 
 
 def test_sharded_block_ladder_kernel_bit_equal(device):

@@ -1,11 +1,12 @@
-"""The Python planners of K7 (``kernels/arnoldi.py``) and K9
-(``kernels/ring_step.py``), and the CPU side of the fused Krylov combine.
+"""The Python planners of K1 (``kernels/block_ladder.py``), K7
+(``kernels/arnoldi.py``) and K9 (``kernels/ring_step.py``), and the CPU side
+of the fused Krylov combine.
 
 The kernels themselves run only on the card (``tests/test_torch_cuda.py``);
-what they are handed — K9's tile width and contraction splits, K7's column
-ranges and tile widths — is decided here in plain Python, so these tests
-hold the plans to covering the work exactly once and to fitting the
-kernels' shared memory.  The lane-batched GMRES through the fused combine's
+what they are handed — K1's work units, bins and column tile, K9's tile
+width and contraction splits, K7's column ranges and tile widths — is
+decided here in plain Python, so these tests hold the plans to covering the
+work exactly once and to fitting the kernels' shared memory.  The lane-batched GMRES through the fused combine's
 twin is held to the JAX package's ``gmres`` (x within 1e-10, ``rel_res``
 within 1e-12: the same algorithm, only the reductions' order differs).
 """
@@ -17,7 +18,149 @@ import torch
 
 from pymes_tpu.ops import gmres as jgmres
 from pymes_tpu_torch.kernels import arnoldi, ring_step
+from pymes_tpu_torch.kernels import block_ladder as k1
+from pymes_tpu_torch.models import ueg as tueg
 from pymes_tpu_torch.ops import gmres as tgmres
+from pymes_tpu_torch.ops import ueg_ladder as tladder
+
+K1_WIDTHS = [1, 8, 9, 33, 49, 56, 57, 77, 98, 128, 129, 1000, 6272, 6273]
+_K1_PLANS = {}
+
+
+def _k1_plan(cutoff, bra, pad):
+    """A ladder plan of UEG 14 electrons, rs = 0.5 (nP = 19, 57, 219 at
+    cutoff 2, 5, 14), built once per case."""
+    key = (cutoff, bra, pad)
+    if key not in _K1_PLANS:
+        u = tueg.UEG(14, 7, 7, 0.5)
+        u.init_single_basis(cutoff)
+        _K1_PLANS[key] = tladder.build_block_ladder(u, "cpu", bra=bra,
+                                                    pad_sectors=pad)
+    return _K1_PLANS[key]
+
+
+def _k1_args(plan):
+    shapes = [tuple(g.blocks.shape) for g in plan.groups]
+    return shapes, plan.packed.perm.numpy(), plan.packed.bra_of_row.numpy()
+
+
+def _k1_slots(work, bins):
+    """Every busy slot of every unit, bin by bin: (unit, slot)."""
+    for b in range(len(bins) - 1):
+        for i in range(bins[b, 0], bins[b + 1, 0]):
+            for w in range(k1.CW):
+                if work[i, 8 + w] > 0:
+                    yield i, w
+
+
+@pytest.mark.parametrize("sms", [132, 8])
+@pytest.mark.parametrize("pad", [1, 4])
+@pytest.mark.parametrize("bra", ["virtual", "all"])
+@pytest.mark.parametrize("cutoff", [2, 5, 14])
+def test_k1_units_cover_every_bra_row_once(cutoff, bra, pad, sms):
+    """Every bra row of the plan is stored by exactly one slot of one unit
+    in one bin, from its own sector's A row and ket panel; the bins cut
+    the units and the stages in order."""
+    plan = _k1_plan(cutoff, bra, pad)
+    shapes, perm, bra_rows = _k1_args(plan)
+    work, stages, bins = k1.plan_units(shapes, perm, bra_rows, sms)
+    assert work.shape[1] == k1.UNIT and stages.shape[1] == k1.TK
+    assert bins.shape == (sms + 1, 2) and (bins[0] == 0).all()
+    assert bins[-1, 0] == len(work) and bins[-1, 1] == len(stages)
+    assert (np.diff(bins, axis=0) >= 0).all()
+    # each group's offsets into the blocks, perm and bra buffers
+    gtab, offs = [], np.zeros(3, np.int64)
+    for nS, mB, mK in shapes:
+        gtab.append((*offs, mB, mK))
+        offs += (nS * mB * mK, nS * mK, nS * mB)
+    n_st = np.zeros(len(work), int)
+    for b in range(sms):
+        u = work[bins[b, 0]:bins[b + 1, 0]]
+        assert u[:, 2].sum() == bins[b + 1, 1] - bins[b, 1]
+        n_st[bins[b, 0]:bins[b + 1, 0]] = np.cumsum(u[:, 2]) - u[:, 2] \
+            + bins[b, 1]
+    seen = np.zeros(len(bra_rows), int)
+    for i, w in _k1_slots(work, bins):
+        mK, kd, ns, g = work[i, :4]
+        o_b, o_p, o_r, mB, gmK = gtab[g]
+        assert mK == gmK and kd in (8, 16, 32) and ns == -(-mK // kd)
+        s, r0 = divmod(int(work[i, 12 + w] - o_r), mB)
+        assert r0 % 16 == 0 and work[i, 8 + w] == min(16, mB - r0)
+        assert work[i, 4 + w] == o_b + (s * mB + r0) * mK
+        kets = [stages[n_st[i] + k // kd, work[i, 16 + w] + k % kd]
+                for k in range(mK)]
+        assert kets == perm[o_p + s * mK:o_p + (s + 1) * mK].tolist()
+        seen[work[i, 12 + w]:work[i, 12 + w] + work[i, 8 + w]] += 1
+    live = bra_rows >= 0
+    assert (seen[live] == 1).all() and (seen <= 1).all()
+    if sms == k1.DEFAULT_SMS:   # the pack holds this plan
+        assert np.array_equal(plan.packed.work.numpy(), work)
+        assert np.array_equal(plan.packed.stages.numpy(), stages)
+        assert np.array_equal(plan.packed.bins.numpy(), bins)
+
+
+@pytest.mark.parametrize("bra", ["virtual", "all"])
+def test_k1_small_buckets_fill_the_block(bra):
+    """The 8- and 16-row buckets pack CW sectors a unit: all but at most
+    one of their units keep every consumer warp busy."""
+    plan = _k1_plan(14, bra, 1)
+    work = plan.packed.work.numpy()
+    for g, grp in enumerate(plan.groups):
+        nS, mB, _ = grp.blocks.shape
+        if mB > 16:
+            continue
+        busy = (work[work[:, 3] == g][:, 8:12] > 0).sum(1)
+        assert nS >= k1.CW and (busy < k1.CW).sum() <= 1
+
+
+def test_k1_bins_are_balanced():
+    """Largest first onto the least loaded bin: no bin's byte count
+    exceeds another's by more than the largest unit's."""
+    plan = _k1_plan(14, "virtual", 1)
+    work, _, bins = k1.plan_units(*_k1_args(plan), 132)
+    # the planner's cost from a descriptor: slots, panels, stages
+    cost = [8 * u[0] * (16 * (u[8:12] > 0).sum()
+                        + 56 * len(set(u[16:20][u[8:12] > 0])))
+            + k1.STAGE_COST * u[2] for u in work]
+    loads = [sum(cost[bins[b, 0]:bins[b + 1, 0]]) for b in range(132)]
+    assert max(loads) - min(loads) <= max(cost)
+
+
+@pytest.mark.parametrize("nt", k1.TILES)
+def test_k1_tile_fits_shared_memory(nt):
+    """Each built column tile holds at least 3 stages in the 227 KB a
+    block may use; 8 nt + 4 keeps the B fragment loads conflict-free."""
+    smem = k1.smem_bytes(nt)
+    sd = 8 * (k1.CW * 16 * k1.LDA + k1.TK * (8 * nt + 4) + k1.HDR)
+    assert smem <= 227 * 1024 and smem >= 3 * sd
+    assert (8 * nt + 4) % 16 in (4, 12) and k1.LDA % 16 == 4
+
+
+@pytest.mark.parametrize("N", K1_WIDTHS)
+def test_k1_column_tile_fits_the_width(N):
+    nt, tiles = k1.plan(N)
+    assert nt in k1.TILES
+    assert 8 * nt * tiles >= N > 8 * nt * (tiles - 1)
+    if N <= 128:                 # one tile: the ket panel gathered once
+        assert tiles == 1 and nt == min(t for t in k1.TILES if 8 * t >= N)
+    assert k1.plan(49) == (7, 1) and k1.plan(98) == (13, 1)
+    assert k1.plan(6272) == (16, 49)
+
+
+@pytest.mark.parametrize("mB,mK", [(8, 8), (12, 8), (8, 12), (4, 16),
+                                   (16, 4), (24, 32)])
+def test_k1_pack_takes_only_buckets_padded_to_8(mB, mK):
+    """The kernel copies ket rows and bra ids 16 bytes at a time, so a
+    bucket whose bra or ket count is not a multiple of 8 is refused."""
+    group = (np.ones((2, mB, mK)), np.arange(2 * mK).reshape(2, mK) % mK,
+             np.arange(2 * mB).reshape(2, mB))
+    if mB % 8 or mK % 8:
+        with pytest.raises(ValueError, match="multiple of 8"):
+            k1.pack_groups([group], "cpu", 2 * mB)
+    else:
+        pack, _ = k1.pack_groups([group], "cpu", 2 * mB)
+        assert pack.n_rows == 2 * mB and pack.zero_rows.numel() == 0
+
 
 RING_SHAPES = [(49, 11236, 11236), (49, 500, 500), (9, 100, 37),
                (113, 1000, 999), (49, 2000, 3001), (1, 1, 1)]

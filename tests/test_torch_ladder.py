@@ -4,8 +4,8 @@ contraction, and the kernel's launch plan (K1) checked on the CPU.
 K1 itself is CUDA C++ and runs only on the card (``test_torch_cuda.py``);
 here its plain twin is held to the JAX ``block_ladder_apply_ij`` and to the
 dense einsum, and a numpy walk of the plan exactly as the kernel addresses
-it (work list, group table, ``perm_ket`` gather, ``bra_of_row`` store) is
-held to the twin.  Tolerance: 1e-12·max|R| (f64 sums of ≤ nv² terms in
+it (bins of work units and their stage table of ket rows, the
+``bra_of_row`` store, zero rows) is held to the twin.  Tolerance: 1e-12·max|R| (f64 sums of ≤ nv² terms in
 another order).
 """
 
@@ -69,7 +69,7 @@ def test_interop_plan_matches_port_plan(bra):
         for x, y in zip(a, b):
             assert torch.equal(x, y)
     for x, y in zip(p_int.packed, p_own.packed):
-        assert torch.equal(x, y)
+        assert torch.equal(x, y) if torch.is_tensor(x) else x == y
     R = tladder.block_ladder_apply_ij(p_int, torch.as_tensor(T))
     _close(R.numpy(), R_dense)
 
@@ -98,24 +98,38 @@ def test_bra_of_row_inverts_inv_bra(bra):
 
 
 def _k1_walk(pack, T2, n_bra):
-    """numpy model of csrc/block_ladder.cu: one pass per work entry
-    (group, sector, row tile), offsets from the group table, the ket gather
-    from the cd-major Tt, the store through bra_of_row into a zeroed
-    bra-major output."""
+    """numpy model of csrc/block_ladder.cu: each bin's work units in order,
+    each busy slot an m16 row tile read from its first A element, its
+    k-th B row the ket row that the stage table gives stage k // kd, row
+    (panel row) + k % kd, stored through bra_of_row, and the listed zero
+    rows."""
     Tt = T2.T.copy()                                  # (nv², no²)
-    blocks, perm = pack.blocks.numpy(), pack.perm.numpy()
-    bra, gtab = pack.bra_of_row.numpy(), pack.gtab.numpy()
-    outT = np.zeros((n_bra * n_bra, T2.shape[0]))
+    blocks, bra = pack.blocks.numpy(), pack.bra_of_row.numpy()
+    stages = pack.stages.numpy()
+    outT = np.full((n_bra * n_bra, T2.shape[0]), np.nan)
     written = np.zeros(n_bra * n_bra, int)
-    for g, s, r0 in pack.work.numpy():
-        o_b, o_p, o_r, mB, mK = gtab[g]
-        A = blocks[o_b + s * mB * mK:o_b + (s + 1) * mB * mK].reshape(mB, mK)
-        pk = perm[o_p + s * mK:o_p + (s + 1) * mK]
-        br = bra[o_r + s * mB:o_r + (s + 1) * mB]
-        for m in range(r0, min(r0 + k1.ROW_TILE, mB)):
-            if br[m] >= 0:
-                outT[br[m]] = A[m] @ Tt[pk]
-                written[br[m]] += 1
+    work, bins = pack.work.numpy(), pack.bins.numpy()
+    for b in range(len(bins) - 1):
+        st = bins[b, 1]
+        for u in work[bins[b, 0]:bins[b + 1, 0]]:
+            mK, kd, n_st = u[:3]
+            for w in range(k1.CW):
+                if u[8 + w] == 0:
+                    continue
+                kets = [stages[st + k // kd, u[16 + w] + k % kd]
+                        for k in range(mK)]
+                assert min(kets) >= 0
+                for m in range(u[8 + w]):
+                    a0 = u[4 + w] + m * mK
+                    r = bra[u[12 + w] + m]
+                    if r >= 0:
+                        outT[r] = blocks[a0:a0 + mK] @ Tt[kets]
+                        written[r] += 1
+            st += n_st
+        assert st == bins[b + 1, 1]
+    zero = pack.zero_rows.numpy()
+    outT[zero] = 0.0
+    written[zero] += 1
     return outT.T, written
 
 
@@ -124,16 +138,14 @@ def test_k1_launch_plan_covers_each_row_once(bra):
     _, ut, T, R_dense = _case(3, bra, seed=5)
     plan = tladder.build_block_ladder(ut, "cpu", bra=bra)
     pack = plan.packed
-    assert pack.work.dtype == torch.int32 and pack.gtab.dtype == torch.int64
-    # the work list holds every (group, sector, row tile) exactly once
-    want = {(g, s, r0) for g, grp in enumerate(plan.groups)
-            for s in range(grp.blocks.shape[0])
-            for r0 in range(0, grp.blocks.shape[1], k1.ROW_TILE)}
-    got = [tuple(w) for w in pack.work.tolist()]
-    assert len(got) == len(want) and set(got) == want
+    assert pack.work.dtype == pack.stages.dtype == torch.int32
+    assert pack.work.shape[1] == k1.UNIT
+    assert tuple(pack.bins.shape) == (k1.DEFAULT_SMS + 1, 2)
+    assert pack.stages.shape[1] == k1.TK
+    assert pack.n_rows == plan.n_bra ** 2
     T2 = T.reshape(NO * NO, -1)
     R, written = _k1_walk(pack, T2, plan.n_bra)
-    assert written.max() == 1                         # no two rows collide
+    assert (written == 1).all()           # every output row exactly once
     _close(R.reshape(R_dense.shape), R_dense)
     _close(R, tladder.block_ladder_apply_ij(
         plan, torch.as_tensor(T)).reshape(NO * NO, -1).numpy())
