@@ -38,18 +38,21 @@ Drives the port's main paths through its own kernels:
   card (one K1 launch per shard), CCD and the seeded non-canonical CCSD.
 
 Kernels: K1 ``block_ladder`` (CUDA C++ on the f64 tensor cores, built with
-nvcc for sm_90a at first use), K5 ``pair_symmetrize``, K7 ``arnoldi_cgs2``
-(the CGS2 projection and the fused Krylov combine) and K9 ``ring_step``
-(CUDA C++, built with K1); K2 ``ccd_jacobi_diis``, K3 ``ccd_mix_energy``,
-K4 ``ovvv_gather``, K2′ ``ccsd_jacobi_diis``, K3′ ``ccsd_mix_energy``, K6
-``davidson_residual`` and K8 ``shifted_precond`` (Triton).
+nvcc for sm_90a at first use), K4 ``ovvv_gather`` and its fused trace
+``ovvv_gather_diag``, K5 ``pair_symmetrize``, K7 ``arnoldi_cgs2`` (the
+CGS2 projection and the fused Krylov combine) and K9 ``ring_step`` (CUDA
+C++, built with K1); K2 ``ccd_jacobi_diis``, K3 ``ccd_mix_energy``, K2′
+``ccsd_jacobi_diis``, K3′ ``ccsd_mix_energy``, K6 ``davidson_residual``
+and K8 ``shifted_precond`` (Triton).
 
 Phases: (0) card and versions; (1) kernel builds; (2) each kernel against
 its plain twin on the card at the main paths' shapes (K2′/K3′ at nP=219
 and at each molecule's; K5 at the CCD and the EOM shapes, K6 and the
 batched K1/K4 entries at the nP=219 EOM shapes), seeded inputs, bound
 max|kernel − twin| ≤ 1e-12·max|twin| (both f64, only the summation order
-differs; K5 sums in the twin's order and must equal it bit for bit); (3, 4) the converged CCD solves; (6) the dense molecular CCSD
+differs; K4's gather is one multiply an element and K5 sums in the twin's
+order: both must equal their twins bit for bit); (3, 4) the converged CCD
+solves; (6) the dense molecular CCSD
 solves; (7) the matrix-free CCSD solves; (9) the EOM solves (the LiH
 ground state they dress is solved before) — for each path the launch
 counts are reset just before and read just after, and each EOM solve's
@@ -61,9 +64,13 @@ strided partner, K1 also at the mf-CCSD stacked and EOM batch widths
 (N = 2 no²) and the FEAST nP=57 lane batch (N = 128 no²), each held to
 its twin first and timed with its bound (K5 is held bit for bit at the
 FEAST sigma's 2·64-lane operand too), and K1 and K5 also on the card alone (``torch.profiler``: their
-per-call time can be the host's); (11) K7/K8 against their twins (K7's
-projection and fused combine also rerun bit for bit) and per call at the
-FEAST nP=57 and RT nP=123 lane shapes, the fused combine beside one
+per-call time can be the host's); K4 bit for bit and per call (also on
+the card alone) at the widths its callers give it: the CCSD dressing (7
+columns) and the EOM batch (14) at nP=219, and the FEAST nP=57 (896) and
+RT nP=123 (448) lane batches of phase 11, its fused trace at nP=219; the
+set-up scatter of the nP=219 blocks (B8); (11) K7/K8 against their twins
+(K7's projection and fused combine also rerun bit for bit) and per call at
+the FEAST nP=57 and RT nP=123 lane shapes, the fused combine beside one
 batched ``torch.baddbmm``; (12) FEAST nP=57,
 (13) RT nP=123 (its CCD and Davidson run before the counted window) and
 (14) FEAST LiH, each window's launches held exactly to what its solves
@@ -138,6 +145,8 @@ MOLECULES = {
               -1.166009516046628, 1e-7),
 }
 REL_TOL = 1e-12
+# K4's fused trace: (plan, traced axis of S) of the dressing's G_vv
+DIAG_PLANS = (("vov", 1), ("ovv", 0))
 KERNELS = {
     "block_ladder": ("cuda", "pymes_tpu_torch/csrc/block_ladder.cu",
                      "pymes_tpu/ops/ueg_ladder.py:450"),
@@ -145,8 +154,10 @@ KERNELS = {
                         "pymes_tpu/solver/ccd.py:525"),
     "ccd_mix_energy": ("triton", "pymes_tpu_torch/kernels/ccd_tail.py",
                        "pymes_tpu/mixer/diis.py:107"),
-    "ovvv_gather": ("triton", "pymes_tpu_torch/kernels/ovvv_gather.py",
+    "ovvv_gather": ("cuda", "pymes_tpu_torch/csrc/ovvv_gather.cu",
                     "pymes_tpu/ops/ueg_ladder.py:150"),
+    "ovvv_gather_diag": ("cuda", "pymes_tpu_torch/csrc/ovvv_gather.cu",
+                         "pymes_tpu/solver/ccsd.py:271"),
     "ccsd_jacobi_diis": ("triton", "pymes_tpu_torch/kernels/ccsd_tail.py",
                          "pymes_tpu/solver/ccsd.py:615"),
     "ccsd_mix_energy": ("triton", "pymes_tpu_torch/kernels/ccsd_tail.py",
@@ -166,8 +177,8 @@ CCD_KERNELS = ("block_ladder", "ccd_jacobi_diis", "ccd_mix_energy",
                "pair_symmetrize")
 DENSE_CCSD_KERNELS = ("ccsd_jacobi_diis", "ccsd_mix_energy",
                       "pair_symmetrize")
-MF_CCSD_KERNELS = ("block_ladder", "ovvv_gather", "ccsd_jacobi_diis",
-                   "ccsd_mix_energy", "pair_symmetrize")
+MF_CCSD_KERNELS = ("block_ladder", "ovvv_gather", "ovvv_gather_diag",
+                   "ccsd_jacobi_diis", "ccsd_mix_energy", "pair_symmetrize")
 EOM_KERNELS = ("block_ladder", "ovvv_gather", "pair_symmetrize",
                "davidson_residual")
 KRYLOV_KERNELS = ("block_ladder", "ovvv_gather", "pair_symmetrize",
@@ -191,6 +202,11 @@ FEAST57_GMRES = (120, 6)                 # ls_restart, ls_max_iter
 RT123 = dict(cutoff=10, n_quad=32, dt=0.1, e_r=0.5, steps=3, ls_restart=20,
              ls_conv_tol=1e-10)
 RT_RECORDED_NP123 = 5.24025234
+# lanes of one chunk of the FEAST nP=57 and RT nP=123 solves (one chunk an
+# iteration or step): each sigma of a chunk's first Arnoldi step gathers
+# 2·lanes trials through K4, 2·lanes·no columns
+K4_LANES = {"FEAST": FEAST57["n_quad"] * FEAST57["n_trial"],
+            "RT": RT123["n_quad"]}
 # FEAST on LiH/3-21G (tests/test_feast_rt.py:183-201), against the oracle
 LIH_FEAST = dict(e_c=0.12, e_r=0.025, n_trial=2, max_iter=60, tol=1e-11,
                  seed=7)
@@ -235,6 +251,37 @@ def setup(cutoff, device):
     return {"cutoff": cutoff, "nP": n_p, "nv": n_p - NO, "fock": fock,
             "blocks": blocks, "T0": T0, "eps_i": eps_i, "eps_a": eps_a,
             "ueg": u, "dict": d, "sparse": (idx, vals)}
+
+
+def time_scatter(p):
+    """B8, the set-up scatter of the sparse integrals into the named blocks
+    (``models/ueg.py`` ``sparse_to_blocks``: host masks, copies and one
+    ``index_put_`` a block): the wall of one call (host clock,
+    synchronised, min of 3), its card time alone (every kernel and copy
+    under the profiler) and the bound of its device work (the index and
+    value lists of the nnz nonzero entries read once, the blocks written
+    once)."""
+    import torch
+
+    from pymes_tpu_torch.models import ueg
+
+    idx, vals = p["sparse"]
+    dev = p["fock"].device
+
+    def run():
+        return ueg.sparse_to_blocks(idx, vals, p["nP"], NO, dev, names=NEED)
+
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    out_bytes = sum(b.numel() * 8 for b in p["dict"].values())
+    nnz = sum(b.count_nonzero().item() for b in p["dict"].values())
+    return (min(walls), card_ms(run, "", n=3, warmup=1),
+            bound(out_bytes + 16 * nnz, 0), nnz)
 
 
 def setup_ccsd(p, device):
@@ -385,8 +432,11 @@ def card_ms(fn, name, n=20, warmup=3):
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
-    us = sum(getattr(e, "self_device_time_total", None)
-             or e.self_cuda_time_total
+    # self_device_time_total, self_cuda_time_total before torch 2.4; a 0
+    # is a time, not a missing field
+    us = sum(e.self_cuda_time_total
+             if getattr(e, "self_device_time_total", None) is None
+             else e.self_device_time_total
              for e in prof.key_averages() if name in e.key)
     check(us > 0, f"the profiler saw no kernel named {name}")
     return us / 1e3 / n
@@ -477,20 +527,24 @@ def compare_ccsd_tail(x, eps_i, eps_a, label):
 
 
 def compare_ccsd_kernels(q, seed):
-    """K4, K2′/K3′ and K1 with the stacked CCSD operand vs their twins on
-    the card at nP=219; returns max abs errors."""
+    """K4 (bit for bit) and its fused trace, K2′/K3′ and K1 with the
+    stacked CCSD operand vs their twins on the card at nP=219; returns max
+    abs errors."""
     import torch
 
     from pymes_tpu_torch.ops import ueg_ladder
 
     x = tail_inputs(NO, q["dict"]["ijab"], seed)
-    errs = {}
-    e_k4 = 0.0
-    for pat, plan in q["mf_dict"]["_ovvv_plans"].items():
-        got = ueg_ladder.ovvv_t1_apply_j(plan, x["T1"])
-        want = ueg_ladder.ovvv_t1_apply_j(plan, x["T1"], twin=True)
-        e_k4 = max(e_k4, rel_err(got, want, f"K4 {pat}"))
-    errs["ovvv_gather"] = e_k4
+    plans = q["mf_dict"]["_ovvv_plans"]
+    errs = {"ovvv_gather": max(
+        bit_equal(ueg_ladder.ovvv_t1_apply_j(plan, x["T1"]),
+                  ueg_ladder.ovvv_t1_apply_j(plan, x["T1"], twin=True),
+                  f"K4 {pat}, 7 columns") for pat, plan in plans.items())}
+    errs["ovvv_gather_diag"] = max(
+        rel_err(ueg_ladder.ovvv_t1_trace(plans[pat], x["T1"], axis),
+                ueg_ladder.ovvv_t1_trace(plans[pat], x["T1"], axis,
+                                         twin=True), f"K4 trace {pat}")
+        for pat, axis in DIAG_PLANS)
     errs["ccsd_jacobi_diis"], errs["ccsd_mix_energy"] = compare_ccsd_tail(
         x, q["eps_i"], q["eps_a"], f"nP={q['nP']}")
 
@@ -507,16 +561,22 @@ def compare_ccsd_kernels(q, seed):
 
 
 def time_ccsd_kernels(q, seed):
-    """ms per call of K4 (mean over the three plans), K2′ and K3′ and of
-    their twins at nP=219 (plain, kernel, kernel, plain)."""
+    """ms per call of K4 at the dressing's 7 columns (:func:`time_k4`) and
+    of its fused trace (mean over the vov and ovv plans), K2′ and K3′ and
+    of their twins at nP=219 (plain, kernel, kernel, plain).  No profiler
+    runs here: the fixed-iteration walls that follow are timed as before
+    any profiler session, and :func:`ccsd_k4_alone` takes the times on
+    the card alone after them."""
     from pymes_tpu_torch.kernels import ccsd_tail
     from pymes_tpu_torch.ops import ueg_ladder
 
     x = tail_inputs(NO, q["dict"]["ijab"], seed)
-    plans = list(q["mf_dict"]["_ovvv_plans"].values())
+    plans = q["mf_dict"]["_ovvv_plans"]
+    out = {"ovvv_gather": time_k4(plans, x["T1"], "7 columns", alone=False)}
+    diag = [(plans[pat], axis) for pat, axis in DIAG_PLANS]
     calls = {
-        "ovvv_gather": lambda tw: [ueg_ladder.ovvv_t1_apply_j(
-            plan, x["T1"], twin=tw) for plan in plans],
+        "ovvv_gather_diag": lambda tw: [ueg_ladder.ovvv_t1_trace(
+            plan, x["T1"], axis, twin=tw) for plan, axis in diag],
         "ccsd_jacobi_diis": lambda tw: ccsd_tail.jacobi_diis_insert(
             x["R1"], x["T1"], x["R2"], x["T2"], q["eps_i"], q["eps_a"],
             -1.0, x["errs"], x["amps"], 2, 6, twin=tw),
@@ -524,12 +584,73 @@ def time_ccsd_kernels(q, seed):
             x["amps"], x["coeff"], 6, x["R1"], x["R2"], x["F1"], x["V"],
             x["Vx"], twin=tw),
     }
-    out = {}
     for name, fn in calls.items():
         t = [cuda_ms(lambda: fn(tw)) for tw in (True, False, False, True)]
-        per = len(plans) if name == "ovvv_gather" else 1
+        per = len(diag) if name == "ovvv_gather_diag" else 1
         out[name] = ((t[1] + t[2]) / 2 / per, (t[0] + t[3]) / 2 / per)
     return out
+
+
+def ccsd_k4_alone(q, seed):
+    """K4 at the dressing's 7 columns and its fused trace on the card
+    alone (profiler), per launch, on :func:`time_ccsd_kernels`' inputs."""
+    from pymes_tpu_torch.ops import ueg_ladder
+
+    T1 = tail_inputs(NO, q["dict"]["ijab"], seed)["T1"]
+    plans = q["mf_dict"]["_ovvv_plans"]
+    gather = card_ms(lambda: [ueg_ladder.ovvv_t1_apply_j(plan, T1)
+                              for plan in plans.values()], "ovvv_gather")
+    trace = card_ms(lambda: [ueg_ladder.ovvv_t1_trace(plans[pat], T1, axis)
+                             for pat, axis in DIAG_PLANS], "ovvv_diag")
+    return gather / len(plans), trace / len(DIAG_PLANS)
+
+
+def print_k4(card, label, t):
+    ms, plain, dev, b, err = t
+    print(f"[{card}] ovvv_gather {label}: kernel {ms:.4f} ms per call "
+          f"({dev:.4f} ms on the card alone), twin {plain:.4f} ms; bound "
+          f"{b[0]:.4f} ms ({b[1]}), the kernel alone at {b[0] / dev:.3f} of "
+          f"it; max_abs_err {err:.1e}", flush=True)
+
+
+def time_k4(plans, T, label, alone=True):
+    """K4 at one width, the entry its caller uses (``ovvv_t1_apply_j`` on
+    the dressing's (nv, no) T1, ``ovvv_t1_apply`` on a (k, nv, no) trial
+    batch): bit for bit against its twin on every plan, then ms per call
+    (mean over the plans; plain, kernel, kernel, plain) and, with
+    ``alone``, on the card alone.  Returns (ms, plain_ms, device_ms or
+    None, bound, max abs error)."""
+    from pymes_tpu_torch.ops import ueg_ladder
+
+    apply = (ueg_ladder.ovvv_t1_apply if T.dim() == 3
+             else ueg_ladder.ovvv_t1_apply_j)
+    err = max(bit_equal(apply(plan, T), apply(plan, T, twin=True),
+                        f"K4 {label}, {pat}") for pat, plan in plans.items())
+
+    def fn(tw):
+        return [apply(plan, T, twin=tw) for plan in plans.values()]
+
+    k = len(plans)
+    t = [cuda_ms(lambda: fn(tw)) for tw in (True, False, False, True)]
+    dev = card_ms(lambda: fn(False), "ovvv_gather") / k if alone else None
+    ncol = T.shape[-1] * (T.shape[0] if T.dim() == 3 else 1)
+    b = [gather_bound(plan, T.shape[-2], ncol) for plan in plans.values()]
+    return ((t[1] + t[2]) / 2 / k, (t[0] + t[3]) / 2 / k, dev,
+            (float(np.mean([x[0] for x in b])), b[0][1]), err)
+
+
+def k4_lanes(V, nv, k, seed, label):
+    """K4 at a FEAST/RT sigma's width: ``k`` trials (2 per lane) as the
+    lane-batched GMRES hands them over, a (k, nv, no) view of (k, N)
+    Krylov rows, on the operator ``V``'s plans (:func:`time_k4`)."""
+    import torch
+
+    dev = V["ijab"].device
+    N = nv * NO + nv * nv * NO * NO
+    g = torch.Generator(device=dev).manual_seed(seed)
+    rows = torch.randn((k, N), generator=g, dtype=torch.float64, device=dev)
+    T = rows[:, :nv * NO].reshape(k, nv, NO)
+    return time_k4(V["_ovvv_plans"], T, f"{label}, {k * NO} columns")
 
 
 def solve_ccsd_fixed(q, twin, max_iter=60):
@@ -630,20 +751,27 @@ def molecular_ccsd(mols, device):
 
 def mf_ccsd(q, device):
     """Matrix-free CCSD at nP=219: canonical (T1 ≡ 0, E = the CCD energy)
-    and the seeded non-canonical Fock (against the JAX package); returns
-    each solve's result by kind."""
+    and the seeded non-canonical Fock (against the JAX package), each
+    solve's K4 launches held to its n iterations: 4n gathers and 2n fused
+    traces (the dressing's G_vv); returns each solve's result by kind."""
     import torch
 
+    from pymes_tpu_torch import kernels
     from pymes_tpu_torch.solver import ccsd
 
     out = {}
     for kind, fock in q["focks"].items():
         t0 = time.time()
+        before = dict(kernels.LAUNCHES)
         res = out[kind] = ccsd.CCSD(NO, device).solve(
             fock, q["mf_dict"], level_shift=-1.0, ladder=q["plan_all"],
             delta_e=1e-10 if kind == "non-canonical" else 1e-8,
             max_iter=100)
         e, n_it = res["ccsd e"], len(res["e history"])
+        k4 = {k: kernels.LAUNCHES[k] - before[k]
+              for k in ("ovvv_gather", "ovvv_gather_diag")}
+        check(k4 == {"ovvv_gather": 4 * n_it, "ovvv_gather_diag": 2 * n_it},
+              f"mf-CCSD {kind}: K4 launches {k4} for {n_it} iterations")
         t1max = float(res["t1"].abs().max())
         check(res["t2"].shape == (q["nv"], q["nv"], NO, NO)
               and bool(torch.isfinite(res["t2"]).all())
@@ -683,7 +811,8 @@ def eom_inputs(V, nv, seed):
     """Seeded K5/K6 operands and a trial batch at the EOM shapes of one
     set-up (n_excit = 2, max_dim = 16): X, Y (2, nv, nv, no, no), the
     Davidson buffers U, W (16, N) with v (16, 2), e (2,) and diag (N,)
-    (three denominators inside the clamp), U1 (2, nv, no)."""
+    (three denominators inside the clamp), U1 (2, nv, no) the singles view
+    of U's first two rows (the sigma's trial batch, read in place)."""
     import torch
 
     rng = np.random.default_rng(seed)
@@ -698,17 +827,18 @@ def eom_inputs(V, nv, seed):
     diag = t(N) + 5.0
     diag[:3] = e[0] + torch.tensor([0.0, 3e-6, -4e-6], dtype=torch.float64,
                                    device=dev)
+    U = t((16, N))
     return {"X": t((2, nv, nv, NO, NO), 0.01), "Y": t((2, nv, nv, NO, NO),
                                                       0.01),
-            "U": t((16, N)), "W": t((16, N)), "v": t((16, 2)), "e": e,
-            "diag": diag, "U1": t((2, nv, NO))}
+            "U": U, "W": t((16, N)), "v": t((16, 2)), "e": e,
+            "diag": diag, "U1": U[:2, :nv * NO].reshape(2, nv, NO)}
 
 
 def compare_eom_kernels(q, V, seed):
     """K5 at the CCD (ijab, with Y) and the EOM (abij batch of 2, with and
     without Y) shapes, K6 at the EOM buffer shapes (all 16 rows and 9), and
-    the batched cd-major K1 and batched K4 entries, against their twins at
-    nP=219; returns max abs errors."""
+    the batched cd-major K1 and batched K4 (bit for bit) entries, against
+    their twins at nP=219; returns max abs errors."""
     from pymes_tpu_torch.kernels import davidson, pair_sym
     from pymes_tpu_torch.ops import ueg_ladder
 
@@ -739,9 +869,9 @@ def compare_eom_kernels(q, V, seed):
                  ueg_ladder.ladder_apply(V["abcd_ladder"], x["X"],
                                          twin=True),
                  "K1 cd-major batch (nv^2, 2 no^2)")
-    e4 = max(rel_err(ueg_ladder.ovvv_t1_apply(plan, x["U1"]),
-                     ueg_ladder.ovvv_t1_apply(plan, x["U1"], twin=True),
-                     f"K4 batched {pat}")
+    e4 = max(bit_equal(ueg_ladder.ovvv_t1_apply(plan, x["U1"]),
+                       ueg_ladder.ovvv_t1_apply(plan, x["U1"], twin=True),
+                       f"K4 EOM batch of 2, {pat}")
              for pat, plan in V["_ovvv_plans"].items())
     errs = {"pair_symmetrize": e5, "davidson_residual": e6,
             "block_ladder": e1, "ovvv_gather": e4}
@@ -753,9 +883,10 @@ def compare_eom_kernels(q, V, seed):
 def time_eom_kernels(q, V, seed):
     """ms per call of K5 (abij batch of 2, the EOM sigma's operand; and
     ijab with Y, the CCD/CCSD residual's) and K6 (16 valid rows, k = 2)
-    and of their twins at nP=219 (plain, kernel, kernel, plain); and of
-    K5's library yardstick, one ``torch.add`` of X and its strided
-    partner view (the twin without Y)."""
+    and of their twins at nP=219 (plain, kernel, kernel, plain); of K5's
+    library yardstick, one ``torch.add`` of X and its strided partner view
+    (the twin without Y); and K4 on the sigma's batch of 2 trials
+    (:func:`time_k4`)."""
     import torch
 
     from pymes_tpu_torch.kernels import davidson, pair_sym
@@ -786,6 +917,8 @@ def time_eom_kernels(q, V, seed):
     out["pair_symmetrize ijab+Y device"] = card_ms(
         lambda: calls["pair_symmetrize ijab+Y"](False), "pair_sym")
     out["pair_symmetrize library device"] = card_ms(lib, "elementwise")
+    out["ovvv_gather EOM batch"] = time_k4(V["_ovvv_plans"], x["U1"],
+                                           "EOM batch of 2, 14 columns")
     return out
 
 
@@ -932,13 +1065,15 @@ def check_eom_launches(label, before, solver, ladder):
     K5 once per sigma; K6 n − 1 times (each Davidson step ends in one
     sigma, and the solve's first sigma precedes every step); on the
     matrix-free operator (``ladder``) K1 once per sigma plus once for
-    H̄'s W_laji, and K4 three times per sigma (ovv, vov, vvo)."""
+    H̄'s W_laji, and K4 three times per sigma (ovv, vov, vvo); never K4's
+    fused trace, which only the CCSD dressing runs."""
     from pymes_tpu_torch import kernels
 
     n = solver.n_sigma
-    got = {k: kernels.LAUNCHES[k] - before[k] for k in EOM_KERNELS}
+    got = {k: kernels.LAUNCHES[k] - before[k]
+           for k in EOM_KERNELS + ("ovvv_gather_diag",)}
     want = {"block_ladder": n + 1 if ladder else 0,
-            "ovvv_gather": 3 * n if ladder else 0,
+            "ovvv_gather": 3 * n if ladder else 0, "ovvv_gather_diag": 0,
             "pair_symmetrize": n, "davidson_residual": n - 1}
     check(n > 1 and got == want,
           f"EOM {label}: launches {got}, expected {want} for {n} sigma calls")
@@ -1058,6 +1193,23 @@ def krylov_bounds(La, m, n):
                              4 * La * m * n)}
 
 
+def gather_bound(plan, nv, ncol):
+    """K4 on one plan at ``ncol`` columns: S (int32), W and the (nv, ncol)
+    T1 read once, the (ncol, n) output written; one multiply an
+    element."""
+    n = plan.S.numel()
+    return bound(4 * n + 8 * plan.W.numel() + 8 * nv * ncol + 8 * ncol * n,
+                 ncol * n)
+
+
+def diag_bound(plan, nv):
+    """K4's fused trace on one plan: S, W and T1 read once, the nv² trace
+    written; a multiply and an add per (p, q, r) entry."""
+    n = plan.S.numel()
+    return bound(4 * n + 8 * plan.W.numel() + 8 * nv * NO + 8 * nv * nv,
+                 2 * n)
+
+
 def ring_bound(ring):
     """K9 at one ring step (M, N, K): the (N, K) V panel and T (M, K)
     read, R (M, N) read and written; 2·M·N·K flops."""
@@ -1073,10 +1225,9 @@ def kernel_bounds(p14, q, krylov, ring):
     nv = p14["nv"]
     n = NO * NO * nv * nv                      # one T2
     nc = nv * NO + n                            # the CCSD carry [T1 | T2]
-    plans = list(q["mf_dict"]["_ovvv_plans"].values())
-    g_bytes = np.mean([p.S.numel() * 4 + p.W.numel() * 8 + nv * NO * 8
-                       + NO * p.S.numel() * 8 for p in plans])
-    g_flops = np.mean([NO * p.S.numel() for p in plans])
+    plans = q["mf_dict"]["_ovvv_plans"]
+    gathers = [gather_bound(p, nv, NO) for p in plans.values()]
+    traces = [diag_bound(plans[pat], nv) for pat, _ in DIAG_PLANS]
     N = nv * NO + n
     La, R1, m, n2 = krylov["La"], krylov["R1"], krylov["m"], krylov["n"]
     return {
@@ -1086,7 +1237,12 @@ def kernel_bounds(p14, q, krylov, ring):
         "ccd_jacobi_diis": bound(8 * 9 * n, 17 * n),
         # 6 ring rows, V and Vx read; T written
         "ccd_mix_energy": bound(8 * 9 * n, 16 * n),
-        "ovvv_gather": bound(g_bytes, g_flops),
+        # the mean over the three plans at the dressing's 7 columns
+        "ovvv_gather": (float(np.mean([b[0] for b in gathers])),
+                        gathers[0][1]),
+        # the mean over the vov and ovv plans
+        "ovvv_gather_diag": (float(np.mean([b[0] for b in traces])),
+                             traces[0][1]),
         "ccsd_jacobi_diis": bound(8 * 9 * nc, 17 * nc),
         "ccsd_mix_energy": bound(8 * 9 * nc, 16 * nc),
         # EOM sigma operand (2, nv, nv, no, no): X read, out written
@@ -1349,15 +1505,16 @@ def sharded_mf(q, plans, device, results):
     seeded non-canonical matrix-free CCSD (within 1e-9, in the JAX
     package's 11 iterations) on the sector-sharded plans, each solve's
     launches held exactly: K1 SECTOR_SHARDS per ladder apply (one apply
-    per iteration), K4 six per CCSD iteration, the tail and K5 one."""
+    per iteration), K4 four per CCSD iteration and its fused trace two
+    (the dressing's G_vv), the tail and K5 one."""
     import torch
 
     from pymes_tpu_torch import kernels
     from pymes_tpu_torch.solver import ccd, ccsd
 
-    names = ("block_ladder", "ovvv_gather", "ring_step", "ccd_jacobi_diis",
-             "ccd_mix_energy", "ccsd_jacobi_diis", "ccsd_mix_energy",
-             "pair_symmetrize")
+    names = ("block_ladder", "ovvv_gather", "ovvv_gather_diag", "ring_step",
+             "ccd_jacobi_diis", "ccd_mix_energy", "ccsd_jacobi_diis",
+             "ccsd_mix_energy", "pair_symmetrize")
     for kind in ("CCD", "CCSD"):
         t0 = time.time()
         before = dict(kernels.LAUNCHES)
@@ -1380,7 +1537,8 @@ def sharded_mf(q, plans, device, results):
         want.update({"block_ladder": SECTOR_SHARDS * n,
                      f"{tail}_jacobi_diis": n, f"{tail}_mix_energy": n,
                      "pair_symmetrize": n,
-                     "ovvv_gather": 6 * n if kind == "CCSD" else 0})
+                     "ovvv_gather": 4 * n if kind == "CCSD" else 0,
+                     "ovvv_gather_diag": 2 * n if kind == "CCSD" else 0})
         check(got == want, f"sector-sharded {kind}: launches {got}, expected "
               f"{want} for {n} iterations")
         check(T.shape == (q["nv"], q["nv"], NO, NO)
@@ -1430,12 +1588,14 @@ def check_krylov_launches(label, before, n_sigma, st, ladder):
     projections + chunks, K7 = Arnoldi steps + cycle ends, K5 = sigma
     calls, and on
     the matrix-free operator K1 = sigma calls + 1 (H̄'s W_laji, built once
-    per operator) and K4 = 3·sigma calls."""
+    per operator) and K4 = 3·sigma calls (its fused trace never)."""
     from pymes_tpu_torch import kernels
 
-    got = {k: kernels.LAUNCHES[k] - before[k] for k in KRYLOV_KERNELS}
+    got = {k: kernels.LAUNCHES[k] - before[k]
+           for k in KRYLOV_KERNELS + ("ovvv_gather_diag",)}
     want = {"block_ladder": n_sigma + 1 if ladder else 0,
             "ovvv_gather": 3 * n_sigma if ladder else 0,
+            "ovvv_gather_diag": 0,
             "pair_symmetrize": n_sigma,
             "arnoldi_cgs2": st["calls"] + st["cycle_ends"],
             "shifted_precond": n_sigma - st["projections"] + st["chunks"]}
@@ -1607,6 +1767,12 @@ def feast57(p5, V, T2, device, out):
     s, roots = feast_run(p5["fock"], V, T2, device, FEAST57, FEAST57_GMRES)
     st = s.ls_stats
     check_krylov_launches("FEAST nP=57", before, s.n_sigma, st, ladder=True)
+    # one chunk of lanes per FEAST iteration, the first of all 16 x 4: its
+    # first sigma gathers 2·64 trials, K4's 896 columns
+    lanes = [len(np.atleast_1d(a)) for a in st["steps"]]
+    check(st["chunks"] == s.n_iterations and lanes[0] == K4_LANES["FEAST"],
+          f"FEAST nP=57: lanes per chunk {lanes} over {s.n_iterations} "
+          "iterations")
     e_c, e_r = FEAST57["e_c"], FEAST57["e_r"]
     inside = roots[np.abs(roots.real - e_c) < e_r]
     outside = roots[np.abs(roots.real - e_c) >= e_r]
@@ -1621,7 +1787,8 @@ def feast57(p5, V, T2, device, out):
           f"JAX level| = {dev:.2e}, outside the window {outside}, "
           f"{s.n_iterations} FEAST iterations, largest honest ls residual "
           f"{res:.2e}, Arnoldi steps per lane and FEAST iteration: mean "
-          f"{steps.mean():.1f}, max {steps.max()}, walls per iteration "
+          f"{steps.mean():.1f}, max {steps.max()}, lanes per chunk (one "
+          f"chunk an iteration) {lanes}, walls per iteration "
           f"{[round(w, 3) for w in s.iter_walls]} s, {time.time() - t0:.2f} "
           "s", flush=True)
     out.update(solver=s, roots=roots)
@@ -1687,6 +1854,10 @@ def rt123(p, V, T2, root, u0, device, out):
         c_prev = c_t
     check_krylov_launches(f"RT nP={p['nP']}", before, s.n_sigma, st,
                           ladder=True)
+    # one chunk of all 32 node lanes a step: 2·32 trials, K4's 448 columns
+    lanes = [len(np.atleast_1d(a)) for a in st["steps"]]
+    check(lanes == [K4_LANES["RT"]] * RT123["steps"],
+          f"RT nP={p['nP']}: lanes per chunk {lanes}")
     out.update(solver=s, walls=walls, q=q)
 
 
@@ -1795,12 +1966,12 @@ def main():
     from pymes_tpu_torch.kernels import _build
     from pymes_tpu_torch.solver import ccd
 
-    # phase 1: builds (nvcc for K1, K5, K7 and K9; Triton JIT for the
+    # phase 1: builds (nvcc for K1, K4, K5, K7 and K9; Triton JIT for the
     # others at their first launch, which phase 2 makes)
     t0 = time.time()
     _build.library()
-    print(f"K1 + K5 + K7 + K9 nvcc build + load: {time.time() - t0:.2f} s",
-          flush=True)
+    print(f"K1 + K4 + K5 + K7 + K9 nvcc build + load: {time.time() - t0:.2f} "
+          "s", flush=True)
     problems = {c: setup(c, device) for c in (5, 14)}
     q = setup_ccsd(problems[14], device)
     t0 = time.time()
@@ -1809,8 +1980,8 @@ def main():
           f"{time.time() - t0:.2f} s", flush=True)
     t0 = time.time()
     compare.append(compare_ccsd_kernels(q, 4))
-    print(f"first CCSD kernel launches at nP={q['nP']} (Triton JIT of K4, "
-          f"K2' and K3' included): {time.time() - t0:.2f} s", flush=True)
+    print(f"first CCSD kernel launches at nP={q['nP']} (Triton JIT of K2' "
+          f"and K3' included): {time.time() - t0:.2f} s", flush=True)
     # phase 2: kernel vs twin at the nP=219 CCD plan and at the dense
     # CCSD path's molecular shapes too
     compare.append(compare_kernels(problems[14], 2))
@@ -1908,7 +2079,9 @@ def main():
               f"{min(walls[True]):.3f} ms/iter", flush=True)
     # phase 8: CCSD timing at nP=219
     kernel_ms[14].update(time_ccsd_kernels(q, 5))
-    for name in ("ovvv_gather", "ccsd_jacobi_diis", "ccsd_mix_energy"):
+    k4_7 = kernel_ms[14].pop("ovvv_gather")
+    kernel_ms[14]["ovvv_gather"] = k4_7[:2]
+    for name in ("ovvv_gather_diag", "ccsd_jacobi_diis", "ccsd_mix_energy"):
         ms, plain = kernel_ms[14][name]
         print(f"[{card}] nP={q['nP']} {name}: kernel {ms:.4f} ms, twin "
               f"{plain:.4f} ms per call", flush=True)
@@ -1922,6 +2095,16 @@ def main():
           f"CCSD (non-canonical), min of 5: kernels "
           f"{min(walls[False]):.3f} ms/iter, twins {min(walls[True]):.3f} "
           "ms/iter", flush=True)
+    k4_dev, diag_dev = ccsd_k4_alone(q, 5)
+    kernel_ms[14]["ovvv_gather_diag device"] = diag_dev
+    k4_t = {"CCSD dressing, 7 columns": (*k4_7[:2], k4_dev, *k4_7[3:])}
+    print_k4(card, f"nP={q['nP']} CCSD dressing, 7 columns",
+             k4_t["CCSD dressing, 7 columns"])
+    b = np.mean([diag_bound(q["mf_dict"]["_ovvv_plans"][pat], q["nv"])[0]
+                 for pat, _ in DIAG_PLANS])
+    print(f"[{card}] nP={q['nP']} ovvv_gather_diag on the card alone "
+          f"(profiler) {diag_dev:.4f} ms; bound {b:.4f} ms (bytes)",
+          flush=True)
 
     # phase 10: EOM timing at nP=219
     kernel_ms[14].update(time_eom_kernels(q, eom_ops[14], 8))
@@ -1941,6 +2124,10 @@ def main():
           "torch.add (library) "
           f"{kernel_ms[14]['pair_symmetrize library device']:.4f} ms",
           flush=True)
+    k4_t["EOM batch of 2, 14 columns"] = kernel_ms[14].pop(
+        "ovvv_gather EOM batch")
+    print_k4(card, f"nP={q['nP']} EOM batch of 2, 14 columns",
+             k4_t["EOM batch of 2, 14 columns"])
     ladder_t, errs = time_ladder(problems[14], q, eom_ops[5]["abcd_ladder"],
                                  9)
     compare.append(errs)
@@ -1959,6 +2146,11 @@ def main():
     print(f"[{card}] nP={q['nP']} EOM-CCSD Davidson (k=2, max_dim=16), mean "
           f"of 2: kernels {np.mean(it_ms[False]):.3f} ms/iter, twins "
           f"{np.mean(it_ms[True]):.3f} ms/iter", flush=True)
+    wall, dev, b, nnz = time_scatter(problems[14])
+    print(f"[{card}] nP={problems[14]['nP']} set-up scatter (B8, "
+          f"sparse_to_blocks of {len(NEED)} blocks, {nnz} nonzero entries): "
+          f"{wall:.3f} ms a call (min of 3), {dev:.4f} ms on the card alone; "
+          f"bound of the device work {b[0]:.4f} ms ({b[1]})", flush=True)
 
     # phase 13 set-up (outside every counted window): nP=123 CCD, its
     # no-ovvv operator and the port's Davidson, the RT seed
@@ -1993,6 +2185,17 @@ def main():
               f"(La, 2, m) {t['krylov_combine library']:.4f} ms, bound "
               f"{b['combine'][0]:.4f} ms", flush=True)
     krylov_ms = {label: t for label, (_, t) in krylov_ms.items()}
+    # K4 at the lane batches of the same solves: 2 trials a lane
+    for label, V_, nv_, lanes_, seed in (
+            (f"FEAST nP={problems[5]['nP']}", eom_ops[5], problems[5]["nv"],
+             K4_LANES["FEAST"], 31),
+            (f"RT nP={p123['nP']}", V123, p123["nv"], K4_LANES["RT"], 32)):
+        t = k4_t[f"{label}, {2 * lanes_ * NO} columns"] = k4_lanes(
+            V_, nv_, 2 * lanes_, seed, label)
+        print_k4(card, f"{label}, {2 * lanes_} trials = {2 * lanes_ * NO} "
+                 "columns", t)
+        torch.cuda.empty_cache()
+    compare.append({"ovvv_gather": max(t[4] for t in k4_t.values())})
 
     # phase 12: FEAST nP=57; phase 13: RT nP=123; phase 14: FEAST LiH
     runs = {"FEAST": {}, "RT": {}, "LiH": {}}
@@ -2118,6 +2321,13 @@ def main():
                 **extra}
 
     library = {
+        "ovvv_gather": {
+            "device_ms": k4_t["CCSD dressing, 7 columns"][2],
+            **{label: sub(ms, plain, b, dev)
+               for label, (ms, plain, dev, b, _) in k4_t.items()
+               if label != "CCSD dressing, 7 columns"}},
+        "ovvv_gather_diag": {
+            "device_ms": kernel_ms["ovvv_gather_diag device"]},
         "block_ladder": {
             "device_ms": k1_alone,
             **{label: sub(*t) for label, t in ladder_t.items()},

@@ -1,0 +1,161 @@
+// K4: the ovvv T1 momentum gather of the matrix-free CCSD dressing and the
+// EOM sigmas (f64, sm_90a).
+//
+// Replaces B4 in the JAX package, pymes_tpu/ops/ueg_ladder.py:150-163
+// (ovvv_t1_apply_j):
+//
+//   out[c, p, q, r] = W[p, r] * T1[S[p, q, r], c]      (0 where S < 0)
+//
+// the contraction sum_s V[p,q,r,s] T1[s,c] of a momentum-structured block
+// whose last axis is virtual: momentum conservation fixes s from (p, q, r),
+// so the nv^3*no-sized ovvv blocks never exist.  The columns c run over
+// batch x no: c = b*no + j reads T1[b, s, j] through explicit strides, so
+// the (nv, no) T1 of the CCSD dressing and the (k, nv, no) trial batch of
+// the EOM, FEAST and RT sigmas (a strided view of the Krylov rows) are read
+// in place.  One multiply per element, as the plain version computes it:
+// the two agree bit for bit.
+//
+// What bounds it on an H100: the output write.  At nP=219 a plan has n =
+// 212*212*7 = 314 608 (p, q, r) entries: at 7 columns the output is 17.6 MB
+// (5.3 us at 3.35 TB/s); the FEAST nP=57 sigma passes 2*64 trials as 896
+// columns (n = 17 500, 125 MB), RT nP=123 2*32 trials as 448 columns (n =
+// 94 192, 338 MB).  S (4 B an entry) and W (8 B a (p, r)) are read once for
+// all columns, T1 is small and stays on chip.
+//
+// Design: a 2-D grid, tiles of THREADS*EPT flat (p, q, r) entries x tiles
+// of ct columns, planned in Python (kernels/ovvv_gather.py plan).  A thread
+// loads its EPT = 2 S and W entries once into registers, then for each
+// column of the tile gathers its T1 values through L1 (T1 is at most a few
+// MB and a tile's columns stay on chip; staging the tile in shared memory
+// first was no faster on the H100) and stores: consecutive threads store
+// consecutive (p, q, r) of one output column, 256 coalesced bytes a warp.
+// Where the entry tiles alone fill the card (n = 314 608 at nP=219: 615
+// blocks) one tile takes all the columns, so S and W are read and the
+// indices computed once; where they do not (the 35 entry tiles of the
+// FEAST width) the columns are cut into tiles of 4, about 8 stores a
+// thread: on the H100, 4 were too little work for a block and 16 or more
+// left too few blocks in flight.
+//
+// The second entry, the diagonal, fuses the G_vv trace of the CCSD
+// dressing (pymes_tpu/solver/ccsd.py:271-274) into the gather:
+//
+//   axis 1 (vov plan, S (nv, no, nv)):
+//     d[p, r] = sum_j W[p, r] T1[S[p, j, r], j]
+//   axis 0 (ovv plan, S (no, nv, nv)):
+//     d[q, r] = sum_j W[j, r] T1[S[j, q, r], j]
+//
+// i.e. einsum("jajb->ab") and einsum("jjab->ab") of the full gathers: it
+// writes nv^2 doubles instead of 17.6 MB, one thread an output, j summed in
+// order from 0 (products and sums rounded separately, no FMA).
+
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int THREADS = 256;
+constexpr int EPT = 2;          // (p, q, r) entries a thread
+
+struct Gather {
+    const int* S;
+    const double* W;
+    const double* T1;
+    long long sb, ss, sj;       // T1 strides: batch, row s, column j
+    double* out;                // (ncol, n)
+    long long n;                // (p, q, r) entries
+    long long n12;              // n1 * n2
+    int n2, no, ncol, ct;
+};
+
+__global__ void __launch_bounds__(THREADS) ovvv_gather_kernel(const Gather g)
+{
+    const int c0 = blockIdx.y * g.ct;
+    const int nc = min(g.ct, g.ncol - c0);
+    const long long i0 =
+        static_cast<long long>(blockIdx.x) * (THREADS * EPT) + threadIdx.x;
+    long long srow[EPT];                    // offset of row s, -1: S < 0
+    double w[EPT];
+#pragma unroll
+    for (int e = 0; e < EPT; ++e) {
+        const long long i = i0 + e * THREADS;
+        srow[e] = -1;
+        w[e] = 0.0;
+        if (i < g.n) {
+            const int s = g.S[i];
+            const long long p = i / g.n12;
+            const int r = static_cast<int>(i % g.n2);
+            w[e] = g.W[p * g.n2 + r];
+            if (s >= 0) srow[e] = s * g.ss;
+        }
+    }
+    double* o = g.out + static_cast<long long>(c0) * g.n;
+    for (int cc = 0; cc < nc; ++cc, o += g.n) {
+        const int c = c0 + cc, b = c / g.no, j = c - b * g.no;
+        const double* col = g.T1 + b * g.sb + j * g.sj;
+#pragma unroll
+        for (int e = 0; e < EPT; ++e) {
+            const long long i = i0 + e * THREADS;
+            if (i < g.n)
+                o[i] = (srow[e] >= 0 ? __ldg(col + srow[e]) : 0.0) * w[e];
+        }
+    }
+}
+
+// One thread an output (a, r) of the trace over the plan's j axis.
+__global__ void __launch_bounds__(THREADS)
+ovvv_diag_kernel(const int* __restrict__ S, const double* __restrict__ W,
+                 const double* __restrict__ T1, long long ss, long long sj,
+                 double* __restrict__ out, int na, int n1, int n2, int no,
+                 int axis)
+{
+    const int o = blockIdx.x * THREADS + threadIdx.x;
+    if (o >= na * n2) return;
+    const int a = o / n2, r = o - a * n2;
+    double acc = 0.0;
+    for (int j = 0; j < no; ++j) {
+        const long long si = axis == 1
+            ? (static_cast<long long>(a) * n1 + j) * n2 + r
+            : (static_cast<long long>(j) * n1 + a) * n2 + r;
+        const int s = S[si];
+        const double w = W[(axis == 1 ? a : j) * n2 + r];
+        const double t = s >= 0 ? T1[s * ss + j * sj] : 0.0;
+        acc = __dadd_rn(acc, __dmul_rn(t, w));
+    }
+    out[o] = acc;
+}
+
+}  // namespace
+
+// The gather: S (n0, n1, n2) int32 (n = n0*n1*n2 entries, n12 = n1*n2), W
+// (n0, n2), T1 element (b, s, j) at T1[b*sb + s*ss + j*sj], ncol = batch*no
+// columns, out (ncol, n), column tiles of ct.  Returns the cudaError_t of
+// the launch (0 = success).
+extern "C" int pymes_ovvv_gather(const int* S, const double* W,
+                                 const double* T1, long long sb, long long ss,
+                                 long long sj, int no, int ncol, double* out,
+                                 long long n, long long n12, int n2, int ct,
+                                 cudaStream_t stream)
+{
+    if (n <= 0 || ncol <= 0) return static_cast<int>(cudaSuccess);
+    const Gather g{S, W, T1, sb, ss, sj, out, n, n12, n2, no, ncol, ct};
+    const dim3 grid(static_cast<unsigned>((n + THREADS * EPT - 1)
+                                          / (THREADS * EPT)),
+                    (ncol + ct - 1) / ct);
+    ovvv_gather_kernel<<<grid, THREADS, 0, stream>>>(g);
+    return static_cast<int>(cudaGetLastError());
+}
+
+// The fused trace: S (n0, n1, n2), W (n0, n2), T1 (nv, no) with strides
+// (ss, sj); axis 1 sums j over S's middle axis (out (n0, n2)), axis 0 over
+// its first (out (n1, n2)).
+extern "C" int pymes_ovvv_gather_diag(const int* S, const double* W,
+                                      const double* T1, long long ss,
+                                      long long sj, double* out, int n0,
+                                      int n1, int n2, int no, int axis,
+                                      cudaStream_t stream)
+{
+    const int na = axis == 1 ? n0 : n1;
+    if (na <= 0 || n2 <= 0) return static_cast<int>(cudaSuccess);
+    ovvv_diag_kernel<<<(na * n2 + THREADS - 1) / THREADS, THREADS, 0,
+                       stream>>>(S, W, T1, ss, sj, out, na, n1, n2, no, axis);
+    return static_cast<int>(cudaGetLastError());
+}

@@ -7,7 +7,9 @@
 * :mod:`.ccd_tail` — K2/K3, the per-iteration Jacobi + DIIS + energy passes
   over T2 (Triton).
 * :mod:`.ovvv_gather` — K4, the momentum gather of T1 that replaces the
-  ovvv blocks of the matrix-free CCSD dressing (Triton).
+  ovvv blocks of the matrix-free CCSD dressing and the EOM sigmas, and its
+  diagonal entry, the fused G_vv trace of the dressing (CUDA C++,
+  ``pymes_tpu_torch/csrc/ovvv_gather.cu``).
 * :mod:`.ccsd_tail` — K2′/K3′, the Jacobi + DIIS + energy passes over the
   CCSD carry [T1 | T2] (Triton).
 * :mod:`.pair_sym` — K5, the P(ab,ij) pair symmetrisation ``Y + X + P(X)``
@@ -32,9 +34,10 @@ tensor it runs the twin.  Each launch of a kernel adds one to its entry in
 """
 
 LAUNCHES = {"block_ladder": 0, "ccd_jacobi_diis": 0, "ccd_mix_energy": 0,
-            "ovvv_gather": 0, "ccsd_jacobi_diis": 0, "ccsd_mix_energy": 0,
-            "pair_symmetrize": 0, "davidson_residual": 0, "arnoldi_cgs2": 0,
-            "shifted_precond": 0, "ring_step": 0}
+            "ovvv_gather": 0, "ovvv_gather_diag": 0, "ccsd_jacobi_diis": 0,
+            "ccsd_mix_energy": 0, "pair_symmetrize": 0,
+            "davidson_residual": 0, "arnoldi_cgs2": 0, "shifted_precond": 0,
+            "ring_step": 0}
 
 
 def reset_launches():

@@ -119,6 +119,15 @@ def library():
         # K5: X, Y or null, out, batch, P, R
         lib.pymes_pair_sym.argtypes = [vp, vp, vp, i32, i32, i32, vp]
         lib.pymes_pair_sym.restype = i32
+        # K4: S, W, T1 and its (batch, row, column) strides, no, columns,
+        # out, entries, n1·n2, n2, column tile; the diagonal: S, W, T1 and
+        # its strides, out, n0, n1, n2, no, the traced axis
+        lib.pymes_ovvv_gather.argtypes = [vp, vp, vp, i64, i64, i64, i32, i32,
+                                          vp, i64, i64, i32, i32, vp]
+        lib.pymes_ovvv_gather.restype = i32
+        lib.pymes_ovvv_gather_diag.argtypes = [vp, vp, vp, i64, i64, vp, i32,
+                                               i32, i32, i32, i32, vp]
+        lib.pymes_ovvv_gather_diag.restype = i32
         lib.pymes_ring_step.argtypes = [vp, i64, i64, vp, i64, vp, i64, i64,
                                         i32, i32, i32, i32, i32, vp, vp]
         lib.pymes_ring_step.restype = i32

@@ -18,7 +18,9 @@ The EOM sigma works in the ``abij`` layout over a batch of trial vectors:
 :func:`block_ladder_apply` / :func:`ladder_apply` /
 :func:`dressed_ladder_apply` take ``[..., c, d, i, j]`` amplitudes and run
 K1 once on the batch flattened cd-major to (nv², batch·no²);
-:func:`ovvv_t1_apply` gathers a batch of T1 columns through K4 at once.
+:func:`ovvv_t1_apply` gathers a batch of T1 columns through K4 at once, and
+:func:`ovvv_t1_trace` traces a gather over its occupied axis in K4's
+diagonal entry.
 
 A plan built with ``pad_sectors=P`` splits over a P-device mesh
 (:func:`shard_block_ladder`, ``pymes_tpu/ops/ueg_ladder.py:578-596``): each
@@ -382,13 +384,22 @@ def ovvv_t1_apply_j(plan: OVVVPlan, T1, twin=False):
 def ovvv_t1_apply(plan: OVVVPlan, T1, twin=False):
     """``out[..., p,q,r,j] = Σ_s V[p,q,r,s] T1[..., s,j]`` (the JAX
     package's ``[p,q,r,j]`` layout, any leading batch axes of T1): one K4
-    launch on the batch as (nv, batch·no) columns.  Returns a view of K4's
-    j-leading output, (..., n0, n1, n2, no)."""
+    launch on the batch as batch·no columns, T1 read in place through its
+    strides.  Returns a view of K4's j-leading output, (..., n0, n1, n2,
+    no)."""
     lead = tuple(T1.shape[:-2])
     nv, no = T1.shape[-2:]
-    cols = T1.reshape(-1, nv, no).transpose(0, 1).reshape(nv, -1)
-    out = _k4.ovvv_gather(plan.S, plan.W, cols, twin=twin)
+    out = _k4.ovvv_gather(plan.S, plan.W, T1.reshape(-1, nv, no), twin=twin)
     return out.reshape(lead + (no,) + tuple(plan.S.shape)).movedim(-4, -1)
+
+
+def ovvv_t1_trace(plan: OVVVPlan, T1, axis, twin=False):
+    """The (j′ = j) trace of :func:`ovvv_t1_apply_j` over the plan's
+    occupied axis ``axis`` (1: ``einsum("jajb->ab")`` on the vov plan; 0:
+    ``einsum("jjab->ab")`` on ovv), without the full gather: K4's diagonal
+    entry on a CUDA tensor, the twin on a CPU tensor.  ``T1`` (nv, no);
+    returns (nv, nv)."""
+    return _k4.ovvv_gather_diag(plan.S, plan.W, T1, axis, twin=twin)
 
 
 def dressed_ladder_apply(plan, T_ai, T_abij, no, W=None, twin=False):

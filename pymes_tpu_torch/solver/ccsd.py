@@ -201,7 +201,8 @@ def get_T1_dressed_fock(t_fock_pq, t_T_ai, dict_t_V, no=None, twin=False):
     mean field ``G_pq = Σ_bj T_bj (2 V_pjqb − V_pjbq)``; the (ov) block
     keeps the reference's non-Hermitian index pairing
     (``pymes_tpu/solver/ccsd.py:279-281``).  Without ``aibc`` in the dict,
-    G_vv comes from two K4 gathers on the vov/ovv plans."""
+    G_vv comes from K4's diagonal entry (the traced gathers) on the
+    vov/ovv plans."""
     es = torch.einsum
     if no is None:
         no = dict_t_V["ijab"].shape[0]
@@ -218,10 +219,10 @@ def get_T1_dressed_fock(t_fock_pq, t_T_ai, dict_t_V, no=None, twin=False):
                 - es("cj,ajcb->ab", T, dict_t_V["aibc"]))
     else:
         plans = dict_t_V["_ovvv_plans"]
-        # [j',a,j,b] = Σ_c V_ajbc T_cj' and [j',j,a,b] = Σ_c V_jabc T_cj'
-        o1 = ueg_ladder.ovvv_t1_apply_j(plans["vov"], T, twin=twin)
-        o2 = ueg_ladder.ovvv_t1_apply_j(plans["ovv"], T, twin=twin)
-        G_vv = 2.0 * es("jajb->ab", o1) - es("jjab->ab", o2)
+        # the j' = j traces of [j',a,j,b] = Σ_c V_ajbc T_cj' and
+        # [j',j,a,b] = Σ_c V_jabc T_cj', fused into K4's diagonal entry
+        G_vv = (2.0 * ueg_ladder.ovvv_t1_trace(plans["vov"], T, 1, twin=twin)
+                - ueg_ladder.ovvv_t1_trace(plans["ovv"], T, 0, twin=twin))
     G_vo = (2.0 * es("bj,ajib->ai", T, dict_t_V["aijb"])
             - es("bj,ajbi->ai", T, dict_t_V["aibj"]))
     G_ov_std = (2.0 * es("ck,ikbc->ib", T, dict_t_V["ijab"])

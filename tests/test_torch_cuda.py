@@ -1,11 +1,11 @@
 """The port's hand-written kernels on the card, each against its plain twin.
 
-K1 (CUDA C++ ladder), K2/K3 (Triton CCD tail), K4 (Triton ovvv gather),
-K2′/K3′ (Triton CCSD tail), K5 (CUDA C++ pair symmetrisation), K6 (Triton
-Davidson residual), K7 (CUDA C++ Arnoldi CGS2 and Krylov combines) and K8
-(Triton shifted operator and preconditioner) and K9 (CUDA C++ ring step;
-with the ring over a repeated card and over two cards, and the
-sector-sharded K1) run only on an NVIDIA card:
+K1 (CUDA C++ ladder), K2/K3 (Triton CCD tail), K4 (CUDA C++ ovvv gather
+and its fused trace), K2′/K3′ (Triton CCSD tail), K5 (CUDA C++ pair
+symmetrisation), K6 (Triton Davidson residual), K7 (CUDA C++ Arnoldi CGS2
+and Krylov combines) and K8 (Triton shifted operator and preconditioner)
+and K9 (CUDA C++ ring step; with the ring over a repeated card and over two
+cards, and the sector-sharded K1) run only on an NVIDIA card:
 these tests carry the ``cuda`` marker and skip where torch sees no card.  The card has no
 jax, so this file imports only the port; run it there without the
 repository's conftest (which sets up jax):
@@ -13,9 +13,10 @@ repository's conftest (which sets up jax):
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
 Tolerance: max|kernel − twin| ≤ 1e-12·max|twin| (both f64; only the
-summation order differs); K5 sums in its twin's order and must equal it
-bit for bit.  K1, K7 and K9 add no atomics, so a second launch must
-repeat the first bit for bit.
+summation order differs); K4's gather (one multiply an element) and K5
+(which sums in its twin's order) must equal their twins bit for bit.  K1,
+K7 and K9 add no atomics, so a second launch must repeat the first bit for
+bit.
 """
 
 import numpy as np
@@ -27,6 +28,7 @@ from pymes_tpu_torch.integral.partition import part_2_body_int
 from pymes_tpu_torch.kernels import (ccd_tail, ccsd_tail, davidson, pair_sym,
                                      ring_step)
 from pymes_tpu_torch.kernels import block_ladder as k1
+from pymes_tpu_torch.kernels import ovvv_gather as k4
 from pymes_tpu_torch.mean_field import hf
 from pymes_tpu_torch.models import ueg
 from pymes_tpu_torch.ops import ueg_ladder
@@ -170,19 +172,76 @@ def test_kernels_refuse_what_they_do_not_take(device):
                                     0, 1)
 
 
+def _columns(rng, nv, ncol, device):
+    """T1 of ``ncol`` columns as the callers give it: (nv, 1) and (nv, 7)
+    (the CCSD dressing), a column-major (nv, 33) view, and the 896
+    columns of the FEAST nP=57 sigma as a strided (128, nv, 7) view of
+    Krylov rows."""
+    if ncol == 33:
+        return _randn(rng, (ncol, nv), device).t()
+    if ncol == 896:
+        return _randn(rng, (128, nv * NO + 5), device)[:, :nv * NO].reshape(
+            128, nv, NO)
+    return _randn(rng, (nv, ncol), device)
+
+
+@pytest.mark.parametrize("ncol", [1, 7, 33, 896])
 @pytest.mark.parametrize("pat", ["vvo", "ovv", "vov"])
 @pytest.mark.parametrize("cutoff", [5, 14])
-def test_ovvv_gather_kernel_matches_twin(device, cutoff, pat):
+def test_ovvv_gather_kernel_matches_twin(device, cutoff, pat, ncol):
+    """K4 is one multiply an element, as its twin: bit for bit, at every
+    column count, with one (p) row of the plan all outside the basis."""
+    u = ueg.UEG(14, 7, 7, 0.5)
+    u.init_single_basis(cutoff)
+    plan = ueg_ladder.build_ovvv_t1_plan(u, pat, device)
+    S = plan.S.clone()
+    S[-1] = -1
+    T1 = _columns(np.random.default_rng(cutoff + ncol), u.n_spatial - NO,
+                  ncol, device)
+    before = kernels.LAUNCHES["ovvv_gather"]
+    got = k4.ovvv_gather(S, plan.W, T1)
+    want = k4.ovvv_gather(S, plan.W, T1, twin=True)
+    assert kernels.LAUNCHES["ovvv_gather"] == before + 1
+    assert got.shape == want.shape == (ncol,) + tuple(S.shape)
+    torch.cuda.synchronize()
+    assert float(want.abs().max()) > 0 and not bool(got[:, -1].any())
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("pat", ["vvo", "ovv", "vov"])
+def test_ovvv_batched_apply_reads_strided_trials(device, pat):
+    """The sigma's entry on a (k, nv, no) view of (k, N) Krylov rows (the
+    FEAST/RT layout, read in place) equals the per-trial gathers."""
+    u = ueg.UEG(14, 7, 7, 0.5)
+    u.init_single_basis(10)
+    plan = ueg_ladder.build_ovvv_t1_plan(u, pat, device)
+    nv = u.n_spatial - NO
+    rows = _randn(np.random.default_rng(123), (5, nv * NO + nv), device)
+    U1 = rows[:, :nv * NO].reshape(5, nv, NO)
+    got = ueg_ladder.ovvv_t1_apply(plan, U1)
+    want = torch.stack([ueg_ladder.ovvv_t1_apply(plan, U1[b].contiguous(),
+                                                 twin=True)
+                        for b in range(5)])
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("pat,axis", [("vov", 1), ("ovv", 0)])
+@pytest.mark.parametrize("cutoff", [5, 14])
+def test_ovvv_gather_diag_kernel_matches_twin(device, cutoff, pat, axis):
+    """The fused G_vv trace against the full gather and its einsum."""
     u = ueg.UEG(14, 7, 7, 0.5)
     u.init_single_basis(cutoff)
     plan = ueg_ladder.build_ovvv_t1_plan(u, pat, device)
     T1 = _randn(np.random.default_rng(cutoff), (u.n_spatial - NO, NO),
                 device)
-    before = kernels.LAUNCHES["ovvv_gather"]
-    got = ueg_ladder.ovvv_t1_apply_j(plan, T1)
-    want = ueg_ladder.ovvv_t1_apply_j(plan, T1, twin=True)
-    assert kernels.LAUNCHES["ovvv_gather"] == before + 1
-    assert got.shape == want.shape == (NO,) + tuple(plan.S.shape)
+    before = dict(kernels.LAUNCHES)
+    got = ueg_ladder.ovvv_t1_trace(plan, T1, axis)
+    want = ueg_ladder.ovvv_t1_trace(plan, T1, axis, twin=True)
+    assert kernels.LAUNCHES["ovvv_gather_diag"] == \
+        before["ovvv_gather_diag"] + 1
+    assert kernels.LAUNCHES["ovvv_gather"] == before["ovvv_gather"]
+    assert got.shape == want.shape == (u.n_spatial - NO,) * 2
     _close(got, want)
 
 
@@ -282,7 +341,9 @@ def test_mf_ccsd_on_card_matches_cpu(device):
     assert float(out["cpu"]["t1"].abs().max()) > 1e-3
     for k in ("block_ladder", "ccsd_jacobi_diis", "ccsd_mix_energy"):
         assert launches[k] == n_it, launches
-    assert launches["ovvv_gather"] >= 2 * n_it, launches
+    # the dressing: 4 full gathers and 2 traced ones (G_vv) an iteration
+    assert launches["ovvv_gather"] == 4 * n_it, launches
+    assert launches["ovvv_gather_diag"] == 2 * n_it, launches
     assert launches["ccd_jacobi_diis"] == launches["ccd_mix_energy"] == 0
 
 
@@ -296,6 +357,21 @@ def test_ovvv_gather_refuses_what_it_does_not_take(device):
         ueg_ladder.ovvv_t1_apply_j(plan._replace(S=plan.S.long()), T1)
     with pytest.raises(TypeError):
         ueg_ladder.ovvv_t1_apply_j(plan, T1.float())
+    with pytest.raises(ValueError):
+        ueg_ladder.ovvv_t1_apply_j(plan._replace(W=plan.W[:, :-1]), T1)
+    vov = ueg_ladder.build_ovvv_t1_plan(u, "vov", device)
+    with pytest.raises(TypeError):
+        ueg_ladder.ovvv_t1_trace(vov._replace(S=vov.S.long()), T1, 1)
+    with pytest.raises(TypeError):
+        ueg_ladder.ovvv_t1_trace(vov, T1.float(), 1)
+    with pytest.raises(ValueError):        # no axis 2
+        ueg_ladder.ovvv_t1_trace(vov, T1, 2)
+    with pytest.raises(ValueError):        # axis 0 of vov runs over nv
+        ueg_ladder.ovvv_t1_trace(vov, T1, 0)
+    with pytest.raises(ValueError):        # a batch has no trace
+        ueg_ladder.ovvv_t1_trace(vov, T1[None], 1)
+    with pytest.raises(ValueError):        # plan and T1 on two devices
+        k4.ovvv_gather_diag(vov.S, vov.W.cpu(), T1, 1)
 
 
 @pytest.mark.parametrize("with_y", [False, True])
