@@ -35,7 +35,13 @@ Drives the port's main paths through its own kernels:
   width;
 * sector-sharded matrix-free CCD and CCSD at nP=219 — the virtual and the
   all-bra plans built with ``pad_sectors=4`` and cut over 4 shards of the
-  card (one K1 launch per shard), CCD and the seeded non-canonical CCSD.
+  card (one K1 launch per shard), CCD and the seeded non-canonical CCSD;
+* the transcorrelated UEG at nP=219 (gaskell correlator) — non-hermitian
+  (``is_only_2b``) matrix-free CCD on the virtual plan, whose sector blocks
+  carry the non-hermitian term, and hermitian-TC (``is_only_hermi_2b``)
+  matrix-free CCSD on the all-bra plan and TC OVVV plans with the seeded
+  non-canonical Fock, each against the JAX package's energy;
+* drCCD — nP=57 on the dense blocks, against the JAX package's energy.
 
 Kernels: K1 ``block_ladder`` (CUDA C++ on the f64 tensor cores, built with
 nvcc for sm_90a at first use), K4 ``ovvv_gather`` and its fused trace
@@ -89,7 +95,17 @@ then ms per iteration of the fixed-61-iteration ring CCD at nP=219
 on the padded and the unpadded plans, the sharded apply per call beside K1
 on the whole plan, then sector-sharded matrix-free CCD and non-canonical
 CCSD at nP=219 against the JAX package, K1 launched 4 times per
-iteration. Prints a JSON line of the kernels (launches, errors,
+iteration; (18) the TC UEG at nP=219: host set-up in one thread pool,
+K1 against its twin on the non-hermitian virtual and the hermitian all-bra
+TC plans, K4 bit for bit on the TC OVVV plans, the non-hermitian mf-CCD
+(one K1, K2, K3 and K5 launch an iteration) within 1e-9 of the JAX
+package, the 16.2 GB TC ``abcd`` scattered for 6 dense iterations whose
+energies must lie within 1e-10 of the matrix-free ones, the hermitian-TC
+mf-CCSD (4 K4 gathers and 2 traces an iteration) and drCCD at nP=57 (one
+K2 and one K3 an iteration) within 1e-9 of the JAX package, then ms per
+iteration of the fixed-61-iteration TC mf-CCD (kernels and twins) and K1
+and K4 per call on the TC plans. Prints a JSON line of the kernels
+(launches, errors, the TC and drCCD runs as sub-entries,
 times, bounds at the H100's HBM and FP64 peaks, the library call where one
 computes the same function), the nvidia-smi line, and as the
 last line ``{"ok": true, "device": {...}}``.
@@ -187,6 +203,25 @@ RING_KERNELS = ("ring_step", "ccd_jacobi_diis", "ccd_mix_energy",
                 "pair_symmetrize")
 # shards of the sector-sharded BlockLadder at nP=219 (pad_sectors)
 SECTOR_SHARDS = 4
+# phase 18, the transcorrelated UEG (tc_model: gaskell, k_cutoff as
+# tests/test_ueg.py:114) at cutoff 14 (nP=219): the JAX package's energies
+# and iteration counts, f64 on a CPU (tools/pin_tc_jax.py): "ccd" the
+# non-hermitian (is_only_2b) CCD on the virtual block plan, DIIS, shift -1,
+# |dE| < 1e-8; "ccsd" the hermitian-TC (is_only_hermi_2b) matrix-free CCSD
+# with the seeded non-canonical Fock, |dE| < 1e-10 (|T1|max 0.01502).  The
+# cutoff-5 (nP=57) values serve a rehearsal of the phase on the CPU.
+TC_RS = 0.5
+TC_CUTOFF = 14
+TC_JAX = {14: {"ccd": (13.46038059699951, 12),
+               "ccsd": (-7.463341985936916, 18)},
+          5: {"ccd": (10.048218675665616, 10),
+              "ccsd": (-5.597053463172118, 18)}}
+# iterations of the dense-abcd TC CCD held to the matrix-free solve's
+TC_DENSE_ITERS = 6
+# Coulomb drCCD at nP=57 on the dense blocks (tools/pin_tc_jax.py): DIIS,
+# shift -1, |dE| < 1e-8
+E_JAX_DRCCD_NP57 = -0.7314109497312941
+N_IT_JAX_DRCCD_NP57 = 6
 # FEAST at nP=57: the window of benchmarks/probe_r5_feast57b.py (e_c at the
 # 3-fold level of EOM_JAX[5], e_r excluding 5.2652816 and 5.2789029), f64
 # GMRES(120) x 6 on all 16 nodes x 4 trials as lanes.  GMRES stops on the
@@ -1159,7 +1194,7 @@ def path_launches(label, run, expect):
 def solve_fixed(p, twin, max_iter=60, blocks=None, ring_mesh=None):
     """ms/iteration of ``max_iter + 1`` CCD iterations (host clock,
     synchronised), on ``p``'s blocks or on ``blocks`` (the ring path with
-    ``ring_mesh``)."""
+    ``ring_mesh``).  Returns (ms/iteration, iterations, final energy)."""
     import torch
 
     from pymes_tpu_torch.solver import ccd
@@ -1170,7 +1205,8 @@ def solve_fixed(p, twin, max_iter=60, blocks=None, ring_mesh=None):
                         level_shift=-1.0, delta_e=-1.0, max_iter=max_iter,
                         twin=twin, ring_mesh=ring_mesh)
     torch.cuda.synchronize()
-    return (time.perf_counter() - t0) * 1e3 / out[5], out[5]
+    return ((time.perf_counter() - t0) * 1e3 / out[5], out[5],
+            float(out[0]))
 
 
 def bound(nbytes, flops):
@@ -1946,6 +1982,394 @@ def rt123_lanes(s, u0, root, device):
             torch.as_tensor(z.imag, device=device))
 
 
+def tc_model(cutoff):
+    """The transcorrelated UEG of phase 18: 14 electrons, rs = 0.5, the
+    ``gaskell`` correlator's ``k_cutoff`` as ``tests/test_ueg.py:114``."""
+    from pymes_tpu_torch.models import ueg
+
+    u = ueg.UEG(14, NO, NO, TC_RS)
+    u.init_single_basis(cutoff)
+    u.gamma = None
+    u.k_cutoff = u.L / (2 * np.pi) * 2.3225029893472993 / TC_RS
+    return u
+
+
+def setup_tc(cutoff, device):
+    """Phase 18 set-up on the host, each build on its own model in a thread
+    of one pool (numpy's large operations release the GIL): the sparse
+    integrals of the non-hermitian class (``is_only_2b``) and of the
+    hermitian one (``is_only_hermi_2b``), the virtual non-hermitian plan,
+    the all-bra hermitian plan and the three hermitian OVVV plans; then the
+    named blocks on the card, the diagonal HF Fock of each class, the
+    seeded non-canonical Fock (noise rng(5)·0.02, symmetrised) and the MP2
+    guesses.  Prints each build's host seconds and the wall."""
+    import torch
+    from concurrent.futures import ThreadPoolExecutor
+
+    from pymes_tpu_torch.mean_field import hf
+    from pymes_tpu_torch.models import ueg
+    from pymes_tpu_torch.ops import ueg_ladder
+    from pymes_tpu_torch.solver import mp2
+
+    nh, herm = {"is_only_2b": True}, {"is_only_hermi_2b": True}
+
+    def timed(fn):
+        t0 = time.time()
+        u = tc_model(cutoff)
+        return fn(u), time.time() - t0
+
+    builds = {
+        "integrals is_only_2b": lambda u: u.eval_2b_integrals(
+            correlator=u.gaskell, sp=2, **nh),
+        "integrals is_only_hermi_2b": lambda u: u.eval_2b_integrals(
+            correlator=u.gaskell, sp=2, **herm),
+        "virtual non-hermitian plan": lambda u:
+            ueg_ladder.build_block_ladder(u, device, correlator=u.gaskell,
+                                          **nh),
+        "all-bra hermitian plan": lambda u: ueg_ladder.build_block_ladder(
+            u, device, correlator=u.gaskell, bra="all", **herm),
+        **{f"OVVV plan {pat}": (lambda u, pat=pat:
+                                ueg_ladder.build_ovvv_t1_plan(
+                                    u, pat, device, u.gaskell, **herm))
+           for pat in ("vvo", "ovv", "vov")}}
+    t0 = time.time()
+    with ThreadPoolExecutor(max_workers=len(builds)) as pool:
+        futures = {k: pool.submit(timed, fn) for k, fn in builds.items()}
+        out = {k: f.result() for k, f in futures.items()}
+    host = {k: s for k, (_, s) in out.items()}
+    wall = time.time() - t0
+    u = tc_model(cutoff)
+    n_p, nv = u.n_spatial, u.n_spatial - NO
+    kin = u.kinetic_energies()
+    tc = {"cutoff": cutoff, "nP": n_p, "nv": nv, "ueg": u,
+          "host_s": host, "host_wall_s": wall}
+    for kind, flags_name in (("nh", "is_only_2b"),
+                             ("herm", "is_only_hermi_2b")):
+        idx, vals = out[f"integrals {flags_name}"][0]
+        d = ueg.sparse_to_blocks(idx, vals, n_p, NO, device, names=NEED)
+        eps_i = hf.calcOccupiedOrbE(kin, d["klij"], NO)
+        eps_a = hf.calcVirtualOrbE(kin, d["aibj"], d["aijb"], NO, nv)
+        tc[kind] = {"dict": d, "sparse": (idx, vals), "eps_i": eps_i,
+                    "eps_a": eps_a,
+                    "fock": torch.diag(torch.cat([eps_i, eps_a]))}
+    p = tc["nh"]
+    plan = out["virtual non-hermitian plan"][0]
+    p["blocks"] = ccd_blocks(p["dict"], plan)
+    p["T0"] = mp2.solve(p["eps_i"], p["eps_a"], p["dict"]["ijab"],
+                        p["dict"]["abij"], -1.0)[1]
+    q = tc["herm"]
+    q["plan_all"] = out["all-bra hermitian plan"][0]
+    q["mf_dict"] = dict(q["dict"])
+    q["mf_dict"]["_ovvv_plans"] = {
+        pat: out[f"OVVV plan {pat}"][0] for pat in ("vvo", "ovv", "vov")}
+    eps = torch.cat([q["eps_i"], q["eps_a"]]).cpu().numpy()
+    noise = np.random.default_rng(5).standard_normal((n_p, n_p)) * 0.02
+    q["fock_nc"] = torch.as_tensor(np.diag(eps) + noise + noise.T,
+                                   device=q["fock"].device)
+    torch.cuda.synchronize()
+    print(f"setup TC nP={n_p} (gaskell): host builds in one pool of "
+          f"{len(builds)} threads, wall {wall:.2f} s; " + ", ".join(
+              f"{k} {s:.2f} s" for k, s in host.items())
+          + f"; blocks and Fock on the card {time.time() - t0 - wall:.2f} "
+          "s", flush=True)
+    return tc
+
+
+def ccd_blocks(d, ladder=None, abcd=None):
+    from pymes_tpu_torch.solver import ccd
+
+    return ccd.CCDBlocks(klij=d["klij"], ijab=d["ijab"], abij=d["abij"],
+                         iajb=d["iajb"], iabj=d["iabj"], abcd=abcd,
+                         ladder=ladder)
+
+
+def compare_tc_kernels(tc, seed):
+    """K1 against its twin on the virtual non-hermitian plan and on the
+    all-bra hermitian plan (N = no², 1e-12·max), K4 bit for bit on the
+    hermitian-TC OVVV plans at the dressing's 7 columns and its fused trace
+    (1e-12·max); returns max abs errors."""
+    import torch
+
+    from pymes_tpu_torch.ops import ueg_ladder
+
+    rng = np.random.default_rng(seed)
+    nv, dev = tc["nv"], tc["nh"]["fock"].device
+    T = torch.as_tensor(rng.standard_normal((NO, NO, nv, nv)) * 0.01,
+                        device=dev)
+    e1 = 0.0
+    for label, plan in (("non-hermitian virtual",
+                         tc["nh"]["blocks"].ladder),
+                        ("hermitian all-bra", tc["herm"]["plan_all"])):
+        got = ueg_ladder.block_ladder_apply_ij(plan, T)
+        want = ueg_ladder.block_ladder_apply_ij(plan, T, twin=True)
+        e1 = max(e1, rel_err(got, want, f"K1 on the TC {label} plan"))
+    T1 = torch.as_tensor(rng.standard_normal((nv, NO)) * 0.01, device=dev)
+    plans = tc["herm"]["mf_dict"]["_ovvv_plans"]
+    e4 = max(bit_equal(ueg_ladder.ovvv_t1_apply_j(plan, T1),
+                       ueg_ladder.ovvv_t1_apply_j(plan, T1, twin=True),
+                       f"K4 on the TC {pat} plan")
+             for pat, plan in plans.items())
+    e4d = max(rel_err(ueg_ladder.ovvv_t1_trace(plans[pat], T1, axis),
+                      ueg_ladder.ovvv_t1_trace(plans[pat], T1, axis,
+                                               twin=True),
+                      f"K4 trace on the TC {pat} plan")
+              for pat, axis in DIAG_PLANS)
+    print(f"kernel vs twin, TC nP={tc['nP']}: block_ladder max_abs_err="
+          f"{e1:.3e} (non-hermitian virtual, hermitian all-bra), ovvv_gather"
+          f" {e4:.1e} (bit for bit), ovvv_gather_diag {e4d:.3e}", flush=True)
+    return {"block_ladder": e1, "ovvv_gather": e4, "ovvv_gather_diag": e4d}
+
+
+def tc_mf_ccd(tc, device, out):
+    """Phase 18(a): non-hermitian TC CCD through K1 on the virtual plan to
+    |dE| < 1e-8, within 1e-9 of the JAX package in its iteration count,
+    one K1, K2, K3 and K5 launch an iteration and no other."""
+    import torch
+
+    from pymes_tpu_torch import kernels
+    from pymes_tpu_torch.solver import ccd
+
+    t0 = time.time()
+    p, (e_ref, n_ref) = tc["nh"], TC_JAX[tc["cutoff"]]["ccd"]
+    before = dict(kernels.LAUNCHES)
+    res = ccd.CCD(NO, device).solve(p["fock"], p["blocks"],
+                                    level_shift=-1.0, max_iter=60)
+    e, n, T = res["ccd e"], len(res["e history"]), res["t2 amp"]
+    got = {k: kernels.LAUNCHES[k] - before[k] for k in KERNELS}
+    want = dict.fromkeys(KERNELS, 0)
+    want.update(dict.fromkeys(CCD_KERNELS, n))
+    check(got == want, f"TC mf-CCD: launches {got}, expected {want} for {n} "
+          "iterations")
+    check(T.shape == (tc["nv"], tc["nv"], NO, NO)
+          and bool(torch.isfinite(T).all()),
+          "TC mf-CCD: amplitudes not finite or of the wrong shape")
+    check(abs(e - e_ref) <= 1e-9 and n == n_ref,
+          f"TC mf-CCD nP={tc['nP']}: E={e:.13f} in {n} iterations vs the JAX "
+          f"package's {e_ref} in {n_ref}")
+    print(f"TC mf-CCD (gaskell, is_only_2b) nP={tc['nP']}: E={e:.13f} in {n} "
+          f"iterations, |E - E_jax|={abs(e - e_ref):.2e}, launches "
+          f"{ {k: v for k, v in got.items() if v} }, {time.time() - t0:.2f} s",
+          flush=True)
+    out.update(e=e, n=n, e_hist=res["e history"],
+               launches={k: got[k] for k in CCD_KERNELS})
+
+
+def tc_dense_ccd(tc, e_hist, device):
+    """Phase 18(a), the dense check: the TC ``abcd`` scattered on the card
+    (16.2 GB at nP=219) and TC_DENSE_ITERS iterations of the dense-abcd CCD
+    from the same guess, each energy within 1e-10 of the matrix-free
+    solve's."""
+    import torch
+
+    from pymes_tpu_torch.models import ueg
+    from pymes_tpu_torch.solver import ccd
+
+    t0 = time.time()
+    p = tc["nh"]
+    abcd = ueg.sparse_to_blocks(*p["sparse"], tc["nP"], NO, device,
+                                names=("abcd",))["abcd"]
+    gb = abcd.numel() * 8 / 1e9
+    out = ccd.ccd_solve(p["fock"], ccd_blocks(p["dict"], abcd=abcd), NO,
+                        p["T0"], level_shift=-1.0, delta_e=-1.0,
+                        max_iter=TC_DENSE_ITERS - 1)
+    dense = out[6].cpu().numpy()
+    del abcd, out
+    torch.cuda.empty_cache()
+    gap = float(np.abs(dense - e_hist[:TC_DENSE_ITERS]).max())
+    check(len(dense) == TC_DENSE_ITERS and np.isfinite(dense).all()
+          and gap <= 1e-10, f"TC CCD nP={tc['nP']}: dense-abcd energies "
+          f"{dense} vs matrix-free {e_hist[:TC_DENSE_ITERS]}")
+    print(f"TC CCD nP={tc['nP']}: dense abcd {gb:.2f} GB on the card, its "
+          f"first {TC_DENSE_ITERS} energies within {gap:.2e} of the "
+          f"matrix-free solve's, {time.time() - t0:.2f} s", flush=True)
+    return gap
+
+
+def tc_mf_ccsd(tc, device, out):
+    """Phase 18(b): hermitian-TC matrix-free CCSD (all-bra plan, TC OVVV
+    plans, seeded non-canonical Fock: T1 ≠ 0) to |dE| < 1e-10, within 1e-9
+    of the JAX package in its iteration count; K4 4 gathers and 2 traces an
+    iteration, K1, K2′, K3′ and K5 one."""
+    import torch
+
+    from pymes_tpu_torch import kernels
+    from pymes_tpu_torch.solver import ccsd
+
+    t0 = time.time()
+    q, (e_ref, n_ref) = tc["herm"], TC_JAX[tc["cutoff"]]["ccsd"]
+    before = dict(kernels.LAUNCHES)
+    res = ccsd.CCSD(NO, device).solve(
+        q["fock_nc"], q["mf_dict"], level_shift=-1.0, ladder=q["plan_all"],
+        delta_e=1e-10, max_iter=100)
+    e, n = res["ccsd e"], len(res["e history"])
+    got = {k: kernels.LAUNCHES[k] - before[k] for k in KERNELS}
+    want = dict.fromkeys(KERNELS, 0)
+    want.update(dict.fromkeys(MF_CCSD_KERNELS, n))
+    want.update(ovvv_gather=4 * n, ovvv_gather_diag=2 * n)
+    check(got == want, f"TC mf-CCSD: launches {got}, expected {want} for {n}"
+          " iterations")
+    t1max = float(res["t1"].abs().max())
+    check(res["t2"].shape == (tc["nv"], tc["nv"], NO, NO)
+          and bool(torch.isfinite(res["t2"]).all())
+          and bool(torch.isfinite(res["t1"]).all()) and t1max > 1e-4,
+          f"TC mf-CCSD: amplitudes not finite, misshapen or T1 ≡ 0 "
+          f"(|T1|max {t1max:.3e})")
+    check(abs(e - e_ref) <= 1e-9 and n == n_ref,
+          f"TC mf-CCSD nP={tc['nP']}: E={e:.13f} in {n} iterations vs the "
+          f"JAX package's {e_ref} in {n_ref}")
+    print(f"TC mf-CCSD (gaskell, is_only_hermi_2b, non-canonical) "
+          f"nP={tc['nP']}: E={e:.13f} in {n} iterations, |E - E_jax|="
+          f"{abs(e - e_ref):.2e}, |T1|max={t1max:.3e}, launches "
+          f"{ {k: v for k, v in got.items() if v} }, {time.time() - t0:.2f} s",
+          flush=True)
+    out.update(e=e, n=n, launches={k: got[k] for k in MF_CCSD_KERNELS})
+
+
+def drccd_np57(p, device, out):
+    """Phase 18(c): Coulomb drCCD on the nP=57 dense blocks (no ladder) to
+    |dE| < 1e-8, within 1e-9 of the JAX package in its iteration count;
+    one K2 and one K3 launch an iteration and no other."""
+    import torch
+
+    from pymes_tpu_torch import kernels
+    from pymes_tpu_torch.solver import ccd
+
+    t0 = time.time()
+    before = dict(kernels.LAUNCHES)
+    res = ccd.CCD(NO, device, is_dr_ccd=True).solve(
+        p["fock"], ccd_blocks(p["dict"]), level_shift=-1.0, max_iter=60)
+    e, n, T = res["ccd e"], len(res["e history"]), res["t2 amp"]
+    got = {k: kernels.LAUNCHES[k] - before[k] for k in KERNELS}
+    want = dict.fromkeys(KERNELS, 0)
+    want.update(ccd_jacobi_diis=n, ccd_mix_energy=n)
+    check(got == want, f"drCCD: launches {got}, expected {want} for {n} "
+          "iterations")
+    check(T.shape == (p["nv"], p["nv"], NO, NO)
+          and bool(torch.isfinite(T).all()),
+          "drCCD: amplitudes not finite or of the wrong shape")
+    check(abs(e - E_JAX_DRCCD_NP57) <= 1e-9 and n == N_IT_JAX_DRCCD_NP57,
+          f"drCCD nP={p['nP']}: E={e:.13f} in {n} iterations vs the JAX "
+          f"package's {E_JAX_DRCCD_NP57} in {N_IT_JAX_DRCCD_NP57}")
+    print(f"drCCD nP={p['nP']}: E={e:.13f} in {n} iterations, |E - E_jax|="
+          f"{abs(e - E_JAX_DRCCD_NP57):.2e}, launches "
+          f"{ {k: v for k, v in got.items() if v} }, {time.time() - t0:.2f} s",
+          flush=True)
+    out.update(e=e, n=n, launches={k: got[k] for k in
+                                   ("ccd_jacobi_diis", "ccd_mix_energy")})
+
+
+def time_tc(tc, coulomb_plan, seed):
+    """Phase 18 timing: ms/iteration of the fixed-61-iteration TC mf-CCD
+    (min of 5, kernels and twins; every run must stay finite), K1 per call
+    on the non-hermitian plan at N = no² (held to its twin in
+    :func:`compare_tc_kernels`) with the Coulomb plan of the same buckets
+    beside it (Coulomb, TC, TC, Coulomb on the same operand), and K4 per
+    call on the hermitian-TC OVVV plans at 7 columns (bit for bit against
+    its twin first)."""
+    import torch
+
+    from pymes_tpu_torch.ops import ueg_ladder
+
+    p = {**tc["nh"], "nv": tc["nv"]}
+    walls = {False: [], True: []}
+    n_fixed = 0
+    for _ in range(5):
+        for twin in (False, True):
+            ms, n_fixed, e = solve_fixed(p, twin)
+            check(np.isfinite(e), "the fixed-iteration TC mf-CCD went "
+                  f"non-finite (twin={twin})")
+            walls[twin].append(ms)
+    rng = np.random.default_rng(seed)
+    dev, nv = p["fock"].device, tc["nv"]
+    T = torch.as_tensor(rng.standard_normal((NO, NO, nv, nv)) * 0.01,
+                        device=dev)
+    plan = p["blocks"].ladder
+    t = [cuda_ms(lambda: ueg_ladder.block_ladder_apply_ij(plan, T, twin=tw))
+         for tw in (True, False, False, True)]
+    tk = [cuda_ms(lambda: ueg_ladder.block_ladder_apply_ij(pl, T))
+          for pl in (coulomb_plan, plan, plan, coulomb_plan)]
+    T1 = torch.as_tensor(rng.standard_normal((nv, NO)) * 0.01, device=dev)
+    k4 = time_k4(tc["herm"]["mf_dict"]["_ovvv_plans"], T1,
+                 "TC hermitian, 7 columns", alone=False)
+    return {"fixed": (min(walls[False]), min(walls[True]), n_fixed),
+            "k1": ((t[1] + t[2]) / 2, (t[0] + t[3]) / 2,
+                   ladder_bound(plan, NO * NO)),
+            "k1 TC / Coulomb": ((tk[1] + tk[2]) / 2, (tk[0] + tk[3]) / 2),
+            "k4": k4}
+
+
+def tc_phase(problems, device, card, launches, compare):
+    """Phase 18: the transcorrelated UEG at nP=219 (host set-up, kernels
+    against their twins on the TC plans, the dense-abcd check: all outside
+    the counted windows), the non-hermitian mf-CCD, the hermitian-TC
+    mf-CCSD and drCCD at nP=57 in counted windows (added to ``launches``),
+    then the timing.  Appends the kernel errors to ``compare``; returns the
+    runs as sub-entries of their kernels' JSON entries."""
+    import torch
+
+    t18 = time.time()
+    tc = setup_tc(TC_CUTOFF, device)
+    tc_err = compare_tc_kernels(tc, 20)
+    compare.append(tc_err)
+    tc_runs = {"ccd": {}, "ccsd": {}, "drccd": {}}
+    launches["TC mf-CCD"] = path_launches(
+        "TC mf-CCD", lambda: tc_mf_ccd(tc, device, tc_runs["ccd"]),
+        CCD_KERNELS)
+    tc_dense_ccd(tc, tc_runs["ccd"]["e_hist"], device)
+    launches["TC mf-CCSD"] = path_launches(
+        "TC mf-CCSD", lambda: tc_mf_ccsd(tc, device, tc_runs["ccsd"]),
+        MF_CCSD_KERNELS)
+    launches["drCCD"] = path_launches(
+        "drCCD", lambda: drccd_np57(problems[5], device, tc_runs["drccd"]),
+        ("ccd_jacobi_diis", "ccd_mix_energy"))
+    tc_t = time_tc(tc, problems[14]["blocks"].ladder, 21)
+    fx_k, fx_t, n_fixed = tc_t["fixed"]
+    print(f"[{card}] TC nP={tc['nP']} fixed-{n_fixed}-iteration mf-CCD "
+          f"(non-hermitian), min of 5: kernels {fx_k:.3f} ms/iter, twins "
+          f"{fx_t:.3f} ms/iter", flush=True)
+    k1_ms, k1_plain, k1_b = tc_t["k1"]
+    k1_tc, k1_coul = tc_t["k1 TC / Coulomb"]
+    print(f"[{card}] TC nP={tc['nP']} block_ladder on the non-hermitian "
+          f"plan, N = no^2: kernel {k1_ms:.4f} ms, twin {k1_plain:.4f} ms per"
+          f" call; bound {k1_b[0]:.4f} ms ({k1_b[1]}); in turns with the "
+          f"Coulomb plan (Coulomb, TC, TC, Coulomb): TC {k1_tc:.4f} ms, "
+          f"Coulomb {k1_coul:.4f} ms", flush=True)
+    k4_ms, k4_plain, _, k4_b, _ = tc_t["k4"]
+    print(f"[{card}] TC nP={tc['nP']} ovvv_gather on the hermitian-TC plans, "
+          f"7 columns: kernel {k4_ms:.4f} ms, twin {k4_plain:.4f} ms per "
+          f"call; bound {k4_b[0]:.4f} ms ({k4_b[1]})", flush=True)
+    print(f"phase 18 (TC set-up, checks, solves and timing): "
+          f"{time.time() - t18:.2f} s", flush=True)
+    n_tc = tc["nP"]
+    del tc
+    torch.cuda.empty_cache()
+    # the TC and drCCD runs as sub-entries of their kernels' JSON entries
+    tc_sub = {}
+    for label, run, names in (
+            (f"TC mf-CCD nP={n_tc}", tc_runs["ccd"], CCD_KERNELS),
+            (f"TC mf-CCSD nP={n_tc}", tc_runs["ccsd"], MF_CCSD_KERNELS),
+            (f"drCCD nP={problems[5]['nP']}", tc_runs["drccd"],
+             ("ccd_jacobi_diis", "ccd_mix_energy"))):
+        for name in names:
+            tc_sub.setdefault(name, {})[label] = {
+                "launches": run["launches"][name], "iterations": run["n"],
+                "energy": run["e"]}
+    ccd_lab, ccsd_lab = (f"TC mf-CCD nP={n_tc}", f"TC mf-CCSD nP={n_tc}")
+    for name in CCD_KERNELS:
+        tc_sub[name][ccd_lab].update(
+            ms_per_iter=fx_k, plain_ms_per_iter=fx_t)
+    tc_sub["block_ladder"][ccd_lab].update(
+        max_abs_err=tc_err["block_ladder"], ms=k1_ms, plain_ms=k1_plain,
+        bound_ms=k1_b[0], bound_by=k1_b[1], in_turns_ms=k1_tc,
+        coulomb_plan_in_turns_ms=k1_coul)
+    tc_sub["ovvv_gather"][ccsd_lab].update(
+        max_abs_err=tc_err["ovvv_gather"], ms=k4_ms, plain_ms=k4_plain,
+        bound_ms=k4_b[0], bound_by=k4_b[1])
+    tc_sub["ovvv_gather_diag"][ccsd_lab]["max_abs_err"] = \
+        tc_err["ovvv_gather_diag"]
+    return tc_sub
+
+
 def main():
     import torch
 
@@ -2072,7 +2496,7 @@ def main():
         n_fixed = 0
         for _ in range(5):
             for twin in (False, True):
-                ms, n_fixed = solve_fixed(p, twin)
+                ms, n_fixed, _ = solve_fixed(p, twin)
                 walls[twin].append(ms)
         print(f"[{card}] nP={p['nP']} fixed-{n_fixed}-iteration CCD, min of "
               f"5: kernels {min(walls[False]):.3f} ms/iter, twins "
@@ -2265,8 +2689,9 @@ def main():
     walls = {False: [], True: []}
     for _ in range(5):
         for twin in (False, True):
-            ms, n_fixed = solve_fixed(problems[14], twin, blocks=rings[14][1],
-                                      ring_mesh=rings[14][0])
+            ms, n_fixed, _ = solve_fixed(problems[14], twin,
+                                         blocks=rings[14][1],
+                                         ring_mesh=rings[14][0])
             walls[twin].append(ms)
     print(f"[{card}] nP={problems[14]['nP']} fixed-{n_fixed}-iteration ring "
           f"CCD ({rings[14][0].shape['a']} shards of one card), min of 5: "
@@ -2288,6 +2713,12 @@ def main():
     launches["sector-sharded mf-CCD/CCSD"] = path_launches(
         "sector-sharded mf-CCD/CCSD",
         lambda: sharded_mf(q, plans, device, sharded), MF_CCSD_KERNELS)
+
+    del plans
+    torch.cuda.empty_cache()
+
+    # phase 18: the transcorrelated UEG at nP=219 and drCCD at nP=57
+    tc_sub = tc_phase(problems, device, card, launches, compare)
 
     total = {k: sum(run.get(k, 0) for run in launches.values())
              for k in KERNELS}
@@ -2363,7 +2794,8 @@ def main():
          "launches": total[name], "max_abs_err": max_err[name],
          "ms": kernel_ms[name][0], "plain_ms": kernel_ms[name][1],
          "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
-         "library_ms": None, **library.get(name, {})}
+         "library_ms": None, **library.get(name, {}),
+         **tc_sub.get(name, {})}
         for name, (route, src, rep) in KERNELS.items()]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -29,9 +29,17 @@ on its device; the apply entries take the :class:`ShardedBlockLadder`
 unchanged and make one K1 launch per shard, each writing only its own bra
 rows, which are copied into the output on the amplitudes' device.
 
+Weight classes (``correlator`` and the integral flags of
+``UEG.eval_2b_integrals``): the transfer-only classes (Coulomb, RPA-approx,
+hermitian TC) in every plan, and in :func:`build_block_ladder` also the
+non-hermitian TC classes (``is_only_2b``, ``is_only_non_hermi_2b``), whose
+(c,d)-dependent term −(kp_c−kp_d)·q·u(q²)/Ω is a plain function of the
+(bra, ket-pair) element within a sector and so lands in the sector blocks at
+build time: K1 runs them unchanged.  The OVVV plans take the transfer-only
+classes and raise for the others, as the JAX package does.
+
 Not ported: the Ozaki presliced form (``preslice``; the H100 has native f64
-GEMMs), the gather-scan ``UEGLadder`` (no path of the package runs it) and
-the transcorrelated weight classes.
+GEMMs) and the gather-scan ``UEGLadder`` (no path of the package runs it).
 """
 
 from typing import NamedTuple
@@ -42,6 +50,7 @@ import torch
 from pymes_tpu_torch.config import resolve_device
 from pymes_tpu_torch.kernels import block_ladder as _k1
 from pymes_tpu_torch.kernels import ovvv_gather as _k4
+from pymes_tpu_torch.models.ueg import _call_correlator
 
 
 class BlockGroup(NamedTuple):
@@ -79,15 +88,65 @@ def _pad_to(m):
     return -(-m // step) * step
 
 
-def _transfer_weights(ueg_model, q_vecs):
-    """w(q) = 4π/|q|²/Ω (0 at q = 0) on integer transfer vectors (n, 3):
-    the Coulomb class (the transcorrelated classes are ROADMAP queue A)."""
+def _transfer_weights(ueg_model, q_vecs, correlator=None, **integral_flags):
+    """w(q) for the transfer-only integral classes (Coulomb, RPA-approx,
+    hermitian-TC) on integer transfer vectors ``q_vecs`` (n, 3)
+    (``pymes_tpu/ops/ueg_ladder.py:39-68``)."""
     qp = q_vecs * 2.0 * np.pi / ueg_model.L
     q2 = np.einsum("nx,nx->n", qp, qp)
     with np.errstate(divide="ignore"):
         coul = np.where(q2 > 0, 4.0 * np.pi / np.where(q2 > 0, q2, 1.0),
                         0.0)
-    return coul / ueg_model.Omega
+    if correlator is None and not integral_flags:
+        return coul / ueg_model.Omega
+    if integral_flags.get("is_rpa_approx"):
+        u = _call_correlator(correlator, q2, scalar_path=True)
+        return np.where(
+            q2 > 0, -ueg_model.n_ele * q2 * u ** 2 / ueg_model.Omega ** 2,
+            0.0)
+    if integral_flags.get("is_only_hermi_2b"):
+        # Coulomb + Σ∇u·∇u convolution + q²u(q²): all transfer-only
+        u = _call_correlator(correlator, q2, scalar_path=True)
+        ueg_model.correlator = correlator
+        u_mat = ueg_model._sum_nabla_u_squared(
+            q_vecs.reshape(-1, 1, 3), None).reshape(-1)
+        return np.where(q2 > 0, (coul + u_mat + q2 * u) / ueg_model.Omega,
+                        u_mat / ueg_model.Omega)
+    raise NotImplementedError(
+        "gather plans support the Coulomb, RPA-approx and hermitian-TC "
+        "integral classes (transfer-only weights); for the non-hermitian "
+        "classes use build_block_ladder, whose sector blocks carry the "
+        "(c,d)-dependent term")
+
+
+def _nh_flags(integral_flags):
+    """Split the integral flags of a NON-HERMITIAN class into the
+    transfer-only base class + a marker to add the −(kp_c−kp_d)·q·u(q²)/Ω
+    sector term (reference ``pymes/model/ueg.py:441-470``).  Returns
+    (base_flags | None, needs_nh)."""
+    f = dict(integral_flags)
+    if f.pop("is_only_2b", False):
+        # hermitian base (coul + Σ∇u·∇u + q²u) + the nh term
+        f["is_only_hermi_2b"] = True
+        return f, True
+    if f.pop("is_only_non_hermi_2b", False):
+        # coulomb base + the nh term (matches eval_2b_integrals: at q=0
+        # the class value is 0)
+        return (f or None), True
+    return integral_flags, False
+
+
+def _sector_nh(ueg_model, tvec_int, kcd_int, correlator):
+    """Non-hermitian sector term ``nh[i,j] = −(kp_c−kp_d)·q·u(q²)/Ω`` with
+    q = tvec (the transfer k_c − k_p of the (bra_i, ket_j) element) and
+    (kp_c − kp_d) of ket pair j.  Twist shifts cancel in both differences,
+    so integer k arithmetic is exact."""
+    two_pi_L = 2.0 * np.pi / ueg_model.L
+    qv = tvec_int * two_pi_L                        # (mB_, mK_, 3)
+    q2 = np.einsum("ijx,ijx->ij", qv, qv)
+    u = _call_correlator(correlator, q2, scalar_path=True)
+    cd = kcd_int * two_pi_L                          # (mK_, 3)
+    return -np.einsum("jx,ijx->ij", cd, qv) * u / ueg_model.Omega
 
 
 def bra_of_row_from_inv_bra(shapes, inv_bra):
@@ -124,11 +183,16 @@ def plan_from_arrays(group_arrays, inv_bra, n_bra, nv, w0, device):
         n_bra=int(n_bra), nv=int(nv), w0=float(w0), packed=packed)
 
 
-def build_block_ladder(ueg_model, device, bra="virtual", pad_sectors=1):
+def build_block_ladder(ueg_model, device, correlator=None, bra="virtual",
+                       pad_sectors=1, **integral_flags):
     """Build a :class:`BlockLadder` on ``device`` (host numpy build, the
     algorithm of ``pymes_tpu.ops.ueg_ladder.build_block_ladder`` with
-    ``preslice=None`` and the Coulomb weights; its leaves are held identical
-    by the tests).
+    ``preslice=None``; its leaves are held identical by the tests).
+
+    ``correlator`` and ``integral_flags`` select the integral class as in
+    ``UEG.eval_2b_integrals``: every transfer-only class, plus the
+    non-hermitian ``is_only_2b`` / ``is_only_non_hermi_2b``, whose
+    (c,d)-dependent term is added to the sector blocks here.
 
     ``bra="virtual"`` spans virtual bra pairs (the CCD ladder); ``"all"``
     spans all orbitals on the bra side.  ``pad_sectors`` rounds every
@@ -154,12 +218,18 @@ def build_block_ladder(ueg_model, device, bra="virtual", pad_sectors=1):
     K_ket = enc((k_ket[:, None, :] + k_ket[None, :, :]).reshape(-1, 3))
     K_bra = enc((k_bra[:, None, :] + k_bra[None, :, :]).reshape(-1, 3))
 
-    # weight table over the transfer cube t = k_c − k_p
+    # weight table over the transfer cube t = k_c − k_p.  Non-hermitian TC
+    # classes split into a transfer-only base + the (c,d)-dependent sector
+    # term added below; with a Coulomb base the correlator is dropped.
+    base_flags, needs_nh = _nh_flags(integral_flags)
     tmax = int(np.abs(k_ket[:, None, :] - k_bra[None, :, :]).max())
     grid = np.arange(-tmax, tmax + 1)
     T3 = np.stack(np.meshgrid(grid, grid, grid, indexing="ij"),
                   axis=-1).reshape(-1, 3)
-    wtab = _transfer_weights(ueg_model, T3).reshape(
+    wtab = _transfer_weights(ueg_model, T3,
+                             None if (needs_nh and not base_flags)
+                             else correlator,
+                             **(base_flags or {})).reshape(
         2 * tmax + 1, 2 * tmax + 1, 2 * tmax + 1)
 
     def w_of(tvec):
@@ -196,6 +266,10 @@ def build_block_ladder(ueg_model, device, bra="virtual", pad_sectors=1):
             tvec = (k_ket[ket_ids // nv][None, :, :]
                     - k_bra[bra_ids // n_bra][:, None, :])
             blocks[t, :nb_, :nk_] = w_of(tvec)
+            if needs_nh:
+                kcd = k_ket[ket_ids // nv] - k_ket[ket_ids % nv]
+                blocks[t, :nb_, :nk_] += _sector_nh(ueg_model, tvec, kcd,
+                                                    correlator)
             perm_ket[t, :nk_] = ket_ids
             inv_bra[bra_ids] = col0 + t * mB + np.arange(nb_)
         group_arrays.append((blocks, perm_ket))
@@ -341,12 +415,14 @@ class OVVVPlan(NamedTuple):
     W: torch.Tensor   # (n0, n2) f64 — w(k_r − k_p)
 
 
-def build_ovvv_t1_plan(ueg_model, ranges, device):
+def build_ovvv_t1_plan(ueg_model, ranges, device, correlator=None,
+                       **integral_flags):
     """Build an :class:`OVVVPlan` on ``device`` for leading-axis orbital
     ``ranges`` (3-char string of 'o'/'v'/'a'; the contracted 4th axis is
     virtual).  Host numpy, the algorithm of
-    ``pymes_tpu.ops.ueg_ladder.build_ovvv_t1_plan`` with the Coulomb
-    weights."""
+    ``pymes_tpu.ops.ueg_ladder.build_ovvv_t1_plan``; the weights take the
+    transfer-only classes (:func:`_transfer_weights`, which raises
+    ``NotImplementedError`` for the non-hermitian ones)."""
     dev = resolve_device(device)
     no = ueg_model.n_ele // 2
     k_int = ueg_model.basis.k_int
@@ -360,17 +436,19 @@ def build_ovvv_t1_plan(ueg_model, ranges, device):
 
     d = (k2[None, :, :] - k0[:, None, :]).reshape(-1, 3)
     q_vecs, inv = np.unique(d, axis=0, return_inverse=True)
-    W = _transfer_weights(ueg_model, q_vecs)[inv].reshape(len(k0), len(k2))
+    w = _transfer_weights(ueg_model, q_vecs, correlator, **integral_flags)
+    W = w[inv.reshape(-1)].reshape(len(k0), len(k2))
     return OVVVPlan(
         S=torch.as_tensor(S.astype(np.int32), device=dev),
         W=torch.as_tensor(W, dtype=torch.float64, device=dev))
 
 
-def build_ovvv_plans(ueg_model, device):
+def build_ovvv_plans(ueg_model, device, correlator=None, **integral_flags):
     """The three ovvv gather plans the matrix-free CCSD dressing needs
     (leading-range patterns vvo/ovv/vov), keyed for
     ``dict_t_V["_ovvv_plans"]``."""
-    return {pat: build_ovvv_t1_plan(ueg_model, pat, device)
+    return {pat: build_ovvv_t1_plan(ueg_model, pat, device, correlator,
+                                    **integral_flags)
             for pat in ("vvo", "ovv", "vov")}
 
 

@@ -1,11 +1,14 @@
-"""CCD / DCD (+ Brueckner) ground-state solver, occupied-leading layout.
+"""CCD / DCD / drCCD (+ Brueckner) ground-state solver, occupied-leading
+layout.
 
 Counterpart of ``pymes_tpu/solver/ccd.py`` for the ``ijab`` loop layout:
 ``CCDBlocks``/``CCDBlocksIJ``/``blocks_ij_from``, ``doubles_residual_ij``
 with the dense-``abcd`` and matrix-free-ladder branches and the
 ``is_dcd``/``is_bruekner`` flags, ``ccd_energy_ij``, the fixed point
 :func:`ccd_solve` (the ``ccd_solve_jit`` body as a Python loop) and the
-:class:`CCD` API.
+:class:`CCD` API.  With ``is_dr_ccd`` the residual is the direct-ring one
+of :mod:`pymes_tpu_torch.solver.drccd` (which needs no ladder) and the
+energy its direct part.
 
 The ring and exchange contractions are plain f64 products (``torch.einsum``,
 cuBLAS DGEMM on the card).  The particle-particle ladder runs through
@@ -27,8 +30,8 @@ With ``ring_mesh`` the JAX package's default loop is the abij layout
 (``pymes_tpu/solver/ccd.py:617-621``); the port keeps its ijab loop, whose
 math is identical (``tests/test_ccd_layout.py``).
 
-Not ported: the ``abij`` loop layout, drCCD, the Ozaki/sliced contraction
-modes and mixed precision.
+Not ported: the ``abij`` loop layout, the Ozaki/sliced contraction modes
+and mixed precision.
 """
 
 from typing import NamedTuple
@@ -44,7 +47,7 @@ from pymes_tpu_torch.ops.ueg_ladder import (dressed_ladder_apply_ij,
                                             ladder_apply_ij)
 from pymes_tpu_torch.parallel.mesh import Sharded
 from pymes_tpu_torch.parallel.ring_ladder import ring_ladder_inside_ij
-from pymes_tpu_torch.solver import mp2
+from pymes_tpu_torch.solver import drccd, mp2
 
 
 class CCDBlocks(NamedTuple):
@@ -185,7 +188,7 @@ def ccd_energy_ij(t_T_ijab, t_V_ijab, t_V_ijab_x):
 def ccd_solve(t_fock_pq, blocks: CCDBlocks, no, t_T0_abij,
               level_shift=0.0, delta_e=1e-8, max_iter=50, is_dcd=False,
               is_diis=True, is_bruekner=False, dim_space=6, twin=False,
-              ring_mesh=None, ring_axis="a"):
+              ring_mesh=None, ring_axis="a", is_dr_ccd=False):
     """CCD fixed point, Jacobi + DIIS, T2 carried ``[i,j,a,b]``.
 
     Loop semantics of ``pymes_tpu.solver.ccd.ccd_solve_jit``: iterate while
@@ -197,7 +200,9 @@ def ccd_solve(t_fock_pq, blocks: CCDBlocks, no, t_T0_abij,
     the ladder and the tail through the plain twins (on-card comparison).
     ``ring_mesh`` runs the ladder as the ring over the mesh on
     ``blocks.abcd`` cut on axis 0 (``pymes_tpu/solver/ccd.py:405-410``); the
-    loop runs on ``ring_mesh.devices[0]``.
+    loop runs on ``ring_mesh.devices[0]``.  ``is_dr_ccd`` runs the drCCD
+    residual (no ladder: a plan or ``ring_mesh`` with it raises) and takes
+    the direct energy alone (``pymes_tpu/solver/ccd.py:543-549``).
 
     Returns ``(e_corr, T_abij, eps_i, eps_a, dE, n_iter, e_hist)`` with
     device tensors and ``n_iter`` a Python int.
@@ -207,7 +212,10 @@ def ccd_solve(t_fock_pq, blocks: CCDBlocks, no, t_T0_abij,
     eps_a0 = torch.diagonal(t_fock_pq)[no:].contiguous()
     f_ab = t_fock_pq[no:, no:]
     f_ij = t_fock_pq[:no, :no]
-    if blocks.abcd is None and blocks.ladder is None:
+    if is_dr_ccd and (blocks.ladder is not None or ring_mesh is not None):
+        raise ValueError("drCCD has no ladder: pass neither a ladder plan "
+                         "nor ring_mesh")
+    if not is_dr_ccd and blocks.abcd is None and blocks.ladder is None:
         raise ValueError("need the dense abcd block or a ladder plan")
     if ring_mesh is not None and (blocks.ladder is not None
                                   or blocks.abcd is None):
@@ -236,9 +244,13 @@ def ccd_solve(t_fock_pq, blocks: CCDBlocks, no, t_T0_abij,
     while it <= max_iter:
         if delta_e >= 0 and not float(torch.abs(dE)) > delta_e:
             break
-        R = doubles_residual_ij(f_ab, f_ij, T, V_ij, is_dcd=is_dcd,
-                                is_bruekner=is_bruekner, twin=twin,
-                                ring_mesh=ring_mesh, ring_axis=ring_axis)
+        if is_dr_ccd:
+            R = drccd.residual(eps_i, eps_a, T, blocks.abij, blocks.iabj,
+                               blocks.ijab)
+        else:
+            R = doubles_residual_ij(f_ab, f_ij, T, V_ij, is_dcd=is_dcd,
+                                    is_bruekner=is_bruekner, twin=twin,
+                                    ring_mesh=ring_mesh, ring_axis=ring_axis)
         if is_bruekner:
             # quasi-particle energies from the CURRENT amplitudes on top of
             # the canonical ε₀ (as the JAX package; the reference compounds
@@ -264,7 +276,8 @@ def ccd_solve(t_fock_pq, blocks: CCDBlocks, no, t_T0_abij,
                                count=state.count + 1, B=B)
         e_dir, e_exc = ccd_tail.diis_mix_energy(
             state.amps, coeff, n_valid, T, V_ij.ijab, V_ij.ijab_x, twin=twin)
-        e = e_dir + e_exc
+        # drCCD/dRPA energy is the direct ring alone
+        e = e_dir if is_dr_ccd else e_dir + e_exc
         dE = e - e_last
         e_last = e
         e_hist[min(it, max_iter)] = e
@@ -288,12 +301,13 @@ class CCD:
     other sharded block is gathered onto ``device``."""
 
     def __init__(self, no, device, delta_e=1e-8, is_dcd=False, is_diis=True,
-                 is_bruekner=False):
+                 is_dr_ccd=False, is_bruekner=False):
         self.no = int(no)
         self.device = resolve_device(device)
         self.delta_e = delta_e
         self.is_dcd = is_dcd
         self.is_diis = is_diis
+        self.is_dr_ccd = is_dr_ccd
         self.is_bruekner = is_bruekner
         self.max_iter = 50
         self.dim_space = 6
@@ -327,6 +341,7 @@ class CCD:
         eps_a = torch.diagonal(t_fock_pq)[no:]
         print_logging_info("ccd.solve")
         print_logging_info("Using DCD: ", self.is_dcd, level=1)
+        print_logging_info("Using dr-CCD: ", self.is_dr_ccd, level=1)
         print_logging_info("Using DIIS mixer: ", self.is_diis, level=1)
         print_logging_info("Using Brueckner: ", self.is_bruekner, level=1)
 
@@ -342,7 +357,7 @@ class CCD:
             delta_e=delta_e, max_iter=max_iter, is_dcd=self.is_dcd,
             is_diis=self.is_diis, is_bruekner=self.is_bruekner,
             dim_space=self.dim_space, ring_mesh=ring_mesh,
-            ring_axis=ring_axis)
+            ring_axis=ring_axis, is_dr_ccd=self.is_dr_ccd)
         if n_iter > max_iter:
             print_logging_info("A converged solution is not found!", level=1)
         print_logging_info(

@@ -897,3 +897,58 @@ def test_krylov_combine_xr_kernel_matches_twin(device, with_x0):
     for a, b, c in zip(got, again, want):
         assert torch.equal(a, b)
         _close(a, c)
+
+
+def _tc_model(cutoff, rs=0.5):
+    """The transcorrelated UEG of ``chip_smoke.py`` phase 18: gaskell with
+    ``k_cutoff`` as ``tests/test_ueg.py:114``."""
+    u = ueg.UEG(14, 7, 7, rs)
+    u.init_single_basis(cutoff)
+    u.gamma = None
+    u.k_cutoff = u.L / (2 * np.pi) * 2.3225029893472993 / rs
+    return u
+
+
+@pytest.mark.parametrize("flags", [{"is_only_2b": True},
+                                   {"is_only_non_hermi_2b": True},
+                                   {"is_only_hermi_2b": True}],
+                         ids=lambda f: next(iter(f)))
+@pytest.mark.parametrize("bra", ["virtual", "all"])
+def test_block_ladder_kernel_matches_twin_on_tc_plans(device, bra, flags):
+    """K1 on the TC sector blocks (the non-hermitian term added at build
+    time), through the ijab and the cd-major entries; the all-bra
+    non-hermitian plan is the one a transposed block would fail."""
+    u = _tc_model(5)
+    plan = ueg_ladder.build_block_ladder(u, device, correlator=u.gaskell,
+                                         bra=bra, **flags)
+    nv = u.n_spatial - NO
+    T = _randn(np.random.default_rng(29), (NO, NO, nv, nv), device)
+    before = kernels.LAUNCHES["block_ladder"]
+    got = ueg_ladder.block_ladder_apply_ij(plan, T)
+    want = ueg_ladder.block_ladder_apply_ij(plan, T, twin=True)
+    assert kernels.LAUNCHES["block_ladder"] == before + 1
+    _close(got, want)
+    Tab = T.permute(2, 3, 0, 1).contiguous()
+    _close(ueg_ladder.block_ladder_apply(plan, Tab),
+           ueg_ladder.block_ladder_apply(plan, Tab, twin=True))
+
+
+@pytest.mark.parametrize("ncol", [7, 14, 896])
+@pytest.mark.parametrize("pat", ["vvo", "ovv", "vov"])
+def test_ovvv_gather_kernel_matches_twin_on_tc_plans(device, pat, ncol):
+    """K4 on the hermitian-TC OVVV plans (their W carries the Σ∇u·∇u
+    convolution and q²u): bit for bit, and the fused trace to 1e-12."""
+    u = _tc_model(5)
+    plan = ueg_ladder.build_ovvv_t1_plan(u, pat, device, u.gaskell,
+                                         is_only_hermi_2b=True)
+    nv = u.n_spatial - NO
+    T1 = _columns(np.random.default_rng(ncol), nv, ncol, device)
+    got = k4.ovvv_gather(plan.S, plan.W, T1)
+    want = k4.ovvv_gather(plan.S, plan.W, T1, twin=True)
+    torch.cuda.synchronize()
+    assert float(want.abs().max()) > 0 and torch.equal(got, want)
+    axis = {"vov": 1, "ovv": 0}.get(pat)
+    if axis is not None and ncol == 7:
+        T1o = _randn(np.random.default_rng(3), (nv, NO), device)
+        _close(ueg_ladder.ovvv_t1_trace(plan, T1o, axis),
+               ueg_ladder.ovvv_t1_trace(plan, T1o, axis, twin=True))
