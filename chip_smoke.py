@@ -41,7 +41,11 @@ Drives the port's main paths through its own kernels:
   carry the non-hermitian term, and hermitian-TC (``is_only_hermi_2b``)
   matrix-free CCSD on the all-bra plan and TC OVVV plans with the seeded
   non-canonical Fock, each against the JAX package's energy;
-* drCCD — nP=57 on the dense blocks, against the JAX package's energy.
+* drCCD — nP=57 on the dense blocks, against the JAX package's energy;
+* the utilities — solvers built through ``configs`` (on the card by
+  default), a checkpointed and resumed mf-CCSD, the twist-averaged mf-CCD
+  over the irreducible twists of the 3³ mesh, the structure factor, the
+  roofline line, the three examples and the observability helpers.
 
 Kernels: K1 ``block_ladder`` (CUDA C++ on the f64 tensor cores, built with
 nvcc for sm_90a at first use), K4 ``ovvv_gather`` and its fused trace
@@ -104,7 +108,24 @@ energies must lie within 1e-10 of the matrix-free ones, the hermitian-TC
 mf-CCSD (4 K4 gathers and 2 traces an iteration) and drCCD at nP=57 (one
 K2 and one K3 an iteration) within 1e-9 of the JAX package, then ms per
 iteration of the fixed-61-iteration TC mf-CCD (kernels and twins) and K1
-and K4 per call on the TC plans. Prints a JSON line of the kernels
+and K4 per call on the TC plans; (19) the utilities slice: the nP=219 model
+and CCD solver built through ``configs`` (the solver with no device
+argument, so on the card) and its mf-CCD within 1e-9 of the JAX package
+(one K1, K2, K3 and K5 launch an iteration), the seeded non-canonical
+mf-CCSD stopped after 3 iterations, checkpointed, loaded (T1, T2
+bit-equal) and resumed to |dE| < 1e-10 within 1e-9 of the JAX package (4
+K4 gathers, 2 traces and one K1, K2', K3' and K5 an iteration), the mf-CCD
+at the four irreducible twists of the 3³ mesh (each within 1e-9 of
+``tools/pin_twist_jax.py``'s JAX energy in its iteration count, the
+weighted mean within 1e-9), S(q) and g(r) of the Γ T2 on the card against
+the CPU (1e-12 relative), the achieved f64 TFLOP/s of phase 5's wall of
+the fixed-61-iteration mf-CCD (``util/flops.py``, ``util/roofline.py``),
+the three examples against the JAX package's, and last, after every timed
+wall, a ``RunRecord`` line per solve of the phase read back and a
+``profile`` of three fixed CCD iterations whose trace must hold card
+kernels.  Every bound comes from the helpers of
+``pymes_tpu_torch/util/roofline.py``.
+Prints a JSON line of the kernels
 (launches, errors, the TC and drCCD runs as sub-entries,
 times, bounds at the H100's HBM and FP64 peaks, the library call where one
 computes the same function), the nvidia-smi line, and as the
@@ -122,6 +143,11 @@ import time
 from pathlib import Path
 
 import numpy as np
+
+from pymes_tpu_torch.util import roofline
+from pymes_tpu_torch.util.roofline import (bound, diag_bound, gather_bound,
+                                           krylov_bounds, ladder_bound,
+                                           ring_bound)
 
 NO = 7
 NEED = ("klij", "ijab", "abij", "iajb", "iabj", "aibj", "aijb", "ijka",
@@ -222,6 +248,32 @@ TC_DENSE_ITERS = 6
 # shift -1, |dE| < 1e-8
 E_JAX_DRCCD_NP57 = -0.7314109497312941
 N_IT_JAX_DRCCD_NP57 = 6
+# phase 19, the utilities slice: the JAX package's numbers, f64 on a CPU
+# (tools/pin_twist_jax.py).  The mf-CCD of UEG 14e, rs 0.5, cutoff 14 at
+# each irreducible twist of the 3³ mesh (virtual plan, DIIS, shift -1,
+# |dE| < 1e-8): (twist, nP, energy, iterations), and the weighted mean
+TWIST_JAX = (((0.0, 0.0, 0.0), 219, -0.5767206765319415, 6),
+             ((1 / 3, 0.0, 0.0), 220, -0.5448115310820241, 6),
+             ((1 / 3, 1 / 3, 0.0), 223, -0.49275406858894916, 6),
+             ((1 / 3, 1 / 3, 1 / 3), 211, -0.41972932531408763, 5))
+TWIST_MEAN_JAX = -0.48579530698533985
+# the JAX package's examples: molecular_ccsd_eom on LiH/3-21G (CCSD to
+# |dE| < 1e-10; the two EOM roots of its default mixed-precision Davidson,
+# held to the 1e-8 Davidson threshold), rt_autocorrelation's first 3 steps
+# (c(t), held to 1e-7: both stop each node's GMRES at ls_conv_tol 1e-4,
+# the port in the real (Re, Im) embedding) and ueg_tc_twist_average at
+# mesh 3 ((HF, 3-body, MP2) at each twist, held to 1e-12 relative)
+EX_JAX = {
+    "ccsd e": -0.01908832710835842,
+    "roots": (0.11808671357228674, 0.15437620547278597),
+    "c(t)": ((0.9984662675277396, 0.055363459151542234),
+             (0.9938697775153073, 0.11055706825741096),
+             (0.9862246256770839, 0.16541157065965978)),
+    "tc": ((7.599236309977181, 1.3342935612415587, 0.8966527705433868),
+           (11.528177814967234, 1.0299809946426066, 0.07784744410953198),
+           (10.863082707418116, 1.1470242894883573, 0.18601607912696577),
+           (8.37787707517413, 1.2640675843341083, 0.05989899796060645)),
+}
 # FEAST at nP=57: the window of benchmarks/probe_r5_feast57b.py (e_c at the
 # 3-fold level of EOM_JAX[5], e_r excluding 5.2652816 and 5.2789029), f64
 # GMRES(120) x 6 on all 16 nodes x 4 trials as lanes.  GMRES stops on the
@@ -245,9 +297,6 @@ K4_LANES = {"FEAST": FEAST57["n_quad"] * FEAST57["n_trial"],
 # FEAST on LiH/3-21G (tests/test_feast_rt.py:183-201), against the oracle
 LIH_FEAST = dict(e_c=0.12, e_r=0.025, n_trial=2, max_iter=60, tol=1e-11,
                  seed=7)
-# H100 SXM peaks (NVIDIA's data sheet): HBM3 bandwidth and FP64 tensor rate
-HBM_BYTES_S = 3.35e12
-FP64_FLOPS_S = 67e12
 
 
 def check(cond, msg):
@@ -255,7 +304,10 @@ def check(cond, msg):
         raise AssertionError(msg)
 
 
-def setup(cutoff, device):
+def setup(cutoff, device, u=None):
+    """The matrix-free CCD inputs of UEG 14e, rs 0.5 at ``cutoff`` (or of
+    the model ``u``): the named blocks, the diagonal HF Fock, the virtual
+    ladder plan and the MP2 guess on the card."""
     import torch
 
     from pymes_tpu_torch.mean_field import hf
@@ -264,8 +316,9 @@ def setup(cutoff, device):
     from pymes_tpu_torch.solver import ccd, mp2
 
     t0 = time.time()
-    u = ueg.UEG(14, 7, 7, 0.5)
-    u.init_single_basis(cutoff)
+    if u is None:
+        u = ueg.UEG(14, 7, 7, 0.5)
+        u.init_single_basis(cutoff)
     idx, vals = u.eval_2b_integrals(sp=2)
     n_p = u.n_spatial
     d = ueg.sparse_to_blocks(idx, vals, n_p, NO, device, names=NEED)
@@ -957,17 +1010,6 @@ def time_eom_kernels(q, V, seed):
     return out
 
 
-def ladder_bound(plan, n):
-    """K1 on one plan at operand width n: the cd-major operand (nv², n)
-    read, the output (rows, n) written, the blocks and index arrays read
-    once; 2 flops a block element a column."""
-    pk = plan.packed
-    blocks = pk.blocks.numel()
-    idx = pk.perm.numel() + pk.bra_of_row.numel()
-    return bound(8 * (plan.nv ** 2 * n + pk.n_rows * n + blocks) + 4 * idx,
-                 2 * blocks * n)
-
-
 def time_ladder(p14, q, plan57, seed):
     """K1 per call beside its twin (plain, kernel, kernel, plain) at the
     widths its callers give it: the cd-major kernel alone at the CCD
@@ -1209,90 +1251,50 @@ def solve_fixed(p, twin, max_iter=60, blocks=None, ring_mesh=None):
             float(out[0]))
 
 
-def bound(nbytes, flops):
-    """(bound_ms, bound_by): the least time of a call that moves ``nbytes``
-    (each input read once, each output written once) and does ``flops``
-    f64 operations, at the H100's HBM and FP64 tensor peaks."""
-    t_b, t_f = nbytes / HBM_BYTES_S, flops / FP64_FLOPS_S
-    return max(t_b, t_f) * 1e3, "bytes" if t_b >= t_f else "operations"
-
-
-def krylov_bounds(La, m, n):
-    """K7 at La lanes, m valid rows, rows of n: the projection's bound
-    (each input read once), its three-pass floor (CGS2 must read the m
-    rows and w three times, and write w1 and row m) and the fused
-    combine's bound (the m rows and x0 read, x and r written), in ms."""
-    return {"bound": bound(8 * (La * m * n + 2 * La * n), 8 * La * m * n),
-            "floor_ms": 8 * (3 * La * m * n + 3 * La * n + 2 * La * n)
-            / HBM_BYTES_S * 1e3,
-            "combine": bound(8 * (La * m * n + 3 * La * n),
-                             4 * La * m * n)}
-
-
-def gather_bound(plan, nv, ncol):
-    """K4 on one plan at ``ncol`` columns: S (int32), W and the (nv, ncol)
-    T1 read once, the (ncol, n) output written; one multiply an
-    element."""
-    n = plan.S.numel()
-    return bound(4 * n + 8 * plan.W.numel() + 8 * nv * ncol + 8 * ncol * n,
-                 ncol * n)
-
-
-def diag_bound(plan, nv):
-    """K4's fused trace on one plan: S, W and T1 read once, the nv² trace
-    written; a multiply and an add per (p, q, r) entry."""
-    n = plan.S.numel()
-    return bound(4 * n + 8 * plan.W.numel() + 8 * nv * NO + 8 * nv * nv,
-                 2 * n)
-
-
-def ring_bound(ring):
-    """K9 at one ring step (M, N, K): the (N, K) V panel and T (M, K)
-    read, R (M, N) read and written; 2·M·N·K flops."""
-    M, N, K = ring["M"], ring["N"], ring["K"]
-    return bound(8 * (N * K + M * K + 2 * M * N), 2 * M * N * K)
-
-
 def kernel_bounds(p14, q, krylov, ring):
     """Bytes and flops of each kernel's timed call (the shapes of the
-    ``ms`` column of the JSON line), from this run's inputs: K1-K6 at
-    nP=219, K7/K8 at the FEAST nP=57 lane shapes of ``krylov``, K9 at the
-    nP=219 ring step of ``ring`` (M, N, K)."""
+    ``ms`` column of the JSON line), from this run's inputs, through the
+    helpers of ``util/roofline.py``: K1-K6 at nP=219, K7/K8 at the FEAST
+    nP=57 lane shape of ``krylov`` (La lanes, m valid rows, rows of n), K9
+    at the nP=219 ring step of ``ring`` (M, N, K).  The kernels other than
+    K1 and K9 run on the CUDA cores: their operations count at the FMA
+    rate."""
     nv = p14["nv"]
     n = NO * NO * nv * nv                      # one T2
     nc = nv * NO + n                            # the CCSD carry [T1 | T2]
     plans = q["mf_dict"]["_ovvv_plans"]
     gathers = [gather_bound(p, nv, NO) for p in plans.values()]
-    traces = [diag_bound(plans[pat], nv) for pat, _ in DIAG_PLANS]
-    N = nv * NO + n
-    La, R1, m, n2 = krylov["La"], krylov["R1"], krylov["m"], krylov["n"]
+    traces = [diag_bound(plans[pat], nv, NO) for pat, _ in DIAG_PLANS]
+    La, m, n2 = krylov["La"], krylov["m"], krylov["n"]
+    fma = roofline.FP64_FMA_FLOPS_S
     return {
         # T read, R written, the plan's blocks and index arrays read once
         "block_ladder": ladder_bound(p14["blocks"].ladder, NO * NO),
         # R, T and the 5 other valid error rows read; 2 ring rows written
-        "ccd_jacobi_diis": bound(8 * 9 * n, 17 * n),
+        "ccd_jacobi_diis": bound(8 * 9 * n, 17 * n, fma),
         # 6 ring rows, V and Vx read; T written
-        "ccd_mix_energy": bound(8 * 9 * n, 16 * n),
-        # the mean over the three plans at the dressing's 7 columns
+        "ccd_mix_energy": bound(8 * 9 * n, 16 * n, fma),
+        # the mean over the OVVV plans at the dressing's NO columns
         "ovvv_gather": (float(np.mean([b[0] for b in gathers])),
                         gathers[0][1]),
-        # the mean over the vov and ovv plans
+        # the mean over the traced plans
         "ovvv_gather_diag": (float(np.mean([b[0] for b in traces])),
                              traces[0][1]),
-        "ccsd_jacobi_diis": bound(8 * 9 * nc, 17 * nc),
-        "ccsd_mix_energy": bound(8 * 9 * nc, 16 * nc),
+        "ccsd_jacobi_diis": bound(8 * 9 * nc, 17 * nc, fma),
+        "ccsd_mix_energy": bound(8 * 9 * nc, 16 * nc, fma),
         # EOM sigma operand (2, nv, nv, no, no): X read, out written
-        "pair_symmetrize": bound(8 * 2 * 2 * n, 2 * n),
+        "pair_symmetrize": bound(8 * 2 * 2 * n, 2 * n, fma),
         # the CCD/CCSD residual (no, no, nv, nv): X and Y read, out written
-        "pair_symmetrize ijab+Y": bound(8 * 3 * n, 2 * n),
+        "pair_symmetrize ijab+Y": bound(8 * 3 * n, 2 * n, fma),
         # 16 valid rows of U and W, diag read; k = 2 rows written
-        "davidson_residual": bound(8 * (2 * 16 * N + N + 2 * N),
-                                   2 * N * (4 * 16 + 4)),
+        "davidson_residual": bound(8 * (2 * 16 * nc + nc + 2 * nc),
+                                   2 * nc * (4 * 16 + 4), fma),
         # the m valid basis rows and w read, row m written (CGS2 itself
         # must read V three times: krylov_bounds' floor_ms)
         "arnoldi_cgs2": krylov_bounds(La, m, n2)["bound"],
         # H (2La, N), x (La, 2N), diag read; the pair (La, 2N) written
-        "shifted_precond": bound(8 * (3 * La * n2 + n2 // 2), 20 * La * n2),
+        "shifted_precond": bound(8 * (3 * La * n2 + n2 // 2), 20 * La * n2,
+                                 fma),
         "ring_step": ring_bound(ring),
     }
 
@@ -2370,6 +2372,306 @@ def tc_phase(problems, device, card, launches, compare):
     return tc_sub
 
 
+def counted_exactly(label, run, launches):
+    """A counted window (as :func:`path_launches`) whose launches must
+    equal, kernel by kernel, the counts that ``run`` returns (0 for every
+    kernel it does not name); added to ``launches``."""
+    from pymes_tpu_torch import kernels
+
+    kernels.reset_launches()
+    want = run()
+    got = dict(kernels.LAUNCHES)
+    print(f"launches on the {label} path: {got}", flush=True)
+    want = {k: want.get(k, 0) for k in got}
+    check(got == want, f"{label}: launches {got}, expected {want}")
+    launches[label] = got
+
+
+def configs_mf_ccd(device, launches, records):
+    """19a: the nP=219 model and solver built through ``configs`` (the
+    solver with no device argument: the card by default), the mf-CCD in
+    a counted window, one K1, K2, K3 and K5 launch an iteration."""
+    import torch
+
+    from pymes_tpu_torch import configs
+
+    u = configs.UEGConfig(n_ele=14, rs=0.5, cutoff=14).make()
+    p = setup(14, device, u=u)
+    solver = configs.GroundStateConfig(no=NO, max_iter=60).make_ccd()
+    check(solver.device == torch.device("cuda"),
+          f"configs built the solver on {solver.device}, not the card")
+    out = {}
+
+    def run():
+        t0 = time.perf_counter()
+        res = out["res"] = solver.solve(p["fock"], p["blocks"],
+                                        level_shift=-1.0)
+        wall = time.perf_counter() - t0
+        e, n = res["ccd e"], len(res["e history"])
+        check(abs(e - E_JAX[14]) <= 1e-9 and n == 6,
+              f"configs mf-CCD nP={p['nP']}: E={e!r} in {n} iterations vs "
+              f"JAX {E_JAX[14]} in 6")
+        records.append(("ccd", f"configs mf-CCD nP={p['nP']}", res, wall))
+        print(f"configs mf-CCD nP={p['nP']} (solver on {solver.device}): "
+              f"E={e:.13f} in {n} iterations, |E - E_jax|="
+              f"{abs(e - E_JAX[14]):.2e}, {wall:.3f} s", flush=True)
+        return {k: n for k in CCD_KERNELS}
+
+    counted_exactly("configs mf-CCD", run, launches)
+    return p, out["res"]
+
+
+def resume_mf_ccsd(q, device, tmp, launches, records):
+    """19b: the seeded non-canonical mf-CCSD at nP=219 stopped after 3
+    iterations, checkpointed and loaded (T1, T2 bit-equal), then resumed
+    through ``amps=`` to |dE| < 1e-10 in a counted window: 4 K4 gathers,
+    2 traces and one each of K1, K2', K3' and K5 an iteration."""
+    import dataclasses
+    import os
+
+    from pymes_tpu_torch.solver import ccsd
+    from pymes_tpu_torch.util import checkpoint
+
+    fock = q["focks"]["non-canonical"]
+    kw = dict(level_shift=-1.0, ladder=q["plan_all"], delta_e=1e-10)
+    part = ccsd.CCSD(NO, device).solve(fock, q["mf_dict"], max_iter=2, **kw)
+    n0 = len(part["e history"])
+    check(n0 == 3, f"the stopped mf-CCSD ran {n0} iterations, not 3")
+    ck = dataclasses.replace(checkpoint.from_result(
+        part, meta={"system": f"UEG 14e rs 0.5 nP={q['nP']}"}),
+        iteration=n0)
+    base = os.path.join(tmp, "mf_ccsd")
+    t0 = time.perf_counter()
+    checkpoint.save(base, ck)
+    t_save = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ck = checkpoint.load(base)
+    t_load = time.perf_counter() - t0
+    size = os.path.getsize(base + ".npz") + os.path.getsize(base + ".json")
+    check(np.array_equal(ck.t1, part["t1"].cpu().numpy())
+          and np.array_equal(ck.t2, part["t2"].cpu().numpy())
+          and ck.iteration == n0,
+          "the loaded checkpoint differs from the saved amplitudes")
+
+    def run():
+        t0 = time.perf_counter()
+        res = ccsd.CCSD(NO, device).solve(fock, q["mf_dict"], max_iter=100,
+                                          amps=ck.amps, **kw)
+        wall = time.perf_counter() - t0
+        e, n = res["ccsd e"], len(res["e history"])
+        err = abs(e - E_JAX_CCSD_NONCANONICAL)
+        check(err <= 1e-9, f"resumed mf-CCSD: E={e!r} vs JAX "
+              f"{E_JAX_CCSD_NONCANONICAL}")
+        records.append(("ccsd", f"resumed mf-CCSD nP={q['nP']}", res, wall))
+        print(f"mf-CCSD nP={q['nP']} (non-canonical) checkpoint: {n0} "
+              f"iterations before, {n} after the resume, E={e:.13f}, "
+              f"|E - E_jax|={err:.2e}; save {t_save:.4f} s, load "
+              f"{t_load:.4f} s, {size} bytes (npz + json)", flush=True)
+        return {"ovvv_gather": 4 * n, "ovvv_gather_diag": 2 * n,
+                **{k: n for k in ("block_ladder", "ccsd_jacobi_diis",
+                                  "ccsd_mix_energy", "pair_symmetrize")}}
+
+    counted_exactly("resumed mf-CCSD", run, launches)
+
+
+def twist_average(device, launches, records):
+    """19c: the mf-CCD at each irreducible twist of the 3³ mesh through
+    ``configs`` (the host set-up of all four before the counted window),
+    each against its JAX pin, and the weighted mean."""
+    import torch
+
+    from pymes_tpu_torch import configs
+    from pymes_tpu_torch.util import kpoints
+
+    ks, weights = kpoints.gen_ir_ks(3)
+    check(len(ks) == len(TWIST_JAX) and all(
+        np.array_equal(k, pin[0]) for k, pin in zip(ks, TWIST_JAX)),
+        f"irreducible twists {ks.tolist()}")
+    ps = []
+    for k in ks:
+        t0 = time.time()
+        u = configs.UEGConfig(n_ele=14, rs=0.5, cutoff=14,
+                              k_shift=tuple(k)).make()
+        ps.append(setup(14, device, u=u))
+        gap = float(ps[-1]["eps_a"].min() - ps[-1]["eps_i"].max())
+        print(f"twist {np.round(k, 4).tolist()}: nP={ps[-1]['nP']}, HF gap "
+              f"{gap:.4f} Ha, host set-up {time.time() - t0:.2f} s",
+              flush=True)
+    solver = configs.GroundStateConfig(no=NO, max_iter=60).make_ccd()
+    energies = []
+
+    def run():
+        n_all = 0
+        for p, (k, n_p, e_pin, n_pin) in zip(ps, TWIST_JAX):
+            t0 = time.perf_counter()
+            res = solver.solve(p["fock"], p["blocks"], level_shift=-1.0)
+            wall = time.perf_counter() - t0
+            e, n = res["ccd e"], len(res["e history"])
+            check(p["nP"] == n_p and n == n_pin and abs(e - e_pin) <= 1e-9,
+                  f"twist {k}: nP={p['nP']} E={e!r} in {n} iterations vs "
+                  f"JAX nP={n_p} {e_pin} in {n_pin}")
+            check(bool(torch.isfinite(res["t2 amp"]).all()),
+                  f"twist {k}: amplitudes not finite")
+            energies.append(e)
+            n_all += n
+            records.append(("ccd", f"twist {k} mf-CCD nP={n_p}", res, wall))
+            print(f"twist {np.round(k, 4).tolist()} mf-CCD nP={n_p}: "
+                  f"E={e:.13f} in {n} iterations, |E - E_jax|="
+                  f"{abs(e - e_pin):.2e}, {wall:.3f} s", flush=True)
+        return {k: n_all for k in CCD_KERNELS}
+
+    counted_exactly("twist-averaged mf-CCD", run, launches)
+    mean = float(np.dot(weights, energies))
+    check(abs(mean - TWIST_MEAN_JAX) <= 1e-9,
+          f"twist mean {mean!r} vs JAX {TWIST_MEAN_JAX}")
+    print(f"twist-averaged mf-CCD (3³ mesh, weights "
+          f"{[round(float(w), 4) for w in weights]}): E={mean:.13f}, "
+          f"|E - E_jax|={abs(mean - TWIST_MEAN_JAX):.2e}", flush=True)
+
+
+def structure_factor_check(p, T2):
+    """19d: S(q) and g(r) of the converged Γ T2 on the card and from
+    ``T2.cpu()``, within 1e-12 relative."""
+    from pymes_tpu_torch.util import structure_factor as sf
+
+    u = p["ueg"]
+    q, S = sf.calcReciprocalSpaceStructureFactor(u, T2)
+    q_h, S_h = sf.calcReciprocalSpaceStructureFactor(u, T2.cpu())
+    r = np.linspace(0.1, 5.0, 50)
+    g = sf.calcRealSpaceStructureFactor(r, u, T2)
+    g_h = sf.calcRealSpaceStructureFactor(r, u, T2.cpu())
+    e_s = float(np.abs(S - S_h).max() / np.abs(S_h).max())
+    e_g = float(np.abs(g - g_h).max() / np.abs(g_h).max())
+    check(np.array_equal(q, q_h) and e_s <= 1e-12 and e_g <= 1e-12
+          and np.isfinite(S).all() and np.isfinite(g).all(),
+          f"structure factor card vs CPU: S {e_s:.2e}, g {e_g:.2e}")
+    print(f"structure factor of the Γ mf-CCD T2 (nP={p['nP']}): {len(q)} "
+          f"transfer vectors, card vs CPU S(q) {e_s:.2e}, g(r) {e_g:.2e} "
+          "relative", flush=True)
+
+
+def roofline_line(p, wall, card):
+    """19e: achieved f64 TFLOP/s of the fixed-61-iteration mf-CCD at
+    nP=219, from ``util/flops.ccd_ij_iteration_flops`` on its plan and
+    ``wall``, phase 5's (ms per iteration, iterations), the min of 5 taken
+    before any profiler session."""
+    from pymes_tpu_torch.util import flops
+
+    f = flops.ccd_ij_iteration_flops(NO, p["nv"], p["blocks"].ladder)
+    ms, n_fixed = wall
+    print(f"[{card}] " + roofline.report(
+        f"nP={p['nP']} fixed-{n_fixed}-iteration mf-CCD (phase 5, min of "
+        f"5), "
+        f"{f / 1e9:.3f} GFLOP an iteration", ms / 1e3, f), flush=True)
+
+
+def examples_run(device, tmp, launches):
+    """19f: each example's ``main`` once on the card at its own size,
+    against the JAX package's examples (``EX_JAX``)."""
+    import os
+
+    from pymes_tpu_torch.examples import (molecular_ccsd_eom,
+                                          rt_autocorrelation,
+                                          ueg_tc_twist_average)
+    from pymes_tpu_torch.util import checkpoint
+
+    def run():
+        t0 = time.time()
+        base = os.path.join(tmp, "lih_ccsd")
+        mol = molecular_ccsd_eom.main(device=device, checkpoint_path=base)
+        e, roots = mol["ccsd e"], np.array(mol["roots"])
+        d_root = float(np.abs(roots - np.array(EX_JAX["roots"])).max())
+        check(abs(e - EX_JAX["ccsd e"]) <= 1e-10
+              and abs(e - MOLECULES["LiH"][2]) <= 1e-8 and d_root <= 1e-8
+              and checkpoint.load(base).energy == e,
+              f"molecular example: E={e!r}, roots {roots.tolist()}")
+        print(f"example molecular_ccsd_eom (LiH/3-21G): CCSD E={e:.13f} in "
+              f"{mol['iterations']} iterations, |E - E_jax|="
+              f"{abs(e - EX_JAX['ccsd e']):.2e}; EOM roots "
+              f"{roots.tolist()}, |roots - JAX| {d_root:.2e} "
+              f"({time.time() - t0:.2f} s)", flush=True)
+        t0 = time.time()
+        _, c_t = rt_autocorrelation.main(3, 0.1, device,
+                                         out=os.path.join(tmp, "ct.npy"))
+        want = np.array([complex(*c) for c in EX_JAX["c(t)"]])
+        d_c = float(np.abs(c_t - want).max())
+        check(d_c <= 1e-7, f"RT example: c(t) {c_t.tolist()}")
+        print(f"example rt_autocorrelation (H2/STO-6G, 3 steps): |c(t) - "
+              f"JAX| {d_c:.2e} ({time.time() - t0:.2f} s)", flush=True)
+        t0 = time.time()
+        rows, total = ueg_tc_twist_average.main(3, device)
+        d_tc = max(float(np.abs(np.array(row[2:]) - np.array(ref)).max()
+                         / np.abs(ref).max())
+                   for row, ref in zip(rows, EX_JAX["tc"]))
+        check(len(rows) == len(EX_JAX["tc"]) and d_tc <= 1e-12,
+              f"TC twist example: {[row[2:] for row in rows]}")
+        print(f"example ueg_tc_twist_average (mesh 3): total "
+              f"{float(total.sum()):.10f}, |rows - JAX| {d_tc:.2e} relative "
+              f"({time.time() - t0:.2f} s)", flush=True)
+
+    launches["examples"] = path_launches(
+        "examples", run, ("ccsd_jacobi_diis", "ccsd_mix_energy",
+                          "pair_symmetrize", "davidson_residual",
+                          "arnoldi_cgs2", "shifted_precond"))
+
+
+def observability(p, records, device, tmp):
+    """19g, after every timed wall: one ``RunRecord`` line per solve of
+    the phase, read back with equal energies; then ``profile`` around
+    three fixed CCD iterations must write a trace holding card kernels."""
+    import json
+    import os
+
+    from pymes_tpu_torch.solver import ccd
+    from pymes_tpu_torch.util.observability import RunRecord, profile
+
+    rec = RunRecord(os.path.join(tmp, "runs.jsonl"))
+    for solver, system, res, wall in records:
+        rec.log(solver, system=system, result=res, wall_s=wall)
+    rows = rec.read()
+    check(len(rows) == len(records) and all(
+        row[f"{solver} e"] == res[f"{solver} e"]
+        and row["iterations"] == len(res["e history"])
+        for row, (solver, _, res, _) in zip(rows, records)),
+        "the run records do not read back the solves' energies")
+    log_dir = os.path.join(tmp, "trace")
+    with profile(log_dir, device):
+        ccd.ccd_solve(p["fock"], p["blocks"], NO, p["T0"], level_shift=-1.0,
+                      delta_e=-1.0, max_iter=2)
+    path = os.path.join(log_dir, "trace.json")
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    n_kernel = sum(e.get("cat") == "kernel" for e in events)
+    check(n_kernel > 0, f"the trace holds no card kernel ({len(events)} "
+          "events)")
+    print(f"observability: {len(rows)} run records read back; profile of 3 "
+          f"fixed CCD iterations: {os.path.getsize(path)} bytes, "
+          f"{len(events)} events, {n_kernel} card kernels", flush=True)
+
+
+def utilities_phase(p14, q, ccd_wall, device, card, launches):
+    """Phase 19, the utilities slice: 19a-f, then 19g last.  ``ccd_wall``
+    is phase 5's wall of the fixed-iteration mf-CCD on ``p14``."""
+    import tempfile
+
+    import torch
+
+    t19 = time.time()
+    records = []
+    with tempfile.TemporaryDirectory() as tmp:
+        p, res = configs_mf_ccd(device, launches, records)
+        resume_mf_ccsd(q, device, tmp, launches, records)
+        twist_average(device, launches, records)
+        torch.cuda.empty_cache()
+        structure_factor_check(p, res["t2 amp"])
+        roofline_line(p14, ccd_wall, card)
+        examples_run(device, tmp, launches)
+        observability(p, records, device, tmp)
+    print(f"phase 19 (configs, checkpoint, twists, structure factor, "
+          f"roofline, examples, observability): {time.time() - t19:.2f} s",
+          flush=True)
+
+
 def main():
     import torch
 
@@ -2486,7 +2788,7 @@ def main():
           f" - roots(CCSD amps)| = {gap:.2e}", flush=True)
 
     # phase 5: CCD timing
-    kernel_ms = {}
+    kernel_ms, ccd_wall = {}, {}
     for c, p in problems.items():
         kernel_ms[c] = time_kernels(p, 3)
         for name, (ms, plain) in kernel_ms[c].items():
@@ -2498,6 +2800,7 @@ def main():
             for twin in (False, True):
                 ms, n_fixed, _ = solve_fixed(p, twin)
                 walls[twin].append(ms)
+        ccd_wall[c] = (min(walls[False]), n_fixed)
         print(f"[{card}] nP={p['nP']} fixed-{n_fixed}-iteration CCD, min of "
               f"5: kernels {min(walls[False]):.3f} ms/iter, twins "
               f"{min(walls[True]):.3f} ms/iter", flush=True)
@@ -2524,7 +2827,8 @@ def main():
     k4_t = {"CCSD dressing, 7 columns": (*k4_7[:2], k4_dev, *k4_7[3:])}
     print_k4(card, f"nP={q['nP']} CCSD dressing, 7 columns",
              k4_t["CCSD dressing, 7 columns"])
-    b = np.mean([diag_bound(q["mf_dict"]["_ovvv_plans"][pat], q["nv"])[0]
+    b = np.mean([diag_bound(q["mf_dict"]["_ovvv_plans"][pat], q["nv"],
+                            NO)[0]
                  for pat, _ in DIAG_PLANS])
     print(f"[{card}] nP={q['nP']} ovvv_gather_diag on the card alone "
           f"(profiler) {diag_dev:.4f} ms; bound {b:.4f} ms (bytes)",
@@ -2719,6 +3023,9 @@ def main():
 
     # phase 18: the transcorrelated UEG at nP=219 and drCCD at nP=57
     tc_sub = tc_phase(problems, device, card, launches, compare)
+    # phase 19: configs, checkpoint/resume, the twist average, the structure
+    # factor, the roofline line, the examples, and observability last
+    utilities_phase(problems[14], q, ccd_wall[14], device, card, launches)
 
     total = {k: sum(run.get(k, 0) for run in launches.values())
              for k in KERNELS}

@@ -6,6 +6,7 @@ point takes ``device`` and :func:`resolve_device` refuses a CUDA device when
 no card is present instead of silently running on the CPU.
 """
 
+import numpy as np
 import torch
 
 DTYPE = torch.float64
@@ -26,3 +27,10 @@ def resolve_device(device) -> torch.device:
 def as_tensor(x, device) -> torch.Tensor:
     """Copy an array-like onto ``device`` as f64."""
     return torch.as_tensor(x, dtype=DTYPE, device=resolve_device(device))
+
+
+def to_host(x) -> np.ndarray:
+    """A tensor (on any device) or an array-like as a host numpy array."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)

@@ -2,7 +2,7 @@
 
 The JAX package builds integrals and ladder plans as numpy/JAX arrays; these
 helpers turn them into the port's tensors on a given device.  They call only
-``np.asarray`` on what they are given and never import jax.
+``np.asarray`` on what they are given and never import JAX.
 """
 
 import numpy as np

@@ -188,7 +188,8 @@ def ccd_energy_ij(t_T_ijab, t_V_ijab, t_V_ijab_x):
 def ccd_solve(t_fock_pq, blocks: CCDBlocks, no, t_T0_abij,
               level_shift=0.0, delta_e=1e-8, max_iter=50, is_dcd=False,
               is_diis=True, is_bruekner=False, dim_space=6, twin=False,
-              ring_mesh=None, ring_axis="a", is_dr_ccd=False):
+              ring_mesh=None, ring_axis="a", is_dr_ccd=False,
+              log_iterations=False):
     """CCD fixed point, Jacobi + DIIS, T2 carried ``[i,j,a,b]``.
 
     Loop semantics of ``pymes_tpu.solver.ccd.ccd_solve_jit``: iterate while
@@ -203,6 +204,8 @@ def ccd_solve(t_fock_pq, blocks: CCDBlocks, no, t_T0_abij,
     loop runs on ``ring_mesh.devices[0]``.  ``is_dr_ccd`` runs the drCCD
     residual (no ladder: a plan or ``ring_mesh`` with it raises) and takes
     the direct energy alone (``pymes_tpu/solver/ccd.py:543-549``).
+    ``log_iterations`` prints E and dE each iteration (a host read of
+    both).
 
     Returns ``(e_corr, T_abij, eps_i, eps_a, dE, n_iter, e_hist)`` with
     device tensors and ``n_iter`` a Python int.
@@ -282,6 +285,9 @@ def ccd_solve(t_fock_pq, blocks: CCDBlocks, no, t_T0_abij,
         e_last = e
         e_hist[min(it, max_iter)] = e
         it += 1
+        if log_iterations:
+            print(f"    CCD it {it}: E = {float(e):.12f}  "
+                  f"dE = {float(dE):.3e}")
 
     if int(info) != 0:
         raise RuntimeError("DIIS bordered system singular during the solve")
@@ -311,6 +317,7 @@ class CCD:
         self.is_bruekner = is_bruekner
         self.max_iter = 50
         self.dim_space = 6
+        self.log_iterations = False
 
     def _on_device(self, x):
         if isinstance(x, Sharded):
@@ -357,7 +364,8 @@ class CCD:
             delta_e=delta_e, max_iter=max_iter, is_dcd=self.is_dcd,
             is_diis=self.is_diis, is_bruekner=self.is_bruekner,
             dim_space=self.dim_space, ring_mesh=ring_mesh,
-            ring_axis=ring_axis, is_dr_ccd=self.is_dr_ccd)
+            ring_axis=ring_axis, is_dr_ccd=self.is_dr_ccd,
+            log_iterations=self.log_iterations)
         if n_iter > max_iter:
             print_logging_info("A converged solution is not found!", level=1)
         print_logging_info(

@@ -388,7 +388,8 @@ def ccsd_iteration(t_fock_pq, dict_t_V, no, T1, T2, eps_i, eps_a,
 
 def ccsd_solve(t_fock_pq, dict_t_V, no, t_T1_0, t_T2_0, level_shift=0.0,
                delta_e=1e-8, max_iter=50, is_dcsd=False, is_diis=True,
-               dim_space=6, ladder_all=None, twin=False):
+               dim_space=6, ladder_all=None, twin=False,
+               log_iterations=False):
     """CCSD fixed point, Jacobi + DIIS, T2 carried ``[i,j,a,b]``.
 
     Loop semantics of ``pymes_tpu.solver.ccsd.ccsd_solve_jit``: iterate
@@ -398,6 +399,8 @@ def ccsd_solve(t_fock_pq, dict_t_V, no, t_T1_0, t_T2_0, level_shift=0.0,
     it runs to the cap with no host sync inside the loop.  The DIIS solve's
     ``info`` is checked once, after the loop.  ``twin=True`` runs K1, K4
     and the tail through their plain twins (on-card comparison).
+    ``log_iterations`` prints E and dE each iteration (a host read of
+    both).
 
     ``t_T2_0`` is ``abij``-ordered.  Returns ``(e, T1, T2_abij, dE, n_iter,
     e_hist)`` with device tensors and ``n_iter`` a Python int.
@@ -435,6 +438,9 @@ def ccsd_solve(t_fock_pq, dict_t_V, no, t_T1_0, t_T2_0, level_shift=0.0,
         e_last = e
         e_hist[min(it, max_iter)] = e
         it += 1
+        if log_iterations:
+            print(f"    CCSD it {it}: E = {float(e):.14f}  "
+                  f"dE = {float(dE):.3e}")
 
     if int(info) != 0:
         raise RuntimeError("DIIS bordered system singular during the solve")
@@ -490,7 +496,7 @@ class CCSD(ccd_mod.CCD):
             t_fock_pq, dict_t_V, no, t_T1, t_T2, level_shift=level_shift,
             delta_e=delta_e, max_iter=max_iter, is_dcsd=self.is_dcd,
             is_diis=self.is_diis, dim_space=self.dim_space,
-            ladder_all=ladder)
+            ladder_all=ladder, log_iterations=self.log_iterations)
         if n_iter > max_iter:
             print_logging_info("A converged solution is not found!", level=1)
         print_logging_info(

@@ -1,13 +1,16 @@
-"""TCDUMP (transcorrelated 3-body integral) reader (host numpy).
+"""TCDUMP (transcorrelated 3-body integral) reader and writer (host
+numpy).
 
-A copy of ``read``, ``read_sparse`` and :class:`SparseL` from
-``pymes_tpu/util/tcdump.py``: text dumps hold ``norb`` on the first line
+A copy of ``pymes_tpu/util/tcdump.py``: text dumps hold ``norb`` on the first line
 then ``value o p q r s t`` records (1-based, physicists' <opq|rst>) storing
 one representative of the 6-fold electron-permutation symmetry; values
 carry the ``−1/3`` factor, so the in-memory tensor is ``−3×`` the file
 values.  The dense tensor interleaves electron pairs: axes
-(o, r, p, s, q, t).  ``tests/test_torch_ccsd_io.py`` holds the copy equal
-to the original.
+(o, r, p, s, q, t).  :func:`write` keeps one canonical representative
+per 6-fold orbit (the lexicographically smallest physicists' index), so a
+written dump reads back to the same tensor.  h5py is optional and imported
+only by the HDF5 reader.  ``tests/test_torch_ccsd_io.py`` and
+``tests/test_torch_io.py`` hold the copy equal to the original.
 """
 
 import itertools
@@ -43,6 +46,14 @@ def _expand_6_fold(idx, vals):
     allv = np.concatenate(val_list)
     uniq, first = np.unique(rows, axis=0, return_index=True)
     return uniq, allv[first]
+
+
+def sparse_to_dense(sL):
+    """Materialise the dense (nb,)*6 tensor of a :class:`SparseL`."""
+    t_L = np.zeros([sL.nb] * 6)
+    o, r, p, s, q, t = sL.idx.T
+    t_L[o, r, p, s, q, t] = sL.vals
+    return t_L
 
 
 def _scatter_6_fold(t_L, idx, vals):
@@ -97,3 +108,44 @@ def read(file_name="TCDUMP"):
     print_logging_info("Reading in TCDUMP", level=1)
     vals, idx, nb = _read_records(file_name)
     return _scatter_6_fold(np.zeros([nb] * 6), idx, vals)
+
+
+def unique_index(p, q):
+    return int(min(p, q) + (max(p, q) - 1) * max(p, q) / 2)
+
+
+def write(t_L_orpsqt, file_name="TCDUMP"):
+    """Write one canonical representative per 6-fold permutation orbit of a
+    dense 6-index L tensor (numpy; the inverse of :func:`read`, values
+    stored as ``−L/3``): the lexicographically smallest (o,p,q,r,s,t)
+    under the 6 joint pair permutations."""
+    nb = t_L_orpsqt.shape[0]
+    o, r, p, s, q, t = np.nonzero(np.abs(t_L_orpsqt) > 1e-10)
+    vals = t_L_orpsqt[o, r, p, s, q, t]
+    phys = np.stack([o, p, q, r, s, t], axis=1)   # physicists' (opq|rst)
+
+    kets = phys[:, :3]
+    bras = phys[:, 3:]
+    best = None
+    for per in itertools.permutations(range(3)):
+        cand = np.concatenate([kets[:, per], bras[:, per]], axis=1)
+        if best is None:
+            best = cand
+            continue
+        smaller = np.zeros(len(cand), dtype=bool)
+        decided = np.zeros(len(cand), dtype=bool)
+        for col in range(6):
+            lt = (cand[:, col] < best[:, col]) & ~decided
+            gt = (cand[:, col] > best[:, col]) & ~decided
+            smaller |= lt
+            decided |= lt | gt
+        best = np.where(smaller[:, None], cand, best)
+    is_canon = np.all(phys == best, axis=1)
+
+    with open(file_name, "w") as f:
+        f.write(str(nb) + "\n")
+        for n in np.nonzero(is_canon)[0]:
+            on, pn, qn, rn, sn, tn = phys[n]
+            f.write(str(-vals[n] / 3.0) + " " + str(on + 1) + " "
+                    + str(pn + 1) + " " + str(qn + 1) + " " + str(rn + 1)
+                    + " " + str(sn + 1) + " " + str(tn + 1) + "\n")

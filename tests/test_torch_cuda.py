@@ -952,3 +952,59 @@ def test_ovvv_gather_kernel_matches_twin_on_tc_plans(device, pat, ncol):
         T1o = _randn(np.random.default_rng(3), (nv, NO), device)
         _close(ueg_ladder.ovvv_t1_trace(plan, T1o, axis),
                ueg_ladder.ovvv_t1_trace(plan, T1o, axis, twin=True))
+
+
+def test_configs_build_solvers_on_the_card_by_default(device):
+    """The configs' default device is the card: a config-built mf-CCD at
+    cutoff 5 runs there (one K1, K2, K3 and K5 launch an iteration) and
+    repeats the CPU solve."""
+    from pymes_tpu_torch import configs
+
+    cfg = configs.GroundStateConfig(no=NO, max_iter=60)
+    for make in (cfg.make_ccd, cfg.make_ccsd, configs.EOMConfig(no=NO).make,
+                 configs.FEASTConfig(no=NO).make,
+                 configs.RTConfig(no=NO).make):
+        assert make().device.type == "cuda"
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        _, blocks, eps_i, eps_a = _problem(5, dev)
+        before = dict(kernels.LAUNCHES)
+        runs[dev] = cfg.make_ccd(dev).solve(
+            torch.diag(torch.cat([eps_i, eps_a])), blocks, level_shift=-1.0)
+        if dev == "cuda":
+            n = len(runs[dev]["e history"])
+            for k in ("block_ladder", "ccd_jacobi_diis", "ccd_mix_energy",
+                      "pair_symmetrize"):
+                assert kernels.LAUNCHES[k] - before[k] == n, k
+    assert len(runs["cuda"]["e history"]) == len(runs["cpu"]["e history"])
+    assert np.abs(runs["cuda"]["e history"]
+                  - runs["cpu"]["e history"]).max() <= 1e-10
+
+
+def test_checkpoint_round_trip_of_card_tensors(device, tmp_path):
+    """A CCSD result on the card: from_result copies its tensors to the
+    host, save/load keep them bit for bit, the DIIS ring comes back on the
+    card, and the warm start from the loaded amplitudes runs there."""
+    from pymes_tpu_torch.util import checkpoint
+
+    u, blocks, eps_i, eps_a = _problem(2, device)
+    fock = torch.diag(torch.cat([eps_i, eps_a]))
+    V = torch.as_tensor(u.eval_2b_integrals(), device=device)
+    res = ccsd.CCSD(NO, device).solve(fock, V, max_iter=3)
+    ck = checkpoint.from_result(res, meta={"nP": u.n_spatial})
+    assert isinstance(ck.t2, np.ndarray) and isinstance(ck.t1, np.ndarray)
+    rng = np.random.default_rng(8)
+    ck.diis_amps, ck.diis_errs, ck.diis_count = (
+        rng.standard_normal((6, 40)), rng.standard_normal((6, 40)), 9)
+    checkpoint.save(str(tmp_path / "ck"), ck)
+    back = checkpoint.load(str(tmp_path / "ck"))
+    assert np.array_equal(back.t2, res["t2"].cpu().numpy())
+    assert np.array_equal(back.t1, res["t1"].cpu().numpy())
+    st = back.diis_state(device)
+    assert st.amps.device.type == torch.device(device).type
+    assert st.count == 9
+    _close(st.B, torch.as_tensor(back.diis_errs @ back.diis_errs.T,
+                                 device=device))
+    warm = ccsd.CCSD(NO, device).solve(fock, V, amps=back.amps)
+    cold = ccsd.CCSD(NO, device).solve(fock, V)
+    assert abs(warm["ccsd e"] - cold["ccsd e"]) <= 1e-8

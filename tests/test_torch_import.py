@@ -33,6 +33,17 @@ def _models(cutoff, rs=0.5):
     return uj, ut
 
 
+# the utilities slice: configs, I/O, checkpoint, observability, roofline,
+# twists and structure factor, and the examples
+UTILITY_MODULES = tuple("pymes_tpu_torch." + m for m in (
+    "configs", "util.roofline", "util.flops", "util.checkpoint",
+    "util.observability", "util.kpoints", "util.structure_factor",
+    "util.fcidump", "util.tcdump", "util.tcfactors", "util.cc4s_interface",
+    "util.structure", "integral.symmetry", "model",
+    "examples.molecular_ccsd_eom", "examples.rt_autocorrelation",
+    "examples.ueg_tc_twist_average"))
+
+
 def test_port_never_imports_jax():
     code = ("import sys\n"
             "import pymes_tpu_torch, pymes_tpu_torch.solver.ccd, "
@@ -51,7 +62,8 @@ def test_port_never_imports_jax():
             "pymes_tpu_torch.parallel.ring_ladder, "
             "pymes_tpu_torch.kernels.ring_step, "
             "pymes_tpu_torch.models.ueg, pymes_tpu_torch.solver.drccd, "
-            "pymes_tpu_torch.solver.dcd\n"
+            "pymes_tpu_torch.solver.dcd, " + ", ".join(UTILITY_MODULES)
+            + "\n"
             "bad = sorted(m for m in sys.modules "
             "if m == 'jax' or m.startswith(('jax.', 'pymes_tpu.')) "
             "or m == 'pymes_tpu')\n"
@@ -59,6 +71,25 @@ def test_port_never_imports_jax():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
+
+
+def test_utility_modules_import_neither_h5py_nor_spglib():
+    """h5py and spglib are optional (the card's machine has neither): the
+    new modules import them only inside the functions that need them."""
+    code = ("import sys\n"
+            "import " + ", ".join(UTILITY_MODULES) + "\n"
+            "bad = sorted(m for m in sys.modules "
+            "if m.split('.')[0] in ('h5py', 'spglib'))\n"
+            "assert not bad, bad\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_model_alias_is_the_ueg_module():
+    from pymes_tpu.model import ueg as jalias
+    from pymes_tpu_torch.model import ueg as alias
+    assert alias is tueg and jalias is jueg
 
 
 def test_port_sources_name_no_jax():

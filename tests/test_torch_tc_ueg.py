@@ -16,6 +16,8 @@ convolution, so the sweep over classes and correlators and the solves stay
 fast; the oracle tests keep the default grid.
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -157,6 +159,8 @@ def test_calc_gamma_matches_jax_and_ftod(tmp_path, monkeypatch):
     g = ut.basis.lookup((k[p] - k[q]).reshape(1, 3))[0]
     G2 = ut.basis.kp[g] @ ut.basis.kp[g]
     assert np.isclose(gamma[p, q, g], np.sqrt(4 * np.pi / G2 / ut.Omega))
+    # an earlier test may leave the cwd deleted
+    os.chdir(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     monkeypatch.chdir(tmp_path)
     cc4s_interface.dump_ftod(gamma, "FTOD")
     _, dims, data = cc4s_interface.read_cc4s_tensor("FTOD.dat")
