@@ -45,7 +45,14 @@ Drives the port's main paths through its own kernels:
 * the utilities — solvers built through ``configs`` (on the card by
   default), a checkpointed and resumed mf-CCSD, the twist-averaged mf-CCD
   over the irreducible twists of the 3³ mesh, the structure factor, the
-  roofline line, the three examples and the observability helpers.
+  roofline line, the three examples and the observability helpers;
+* the generic FEAST kernel — ``solver/feast_kernel.py`` (host GCROT
+  solves) over the card's sigma through ``eom_ccsd.PackedSigma`` (one
+  batched sigma a matvec) in the nP=57 window, one CIF step, and the
+  PySCF-shaped adapters of ``solver/feast_eom_rccsd.py`` over LiH;
+* the FEAST node fan-out — the nP=57 window with its contour nodes over
+  ``node_mesh(P, "cuda", devices=["cuda:0"] * P)``, P = 2 and 4;
+* the native FCIDUMP/TCDUMP record parser (C++, ``_native.py``).
 
 Kernels: K1 ``block_ladder`` (CUDA C++ on the f64 tensor cores, built with
 nvcc for sm_90a at first use), K4 ``ovvv_gather`` and its fused trace
@@ -123,7 +130,23 @@ the fixed-61-iteration mf-CCD (``util/flops.py``, ``util/roofline.py``),
 the three examples against the JAX package's, and last, after every timed
 wall, a ``RunRecord`` line per solve of the phase read back and a
 ``profile`` of three fixed CCD iterations whose trace must hold card
-kernels.  Every bound comes from the helpers of
+kernels.  Phases 20-22 run after phase 14's timing: (20) the port's
+Davidson at nP=57 with 6 roots (its in-window level and the roots beside
+the window) and on LiH, outside the counted window; then ``feast_kernel.
+feast`` over the nP=57 card sigma (capped cycles and GCROT iterations,
+``GENERIC57``): each in-window root within 1e-6 of the Davidson roots in
+the window and of phase 12's FEAST roots; one ``rt_step`` from the
+Davidson vector (phase energy within 1e-6 of the root, norm within 1e-8
+of 1); ``FEAST_EOMEESinglet`` and ``CIFRT_EOMEESinglet`` over the LiH card
+sigma against the Davidson roots (1e-6); the window's launches exactly K1
+= nP=57 matvecs + 1, K4 = 3 × those, K5 = all matvecs; the matvec count,
+wall and ms per matvec of each; (21) phase 12's FEAST rerun with its
+nodes over 2 and 4 shares of the card: roots within 1e-10 of phase 12's
+in its iterations, 64 / P lanes a chunk, K7/K8 exactly as the chunks
+imply, walls per iteration and peak memory beside phase 12's; (22) the
+native parser ran for every dump read, bit-equal to the numpy parse on
+every dump of ``tests/data`` and on 1 M records with ``D`` exponents,
+both parse times.  Every bound comes from the helpers of
 ``pymes_tpu_torch/util/roofline.py``.
 Prints a JSON line of the kernels
 (launches, errors, the TC and drCCD runs as sub-entries,
@@ -297,6 +320,25 @@ K4_LANES = {"FEAST": FEAST57["n_quad"] * FEAST57["n_trial"],
 # FEAST on LiH/3-21G (tests/test_feast_rt.py:183-201), against the oracle
 LIH_FEAST = dict(e_c=0.12, e_r=0.025, n_trial=2, max_iter=60, tol=1e-11,
                  seed=7)
+# phase 20, the generic FEAST kernel over the card's sigma: the nP=57
+# window of phase 12 (e_c at the degenerate level of EOM_JAX[5]; the
+# Davidson that straddles it sees the level twice and 5.2652816 /
+# 5.2789029 outside).  Capped at 3 cycles of 8 nodes x 3 trials, each
+# node solve at most 4 outer GCROT(20, 20) iterations (41 matvecs each;
+# rtol 1e-4 took 110-131 matvecs on an H100): ~6500 matvecs.  2 cycles
+# with 2 outer iterations left a Ritz value 7.6e-4 off the level.  One CIF
+# step from the Davidson vector at 32 nodes; the adapters on LiH (a window
+# holding both oracle roots)
+GENERIC57 = dict(e_c=5.2429519002247, e_r=0.018, nroots=3, ngl_pts=8,
+                 max_cycle=3, conv_tol=1e-9, ls_max_iter=4,
+                 ls_conv_tol=1e-4, seed=3, verbose=False)
+GENERIC57_N_EXCIT = 6
+GENERIC57_RT = dict(dt=0.1, e_r=0.5, ngl_pts=32, ls_conv_tol=1e-10,
+                    ls_max_iter=100)
+LIH_ADAPTER = {"feast": dict(nroots=3, e_c=0.136, e_r=0.03, ngl_pts=8),
+               "max_cycle": 20, "ls_max_iter": 20}
+# phase 21: the nodes of phase 12 over P shares of one card
+NODE_MESHES = (2, 4)
 
 
 def check(cond, msg):
@@ -509,25 +551,30 @@ def card_ms(fn, name, n=20, warmup=3):
     one call of ``fn``: ``n`` calls under ``torch.profiler`` (CUDA
     activity), their device time summed over the calls.  Unlike
     :func:`cuda_ms` it leaves out the host time between launches, which a
-    call whose kernels take less time than its Python wrapper shows."""
+    call whose kernels take less time than its Python wrapper shows.  A
+    session whose trace holds no such kernel is run again, up to three
+    sessions (one of ``chip_smoke.py``'s calls on an H100 lost the CUDA
+    activity of one session)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    # self_device_time_total, self_cuda_time_total before torch 2.4; a 0
-    # is a time, not a missing field
-    us = sum(e.self_cuda_time_total
-             if getattr(e, "self_device_time_total", None) is None
-             else e.self_device_time_total
-             for e in prof.key_averages() if name in e.key)
-    check(us > 0, f"the profiler saw no kernel named {name}")
-    return us / 1e3 / n
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        # self_device_time_total, self_cuda_time_total before torch 2.4; a
+        # 0 is a time, not a missing field
+        us = sum(e.self_cuda_time_total
+                 if getattr(e, "self_device_time_total", None) is None
+                 else e.self_device_time_total
+                 for e in prof.key_averages() if name in e.key)
+        if us > 0:
+            return us / 1e3 / n
+    check(False, f"the profiler saw no kernel named {name} in 3 sessions")
 
 
 def time_kernels(p, seed):
@@ -1800,9 +1847,13 @@ def feast57(p5, V, T2, device, out):
     residual must be ≤ 1e-7."""
     from pymes_tpu_torch import kernels
 
+    import torch
+
     t0 = time.time()
     before = dict(kernels.LAUNCHES)
+    torch.cuda.reset_peak_memory_stats()
     s, roots = feast_run(p5["fock"], V, T2, device, FEAST57, FEAST57_GMRES)
+    peak = torch.cuda.max_memory_allocated()
     st = s.ls_stats
     check_krylov_launches("FEAST nP=57", before, s.n_sigma, st, ladder=True)
     # one chunk of lanes per FEAST iteration, the first of all 16 x 4: its
@@ -1827,9 +1878,9 @@ def feast57(p5, V, T2, device, out):
           f"{res:.2e}, Arnoldi steps per lane and FEAST iteration: mean "
           f"{steps.mean():.1f}, max {steps.max()}, lanes per chunk (one "
           f"chunk an iteration) {lanes}, walls per iteration "
-          f"{[round(w, 3) for w in s.iter_walls]} s, {time.time() - t0:.2f} "
-          "s", flush=True)
-    out.update(solver=s, roots=roots)
+          f"{[round(w, 3) for w in s.iter_walls]} s, peak device memory "
+          f"{peak / 1e9:.3f} GB, {time.time() - t0:.2f} s", flush=True)
+    out.update(solver=s, roots=roots, peak=peak)
 
 
 def rt123_seed(device):
@@ -1982,6 +2033,236 @@ def rt123_lanes(s, u0, root, device):
                         device=device)
     return (B, torch.as_tensor(z.real, device=device),
             torch.as_tensor(z.imag, device=device))
+
+
+def generic_seed(p5, V, T2, lih, device):
+    """Phase 20 set-up, outside the counted window: the port's Davidson at
+    nP=57 with ``GENERIC57_N_EXCIT`` roots (|dE| < 1e-10), which straddle
+    the FEAST window, and on LiH; their roots and first Ritz vectors."""
+    out = {}
+    for label, (fock, V_, T2_, n_excit) in (
+            ("nP=57", (p5["fock"], V, T2, GENERIC57_N_EXCIT)),
+            ("LiH", (*lih, 2))):
+        from pymes_tpu_torch.solver import eom_ccsd
+
+        t0 = time.time()
+        s = eom_ccsd.EOM_CCSD(T2_.shape[-1], device, n_excit=n_excit)
+        s.e_epsilon = 1e-10
+        s.max_iter = 1000
+        roots = np.sort(np.real(s.solve(fock, V_, T2_)))
+        u = np.concatenate([s.u_singles[0].cpu().numpy().ravel(),
+                            s.u_doubles[0].cpu().numpy().ravel()])
+        print(f"Davidson {label} (n_excit={n_excit}): roots {roots} in "
+              f"{s.n_iterations} iterations, {time.time() - t0:.2f} s",
+              flush=True)
+        out[label] = (roots, float(np.real(s.e_excit[0])),
+                      u / np.linalg.norm(u))
+    return out
+
+
+def near(got, want, tol):
+    """Every value of ``got`` within ``tol`` of one of ``want`` (and
+    ``want`` not empty)."""
+    want = np.asarray(want)
+    return len(want) > 0 and all(np.min(np.abs(want - g)) <= tol
+                                 for g in got)
+
+
+def generic_phase(p5, V, T2, lih, seeds, feast_roots, device, card):
+    """Phase 20: the generic FEAST kernel (host gcrotmk over ONE batched
+    sigma a matvec, ``eom_ccsd.PackedSigma``) at nP=57 against the port's
+    Davidson and phase 12's FEAST roots, one CIF step from the Davidson
+    vector, and the PySCF-shaped adapters over the card's LiH sigma.
+    Returns the launch counts the window must hold: on the no-ovvv
+    operator K1 = matvecs + 1 (H̄ built once), K4 = 3·matvecs, K5 =
+    matvecs; on LiH (dense) K5 = matvecs."""
+    import torch
+
+    from pymes_tpu_torch.solver import (eom_ccsd, feast_eom_rccsd,
+                                        feast_kernel)
+
+    e_c, e_r = GENERIC57["e_c"], GENERIC57["e_r"]
+    roots_dav, _, _ = seeds["nP=57"]
+    dav_in = roots_dav[np.abs(roots_dav - e_c) < e_r]
+    ph12 = np.real(feast_roots[np.abs(feast_roots.real - e_c) < e_r])
+    s57 = eom_solver(NO, device)
+    t0 = time.perf_counter()
+    op = eom_ccsd.PackedSigma(s57, p5["fock"], V, T2)
+    ev, _ = feast_kernel.feast(op.matvec, op.diag, **GENERIC57)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n_feast = s57.n_sigma
+    ev = np.sort(ev.real)
+    inside = ev[np.abs(ev - e_c) < e_r]
+    check(len(inside) >= 1 and len(dav_in) >= 1
+          and near(inside, dav_in, 1e-6) and near(dav_in, inside, 1e-6),
+          f"generic FEAST nP=57: in-window roots {inside} vs Davidson "
+          f"{dav_in}")
+    check(near(inside, ph12, 1e-6) and near(ph12, inside, 1e-6),
+          f"generic FEAST nP=57: in-window roots {inside} vs phase 12 "
+          f"{ph12}")
+    err = max(np.min(np.abs(dav_in - g)) for g in inside)
+    print(f"generic FEAST nP=57 ({GENERIC57}): {len(inside)} roots in the "
+          f"window, max |root - Davidson| = {err:.2e}, all Ritz values {ev}; "
+          f"{n_feast} matvecs, {wall:.2f} s, {wall * 1e3 / n_feast:.3f} ms "
+          "per matvec", flush=True)
+
+    _, root, u0 = seeds["nP=57"]
+    t0 = time.perf_counter()
+    q = feast_kernel.rt_step(op.matvec, op.diag, u0, e_c=root,
+                               **GENERIC57_RT)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n_rt = s57.n_sigma - n_feast
+    dt = GENERIC57_RT["dt"]
+    e_step = float(np.angle(np.vdot(u0, q)) / dt)
+    norm = float(np.linalg.norm(q))
+    check(abs(e_step - root) <= 1e-6,
+          f"generic rt_step nP=57: phase energy {e_step} vs root {root}")
+    check(abs(norm - 1.0) <= 1e-8, f"generic rt_step nP=57: norm {norm}")
+    print(f"generic rt_step nP=57 ({GENERIC57_RT}): phase energy "
+          f"{e_step:.13f}, |E - root| = {abs(e_step - root):.2e}, |norm - 1| "
+          f"= {abs(norm - 1):.2e}; {n_rt} matvecs, {wall:.2f} s, "
+          f"{wall * 1e3 / n_rt:.3f} ms per matvec", flush=True)
+    # the matvec alone (23 calls, in the window's count): what the card
+    # path costs of each ms per matvec above; the rest is GCROT on the host
+    xc = u0 + 1j * np.roll(u0, 1)
+    print(f"[{card}] packed matvec nP=57 alone (one complex vector: one "
+          f"2-row sigma, up and down): {cuda_ms(lambda: op.matvec(xc)):.3f} "
+          "ms per call", flush=True)
+
+    roots_lih, root_lih, u_lih = seeds["LiH"]
+    sl = eom_solver(lih[2].shape[-1], device)
+    eom = eom_ccsd.PackedSigma(sl, *lih)
+    t0 = time.perf_counter()
+    fs = feast_eom_rccsd.FEAST_EOMEESinglet(eom=eom)
+    fs.max_cycle, fs.ls_max_iter = LIH_ADAPTER["max_cycle"], \
+        LIH_ADAPTER["ls_max_iter"]
+    ev, _ = fs.kernel(n_jobs=1, **LIH_ADAPTER["feast"])
+    ev = np.sort(ev.real)
+    n_f = sl.n_sigma
+    check(near(roots_lih, ev, 1e-6) and near(LIH_EOM_ORACLE, roots_lih,
+                                              1e-6),
+          f"FEAST_EOMEESinglet LiH: {ev} vs Davidson {roots_lih}")
+    cs = feast_eom_rccsd.CIFRT_EOMEESinglet(eom=eom)
+    cs.ls_conv_tol = GENERIC57_RT["ls_conv_tol"]
+    q = cs.kernel(dt=dt, e_c=root_lih, e_r=GENERIC57_RT["e_r"],
+                  ngl_pts=GENERIC57_RT["ngl_pts"], guess=[u_lih])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    e_lih = float(np.angle(np.vdot(u_lih, q)) / dt)
+    check(abs(e_lih - root_lih) <= 1e-6,
+          f"CIFRT_EOMEESinglet LiH: phase energy {e_lih} vs {root_lih}")
+    err = max(np.min(np.abs(ev - r)) for r in roots_lih)
+    print(f"adapters on LiH/3-21G: FEAST_EOMEESinglet roots {ev} (max_cycle "
+          f"{fs.max_cycle}, ls_max_iter {fs.ls_max_iter}), max |Davidson "
+          f"root - FEAST| = {err:.2e}; CIFRT_EOMEESinglet phase energy "
+          f"{e_lih:.13f}, |E - root| = {abs(e_lih - root_lih):.2e}; "
+          f"{n_f} + {sl.n_sigma - n_f} "
+          f"matvecs, {wall:.2f} s, {wall * 1e3 / sl.n_sigma:.3f} ms per "
+          "matvec", flush=True)
+    n = s57.n_sigma
+    return {"block_ladder": n + 1, "ovvv_gather": 3 * n,
+            "pair_symmetrize": n + sl.n_sigma}
+
+
+def mesh_phase(p5, V, T2, ref, device):
+    """Phase 21: phase 12's FEAST nP=57 with its nodes fanned out over
+    ``node_mesh(P, "cuda", devices=["cuda:0"] * P)``, P = 2 and 4: roots
+    within 1e-10 of phase 12's in its iterations, one lane chunk a device
+    and iteration (64 / P lanes), and K7/K8 held exactly to those
+    chunks."""
+    import torch
+
+    from pymes_tpu_torch import kernels
+    from pymes_tpu_torch.parallel import sharding
+
+    s12 = ref["solver"]
+    for P in NODE_MESHES:
+        t0 = time.time()
+        before = dict(kernels.LAUNCHES)
+        mesh = sharding.node_mesh(P, device, axis="a",
+                                  devices=[f"{device}:0"] * P)
+        torch.cuda.reset_peak_memory_stats()
+        s, roots = feast_run(p5["fock"], V, T2, device,
+                             dict(FEAST57, node_mesh=mesh), FEAST57_GMRES)
+        peak = torch.cuda.max_memory_allocated()
+        st = s.ls_stats
+        label = f"FEAST nP=57 over {P} shares"
+        check_krylov_launches(label, before, s.n_sigma, st, ladder=True)
+        lanes = [len(np.atleast_1d(a)) for a in st["steps"]]
+        share = K4_LANES["FEAST"] // P
+        check(lanes == [share] * (P * s.n_iterations),
+              f"{label}: lanes per chunk {lanes}")
+        err = float(np.abs(roots - ref["roots"]).max()) \
+            if roots.shape == ref["roots"].shape else np.inf
+        check(err <= 1e-10 and s.n_iterations == s12.n_iterations,
+              f"{label}: roots {roots} in {s.n_iterations} iterations vs "
+              f"phase 12 {ref['roots']} in {s12.n_iterations}")
+        print(f"{label} of one card: max |roots - phase 12| = {err:.2e} in "
+              f"{s.n_iterations} iterations, lanes per chunk"
+              f" {lanes}, walls per iteration "
+              f"{[round(w, 3) for w in s.iter_walls]} s (phase 12: "
+              f"{[round(w, 3) for w in s12.iter_walls]} s), peak device "
+              f"memory {peak / 1e9:.3f} GB (phase 12: "
+              f"{ref['peak'] / 1e9:.3f} GB), {time.time() - t0:.2f} s",
+              flush=True)
+        del s
+        torch.cuda.empty_cache()
+
+
+def native_phase(card):
+    """Phase 22: the native record parser ran for the dumps the molecular
+    paths read, and equals the numpy parse bit for bit on every dump of
+    ``tests/data`` and on a synthetic body of 1 M records with Fortran
+    ``D`` exponents; both parse times on this machine's host."""
+    from pymes_tpu_torch import _native
+    from pymes_tpu_torch.util import fcidump, tcdump
+
+    check(_native.PARSES["native"] > 0 and _native.PARSES["numpy"] == 0,
+          f"native parser: parses {_native.PARSES}")
+
+    def same(a, b):
+        return (np.array_equal(a[0].view(np.int64), b[0].view(np.int64))
+                and np.array_equal(a[1], b[1]))
+
+    names = sorted(p.name for p in DATA.iterdir()
+                   if p.name.startswith(("FCIDUMP", "TCDUMP")))
+    for name in names:
+        with open(DATA / name) as reader:
+            if name.startswith("FCIDUMP"):
+                fcidump._parse_header(reader)
+                k, numpy_parse = 4, fcidump._numpy_parse
+            else:
+                reader.readline()
+                k, numpy_parse = 6, tcdump._numpy_parse
+            body = reader.read()
+        got = _native.parse_integral_lines(body, k)
+        check(len(got[0]) > 0 and same(got, numpy_parse(body)),
+              f"native parser: {name} differs from the numpy parse")
+    rng = np.random.default_rng(22)
+    n = 1_000_000
+    vals = rng.standard_normal(n) * 10.0 ** rng.integers(-12, 2, n)
+    idx = rng.integers(1, 120, (n, 4))
+    body = "\n".join(
+        f"{v:.16E} {a} {b} {c} {d}".replace("E", "D")
+        for v, (a, b, c, d) in zip(vals.tolist(), idx.tolist())) + "\n"
+    t0 = time.perf_counter()
+    got = _native.parse_integral_lines(body)
+    t_native = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want = fcidump._numpy_parse(body)
+    t_numpy = time.perf_counter() - t0
+    check(same(got, want) and np.array_equal(got[0], vals)
+          and np.array_equal(got[1], idx),
+          "native parser: the synthetic body differs from the numpy parse")
+    print(f"native parser: bit-equal to the numpy parse on {len(names)} "
+          f"dumps ({', '.join(names)}) and on {n} records with D exponents "
+          f"({len(body) / 1e6:.1f} MB); parse time on the host of "
+          f"[{card}]: native {t_native:.3f} s, numpy {t_numpy:.3f} s "
+          f"({t_numpy / t_native:.1f}x); parses this run {_native.PARSES}",
+          flush=True)
+    return t_native, t_numpy
 
 
 def tc_model(cutoff):
@@ -2956,6 +3237,23 @@ def main():
           f"{[round(w, 3) for w in fs.iter_walls]} s; RT nP={p123['nP']}: "
           f"wall per step {[round(w, 3) for w in runs['RT']['walls']]} s",
           flush=True)
+
+    # phase 20: the generic FEAST kernel and one CIF step over the card's
+    # sigma at nP=57, the adapters over the LiH sigma (the Davidson seeds
+    # outside the counted window); phase 21: phase 12's FEAST with its
+    # nodes over 2 and 4 shares of the card; phase 22: the native parser
+    seeds = generic_seed(problems[5], eom_ops[5], results[5][2], lih, device)
+    t0 = time.time()
+    counted_exactly("generic FEAST", lambda: generic_phase(
+        problems[5], eom_ops[5], results[5][2], lih, seeds,
+        runs["FEAST"]["roots"], device, card), launches)
+    print(f"phase 20 (generic FEAST, rt_step, adapters): "
+          f"{time.time() - t0:.2f} s", flush=True)
+    launches["FEAST node mesh"] = path_launches(
+        "FEAST node mesh", lambda: mesh_phase(
+            problems[5], eom_ops[5], results[5][2], runs["FEAST"], device),
+        KRYLOV_KERNELS)
+    native_phase(card)
 
     # phase 15: K9 against its twin at the ring shapes of nP=57 (5
     # shards) and nP=219 (4 shards, a 4.04 GB V block), every panel

@@ -101,10 +101,15 @@ class Sharded(NamedTuple):
 def shard_tensor(mesh, x, axis):
     """Cut ``x`` into equal slices along ``axis`` (None: replicate), one
     per mesh device.  A slice that already lies on its device stays a view
-    of ``x``."""
+    of ``x``; a replica is copied once per distinct device."""
     n = len(mesh.devices)
     if axis is None:
-        return Sharded(tuple(x.to(d) for d in mesh.devices), None)
+        # one copy per distinct device: a repeated device holds one tensor
+        copies = {}
+        for d in mesh.devices:
+            if d not in copies:
+                copies[d] = x.to(d)
+        return Sharded(tuple(copies[d] for d in mesh.devices), None)
     if x.shape[axis] % n:
         raise ValueError(f"axis {axis} of length {x.shape[axis]} does not "
                          f"divide a mesh of {n} devices")

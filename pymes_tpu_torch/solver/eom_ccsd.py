@@ -698,11 +698,17 @@ class EOM_CCSD:
         no); overridable (e.g. matrix-backed fake Hamiltonians in tests),
         and may then return numpy.  The intermediates are built once per
         (f, V, T2)."""
-        hbar = getattr(self, "_hbar", None)
-        if hbar is None:
-            hbar = self._hbar = build_hbar(f, dict_t_V, T2, twin=self.twin)
+        hbar = self._hbar_of(f, dict_t_V, T2)
         return _sigma_batched_hbar(f, dict_t_V, hbar, U1, U2, T2,
                                    twin=self.twin)
+
+    def _hbar_of(self, f, dict_t_V, T2):
+        """H̄'s intermediates of the current operator, built at the first
+        call after ``_hbar`` was reset (one K1 launch on the matrix-free
+        UEG operator)."""
+        if getattr(self, "_hbar", None) is None:
+            self._hbar = build_hbar(f, dict_t_V, T2, twin=self.twin)
+        return self._hbar
 
     # --- inputs -----------------------------------------------------------
     def _on_device(self, x):
@@ -1001,3 +1007,51 @@ class EOM_CCSD:
 
 def _np(x):
     return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+class PackedSigma:
+    """H̄ of one (f, V, T2) on ``solver``'s device as a matvec over packed
+    host vectors ``[u1 | u2]``: how the generic FEAST kernel
+    (:mod:`pymes_tpu_torch.solver.feast_kernel`) reaches the card.
+
+    A real vector is one row and a complex one its (Re, Im) pair of rows
+    (H̄ is real): one upload, ONE batched sigma through ``solver``'s
+    ``_batched_sigma`` hook (on the no-ovvv UEG operator: K1 once, K4 three
+    times and K5 once), one download.  The H̄ intermediates are built at the
+    first sigma (one more K1 on that operator).  It also has the PySCF EOM
+    interface shape (``vector_size``/``get_diag``/``make_imds``/``matvec``)
+    that the adapters of :mod:`pymes_tpu_torch.solver.feast_eom_rccsd`
+    drive."""
+
+    def __init__(self, solver, t_fock_pq, dict_t_V, t_T_abij):
+        self.solver = solver
+        self.f = solver._on_device(t_fock_pq)
+        self.V = solver._operator_on_device(dict_t_V)
+        self.T2 = solver._on_device(t_T_abij).contiguous()
+        solver._hbar = None
+        self.nv, self.no = self.T2.shape[0], self.T2.shape[-1]
+        self.diag = _np(solver._diag(self.f, self.V, self.T2))
+
+    def matvec(self, x, imds=None):
+        """H̄·x of one packed host vector (real or complex); ``imds`` is
+        PySCF's argument, unused."""
+        x = np.asarray(x)
+        rows = np.stack([x.real, x.imag]) if np.iscomplexobj(x) else x[None]
+        s, nv, no = self.solver, self.nv, self.no
+        R = s._on_device(rows)
+        k, n1 = R.shape[0], nv * no
+        W1, W2 = s._batched_sigma(
+            self.f, self.V, R[:, :n1].reshape(k, nv, no),
+            R[:, n1:].reshape(k, nv, nv, no, no), self.T2)
+        W = _np(torch.cat([s._on_device(W1).reshape(k, n1),
+                           s._on_device(W2).reshape(k, -1)], dim=1))
+        return W[0] + 1j * W[1] if k == 2 else W[0]
+
+    def vector_size(self):
+        return self.diag.shape[0]
+
+    def get_diag(self):
+        return self.diag, None
+
+    def make_imds(self):
+        return None

@@ -24,9 +24,23 @@ every lane is one more batched sigma and a K8 pass in residual mode.  The
 quadrature sum runs on the card, so only Q (m, N) comes down.  The trial
 QR, the SVD truncation and ``scipy.linalg.eig(H_proj, B)`` run on the host.
 
+``node_mesh`` (a :class:`~pymes_tpu_torch.parallel.mesh.Mesh`) fans the
+contour nodes out over devices as the JAX package's ``node_mesh`` does
+(``feast_eom_ccsd.py:700-710``): each device holds a replica of the
+operator (f, V, T2, diag and the H̄ intermediates) and solves the lanes of
+its share of the nodes, cut as :func:`pymes_tpu_torch.parallel.sharding.
+shard_over_nodes` cuts them; each share's X is gathered back to the
+solver's device for the quadrature sum.  Where the node count does not
+divide the mesh, every device solves every node on its replica (the
+replicated placement of ``shard_over_nodes``) and the first device's X is
+taken, so the result is unchanged.  One controller drives the shares in
+order (each Arnoldi step reads its Hessenberg column on the host), so on a
+repeated device (``devices=["cuda:0"] * 2``) the mesh changes the batching
+and the memory, never a result beyond the rounding of the batched sigma.
+
 Not ported: the f32-Krylov + f64-refinement engine (``ls_precision=
 "mixed"``, for the TPU's emulated f64), the ``jsp`` backend (jax.scipy),
-``node_mesh``, the compile-watchdog knobs ``max_nodes_per_dispatch`` /
+the compile-watchdog knobs ``max_nodes_per_dispatch`` /
 ``max_nodes_per_scan`` / ``max_trials_per_batch``, the Ozaki slices, and
 the per-node ``_solve_node`` fallback (a fake Hamiltonian goes through the
 ``_batched_sigma`` hook instead).  One JAX fault is not copied: after a
@@ -41,10 +55,13 @@ import warnings
 import numpy as np
 import torch
 from scipy.linalg import eig
+from torch.utils import _pytree
 
 from pymes_tpu_torch.kernels import shifted
 from pymes_tpu_torch.log import print_logging_info, print_title
 from pymes_tpu_torch.ops import gmres as _gmres
+from pymes_tpu_torch.parallel import mesh as _mesh
+from pymes_tpu_torch.parallel import sharding as _sharding
 from pymes_tpu_torch.solver.eom_ccsd import EOM_CCSD
 
 
@@ -105,11 +122,14 @@ class FEAST_EOM_CCSD(EOM_CCSD):
     nodes of tight UEG windows.  ``krylov_mem_budget_bytes`` bounds the
     Krylov bases of one chunk of lanes, (ls_restart+1)·2N·8 bytes a lane;
     None means half the card's free memory at the start of a solve (2 GB
-    on the CPU).  Chunking changes how lanes are batched, never a result.
-    ``twin=True`` runs every kernel through its plain twin."""
+    on the CPU), per device of ``node_mesh``.  Chunking changes how lanes
+    are batched, never a result.  ``node_mesh`` shards the quadrature
+    nodes over its ``node_axis`` (module docstring).  ``twin=True`` runs
+    every kernel through its plain twin."""
 
     def __init__(self, no, device, e_c=0.0, e_r=1.0, n_trial=5, max_iter=20,
-                 tol=1e-12, n_quad=8, seed=None, n_excit=2, ls_conv_tol=1e-4):
+                 tol=1e-12, n_quad=8, seed=None, n_excit=2, ls_conv_tol=1e-4,
+                 node_mesh=None):
         super().__init__(no, device, n_excit=int(n_excit))
         self.algo_name = "FEAST-EOM-CCSD"
         self.e_c = e_c
@@ -124,6 +144,8 @@ class FEAST_EOM_CCSD(EOM_CCSD):
         self.ls_conv_tol = float(ls_conv_tol)
         self.ls_damping = 1.0
         self.krylov_mem_budget_bytes = None
+        self.node_mesh = node_mesh    # shard quadrature nodes over a mesh
+        self.node_axis = "a"
         # relative singular-value floor of the filtered set (None: 10 ×
         # ls_conv_tol, floored at 1e-12; feast_eom_ccsd.py:468)
         self.svd_drop_tol = None
@@ -151,12 +173,20 @@ class FEAST_EOM_CCSD(EOM_CCSD):
             self._op_key = key
         return self._op
 
-    def _krylov_budget(self):
-        if self.krylov_mem_budget_bytes is not None:
-            return float(self.krylov_mem_budget_bytes)
-        if self.device.type == "cuda":
-            return torch.cuda.mem_get_info(self.device)[0] / 2
-        return 2e9
+    def _krylov_budgets(self):
+        """The Krylov budget of each device that solves lanes, taken at the
+        start of a solve."""
+        devices = (self.node_mesh.devices if self.node_mesh is not None
+                   else (self.device,))
+        out = {}
+        for dev in devices:
+            if self.krylov_mem_budget_bytes is not None:
+                out[dev] = float(self.krylov_mem_budget_bytes)
+            elif dev.type == "cuda":
+                out[dev] = torch.cuda.mem_get_info(dev)[0] / 2
+            else:
+                out[dev] = 2e9
+        return out
 
     def _warn_unconverged(self, rel_res):
         """Surface non-converged shifted solves instead of silently
@@ -178,16 +208,61 @@ class FEAST_EOM_CCSD(EOM_CCSD):
         self.ls_stats = {"chunks": 0, "calls": 0, "cycle_ends": 0,
                          "projections": 0, "steps": []}
 
-    def _solve_lanes(self, op, B, zr, zi, rt=False, dt=0.0):
+    def _solve_lanes(self, op, B, zr, zi, rt=False, dt=0.0, per_node=1):
         """The shifted solves of all lanes: ``B`` (L, 2N) right-hand-side
-        pairs, ``zr``/``zi`` (L,) shifts.  Lanes go in chunks whose Krylov
-        bases fit ``self._budget``; per chunk, one lane-batched solve and
-        the honest residual (one batched sigma + K8 in residual mode,
-        ``_residual_impl`` :360).  Returns X (L, 2N) and the honest
-        relative residuals (numpy)."""
+        pairs, ``zr``/``zi`` (L,) shifts, node-major with ``per_node``
+        lanes a node.  Returns X (L, 2N) on the solver's device and the
+        honest relative residuals (numpy)."""
+        if self.node_mesh is None:
+            return self._solve_chunks(op, B, zr, zi, rt, dt,
+                                      self._budget[self.device])
+        mesh, axis = self.node_mesh, self.node_axis
+        if axis not in mesh.shape:
+            raise ValueError(f"node_axis {axis!r} is not an axis of the "
+                             f"node mesh {mesh.axis_names}")
+        L, n = B.shape
+        nq = L // per_node
+        lanes = _sharding.shard_over_nodes(
+            (B.view(nq, per_node, n), zr.view(nq, per_node),
+             zi.view(nq, per_node)), mesh, axis)
+        sharded = lanes[0].axis == 0
+        n_dev = mesh.shape[axis]
+        print_logging_info(
+            f"node mesh: {nq} nodes over {n_dev} devices, " + (
+                f"{nq // n_dev} a device" if sharded else
+                "not divisible: every device solves every node on its "
+                "replica"), level=2)
+        # each device's replica of the operator and of H̄ (on a repeated
+        # device the tensors themselves); the sigma reads H̄ from _hbar
+        hbar = self._hbar_of(*op[:3])
+        reps = _sharding.replicate((op, hbar), mesh)
+        X, rel = [], []
+        try:
+            for p, dev in enumerate(mesh.devices):
+                op_p, self._hbar = _pytree.tree_map(
+                    lambda s: s.shards[p] if isinstance(s, _mesh.Sharded)
+                    else s, reps,
+                    is_leaf=lambda s: isinstance(s, _mesh.Sharded))
+                Bp, zr_p, zi_p = (t.shards[p] for t in lanes)
+                x, r = self._solve_chunks(
+                    op_p, Bp.reshape(-1, n), zr_p.reshape(-1),
+                    zi_p.reshape(-1), rt, dt, self._budget[dev])
+                X.append(x.to(self.device))
+                rel.append(r)
+        finally:
+            self._hbar = hbar
+        if sharded:
+            return torch.cat(X), np.concatenate(rel)
+        return X[0], rel[0]
+
+    def _solve_chunks(self, op, B, zr, zi, rt, dt, budget):
+        """The shifted solves of the lanes ``B`` on one device: lanes go in
+        chunks whose Krylov bases fit ``budget`` bytes; per chunk, one
+        lane-batched solve and the honest residual (one batched sigma + K8
+        in residual mode, ``_residual_impl`` :360)."""
         L, n = B.shape
         restart = int(self.ls_restart)
-        per = max(1, int(self._budget // ((restart + 1) * n * 8)))
+        per = max(1, int(budget // ((restart + 1) * n * 8)))
         per = -(-L // (-(-L // per)))     # even chunks
         X = torch.empty_like(B)
         rel = np.empty(L)
@@ -254,7 +329,7 @@ class FEAST_EOM_CCSD(EOM_CCSD):
         B[:, :N] = self._on_device(Bset).repeat(nq, 1)
         zr = torch.as_tensor(np.repeat(z.real, m), device=dev)
         zi = torch.as_tensor(np.repeat(z.imag, m), device=dev)
-        X, rel = self._solve_lanes(op, B, zr, zi)
+        X, rel = self._solve_lanes(op, B, zr, zi, per_node=m)
         self._warn_unconverged(rel.reshape(nq, m))
         X = X.view(nq, m, 2, N)
         Q = torch.zeros((m, N), dtype=torch.float64, device=dev)
@@ -271,7 +346,7 @@ class FEAST_EOM_CCSD(EOM_CCSD):
         time_init = time.time()
         no = self.no
         op = self._operator(t_fock_dressed_pq, dict_t_V_dressed, t_T_abij)
-        self._budget = self._krylov_budget()
+        self._budget = self._krylov_budgets()
         self._new_stats()
         nv = op[2].shape[0]
         n1 = nv * no

@@ -43,7 +43,7 @@ class RT_EOM_CCSD(FEAST_EOM_CCSD):
             raise RuntimeError("No initial state specified!")
         no = self.no
         op = self._operator(t_fock_dressed_pq, dict_t_V_dressed, t_T_abij)
-        self._budget = self._krylov_budget()
+        self._budget = self._krylov_budgets()
         self._new_stats()
         nv = op[2].shape[0]
         n1 = nv * no

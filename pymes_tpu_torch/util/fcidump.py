@@ -17,8 +17,9 @@ one parse of the records (:func:`_records`), so each puts a TC record, and
 a one-body record, last at its own place as :func:`read` does; the JAX
 package's block and HDF5 readers keep the partner's value instead where a
 TC dump lists ``pqrs`` and ``qpsr`` with different values (the H2 TC dump
-of ``tests/data``).  The optional native parser of the JAX package is not
-carried: the numpy parse gives the same values.
+of ``tests/data``).  The records are parsed by the port's native parser
+(:mod:`pymes_tpu_torch._native`, C++ built at first use), bit for bit as
+the numpy parse that stays as its fallback.
 """
 
 import os
@@ -26,6 +27,7 @@ import os
 import numpy as np
 import torch
 
+from pymes_tpu_torch import _native
 from pymes_tpu_torch.config import DTYPE, resolve_device, to_host
 from pymes_tpu_torch.log import print_logging_info
 
@@ -46,10 +48,16 @@ def _parse_header(reader):
     return header
 
 
-def _parse_body(body):
+def _numpy_parse(body):
     rows = np.array(body.replace("D", "E").replace("d", "e").split(),
                     dtype=object).reshape(-1, 5)
     return rows[:, 0].astype(np.float64), rows[:, 1:].astype(np.int64)
+
+
+def _parse_body(body):
+    """(values, indices (n, 4)) of the records ``value p r q s``: the
+    native parser, else the numpy parse (:func:`_native.parse`)."""
+    return _native.parse(body, 4, _numpy_parse)
 
 
 def _records(vals, idx, n_orb, is_tc):

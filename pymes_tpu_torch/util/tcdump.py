@@ -8,7 +8,9 @@ carry the ``−1/3`` factor, so the in-memory tensor is ``−3×`` the file
 values.  The dense tensor interleaves electron pairs: axes
 (o, r, p, s, q, t).  :func:`write` keeps one canonical representative
 per 6-fold orbit (the lexicographically smallest physicists' index), so a
-written dump reads back to the same tensor.  h5py is optional and imported
+written dump reads back to the same tensor.  Text records are parsed by
+the port's native parser (:mod:`pymes_tpu_torch._native`), bit for bit as
+the numpy parse that stays as its fallback.  h5py is optional and imported
 only by the HDF5 reader.  ``tests/test_torch_ccsd_io.py`` and
 ``tests/test_torch_io.py`` hold the copy equal to the original.
 """
@@ -18,6 +20,7 @@ from typing import NamedTuple
 
 import numpy as np
 
+from pymes_tpu_torch import _native
 from pymes_tpu_torch.log import print_logging_info
 
 
@@ -72,10 +75,13 @@ def _read_txt(file_name):
     with open(file_name) as reader:
         nb = int(reader.readline().strip())
         body = reader.read()
+    vals, idx = _native.parse(body, 6, _numpy_parse)
+    return -3.0 * vals, idx - 1, nb
+
+
+def _numpy_parse(body):
     rows = np.array(body.split(), dtype=object).reshape(-1, 7)
-    vals = -3.0 * rows[:, 0].astype(np.float64)
-    idx = rows[:, 1:].astype(np.int64) - 1
-    return vals, idx, nb
+    return rows[:, 0].astype(np.float64), rows[:, 1:].astype(np.int64)
 
 
 def _read_hdf5(file_name):

@@ -1008,3 +1008,109 @@ def test_checkpoint_round_trip_of_card_tensors(device, tmp_path):
     warm = ccsd.CCSD(NO, device).solve(fock, V, amps=back.amps)
     cold = ccsd.CCSD(NO, device).solve(fock, V)
     assert abs(warm["ccsd e"] - cold["ccsd e"]) <= 1e-8
+
+
+# ---- the last solver slice: the generic FEAST kernel, the node fan-out ----
+
+def _np19_operator(dev):
+    """The nP=19 no-ovvv operator on ``dev`` with MP2 amplitudes, as in
+    :func:`test_feast_on_card_matches_cpu`."""
+    u = ueg.UEG(14, 7, 7, 1.0)
+    u.init_single_basis(2)
+    V = torch.as_tensor(u.eval_2b_integrals())
+    fock = hf.construct_hf_matrix(
+        NO, torch.diag(torch.as_tensor(u.kinetic_energies())), V)
+    d = {k: v.to(dev) for k, v in part_2_body_int(NO, V).items()
+         if k not in ("abcd", "abci", "iabc", "aibc", "abic")}
+    d["abcd"] = None
+    d["abcd_ladder"] = ueg_ladder.build_block_ladder(u, dev, bra="all")
+    d["_ovvv_plans"] = ueg_ladder.build_ovvv_plans(u, dev)
+    f = fock.to(dev)
+    eps = torch.diagonal(f)
+    _, T2 = mp2.solve(eps[:NO], eps[NO:], d["ijab"], d["abij"], 0.0)
+    return f, d, T2
+
+
+def test_packed_sigma_on_card_matches_cpu(device):
+    """The generic kernel's matvec (one batched sigma of the (Re, Im) pair
+    of rows) on the card equals its CPU twin within 1e-12 relative, and
+    launches K1 (+ 1 for H̄), K4 three times and K5 once a matvec."""
+    rng = np.random.default_rng(20)
+    out, x, y = {}, None, None
+    for dev in (device, torch.device("cpu")):
+        f, d, T2 = _np19_operator(dev)
+        kernels.reset_launches()
+        op = eom_ccsd.PackedSigma(eom_ccsd.EOM_CCSD(NO, dev), f, d, T2)
+        if x is None:
+            x = rng.standard_normal(op.vector_size())
+            y = rng.standard_normal(op.vector_size())
+        out[dev.type] = (op.matvec(x), op.matvec(x + 1j * y),
+                         op.diag)
+        if dev.type == "cuda":
+            launches = dict(kernels.LAUNCHES)
+    for got, want in zip(out["cuda"], out["cpu"]):
+        assert np.abs(got - want).max() <= REL * np.abs(want).max()
+    assert (launches["block_ladder"], launches["ovvv_gather"],
+            launches["pair_symmetrize"]) == (3, 6, 2), launches
+
+
+def _lih_dressed(dev):
+    from pymes_tpu_torch.util import fcidump
+    from pathlib import Path
+    path = Path(__file__).resolve().parent / "data" / "FCIDUMP.LiH.321g"
+    n_elec, _, _, _, h, V = fcidump.read(str(path))
+    no = n_elec // 2
+    h, V = torch.as_tensor(h, device=dev), torch.as_tensor(V, device=dev)
+    fock = hf.construct_hf_matrix(no, h, V)
+    cc = ccsd.CCSD(no, dev)
+    res = cc.solve(fock, V, delta_e=1e-12, max_iter=200)
+    dV = part_2_body_int(no, V)
+    return (cc.get_T1_dressed_fock(fock, res["t1"], dV),
+            cc.get_T1_dressed_V(res["t1"], dV,
+                                {k: None for k in ccsd.EOM_DRESSED}),
+            res["t2"])
+
+
+def test_generic_feast_over_card_sigma_matches_cpu(device):
+    """``feast_kernel.feast`` over the card's LiH sigma equals the same
+    run over the CPU twin within 1e-9 (the oracle roots 0.1180867 and
+    0.1543762 in the window)."""
+    from pymes_tpu_torch.solver import feast_kernel
+    out = {}
+    for dev in (device, torch.device("cpu")):
+        fd, Vd, t2 = _lih_dressed(dev)
+        op = eom_ccsd.PackedSigma(eom_ccsd.EOM_CCSD(t2.shape[-1], dev), fd,
+                                  Vd, t2)
+        kernels.reset_launches()
+        ev, _ = feast_kernel.feast(op.matvec, op.diag, nroots=3, e_c=0.136,
+                                   e_r=0.03, max_cycle=20, ls_max_iter=20,
+                                   seed=3, verbose=False)
+        out[dev.type] = np.sort(ev.real)
+        if dev.type == "cuda":
+            assert kernels.LAUNCHES["pair_symmetrize"] > 0
+    np.testing.assert_allclose(out["cuda"], out["cpu"], rtol=0, atol=1e-9)
+    for r in (0.1180867, 0.1543762):
+        assert np.min(np.abs(out["cuda"] - r)) < 1e-6
+
+
+def test_node_mesh_feast_on_a_repeated_card_matches_unsharded(device):
+    """FEAST with its 8 nodes over ``node_mesh(2, devices=["cuda:0"] *
+    2)`` equals the unsharded card run within 1e-10 in its iterations."""
+    from pymes_tpu_torch.parallel import sharding
+    from pymes_tpu_torch.solver import feast_eom_ccsd
+    f, d, T2 = _np19_operator(device)
+    e0 = float(eom_ccsd.EOM_CCSD(NO, device, n_excit=1).solve(f, d, T2)[0])
+    out = {}
+    for P in (None, 2):
+        mesh = None if P is None else sharding.node_mesh(
+            P, "cuda", axis="a", devices=["cuda:0"] * P)
+        s = feast_eom_ccsd.FEAST_EOM_CCSD(NO, device, e_c=e0, e_r=0.3,
+                                          n_trial=2, max_iter=3, tol=-1.0,
+                                          seed=3, ls_conv_tol=1e-8,
+                                          node_mesh=mesh)
+        s.ls_restart, s.ls_max_iter = 40, 4
+        out[P] = (np.sort_complex(s.solve(f, d, T2)), s.n_iterations,
+                  [len(np.atleast_1d(a)) for a in s.ls_stats["steps"]])
+    np.testing.assert_allclose(out[2][0], out[None][0], rtol=0, atol=1e-10)
+    assert out[2][1] == out[None][1] == 3
+    assert out[2][2] == [8] * 6 and out[None][2] == [16] * 3

@@ -13,7 +13,13 @@ answers, f64 on the CPU (the kernels' twins):
 * UEG nP=19 no-ovvv operator: one shifted solve (FEAST and RT operator)
   within 1e-10 of JAX ``_shifted_solve`` and the honest residual equal to
   ``_residual_nodes``; no-ovvv FEAST equal to dense FEAST after 2
-  iterations within 1e-8.
+  iterations within 1e-8;
+* the node fan-out ``node_mesh`` on ``["cpu"] * P`` (P = 2, 4 divide the
+  8 nodes, P = 3 does not and replicates): H₂ FEAST (the settings of
+  ``tests/test_feast_rt.py:302-326``) and three H₂ RT steps within 1e-10
+  of the port's unsharded run and of the JAX package's f64 node-mesh run
+  on a mesh of P virtual devices, in the same iterations, each device
+  solving its share of the lanes in one chunk.
 """
 
 import os
@@ -29,13 +35,17 @@ from pymes_tpu.models import ueg as jueg
 from pymes_tpu.ops import ueg_ladder as jladder
 from pymes_tpu.solver import ccsd as jccsd
 from pymes_tpu.solver import eom_ccsd as jeom
+from pymes_tpu.parallel import mesh as jmesh
 from pymes_tpu.solver import feast_eom_ccsd as jfeast
+from pymes_tpu.solver import rt_eom_ccsd as jrt
 from pymes_tpu.util import fcidump as jfcidump
 from pymes_tpu_torch import interop
 from pymes_tpu_torch.integral.partition import part_2_body_int as tpart
 from pymes_tpu_torch.ops import gmres as tgmres
+from pymes_tpu_torch.parallel import mesh as tmesh
 from pymes_tpu_torch.solver import eom_ccsd as teom
 from pymes_tpu_torch.solver import feast_eom_ccsd as tfeast
+from pymes_tpu_torch.solver import rt_eom_ccsd as trt
 
 DATA = os.path.join(os.path.dirname(__file__), "data")
 NO = 7
@@ -330,3 +340,90 @@ def test_ueg19_no_ovvv_feast_equals_dense(ueg19):
         assert s.n_iterations == 2
     np.testing.assert_allclose(roots["no_ovvv"], roots["dense"], rtol=0,
                                atol=1e-8)
+
+
+# ---- the node fan-out over a device mesh -----------------------------------
+
+def _f64(s):
+    """The JAX package's f64 Krylov path, the one its node mesh shards."""
+    s.ls_precision = "f64"
+    s.ls_backend = "inhouse"
+    s.max_nodes_per_dispatch = None
+    return s
+
+
+def _lanes_per_chunk(s):
+    return [len(np.atleast_1d(a)) for a in s.ls_stats["steps"]]
+
+
+@pytest.mark.parametrize("n_dev", [2, 3, 4])
+def test_h2_node_mesh_feast_matches_unsharded_and_jax(n_dev):
+    no, fd, Vd, t2, e_dav = _h2_dressed()
+    Vt = interop.eom_operator_from_numpy(Vd, "cpu")
+    kw = dict(e_c=e_dav, e_r=0.2, n_trial=2, max_iter=50, tol=1e-10, seed=1)
+    out = {}
+    for mesh in (None, tmesh.make_mesh(n_dev, "cpu",
+                                       devices=["cpu"] * n_dev)):
+        s = tfeast.FEAST_EOM_CCSD(no, "cpu", node_mesh=mesh, **kw)
+        s.ls_max_iter = 50
+        out[mesh is None] = (np.sort_complex(s.solve(fd, Vt, t2)), s)
+    (ref, s0), (got, s) = out[True], out[False]
+    assert s.node_axis == "a" and s.n_iterations == s0.n_iterations
+    np.testing.assert_allclose(got, ref, rtol=0, atol=1e-10)
+    # one chunk a device and iteration: its share of the 8 x 2 lanes, or
+    # all of them on every replica where 8 nodes do not divide the mesh
+    share = 16 // n_dev if 8 % n_dev == 0 else 16
+    assert _lanes_per_chunk(s) == [share] * (n_dev * s.n_iterations)
+
+    js = _f64(jfeast.FEAST_EOM_CCSD(
+        no, node_mesh=jmesh.make_mesh(n_dev, axis_names=("a",)), **kw))
+    js.ls_max_iter = 50
+    ej = np.sort_complex(np.asarray(js.solve(fd, Vd, t2)))
+    assert len(js.iter_walls) == s.n_iterations
+    np.testing.assert_allclose(got, ej, rtol=0, atol=1e-10)
+    assert np.min(np.abs(got.real - e_dav)) < 1e-10
+
+
+@pytest.mark.parametrize("n_dev", [2, 3, 4])
+def test_h2_node_mesh_rt_matches_unsharded_and_jax(n_dev):
+    """RT_EOM_CCSD takes node_mesh through **kwargs, as the JAX package's
+    subclass does; three steps from the Davidson vector."""
+    no, fd, Vd, t2, _ = _h2_dressed()
+    dav = jeom.EOM_CCSD(no, n_excit=1)
+    omega = float(np.real(dav.solve(fd, Vd, t2)[0]))
+    u = (np.asarray(dav.u_singles[0]).astype(complex),
+         np.asarray(dav.u_doubles[0]).astype(complex))
+    Vt = interop.eom_operator_from_numpy(Vd, "cpu")
+    kw = dict(e_c=omega, e_r=0.5, n_quad=32, ls_conv_tol=1e-12)
+    solvers = {
+        "ref": trt.RT_EOM_CCSD(no, "cpu", **kw),
+        "mesh": trt.RT_EOM_CCSD(no, "cpu", node_mesh=tmesh.make_mesh(
+            n_dev, "cpu", devices=["cpu"] * n_dev), **kw),
+        "jax": _f64(jrt.RT_EOM_CCSD(no, node_mesh=jmesh.make_mesh(
+            n_dev, axis_names=("a",)), **kw))}
+    q = {k: u for k in solvers}
+    for _ in range(3):
+        for k, s in solvers.items():
+            s.ls_restart = 20
+            s.ls_max_iter = 100
+            q[k] = s.solve(fd, Vd if k == "jax" else Vt, t2, dt=0.1,
+                           u_singles=q[k][0], u_doubles=q[k][1])
+        for k in ("ref", "jax"):
+            for a, b in zip(q["mesh"], q[k]):
+                np.testing.assert_allclose(a, np.asarray(b), rtol=0,
+                                           atol=1e-10)
+        share = 32 // n_dev if 32 % n_dev == 0 else 32
+        assert _lanes_per_chunk(solvers["mesh"]) == [share] * n_dev
+
+
+def test_node_mesh_needs_its_axis():
+    no, fd, Vd, t2, e_dav = _h2_dressed()
+    s = tfeast.FEAST_EOM_CCSD(no, "cpu", e_c=e_dav, e_r=0.2, n_trial=2,
+                              max_iter=2, node_mesh=tmesh.make_mesh(
+                                  2, "cpu", axis_names=("n",),
+                                  devices=["cpu"] * 2))
+    with pytest.raises(ValueError, match="node_axis"):
+        s.solve(fd, interop.eom_operator_from_numpy(Vd, "cpu"), t2)
+    s.node_axis = "n"
+    ev = s.solve(fd, interop.eom_operator_from_numpy(Vd, "cpu"), t2)
+    assert len(ev)

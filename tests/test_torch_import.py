@@ -42,6 +42,11 @@ UTILITY_MODULES = tuple("pymes_tpu_torch." + m for m in (
     "util.structure", "integral.symmetry", "model",
     "examples.molecular_ccsd_eom", "examples.rt_autocorrelation",
     "examples.ueg_tc_twist_average"))
+# the last solver slice: the generic FEAST kernel and its adapters, the
+# node fan-out and the native record parser
+SOLVER_MODULES = tuple("pymes_tpu_torch." + m for m in (
+    "solver.feast_kernel", "solver.feast_eom_rccsd", "parallel.sharding",
+    "_native"))
 
 
 def test_port_never_imports_jax():
@@ -62,8 +67,8 @@ def test_port_never_imports_jax():
             "pymes_tpu_torch.parallel.ring_ladder, "
             "pymes_tpu_torch.kernels.ring_step, "
             "pymes_tpu_torch.models.ueg, pymes_tpu_torch.solver.drccd, "
-            "pymes_tpu_torch.solver.dcd, " + ", ".join(UTILITY_MODULES)
-            + "\n"
+            "pymes_tpu_torch.solver.dcd, "
+            + ", ".join(UTILITY_MODULES + SOLVER_MODULES) + "\n"
             "bad = sorted(m for m in sys.modules "
             "if m == 'jax' or m.startswith(('jax.', 'pymes_tpu.')) "
             "or m == 'pymes_tpu')\n"
@@ -81,6 +86,23 @@ def test_utility_modules_import_neither_h5py_nor_spglib():
             "bad = sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('h5py', 'spglib'))\n"
             "assert not bad, bad\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_feast_kernel_imports_joblib_only_to_fan_out():
+    """joblib (absent on the card's machine) is imported only where
+    ``feast(n_jobs != 1)`` fans out; importing the modules and running
+    the serial kernel leaves it out of ``sys.modules``."""
+    code = ("import sys\n"
+            "import numpy as np\n"
+            "import " + ", ".join(SOLVER_MODULES) + "\n"
+            "from pymes_tpu_torch.solver import feast_kernel\n"
+            "h = np.diag(np.arange(6.0))\n"
+            "feast_kernel.feast(lambda x: h @ x, np.diag(h), e_c=2.0, "
+            "e_r=0.5, max_cycle=1, seed=0, verbose=False)\n"
+            "assert 'joblib' not in sys.modules\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr

@@ -12,7 +12,9 @@ step's product 1e-13 relative; ring-CCD per-iteration energies 1e-10
 oracle 1e-8 (BASELINE.md); the padded plan exact, its apply and the
 sector-sharded apply bit for bit against the port's unsharded apply (the
 same sector products, copied) and 1e-12 relative against JAX's; sharded
-matrix-free CCSD 1e-10.
+matrix-free CCSD 1e-10; the node fan-out of ``parallel/sharding.py``
+1e-13 relative against the whole computation and the JAX package's
+``vmap`` over its node-sharded inputs.
 """
 
 import numpy as np
@@ -29,6 +31,7 @@ from pymes_tpu.models import ueg as jueg
 from pymes_tpu.ops import ueg_ladder as jladder
 from pymes_tpu.parallel import mesh as jmesh
 from pymes_tpu.parallel import ring_ladder as jring
+from pymes_tpu.parallel import sharding as jsharding
 from pymes_tpu.solver import ccd as jccd
 from pymes_tpu.solver import ccsd as jccsd
 from pymes_tpu_torch import interop
@@ -38,6 +41,7 @@ from pymes_tpu_torch.models import ueg as tueg
 from pymes_tpu_torch.ops import ueg_ladder as tladder
 from pymes_tpu_torch.parallel import mesh as tmesh
 from pymes_tpu_torch.parallel import ring_ladder as tring
+from pymes_tpu_torch.parallel import sharding as tsharding
 from pymes_tpu_torch.solver import ccd as tccd
 from pymes_tpu_torch.solver import ccsd as tccsd
 
@@ -365,3 +369,72 @@ def test_sharded_mf_ccsd_noncanonical_matches_jax():
     assert abs(res["ccsd e"] - ref["ccsd e"]) <= 1e-10
     assert abs(res["ccsd e"] - one["ccsd e"]) <= 1e-10
     assert len(res["e history"]) == len(one["e history"])
+
+
+# ---- the node fan-out (parallel/sharding.py) -------------------------------
+
+def _per_node(z, y):
+    return (y * y).sum(-1) * z + torch.linalg.norm(y, dim=-1)
+
+
+def test_shard_over_nodes_fan_out_matches_whole_and_jax():
+    """Per-node work on node-sharded inputs equals the whole computation
+    (``tests/test_parallel.py:154``) and the JAX package's."""
+    m = tsharding.node_mesh(4, "cpu", devices=["cpu"] * 4)
+    assert m.axis_names == ("n",) and m.shape == {"n": 4}
+    rng = np.random.default_rng(0)
+    ys, zs = rng.standard_normal((8, 64)), rng.standard_normal(8)
+    odd = rng.standard_normal((6, 3))
+    tree = tsharding.shard_over_nodes(
+        {"z": zs, "y": torch.as_tensor(ys), "odd": odd, "s": 2.5,
+         "pair": [torch.as_tensor(zs), (torch.ones(4),)]}, m, axis="n")
+    got = torch.cat([_per_node(z, y) for z, y in
+                     zip(tree["z"].shards, tree["y"].shards)])
+    want = _per_node(torch.as_tensor(zs), torch.as_tensor(ys))
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-13)
+    assert tree["y"].axis == 0
+    assert [tuple(p.shape) for p in tree["y"].shards] == [(2, 64)] * 4
+    assert tree["pair"][0].axis == 0 and tree["pair"][1][0].axis == 0
+    # a leading dimension that does not divide the mesh, and a scalar,
+    # are replicated: one tensor on the repeated device
+    for leaf in (tree["odd"], tree["s"]):
+        assert leaf.axis is None and len(leaf.shards) == 4
+        assert all(p is leaf.shards[0] for p in leaf.shards)
+    np.testing.assert_array_equal(tree["odd"].gather("cpu").numpy(), odd)
+    assert float(tree["s"].shards[0]) == 2.5
+
+    jm = _jax_mesh(4, "n")
+    jt = jsharding.shard_over_nodes({"z": jnp.asarray(zs),
+                                     "y": jnp.asarray(ys)}, jm, axis="n")
+    jgot = jax.jit(jax.vmap(lambda z, y: jnp.sum(y * y) * z
+                            + jnp.linalg.norm(y)))(jt["z"], jt["y"])
+    np.testing.assert_allclose(got.numpy(), np.asarray(jgot), rtol=1e-13)
+
+
+def test_replicate_keeps_one_tensor_per_device():
+    m = _cpu_mesh(3)
+    x = torch.arange(6.0)
+    plan = tladder.OVVVPlan(S=torch.zeros(2, dtype=torch.int32), W=x)
+    tree = tsharding.replicate({"x": x, "plan": plan, "n": 3, "none": None},
+                               m)
+    assert tree["n"] == 3 and tree["none"] is None
+    for leaf in (tree["x"], tree["plan"].W):
+        assert leaf.axis is None
+        assert all(p is x for p in leaf.shards)
+    assert isinstance(tree["plan"], tladder.OVVVPlan)
+    # a copy onto another device is made once for a repeated device
+    meta = tmesh.Mesh([torch.device("meta")] * 3)
+    r = tsharding.replicate({"x": x}, meta)["x"]
+    assert r.shards[0].device.type == "meta"
+    assert all(p is r.shards[0] for p in r.shards)
+
+
+def test_node_mesh_takes_only_visible_devices():
+    with pytest.raises(RuntimeError):
+        tsharding.node_mesh(2, "cpu")
+    assert tsharding.node_mesh(None, "cpu").shape == {"n": 1}
+    assert tsharding.node_mesh(None, "cpu", axis="a",
+                               devices=["cpu"] * 3).shape == {"a": 3}
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError):
+            tsharding.node_mesh(1, "cuda")
