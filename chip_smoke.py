@@ -52,7 +52,11 @@ Drives the port's main paths through its own kernels:
   PySCF-shaped adapters of ``solver/feast_eom_rccsd.py`` over LiH;
 * the FEAST node fan-out — the nP=57 window with its contour nodes over
   ``node_mesh(P, "cuda", devices=["cuda:0"] * P)``, P = 2 and 4;
-* the native FCIDUMP/TCDUMP record parser (C++, ``_native.py``).
+* the native FCIDUMP/TCDUMP record parser (C++, ``_native.py``);
+* tensor-parallel dense CCD and CCSD — every block scattered on the card
+  and cut by ``mesh.shard_blocks`` over 4 shards and 2 x 2 of the card
+  (``abcd`` and the ov³ blocks stay cut, no v⁴ block is gathered): CCD
+  and the seeded non-canonical CCSD at nP=219, LiH CCSD on 3 and 3 x 3.
 
 Kernels: K1 ``block_ladder`` (CUDA C++ on the f64 tensor cores, built with
 nvcc for sm_90a at first use), K4 ``ovvv_gather`` and its fused trace
@@ -146,7 +150,17 @@ in its iterations, 64 / P lanes a chunk, K7/K8 exactly as the chunks
 imply, walls per iteration and peak memory beside phase 12's; (22) the
 native parser ran for every dump read, bit-equal to the numpy parse on
 every dump of ``tests/data`` and on 1 M records with ``D`` exponents,
-both parse times.  Every bound comes from the helpers of
+both parse times.  Phase 23 runs after phase 17: (23) the nP=219
+``abcd`` scattered (16.16 GB) and the dense CCD through the gathering
+path (``Sharded.gather``, then the dense solve) and on 4 shards and 2 x 2
+(|dE| < 1e-8 within 1e-9 of the JAX package in the matrix-free CCD's
+iterations, one K2, K3 and K5 an iteration, the cut solves' peak memory
+above the phase's start below ``abcd`` + 25 %), the non-canonical dense
+CCSD on both (|dE| < 1e-10 within 1e-9 of the JAX package, one K2′, K3′
+and K5 an iteration; the unsharded dense CCSD where it fits, else a line
+that says so) and LiH CCSD on 3 and 3 x 3 (1e-8 of the oracle, 1e-10 of
+phase 6), with ms per iteration and peak memory of each solve.  Every
+bound comes from the helpers of
 ``pymes_tpu_torch/util/roofline.py``.
 Prints a JSON line of the kernels
 (launches, errors, the TC and drCCD runs as sub-entries,
@@ -339,6 +353,12 @@ LIH_ADAPTER = {"feast": dict(nroots=3, e_c=0.136, e_r=0.03, ngl_pts=8),
                "max_cycle": 20, "ls_max_iter": 20}
 # phase 21: the nodes of phase 12 over P shares of one card
 NODE_MESHES = (2, 4)
+# phase 23, the tensor-parallel dense CCD/CCSD: (devices, 2-D shape or
+# None) of the meshes over one card at nP=219 (nv = 212) and for LiH (nv =
+# 9); the peak of the cut CCD stays below abcd + 25 %
+TP_MESHES = ((4, None), (4, (2, 2)))
+LIH_TP_MESHES = ((3, None), (9, (3, 3)))
+TP_PEAK_HEADROOM = 0.25
 
 
 def check(cond, msg):
@@ -858,11 +878,12 @@ def compare_molecular_kernels(mols, seed):
 
 def molecular_ccsd(mols, device):
     """Dense CCSD on the four molecules of :func:`load_molecule`, each
-    against its oracle."""
+    against its oracle; returns each energy by name."""
     import torch
 
     from pymes_tpu_torch.solver import ccsd
 
+    out = {}
     for name, m in mols.items():
         e_ref, hf_ref, tol = MOLECULES[name][2:]
         t0 = time.time()
@@ -871,7 +892,7 @@ def molecular_ccsd(mols, device):
             check(abs(hf_e - hf_ref) <= 1e-8,
                   f"{name}: HF {hf_e} vs oracle {hf_ref}")
         res = ccsd.CCSD(no, device).solve(fock, m["V"], **m["kw"])
-        e = res["ccsd e"]
+        e = out[name] = res["ccsd e"]
         check(bool(torch.isfinite(res["t2"]).all())
               and res["t1"].shape == (fock.shape[0] - no, no),
               f"{name}: amplitudes not finite or of the wrong shape")
@@ -882,6 +903,7 @@ def molecular_ccsd(mols, device):
               + (f", HF |E - oracle|={abs(hf_e - hf_ref):.2e}"
                  if hf_ref is not None else "")
               + f", {time.time() - t0:.2f} s", flush=True)
+    return out
 
 
 def mf_ccsd(q, device):
@@ -2653,6 +2675,247 @@ def tc_phase(problems, device, card, launches, compare):
     return tc_sub
 
 
+def tp_mesh(n, shape, device):
+    """A mesh of ``n`` shares of one card, 1-D ("a",) or 2-D ("a", "b")
+    of ``shape``."""
+    from pymes_tpu_torch.parallel import mesh
+
+    axes = ("a",) if shape is None else ("a", "b")
+    return mesh.make_mesh(n, device, axis_names=axes, shape=shape,
+                          devices=[device] * n)
+
+
+def tp_label(n, shape):
+    return f"{n} shards" if shape is None else "{} x {}".format(*shape)
+
+
+def timed_solve(solver, fock, V, **kw):
+    """One converged solve from a reset peak: (result, ms per iteration
+    of its wall (host clock, synchronised; set-up and MP2 included),
+    peak device memory in bytes)."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = solver.solve(fock, V, **kw)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    return (res, wall / len(res["e history"]),
+            torch.cuda.max_memory_allocated())
+
+
+def tp_ccd(p, n_ref, device, launches):
+    """Phase 23(a): dense CCD at nP=219 on the ``abcd`` scattered on the
+    card and cut, with the blocks it reads, over each mesh of
+    ``TP_MESHES`` (the tensor-parallel ladder, one product per piece):
+    |dE| < 1e-8, E within 1e-9 of the JAX package in the matrix-free
+    CCD's ``n_ref`` iterations, one K2, K3 and K5 launch an iteration;
+    its peak memory above the phase's start below abcd + 25 %, beside
+    the peak of the gathering path (``Sharded.gather``, then the dense
+    solve).  Returns the scattered ``abcd`` and the phase's baseline."""
+    import torch
+
+    from pymes_tpu_torch.models import ueg
+    from pymes_tpu_torch.parallel import mesh as pmesh
+    from pymes_tpu_torch.solver import ccd
+
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    t0 = time.time()
+    abcd = ueg.sparse_to_blocks(*p["sparse"], p["nP"], NO, device,
+                                names=("abcd",))["abcd"]
+    torch.cuda.synchronize()
+    size = abcd.numel() * 8
+    print(f"tensor-parallel set-up nP={p['nP']}: dense abcd "
+          f"{size / 1e9:.3f} GB scattered on the card "
+          f"({time.time() - t0:.2f} s); earlier phases hold "
+          f"{base / 1e9:.3f} GB", flush=True)
+    d = {k: p["dict"][k] for k in ("klij", "ijab", "abij", "iajb", "iabj")}
+    d["abcd"] = abcd
+    kw = dict(level_shift=-1.0, max_iter=60)
+    out = {}
+    for n, shape in ((None, None),) + TP_MESHES:
+        label = "gathering path" if n is None else tp_label(n, shape)
+        m = tp_mesh(*(TP_MESHES[0] if n is None else (n, shape)), device)
+        cut = pmesh.shard_blocks(m, d)
+        if n is None:
+            # the gathering path: abcd put together on the card, whole
+            cut["abcd"] = cut["abcd"].gather(device)
+            res, ms, peak = timed_solve(ccd.CCD(NO, device), p["fock"], cut,
+                                        **kw)
+        else:
+            def run():
+                out["run"] = timed_solve(ccd.CCD(NO, device), p["fock"], cut,
+                                         **kw)
+                k = len(out["run"][0]["e history"])
+                return {"ccd_jacobi_diis": k, "ccd_mix_energy": k,
+                        "pair_symmetrize": k}
+            counted_exactly(f"tensor-parallel CCD nP={p['nP']}, {label}",
+                            run, launches)
+            res, ms, peak = out.pop("run")
+        del cut
+        e, n_it, T = res["ccd e"], len(res["e history"]), res["t2 amp"]
+        check(T.shape == (p["nv"], p["nv"], NO, NO)
+              and bool(torch.isfinite(T).all()),
+              f"tensor-parallel CCD {label}: amplitudes not finite or of "
+              "the wrong shape")
+        check(abs(e - E_JAX[p["cutoff"]]) <= 1e-9 and abs(res["dE"]) < 1e-8,
+              f"tensor-parallel CCD {label}: E={e:.13f} (dE {res['dE']:.2e})"
+              f" vs JAX {E_JAX[p['cutoff']]}")
+        check(n_it == n_ref, f"tensor-parallel CCD {label}: {n_it} "
+              f"iterations, the matrix-free CCD {n_ref}")
+        out[label] = (e, ms, peak - base)
+        print(f"tensor-parallel CCD nP={p['nP']} ({label} of one card): "
+              f"E={e:.13f} in {n_it} iterations, |E - E_jax|="
+              f"{abs(e - E_JAX[p['cutoff']]):.2e}, {ms:.3f} ms/iter, peak "
+              f"device memory {peak / 1e9:.3f} GB ({(peak - base) / 1e9:.3f} "
+              f"GB above the phase's start; abcd {size / 1e9:.3f} GB)",
+              flush=True)
+        if n is not None:
+            check(peak - base < (1 + TP_PEAK_HEADROOM) * size,
+                  f"tensor-parallel CCD {label}: peak {peak - base} B above "
+                  f"the start, abcd {size} B")
+    return abcd, base, out
+
+
+def tp_ccsd(p, q, abcd, base, device, launches):
+    """Phase 23(b): dense CCSD at nP=219 with the seeded non-canonical
+    Fock on all 16 blocks scattered on the card and cut over each mesh
+    of ``TP_MESHES`` (abcd dressed into new per-piece tiles): |dE| <
+    1e-10, E within 1e-9 of the JAX package, T1 ≠ 0, one K2′, K3′ and K5
+    launch an iteration; then the unsharded dense CCSD where it fits
+    (within 1e-10 of the cut solves), else a line that says it does
+    not."""
+    import torch
+
+    from pymes_tpu_torch.integral.partition import BLOCK_NAMES
+    from pymes_tpu_torch.models import ueg
+    from pymes_tpu_torch.parallel import mesh as pmesh
+    from pymes_tpu_torch.solver import ccsd
+
+    more = [k for k in BLOCK_NAMES if k not in p["dict"] and k != "abcd"]
+    d = {k: p["dict"][k] for k in BLOCK_NAMES if k in p["dict"]}
+    d.update(ueg.sparse_to_blocks(*p["sparse"], p["nP"], NO, device,
+                                  names=more))
+    d["abcd"] = abcd
+    fock = q["focks"]["non-canonical"]
+    kw = dict(level_shift=-1.0, delta_e=1e-10, max_iter=100)
+    out = {}
+    for n, shape in TP_MESHES:
+        label = tp_label(n, shape)
+        cut = pmesh.shard_blocks(tp_mesh(n, shape, device), d)
+
+        def run():
+            out["run"] = timed_solve(ccsd.CCSD(NO, device), fock, cut, **kw)
+            k = len(out["run"][0]["e history"])
+            return {"ccsd_jacobi_diis": k, "ccsd_mix_energy": k,
+                    "pair_symmetrize": k}
+
+        counted_exactly(f"tensor-parallel CCSD nP={p['nP']}, {label}", run,
+                        launches)
+        res, ms, peak = out.pop("run")
+        del cut
+        e, n_it = res["ccsd e"], len(res["e history"])
+        t1max = float(res["t1"].abs().max())
+        check(bool(torch.isfinite(res["t2"]).all())
+              and res["t2"].shape == (p["nv"], p["nv"], NO, NO),
+              f"tensor-parallel CCSD {label}: amplitudes not finite or of "
+              "the wrong shape")
+        check(abs(e - E_JAX_CCSD_NONCANONICAL) <= 1e-9
+              and abs(res["dE"]) < 1e-10 and t1max > 1e-4,
+              f"tensor-parallel CCSD {label}: E={e:.13f} (dE "
+              f"{res['dE']:.2e}, |T1|max {t1max:.3e}) vs JAX "
+              f"{E_JAX_CCSD_NONCANONICAL}")
+        out[label] = (e, ms, peak - base)
+        print(f"tensor-parallel CCSD nP={p['nP']} non-canonical ({label} of "
+              f"one card): E={e:.13f} in {n_it} iterations (JAX "
+              f"{N_IT_JAX_CCSD_NONCANONICAL}), |E - E_jax|="
+              f"{abs(e - E_JAX_CCSD_NONCANONICAL):.2e}, |T1|max={t1max:.3e}, "
+              f"{ms:.3f} ms/iter, peak device memory {peak / 1e9:.3f} GB "
+              f"({(peak - base) / 1e9:.3f} GB above the phase's start)",
+              flush=True)
+    try:
+        res, ms, peak = timed_solve(ccsd.CCSD(NO, device), fock, d, **kw)
+    except torch.cuda.OutOfMemoryError as err:
+        res, why = None, str(err).splitlines()[0]
+    if res is None:   # the failed solve's frames are released by now
+        torch.cuda.empty_cache()
+        print(f"unsharded dense CCSD nP={p['nP']} does not fit on the card: "
+              f"{why}", flush=True)
+        return out
+    e = res["ccsd e"]
+    for n, shape in TP_MESHES:
+        label = tp_label(n, shape)
+        check(abs(out[label][0] - e) <= 1e-10,
+              f"tensor-parallel CCSD {label}: E={out[label][0]:.13f}, "
+              f"unsharded {e:.13f}")
+    out["unsharded"] = (e, ms, peak - base)
+    print(f"unsharded dense CCSD nP={p['nP']} non-canonical: E={e:.13f} in "
+          f"{len(res['e history'])} iterations, {ms:.3f} ms/iter, peak "
+          f"device memory {peak / 1e9:.3f} GB ({(peak - base) / 1e9:.3f} GB "
+          "above the phase's start); the cut solves within 1e-10 of it",
+          flush=True)
+    return out
+
+
+def tp_lih(mol, e_one, device, launches):
+    """Phase 23(c): LiH/3-21G CCSD with its blocks cut over each mesh of
+    ``LIH_TP_MESHES``: within 1e-8 of the oracle and 1e-10 of phase 6's
+    unsharded solve ``e_one``, one K2′, K3′ and K5 launch an
+    iteration."""
+    from pymes_tpu_torch.integral.partition import part_2_body_int
+    from pymes_tpu_torch.parallel import mesh as pmesh
+    from pymes_tpu_torch.solver import ccsd
+
+    no = mol["no"]
+    oracle = MOLECULES["LiH"][2]
+    d = part_2_body_int(no, mol["V"])
+    for n, shape in LIH_TP_MESHES:
+        label = tp_label(n, shape)
+        cut = pmesh.shard_blocks(tp_mesh(n, shape, device), d)
+        out = {}
+
+        def run():
+            out["res"], out["ms"], out["peak"] = timed_solve(
+                ccsd.CCSD(no, device), mol["fock"], cut, **mol["kw"])
+            k = len(out["res"]["e history"])
+            return {"ccsd_jacobi_diis": k, "ccsd_mix_energy": k,
+                    "pair_symmetrize": k}
+
+        counted_exactly(f"tensor-parallel CCSD LiH, {label}", run, launches)
+        e = out["res"]["ccsd e"]
+        check(abs(e - oracle) <= 1e-8 and abs(e - e_one) <= 1e-10,
+              f"tensor-parallel CCSD LiH {label}: E={e:.15f}, oracle "
+              f"{oracle}, phase 6 {e_one:.15f}")
+        print(f"tensor-parallel CCSD LiH ({label} of one card): E={e:.15f} "
+              f"in {len(out['res']['e history'])} iterations, |E - oracle|="
+              f"{abs(e - oracle):.2e}, |E - phase 6|={abs(e - e_one):.2e}, "
+              f"{out['ms']:.3f} ms/iter, peak device memory "
+              f"{out['peak'] / 1e9:.3f} GB", flush=True)
+
+
+def tp_phase(p, q, n_ref, mols, mol_e, device, card, launches):
+    """Phase 23: the tensor-parallel dense CCD and CCSD at nP=219 and LiH
+    CCSD, each on a 1-D and a 2-D mesh of one card."""
+    import torch
+
+    t0 = time.time()
+    abcd, base, ccd_out = tp_ccd(p, n_ref, device, launches)
+    ccsd_out = tp_ccsd(p, q, abcd, base, device, launches)
+    del abcd
+    torch.cuda.empty_cache()
+    tp_lih(mols["LiH"], mol_e["LiH"], device, launches)
+    for what, res in (("CCD", ccd_out), ("CCSD", ccsd_out)):
+        print(f"[{card}] nP={p['nP']} tensor-parallel dense {what}: "
+              + "; ".join(f"{label} {ms:.3f} ms/iter, peak {peak / 1e9:.3f} "
+                          "GB above the phase's start"
+                          for label, (_, ms, peak) in res.items()),
+              flush=True)
+    print(f"phase 23 (tensor-parallel dense CCD/CCSD): "
+          f"{time.time() - t0:.2f} s", flush=True)
+
+
 def counted_exactly(label, run, launches):
     """A counted window (as :func:`path_launches`) whose launches must
     equal, kernel by kernel, the counts that ``run`` returns (0 for every
@@ -3033,8 +3296,9 @@ def main():
     print(f"nP=57 |E - oracle| = {abs(e57 - ORACLE_NP57):.2e}", flush=True)
 
     # phase 6: dense molecular CCSD (molecular and transcorrelated)
+    mol_e = {}
     launches["dense CCSD"] = path_launches(
-        "dense CCSD", lambda: molecular_ccsd(mols, device),
+        "dense CCSD", lambda: mol_e.update(molecular_ccsd(mols, device)),
         DENSE_CCSD_KERNELS)
     # phase 7: matrix-free CCSD at nP=219
     ccsd_res = {}
@@ -3317,6 +3581,13 @@ def main():
         lambda: sharded_mf(q, plans, device, sharded), MF_CCSD_KERNELS)
 
     del plans
+    torch.cuda.empty_cache()
+
+    # phase 23: the tensor-parallel dense CCD and CCSD at nP=219 (abcd and
+    # the ov³ blocks cut over 4 shards and 2 x 2 of the card) and LiH CCSD
+    # (3 shards and 3 x 3)
+    tp_phase(problems[14], q, results[14][1], mols, mol_e, device, card,
+             launches)
     torch.cuda.empty_cache()
 
     # phase 18: the transcorrelated UEG at nP=219 and drCCD at nP=57

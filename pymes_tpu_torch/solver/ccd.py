@@ -14,8 +14,11 @@ The ring and exchange contractions are plain f64 products (``torch.einsum``,
 cuBLAS DGEMM on the card).  The particle-particle ladder runs through
 kernel K1 (a ladder plan), through the ring-accumulated ladder over a
 device mesh with kernel K9 (``ring_mesh``, the dense ``abcd`` cut over the
-mesh by :func:`pymes_tpu_torch.parallel.mesh.shard_blocks`) or as one
-``torch.einsum`` on the dense ``abcd``.  The P(ab,ij) symmetrisation
+mesh by :func:`pymes_tpu_torch.parallel.mesh.shard_blocks`), tensor-parallel
+on the pieces of a cut ``abcd`` without ``ring_mesh`` (one product per
+piece on its device, :func:`pymes_tpu_torch.parallel.tensor_parallel.
+ladder`, 1-D or 2-D mesh) or as one ``torch.einsum`` on the dense
+``abcd``.  The P(ab,ij) symmetrisation
 ``R + Ex + P(Ex)`` runs through K5 and the per-iteration Jacobi + DIIS +
 energy tail through K2/K3 (:mod:`pymes_tpu_torch.kernels`) on a CUDA
 tensor; on a CPU tensor all of them run their plain twins.
@@ -45,6 +48,7 @@ from pymes_tpu_torch.log import print_logging_info
 from pymes_tpu_torch.mixer import diis
 from pymes_tpu_torch.ops.ueg_ladder import (dressed_ladder_apply_ij,
                                             ladder_apply_ij)
+from pymes_tpu_torch.parallel import tensor_parallel
 from pymes_tpu_torch.parallel.mesh import Sharded
 from pymes_tpu_torch.parallel.ring_ladder import ring_ladder_inside_ij
 from pymes_tpu_torch.solver import drccd, mp2
@@ -60,7 +64,8 @@ class CCDBlocks(NamedTuple):
     abij: torch.Tensor
     iajb: torch.Tensor
     iabj: torch.Tensor
-    abcd: torch.Tensor    # or a Sharded cut on axis 0 (the ring path)
+    abcd: torch.Tensor    # or a Sharded (the ring and tensor-parallel
+    #                       paths)
     ladder: object = None
 
 
@@ -117,7 +122,9 @@ def doubles_residual_ij(t_fock_ab, t_fock_ij, t_T_ijab, V: CCDBlocksIJ,
     diagrams of ``pymes_tpu.solver.ccd.doubles_residual_ij``).  With
     ``t_T_ai`` (CCSD) the ladder is T1-dressed on the all-bra plan; with
     ``ring_mesh`` (and no plan) it is the ring-accumulated ladder over the
-    mesh on the cut ``V.abcd`` (``pymes_tpu/solver/ccd.py:305-313``).
+    mesh on the cut ``V.abcd`` (``pymes_tpu/solver/ccd.py:305-313``);
+    without, a cut ``V.abcd`` gives the ladder piece by piece, each tile
+    put together on the device of ``t_T_ijab`` before K5.
     ``twin`` routes the ladder (K1, K9) and the symmetrisation (K5) through
     their plain twins on the card."""
     es = torch.einsum
@@ -145,6 +152,8 @@ def doubles_residual_ij(t_fock_ab, t_fock_ij, t_T_ijab, V: CCDBlocksIJ,
     elif ring_mesh is not None:
         R = R + ring_ladder_inside_ij(V.abcd, t, ring_mesh, ring_axis,
                                       twin=twin)
+    elif isinstance(V.abcd, Sharded):
+        R = R + tensor_parallel.ladder(t, V.abcd)
     else:
         R = R + es("ijcd,abcd->ijab", t, V.abcd)
 
@@ -201,7 +210,9 @@ def ccd_solve(t_fock_pq, blocks: CCDBlocks, no, t_T0_abij,
     the ladder and the tail through the plain twins (on-card comparison).
     ``ring_mesh`` runs the ladder as the ring over the mesh on
     ``blocks.abcd`` cut on axis 0 (``pymes_tpu/solver/ccd.py:405-410``); the
-    loop runs on ``ring_mesh.devices[0]``.  ``is_dr_ccd`` runs the drCCD
+    loop runs on ``ring_mesh.devices[0]``.  Without ``ring_mesh`` a cut
+    ``blocks.abcd`` runs the tensor-parallel ladder; the loop runs on its
+    home device, the device of its first piece.  ``is_dr_ccd`` runs the drCCD
     residual (no ladder: a plan or ``ring_mesh`` with it raises) and takes
     the direct energy alone (``pymes_tpu/solver/ccd.py:543-549``).
     ``log_iterations`` prints E and dE each iteration (a host read of
@@ -227,6 +238,8 @@ def ccd_solve(t_fock_pq, blocks: CCDBlocks, no, t_T0_abij,
     if ring_mesh is not None and ring_mesh.devices[0] != t_fock_pq.device:
         raise ValueError(f"the loop runs on {t_fock_pq.device}, the ring "
                          f"returns R on {ring_mesh.devices[0]}")
+    if ring_mesh is None and isinstance(blocks.abcd, Sharded):
+        tensor_parallel.check_home(blocks.abcd, t_fock_pq.device)
 
     V_ij = blocks_ij_from(blocks)
     T = t_T0_abij.permute(2, 3, 0, 1).contiguous()
@@ -302,9 +315,13 @@ class CCD:
     "hole e", "particle e", "dE", "e history"}``.  ``t_V_pqrs`` is the full
     tensor, a dict of named blocks (optionally with ``"ladder"``; blocks
     may come as :class:`~pymes_tpu_torch.parallel.mesh.Sharded`, e.g. from
-    ``mesh.shard_blocks``) or :class:`CCDBlocks`.  With ``ring_mesh`` the
-    ladder runs as the ring over the mesh on the ``abcd`` shards; every
-    other sharded block is gathered onto ``device``."""
+    ``mesh.shard_blocks`` on a 1-D or 2-D mesh) or :class:`CCDBlocks`.  A
+    cut ``abcd`` stays cut: with ``ring_mesh`` the ladder runs as the ring
+    over the mesh on its shards, without it tensor-parallel on its pieces
+    (:mod:`pymes_tpu_torch.parallel.tensor_parallel`); ``device`` is then
+    its home device, the device of its first piece.  Every other cut
+    block (at most two virtual slots, O(o²v²)) is gathered onto
+    ``device`` once per solve."""
 
     def __init__(self, no, device, delta_e=1e-8, is_dcd=False, is_diis=True,
                  is_dr_ccd=False, is_bruekner=False):
@@ -321,7 +338,7 @@ class CCD:
 
     def _on_device(self, x):
         if isinstance(x, Sharded):
-            return x.gather(self.device)
+            return tensor_parallel.gather(x, self.device)
         if x is None or not isinstance(x, (torch.Tensor, np.ndarray)):
             return x
         return torch.as_tensor(x, dtype=DTYPE, device=self.device)
@@ -339,7 +356,7 @@ class CCD:
         else:
             blocks = blocks_from_full(no, self._on_device(t_V_pqrs))
         fields = ("klij", "ijab", "abij", "iajb", "iabj")
-        if ring_mesh is None:
+        if ring_mesh is None and not isinstance(blocks.abcd, Sharded):
             fields += ("abcd",)
         blocks = blocks._replace(**{
             f: self._on_device(getattr(blocks, f)) for f in fields})

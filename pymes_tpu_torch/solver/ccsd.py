@@ -34,6 +34,8 @@ from pymes_tpu_torch.kernels import ccsd_tail
 from pymes_tpu_torch.log import print_logging_info
 from pymes_tpu_torch.mixer import diis
 from pymes_tpu_torch.ops import ueg_ladder
+from pymes_tpu_torch.parallel import tensor_parallel
+from pymes_tpu_torch.parallel.mesh import Sharded
 from pymes_tpu_torch.solver import ccd as ccd_mod
 from pymes_tpu_torch.solver import mp2
 
@@ -51,6 +53,49 @@ def _pattern_key(pattern):
     vir_letters = iter("abcd")
     return "".join(next(occ_letters) if c == "o" else next(vir_letters)
                    for c in pattern)
+
+
+def _apply_chain(cur, cur_letters, chain, t1, target_letters):
+    """Apply the T1 factors ``chain`` pairwise to ``cur`` (axes named by
+    ``cur_letters``), ``t1(factor)`` giving each factor's operand; the
+    LAST factor emits ``target_letters`` directly."""
+    for pos_tf, tf in enumerate(chain):
+        dummy = tf[0] if tf[0] in "wxyz" else tf[1]
+        target = tf[1] if tf[0] == dummy else tf[0]
+        new_letters = cur_letters.replace(dummy, target)
+        if pos_tf == len(chain) - 1 and set(new_letters) == set(
+                target_letters):
+            new_letters = target_letters
+        cur = torch.einsum(f"{cur_letters},{tf}->{new_letters}", cur,
+                           t1(tf))
+        cur_letters = new_letters
+    if cur_letters != target_letters:
+        cur = torch.einsum(f"{cur_letters}->{target_letters}", cur)
+    return cur
+
+
+def _cut_term(cur, lookup, cur_letters, chain, t_T_ai, target_letters):
+    """One dressing term sourced from a cut block: the term of the ``abcd``
+    source with both kets dressed is the ladder on T1⊗T1 (read in place,
+    tensor_parallel.ladder); any other runs its chain piece by piece with
+    T1 sliced to the piece's ranges."""
+    if (lookup == "abcd" and len(chain) == 2
+            and cur_letters[2:] == chain[0][0] + chain[1][0]):
+        k0, k1 = chain
+        X = torch.einsum(f"{k0},{k1}->{k0[1]}{k1[1]}{k0[0]}{k1[0]}",
+                         t_T_ai, t_T_ai)
+        R = tensor_parallel.ladder(X, cur)
+        return _apply_chain(R, k0[1] + k1[1] + cur_letters[:2], [], None,
+                            target_letters)
+
+    def local(piece, cut):
+        T = t_T_ai.to(piece.device)
+        return _apply_chain(
+            piece, cur_letters, chain,
+            lambda tf: T[cut[tf[0]]] if tf[0] in cut else T, target_letters)
+
+    return tensor_parallel.map_pieces(cur, cur_letters, local,
+                                      target_letters, t_T_ai.device)
 
 
 def dressed_block(name, dict_t_V, t_T_ai, skip_sources=(), out_perm=None,
@@ -81,7 +126,18 @@ def dressed_block(name, dict_t_V, t_T_ai, skip_sources=(), out_perm=None,
     (which shrink a virtual axis to an occupied one) before bra factors,
     so no temporary outgrows the source block.  ``twin`` routes K4 through
     its plain twin on the card.
+
+    Blocks cut over a mesh (:class:`~pymes_tpu_torch.parallel.mesh.
+    Sharded`) are read piece by piece (:mod:`pymes_tpu_torch.parallel.
+    tensor_parallel`): a cut ``abcd`` dresses into a cut ``abcd`` (no
+    option applies there), and a term sourced from a cut block is put
+    together on the device of ``t_T_ai``.
     """
+    if name == "abcd" and isinstance(dict_t_V.get("abcd"), Sharded):
+        if (skip_sources or out_perm is not None or skip_identity
+                or half_symmetric):
+            raise ValueError("a cut abcd dresses with no options")
+        return tensor_parallel.dressed_abcd(dict_t_V, t_T_ai)
     slots = []
     for pos, c in enumerate(name):
         kind = "o" if c in OCC_LETTERS else "v"
@@ -168,20 +224,13 @@ def dressed_block(name, dict_t_V, t_T_ai, skip_sources=(), out_perm=None,
                 cur_letters = spec0[1] + spec0[0] + spec0[3] + spec0[2]
             cur = dict_t_V[lookup]
             chain = kets + bras
-        # pairwise T1 application, ket factors first; the LAST factor
-        # emits the target order directly
-        for pos_tf, tf in enumerate(chain):
-            dummy = tf[0] if tf[0] in "wxyz" else tf[1]
-            target = tf[1] if tf[0] == dummy else tf[0]
-            new_letters = cur_letters.replace(dummy, target)
-            if pos_tf == len(chain) - 1 and set(new_letters) == set(
-                    target_letters):
-                new_letters = target_letters
-            cur = torch.einsum(f"{cur_letters},{tf}->{new_letters}", cur,
-                               t_T_ai)
-            cur_letters = new_letters
-        if cur_letters != target_letters:
-            cur = torch.einsum(f"{cur_letters}->{target_letters}", cur)
+        # pairwise T1 application, ket factors first
+        if isinstance(cur, Sharded):
+            cur = _cut_term(cur, lookup, cur_letters, chain, t_T_ai,
+                            target_letters)
+        else:
+            cur = _apply_chain(cur, cur_letters, chain, lambda tf: t_T_ai,
+                               target_letters)
         term = coeff * cur
         total = term if total is None else total + term
     return total
@@ -214,9 +263,10 @@ def get_T1_dressed_fock(t_fock_pq, t_T_ai, dict_t_V, no=None, twin=False):
 
     G_oo = (2.0 * es("ck,ikjc->ij", T, dict_t_V["ijka"])
             - es("ck,ikcj->ij", T, dict_t_V["ijak"]))
-    if "aibc" in dict_t_V:
-        G_vv = (2.0 * es("cj,ajbc->ab", T, dict_t_V["aibc"])
-                - es("cj,ajcb->ab", T, dict_t_V["aibc"]))
+    if "aibc" in dict_t_V:  # the block, whole or cut
+        tp = tensor_parallel.einsum
+        G_vv = (2.0 * tp("cj,ajbc->ab", T, dict_t_V["aibc"])
+                - tp("cj,ajcb->ab", T, dict_t_V["aibc"]))
     else:
         plans = dict_t_V["_ovvv_plans"]
         # the j' = j traces of [j',a,j,b] = Σ_c V_ajbc T_cj' and
@@ -257,8 +307,9 @@ def singles_residual_ij(t_fock_dressed_pq, t_T_ai, t_T_ijab, dict_t_V,
     f_ov = t_fock_dressed_pq[:no, no:]
     R = t_fock_dressed_pq[no:, :no]
     R = R + es("jb,ijab->ai", f_ov, tilde)
-    if "aibc" in dict_t_V:
-        R = R + es("ajbc,ijbc->ai", dict_t_V["aibc"], tilde)
+    if "aibc" in dict_t_V:  # the block, whole or cut
+        R = R + tensor_parallel.einsum("ajbc,ijbc->ai", dict_t_V["aibc"],
+                                       tilde)
     else:
         W_vo = ladder_W[:, :, no:, :no]
         R = R + 2.0 * es("ijaj->ai", W_vo) - es("jiaj->ai", W_vo)
@@ -406,6 +457,8 @@ def ccsd_solve(t_fock_pq, dict_t_V, no, t_T1_0, t_T2_0, level_shift=0.0,
     e_hist)`` with device tensors and ``n_iter`` a Python int.
     """
     no = int(no)
+    if isinstance(dict_t_V.get("abcd"), Sharded):
+        tensor_parallel.check_home(dict_t_V["abcd"], t_fock_pq.device)
     eps_i = torch.diagonal(t_fock_pq)[:no].contiguous()
     eps_a = torch.diagonal(t_fock_pq)[no:].contiguous()
     nv = eps_a.shape[0]
@@ -456,7 +509,16 @@ class CCSD(ccd_mod.CCD):
     "particle e", "dE", "e history"}``.  ``t_V_pqrs`` is the full tensor or
     a dict of named blocks (optionally with ``"_ovvv_plans"``); ``ladder``
     an all-bra BlockLadder for the matrix-free path; ``amps`` a pair
-    (T1, T2 abij) to start from."""
+    (T1, T2 abij) to start from, whole or cut (``mesh.shard_amplitudes``).
+
+    Blocks cut by ``mesh.shard_blocks`` (1-D or 2-D mesh) run the
+    tensor-parallel iteration (:mod:`pymes_tpu_torch.parallel.
+    tensor_parallel`): the blocks with three or four virtual slots stay
+    cut and are contracted piece by piece (``abcd`` is dressed into new
+    per-piece tiles; ``iabc`` and ``aibc``, which the dressing reads
+    across the cut, are gathered once per solve onto each distinct device
+    of the mesh); the others are gathered onto ``device``, which must be
+    the home device of a cut ``abcd`` (its first piece's)."""
 
     def __init__(self, no, device, delta_e=1e-8, is_dcsd=False,
                  is_diis=True):
@@ -466,8 +528,11 @@ class CCSD(ccd_mod.CCD):
     def _dict_on_device(self, t_V_pqrs):
         if not isinstance(t_V_pqrs, dict):
             return part_2_body_int(self.no, self._on_device(t_V_pqrs))
-        return {k: (v if k.startswith("_") else self._on_device(v))
-                for k, v in t_V_pqrs.items()}
+        d = {k: (v if k.startswith("_") or tensor_parallel.is_cut_block(k, v)
+                 else self._on_device(v)) for k, v in t_V_pqrs.items()}
+        if isinstance(d.get("abcd"), Sharded):
+            d["_abcd_dressing"] = tensor_parallel.dressing_operands(d)
+        return d
 
     def solve(self, t_fock_pq, t_V_pqrs, level_shift=0.0, amps=None,
               ladder=None, **kwargs):

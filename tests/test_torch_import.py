@@ -43,10 +43,10 @@ UTILITY_MODULES = tuple("pymes_tpu_torch." + m for m in (
     "examples.molecular_ccsd_eom", "examples.rt_autocorrelation",
     "examples.ueg_tc_twist_average"))
 # the last solver slice: the generic FEAST kernel and its adapters, the
-# node fan-out and the native record parser
+# node fan-out and the native record parser; the tensor-parallel iteration
 SOLVER_MODULES = tuple("pymes_tpu_torch." + m for m in (
     "solver.feast_kernel", "solver.feast_eom_rccsd", "parallel.sharding",
-    "_native"))
+    "_native", "parallel.tensor_parallel"))
 
 
 def test_port_never_imports_jax():

@@ -85,8 +85,12 @@ def test_repeated_device_only_from_an_explicit_list():
     assert tmesh.make_mesh(1, "cpu").devices == (torch.device("cpu"),)
     m = tmesh.make_mesh(4, "cpu", devices=["cpu"] * 5)
     assert m.devices == (torch.device("cpu"),) * 4 and m.shape == {"a": 4}
+    # a 2-D mesh takes a shape that holds its devices, and no third axis
+    assert tmesh.Mesh(["cpu"] * 4, axis_names=("a", "b")).grid == (2, 2)
     with pytest.raises(ValueError):
-        tmesh.Mesh(["cpu"] * 4, axis_names=("a", "b"))
+        tmesh.Mesh(["cpu"] * 4, axis_names=("a", "b"), shape=(4, 2))
+    with pytest.raises(ValueError):
+        tmesh.Mesh(["cpu"] * 4, axis_names=("a", "b", "c"))
 
 
 def test_shard_blocks_match_jax_shards():
