@@ -56,7 +56,10 @@ Drives the port's main paths through its own kernels:
 * tensor-parallel dense CCD and CCSD — every block scattered on the card
   and cut by ``mesh.shard_blocks`` over 4 shards and 2 x 2 of the card
   (``abcd`` and the ov³ blocks stay cut, no v⁴ block is gathered): CCD
-  and the seeded non-canonical CCSD at nP=219, LiH CCSD on 3 and 3 x 3.
+  and the seeded non-canonical CCSD at nP=219, LiH CCSD on 3 and 3 x 3;
+* the FEAST/RT mixed-precision engine (``ls_precision="mixed"``, the JAX
+  package's default): FEAST nP=57 and RT nP=123 with f32 Krylov solves
+  (the f32 kernels) inside f64 iterative refinement.
 
 Kernels: K1 ``block_ladder`` (CUDA C++ on the f64 tensor cores, built with
 nvcc for sm_90a at first use), K4 ``ovvv_gather`` and its fused trace
@@ -64,7 +67,10 @@ nvcc for sm_90a at first use), K4 ``ovvv_gather`` and its fused trace
 CGS2 projection and the fused Krylov combine) and K9 ``ring_step`` (CUDA
 C++, built with K1); K2 ``ccd_jacobi_diis``, K3 ``ccd_mix_energy``, K2′
 ``ccsd_jacobi_diis``, K3′ ``ccsd_mix_energy``, K6 ``davidson_residual``
-and K8 ``shifted_precond`` (Triton).
+and K8 ``shifted_precond`` (Triton); and the f32 instantiations
+``block_ladder_f32`` (CUDA C++ on the CUDA cores), ``ovvv_gather_f32``,
+``pair_symmetrize_f32``, ``arnoldi_cgs2_f32`` (CUDA C++) and
+``shifted_precond_f32`` (Triton) of the mixed-precision engine.
 
 Phases: (0) card and versions; (1) kernel builds; (2) each kernel against
 its plain twin on the card at the main paths' shapes (K2′/K3′ at nP=219
@@ -159,9 +165,24 @@ above the phase's start below ``abcd`` + 25 %), the non-canonical dense
 CCSD on both (|dE| < 1e-10 within 1e-9 of the JAX package, one K2′, K3′
 and K5 an iteration; the unsharded dense CCSD where it fits, else a line
 that says so) and LiH CCSD on 3 and 3 x 3 (1e-8 of the oracle, 1e-10 of
-phase 6), with ms per iteration and peak memory of each solve.  Every
-bound comes from the helpers of
-``pymes_tpu_torch/util/roofline.py``.
+phase 6), with ms per iteration and peak memory of each solve.  Phase 24
+runs after phase 14's timing, before phase 20: (24) the f32 kernels
+against their f32 twins at the FEAST nP=57 and RT nP=123 lane shapes
+(max relative error ≤ 1e-5; K4 and K5 bit for bit) and per call beside
+their twins, their f32 bounds, ``torch.add`` (K5) and ``torch.baddbmm``
+(K7's combine) in f32; then phase 12's window and phase 13's three steps
+with ``ls_precision="mixed"`` (up to MIXED_REFINE_MAX refinement passes
+a chunk) in one counted window: the in-window roots within 1e-7 of the
+JAX level and of phase 12's, the phase energies within 1e-7 of the root
+and of phase 13's at unit norm, every honest residual at ``ls_conv_tol``
+(1e-10), the matmul settings inside the engine ("highest", TF32 off) and
+after it, the refinement passes per chunk, walls beside phase 12/13's,
+the Krylov bytes a lane and the peak memory; the launches exactly as the
+solves imply (f32 K1, K5 and K8 apply one per f32 sigma, f32 K4 three,
+f32 K7 per Arnoldi step and cycle end, f32 K8 Mb and f64 sigma + K8
+residual per refinement pass); then ms per Arnoldi step of the f32
+solves (kernels and twins) beside phase 12/13's f64.  Every bound comes
+from the helpers of ``pymes_tpu_torch/util/roofline.py``.
 Prints a JSON line of the kernels
 (launches, errors, the TC and drCCD runs as sub-entries,
 times, bounds at the H100's HBM and FP64 peaks, the library call where one
@@ -252,6 +273,10 @@ KERNELS = {
     "ring_step": ("cuda", "pymes_tpu_torch/csrc/ring_step.cu",
                   "pymes_tpu/parallel/ring_ladder.py:69"),
 }
+# the f32 instantiations of the mixed-precision engine: the same sources
+KERNELS.update({name + "_f32": KERNELS[name] for name in (
+    "block_ladder", "ovvv_gather", "pair_symmetrize", "arnoldi_cgs2",
+    "shifted_precond")})
 CCD_KERNELS = ("block_ladder", "ccd_jacobi_diis", "ccd_mix_energy",
                "pair_symmetrize")
 DENSE_CCSD_KERNELS = ("ccsd_jacobi_diis", "ccsd_mix_energy",
@@ -353,6 +378,16 @@ LIH_ADAPTER = {"feast": dict(nroots=3, e_c=0.136, e_r=0.03, ngl_pts=8),
                "max_cycle": 20, "ls_max_iter": 20}
 # phase 21: the nodes of phase 12 over P shares of one card
 NODE_MESHES = (2, 4)
+# phase 24, the FEAST/RT mixed-precision engine (ls_precision="mixed", the
+# JAX package's default): phase 12's window and phase 13's steps with f32
+# Krylov inside f64 refinement, and the f32 kernels against their f32
+# twins at both lane shapes (max relative error F32_REL).  Refinement may
+# take up to MIXED_REFINE_MAX passes a chunk (the JAX default is 4): the
+# near-axis nodes of the nP=57 window may need more to reach ls_conv_tol
+F32_KERNELS = ("block_ladder_f32", "ovvv_gather_f32", "pair_symmetrize_f32",
+               "arnoldi_cgs2_f32", "shifted_precond_f32")
+F32_REL = 1e-5
+MIXED_REFINE_MAX = 8
 # phase 23, the tensor-parallel dense CCD/CCSD: (devices, 2-D shape or
 # None) of the meshes over one card at nP=219 (nv = 212) and for LiH (nv =
 # 9); the peak of the cut CCD stays below abcd + 25 %
@@ -487,14 +522,14 @@ def inputs(p, seed):
             "coeff": t(rng.standard_normal(6))}
 
 
-def rel_err(got, want, what):
+def rel_err(got, want, what, tol=REL_TOL):
     err = float((got - want).abs().max())
     scale = float(want.abs().max())
     # a zero reference would pass any kernel: every compared output must
     # carry signal
     check(scale > 0, f"{what}: the twin's output is all zero")
-    check(err <= REL_TOL * scale,
-          f"{what}: max|kernel - twin| = {err:.3e} > {REL_TOL} * {scale:.3e}")
+    check(err <= tol * scale,
+          f"{what}: max|kernel - twin| = {err:.3e} > {tol} * {scale:.3e}")
     return err
 
 
@@ -1681,7 +1716,8 @@ def counted(cls, *args, **kw):
 def add_stats(total, st):
     for k in ("chunks", "calls", "cycle_ends", "projections"):
         total[k] = total.get(k, 0) + st[k]
-    total["steps"] = total.get("steps", []) + list(st["steps"])
+    for k in ("steps", "passes"):
+        total[k] = total.get(k, []) + list(st[k])
     return total
 
 
@@ -1711,18 +1747,18 @@ def check_krylov_launches(label, before, n_sigma, st, ladder):
           f"calls and {st}")
 
 
-def krylov_inputs(La, R1, n, N1, seed, device):
-    """Seeded K7/K8 operands at one lane shape: a Krylov basis V (La, R1,
-    n) of random rows (a torch generator on the card: 15 GB at nP=57), w
-    and x pairs (La, n), sigma parts H1 (2La, N1), H2 (2La, n/2 − N1),
-    shifts near the window, a diagonal and the two rows of combine
-    coefficients C (La, 2, R1)."""
+def krylov_inputs(La, R1, n, N1, seed, device, dtype=None):
+    """Seeded K7/K8 operands at one lane shape, in ``dtype`` (float64 by
+    default): a Krylov basis V (La, R1, n) of random rows (a torch
+    generator on the card: 15 GB at nP=57 in f64), w and x pairs (La, n),
+    sigma parts H1 (2La, N1), H2 (2La, n/2 − N1), shifts near the window,
+    a diagonal and the two rows of combine coefficients C (La, 2, R1)."""
     import torch
 
     g = torch.Generator(device=device).manual_seed(seed)
 
     def r(*shape):
-        return torch.randn(shape, generator=g, dtype=torch.float64,
+        return torch.randn(shape, generator=g, dtype=dtype or torch.float64,
                            device=device)
 
     N = n // 2
@@ -1941,7 +1977,7 @@ def rt123(p, V, T2, root, u0, device, out):
                 ls_conv_tol=RT123["ls_conv_tol"])
     s.ls_restart = RT123["ls_restart"]
     q = (u0[0].astype(complex), u0[1].astype(complex))
-    c_prev, st, walls = 1.0, {}, []
+    c_prev, st, walls, energies = 1.0, {}, [], []
     for k in range(RT123["steps"]):
         t0 = time.time()
         q = s.solve(p["fock"], V, T2, dt=dt, u_singles=q[0], u_doubles=q[1])
@@ -1955,6 +1991,7 @@ def rt123(p, V, T2, root, u0, device, out):
         check(abs(norm - 1.0) <= 1e-10, f"RT step {k}: norm {norm}")
         check(abs(e_step - root) <= 1e-7,
               f"RT step {k}: phase energy {e_step} vs root {root}")
+        energies.append(e_step)
         steps = np.concatenate([np.atleast_1d(a) for a in s.ls_stats["steps"]])
         print(f"RT nP={p['nP']} step {k}: phase energy {e_step:.13f}, "
               f"|E - root|={abs(e_step - root):.2e}, |norm - 1|="
@@ -1969,7 +2006,7 @@ def rt123(p, V, T2, root, u0, device, out):
     lanes = [len(np.atleast_1d(a)) for a in st["steps"]]
     check(lanes == [K4_LANES["RT"]] * RT123["steps"],
           f"RT nP={p['nP']}: lanes per chunk {lanes}")
-    out.update(solver=s, walls=walls, q=q)
+    out.update(solver=s, walls=walls, q=q, energies=energies)
 
 
 def lih_feast(lih, device, out):
@@ -1991,35 +2028,52 @@ def lih_feast(lih, device, out):
     out.update(solver=s)
 
 
-def arnoldi_step_ms(s, B, zr, zi, restart, rt=False, dt=0.0):
+def arnoldi_step_ms(s, B, zr, zi, restart, rt=False, dt=0.0, f32=False):
     """ms per Arnoldi step (sigma + K8 + K7 + host) of one GMRES(restart)
-    cycle over all lanes of ``B`` on the operator of solver ``s``: no
-    early exit (tol 0), so every lane takes ``restart`` steps; the wall
-    includes the Mb pass and the cycle end, amortised over the steps.
-    Kernels and twins in turns (twin, kernel, kernel, twin); also the
-    sigma and K8 alone per call."""
+    cycle over all lanes of ``B`` on the operator of solver ``s`` (with
+    ``f32``: its f32 copy, the f32 lanes and kernels of the mixed engine,
+    f32 GEMMs at full f32): no early exit (tol 0), so every lane takes
+    ``restart`` steps; the wall includes the Mb pass and the cycle end,
+    amortised over the steps.  Kernels and twins in turns (twin, kernel,
+    kernel, twin); also the sigma, K8 and K7's projection (at the
+    cycle's middle row count) alone per call."""
+    import contextlib
+
     import torch
 
+    from pymes_tpu_torch.kernels import arnoldi
     from pymes_tpu_torch.ops import gmres
-    from pymes_tpu_torch.solver.feast_eom_ccsd import _NodeOps
+    from pymes_tpu_torch.solver.feast_eom_ccsd import (_NodeOps,
+                                                       full_f32_matmul)
 
+    op = s._operator32(s._op) if f32 else s._op
+    if f32:
+        B, zr, zi = B.float(), zr.float(), zi.float()
     out = {True: [], False: []}
-    for twin in (True, False, False, True):
-        s.twin = twin
-        node = _NodeOps(s, s._op, zr, zi, rt, dt)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        gmres.gmres_lanes(node.apply, B, node.precond, tol=0.0,
-                          restart=restart, max_outer=1, twin=twin)
-        torch.cuda.synchronize()
-        out[twin].append((time.perf_counter() - t0) * 1e3 / restart)
-    s.twin = False
-    node = _NodeOps(s, s._op, zr, zi, rt, dt)
-    lanes = torch.arange(B.shape[0], device=B.device)
-    H1, H2 = node.sigma(B)
-    parts = {"sigma": cuda_ms(lambda: node.sigma(B), n=5),
-             "K8": cuda_ms(lambda: node._k8(H1, H2, B, lanes, "apply"),
-                           n=5)}
+    with full_f32_matmul() if f32 else contextlib.nullcontext():
+        for twin in (True, False, False, True):
+            s.twin = twin
+            node = _NodeOps(s, op, zr, zi, rt, dt)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            gmres.gmres_lanes(node.apply, B, node.precond, tol=0.0,
+                              restart=restart, max_outer=1, twin=twin)
+            torch.cuda.synchronize()
+            out[twin].append((time.perf_counter() - t0) * 1e3 / restart)
+        s.twin = False
+        node = _NodeOps(s, op, zr, zi, rt, dt)
+        lanes = torch.arange(B.shape[0], device=B.device)
+        H1, H2 = node.sigma(B)
+        V = torch.zeros((B.shape[0], restart + 1, B.shape[1]),
+                        dtype=B.dtype, device=B.device)
+        V[:, :restart // 2] = B[:, None] / float(np.sqrt(B.shape[1]))
+        mid = torch.full_like(lanes, restart // 2)
+        parts = {"sigma": cuda_ms(lambda: node.sigma(B), n=5),
+                 "K8": cuda_ms(lambda: node._k8(H1, H2, B, lanes, "apply"),
+                               n=5),
+                 "K7": cuda_ms(lambda: arnoldi.arnoldi_cgs2(
+                     V, B.clone(), lanes, mid), n=5)}
+        del V
     return np.mean(out[False]), np.mean(out[True]), parts
 
 
@@ -2055,6 +2109,343 @@ def rt123_lanes(s, u0, root, device):
                         device=device)
     return (B, torch.as_tensor(z.real, device=device),
             torch.as_tensor(z.imag, device=device))
+
+
+def f32_inputs(label, plan, plans, shape, seed, device):
+    """Phase 24's f32 operands at one lane shape (La lanes, R1 basis rows,
+    pair length n, singles length N1): the K7/K8 operands of
+    :func:`krylov_inputs` in f32, the operator's all-bra plan and OVVV
+    plans cast to f32, the cd-major K1 operand (nv², 2·La·no²), the K5
+    operand (2·La, nv, nv, no, no) and the K4 trial batch, a (2·La, nv,
+    no) view of (2·La, N) rows, as the sigma of one Arnoldi step over all
+    lanes takes them."""
+    import torch
+
+    from pymes_tpu_torch.ops import ueg_ladder
+
+    La, R1, n, N1, _ = shape
+    f32 = torch.float32
+    x = krylov_inputs(La, R1, n, N1, seed, device, dtype=f32)
+    x["C"] = x["C"].double()
+    g = torch.Generator(device=device).manual_seed(seed + 1)
+    nv = plan.nv
+    rows = torch.randn((2 * La, n // 2), generator=g, dtype=f32,
+                       device=device)
+    x.update(label=label, nv=nv, plan=ueg_ladder.cast_plan(plan, f32),
+             plans={k: p._replace(W=p.W.float())
+                    for k, p in plans.items()},
+             T=torch.randn((nv * nv, 2 * La * NO * NO), generator=g,
+                           dtype=f32, device=device) * 0.01,
+             X5=torch.randn((2 * La, nv, nv, NO, NO), generator=g, dtype=f32,
+                            device=device) * 0.01,
+             T1=rows[:, :nv * NO].reshape(2 * La, nv, NO))
+    return x
+
+
+def f32_calls(x, m, w=None):
+    """Each f32 kernel's call at the lane shape of ``x`` as a function of
+    ``twin``: K7's projection at m rows of ``w`` (by default ``x["w"]``)
+    and its fused combine at m + 1, K8 in each mode, K1 on the cd-major
+    operand, K4 on each plan, K5 on the sigma's batch."""
+    import torch
+
+    from pymes_tpu_torch.kernels import arnoldi, block_ladder, ovvv_gather
+    from pymes_tpu_torch.kernels import pair_sym, shifted
+
+    V, lanes = x["V"], x["lanes"]
+    mt = torch.full_like(lanes, m)
+    m1 = torch.full_like(lanes, min(m + 1, V.shape[1]))
+    args = (x["H1"], x["H2"], x["X"], x["zr"], x["zi"], x["diag"])
+    return {
+        "arnoldi_cgs2_f32": lambda tw: arnoldi.arnoldi_cgs2(
+            V, (x["w"] if w is None else w).clone(), lanes, mt, twin=tw),
+        "krylov_combine_f32": lambda tw: arnoldi.krylov_combine_xr(
+            V, x["C"], m1, lanes, x0=x["X"], twin=tw),
+        "shifted_precond_f32": lambda tw: shifted.shifted_precond(
+            *args, twin=tw),
+        "shifted_precond_f32 RT": lambda tw: shifted.shifted_precond(
+            *args, dt=0.1, rt=True, twin=tw),
+        "shifted_precond_f32 residual": lambda tw: shifted.shifted_precond(
+            *args, mode="residual", B=x["B"], twin=tw),
+        "shifted_precond_f32 precond": lambda tw: shifted.shifted_precond(
+            *args, mode="precond", twin=tw),
+        "block_ladder_f32": lambda tw: block_ladder.block_ladder_cd(
+            x["plan"], x["T"], twin=tw),
+        **{f"ovvv_gather_f32 {k}": (
+            lambda tw, p=p: ovvv_gather.ovvv_gather(p.S, p.W, x["T1"],
+                                                    twin=tw))
+           for k, p in x["plans"].items()},
+        "pair_symmetrize_f32": lambda tw: pair_sym.pair_symmetrize(
+            x["X5"], twin=tw)}
+
+
+def compare_f32_kernels(x, ms):
+    """Phase 24: each f32 kernel against its f32 twin on the card at the
+    lane shape of ``x``, max relative error ≤ F32_REL (K7's projection at
+    each m of ``ms``, with the Hessenberg column, whose h and norm carry
+    their own scales, and the written row); K4 and K5, whose twins take
+    the same operations in the same order, bit for bit.  Returns the max
+    abs errors by kernel and the max relative errors."""
+    import torch
+
+    from pymes_tpu_torch import kernels
+
+    errs = {k: 0.0 for k in F32_KERNELS}
+    rel = dict(errs)
+    V, lanes = x["V"], x["lanes"]
+
+    def note(name, got, want, what):
+        e = rel_err(got, want, f"{what}, {x['label']}", tol=F32_REL)
+        errs[name] = max(errs[name], e)
+        rel[name] = max(rel[name], e / float(want.abs().max()))
+
+    for m in ms:
+        # a fresh w per m: the row that an earlier m wrote lies in the span
+        # of w, and projecting w on it again leaves only rounding noise
+        g = torch.Generator(device=V.device).manual_seed(1000 + m)
+        calls = f32_calls(x, m, torch.randn(x["w"].shape, generator=g,
+                                            dtype=V.dtype, device=V.device))
+        mt = torch.full_like(lanes, m)
+        hk = calls["arnoldi_cgs2_f32"](False)
+        row_k = V[lanes, mt].clone()
+        ht = calls["arnoldi_cgs2_f32"](True)
+        check(hk.dtype == torch.float64 and row_k.dtype == torch.float32,
+              "K7 f32: Hessenberg column f64, row f32")
+        note("arnoldi_cgs2_f32", hk[:, :m], ht[:, :m], f"K7 f32 h, m={m}")
+        note("arnoldi_cgs2_f32", hk[:, m], ht[:, m], f"K7 f32 norm, m={m}")
+        note("arnoldi_cgs2_f32", row_k, V[lanes, mt], f"K7 f32 row, m={m}")
+        for a, b, o in zip(calls["krylov_combine_f32"](False),
+                           calls["krylov_combine_f32"](True), "xr"):
+            note("arnoldi_cgs2_f32", a, b, f"K7 f32 fused combine {o}, "
+                 f"m={m + 1}")
+    for name, fn in calls.items():
+        if name.startswith(("arnoldi", "krylov")):
+            continue
+        got, want = fn(False), fn(True)
+        kernel = name.split()[0]
+        if isinstance(got, tuple):          # K8 residual: r, ‖r‖, ‖b‖
+            for a, b in zip(got, want):
+                check(a.dtype == torch.float32, f"{name}: not f32")
+                note(kernel, a, b, name)
+        elif kernel in ("ovvv_gather_f32", "pair_symmetrize_f32"):
+            check(got.dtype == torch.float32, f"{name}: not f32")
+            errs[kernel] = max(errs[kernel], bit_equal(
+                got, want, f"{name}, {x['label']}"))
+        else:
+            check(got.dtype == torch.float32, f"{name}: not f32")
+            note(kernel, got, want, name)
+    torch.cuda.synchronize()
+    print(f"f32 kernel vs f32 twin, {x['label']}: " + ", ".join(
+        f"{k} max_abs_err={errs[k]:.3e} (max rel {rel[k]:.2e})"
+        for k in F32_KERNELS), flush=True)
+    return errs, rel
+
+
+def time_f32_kernels(x, m):
+    """ms per call of each f32 kernel and its twin at the lane shape of
+    ``x`` (twin, kernel, kernel, twin), K7 at m rows; K4 the mean over the
+    three plans; the library call beside K5 (``torch.add`` of X and its
+    partner) and K7's combine (``torch.baddbmm`` with an f32 (La, 2, m)
+    coefficient batch), and each kernel's f32 bound."""
+    import torch
+
+    from pymes_tpu_torch.util.roofline import FP32_FMA_FLOPS_S
+
+    calls = f32_calls(x, m)
+    out = {}
+    for name in ("arnoldi_cgs2_f32", "krylov_combine_f32",
+                 "shifted_precond_f32", "block_ladder_f32",
+                 "pair_symmetrize_f32", *(k for k in calls
+                                          if k.startswith("ovvv"))):
+        t = [cuda_ms(lambda: calls[name](tw), n=10)
+             for tw in (True, False, False, True)]
+        out[name] = ((t[1] + t[2]) / 2, (t[0] + t[3]) / 2)
+    k4 = [out.pop(k) for k in list(out) if k.startswith("ovvv")]
+    out["ovvv_gather_f32"] = tuple(float(np.mean(v)) for v in zip(*k4))
+    X5 = x["X5"]
+    out["pair_symmetrize_f32 library"] = cuda_ms(
+        lambda: torch.add(X5, X5.transpose(-4, -3).transpose(-2, -1)), n=10)
+    X0 = torch.stack([x["X"], torch.zeros_like(x["X"])], dim=1)
+    C = x["C"][:, :, :m].float()
+    V = x["V"]
+    out["krylov_combine_f32 library"] = cuda_ms(
+        lambda: torch.baddbmm(X0, C, V[:, :m]), n=10)
+    La, R1, n = V.shape
+    nv, ncol = x["nv"], x["T1"].shape[0] * NO
+    gathers = [gather_bound(p, nv, ncol, elem=4) for p in x["plans"].values()]
+    kb = krylov_bounds(La, m, n, elem=4)
+    b = {"block_ladder_f32": ladder_bound(x["plan"], x["T"].shape[1], elem=4,
+                                          flops_s=FP32_FMA_FLOPS_S),
+         "ovvv_gather_f32": (float(np.mean([g[0] for g in gathers])),
+                             gathers[0][1]),
+         # X read, out written; one add an element
+         "pair_symmetrize_f32": bound(4 * 2 * X5.numel(), X5.numel(),
+                                      FP32_FMA_FLOPS_S),
+         "arnoldi_cgs2_f32": kb["bound"],
+         # H (2La, N), x (La, 2N), diag read; the pair (La, 2N) written
+         "shifted_precond_f32": bound(4 * (3 * La * n + n // 2),
+                                      20 * La * n, FP32_FMA_FLOPS_S)}
+    return out, b, kb
+
+
+def f32_phase(label, plan, plans, shape, seed, device, card):
+    """Phase 24 at one lane shape: compare and time the f32 kernels."""
+    import torch
+
+    t0 = time.time()
+    x = f32_inputs(label, plan, plans, shape, seed, device)
+    ms = shape[4]
+    errs, rel = compare_f32_kernels(x, ms)
+    t, b, kb = time_f32_kernels(x, ms[len(ms) // 2])
+    del x
+    torch.cuda.empty_cache()
+    for name in F32_KERNELS:
+        print(f"[{card}] {label} {name}: kernel {t[name][0]:.4f} ms, twin "
+              f"{t[name][1]:.4f} ms per call; f32 bound {b[name][0]:.4f} ms "
+              f"({b[name][1]}), the kernel at {b[name][0] / t[name][0]:.3f} "
+              "of it", flush=True)
+    kc = t["krylov_combine_f32"]
+    print(f"[{card}] {label} K7 f32 fused combine {kc[0]:.4f} ms (twin "
+          f"{kc[1]:.4f}), torch.baddbmm f32 "
+          f"{t['krylov_combine_f32 library']:.4f} ms, bound "
+          f"{kb['combine'][0]:.4f} ms; projection's three-pass floor "
+          f"{kb['floor_ms']:.4f} ms; K5 f32 torch.add (library) "
+          f"{t['pair_symmetrize_f32 library']:.4f} ms; {time.time() - t0:.2f}"
+          " s", flush=True)
+    return errs, t, b, kb
+
+
+def mixed_launches(n_sigma, st, ladder):
+    """The launches of a mixed-engine window from what its solves did:
+    each Arnoldi step of an f32 Krylov solve is one f32 sigma (K1 f32, K4
+    f32 three times, K5 f32), one f32 K8 (apply) and one f32 K7; each
+    cycle end one f32 K7 combine; each refinement pass of a chunk one f32
+    K8 for Mb and one f64 sigma and f64 K8 for the honest residual; each
+    FEAST iteration's projected H̄ one f64 sigma; and H̄'s W_laji one f64
+    K1 per operator."""
+    calls, passes = st["calls"], sum(st["passes"])
+    n64 = n_sigma - calls
+    check(n64 == passes + st["projections"],
+          f"{n64} f64 sigmas for {passes} passes and {st['projections']} "
+          "projections")
+    want = {"pair_symmetrize": n64, "shifted_precond": passes,
+            "pair_symmetrize_f32": calls,
+            "arnoldi_cgs2_f32": calls + st["cycle_ends"],
+            "shifted_precond_f32": calls + passes}
+    if ladder:
+        want.update(block_ladder=n64 + 1, ovvv_gather=3 * n64,
+                    block_ladder_f32=calls, ovvv_gather_f32=3 * calls)
+    return want
+
+
+def feast57_mixed(p5, V, T2, device, ref, card):
+    """Phase 24: phase 12's window with ``ls_precision="mixed"`` and
+    MIXED_REFINE_MAX passes: the roots inside the window within 1e-7 of
+    the JAX level and of phase 12's roots, every honest residual ≤
+    ls_conv_tol; prints the passes per chunk, the walls per iteration
+    beside phase 12's, the Krylov bytes per lane and the peak memory, and
+    the matmul settings seen inside the engine.  Returns the solver and
+    the launches its solve implies."""
+    import torch
+
+    from pymes_tpu_torch.solver import feast_eom_ccsd
+
+    t0 = time.time()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = dict(FEAST57, ls_precision="mixed")
+    s = counted(feast_eom_ccsd.FEAST_EOM_CCSD, NO, device, **cfg)
+    s.ls_restart, s.ls_max_iter = FEAST57_GMRES
+    s.ls_refine_max = MIXED_REFINE_MAX
+    roots = np.sort_complex(np.asarray(s.solve(p5["fock"], V, T2)))
+    peak = torch.cuda.max_memory_allocated()
+    st = s.ls_stats
+    e_c, e_r = FEAST57["e_c"], FEAST57["e_r"]
+    inside = roots[np.abs(roots.real - e_c) < e_r]
+    ref_in = ref["roots"][np.abs(ref["roots"].real - e_c) < e_r]
+    level = EOM_JAX[5][0][0]
+    dev = float(np.abs(inside - level).max()) if len(inside) else np.inf
+    gap = (float(np.abs(np.sort(inside.real)[:, None]
+                        - np.sort(ref_in.real)[None]).min(axis=1).max())
+           if len(inside) and len(ref_in) else np.inf)
+    res = float(np.max(s.last_ls_residuals))
+    check(len(inside) >= 1 and dev <= 1e-7,
+          f"mixed FEAST nP=57: roots {roots} vs the JAX level {level}")
+    check(gap <= 1e-7, f"mixed FEAST nP=57: roots {inside} vs phase 12's "
+          f"{ref_in}")
+    check(res <= FEAST57["ls_conv_tol"],
+          f"mixed FEAST nP=57: largest honest ls residual {res:.3e} > "
+          f"{FEAST57['ls_conv_tol']}")
+    check(st["matmul"] == ("highest", False, False),
+          f"mixed FEAST nP=57: matmul settings {st['matmul']} in the engine")
+    N2 = 2 * (p5["nv"] * NO + p5["nv"] ** 2 * NO * NO)
+    lane = (FEAST57_GMRES[0] + 1) * N2
+    print(f"mixed FEAST nP=57 (ls_refine_max {s.ls_refine_max}): "
+          f"{len(inside)} roots in the window, max |root - JAX level| = "
+          f"{dev:.2e}, max |root - phase 12| = {gap:.2e}, "
+          f"{s.n_iterations} FEAST iterations (phase 12: "
+          f"{ref['solver'].n_iterations}), largest honest ls residual "
+          f"{res:.2e}, refinement passes per chunk {st['passes']}, f32 "
+          f"Arnoldi steps per pass and lane: mean "
+          f"{np.concatenate(st['steps']).mean():.1f}, max "
+          f"{np.concatenate(st['steps']).max()}; matmul inside the engine "
+          f"(precision, cuda allow_tf32, cudnn allow_tf32) {st['matmul']}, "
+          f"after it ({torch.get_float32_matmul_precision()}, "
+          f"{torch.backends.cuda.matmul.allow_tf32}, "
+          f"{torch.backends.cudnn.allow_tf32}); {time.time() - t0:.2f} s",
+          flush=True)
+    print(f"[{card}] mixed FEAST nP=57: wall per iteration "
+          f"{[round(w, 3) for w in s.iter_walls]} s (phase 12, f64: "
+          f"{[round(w, 3) for w in ref['solver'].iter_walls]} s); Krylov "
+          f"basis {lane * 4 / 1e6:.1f} MB a lane (f64 {lane * 8 / 1e6:.1f}),"
+          f" {s.krylov_mem_budget_bytes} budget; peak device memory "
+          f"{peak / 1e9:.3f} GB (phase 12 {ref['peak'] / 1e9:.3f} GB)",
+          flush=True)
+    return s, mixed_launches(s.n_sigma, st, ladder=True)
+
+
+def rt123_mixed(p, V, T2, root, u0, ref, device, card):
+    """Phase 24: phase 13's three CIF steps with ``ls_precision="mixed"``:
+    each step's phase energy within 1e-7 of the root and of phase 13's,
+    unit norm to 1e-10, every honest residual ≤ ls_conv_tol.  Returns the
+    solver and the launches its steps imply."""
+    from pymes_tpu_torch.solver import rt_eom_ccsd
+
+    dt = RT123["dt"]
+    s = counted(rt_eom_ccsd.RT_EOM_CCSD, NO, device, e_c=root,
+                e_r=RT123["e_r"], n_quad=RT123["n_quad"],
+                ls_conv_tol=RT123["ls_conv_tol"], ls_precision="mixed")
+    s.ls_restart = RT123["ls_restart"]
+    s.ls_refine_max = MIXED_REFINE_MAX
+    q = (u0[0].astype(complex), u0[1].astype(complex))
+    c_prev, st, walls = 1.0, {}, []
+    for k in range(RT123["steps"]):
+        t0 = time.time()
+        q = s.solve(p["fock"], V, T2, dt=dt, u_singles=q[0], u_doubles=q[1])
+        walls.append(time.time() - t0)
+        add_stats(st, s.ls_stats)
+        norm = float(np.vdot(q[0], q[0]).real + np.vdot(q[1], q[1]).real)
+        c_t = (np.tensordot(u0[0], q[0], axes=2)
+               + np.tensordot(u0[1], q[1], axes=4))
+        e_step = float(np.angle(c_t / c_prev) / dt)
+        res = float(np.max(s.last_ls_residuals))
+        e13 = ref["energies"][k]
+        check(abs(norm - 1.0) <= 1e-10, f"mixed RT step {k}: norm {norm}")
+        check(abs(e_step - root) <= 1e-7 and abs(e_step - e13) <= 1e-7,
+              f"mixed RT step {k}: phase energy {e_step} vs root {root} "
+              f"and phase 13's {e13}")
+        check(res <= RT123["ls_conv_tol"],
+              f"mixed RT step {k}: largest honest ls residual {res:.3e}")
+        print(f"mixed RT nP={p['nP']} step {k}: phase energy "
+              f"{e_step:.13f}, |E - root|={abs(e_step - root):.2e}, "
+              f"|E - phase 13|={abs(e_step - e13):.2e}, |norm - 1|="
+              f"{abs(norm - 1):.1e}, largest honest ls residual {res:.2e}, "
+              f"refinement passes {s.ls_stats['passes']}, {walls[-1]:.2f} s "
+              f"(phase 13 {ref['walls'][k]:.2f} s)", flush=True)
+        c_prev = c_t
+    print(f"[{card}] mixed RT nP={p['nP']}: wall per step "
+          f"{[round(w, 3) for w in walls]} s (phase 13, f64: "
+          f"{[round(w, 3) for w in ref['walls']]} s)", flush=True)
+    return s, mixed_launches(s.n_sigma, st, ladder=True)
 
 
 def generic_seed(p5, V, T2, lih, device):
@@ -3486,21 +3877,74 @@ def main():
     # timing: ms per Arnoldi step of one GMRES cycle over all lanes, wall
     # per FEAST iteration and per RT step
     fs, rs = runs["FEAST"]["solver"], runs["RT"]["solver"]
+    step_ms = {}
     for label, s_, lanes_, restart, rt, dt in (
             ("FEAST nP=57 x 64 lanes", fs, feast57_lanes(fs, device),
              FEAST57_GMRES[0], False, 0.0),
             (f"RT nP={p123['nP']} x 32 lanes", rs,
              rt123_lanes(rs, u123, root123, device), RT123["ls_restart"],
              True, RT123["dt"])):
-        k_ms, t_ms, parts = arnoldi_step_ms(s_, *lanes_, restart, rt, dt)
+        k_ms, t_ms, parts = step_ms[label] = arnoldi_step_ms(
+            s_, *lanes_, restart, rt, dt)
         print(f"[{card}] {label}: GMRES({restart}) cycle, kernels "
               f"{k_ms:.3f} ms per Arnoldi step, twins {t_ms:.3f}; sigma "
-              f"{parts['sigma']:.3f} ms and K8 {parts['K8']:.4f} ms per "
-              "call", flush=True)
+              f"{parts['sigma']:.3f} ms, K8 {parts['K8']:.4f} ms and K7 "
+              f"(m = {restart // 2}) {parts['K7']:.4f} ms per call",
+              flush=True)
     print(f"[{card}] FEAST nP=57: wall per iteration "
           f"{[round(w, 3) for w in fs.iter_walls]} s; RT nP={p123['nP']}: "
           f"wall per step {[round(w, 3) for w in runs['RT']['walls']]} s",
           flush=True)
+
+    # phase 24: the FEAST/RT mixed-precision engine: the f32 kernels
+    # against their f32 twins and timed at the FEAST nP=57 and RT nP=123
+    # lane shapes, phase 12's window and phase 13's steps with
+    # ls_precision="mixed" in one counted window, then ms per Arnoldi step
+    # of the f32 solves beside phase 12/13's f64 ones
+    feast_label, rt_label = (f"FEAST nP={problems[5]['nP']}",
+                             f"RT nP={p123['nP']}")
+    f32_t, f32_b = {}, {}
+    for label, V_, seed in ((feast_label, eom_ops[5], 41),
+                            (rt_label, V123, 42)):
+        errs, t, b, kb = f32_phase(label, V_["abcd_ladder"],
+                                   V_["_ovvv_plans"], krylov_shapes[label],
+                                   seed, device, card)
+        compare.append(errs)
+        f32_t[label], f32_b[label] = (t, kb), b
+    mixed = {}
+
+    def run_mixed():
+        s_f, want = feast57_mixed(problems[5], eom_ops[5], results[5][2],
+                                  device, runs["FEAST"], card)
+        s_r, want_rt = rt123_mixed(p123, V123, T123, root123, u123,
+                                   runs["RT"], device, card)
+        mixed.update(FEAST=s_f, RT=s_r)
+        return {k: want.get(k, 0) + want_rt.get(k, 0)
+                for k in set(want) | set(want_rt)}
+
+    counted_exactly("mixed FEAST/RT", run_mixed, launches)
+    for name in F32_KERNELS:
+        check(launches["mixed FEAST/RT"][name] > 0,
+              f"kernel {name} never launched on the mixed FEAST/RT path")
+    for label, s_, lanes_, restart, rt, dt in (
+            ("FEAST nP=57 x 64 lanes", mixed["FEAST"],
+             feast57_lanes(mixed["FEAST"], device), FEAST57_GMRES[0],
+             False, 0.0),
+            (f"RT nP={p123['nP']} x 32 lanes", mixed["RT"],
+             rt123_lanes(mixed["RT"], u123, root123, device),
+             RT123["ls_restart"], True, RT123["dt"])):
+        k_ms, t_ms, parts = arnoldi_step_ms(s_, *lanes_, restart, rt, dt,
+                                            f32=True)
+        k64, t64, p64 = step_ms[label]
+        print(f"[{card}] {label}: GMRES({restart}) cycle per Arnoldi step, "
+              f"f32 (mixed engine) kernels {k_ms:.3f} ms, twins {t_ms:.3f};"
+              f" f64 kernels {k64:.3f}, twins {t64:.3f}; per call f32 / "
+              f"f64: sigma {parts['sigma']:.3f} / {p64['sigma']:.3f} ms, K8 "
+              f"{parts['K8']:.4f} / {p64['K8']:.4f} ms, K7 (m = "
+              f"{restart // 2}) {parts['K7']:.4f} / {p64['K7']:.4f} ms",
+              flush=True)
+    del mixed
+    torch.cuda.empty_cache()
 
     # phase 20: the generic FEAST kernel and one CIF step over the card's
     # sigma at nP=57, the adapters over the LiH sigma (the Davidson seeds
@@ -3600,17 +4044,20 @@ def main():
              for k in KERNELS}
     max_err = {k: max(c[k] for c in compare if k in c) for k in KERNELS}
     kernel_ms = {name: kernel_ms[14][name] for name in kernel_ms[14]}
-    feast_label = f"FEAST nP={problems[5]['nP']}"
     for name in ("arnoldi_cgs2", "shifted_precond"):
         kernel_ms[name] = krylov_ms[feast_label][name]
     La, R1, n2 = krylov_shapes[feast_label][:3]
     bounds = kernel_bounds(problems[14], q, {"La": La, "R1": R1, "n": n2,
                                              "m": 60}, ring_shape)
+    # the f32 kernels at the FEAST nP=57 lane shape (phase 24)
+    for name in F32_KERNELS:
+        kernel_ms[name] = f32_t[feast_label][0][name]
+        bounds[name] = f32_b[feast_label][name]
     # the one PyTorch call of the same function, where there is one: for
     # K7 it computes the fused Krylov combine (its kernel time:
     # combine_ms); K7 also carries its three-pass floor and the RT nP=123
-    # lane shape, K9 its nP=57 ring step
-    rt_label = f"RT nP={p123['nP']}"
+    # lane shape, K9 its nP=57 ring step; each f32 kernel its RT nP=123
+    # lane shape
 
     def k7_extra(label):
         t, b = krylov_ms[label], krylov_b[label]
@@ -3665,6 +4112,29 @@ def main():
                        "plain_ms": krylov_ms[rt_label]["arnoldi_cgs2"][1],
                        "bound_ms": krylov_b[rt_label]["bound"][0],
                        **k7_extra(rt_label)}}}
+    for label in (feast_label, rt_label):
+        t, kb = f32_t[label]
+        k7 = {"floor_ms": kb["floor_ms"],
+              "combine_ms": t["krylov_combine_f32"][0],
+              "combine_plain_ms": t["krylov_combine_f32"][1],
+              "combine_bound_ms": kb["combine"][0],
+              "library_ms": t["krylov_combine_f32 library"]}
+        k5 = {"library_ms": t["pair_symmetrize_f32 library"]}
+        if label == feast_label:
+            library["arnoldi_cgs2_f32"] = dict(
+                k7, library_call="torch.baddbmm with an f32 (La, 2, m) "
+                "coefficient batch, the fused Krylov combine")
+            library["pair_symmetrize_f32"] = dict(
+                k5, library_call="torch.add(X, X.transpose(-4, -3)"
+                ".transpose(-2, -1)), f32")
+            continue
+        for name in F32_KERNELS:
+            library.setdefault(name, {})[label] = {
+                "ms": t[name][0], "plain_ms": t[name][1],
+                "bound_ms": f32_b[label][name][0],
+                "bound_by": f32_b[label][name][1],
+                **(k7 if name == "arnoldi_cgs2_f32" else
+                   k5 if name == "pair_symmetrize_f32" else {})}
     print(json.dumps({"kernels": [
         {"name": name, "route": route, "source": src, "replaces": rep,
          "launches": total[name], "max_abs_err": max_err[name],

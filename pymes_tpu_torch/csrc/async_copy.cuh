@@ -3,10 +3,10 @@
 //
 // Protocol of a "full" barrier: it is initialised with the number of
 // copying threads; for each fill every one of them issues its cp.asyncs
-// (16 bytes where source and destination are 16-byte aligned, else 8) and
-// then arrives through cp_async_arrive_noinc, which fires once that
-// thread's copies have landed.  The phase completes when all of them have,
-// so readers that wait on it see the whole buffer.
+// (16 bytes where source and destination are 16-byte aligned, else one
+// element) and then arrives through cp_async_arrive_noinc, which fires
+// once that thread's copies have landed.  The phase completes when all of
+// them have, so readers that wait on it see the whole buffer.
 //
 // Why not cp.async.bulk: one bulk copy per row segment costs the copy
 // engine a fixed time per request, and with the 256- to 768-byte row
@@ -61,6 +61,22 @@ __device__ __forceinline__ void cp_async8(void* dst, const void* src)
 {
     asm volatile("cp.async.ca.shared.global [%0], [%1], 8;"
                  :: "r"(smem_addr(dst)), "l"(src) : "memory");
+}
+
+// one float, 4-byte aligned
+__device__ __forceinline__ void cp_async4(void* dst, const void* src)
+{
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;"
+                 :: "r"(smem_addr(dst)), "l"(src) : "memory");
+}
+
+// one element of T (float or double), aligned to its size
+template <typename T>
+__device__ __forceinline__ void cp_async_elem(T* dst, const T* src)
+{
+    static_assert(sizeof(T) == 4 || sizeof(T) == 8, "float or double");
+    if constexpr (sizeof(T) == 8) cp_async8(dst, src);
+    else cp_async4(dst, src);
 }
 
 __device__ __forceinline__ void cp_async_arrive_noinc(uint64_t* bar)

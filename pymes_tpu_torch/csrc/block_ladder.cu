@@ -1,4 +1,6 @@
-// K1: momentum-sector ladder GEMM for the UEG CCD residual (f64, sm_90a).
+// K1: momentum-sector ladder GEMM for the UEG CCD residual (sm_90a), in
+// f64 on the tensor cores and, for the f32 sigma of the FEAST/RT
+// mixed-precision engine, in f32 on the CUDA cores (block_ladder_f32 below).
 //
 // Replaces B1 of the JAX package: pymes_tpu/ops/ueg_ladder.py:450
 // block_ladder_apply_ij (and its integer-MXU form block_ladder_apply_ij_ozaki,
@@ -391,6 +393,121 @@ cudaError_t launch(const Args& a, int n_bins, cudaStream_t stream)
     return cudaGetLastError();
 }
 
+// ---- f32 ----------------------------------------------------------------
+//
+// The f32 instantiation: the same function on float amplitudes and sector
+// blocks, over the same plan (the units, stage table and bins of
+// kernels/block_ladder.py plan_units), with f32 accumulation.  DMMA has no
+// f32 form, and the tensor cores take f32 only as TF32 (about three
+// decimal digits), which the mixed engine's f32 solves cannot use: this is
+// an FFMA tile loop on the CUDA cores (67 TFLOP/s f32 on an H100 SXM5).
+// At the FEAST nP=57 lane batch (N = 6272) it does 2 flops a block element
+// a column; the bytes (T in, the output out) still bind, but only once the
+// loop runs near the FFMA rate, which this simple form does not try for.
+//
+// Design: block (x, y) walks the units of bin x in order on the 64-column
+// tile y of the operand, so the grid fills the card (132 bins x N / 64
+// tiles).  For each stage of a unit the block loads the stage's A columns
+// of its up to four slots (16 rows x kd each) and the TK gathered B rows
+// (the planned ket rows of Tt, columns n0..n0+63) into shared memory, then
+// warp w, owning slot w, adds the products of its 16 rows x 64 columns: a
+// lane holds 4 rows x 8 columns (rows 4 (lane / 8) + i, columns lane % 8 +
+// 8 j) in registers.  A row's sum runs over k in order from zero; the
+// rows map one-to-one onto output rows, so there are no atomics, and zero
+// rows are written by the blocks in turn, each on its column tile.
+constexpr int F_NC = 64;                   // columns of a block's tile
+constexpr int F_THREADS = 32 * CW;         // a warp a slot
+
+struct ArgsF {
+    const float* Tt; long long ldt;
+    const float* blocks;
+    const int* bra;
+    const int* units;
+    const int* stages;
+    const int* bins;
+    const int* zero_rows; int n_zero;
+    float* out; int N;
+};
+
+__global__ void __launch_bounds__(F_THREADS)
+block_ladder_f32_kernel(ArgsF a)
+{
+    __shared__ float As[CW][16][TK + 1];
+    __shared__ float Bs[TK][F_NC];
+    __shared__ int U[UNIT];
+    const int n0 = blockIdx.y * F_NC, ncols = min(F_NC, a.N - n0);
+    for (int z = blockIdx.x; z < a.n_zero; z += gridDim.x) {
+        float* orow = a.out + static_cast<long long>(a.zero_rows[z]) * a.N
+            + n0;
+        for (int c = threadIdx.x; c < ncols; c += F_THREADS) orow[c] = 0.0f;
+    }
+    const int u0 = a.bins[2 * blockIdx.x], u1 = a.bins[2 * blockIdx.x + 2];
+    int st = a.bins[2 * blockIdx.x + 1];
+    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+    const int rg = 4 * (lane / 8), cg = lane % 8;
+    for (int u = u0; u < u1; ++u) {
+        __syncthreads();                 // the last unit's U is read
+        if (threadIdx.x < UNIT)
+            U[threadIdx.x] = a.units[static_cast<long long>(u) * UNIT
+                                     + threadIdx.x];
+        __syncthreads();
+        const int mK = U[0], kd = U[1], nst = U[2];
+        const int alive = U[8 + warp], b_row = U[16 + warp];
+        float acc[4][8];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
+        for (int t = 0; t < nst; ++t, ++st) {
+            const int k0 = t * kd, kv = min(kd, mK - k0);
+            // A: rows m < live rows of each slot, columns k0 .. k0 + kd
+            for (int e = threadIdx.x; e < CW * 16 * kd; e += F_THREADS) {
+                const int s4 = e / (16 * kd), r = e - s4 * 16 * kd;
+                const int m = r / kd, kk = r - m * kd;
+                As[s4][m][kk] = m < U[8 + s4] && kk < kv
+                    ? __ldg(a.blocks + U[4 + s4]
+                            + static_cast<long long>(m) * mK + k0 + kk)
+                    : 0.0f;
+            }
+            // B: the stage's TK planned ket rows (-1: none), this tile
+            for (int e = threadIdx.x; e < TK * F_NC; e += F_THREADS) {
+                const int i = e / F_NC, c = e - i * F_NC;
+                const int k = __ldg(a.stages + static_cast<long long>(st)
+                                    * TK + i);
+                Bs[i][c] = k >= 0 && c < ncols
+                    ? __ldg(a.Tt + a.ldt * k + n0 + c) : 0.0f;
+            }
+            __syncthreads();
+            if (alive > 0) {
+                for (int kk = 0; kk < kv; ++kk) {
+                    float av[4], bv[8];
+#pragma unroll
+                    for (int i = 0; i < 4; ++i) av[i] = As[warp][rg + i][kk];
+#pragma unroll
+                    for (int j = 0; j < 8; ++j)
+                        bv[j] = Bs[b_row + kk][cg + 8 * j];
+#pragma unroll
+                    for (int i = 0; i < 4; ++i)
+#pragma unroll
+                        for (int j = 0; j < 8; ++j)
+                            acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+                }
+            }
+            __syncthreads();
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+            if (rg + i >= alive) break;
+            const int b = a.bra[U[12 + warp] + rg + i];
+            if (b < 0) continue;
+            float* orow = a.out + static_cast<long long>(b) * a.N + n0;
+#pragma unroll
+            for (int j = 0; j < 8; ++j)
+                if (cg + 8 * j < ncols) orow[cg + 8 * j] = acc[i][j];
+        }
+    }
+}
+
 }  // namespace
 
 // Shared memory of a block at column tile nt (in n8 tiles), or -1 for a
@@ -432,4 +549,23 @@ extern "C" int pymes_block_ladder(const double* Tt, long long ldt,
         case 16: return static_cast<int>(launch<16>(a, n_bins, stream));
         default: return static_cast<int>(cudaErrorInvalidValue);
     }
+}
+
+// The f32 instantiation (same plan and arguments, f32 operand, blocks and
+// output); returns the cudaError_t of the launch.
+extern "C" int pymes_block_ladder_f32(const float* Tt, long long ldt,
+                                      const float* blocks,
+                                      const int* bra_of_row,
+                                      const int* units, const int* stages,
+                                      const int* bins, int n_bins,
+                                      const int* zero_rows, int n_zero,
+                                      float* outT, int N,
+                                      cudaStream_t stream)
+{
+    if (n_bins <= 0 || N <= 0) return static_cast<int>(cudaSuccess);
+    const ArgsF a{Tt, ldt, blocks, bra_of_row, units, stages, bins,
+                  zero_rows, n_zero, outT, N};
+    const dim3 grid(n_bins, (N + F_NC - 1) / F_NC);
+    block_ladder_f32_kernel<<<grid, F_THREADS, 0, stream>>>(a);
+    return static_cast<int>(cudaGetLastError());
 }

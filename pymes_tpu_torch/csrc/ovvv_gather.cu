@@ -1,5 +1,6 @@
 // K4: the ovvv T1 momentum gather of the matrix-free CCSD dressing and the
-// EOM sigmas (f64, sm_90a).
+// EOM sigmas (sm_90a), f64, and f32 for the sigma of the FEAST/RT
+// mixed-precision engine (the gather is a template on the element type).
 //
 // Replaces B4 in the JAX package, pymes_tpu/ops/ueg_ladder.py:150-163
 // (ovvv_t1_apply_j):
@@ -55,30 +56,33 @@ namespace {
 constexpr int THREADS = 256;
 constexpr int EPT = 2;          // (p, q, r) entries a thread
 
+template <typename T>
 struct Gather {
     const int* S;
-    const double* W;
-    const double* T1;
+    const T* W;
+    const T* T1;
     long long sb, ss, sj;       // T1 strides: batch, row s, column j
-    double* out;                // (ncol, n)
+    T* out;                     // (ncol, n)
     long long n;                // (p, q, r) entries
     long long n12;              // n1 * n2
     int n2, no, ncol, ct;
 };
 
-__global__ void __launch_bounds__(THREADS) ovvv_gather_kernel(const Gather g)
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+ovvv_gather_kernel(const Gather<T> g)
 {
     const int c0 = blockIdx.y * g.ct;
     const int nc = min(g.ct, g.ncol - c0);
     const long long i0 =
         static_cast<long long>(blockIdx.x) * (THREADS * EPT) + threadIdx.x;
     long long srow[EPT];                    // offset of row s, -1: S < 0
-    double w[EPT];
+    T w[EPT];
 #pragma unroll
     for (int e = 0; e < EPT; ++e) {
         const long long i = i0 + e * THREADS;
         srow[e] = -1;
-        w[e] = 0.0;
+        w[e] = T(0);
         if (i < g.n) {
             const int s = g.S[i];
             const long long p = i / g.n12;
@@ -87,15 +91,15 @@ __global__ void __launch_bounds__(THREADS) ovvv_gather_kernel(const Gather g)
             if (s >= 0) srow[e] = s * g.ss;
         }
     }
-    double* o = g.out + static_cast<long long>(c0) * g.n;
+    T* o = g.out + static_cast<long long>(c0) * g.n;
     for (int cc = 0; cc < nc; ++cc, o += g.n) {
         const int c = c0 + cc, b = c / g.no, j = c - b * g.no;
-        const double* col = g.T1 + b * g.sb + j * g.sj;
+        const T* col = g.T1 + b * g.sb + j * g.sj;
 #pragma unroll
         for (int e = 0; e < EPT; ++e) {
             const long long i = i0 + e * THREADS;
             if (i < g.n)
-                o[i] = (srow[e] >= 0 ? __ldg(col + srow[e]) : 0.0) * w[e];
+                o[i] = (srow[e] >= 0 ? __ldg(col + srow[e]) : T(0)) * w[e];
         }
     }
 }
@@ -123,25 +127,45 @@ ovvv_diag_kernel(const int* __restrict__ S, const double* __restrict__ W,
     out[o] = acc;
 }
 
+template <typename T>
+int gather(const int* S, const T* W, const T* T1, long long sb, long long ss,
+           long long sj, int no, int ncol, T* out, long long n,
+           long long n12, int n2, int ct, cudaStream_t stream)
+{
+    if (n <= 0 || ncol <= 0) return static_cast<int>(cudaSuccess);
+    const Gather<T> g{S, W, T1, sb, ss, sj, out, n, n12, n2, no, ncol, ct};
+    const dim3 grid(static_cast<unsigned>((n + THREADS * EPT - 1)
+                                          / (THREADS * EPT)),
+                    (ncol + ct - 1) / ct);
+    ovvv_gather_kernel<T><<<grid, THREADS, 0, stream>>>(g);
+    return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // The gather: S (n0, n1, n2) int32 (n = n0*n1*n2 entries, n12 = n1*n2), W
 // (n0, n2), T1 element (b, s, j) at T1[b*sb + s*ss + j*sj], ncol = batch*no
-// columns, out (ncol, n), column tiles of ct.  Returns the cudaError_t of
-// the launch (0 = success).
+// columns, out (ncol, n), column tiles of ct; W, T1 and out of doubles
+// (_f32: of floats).  Returns the cudaError_t of the launch (0 = success).
 extern "C" int pymes_ovvv_gather(const int* S, const double* W,
                                  const double* T1, long long sb, long long ss,
                                  long long sj, int no, int ncol, double* out,
                                  long long n, long long n12, int n2, int ct,
                                  cudaStream_t stream)
 {
-    if (n <= 0 || ncol <= 0) return static_cast<int>(cudaSuccess);
-    const Gather g{S, W, T1, sb, ss, sj, out, n, n12, n2, no, ncol, ct};
-    const dim3 grid(static_cast<unsigned>((n + THREADS * EPT - 1)
-                                          / (THREADS * EPT)),
-                    (ncol + ct - 1) / ct);
-    ovvv_gather_kernel<<<grid, THREADS, 0, stream>>>(g);
-    return static_cast<int>(cudaGetLastError());
+    return gather(S, W, T1, sb, ss, sj, no, ncol, out, n, n12, n2, ct,
+                  stream);
+}
+
+extern "C" int pymes_ovvv_gather_f32(const int* S, const float* W,
+                                     const float* T1, long long sb,
+                                     long long ss, long long sj, int no,
+                                     int ncol, float* out, long long n,
+                                     long long n12, int n2, int ct,
+                                     cudaStream_t stream)
+{
+    return gather(S, W, T1, sb, ss, sj, no, ncol, out, n, n12, n2, ct,
+                  stream);
 }
 
 // The fused trace: S (n0, n1, n2), W (n0, n2), T1 (nv, no) with strides

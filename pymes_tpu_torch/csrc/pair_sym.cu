@@ -1,4 +1,7 @@
-// K5: the P(ab,ij) pair symmetrisation (f64, sm_90a).
+// K5: the P(ab,ij) pair symmetrisation (sm_90a), f64, and f32 for the
+// sigma of the FEAST/RT mixed-precision engine: the kernels are templates
+// on the element type T, and a tile is sized in bytes (below), so an f32
+// tile holds as many or more pairs in the same shared memory.
 //
 // Replaces the tail of B2 in the JAX package, the R + Ex + Ex^T of
 // pymes_tpu/solver/ccd.py:232-350 (doubles_residual_ij), which is also the
@@ -56,27 +59,35 @@ __device__ __forceinline__ void pair_of(int rem, int P, int& p, int& q)
     }
 }
 
-// Chunk tiles of the small-R program: TP x TP chunks (p, q) with
-// TP x TP x R x R <= 1024 doubles; a tile row is TP contiguous chunks
-// (1568 bytes at R = 7)
-template <int R>
+// Chunk tiles of the small-R program: TP x TP chunks (p, q), TP the
+// largest power of two <= 32 with TP x TP x R x R elements in TILE_BYTES
+// (for doubles: 1024 elements, TP = 4 at R = 7, a tile row TP contiguous
+// chunks of 1568 bytes; for floats TP = 4 too at R = 7, 784 bytes a row)
+constexpr int TILE_BYTES = 8192;
+
+constexpr int tile_pairs(int ch, int elem, int tp = 32)
+{
+    return tp > 1 && tp * tp * ch * elem > TILE_BYTES
+        ? tile_pairs(ch, elem, tp / 2) : tp;
+}
+
+template <typename T, int R>
 struct Small {
     static constexpr int CH = R * R;
-    static constexpr int TP = CH <= 1 ? 32 : CH <= 4 ? 16 : CH <= 16 ? 8
-        : CH <= 64 ? 4 : 2;
-    static constexpr int SEG = TP * CH;         // doubles of a tile row
-    static constexpr int EL = TP * SEG;         // doubles of a tile
+    static constexpr int TP = tile_pairs(CH, sizeof(T));
+    static constexpr int SEG = TP * CH;         // elements of a tile row
+    static constexpr int EL = TP * SEG;         // elements of a tile
     static constexpr int PER = (EL + STHREADS - 1) / STHREADS;
 };
 
-template <int R, bool HAS_Y>
+template <typename T, int R, bool HAS_Y>
 __global__ void __launch_bounds__(STHREADS)
-pair_sym_small(const double* __restrict__ X, const double* __restrict__ Y,
-               double* __restrict__ out, int P, int nTP)
+pair_sym_small(const T* __restrict__ X, const T* __restrict__ Y,
+               T* __restrict__ out, int P, int nTP)
 {
-    using G = Small<R>;
+    using G = Small<T, R>;
     constexpr int CH = G::CH, SEG = G::SEG, EL = G::EL, PER = G::PER;
-    __shared__ double sa[EL], sb[EL];
+    __shared__ T sa[EL], sb[EL];
     int a, b;
     pair_of(blockIdx.x, nTP, a, b);
     if (a < 0) return;
@@ -88,7 +99,7 @@ pair_sym_small(const double* __restrict__ X, const double* __restrict__ Y,
     const long long oa = base + (static_cast<long long>(pa) * P + qb) * CH;
     const long long ob = base + (static_cast<long long>(qb) * P + pa) * CH;
     const long long row = static_cast<long long>(P) * CH;
-    double xa[PER], xb[PER], ya[PER], yb[PER];
+    T xa[PER], xb[PER], ya[PER], yb[PER];
     bool va[PER], vb[PER];
 #pragma unroll
     for (int k = 0; k < PER; ++k) {
@@ -112,7 +123,7 @@ pair_sym_small(const double* __restrict__ X, const double* __restrict__ Y,
         if (vb[k]) sb[f] = xb[k];
     }
     __syncthreads();
-    const double* pb = diag ? sa : sb;
+    const T* pb = diag ? sa : sb;
 #pragma unroll
     for (int k = 0; k < PER; ++k) {
         const int f = threadIdx.x + STHREADS * k;
@@ -127,13 +138,13 @@ pair_sym_small(const double* __restrict__ X, const double* __restrict__ Y,
     }
 }
 
-template <bool HAS_Y>
+template <typename T, bool HAS_Y>
 __global__ void __launch_bounds__(TILE * ROWS)
-pair_sym_tiled(const double* __restrict__ X, const double* __restrict__ Y,
-               double* __restrict__ out, int P, int R, int nT)
+pair_sym_tiled(const T* __restrict__ X, const T* __restrict__ Y,
+               T* __restrict__ out, int P, int R, int nT)
 {
     constexpr int PER = TILE / ROWS;
-    __shared__ double t1[TILE][TILE + 1], t2[TILE][TILE + 1];
+    __shared__ T t1[TILE][TILE + 1], t2[TILE][TILE + 1];
     // blockIdx.y: the pair (p, q), p <= q, in row order of the upper
     // triangle (P is the occupied count here, so the walk is short)
     int pi = blockIdx.y, p = 0;
@@ -154,7 +165,7 @@ pair_sym_tiled(const double* __restrict__ X, const double* __restrict__ Y,
     // tile 1: chunk (p, q) rows r0.., columns s0..; tile 2: chunk (q, p)
     // rows s0.., columns r0.. (the transposed partner); every load issued
     // before the first use
-    double x1[PER], x2[PER], y1[PER], y2[PER];
+    T x1[PER], x2[PER], y1[PER], y2[PER];
     bool v1[PER], v2[PER];
 #pragma unroll
     for (int k = 0; k < PER; ++k) {
@@ -179,7 +190,7 @@ pair_sym_tiled(const double* __restrict__ X, const double* __restrict__ Y,
         if (v2[k]) t2[i][tx] = x2[k];
     }
     __syncthreads();
-    const double (*u2)[TILE + 1] = second ? t2 : t1;
+    const T (*u2)[TILE + 1] = second ? t2 : t1;
 #pragma unroll
     for (int k = 0; k < PER; ++k) {
         const int i = ty + ROWS * k;
@@ -192,55 +203,69 @@ pair_sym_tiled(const double* __restrict__ X, const double* __restrict__ Y,
     }
 }
 
-template <int R>
-cudaError_t launch_small(const double* X, const double* Y, double* out,
-                         int nb, int P, cudaStream_t stream)
+template <typename T, int R>
+cudaError_t launch_small(const T* X, const T* Y, T* out, int nb, int P,
+                         cudaStream_t stream)
 {
-    const int nTP = (P + Small<R>::TP - 1) / Small<R>::TP;
+    const int nTP = (P + Small<T, R>::TP - 1) / Small<T, R>::TP;
     const dim3 grid((nTP + 1) / 2 * (nTP + 1), nb);
     if (Y)
-        pair_sym_small<R, true><<<grid, STHREADS, 0, stream>>>(X, Y, out, P,
-                                                               nTP);
+        pair_sym_small<T, R, true><<<grid, STHREADS, 0, stream>>>(
+            X, Y, out, P, nTP);
     else
-        pair_sym_small<R, false><<<grid, STHREADS, 0, stream>>>(X, Y, out,
-                                                                P, nTP);
+        pair_sym_small<T, R, false><<<grid, STHREADS, 0, stream>>>(
+            X, Y, out, P, nTP);
     return cudaGetLastError();
+}
+
+template <typename T>
+int pair_sym(const T* X, const T* Y, T* out, int nb, int P, int R,
+             cudaStream_t stream)
+{
+    if (nb <= 0 || P <= 0 || R <= 0) return static_cast<int>(cudaSuccess);
+    switch (R) {
+        case 1: return launch_small<T, 1>(X, Y, out, nb, P, stream);
+        case 2: return launch_small<T, 2>(X, Y, out, nb, P, stream);
+        case 3: return launch_small<T, 3>(X, Y, out, nb, P, stream);
+        case 4: return launch_small<T, 4>(X, Y, out, nb, P, stream);
+        case 5: return launch_small<T, 5>(X, Y, out, nb, P, stream);
+        case 6: return launch_small<T, 6>(X, Y, out, nb, P, stream);
+        case 7: return launch_small<T, 7>(X, Y, out, nb, P, stream);
+        case 8: return launch_small<T, 8>(X, Y, out, nb, P, stream);
+        case 9: return launch_small<T, 9>(X, Y, out, nb, P, stream);
+        case 10: return launch_small<T, 10>(X, Y, out, nb, P, stream);
+        case 11: return launch_small<T, 11>(X, Y, out, nb, P, stream);
+        case 12: return launch_small<T, 12>(X, Y, out, nb, P, stream);
+        case 13: return launch_small<T, 13>(X, Y, out, nb, P, stream);
+        case 14: return launch_small<T, 14>(X, Y, out, nb, P, stream);
+        case 15: return launch_small<T, 15>(X, Y, out, nb, P, stream);
+        case 16: return launch_small<T, 16>(X, Y, out, nb, P, stream);
+        default: break;
+    }
+    const int nT = (R + TILE - 1) / TILE;
+    const dim3 grid(nT * nT, P * (P + 1) / 2, nb);
+    if (Y)
+        pair_sym_tiled<T, true><<<grid, TILE * ROWS, 0, stream>>>(
+            X, Y, out, P, R, nT);
+    else
+        pair_sym_tiled<T, false><<<grid, TILE * ROWS, 0, stream>>>(
+            X, Y, out, P, R, nT);
+    return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // out = (Y + X) + P(X) for X (nb, P, P, R, R) contiguous, Y of the same
 // shape or null, on `stream`; returns the cudaError_t of the launch.
+// Doubles (_f32: floats).
 extern "C" int pymes_pair_sym(const double* X, const double* Y, double* out,
                               int nb, int P, int R, cudaStream_t stream)
 {
-    if (nb <= 0 || P <= 0 || R <= 0) return static_cast<int>(cudaSuccess);
-    switch (R) {
-        case 1: return launch_small<1>(X, Y, out, nb, P, stream);
-        case 2: return launch_small<2>(X, Y, out, nb, P, stream);
-        case 3: return launch_small<3>(X, Y, out, nb, P, stream);
-        case 4: return launch_small<4>(X, Y, out, nb, P, stream);
-        case 5: return launch_small<5>(X, Y, out, nb, P, stream);
-        case 6: return launch_small<6>(X, Y, out, nb, P, stream);
-        case 7: return launch_small<7>(X, Y, out, nb, P, stream);
-        case 8: return launch_small<8>(X, Y, out, nb, P, stream);
-        case 9: return launch_small<9>(X, Y, out, nb, P, stream);
-        case 10: return launch_small<10>(X, Y, out, nb, P, stream);
-        case 11: return launch_small<11>(X, Y, out, nb, P, stream);
-        case 12: return launch_small<12>(X, Y, out, nb, P, stream);
-        case 13: return launch_small<13>(X, Y, out, nb, P, stream);
-        case 14: return launch_small<14>(X, Y, out, nb, P, stream);
-        case 15: return launch_small<15>(X, Y, out, nb, P, stream);
-        case 16: return launch_small<16>(X, Y, out, nb, P, stream);
-        default: break;
-    }
-    const int nT = (R + TILE - 1) / TILE;
-    const dim3 grid(nT * nT, P * (P + 1) / 2, nb);
-    if (Y)
-        pair_sym_tiled<true><<<grid, TILE * ROWS, 0, stream>>>(X, Y, out, P,
-                                                               R, nT);
-    else
-        pair_sym_tiled<false><<<grid, TILE * ROWS, 0, stream>>>(X, Y, out, P,
-                                                                R, nT);
-    return static_cast<int>(cudaGetLastError());
+    return pair_sym(X, Y, out, nb, P, R, stream);
+}
+
+extern "C" int pymes_pair_sym_f32(const float* X, const float* Y, float* out,
+                                  int nb, int P, int R, cudaStream_t stream)
+{
+    return pair_sym(X, Y, out, nb, P, R, stream);
 }

@@ -31,13 +31,36 @@
 A wrapper given a CUDA tensor launches its kernel (or raises); given a CPU
 tensor it runs the twin.  Each launch of a kernel adds one to its entry in
 :data:`LAUNCHES`, so a run can show that the main path went through it.
+
+K1, K4 (its gather), K5, K7 and K8 also take float32 operands, for the f32
+Krylov solves of the FEAST/RT mixed-precision engine
+(``ls_precision="mixed"``): each has an f32 instantiation on the card and
+an f32 twin, and counts its f32 launches under its name + ``"_f32"``.
 """
+
+import torch
 
 LAUNCHES = {"block_ladder": 0, "ccd_jacobi_diis": 0, "ccd_mix_energy": 0,
             "ovvv_gather": 0, "ovvv_gather_diag": 0, "ccsd_jacobi_diis": 0,
             "ccsd_mix_energy": 0, "pair_symmetrize": 0,
             "davidson_residual": 0, "arnoldi_cgs2": 0, "shifted_precond": 0,
-            "ring_step": 0}
+            "ring_step": 0, "block_ladder_f32": 0, "ovvv_gather_f32": 0,
+            "pair_symmetrize_f32": 0, "arnoldi_cgs2_f32": 0,
+            "shifted_precond_f32": 0}
+
+# the element types of the kernels with an f32 instantiation, and the
+# suffix of each type's library entries and LAUNCHES names
+SUFFIX = {torch.float64: "", torch.float32: "_f32"}
+
+
+def type_suffix(what, *tensors):
+    """The :data:`SUFFIX` of ``tensors``, which must share one of its
+    types: a kernel takes float64 or float32, never a mix."""
+    types = {t.dtype for t in tensors}
+    if len(types) != 1 or next(iter(types)) not in SUFFIX:
+        raise TypeError(f"{what} takes float64 or float32 tensors of one "
+                        f"type, not {sorted(map(str, types))}")
+    return SUFFIX[types.pop()]
 
 
 def reset_launches():

@@ -116,15 +116,21 @@ def library():
         lib.pymes_block_ladder.restype = i32
         lib.pymes_block_ladder_smem.argtypes = [i32]
         lib.pymes_block_ladder_smem.restype = i32
-        # K5: X, Y or null, out, batch, P, R
-        lib.pymes_pair_sym.argtypes = [vp, vp, vp, i32, i32, i32, vp]
-        lib.pymes_pair_sym.restype = i32
+        # K1 in f32: the same, without the column tile
+        lib.pymes_block_ladder_f32.argtypes = [vp, i64, vp, vp, vp, vp, vp,
+                                               i32, vp, i32, vp, i32, vp]
+        lib.pymes_block_ladder_f32.restype = i32
+        # K5: X, Y or null, out, batch, P, R (f64; _f32 alike)
+        for fn in (lib.pymes_pair_sym, lib.pymes_pair_sym_f32):
+            fn.argtypes = [vp, vp, vp, i32, i32, i32, vp]
+            fn.restype = i32
         # K4: S, W, T1 and its (batch, row, column) strides, no, columns,
         # out, entries, n1·n2, n2, column tile; the diagonal: S, W, T1 and
         # its strides, out, n0, n1, n2, no, the traced axis
-        lib.pymes_ovvv_gather.argtypes = [vp, vp, vp, i64, i64, i64, i32, i32,
-                                          vp, i64, i64, i32, i32, vp]
-        lib.pymes_ovvv_gather.restype = i32
+        for fn in (lib.pymes_ovvv_gather, lib.pymes_ovvv_gather_f32):
+            fn.argtypes = [vp, vp, vp, i64, i64, i64, i32, i32, vp, i64, i64,
+                           i32, i32, vp]
+            fn.restype = i32
         lib.pymes_ovvv_gather_diag.argtypes = [vp, vp, vp, i64, i64, vp, i32,
                                                i32, i32, i32, i32, vp]
         lib.pymes_ovvv_gather_diag.restype = i32
@@ -132,15 +138,19 @@ def library():
                                         i32, i32, i32, i32, i32, vp, vp]
         lib.pymes_ring_step.restype = i32
         # K7: the three CGS2 passes, the guarded scale, the Krylov combine
-        lib.pymes_arnoldi_pass.argtypes = [i32, vp, vp, vp, vp, vp, vp, vp,
-                                           i64, i64, i32, i64, i32, i32, vp]
-        lib.pymes_arnoldi_pass.restype = i32
-        lib.pymes_arnoldi_scale.argtypes = [vp, vp, vp, vp, vp, i64, i64,
-                                            i32, i64, i32, i32, f64, vp]
-        lib.pymes_arnoldi_scale.restype = i32
-        lib.pymes_krylov_combine.argtypes = [vp, vp, vp, vp, i32, vp, vp,
-                                             vp, i64, i64, i32, i64, i32, i32,
-                                             vp]
-        lib.pymes_krylov_combine.restype = i32
+        # (f64 basis; _f32 alike on an f32 basis)
+        for sfx in ("", "_f32"):
+            fn = getattr(lib, "pymes_arnoldi_pass" + sfx)
+            fn.argtypes = [i32, vp, vp, vp, vp, vp, vp, vp, i64, i64, i32,
+                           i64, i32, i32, vp]
+            fn.restype = i32
+            fn = getattr(lib, "pymes_arnoldi_scale" + sfx)
+            fn.argtypes = [vp, vp, vp, vp, vp, i64, i64, i32, i64, i32, i32,
+                           f64, vp]
+            fn.restype = i32
+            fn = getattr(lib, "pymes_krylov_combine" + sfx)
+            fn.argtypes = [vp, vp, vp, vp, i32, vp, vp, vp, i64, i64, i32,
+                           i64, i32, i32, vp]
+            fn.restype = i32
         _LIB = lib
     return _LIB

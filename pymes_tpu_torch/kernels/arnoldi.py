@@ -8,10 +8,16 @@ For each active lane a with ``m_a`` valid basis rows V[ℓ_a, :m_a]:
 
     h = V w;  w ← w − Vᵀh;  h += V w;  w ← w − Vᵀ(V w);  ‖w‖
 
-then the new row V[ℓ_a, m_a] = w/‖w‖, or zero when ‖w‖ ≤ 1e-140 (the JAX
-``_BREAK`` guard: a near-zero direction is noise and must not be
-normalised).  The returned Hessenberg column is (h₁ + h₂, ‖w‖) in rows
-0..m_a, zero past them.
+then the new row V[ℓ_a, m_a] = w/‖w‖, or zero when ‖w‖ ≤ the JAX
+``_BREAK`` guard (1e-140 for an f64 basis, 1e-18 for an f32 one: a
+near-zero direction is noise and must not be normalised).  The returned
+Hessenberg column is (h₁ + h₂, ‖w‖) in rows 0..m_a, zero past them, in
+float64 for either basis type.
+
+The basis V (and w, x0 and the combines' outputs) is float64, or float32
+for the f32 Krylov solves of the mixed-precision engine: every sum, the
+projection coefficients h, the norm and the combine coefficients are
+float64 in both (the source says where an f32 basis rounds).
 
 The kernels are CUDA C++ (``pymes_tpu_torch/csrc/arnoldi.cu``, built with
 nvcc for sm_90a at first use): exact CGS2 in three dependent streaming
@@ -23,8 +29,10 @@ ranges; it and :func:`tile_cols` (the tile width the kernel takes for m
 rows) are plain Python so that the CPU tests reach them.
 
 The twins (``*_twin``) loop over the lanes with ``torch.mv`` products in
-the JAX order; a lane's twin result does not depend on the other lanes, so
-the lane-batched GMRES on the CPU equals one-lane solves bit for bit.
+the JAX order, in float64 on the widened basis, rounding to the basis type
+where the kernel stores; a lane's twin result does not depend on the other
+lanes, so the lane-batched GMRES on the CPU equals one-lane solves bit for
+bit.
 """
 
 import functools
@@ -35,6 +43,7 @@ from pymes_tpu_torch import kernels
 from pymes_tpu_torch.kernels import _build
 
 BREAK = 1e-140        # ops/gmres.py:69, the f64 breakdown guard
+BREAK_F32 = 1e-18     # the same guard of an f32 basis
 # the doubles of one tile buffer of the projection and of the combine
 # (csrc/arnoldi.cu PROJ_TILE, COMB_TILE)
 PROJ_TILE = 3072
@@ -44,22 +53,29 @@ BLOCKS_PER_SM = 2     # two ~99 KB blocks share an SM's shared memory
 MIN_SPAN = 2048       # columns a block takes at least
 
 
+def breakdown(dtype):
+    """The breakdown guard of a basis of ``dtype`` (``ops/gmres.py:69``)."""
+    return BREAK_F32 if dtype == torch.float32 else BREAK
+
+
 def tile_cols(rows, tile=PROJ_TILE):
     """Columns of the kernel's tile of ``rows`` rows (the m valid rows,
-    plus w's row in a projection) in a buffer of ``tile`` doubles: a
-    multiple of 16."""
+    plus w's row in a projection) in a buffer of ``tile`` doubles (of an
+    f64 basis; an f32 tile holds twice the columns): a multiple of 16."""
     return tile // max(rows, 1) // 16 * 16
 
 
 @functools.lru_cache(maxsize=256)
-def plan(n, La, sms):
+def plan(n, La, sms, elem=8):
     """(G, span): each lane's n columns cut into G ranges of ``span``
-    columns (even, so every row segment stays 16-byte aligned), G as
-    large as fills ``sms`` SMs two blocks deep with La lanes, and at least
-    ``MIN_SPAN`` columns a range."""
+    columns (a multiple of 16 bytes of ``elem``-byte elements, so every
+    row segment stays 16-byte aligned), G as large as fills ``sms`` SMs two
+    blocks deep with La lanes, and at least ``MIN_SPAN`` columns a
+    range."""
     G = max(1, min(sms * BLOCKS_PER_SM // max(La, 1), -(-n // MIN_SPAN)))
+    vec = 16 // elem
     span = -(-n // G)
-    span += span % 2
+    span = -(-span // vec) * vec
     return -(-n // span), span
 
 
@@ -75,9 +91,11 @@ def block_tiles(n, G, span, rows, tile=PROJ_TILE):
 
 
 def _check(V, lanes, m, *rows):
+    """The type, device and shape refusals; returns the type suffix."""
+    sfx = kernels.type_suffix("K7", V, *rows)
     for t in (V,) + rows:
-        if t.dtype != torch.float64 or not t.is_contiguous():
-            raise TypeError("K7 takes contiguous float64 tensors")
+        if not t.is_contiguous():
+            raise TypeError("K7 takes contiguous tensors")
     for t in (lanes, m):
         if t.dtype != torch.int64 or not t.is_contiguous():
             raise TypeError("K7 takes int64 lane and row counts")
@@ -91,12 +109,14 @@ def _check(V, lanes, m, *rows):
     for t in rows:
         if t.shape[0] != lanes.shape[0]:
             raise ValueError("one row per active lane")
+    return sfx
 
 
 def _launch(V, La):
     """(library, (G, span)) for a K7 launch on V's device."""
     return (_build.library(),
-            plan(V.shape[2], La, _build.sm_count(V.device)))
+            plan(V.shape[2], La, _build.sm_count(V.device),
+                 V.element_size()))
 
 
 def _rc(dev, fn, what, *args):
@@ -110,20 +130,26 @@ def _rc(dev, fn, what, *args):
 def arnoldi_cgs2_twin(V, w, lanes, m):
     """Plain twin: per lane, two CGS passes as ``torch.mv`` products in the
     JAX order (h = V w; w − Vᵀh; h summed over both), the norm, and the
-    guarded normalised row written into V."""
-    H = torch.zeros((w.shape[0], V.shape[1]), dtype=w.dtype, device=w.device)
-    w = w.clone()
+    guarded normalised row written into V; float64 sums on the widened
+    basis, w₁ and the new row rounded to the basis type where the kernel
+    stores them (no-ops for an f64 basis)."""
+    H = torch.zeros((w.shape[0], V.shape[1]), dtype=torch.float64,
+                    device=w.device)
+    brk = breakdown(V.dtype)
     for a, (lane, mm) in enumerate(zip(lanes.tolist(), m.tolist())):
-        Vl = V[lane, :mm]
-        wa = w[a]
-        for _ in range(2):
+        Vl = V[lane, :mm].double()
+        wa = w[a].double()
+        for p in range(2):
             hp = torch.mv(Vl, wa)
             wa = wa - torch.mv(Vl.t(), hp)
+            if p == 0:
+                wa = wa.to(V.dtype).double()
             H[a, :mm] += hp
         hn = torch.sqrt(torch.dot(wa, wa))
         H[a, mm] = hn
-        V[lane, mm] = torch.where(hn > BREAK, 1.0 / torch.clamp(hn, min=BREAK),
-                                  torch.zeros_like(hn)) * wa
+        V[lane, mm] = (torch.where(hn > brk, 1.0 / torch.clamp(hn, min=brk),
+                                   torch.zeros_like(hn))
+                       * wa.to(V.dtype).double()).to(V.dtype)
     return H
 
 
@@ -132,36 +158,41 @@ def arnoldi_cgs2(V, w, lanes, m, twin=False):
     the Krylov bases, ``w`` (La, n) the new operator images of the active
     lanes ``lanes`` (La,) int64, whose first ``m`` (La,) int64 rows are
     valid (m ≤ R).  Writes the guarded normalised row V[lanes, m] in place
-    and returns the Hessenberg columns (La, R+1) (rows < m: h₁ + h₂, row m:
-    ‖w‖).  ``w`` is consumed.  K7 on a CUDA tensor, the twin on a CPU
-    tensor or with ``twin=True``."""
+    and returns the float64 Hessenberg columns (La, R+1) (rows < m: h₁ +
+    h₂, row m: ‖w‖).  ``V`` and ``w`` are float64 or float32.  ``w`` is
+    consumed.  K7 on a CUDA tensor, the twin on a CPU tensor or with
+    ``twin=True``."""
     if not kernels.check_device(V) or twin:
         return arnoldi_cgs2_twin(V, w, lanes, m)
-    _check(V, lanes, m, w)
+    sfx = _check(V, lanes, m, w)
     L, R1, n = V.shape
     La = lanes.shape[0]
     if w.shape != (La, n):
         raise ValueError("w must be (active lanes, n)")
     lib, (G, span) = _launch(V, La)
     dev = V.device
-    P = torch.empty((3, La, G, MAX_ROWS), dtype=V.dtype, device=dev)
-    h1 = torch.empty((La, MAX_ROWS), dtype=V.dtype, device=dev)
-    H = torch.empty((La, R1), dtype=V.dtype, device=dev)
+    f64 = torch.float64
+    P = torch.empty((3, La, G, MAX_ROWS), dtype=f64, device=dev)
+    h1 = torch.empty((La, MAX_ROWS), dtype=f64, device=dev)
+    H = torch.empty((La, R1), dtype=f64, device=dev)
     ptrs = [t.data_ptr() for t in (V, w, lanes, m, P, h1, H)]
+    fn = getattr(lib, "pymes_arnoldi_pass" + sfx)
     for p in range(3):
-        _rc(dev, lib.pymes_arnoldi_pass, f"K7 pass {p}", p, *ptrs, n, R1 * n,
-            R1, span, G, La)
-    _rc(dev, lib.pymes_arnoldi_scale, "K7 scale", ptrs[0], ptrs[2], ptrs[3],
-        ptrs[4], ptrs[6], n, R1 * n, R1, span, G, La, BREAK)
-    kernels.LAUNCHES["arnoldi_cgs2"] += 1
+        _rc(dev, fn, f"K7 pass {p}", p, *ptrs, n, R1 * n, R1, span, G, La)
+    _rc(dev, getattr(lib, "pymes_arnoldi_scale" + sfx), "K7 scale", ptrs[0],
+        ptrs[2], ptrs[3], ptrs[4], ptrs[6], n, R1 * n, R1, span, G, La,
+        breakdown(V.dtype))
+    kernels.LAUNCHES["arnoldi_cgs2" + sfx] += 1
     return H
 
 
 def krylov_combine_twin(V, coeffs, m, lanes, x0=None):
+    """Per lane ``x0 + Σ_i coeffs[a, i] V_i``, summed in float64 and
+    rounded to the basis type."""
     out = []
     for a, (lane, mm) in enumerate(zip(lanes.tolist(), m.tolist())):
-        s = torch.mv(V[lane, :mm].t(), coeffs[a, :mm])
-        out.append(s if x0 is None else x0[a] + s)
+        s = torch.mv(V[lane, :mm].double().t(), coeffs[a, :mm].double())
+        out.append((s if x0 is None else x0[a].double() + s).to(V.dtype))
     return torch.stack(out)
 
 
@@ -173,24 +204,27 @@ def krylov_combine_xr_twin(V, coeffs, m, lanes, x0=None):
 
 
 def _combine(V, coeffs, m, lanes, x0):
-    """K7's combine of ``coeffs`` (La, nout, k ≤ R+1) on the card; returns
-    the nout outputs (La, n)."""
+    """K7's combine of ``coeffs`` (La, nout, k ≤ R+1; float64 or float32,
+    widened to float64) on the card; returns the nout outputs (La, n) of
+    V's type."""
     La, nout = coeffs.shape[:2]
-    rows = (coeffs,) if x0 is None else (coeffs, x0)
-    _check(V, lanes, m, *rows)
+    sfx = _check(V, lanes, m, *(() if x0 is None else (x0,)))
+    if coeffs.dtype not in kernels.SUFFIX or coeffs.device != V.device:
+        raise TypeError("K7 takes float coefficients on V's device")
     L, R1, n = V.shape
-    if coeffs.shape[2] > R1 or (x0 is not None and x0.shape != (La, n)):
+    if (coeffs.shape[0] != La or coeffs.shape[2] > R1
+            or (x0 is not None and x0.shape != (La, n))):
         raise ValueError("coefficients or x0 do not fit V")
-    C = torch.zeros((La, nout, R1), dtype=V.dtype, device=V.device)
+    C = torch.zeros((La, nout, R1), dtype=torch.float64, device=V.device)
     C[:, :, :coeffs.shape[2]] = coeffs
     out = torch.empty((nout, La, n), dtype=V.dtype, device=V.device)
     lib, (G, span) = _launch(V, La)
-    _rc(V.device, lib.pymes_krylov_combine, "K7 combine", V.data_ptr(),
-        lanes.data_ptr(), m.data_ptr(), C.data_ptr(), nout,
+    _rc(V.device, getattr(lib, "pymes_krylov_combine" + sfx), "K7 combine",
+        V.data_ptr(), lanes.data_ptr(), m.data_ptr(), C.data_ptr(), nout,
         None if x0 is None else x0.data_ptr(), out[0].data_ptr(),
         out[nout - 1].data_ptr() if nout > 1 else None, n, R1 * n, R1, span,
         G, La)
-    kernels.LAUNCHES["arnoldi_cgs2"] += 1
+    kernels.LAUNCHES["arnoldi_cgs2" + sfx] += 1
     return out
 
 

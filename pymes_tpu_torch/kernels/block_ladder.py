@@ -3,8 +3,10 @@
 Replaces B1, ``pymes_tpu/ops/ueg_ladder.py:450`` ``block_ladder_apply_ij``
 (TPU form ``block_ladder_apply_ij_ozaki``, :533).  The kernel is CUDA C++
 on the f64 tensor cores (``pymes_tpu_torch/csrc/block_ladder.cu``, built
-with nvcc for sm_90a at first use); its source says what bounds it and how
-the design answers.
+with nvcc for sm_90a at first use), with an f32 instantiation on the CUDA
+cores over the same plan for the f32 sigma of the FEAST/RT mixed-precision
+engine (a plan in f32: :func:`pymes_tpu_torch.ops.ueg_ladder.cast_plan`);
+its source says what bounds each and how the design answers.
 
 :class:`LadderPack` is the kernel's view of a plan: every group's blocks,
 ``perm_ket`` and ``bra_of_row`` in three flat device buffers (the plan's
@@ -42,10 +44,12 @@ DEFAULT_SMS = 132
 # planner's cost of a pipeline stage beyond its bytes (the block's turn
 # through the barriers), in bytes
 STAGE_COST = 2048
+F32_COLS = 64          # columns of a block's tile in the f32 kernel
+MAX_GRID_Y = 65535
 
 
 class LadderPack(NamedTuple):
-    blocks: torch.Tensor      # f64, all groups' (nS, mB, mK) blocks
+    blocks: torch.Tensor      # f64 (f32: cast_plan), all groups' blocks
     perm: torch.Tensor        # int32, all groups' (nS, mK) ket-pair ids
     bra_of_row: torch.Tensor  # int32, all groups' (nS, mB) bra ids (−1 pad)
     work: torch.Tensor        # int32 (n_units, UNIT), bin after bin
@@ -250,13 +254,13 @@ _SMEM_CHECKED = set()
 
 
 def block_ladder_kernel_cd(pack: LadderPack, Tt, n_out, nv):
-    """Launch K1 on a cd-major operand ``Tt`` (nv², n), a CUDA f64 tensor
-    with unit column stride and any row stride ≥ n; returns the bra-major
+    """Launch K1 on a cd-major operand ``Tt`` (nv², n), a CUDA tensor with
+    unit column stride and any row stride ≥ n; returns the bra-major
     output (n_out, n): row r holds the pack's rows whose ``bra_of_row`` is
     r (n_bra² rows for a whole plan, the shard's own rows for a shard of a
-    sector-sharded plan)."""
-    if Tt.dtype != torch.float64 or pack.blocks.dtype != torch.float64:
-        raise TypeError("the ladder kernel takes float64 amplitudes/blocks")
+    sector-sharded plan).  Operand and blocks are both float64 (the DMMA
+    kernel) or both float32 (the f32 kernel)."""
+    sfx = kernels.type_suffix("the ladder kernel", Tt, pack.blocks)
     if pack.blocks.device != Tt.device:
         raise ValueError("plan and amplitudes lie on different devices")
     if (Tt.dim() != 2 or Tt.shape[0] != nv * nv or Tt.stride(1) != 1
@@ -267,8 +271,10 @@ def block_ladder_kernel_cd(pack: LadderPack, Tt, n_out, nv):
     if n_out != pack.n_rows:
         raise ValueError(f"{n_out} output rows for a plan of {pack.n_rows}")
     n = Tt.shape[1]
-    nt, _ = plan(n)
     lib = _build.library()
+    if sfx:
+        return _block_ladder_f32(lib, pack, Tt, n_out)
+    nt, _ = plan(n)
     if nt not in _SMEM_CHECKED:
         if lib.pymes_block_ladder_smem(nt) != smem_bytes(nt):
             raise RuntimeError("smem_bytes differs from csrc/block_ladder.cu")
@@ -286,9 +292,30 @@ def block_ladder_kernel_cd(pack: LadderPack, Tt, n_out, nv):
     return outT
 
 
+def _block_ladder_f32(lib, pack, Tt, n_out):
+    """K1's f32 instantiation on the checked operand: one block a bin and
+    column tile of ``F32_COLS``."""
+    n = Tt.shape[1]
+    if -(-n // F32_COLS) > MAX_GRID_Y:
+        raise ValueError(f"an operand of {n} columns: too many column "
+                         "tiles for the f32 kernel")
+    outT = torch.empty((n_out, n), dtype=Tt.dtype, device=Tt.device)
+    rc = _build.launch(Tt.device, lib.pymes_block_ladder_f32, Tt.data_ptr(),
+                       Tt.stride(0), pack.blocks.data_ptr(),
+                       pack.bra_of_row.data_ptr(), pack.work.data_ptr(),
+                       pack.stages.data_ptr(), pack.bins.data_ptr(),
+                       int(pack.bins.shape[0]) - 1,
+                       pack.zero_rows.data_ptr(),
+                       int(pack.zero_rows.shape[0]), outT.data_ptr(), int(n))
+    if rc != 0:
+        raise RuntimeError(f"block_ladder_f32 launch failed: cudaError {rc}")
+    kernels.LAUNCHES["block_ladder_f32"] += 1
+    return outT
+
+
 def block_ladder_kernel(pack: LadderPack, T2, n_out, nv):
-    """Launch K1 on ``T2`` (no², nv²), a CUDA f64 tensor; returns the
-    (no², n_out) result as the transposed view of the bra-major output.
+    """Launch K1 on ``T2`` (no², nv²), a CUDA f64 or f32 tensor; returns
+    the (no², n_out) result as the transposed view of the bra-major output.
     The cd-major copy of T2 gets an even row stride, so every gathered
     row starts 16-byte aligned."""
     if T2.dim() != 2 or T2.shape[1] != nv * nv:

@@ -9,9 +9,12 @@ whose last axis is virtual: momentum conservation fixes s from (p, q, r), so
 the nv³·no-sized ovvv blocks never exist.  The columns c run over
 batch × no: ``T1`` is the (nv, no) T1 of the CCSD dressing or the
 (k, nv, no) trial batch of the EOM, FEAST and RT sigmas, read in place
-through its strides (no transpose copy).  :func:`ovvv_gather_diag` fuses
-the G_vv trace of the dressing (``einsum("jajb->ab")`` /
-``einsum("jjab->ab")`` of a full gather) and writes nv² doubles.
+through its strides (no transpose copy).  The gather takes float64, or
+float32 for the f32 sigma of the FEAST/RT mixed-precision engine (an f32
+instantiation of the same kernel, on a plan whose weights W are cast).
+:func:`ovvv_gather_diag` fuses the G_vv trace of the dressing
+(``einsum("jajb->ab")`` / ``einsum("jjab->ab")`` of a full gather) and
+writes nv² doubles; it is float64 only.
 
 The kernel (``pymes_tpu_torch/csrc/ovvv_gather.cu``, built with nvcc for
 sm_90a at first use) is bound by its output write; its source says how the
@@ -89,9 +92,9 @@ def ovvv_gather_twin(S, W, T1):
 
 
 def _refuse(S, W, T1):
-    """The type, device and shape refusals the kernels share."""
-    if T1.dtype != torch.float64 or W.dtype != torch.float64:
-        raise TypeError("the ovvv gather takes float64 T1 and weights")
+    """The type, device and shape refusals the kernels share; returns the
+    type suffix of T1 and W."""
+    sfx = kernels.type_suffix("the ovvv gather", T1, W)
     if S.dtype != torch.int32 or not S.is_contiguous():
         raise TypeError("the ovvv gather takes a contiguous int32 index S")
     if not S.device == W.device == T1.device:
@@ -100,17 +103,18 @@ def _refuse(S, W, T1):
         raise ValueError("plan and T1 shapes do not fit the kernel")
     if S.numel() >= 2 ** 31:
         raise ValueError("plan too large for the kernel")
+    return sfx
 
 
 def ovvv_gather(S, W, T1, twin=False):
     """``out[c,p,q,r] = W[p,r] · T1[S[p,q,r], c]`` (0 where S < 0): K4 on a
     CUDA tensor, the twin on a CPU tensor or with ``twin=True``.  ``S``
-    (n0, n1, n2) int32, ``W`` (n0, n2) f64, ``T1`` (nv, no) or a batch
-    (k, nv, no) of any strides, f64; columns c = b·no + j.  Returns
-    (k·no, n0, n1, n2)."""
+    (n0, n1, n2) int32, ``W`` (n0, n2), ``T1`` (nv, no) or a batch (k, nv,
+    no) of any strides, W and T1 both f64 or both f32; columns c = b·no +
+    j.  Returns (k·no, n0, n1, n2)."""
     if twin or not kernels.check_device(T1):
         return ovvv_gather_twin(S, W, T1)
-    _refuse(S, W, T1)
+    sfx = _refuse(S, W, T1)
     if T1.dim() == 3:
         k, nv, no = T1.shape
         sb, ss, sj = T1.stride()
@@ -127,13 +131,14 @@ def ovvv_gather(S, W, T1, twin=False):
         return out
     dev, Wc = T1.device, W.contiguous()
     ct = plan(n, ncol, _build.sm_count(dev))
-    rc = _build.launch(dev, _build.library().pymes_ovvv_gather,
+    rc = _build.launch(dev, getattr(_build.library(),
+                                    "pymes_ovvv_gather" + sfx),
                        S.data_ptr(), Wc.data_ptr(), T1.data_ptr(),
                        sb, ss, sj, no, ncol, out.data_ptr(), n, n1 * n2, n2,
                        ct)
     if rc != 0:
         raise RuntimeError(f"ovvv_gather launch failed: cudaError {rc}")
-    kernels.LAUNCHES["ovvv_gather"] += 1
+    kernels.LAUNCHES["ovvv_gather" + sfx] += 1
     return out
 
 
@@ -155,7 +160,8 @@ def ovvv_gather_diag(S, W, T1, axis, twin=False):
         raise ValueError(f"axis {axis}: the trace runs over S's axis 0 or 1")
     if twin or not kernels.check_device(T1):
         return ovvv_gather_diag_twin(S, W, T1, axis)
-    _refuse(S, W, T1)
+    if _refuse(S, W, T1):
+        raise TypeError("the fused trace takes float64 T1 and weights")
     if T1.dim() != 2 or S.shape[axis] != T1.shape[1]:
         raise ValueError(f"S {tuple(S.shape)} axis {axis} does not run over "
                          f"the {T1.shape[-1]} columns of T1 (nv, no)")

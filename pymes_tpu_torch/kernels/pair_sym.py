@@ -15,7 +15,9 @@ The kernel (``pymes_tpu_torch/csrc/pair_sym.cu``, built with nvcc for
 sm_90a at first use) is bound by memory bandwidth; a unit of work owns the
 pair of chunks (p, q) and (q, p) and reads each element of X once (its
 source says how).  The sum is taken in the twin's order, (Y + X) + Xᵀ, so
-kernel and twin agree bit for bit.
+kernel and twin agree bit for bit.  It takes float64, or float32 for the
+f32 sigma of the FEAST/RT mixed-precision engine (an f32 instantiation of
+the same kernels).
 """
 
 import torch
@@ -37,11 +39,12 @@ def pair_symmetrize_twin(X, Y=None):
 def pair_symmetrize(X, Y=None, twin=False):
     """``out[..., p,q,r,s] = Y + X[..., p,q,r,s] + X[..., q,p,s,r]`` (Y
     optional): K5 on a CUDA tensor, the twin on a CPU tensor or with
-    ``twin=True``.  ``X`` is (P, P, R, R) or (n, P, P, R, R), float64."""
+    ``twin=True``.  ``X`` is (P, P, R, R) or (n, P, P, R, R), float64 or
+    float32, and ``Y`` of the same type."""
     if twin or not kernels.check_device(X):
         return pair_symmetrize_twin(X, Y)
-    if X.dtype != torch.float64 or (Y is not None and Y.dtype != X.dtype):
-        raise TypeError("the pair symmetrisation takes float64 tensors")
+    sfx = kernels.type_suffix("the pair symmetrisation",
+                              *((X,) if Y is None else (X, Y)))
     if X.dim() not in (4, 5):
         raise ValueError(f"X of shape {tuple(X.shape)}: want (P,P,R,R) or "
                          "(n,P,P,R,R)")
@@ -57,10 +60,11 @@ def pair_symmetrize(X, Y=None, twin=False):
     X = X.contiguous()
     Y = Y.contiguous() if Y is not None else None
     out = torch.empty_like(X)
-    rc = _build.launch(X.device, _build.library().pymes_pair_sym,
+    rc = _build.launch(X.device, getattr(_build.library(),
+                                         "pymes_pair_sym" + sfx),
                        X.data_ptr(), None if Y is None else Y.data_ptr(),
                        out.data_ptr(), nb, P, R)
     if rc != 0:
         raise RuntimeError(f"pair_sym launch failed: cudaError {rc}")
-    kernels.LAUNCHES["pair_symmetrize"] += 1
+    kernels.LAUNCHES["pair_symmetrize" + sfx] += 1
     return out

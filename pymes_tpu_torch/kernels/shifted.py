@@ -26,6 +26,12 @@ as its singles and doubles parts, so it is never concatenated.  The formulas
 are the JAX package's, in its order; the twin materialises them as the
 JAX package does.  Triton is imported inside the launching function: the
 module must import where there is no Triton.
+
+Every operand is float64, or every one float32 for the f32 Krylov solves
+of the FEAST/RT mixed-precision engine: the element type is the kernel's
+``DT`` constexpr, and everything follows it, the shift and dt constants and
+the residual mode's norm sums included, as the JAX f32 solve computes them
+(its f32 Richardson takes its ‖b − A x‖ in f32).
 """
 
 import torch
@@ -50,14 +56,14 @@ def _kernel():
         @triton.jit(do_not_specialize=["N", "n1", "nblk"])
         def shifted_kernel(H1, H2, X, B, zr_p, zi_p, diag, consts, out, P,
                            N, n1, nblk, RT: tl.constexpr, MODE: tl.constexpr,
-                           BLOCK: tl.constexpr):
+                           BLOCK: tl.constexpr, DT: tl.constexpr):
             pid = tl.program_id(0).to(tl.int64)
             a = tl.program_id(1).to(tl.int64)
             offs = pid * BLOCK + tl.arange(0, BLOCK).to(tl.int64)
             mask = offs < N
             zr = tl.load(zr_p + a)
             zi = tl.load(zi_p + a)
-            dt = tl.load(consts)
+            dt = tl.load(consts).to(DT)
             xr = tl.load(X + a * 2 * N + offs, mask=mask, other=0.0)
             xi = tl.load(X + a * 2 * N + N + offs, mask=mask, other=0.0)
             if MODE == 2:
@@ -91,12 +97,12 @@ def _kernel():
                 tl.store(out + a * 2 * N + N + offs, ri, mask=mask)
                 # partials of ‖r‖² (row 2a) and ‖b‖² (row 2a + 1)
                 tl.store(P + 2 * a * nblk + pid,
-                         tl.sum(rr * rr + ri * ri, axis=0))
+                         tl.sum(rr * rr + ri * ri, axis=0).to(DT))
                 tl.store(P + (2 * a + 1) * nblk + pid,
-                         tl.sum(br * br + bi * bi, axis=0))
+                         tl.sum(br * br + bi * bi, axis=0).to(DT))
             else:
-                # the shift 0.01 comes in as f64 (a float literal is f32)
-                eps = tl.load(consts + 1)
+                # the shift 0.01 comes in as DT (a float literal is f32)
+                eps = tl.load(consts + 1).to(DT)
                 dg = tl.load(diag + offs, mask=mask, other=0.0)
                 if RT:
                     den_r = tl.zeros_like(dg) + (zr + eps)
@@ -123,10 +129,12 @@ def _row_sum_kernel():
         import triton.language as tl
 
         @triton.jit(do_not_specialize=["nch"])
-        def row_sum_kernel(P, out, nch, RC: tl.constexpr):
-            # out[a] = Σ_c P[a, c], RC partials a step in chunk order
+        def row_sum_kernel(P, out, nch, RC: tl.constexpr,
+                           DT: tl.constexpr):
+            # out[a] = Σ_c P[a, c], RC partials a step in chunk order, in
+            # the partials' type DT
             a = tl.program_id(0).to(tl.int64)
-            acc = tl.zeros([RC], dtype=tl.float64)
+            acc = tl.zeros([RC], dtype=DT)
             for c0 in range(0, nch, RC):
                 r = c0 + tl.arange(0, RC).to(tl.int64)
                 acc += tl.load(P + a * nch + r, mask=r < nch, other=0.0)
@@ -136,12 +144,19 @@ def _row_sum_kernel():
     return _ROW_SUM
 
 
+def _tl_type(dtype):
+    import triton.language as tl
+
+    return {torch.float64: tl.float64, torch.float32: tl.float32}[dtype]
+
+
 def row_sums(P):
     """Σ over the columns of each row of the partials P (La, nch) in a
     fixed order (the residual mode's norms), on the card."""
     La, nch = P.shape
     out = torch.empty((La,), dtype=P.dtype, device=P.device)
-    _row_sum_kernel()[(La,)](P, out, nch, RC=RED_ROWS)
+    _row_sum_kernel()[(La,)](P, out, nch, RC=RED_ROWS,
+                             DT=_tl_type(P.dtype))
     return out
 
 
@@ -191,8 +206,8 @@ def shifted_precond(H1, H2, X, zr, zi, diag, dt=0.0, rt=False, mode="apply",
     ``zr``, ``zi`` (La,) the shifts; ``diag`` (N,) the H̄ diagonal; ``dt``
     the RT step (``rt=True``).  ``mode``: "apply" → M(A x) (La, 2N);
     "precond" → M x (H1/H2 unused); "residual" → (b − A x, ‖b − A x‖,
-    ‖b‖) with ``B`` (La, 2N).  K8 on a CUDA tensor, the twin on a CPU
-    tensor or with ``twin=True``."""
+    ‖b‖) with ``B`` (La, 2N).  All float64 or all float32.  K8 on a CUDA
+    tensor, the twin on a CPU tensor or with ``twin=True``."""
     if mode not in MODES:
         raise ValueError(f"mode must be one of {MODES}")
     if not kernels.check_device(X) or twin:
@@ -200,9 +215,10 @@ def shifted_precond(H1, H2, X, zr, zi, diag, dt=0.0, rt=False, mode="apply",
     La, N = X.shape[0], X.shape[1] // 2
     ts = [X, zr, zi, diag] + ([] if mode == "precond" else [H1, H2]) \
         + ([B] if mode == "residual" else [])
+    sfx = kernels.type_suffix("K8", *ts)
     for t in ts:
-        if t.dtype != torch.float64 or not t.is_contiguous():
-            raise TypeError("K8 takes contiguous float64 tensors")
+        if not t.is_contiguous():
+            raise TypeError("K8 takes contiguous tensors")
     if len({t.device for t in ts}) != 1:
         raise ValueError("tensors lie on different devices")
     n1 = N if mode == "precond" else H1.shape[1]
@@ -221,8 +237,9 @@ def shifted_precond(H1, H2, X, zr, zi, diag, dt=0.0, rt=False, mode="apply",
     consts = torch.tensor([float(dt), SHIFT], dtype=X.dtype, device=X.device)
     _kernel()[(nblk, La)](H1, H2, X, X if B is None else B, zr, zi, diag,
                           consts, out, P, N, n1, nblk, RT=bool(rt),
-                          MODE=MODES.index(mode), BLOCK=BLOCK)
-    kernels.LAUNCHES["shifted_precond"] += 1
+                          MODE=MODES.index(mode), BLOCK=BLOCK,
+                          DT=_tl_type(X.dtype))
+    kernels.LAUNCHES["shifted_precond" + sfx] += 1
     if mode != "residual":
         return out
     sums = row_sums(P)

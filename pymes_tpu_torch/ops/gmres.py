@@ -5,8 +5,10 @@ Counterpart of ``pymes_tpu/ops/gmres.py``: left-preconditioned GMRES(m)
 with CGS2 Arnoldi, Givens rotations, an early exit on the least-squares
 residual and the restart residual reconstructed from the Arnoldi relation
 (no extra matvec), and the best-iterate Richardson iteration.  The
-breakdown guards are the JAX package's f64 ones (``_BREAK`` 1e-140,
-``tiny`` 1e-300).
+systems are float64, or float32 for the inner solves of the FEAST/RT
+mixed-precision engine; the breakdown and underflow guards follow the type
+as the JAX package's do (``ops/gmres.py:58-69``: ``_BREAK`` 1e-140 and
+``tiny`` 1e-300 in f64, 1e-18 and 1e-30 in f32).
 
 :func:`gmres_lanes` is the device form of the JAX f64 FEAST path's
 ``vmap`` of that solver over contour nodes
@@ -23,9 +25,11 @@ solver.  The split between host and card follows the EOM Davidson's:
 * the new Hessenberg column (La, restart+1) comes down once per Arnoldi
   step — it is also the convergence read;
 * the Givens rotations, ``g``, the back-substitution and the reverse
-  rotation run on the host in numpy float64, with the JAX formulas in the
-  JAX order, vectorised over the lanes;
-* the solution and residual coefficients go up once per cycle end.
+  rotation run on the host in numpy float64 (for f32 systems too, where
+  the JAX package rotates in f32), with the JAX formulas in the JAX order,
+  vectorised over the lanes;
+* the solution and residual coefficients go up once per cycle end, in
+  float64 (K7 sums in float64 for either basis type).
 """
 
 import numpy as np
@@ -35,24 +39,31 @@ from pymes_tpu_torch.kernels import arnoldi
 
 BREAK = arnoldi.BREAK   # ops/gmres.py:69
 TINY = 1e-300           # ops/gmres.py:59
+TINY_F32 = 1e-30        # ops/gmres.py:59, f32
+
+
+def guards(dtype):
+    """(breakdown, underflow) guards of a system of ``dtype``."""
+    f32 = dtype == torch.float32
+    return arnoldi.breakdown(dtype), TINY_F32 if f32 else TINY
 
 
 def _norms(X):
     return torch.sqrt((X * X).sum(dim=1))
 
 
-def _safe_unit(v, norm):
-    """Rows of v scaled to unit length; a row of norm ≤ BREAK becomes 0."""
-    scale = torch.where(norm > BREAK, 1.0 / torch.clamp(norm, min=BREAK),
+def _safe_unit(v, norm, brk=BREAK):
+    """Rows of v scaled to unit length; a row of norm ≤ brk becomes 0."""
+    scale = torch.where(norm > brk, 1.0 / torch.clamp(norm, min=brk),
                         torch.zeros_like(norm))
     return scale[:, None] * v
 
 
-def _givens(h, j, cs, sn, g):
+def _givens(h, j, cs, sn, g, brk=BREAK):
     """One Arnoldi step's Givens update (``ops/gmres.py:110-130``) for the
     active lanes of a cycle, in place: ``h`` (La, R+1) the new columns,
-    ``j`` (La,) their step, ``cs``/``sn`` (La, R), ``g`` (La, R+1).
-    Returns the rotated columns."""
+    ``j`` (La,) their step, ``cs``/``sn`` (La, R), ``g`` (La, R+1); ``brk``
+    the breakdown guard.  Returns the rotated columns."""
     rows = np.arange(h.shape[0])
     for i in range(cs.shape[1]):
         use = i < j
@@ -63,8 +74,8 @@ def _givens(h, j, cs, sn, g):
         h[:, i + 1] = np.where(use, -sn[:, i] * hi + cs[:, i] * hi1, hi1)
     hj, hj1 = h[rows, j], h[rows, j + 1]
     denom = np.sqrt(hj ** 2 + hj1 ** 2)
-    safe_d = np.maximum(denom, BREAK)
-    alive = denom > BREAK
+    safe_d = np.maximum(denom, brk)
+    alive = denom > brk
     c = np.where(alive, hj / safe_d, 1.0)
     s = np.where(alive, hj1 / safe_d, 0.0)
     h[rows, j] = denom
@@ -114,8 +125,9 @@ def gmres_lanes(apply, b, precond=None, tol=1e-5, restart=20, max_outer=20,
     ``apply(X, lanes)`` returns M·A on the rows ``X`` (La, n) of the
     active lanes ``lanes`` (int64 tensor on b's device) — the
     preconditioned operator, so that an operator can fuse the two;
-    ``precond(B, lanes)`` applies M alone (None: M = 1).  ``twin`` runs K7
-    through its twin.
+    ``precond(B, lanes)`` applies M alone (None: M = 1).  ``b`` is float64
+    or float32 (the basis and x take its type, the guards follow it).
+    ``twin`` runs K7 through its twin.
 
     Returns ``(x, rel_res, info)``: x (L, n), the preconditioned relative
     residual of each lane (numpy, from the Arnoldi relation, as the JAX
@@ -125,11 +137,12 @@ def gmres_lanes(apply, b, precond=None, tol=1e-5, restart=20, max_outer=20,
     L, n = b.shape
     dev = b.device
     R = int(restart)
+    brk, tiny = guards(b.dtype)
     all_lanes = torch.arange(L, device=dev)
     # x0 = 0 ⇒ the preconditioned residual is exactly Mb — no matvec
     r = b.clone() if precond is None else precond(b, all_lanes)
-    bnorm = _norms(r).cpu().numpy()
-    safe_b = np.maximum(bnorm, TINY)
+    bnorm = _norms(r).double().cpu().numpy()
+    safe_b = np.maximum(bnorm, tiny)
     x = torch.zeros_like(b)
     res = bnorm.copy()
     cycles = np.zeros(L, dtype=np.int64)
@@ -144,11 +157,11 @@ def gmres_lanes(apply, b, precond=None, tol=1e-5, restart=20, max_outer=20,
         cyc_t = torch.as_tensor(cyc, device=dev)
         rc = r[cyc_t]
         beta_t = _norms(rc)
-        V[cyc_t, 0] = _safe_unit(rc, beta_t)
+        V[cyc_t, 0] = _safe_unit(rc, beta_t, brk)
         H = np.zeros((Lc, R + 1, R))
         cs, sn = np.zeros((Lc, R)), np.zeros((Lc, R))
         g = np.zeros((Lc, R + 1))
-        g[:, 0] = beta_t.cpu().numpy()
+        g[:, 0] = beta_t.double().cpu().numpy()
         j = np.zeros(Lc, dtype=np.int64)
         thresh = tol * safe_b[cyc]
         rows = np.arange(Lc)
@@ -167,7 +180,7 @@ def gmres_lanes(apply, b, precond=None, tol=1e-5, restart=20, max_outer=20,
                                      twin=twin).cpu().numpy()
             calls += 1
             cs_a, sn_a, g_a = cs[ia], sn[ia], g[ia]
-            h = _givens(h, ja, cs_a, sn_a, g_a)
+            h = _givens(h, ja, cs_a, sn_a, g_a, brk)
             cs[ia], sn[ia], g[ia] = cs_a, sn_a, g_a
             H[ia, :, ja] = h
             j[ia] += 1
@@ -176,8 +189,8 @@ def gmres_lanes(apply, b, precond=None, tol=1e-5, restart=20, max_outer=20,
         y = np.concatenate([_back_substitute(H, g), np.zeros((Lc, 1))], 1)
         u = _unrotate(g, cs, sn, j)
         m_t = torch.as_tensor(j + 1, device=dev)
-        coef = torch.as_tensor(np.stack([y, u], axis=1), dtype=b.dtype,
-                               device=dev)
+        coef = torch.as_tensor(np.stack([y, u], axis=1),
+                               dtype=torch.float64, device=dev)
         x[cyc_t], r[cyc_t] = arnoldi.krylov_combine_xr(
             V, coef, m_t, cyc_t, x0=x[cyc_t], twin=twin)
         cycle_ends += 1
@@ -215,8 +228,8 @@ def richardson_lanes(residual, b, precond=None, tol=1e-5, damping=1.0,
     iterations)``."""
     L = b.shape[0]
     dev = b.device
-    bnorm = _norms(b).cpu().numpy()
-    safe_b = np.maximum(bnorm, TINY)
+    bnorm = _norms(b).double().cpu().numpy()
+    safe_b = np.maximum(bnorm, guards(b.dtype)[1])
     x = torch.zeros_like(b)
     best_x = torch.zeros_like(b)
     # the entry residual at x0 = 0 is exactly ‖b‖ (no matvec)
@@ -230,7 +243,7 @@ def richardson_lanes(residual, b, precond=None, tol=1e-5, damping=1.0,
         lanes_t = torch.as_tensor(ia, device=dev)
         xa = x[lanes_t]
         r, rn = residual(xa, lanes_t)
-        rn = rn.cpu().numpy()
+        rn = rn.double().cpu().numpy()
         better = rn < best[ia]
         if better.any():
             best_x[lanes_t[torch.as_tensor(better, device=dev)]] = \

@@ -338,6 +338,24 @@ def shard_block_ladder(plan: BlockLadder, mesh, axis="a"):
                               n_bra=plan.n_bra, nv=plan.nv, w0=plan.w0)
 
 
+def cast_plan(plan, dtype):
+    """``plan`` (whole or sharded) with its sector blocks in ``dtype``, for
+    K1's f32 instantiation (the f32 operator of the FEAST/RT mixed-precision
+    engine, ``_cast_f32`` at ``pymes_tpu/solver/feast_eom_ccsd.py:250``):
+    one cast of the packed blocks, each group's blocks the same view into
+    it as in the plan; the index arrays are shared."""
+    if isinstance(plan, ShardedBlockLadder):
+        return plan._replace(shards=tuple(cast_plan(s, dtype)
+                                          for s in plan.shards))
+    pk = plan.packed
+    blocks = pk.blocks.to(dtype)
+    base = pk.blocks.storage_offset()
+    groups = tuple(g._replace(blocks=blocks.as_strided(
+        g.blocks.shape, g.blocks.stride(), g.blocks.storage_offset() - base))
+        for g in plan.groups)
+    return plan._replace(groups=groups, packed=pk._replace(blocks=blocks))
+
+
 def _ladder_cd(plan, Tt, twin):
     """(n_bra², n) = V·Tt on a cd-major operand (nv², n): one K1 launch (or
     twin) on a plan, one per shard on a sharded plan, whose rows are copied

@@ -1,7 +1,8 @@
 """FEAST-EOM-CCSD: contour-integral energy-filtered excited states.
 
-Counterpart of ``pymes_tpu/solver/feast_eom_ccsd.py`` (its f64 Krylov path,
-``ls_precision="f64"``): the spectral projector onto the window
+Counterpart of ``pymes_tpu/solver/feast_eom_ccsd.py``, with both of its
+linear-solve precisions (``ls_precision``): the spectral projector onto the
+window
 [e_c − e_r, e_c + e_r] is Gauss-Legendre quadrature of the resolvent over
 a half circle, ``Q = −Σ_e w_e/2 · Re[e_r e^{iθ_e} (z_e − H̄)⁻¹ U]``; every
 (node, trial) pair is one shifted solve, and the tiny oblique projected
@@ -38,17 +39,39 @@ order (each Arnoldi step reads its Hessenberg column on the host), so on a
 repeated device (``devices=["cuda:0"] * 2``) the mesh changes the batching
 and the memory, never a result beyond the rounding of the batched sigma.
 
-Not ported: the f32-Krylov + f64-refinement engine (``ls_precision=
-"mixed"``, for the TPU's emulated f64), the ``jsp`` backend (jax.scipy),
-the compile-watchdog knobs ``max_nodes_per_dispatch`` /
-``max_nodes_per_scan`` / ``max_trials_per_batch``, the Ozaki slices, and
-the per-node ``_solve_node`` fallback (a fake Hamiltonian goes through the
+``ls_precision="mixed"`` is the JAX package's default engine
+(``feast_eom_ccsd.py:585-800``): the Krylov solves run in f32 inside an f64
+iterative refinement.  The operator is cast to f32 once per operator
+(f, every V block, T2, the H̄ intermediates, the diagonal, K1's packed
+sector blocks and K4's plan weights; ``_cast_f32`` :250), and each pass
+solves (z − H̄)dx = r in f32 through the f32 sigma (K1, K4, K5 in f32, its
+GEMMs at full f32: TF32 is switched off for the engine's scope and the
+caller's settings restored), the f32 lane-batched GMRES (K7 and K8 in f32)
+to ``max(ls_conv_tol, 1e-5)``, accumulates x += dx in f64, and takes the
+honest residual r = b − (z − H̄)x with the f64 operator (K8 in residual
+mode) as the next right-hand side, until every lane of the chunk is at
+``ls_conv_tol``, after ``ls_refine_max`` passes, or once the worst lane
+contracts by less than half (the stall test, :791-797).  It runs for the
+"inhouse", "opt" and "jacobi" backends and without ``node_mesh`` (a
+``node_mesh`` takes the f64 path, as in the JAX package).  The unknowns
+stay one lane per (node, trial): the JAX mixed path stacks the trials of
+one node into one flat GMRES with a shared Krylov polynomial (:170-181)
+because its TPU worker crashed on per-lane batching, so where a node has
+several trials the refinement-pass counts may differ from the JAX
+package's, never the converged result.  The port's default stays "f64"
+(the JAX package's is "mixed") until the card has timed both.
+
+Not ported: the ``jsp`` backend (jax.scipy), the compile-watchdog knobs
+``max_nodes_per_dispatch`` / ``max_nodes_per_scan`` /
+``max_trials_per_batch``, the Ozaki slices, and the per-node
+``_solve_node`` fallback (a fake Hamiltonian goes through the
 ``_batched_sigma`` hook instead).  One JAX fault is not copied: after a
 "replace" step the trial set holds exactly the new Ritz vectors — the JAX
 package keeps the stale slots past ``len(eigvals)``
 (``feast_eom_ccsd.py:951-958``).
 """
 
+import contextlib
 import time
 import warnings
 
@@ -60,9 +83,15 @@ from torch.utils import _pytree
 from pymes_tpu_torch.kernels import shifted
 from pymes_tpu_torch.log import print_logging_info, print_title
 from pymes_tpu_torch.ops import gmres as _gmres
+from pymes_tpu_torch.ops import ueg_ladder
 from pymes_tpu_torch.parallel import mesh as _mesh
 from pymes_tpu_torch.parallel import sharding as _sharding
 from pymes_tpu_torch.solver.eom_ccsd import EOM_CCSD
+
+LS_PRECISIONS = ("f64", "mixed")
+# the f32 Krylov stalls near f32 rounding: its tolerance, at least this,
+# only sets each refinement pass's contraction (feast_eom_ccsd.py:741-744)
+TOL_F32 = 1e-5
 
 
 def get_gauss_legendre_quadrature(n):
@@ -74,6 +103,50 @@ def normalize_amps(u_singles, u_doubles):
     norm += np.tensordot(np.conj(u_doubles), u_doubles, axes=4)
     scale = np.sqrt(norm)
     return u_singles / scale, u_doubles / scale
+
+
+def _cast_f32(x):
+    """f32 copy of an operator structure (``_cast_f32``,
+    ``feast_eom_ccsd.py:250-256``): every f64 tensor of f, the V dict, T2,
+    the H̄ intermediates and the diagonal casts to f32, K1's plans through
+    :func:`~pymes_tpu_torch.ops.ueg_ladder.cast_plan` (one copy of the
+    packed sector blocks) and K4's plan weights; index arrays and numbers
+    pass through."""
+    if isinstance(x, torch.Tensor):
+        return x.float() if x.dtype == torch.float64 else x
+    if isinstance(x, (ueg_ladder.BlockLadder, ueg_ladder.ShardedBlockLadder)):
+        return ueg_ladder.cast_plan(x, torch.float32)
+    if isinstance(x, dict):
+        return {k: _cast_f32(v) for k, v in x.items()}
+    if isinstance(x, tuple):
+        items = [_cast_f32(v) for v in x]
+        return type(x)(*items) if hasattr(x, "_fields") else tuple(items)
+    return x
+
+
+@contextlib.contextmanager
+def full_f32_matmul():
+    """f32 GEMMs at full f32 in the block, the counterpart of the JAX
+    engine's ``jax.default_matmul_precision("float32")``
+    (``feast_eom_ccsd.py:753-756``): matmul precision "highest" and TF32
+    off for matmuls and cuDNN (TF32 keeps about three decimal digits, and a
+    refinement pass then contracts only ~1e-3); the caller's settings come
+    back on exit (the legacy ``allow_tf32`` flag is written only where the
+    precision alone does not restore it: PyTorch refuses to read a
+    precision set through both interfaces at odds)."""
+    cuda, cudnn = torch.backends.cuda.matmul, torch.backends.cudnn
+    saved = (torch.get_float32_matmul_precision(), cuda.allow_tf32,
+             cudnn.allow_tf32)
+    torch.set_float32_matmul_precision("highest")
+    cuda.allow_tf32 = False
+    cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.set_float32_matmul_precision(saved[0])
+        if cuda.allow_tf32 != saved[1]:
+            cuda.allow_tf32 = saved[1]
+        cudnn.allow_tf32 = saved[2]
 
 
 class _NodeOps:
@@ -105,7 +178,8 @@ class _NodeOps:
         return self._k8(None, None, X.contiguous(), lanes, "precond")
 
     def residual(self, X, lanes, B):
-        """(b − A x, ‖b − A x‖, ‖b‖) per lane."""
+        """(b − A x, ‖b − A x‖, ‖b‖) per lane: the vector r is the next
+        right-hand side of the mixed engine's refinement."""
         H1, H2 = self.sigma(X)
         return self._k8(H1, H2, X.contiguous(), lanes, "residual",
                         B=B.contiguous())
@@ -113,14 +187,17 @@ class _NodeOps:
 
 class FEAST_EOM_CCSD(EOM_CCSD):
     """FEAST eigensolver in an energy window on ``device`` (reference API:
-    ``feast_eom_ccsd.py:29``; the JAX package's ``FEAST_EOM_CCSD`` with
-    ``ls_precision="f64"``).
+    ``feast_eom_ccsd.py:29``; the JAX package's ``FEAST_EOM_CCSD``).
 
-    ``ls_backend``: "inhouse" (lane-batched GMRES; "opt" is its alias, as
-    in the JAX package) or "jacobi" (lane-batched Richardson).
-    ``ls_restart`` defaults to 120: GMRES(20) stalls on the near-axis
-    nodes of tight UEG windows.  ``krylov_mem_budget_bytes`` bounds the
-    Krylov bases of one chunk of lanes, (ls_restart+1)·2N·8 bytes a lane;
+    ``ls_precision``: "f64" (the default: every solve in f64) or "mixed"
+    (f32 Krylov inside f64 iterative refinement, at most
+    ``ls_refine_max`` = 4 passes a chunk; the module docstring); any other
+    value raises.  ``ls_backend``: "inhouse" (lane-batched GMRES; "opt" is
+    its alias, as in the JAX package) or "jacobi" (lane-batched
+    Richardson).  ``ls_restart`` defaults to 120: GMRES(20) stalls on the
+    near-axis nodes of tight UEG windows.  ``krylov_mem_budget_bytes``
+    bounds the Krylov bases of one chunk of lanes, (ls_restart+1)·2N
+    elements of the solve type a lane (8 bytes, 4 in the mixed engine);
     None means half the card's free memory at the start of a solve (2 GB
     on the CPU), per device of ``node_mesh``.  Chunking changes how lanes
     are batched, never a result.  ``node_mesh`` shards the quadrature
@@ -129,7 +206,7 @@ class FEAST_EOM_CCSD(EOM_CCSD):
 
     def __init__(self, no, device, e_c=0.0, e_r=1.0, n_trial=5, max_iter=20,
                  tol=1e-12, n_quad=8, seed=None, n_excit=2, ls_conv_tol=1e-4,
-                 node_mesh=None):
+                 node_mesh=None, ls_precision="f64"):
         super().__init__(no, device, n_excit=int(n_excit))
         self.algo_name = "FEAST-EOM-CCSD"
         self.e_c = e_c
@@ -143,6 +220,8 @@ class FEAST_EOM_CCSD(EOM_CCSD):
         self.ls_restart = 120
         self.ls_conv_tol = float(ls_conv_tol)
         self.ls_damping = 1.0
+        self.ls_precision = ls_precision
+        self.ls_refine_max = 4
         self.krylov_mem_budget_bytes = None
         self.node_mesh = node_mesh    # shard quadrature nodes over a mesh
         self.node_axis = "a"
@@ -158,20 +237,49 @@ class FEAST_EOM_CCSD(EOM_CCSD):
         self.eigvecs = None
         self._rng = np.random.default_rng(seed)
 
+    @property
+    def ls_precision(self):
+        return self._ls_precision
+
+    @ls_precision.setter
+    def ls_precision(self, value):
+        if value not in LS_PRECISIONS:
+            raise ValueError(f"ls_precision {value!r}: one of "
+                             f"{LS_PRECISIONS}")
+        self._ls_precision = value
+
     # --- operator ---------------------------------------------------------
     def _operator(self, f, dict_t_V, T2):
         """(f, V, T2, diag) on the device, built once per (f, V, T2) triple
-        with the H̄ intermediates: the RT propagator calls solve() once per
-        step with the same operator (``feast_eom_ccsd.py:479``)."""
+        with the H̄ intermediates and the f32 copy of both: the RT
+        propagator calls solve() once per step with the same operator
+        (``feast_eom_ccsd.py:479-490``)."""
         key = (id(f), id(dict_t_V), id(T2))
         if getattr(self, "_op_key", None) != key:
             self._hbar = None
+            self._op32 = self._hbar32 = None
             fd = self._on_device(f)
             Vd = self._operator_on_device(dict_t_V)
             Td = self._on_device(T2).contiguous()
             self._op = (fd, Vd, Td, self._diag(fd, Vd, Td))
             self._op_key = key
         return self._op
+
+    def _operator32(self, op):
+        """The f32 copy of the operator ``op`` and of its H̄ intermediates
+        (``_get_f32_operator``, ``feast_eom_ccsd.py:723-730``), built at the
+        first mixed solve of an operator."""
+        if self._op32 is None:
+            self._hbar32 = _cast_f32(self._hbar_of(*op[:3]))
+            self._op32 = _cast_f32(op)
+        return self._op32
+
+    def _hbar_of(self, f, dict_t_V, T2):
+        """H̄'s intermediates: the f32 copy for the f32 operator, else the
+        EOM solver's (built once per operator)."""
+        if f.dtype == torch.float32:
+            return self._hbar32
+        return super()._hbar_of(f, dict_t_V, T2)
 
     def _krylov_budgets(self):
         """The Krylov budget of each device that solves lanes, taken at the
@@ -205,8 +313,19 @@ class FEAST_EOM_CCSD(EOM_CCSD):
                 "ls_max_iter, or loosen the window", stacklevel=3)
 
     def _new_stats(self):
+        """``ls_stats``: lane chunks, operator applications (``calls``) and
+        batched cycle ends of the Krylov solves, projected-H̄ sigmas, the
+        Arnoldi steps of each lane of each Krylov solve, and in the mixed
+        engine the refinement passes of each chunk and the matmul settings
+        seen inside it."""
         self.ls_stats = {"chunks": 0, "calls": 0, "cycle_ends": 0,
-                         "projections": 0, "steps": []}
+                         "projections": 0, "steps": [], "passes": []}
+
+    def _mixed(self):
+        """The mixed engine runs for these backends and without a node mesh
+        (``feast_eom_ccsd.py:609-614``)."""
+        return (self.ls_precision == "mixed" and self.node_mesh is None
+                and self.ls_backend in ("inhouse", "opt", "jacobi"))
 
     def _solve_lanes(self, op, B, zr, zi, rt=False, dt=0.0, per_node=1):
         """The shifted solves of all lanes: ``B`` (L, 2N) right-hand-side
@@ -259,43 +378,86 @@ class FEAST_EOM_CCSD(EOM_CCSD):
         """The shifted solves of the lanes ``B`` on one device: lanes go in
         chunks whose Krylov bases fit ``budget`` bytes; per chunk, one
         lane-batched solve and the honest residual (one batched sigma + K8
-        in residual mode, ``_residual_impl`` :360)."""
+        in residual mode, ``_residual_impl`` :360), or the mixed engine's
+        refinement passes."""
         L, n = B.shape
         restart = int(self.ls_restart)
-        per = max(1, int(budget // ((restart + 1) * n * 8)))
+        if self.ls_backend not in ("inhouse", "opt", "jacobi"):
+            raise ValueError(f"unknown ls_backend {self.ls_backend!r}")
+        mixed = self._mixed()
+        elem = 4 if mixed else 8
+        per = max(1, int(budget // ((restart + 1) * n * elem)))
         per = -(-L // (-(-L // per)))     # even chunks
         X = torch.empty_like(B)
         rel = np.empty(L)
-        st = self.ls_stats
-        backend = self.ls_backend
-        if backend not in ("inhouse", "opt", "jacobi"):
-            raise ValueError(f"unknown ls_backend {backend!r}")
         for lo in range(0, L, per):
             sl = slice(lo, lo + per)
-            Bc = B[sl]
             node = _NodeOps(self, op, zr[sl], zi[sl], rt, dt)
-            if backend == "jacobi":
-                # ls_max_iter counts restart-sized work units (:206-210)
-                x, _, it = _gmres.richardson_lanes(
-                    lambda Xa, la: node.residual(Xa, la, Bc[la])[:2], Bc,
-                    node.precond, tol=self.ls_conv_tol,
-                    damping=self.ls_damping,
-                    max_iter=self.ls_max_iter * restart)
-                st["steps"].append(it)
+            if mixed:
+                X[sl], rel[sl] = self._refine(op, node, B[sl])
             else:
-                x, _, info = _gmres.gmres_lanes(
-                    node.apply, Bc, node.precond, tol=self.ls_conv_tol,
-                    restart=restart, max_outer=self.ls_max_iter,
-                    twin=self.twin)
-                st["steps"].append(info["steps"])
-                st["calls"] += info["calls"]
-                st["cycle_ends"] += info["cycle_ends"]
-            lanes = torch.arange(x.shape[0], device=B.device)
-            _, res, bn = node.residual(x, lanes, Bc)
-            rel[sl] = (res / torch.clamp(bn, min=1e-300)).cpu().numpy()
-            X[sl] = x
-            st["chunks"] += 1
+                X[sl] = self._krylov(node, B[sl], self.ls_conv_tol)
+                lanes = torch.arange(X[sl].shape[0], device=B.device)
+                _, res, bn = node.residual(X[sl], lanes, B[sl])
+                rel[sl] = (res / torch.clamp(bn, min=1e-300)).cpu().numpy()
+            self.ls_stats["chunks"] += 1
         return X, rel
+
+    def _krylov(self, node, B, tol):
+        """The lane-batched Krylov solve of one chunk's operator ``node`` on
+        the right-hand sides ``B``, in B's type."""
+        st = self.ls_stats
+        restart = int(self.ls_restart)
+        if self.ls_backend == "jacobi":
+            # ls_max_iter counts restart-sized work units (:206-210)
+            x, _, it = _gmres.richardson_lanes(
+                lambda Xa, la: node.residual(Xa, la, B[la])[:2], B,
+                node.precond, tol=tol, damping=self.ls_damping,
+                max_iter=self.ls_max_iter * restart)
+            st["steps"].append(it)
+            return x
+        x, _, info = _gmres.gmres_lanes(
+            node.apply, B, node.precond, tol=tol, restart=restart,
+            max_outer=self.ls_max_iter, twin=self.twin)
+        st["steps"].append(info["steps"])
+        st["calls"] += info["calls"]
+        st["cycle_ends"] += info["cycle_ends"]
+        return x
+
+    def _refine(self, op, node, B):
+        """The mixed engine on one chunk (``_solve_chunk_mixed``,
+        ``feast_eom_ccsd.py:732-800``): from x = 0, each pass solves
+        (z − H̄)dx = r in f32 to ``max(ls_conv_tol, TOL_F32)``, accumulates
+        x += dx in f64 (``_accum_x`` :316) and takes the honest residual r
+        with the f64 operator ``node``; it stops once every lane is at
+        ``ls_conv_tol``, after ``ls_refine_max`` passes, or when the worst
+        lane's residual is above half the last pass's (the stall test,
+        :791-797: more passes repeat a stalled inner solve).  Returns x
+        (f64) and the honest relative residuals (numpy)."""
+        node32 = _NodeOps(self, self._operator32(op), node.zr.float(),
+                          node.zi.float(), node.rt, node.dt)
+        tol32 = max(self.ls_conv_tol, TOL_F32)
+        lanes = torch.arange(B.shape[0], device=B.device)
+        x = torch.zeros_like(B)
+        cur = B
+        rel_prev = np.inf
+        passes = 0
+        st = self.ls_stats
+        with full_f32_matmul():
+            st["matmul"] = (torch.get_float32_matmul_precision(),
+                            torch.backends.cuda.matmul.allow_tf32,
+                            torch.backends.cudnn.allow_tf32)
+            for _ in range(max(1, int(self.ls_refine_max))):
+                x += self._krylov(node32, cur.float(), tol32).double()
+                passes += 1
+                cur, res, bn = node.residual(x, lanes, B)
+                rel = (res / torch.clamp(bn, min=1e-300)).cpu().numpy()
+                if (np.all(rel <= self.ls_conv_tol)
+                        or np.max(rel) > 0.5 * np.max(rel_prev)):
+                    break
+                rel_prev = rel
+        st["passes"].append(passes)
+        return x, rel
 
     def _sigma_parts(self, op, rows):
         """H̄ on the rows (k, N) on the device: one batched sigma through
@@ -308,8 +470,11 @@ class FEAST_EOM_CCSD(EOM_CCSD):
         W1, W2 = self._batched_sigma(f, V, rows[:, :n1].reshape(k, nv, no),
                                      rows[:, n1:].reshape(k, nv, nv, no, no),
                                      T2)
-        return (self._on_device(W1).reshape(k, n1).contiguous(),
-                self._on_device(W2).reshape(k, -1).contiguous())
+        # in the rows' type and place (a hook may return f64 numpy)
+        return tuple(torch.as_tensor(
+            W if isinstance(W, torch.Tensor) else np.array(W),
+            dtype=rows.dtype, device=rows.device).reshape(k, -1).contiguous()
+            for W in (W1, W2))
 
     def _sigma_rows(self, op, Q):
         """H̄ on the rows of ``Q`` (k, N) numpy → (k, N) numpy: one batched

@@ -9,6 +9,11 @@ right-hand side ``e^{Z_e}·u``, and the quadrature sum is normalised.  The
 node solves are the lanes of the FEAST machinery
 (:class:`pymes_tpu_torch.solver.feast_eom_ccsd.FEAST_EOM_CCSD`) in its RT
 variant: K8 assembles M(Z x − i·dt·H̄x) with M = 1/(Z + 0.01 − i·dt·diag).
+``ls_precision="mixed"`` (through ``**kwargs`` or as an attribute) runs
+the node solves in the FEAST machinery's mixed engine, f32 Krylov inside
+f64 iterative refinement, as the JAX package's default RT does
+(``rt_eom_ccsd.py:74-80``); the f32 copy of the operator is made once and
+kept across the steps of one operator.
 """
 
 import time

@@ -9,19 +9,23 @@ tensor-core peak.  Not carried: the Ozaki raw-MXU counts and the TPU peaks
 
 The least time of a kernel call, :func:`bound`, is the larger of its bytes
 (each input read once, each output written once) over the HBM rate and its
-f64 operations over the card's FP64 rate for the kernel: the tensor-core
-(DMMA) rate for K1 and K9, which run on the tensor cores, the CUDA-core
-FMA rate for the others.  The ``*_bound`` helpers count those bytes and
+operations over the card's rate for the kernel's units and type: the
+FP64 tensor-core (DMMA) rate for K1 and K9, which run on the tensor cores,
+the FP64 CUDA-core FMA rate for the others, and the FP32 CUDA-core rate for
+the f32 instantiations of K1, K4, K5 and K8 (K7 sums an f32 basis in f64:
+its operations stay at the FP64 FMA rate).  The ``*_bound`` helpers count
+those bytes (``elem`` bytes an element of the kernel's type) and
 operations for the port's kernels at the shapes their callers give them.
 
 Peaks of one H100 SXM5 (NVIDIA's H100 Tensor Core GPU data sheet, dense,
 at the 700 W power limit): 3.35 TB/s HBM3, 67 TFLOP/s FP64 on the tensor
-cores (DMMA), 34 TFLOP/s FP64 FMA on the CUDA cores.
+cores (DMMA), 34 TFLOP/s FP64 FMA and 67 TFLOP/s FP32 on the CUDA cores.
 """
 
 HBM_BYTES_S = 3.35e12          # HBM3, NVIDIA H100 SXM5 data sheet
 FP64_TENSOR_FLOPS_S = 67e12    # FP64 Tensor Core, same data sheet
 FP64_FMA_FLOPS_S = 34e12       # FP64 on the CUDA cores, same data sheet
+FP32_FMA_FLOPS_S = 67e12       # FP32 on the CUDA cores, same data sheet
 
 
 def block_ladder_gemm_dims(plan):
@@ -90,37 +94,41 @@ def bound(nbytes, flops, flops_s=FP64_TENSOR_FLOPS_S):
     return max(t_b, t_f) * 1e3, "bytes" if t_b >= t_f else "operations"
 
 
-def ladder_bound(plan, n):
-    """K1 (tensor cores) on one plan at operand width n: the cd-major
-    operand (nv², n) read, the output (rows, n) written, the blocks and
-    index arrays read once; 2 flops a block element a column."""
+def ladder_bound(plan, n, elem=8, flops_s=FP64_TENSOR_FLOPS_S):
+    """K1 on one plan at operand width n: the cd-major operand (nv², n)
+    read, the output (rows, n) written, the blocks and index arrays read
+    once; 2 flops a block element a column (the f64 kernel on the tensor
+    cores; the f32 one: ``elem=4``, ``flops_s=FP32_FMA_FLOPS_S``)."""
     pk = plan.packed
     blocks = pk.blocks.numel()
     idx = pk.perm.numel() + pk.bra_of_row.numel()
-    return bound(8 * (plan.nv ** 2 * n + pk.n_rows * n + blocks) + 4 * idx,
-                 2 * blocks * n)
+    return bound(elem * (plan.nv ** 2 * n + pk.n_rows * n + blocks)
+                 + 4 * idx, 2 * blocks * n, flops_s)
 
 
-def krylov_bounds(La, m, n):
-    """K7 at La lanes, m valid rows, rows of n: the projection's bound
-    (each input read once), its three-pass floor (CGS2 must read the m
-    rows and w three times, and write w1 and row m) and the fused
-    combine's bound (the m rows and x0 read, x and r written), in ms."""
-    return {"bound": bound(8 * (La * m * n + 2 * La * n), 8 * La * m * n,
+def krylov_bounds(La, m, n, elem=8):
+    """K7 at La lanes, m valid rows, rows of n elements of ``elem`` bytes
+    (8: f64 basis, 4: f32): the projection's bound (each input read once),
+    its three-pass floor (CGS2 must read the m rows and w three times, and
+    write w1 and row m) and the fused combine's bound (the m rows and x0
+    read, x and r written), in ms; the sums are f64 FMAs for either
+    type."""
+    return {"bound": bound(elem * (La * m * n + 2 * La * n), 8 * La * m * n,
                            FP64_FMA_FLOPS_S),
-            "floor_ms": 8 * (3 * La * m * n + 3 * La * n + 2 * La * n)
+            "floor_ms": elem * (3 * La * m * n + 3 * La * n + 2 * La * n)
             / HBM_BYTES_S * 1e3,
-            "combine": bound(8 * (La * m * n + 3 * La * n),
+            "combine": bound(elem * (La * m * n + 3 * La * n),
                              4 * La * m * n, FP64_FMA_FLOPS_S)}
 
 
-def gather_bound(plan, nv, ncol):
+def gather_bound(plan, nv, ncol, elem=8):
     """K4 on one OVVV plan at ``ncol`` columns: S (int32), W and the
     (nv, ncol) T1 read once, the (ncol, n) output written; one multiply an
-    element."""
+    element (``elem=4``: the f32 gather, at the FP32 rate)."""
     n = plan.S.numel()
-    return bound(4 * n + 8 * plan.W.numel() + 8 * nv * ncol + 8 * ncol * n,
-                 ncol * n, FP64_FMA_FLOPS_S)
+    return bound(4 * n + elem * (plan.W.numel() + nv * ncol + ncol * n),
+                 ncol * n, FP64_FMA_FLOPS_S if elem == 8
+                 else FP32_FMA_FLOPS_S)
 
 
 def diag_bound(plan, nv, no):

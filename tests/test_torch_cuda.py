@@ -16,7 +16,10 @@ Tolerance: max|kernel − twin| ≤ 1e-12·max|twin| (both f64; only the
 summation order differs); K4's gather (one multiply an element) and K5
 (which sums in its twin's order) must equal their twins bit for bit.  K1,
 K7 and K9 add no atomics, so a second launch must repeat the first bit for
-bit.
+bit.  The f32 instantiations of K1, K4, K5, K7 and K8 (the FEAST/RT
+mixed-precision engine) are held to their f32 twins within 1e-5·max|twin|
+(f32 rounding, ~6e-8 an operation, over the sums of a few hundred terms;
+K4 and K5 bit for bit), and a mixed FEAST solve on the card to the CPU's.
 """
 
 import numpy as np
@@ -1144,3 +1147,224 @@ def test_tensor_parallel_lih_ccsd_on_a_repeated_card_matches_cpu(device):
     want.update(ccsd_jacobi_diis=n_it, ccsd_mix_energy=n_it,
                 pair_symmetrize=n_it)
     assert dict(kernels.LAUNCHES) == want
+
+
+# ---- the f32 instantiations (the FEAST/RT mixed-precision engine) ----------
+
+F32_REL = 1e-5
+
+
+def _close32(got, want):
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype == torch.float32
+    err = float((got.double() - want.double()).abs().max())
+    assert err <= F32_REL * float(want.double().abs().max()), err
+
+
+def _randn32(rng, shape, device, scale=1.0):
+    return torch.as_tensor(rng.standard_normal(shape) * scale,
+                           dtype=torch.float32, device=device)
+
+
+@pytest.mark.parametrize("N", [1, 33, 49, 98, 3136, 6272])
+@pytest.mark.parametrize("bra", ["virtual", "all"])
+def test_block_ladder_f32_kernel_matches_twin(device, bra, N):
+    """K1 in f32 (FFMA tiles over the DMMA kernel's plan) on the nP=57
+    plans at the RT (64 no²) and FEAST (128 no²) lane batches, the EOM
+    widths and odd ones; a rerun repeats the bits."""
+    u = ueg.UEG(14, 7, 7, 0.5)
+    u.init_single_basis(5)
+    plan = ueg_ladder.cast_plan(
+        ueg_ladder.build_block_ladder(u, device, bra=bra), torch.float32)
+    nv = u.n_spatial - NO
+    Tt = _randn32(np.random.default_rng(N + 1), (nv * nv, N), device)
+    before = dict(kernels.LAUNCHES)
+    got = k1.block_ladder_cd(plan, Tt)
+    again = k1.block_ladder_cd(plan, Tt)
+    assert kernels.LAUNCHES["block_ladder_f32"] == \
+        before["block_ladder_f32"] + 2
+    assert kernels.LAUNCHES["block_ladder"] == before["block_ladder"]
+    want = k1.block_ladder_cd(plan, Tt, twin=True)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again) and float(want.abs().max()) > 0
+    _close32(got, want)
+
+
+def test_block_ladder_f32_kernel_strided_operand_and_mixed_types(device):
+    """A row stride past the width, as the sigma's batch view gives it;
+    an f32 operand on an f64 plan is refused."""
+    u = ueg.UEG(14, 7, 7, 0.5)
+    u.init_single_basis(5)
+    plan = ueg_ladder.build_block_ladder(u, device, bra="all")
+    nv = u.n_spatial - NO
+    Tt = _randn32(np.random.default_rng(3), (nv * nv, 101), device)[:, :98]
+    with pytest.raises(TypeError):
+        k1.block_ladder_cd(plan, Tt)
+    p32 = ueg_ladder.cast_plan(plan, torch.float32)
+    _close32(k1.block_ladder_cd(p32, Tt),
+             k1.block_ladder_cd(p32, Tt, twin=True))
+
+
+@pytest.mark.parametrize("ncol", [7, 448, 896])
+@pytest.mark.parametrize("pat", ["vvo", "ovv", "vov"])
+def test_ovvv_gather_f32_kernel_matches_twin(device, pat, ncol):
+    """K4 in f32 at the dressing's and the RT/FEAST lane batches' widths
+    (a strided view of Krylov rows): one multiply, bit for bit."""
+    u = ueg.UEG(14, 7, 7, 0.5)
+    u.init_single_basis(5)
+    plan = ueg_ladder.build_ovvv_t1_plan(u, pat, device)
+    plan = plan._replace(W=plan.W.float())
+    nv = u.n_spatial - NO
+    k = ncol // NO
+    rows = _randn32(np.random.default_rng(ncol), (k, nv * NO + 3), device)
+    T1 = rows[:, :nv * NO].reshape(k, nv, NO)
+    before = kernels.LAUNCHES["ovvv_gather_f32"]
+    got = k4.ovvv_gather(plan.S, plan.W, T1)
+    want = k4.ovvv_gather(plan.S, plan.W, T1, twin=True)
+    assert kernels.LAUNCHES["ovvv_gather_f32"] == before + 1
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and float(want.abs().max()) > 0
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("shape,with_y", K5_SHAPES)
+def test_pair_symmetrize_f32_kernel_bit_equal(device, shape, with_y):
+    """K5 in f32 at the shapes of the f64 test (its tiles sized in bytes):
+    the twin's order, bit for bit."""
+    rng = np.random.default_rng(sum(shape) + 2 * with_y)
+    X = _randn32(rng, shape, device)
+    Y = _randn32(rng, shape, device) if with_y else None
+    before = kernels.LAUNCHES["pair_symmetrize_f32"]
+    got = pair_sym.pair_symmetrize(X, Y)
+    want = pair_sym.pair_symmetrize(X, Y, twin=True)
+    assert kernels.LAUNCHES["pair_symmetrize_f32"] == before + 1
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and torch.equal(got, want)
+    with pytest.raises(TypeError):
+        pair_sym.pair_symmetrize(X, torch.zeros_like(X, dtype=torch.float64))
+
+
+@pytest.mark.parametrize("R1,n", [(121, 9000), (21, 70004), (21, 70001)])
+def test_arnoldi_cgs2_f32_kernel_matches_twin(device, R1, n):
+    """K7 on an f32 basis (the wide 16-byte copies, and the one-float ones
+    where n is odd): the f64 Hessenberg column and the f32 row against the
+    twin at m = 1, small m (the register pass), m = R; reruns bit-equal;
+    the fused combine."""
+    from pymes_tpu_torch.kernels import arnoldi
+    rng = np.random.default_rng(R1 + n)
+    L = 4
+    V0, w, lanes = _krylov(rng, L, R1, n, device)
+    V0, w = V0.float(), w.float()
+    for ms in ([1, 1, 1, 1], [1, 7, R1 // 2, R1 - 1]):
+        m = torch.as_tensor(ms, device=device)
+        Vk, Vk2, Vt = V0.clone(), V0.clone(), V0.clone()
+        before = kernels.LAUNCHES["arnoldi_cgs2_f32"]
+        hk = arnoldi.arnoldi_cgs2(Vk, w.clone(), lanes, m)
+        hk2 = arnoldi.arnoldi_cgs2(Vk2, w.clone(), lanes, m)
+        ht = arnoldi.arnoldi_cgs2(Vt, w.clone(), lanes, m, twin=True)
+        assert kernels.LAUNCHES["arnoldi_cgs2_f32"] == before + 2
+        torch.cuda.synchronize()
+        assert hk.dtype == ht.dtype == torch.float64
+        assert torch.equal(hk, hk2) and torch.equal(Vk, Vk2)
+        err = float((hk - ht).abs().max())
+        assert err <= F32_REL * float(ht.abs().max()), err
+        _close32(Vk[lanes, m], Vt[lanes, m])
+    C = _randn(rng, (L, 2, R1), device)
+    m = torch.as_tensor([1, R1, 60 % R1 + 1, 2], device=device)
+    x0 = _randn32(rng, (L, n), device)
+    got = arnoldi.krylov_combine_xr(V0, C, m, lanes, x0=x0)
+    want = arnoldi.krylov_combine_xr(V0, C, m, lanes, x0=x0, twin=True)
+    for a, b in zip(got, want):
+        _close32(a, b)
+
+
+def test_arnoldi_cgs2_f32_breakdown_row(device):
+    """A direction of norm 1e-20 in f32 is zeroed (the f32 guard 1e-18),
+    as the twin zeroes it; in f64 the same row is normalised."""
+    from pymes_tpu_torch.kernels import arnoldi
+    L, R1, n = 2, 5, 4000
+    V = _unit_basis(L, R1, n, device)
+    w = torch.zeros((1, n), dtype=torch.float64, device=device)
+    w[0, 1] = 1e-20
+    lanes = torch.as_tensor([1], device=device)
+    m = torch.as_tensor([1], device=device)
+    for dtype, zero in ((torch.float32, True), (torch.float64, False)):
+        Vk, Vt = V.to(dtype), V.to(dtype)
+        hk = arnoldi.arnoldi_cgs2(Vk, w.to(dtype), lanes, m)
+        ht = arnoldi.arnoldi_cgs2(Vt, w.to(dtype), lanes, m, twin=True)
+        torch.cuda.synchronize()
+        assert float(hk[0, 1]) == pytest.approx(1e-20, rel=1e-6)
+        assert torch.equal(Vk[1, 1], Vt[1, 1])
+        assert bool((Vk[1, 1] == 0).all()) == zero
+
+
+@pytest.mark.parametrize("mode,rt", [("apply", False), ("apply", True),
+                                     ("residual", False),
+                                     ("residual", True),
+                                     ("precond", False), ("precond", True)])
+def test_shifted_precond_f32_kernel_matches_twin(device, mode, rt):
+    """K8 in f32 (Triton, the element type a constexpr) in every mode."""
+    from pymes_tpu_torch.kernels import shifted
+    rng = np.random.default_rng(7 + len(mode) + rt)
+    La, n1, n2 = 3, 84, 7056
+    N = n1 + n2
+    X = _randn32(rng, (La, 2 * N), device)
+    H1 = _randn32(rng, (2 * La, n1), device)
+    H2 = _randn32(rng, (2 * La, n2), device)
+    zr = _randn32(rng, (La,), device, 0.1) + 0.5
+    zi = _randn32(rng, (La,), device, 0.1) + 0.3
+    diag = _randn32(rng, (N,), device) + 1.0
+    B = _randn32(rng, (La, 2 * N), device) if mode == "residual" else None
+    kw = dict(dt=0.1, rt=rt, mode=mode, B=B)
+    before = dict(kernels.LAUNCHES)
+    got = shifted.shifted_precond(H1, H2, X, zr, zi, diag, **kw)
+    want = shifted.shifted_precond(H1, H2, X, zr, zi, diag, twin=True, **kw)
+    assert kernels.LAUNCHES["shifted_precond_f32"] == \
+        before["shifted_precond_f32"] + 1
+    assert kernels.LAUNCHES["shifted_precond"] == before["shifted_precond"]
+    if mode != "residual":
+        got, want = (got,), (want,)
+    for a, b in zip(got, want):
+        _close32(a, b)
+    with pytest.raises(TypeError):
+        shifted.shifted_precond(H1, H2, X.double(), zr, zi, diag, **kw)
+
+
+def test_mixed_feast_on_card_matches_cpu(device):
+    """The mixed engine on the nP=19 no-ovvv operator (MP2 amplitudes):
+    card (the f32 K1, K4, K5, K7, K8 and the f64 residual kernels) vs CPU
+    (twins), the same roots to 1e-8, every honest residual at
+    ls_conv_tol, and every f32 kernel launched."""
+    from pymes_tpu_torch.solver import feast_eom_ccsd
+    u = ueg.UEG(14, 7, 7, 1.0)
+    u.init_single_basis(2)
+    V = torch.as_tensor(u.eval_2b_integrals())
+    fock = hf.construct_hf_matrix(
+        NO, torch.diag(torch.as_tensor(u.kinetic_energies())), V)
+    out = {}
+    for dev in (device, torch.device("cpu")):
+        d = {k: v.to(dev) for k, v in part_2_body_int(NO, V).items()
+             if k not in ("abcd", "abci", "iabc", "aibc", "abic")}
+        d["abcd"] = None
+        d["abcd_ladder"] = ueg_ladder.build_block_ladder(u, dev, bra="all")
+        d["_ovvv_plans"] = ueg_ladder.build_ovvv_plans(u, dev)
+        f = fock.to(dev)
+        eps = torch.diagonal(f)
+        _, T2 = mp2.solve(eps[:NO], eps[NO:], d["ijab"], d["abij"], 0.0)
+        e0 = float(eom_ccsd.EOM_CCSD(NO, dev, n_excit=1).solve(f, d, T2)[0])
+        kernels.reset_launches()
+        s = feast_eom_ccsd.FEAST_EOM_CCSD(NO, dev, e_c=e0, e_r=0.3,
+                                          n_trial=2, max_iter=3, tol=-1.0,
+                                          seed=3, ls_conv_tol=1e-9,
+                                          ls_precision="mixed")
+        s.ls_restart, s.ls_max_iter, s.ls_refine_max = 40, 4, 8
+        out[dev.type] = np.sort_complex(s.solve(f, d, T2))
+        assert np.max(s.last_ls_residuals) <= 1e-9
+        if dev.type == "cuda":
+            launches = dict(kernels.LAUNCHES)
+    np.testing.assert_allclose(out["cuda"], out["cpu"], rtol=0, atol=1e-8)
+    for k in ("block_ladder_f32", "ovvv_gather_f32", "pair_symmetrize_f32",
+              "arnoldi_cgs2_f32", "shifted_precond_f32", "shifted_precond",
+              "block_ladder", "pair_symmetrize"):
+        assert launches[k] > 0, launches
+    assert launches["arnoldi_cgs2"] == 0

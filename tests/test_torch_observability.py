@@ -19,6 +19,7 @@ from pymes_tpu_torch.util import fcidump
 from pymes_tpu_torch.util.observability import RunRecord, profile
 
 DATA = os.path.join(os.path.dirname(__file__), "data")
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def _lih():
@@ -47,6 +48,7 @@ def test_run_record_equal_to_jax(tmp_path):
 
 
 def test_profile_writes_a_trace(tmp_path):
+    os.chdir(REPO)  # an earlier test may leave the cwd deleted
     no, fock, V = _lih()
     with profile(str(tmp_path / "prof"), "cpu") as prof:
         ccd.CCD(no, "cpu").solve(fock, V, max_iter=2)
@@ -57,6 +59,7 @@ def test_profile_writes_a_trace(tmp_path):
 
 
 def test_profile_stops_when_the_block_raises(tmp_path):
+    os.chdir(REPO)  # an earlier test may leave the cwd deleted
     with pytest.raises(RuntimeError, match="inside"):
         with profile(str(tmp_path / "a"), "cpu"):
             torch.ones(3).sum()

@@ -139,3 +139,36 @@ def test_cuda_core_helpers_use_the_fma_rate(monkeypatch):
         "operations")
     assert roofline.ring_bound({"M": 2, "N": 3, "K": 5}) == (
         pytest.approx(2 * 2 * 3 * 5 / tc * 1e3, rel=1e-12), "operations")
+
+
+def test_f32_bounds_count_four_bytes_and_the_fp32_rate(monkeypatch):
+    """The f32 kernels of the mixed-precision engine: the helpers count 4
+    bytes an element (K7's f32 floor is half its f64 one) and K1's and
+    K4's f32 operations at the 67 TFLOP/s FP32 CUDA-core rate; K7 sums an
+    f32 basis in f64, so its operations stay at the FP64 FMA rate."""
+    assert roofline.FP32_FMA_FLOPS_S == 67e12
+    kb8 = roofline.krylov_bounds(64, 60, 245700)
+    kb4 = roofline.krylov_bounds(64, 60, 245700, elem=4)
+    assert kb4["floor_ms"] == pytest.approx(kb8["floor_ms"] / 2, rel=1e-12)
+    assert kb4["bound"][0] == pytest.approx(kb8["bound"][0] / 2, rel=1e-12)
+    ut = ueg.UEG(14, NO, NO, 0.5)
+    ut.init_single_basis(2)
+    nv = ut.n_spatial - NO
+    plan = ueg_ladder.build_block_ladder(ut, "cpu")
+    ovvv = next(iter(ueg_ladder.build_ovvv_plans(ut, "cpu").values()))
+    pk, n = plan.packed, ovvv.S.numel()
+    assert roofline.ladder_bound(plan, 49, elem=4) == (pytest.approx(
+        (4 * (nv * nv * 49 + pk.n_rows * 49 + pk.blocks.numel())
+         + 4 * (pk.perm.numel() + pk.bra_of_row.numel())) / 3.35e12 * 1e3,
+        rel=1e-12), "bytes")
+    assert roofline.gather_bound(ovvv, nv, NO, elem=4) == (pytest.approx(
+        (4 * n + 4 * (ovvv.W.numel() + nv * NO + NO * n)) / 3.35e12 * 1e3,
+        rel=1e-12), "bytes")
+    monkeypatch.setattr(roofline, "HBM_BYTES_S", float("inf"))
+    fp32, fma = roofline.FP32_FMA_FLOPS_S, roofline.FP64_FMA_FLOPS_S
+    assert roofline.gather_bound(ovvv, nv, NO, elem=4) == (
+        pytest.approx(NO * n / fp32 * 1e3, rel=1e-12), "operations")
+    assert roofline.ladder_bound(plan, 49, elem=4, flops_s=fp32)[0] == \
+        pytest.approx(2 * pk.blocks.numel() * 49 / fp32 * 1e3, rel=1e-12)
+    assert roofline.krylov_bounds(4, 3, 100, elem=4)["bound"] == (
+        pytest.approx(8 * 4 * 3 * 100 / fma * 1e3, rel=1e-12), "operations")
