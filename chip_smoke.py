@@ -59,7 +59,13 @@ Drives the port's main paths through its own kernels:
   and the seeded non-canonical CCSD at nP=219, LiH CCSD on 3 and 3 x 3;
 * the FEAST/RT mixed-precision engine (``ls_precision="mixed"``, the JAX
   package's default): FEAST nP=57 and RT nP=123 with f32 Krylov solves
-  (the f32 kernels) inside f64 iterative refinement.
+  (the f32 kernels) inside f64 iterative refinement;
+* the ground-state and Davidson precision modes: the mixed-precision EOM
+  Davidson (``precision="mixed"``, the JAX package's default: an f32 seed
+  phase, then the f64 polish) at nP=57, nP=219 and on LiH, the mixed CCD
+  (``mixed_precision=True``) at nP=57 and nP=219, the mixed CCSD on LiH
+  and the nP=219 non-canonical mf-CCSD, and that mf-CCSD with
+  ``dress_precision="f32"``.
 
 Kernels: K1 ``block_ladder`` (CUDA C++ on the f64 tensor cores, built with
 nvcc for sm_90a at first use), K4 ``ovvv_gather`` and its fused trace
@@ -70,7 +76,12 @@ C++, built with K1); K2 ``ccd_jacobi_diis``, K3 ``ccd_mix_energy``, K2′
 and K8 ``shifted_precond`` (Triton); and the f32 instantiations
 ``block_ladder_f32`` (CUDA C++ on the CUDA cores), ``ovvv_gather_f32``,
 ``pair_symmetrize_f32``, ``arnoldi_cgs2_f32`` (CUDA C++) and
-``shifted_precond_f32`` (Triton) of the mixed-precision engine.
+``shifted_precond_f32`` (Triton) of the mixed-precision engine, and those
+of the precision modes: ``davidson_residual_f32``,
+``ccd_jacobi_diis_f32``, ``ccd_mix_energy_f32``, ``ccsd_jacobi_diis_f32``,
+``ccsd_mix_energy_f32`` and ``ccsd_jacobi_diis_f32_ring`` (K2′ with f64
+amplitudes and an f32 DIIS error ring) in Triton, ``ovvv_gather_diag_f32``
+in CUDA C++.
 
 Phases: (0) card and versions; (1) kernel builds; (2) each kernel against
 its plain twin on the card at the main paths' shapes (K2′/K3′ at nP=219
@@ -181,7 +192,28 @@ the Krylov bytes a lane and the peak memory; the launches exactly as the
 solves imply (f32 K1, K5 and K8 apply one per f32 sigma, f32 K4 three,
 f32 K7 per Arnoldi step and cycle end, f32 K8 Mb and f64 sigma + K8
 residual per refinement pass); then ms per Arnoldi step of the f32
-solves (kernels and twins) beside phase 12/13's f64.  Every bound comes
+solves (kernels and twins) beside phase 12/13's f64.  Phase 25 runs
+right after phase 24: (25) the f32 kernels of the precision modes (K6,
+K2/K3, K2′/K3′, K2′'s f32-ring instance, K4's fused trace) against their
+f32 twins at the nP=219 shapes (max relative error ≤ F32_REL) and per call
+beside their twins with their bounds; the converged EOM roots at nP=57
+and nP=219 (the f64 Davidson to |dE| < 1e-12: the JAX pins, stopped at
+|dE| < 1e-8, lie up to a few 1e-8 from them); then three counted windows:
+the mixed EOM at nP=57 and nP=219 on the CCD amplitudes (roots within
+1e-8 of the converged ones, and of the JAX package's within 1e-8 plus the
+pin's own distance from those) and on LiH (1e-7 of the oracle), each
+solve's sigmas
+counted by type through the wrapped ``_sigma_batched_hbar`` (each must run
+an f32 phase; launches exactly as :func:`check_eom_launches` per phase),
+the f32-phase and polish iterations beside ``tools/pin_mixed_jax.py``'s
+JAX run at nP=57; the mixed CCD at nP=57 and nP=219 (1e-8 of the JAX
+package's f64 energy, nP=57 also of the oracle; one f32 K1, K2, K3 and K5
+an f32 iteration); the mixed CCSD on LiH (1e-8 of the oracle) and the
+non-canonical mf-CCSD at nP=219 mixed and with ``dress_precision="f32"``
+(|dE| < 1e-10, 1e-8 of the JAX package's f64 energy; 4 K4 gathers, 2
+traces and one K1, K2′, K3′, K5 an iteration, in f32 in the f32 pass, the
+gathers in f32 and K2′ on the f32 ring with the f32 dressing); each solve's
+wall beside its f64 solve's of phases 3/4, 7 and 9.  Every bound comes
 from the helpers of ``pymes_tpu_torch/util/roofline.py``.
 Prints a JSON line of the kernels
 (launches, errors, the TC and drCCD runs as sub-entries,
@@ -194,6 +226,7 @@ exits nonzero at once.
 Run from the repository root: ``python3 chip_smoke.py``.
 """
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -273,10 +306,17 @@ KERNELS = {
     "ring_step": ("cuda", "pymes_tpu_torch/csrc/ring_step.cu",
                   "pymes_tpu/parallel/ring_ladder.py:69"),
 }
-# the f32 instantiations of the mixed-precision engine: the same sources
+# the f32 instantiations of the mixed-precision engine and of the
+# ground-state and Davidson precision modes: the same sources (K2′'s
+# f32-ring instance replaces diis.mix with an f32 error ring)
 KERNELS.update({name + "_f32": KERNELS[name] for name in (
     "block_ladder", "ovvv_gather", "pair_symmetrize", "arnoldi_cgs2",
-    "shifted_precond")})
+    "shifted_precond", "davidson_residual", "ccd_jacobi_diis",
+    "ccd_mix_energy", "ccsd_jacobi_diis", "ccsd_mix_energy",
+    "ovvv_gather_diag")})
+KERNELS["ccsd_jacobi_diis_f32_ring"] = (
+    "triton", "pymes_tpu_torch/kernels/ccsd_tail.py",
+    "pymes_tpu/mixer/diis.py:115")
 CCD_KERNELS = ("block_ladder", "ccd_jacobi_diis", "ccd_mix_energy",
                "pair_symmetrize")
 DENSE_CCSD_KERNELS = ("ccsd_jacobi_diis", "ccsd_mix_energy",
@@ -388,6 +428,20 @@ F32_KERNELS = ("block_ladder_f32", "ovvv_gather_f32", "pair_symmetrize_f32",
                "arnoldi_cgs2_f32", "shifted_precond_f32")
 F32_REL = 1e-5
 MIXED_REFINE_MAX = 8
+# phase 25, the ground-state and Davidson precision modes (EOM
+# precision="mixed", CCD/CCSD mixed_precision, CCSD dress_precision="f32"):
+# their f32 kernels against their f32 twins at the nP=219 shapes (max
+# relative error F32_REL), and the JAX package's mixed numbers on a CPU
+# (tools/pin_mixed_jax.py): the EOM nP=57 roots with the f32 phase's and
+# the polish's iterations, the CCD nP=57 energy with its f32 and f64
+# iterations, the LiH/3-21G CCSD energy likewise
+PREC_KERNELS = ("davidson_residual_f32", "ccd_jacobi_diis_f32",
+                "ccd_mix_energy_f32", "ccsd_jacobi_diis_f32",
+                "ccsd_mix_energy_f32", "ccsd_jacobi_diis_f32_ring",
+                "ovvv_gather_diag_f32")
+EOM_JAX_MIXED_NP57 = ((5.242951899266315, 5.242951901247843), 7, 9)
+CCD_JAX_MIXED_NP57 = (-0.5120153549861027, 4, 2)
+LIH_JAX_CCSD_MIXED = (-0.019088328657353434, 5, 8)
 # phase 23, the tensor-parallel dense CCD/CCSD: (devices, 2-D shape or
 # None) of the meshes over one card at nP=219 (nv = 212) and for LiH (nv =
 # 9); the peak of the cut CCD stays below abcd + 25 %
@@ -681,10 +735,11 @@ def tail_inputs(no, V, seed):
             "Vx": V.transpose(2, 3).contiguous()}
 
 
-def compare_ccsd_tail(x, eps_i, eps_a, label):
+def compare_ccsd_tail(x, eps_i, eps_a, label, tol=REL_TOL):
     """K2′ and K3′ vs their twins on the inputs of :func:`tail_inputs`:
     slot 0 with n_valid 1 (first insertion) and slot 2 with n_valid 6
-    (full ring); returns their max abs errors."""
+    (full ring), each output within ``tol`` of its twin's scale; returns
+    their max abs errors."""
     from pymes_tpu_torch.kernels import ccsd_tail
 
     e_k2 = 0.0
@@ -695,11 +750,11 @@ def compare_ccsd_tail(x, eps_i, eps_a, label):
             slot, n_valid, twin=tw)
             for (e, a), tw in zip(rings, (False, True))]
         e_k2 = max(e_k2,
-                   rel_err(rows[0], rows[1], f"K2' Gram row, {label}"),
+                   rel_err(rows[0], rows[1], f"K2' Gram row, {label}", tol),
                    rel_err(rings[0][0], rings[1][0],
-                           f"K2' error ring, {label}"),
+                           f"K2' error ring, {label}", tol),
                    rel_err(rings[0][1], rings[1][1],
-                           f"K2' amplitude ring, {label}"))
+                           f"K2' amplitude ring, {label}", tol))
 
     e_k3 = 0.0
     for n_valid in (1, 6):
@@ -708,9 +763,11 @@ def compare_ccsd_tail(x, eps_i, eps_a, label):
                                         T2, x["F1"], x["V"], x["Vx"],
                                         twin=tw)
               for (T1, T2), tw in zip(Ts, (False, True))]
-        e_k3 = max(e_k3, rel_err(Ts[0][0], Ts[1][0], f"K3' mixed T1, {label}"),
-                   rel_err(Ts[0][1], Ts[1][1], f"K3' mixed T2, {label}"),
-                   *(rel_err(a, b, f"K3' energy {piece}, {label}")
+        e_k3 = max(e_k3, rel_err(Ts[0][0], Ts[1][0], f"K3' mixed T1, {label}",
+                                 tol),
+                   rel_err(Ts[0][1], Ts[1][1], f"K3' mixed T2, {label}",
+                           tol),
+                   *(rel_err(a, b, f"K3' energy {piece}, {label}", tol)
                      for piece, a, b in zip(("e_1b", "e_dir", "e_exc"),
                                             *es)))
     return e_k2, e_k3
@@ -959,6 +1016,7 @@ def mf_ccsd(q, device):
             fock, q["mf_dict"], level_shift=-1.0, ladder=q["plan_all"],
             delta_e=1e-10 if kind == "non-canonical" else 1e-8,
             max_iter=100)
+        res["wall"] = time.time() - t0
         e, n_it = res["ccsd e"], len(res["e history"])
         k4 = {k: kernels.LAUNCHES[k] - before[k]
               for k in ("ovvv_gather", "ovvv_gather_diag")}
@@ -1260,11 +1318,13 @@ def check_eom_launches(label, before, solver, ladder):
           f"EOM {label}: launches {got}, expected {want} for {n} sigma calls")
 
 
-def eom_runs(cases, lih, device):
+def eom_runs(cases, lih, device, walls=None):
     """The EOM path: each UEG case (label, fock, operator, T2, JAX roots,
     JAX iterations) against the JAX package, then LiH on the dressed CCSD
     operator ``lih`` = (Fock, V, T2) against its oracle; each solve's
-    launches against its sigma calls.  Returns the roots by label."""
+    launches against its sigma calls.  Returns the roots by label; each
+    solve's wall (s) goes into ``walls`` by label ("LiH" for LiH)."""
+    walls = {} if walls is None else walls
     import torch
 
     from pymes_tpu_torch import kernels
@@ -1286,9 +1346,10 @@ def eom_runs(cases, lih, device):
         check(err <= 1e-8, f"EOM {label}: roots {roots} vs JAX {ref}")
         check(abs(n_it - n_ref) <= 1,
               f"EOM {label}: {n_it} iterations, the JAX package {n_ref}")
+        walls[label] = time.time() - t0
         print(f"EOM {label}: roots {roots[0]:.13f} {roots[1]:.13f} in {n_it} "
               f"iterations (JAX {n_ref}), |roots - JAX|={err:.2e}, "
-              f"{time.time() - t0:.2f} s", flush=True)
+              f"{walls[label]:.2f} s", flush=True)
         out[label] = roots
 
     t0 = time.time()
@@ -1299,9 +1360,10 @@ def eom_runs(cases, lih, device):
     check_eom_launches("LiH", before, solver, ladder=False)
     err = float(np.abs(roots - np.asarray(LIH_EOM_ORACLE)).max())
     check(err <= 1e-7, f"EOM LiH: roots {roots} vs oracle {LIH_EOM_ORACLE}")
+    walls["LiH"] = time.time() - t0
     print(f"EOM LiH/3-21G: roots {roots[0]:.13f} {roots[1]:.13f} in "
           f"{solver.n_iterations} iterations, |roots - oracle|={err:.2e}, "
-          f"{time.time() - t0:.2f} s", flush=True)
+          f"{walls['LiH']:.2f} s", flush=True)
     return out
 
 
@@ -2446,6 +2508,462 @@ def rt123_mixed(p, V, T2, root, u0, ref, device, card):
           f"{[round(w, 3) for w in walls]} s (phase 13, f64: "
           f"{[round(w, 3) for w in ref['walls']]} s)", flush=True)
     return s, mixed_launches(s.n_sigma, st, ladder=True)
+
+
+def prec_inputs(q, V, seed):
+    """Phase 25's f32 operands at the nP=219 shapes: the CCSD tail's of
+    :func:`tail_inputs` in f32 (and the CCD tail's, its T2 segment), the
+    K6 buffers of :func:`eom_inputs` (16 rows, k = 2) in f32, the f32 OVVV
+    plans (weights cast) and orbital energies; plus the f64 CCSD tail
+    operands for K2′'s f32-ring instance."""
+    import torch
+
+    x64 = tail_inputs(NO, q["dict"]["ijab"], seed)
+    x = {k: v.float() for k, v in x64.items()}
+    n1 = NO * q["nv"]
+    x["ccd_errs"] = x["errs"][:, n1:].contiguous()
+    x["ccd_amps"] = x["amps"][:, n1:].contiguous()
+    e = eom_inputs(V, q["nv"], seed + 1)
+    x.update({"k6_" + k: e[k].float() for k in ("U", "W", "v", "e",
+                                                 "diag")})
+    x["plans"] = {pat: q["mf_dict"]["_ovvv_plans"][pat]._replace(
+        W=q["mf_dict"]["_ovvv_plans"][pat].W.float())
+        for pat, _ in DIAG_PLANS}
+    x["eps_i"], x["eps_a"] = q["eps_i"].float(), q["eps_a"].float()
+    x["x64"] = x64
+    x["ring32"] = x64["errs"].float()
+    del e
+    torch.cuda.empty_cache()
+    return x
+
+
+def prec_calls(x, q):
+    """Each phase-25 kernel's call on :func:`prec_inputs` as a function of
+    ``twin`` (fresh rings where the call writes them)."""
+    from pymes_tpu_torch.kernels import ccd_tail, ccsd_tail, davidson
+    from pymes_tpu_torch.ops import ueg_ladder
+
+    x64 = x["x64"]
+    return {
+        "davidson_residual_f32": lambda tw: davidson.davidson_residual(
+            x["k6_U"], x["k6_W"], x["k6_v"], x["k6_e"], x["k6_diag"], 16,
+            twin=tw),
+        "ccd_jacobi_diis_f32": lambda tw: ccd_tail.jacobi_diis_insert(
+            x["R2"], x["T2"], x["eps_i"], x["eps_a"], -1.0, x["ccd_errs"],
+            x["ccd_amps"], 2, 6, twin=tw),
+        "ccd_mix_energy_f32": lambda tw: ccd_tail.diis_mix_energy(
+            x["ccd_amps"], x["coeff"], 6, x["R2"], x["V"], x["Vx"],
+            twin=tw),
+        "ccsd_jacobi_diis_f32": lambda tw: ccsd_tail.jacobi_diis_insert(
+            x["R1"], x["T1"], x["R2"], x["T2"], x["eps_i"], x["eps_a"],
+            -1.0, x["errs"], x["amps"], 2, 6, twin=tw),
+        "ccsd_mix_energy_f32": lambda tw: ccsd_tail.diis_mix_energy(
+            x["amps"], x["coeff"], 6, x["R1"], x["R2"], x["F1"], x["V"],
+            x["Vx"], twin=tw),
+        "ccsd_jacobi_diis_f32_ring": lambda tw: ccsd_tail.jacobi_diis_insert(
+            x64["R1"], x64["T1"], x64["R2"], x64["T2"], q["eps_i"],
+            q["eps_a"], -1.0, x["ring32"], x64["amps"], 2, 6, twin=tw),
+        "ovvv_gather_diag_f32": lambda tw: [ueg_ladder.ovvv_t1_trace(
+            x["plans"][pat], x["T1"], axis, twin=tw)
+            for pat, axis in DIAG_PLANS]}
+
+
+def compare_prec_kernels(x, q):
+    """Phase 25: each f32 kernel of the precision modes against its f32
+    twin at the nP=219 shapes, max relative error ≤ F32_REL: K6 at 16 and
+    9 valid rows (the three clamped columns and the rest each to its own
+    scale), K2/K3 and K2′/K3′ (first insertion and full ring), K2′'s
+    f32-ring instance (the f32 error ring and Gram row; the f64 amplitude
+    ring to REL_TOL), K4's fused trace on both plans.  Returns the max abs
+    errors and the max relative errors by kernel."""
+    import torch
+
+    from pymes_tpu_torch.kernels import ccd_tail, ccsd_tail, davidson
+    from pymes_tpu_torch.ops import ueg_ladder
+
+    errs = {k: 0.0 for k in PREC_KERNELS}
+    rel = dict(errs)
+
+    def note(name, got, want, what, tol=F32_REL):
+        e = rel_err(got, want, f"{what}, nP={q['nP']}", tol)
+        errs[name] = max(errs[name], e)
+        rel[name] = max(rel[name], e / float(want.abs().max()))
+
+    for m in (16, 9):
+        U, W = x["k6_U"].clone(), x["k6_W"].clone()
+        U[m:], W[m:] = 0.0, 0.0
+        v = x["k6_v"].clone()
+        v[m:] = 0.0
+        args = (U, W, v, x["k6_e"], x["k6_diag"], m)
+        got = davidson.davidson_residual(*args)
+        want = davidson.davidson_residual(*args, twin=True)
+        check(got.dtype == torch.float32, "K6 f32: not f32")
+        note("davidson_residual_f32", got[:, :3], want[:, :3],
+             f"K6 f32 m={m}, clamped columns")
+        note("davidson_residual_f32", got[:, 3:], want[:, 3:],
+             f"K6 f32 m={m}, the rest")
+    x64 = x["x64"]
+    for slot, n_valid in ((0, 1), (2, 6)):
+        for name, fn in (
+                ("ccd_jacobi_diis_f32", lambda e, a, tw:
+                 ccd_tail.jacobi_diis_insert(
+                     x["R2"], x["T2"], x["eps_i"], x["eps_a"], -1.0, e, a,
+                     slot, n_valid, twin=tw)),
+                ("ccsd_jacobi_diis_f32", lambda e, a, tw:
+                 ccsd_tail.jacobi_diis_insert(
+                     x["R1"], x["T1"], x["R2"], x["T2"], x["eps_i"],
+                     x["eps_a"], -1.0, e, a, slot, n_valid, twin=tw)),
+                ("ccsd_jacobi_diis_f32_ring", lambda e, a, tw:
+                 ccsd_tail.jacobi_diis_insert(
+                     x64["R1"], x64["T1"], x64["R2"], x64["T2"], q["eps_i"],
+                     q["eps_a"], -1.0, e, a, slot, n_valid, twin=tw))):
+            if name == "ccd_jacobi_diis_f32":
+                e0, a0 = x["ccd_errs"], x["ccd_amps"]
+            elif name == "ccsd_jacobi_diis_f32":
+                e0, a0 = x["errs"], x["amps"]
+            else:
+                e0, a0 = x["ring32"], x64["amps"]
+            rings = [(e0.clone(), a0.clone()) for _ in range(2)]
+            rows = [fn(e, a, tw) for (e, a), tw in zip(rings, (False, True))]
+            check(rows[0].dtype == torch.float32
+                  and rings[0][0].dtype == torch.float32,
+                  f"{name}: Gram row or error ring not f32")
+            what = f"{name} slot {slot}"
+            note(name, rows[0], rows[1], f"{what} Gram row")
+            note(name, rings[0][0], rings[1][0], f"{what} error ring")
+            note(name, rings[0][1], rings[1][1], f"{what} amplitude ring",
+                 REL_TOL if a0.dtype == torch.float64 else F32_REL)
+    for n_valid in (1, 6):
+        Ts = [x["T2"].clone() for _ in range(2)]
+        es = [ccd_tail.diis_mix_energy(x["ccd_amps"], x["coeff"], n_valid, T,
+                                       x["V"], x["Vx"], twin=tw)
+              for T, tw in zip(Ts, (False, True))]
+        note("ccd_mix_energy_f32", Ts[0], Ts[1], "K3 f32 mixed T")
+        for piece, a, b in zip(("e_dir", "e_exc"), *es):
+            note("ccd_mix_energy_f32", a, b, f"K3 f32 {piece}")
+        Ts = [(x["T1"].clone(), x["T2"].clone()) for _ in range(2)]
+        es = [ccsd_tail.diis_mix_energy(x["amps"], x["coeff"], n_valid, T1,
+                                        T2, x["F1"], x["V"], x["Vx"],
+                                        twin=tw)
+              for (T1, T2), tw in zip(Ts, (False, True))]
+        note("ccsd_mix_energy_f32", Ts[0][0], Ts[1][0], "K3' f32 mixed T1")
+        note("ccsd_mix_energy_f32", Ts[0][1], Ts[1][1], "K3' f32 mixed T2")
+        for piece, a, b in zip(("e_1b", "e_dir", "e_exc"), *es):
+            note("ccsd_mix_energy_f32", a, b, f"K3' f32 {piece}")
+    for pat, axis in DIAG_PLANS:
+        plan = x["plans"][pat]
+        got = ueg_ladder.ovvv_t1_trace(plan, x["T1"], axis)
+        check(got.dtype == torch.float32, "K4 trace f32: not f32")
+        note("ovvv_gather_diag_f32", got, ueg_ladder.ovvv_t1_trace(
+            plan, x["T1"], axis, twin=True), f"K4 f32 trace {pat}")
+    torch.cuda.synchronize()
+    print(f"f32 kernel vs f32 twin, precision modes nP={q['nP']}: "
+          + ", ".join(f"{k} max_abs_err={errs[k]:.3e} (max rel "
+                      f"{rel[k]:.2e})" for k in PREC_KERNELS), flush=True)
+    return errs, rel
+
+
+def prec_bounds(q):
+    """Phase 25's kernels' bounds at the timed calls' nP=219 shapes, from
+    this run's sizes: the f32 kernels as their f64 twins' rows of
+    :func:`kernel_bounds` at 4 bytes an element and the FP32 FMA rate;
+    K2′'s f32-ring instance reads R and T in f64 and the five other error
+    rows in f32, writes one f32 error row and one f64 amplitude row (48
+    bytes an element), its dT in f64."""
+    nv = q["nv"]
+    n = NO * NO * nv * nv
+    nc = nv * NO + n
+    f32 = roofline.FP32_FMA_FLOPS_S
+    traces = [diag_bound(q["mf_dict"]["_ovvv_plans"][pat], nv, NO, elem=4)
+              for pat, _ in DIAG_PLANS]
+    return {
+        "davidson_residual_f32": bound(4 * (2 * 16 * nc + nc + 2 * nc),
+                                       2 * nc * (4 * 16 + 4), f32),
+        "ccd_jacobi_diis_f32": bound(4 * 9 * n, 17 * n, f32),
+        "ccd_mix_energy_f32": bound(4 * 9 * n, 16 * n, f32),
+        "ccsd_jacobi_diis_f32": bound(4 * 9 * nc, 17 * nc, f32),
+        "ccsd_mix_energy_f32": bound(4 * 9 * nc, 16 * nc, f32),
+        "ccsd_jacobi_diis_f32_ring": bound(48 * nc, 17 * nc,
+                                           roofline.FP64_FMA_FLOPS_S),
+        "ovvv_gather_diag_f32": (float(np.mean([b[0] for b in traces])),
+                                 traces[0][1])}
+
+
+def time_prec_kernels(x, q):
+    """ms per call of each phase-25 kernel and its twin at nP=219 (twin,
+    kernel, kernel, twin; the fused trace per launch, the mean over the
+    two plans)."""
+    calls = prec_calls(x, q)
+    out = {}
+    for name, fn in calls.items():
+        t = [cuda_ms(lambda: fn(tw)) for tw in (True, False, False, True)]
+        per = len(DIAG_PLANS) if name == "ovvv_gather_diag_f32" else 1
+        out[name] = ((t[1] + t[2]) / 2 / per, (t[0] + t[3]) / 2 / per)
+    return out
+
+
+@contextlib.contextmanager
+def sigma_calls():
+    """Counts the EOM sigmas by the trial batch's type: the module
+    function every sigma of the built-in ``_batched_sigma`` runs, wrapped
+    (a subclass that overrides ``_batched_sigma`` would take the f64
+    path)."""
+    import torch
+
+    from pymes_tpu_torch.solver import eom_ccsd
+
+    real = eom_ccsd._sigma_batched_hbar
+    n = {torch.float32: 0, torch.float64: 0}
+
+    def counting(f, V, hb, U1, *args, **kw):
+        n[U1.dtype] += 1
+        return real(f, V, hb, U1, *args, **kw)
+
+    eom_ccsd._sigma_batched_hbar = counting
+    try:
+        yield n
+    finally:
+        eom_ccsd._sigma_batched_hbar = real
+
+
+def eom_sigma_launches(n32, n64, ladder):
+    """The launches of one mixed EOM solve of ``n32`` f32 and ``n64`` f64
+    sigmas (:func:`check_eom_launches` for each phase): K5 a sigma, K6 a
+    sigma less one, and on the matrix-free operator K1 a sigma plus one
+    (the phase's W_laji) and K4 three a sigma."""
+    want = {"pair_symmetrize_f32": n32, "pair_symmetrize": n64,
+            "davidson_residual_f32": n32 - 1, "davidson_residual": n64 - 1}
+    if ladder:
+        want.update(block_ladder_f32=n32 + 1, block_ladder=n64 + 1,
+                    ovvv_gather_f32=3 * n32, ovvv_gather=3 * n64)
+    return want
+
+
+def eom_tight(cases, device):
+    """Phase 25 set-up, outside the counted windows: the converged roots of
+    each UEG case, the f64 Davidson (MOM) to |dE| < 1e-12.  The JAX
+    package's pins stop at |dE| < 1e-8, which leaves them up to a few 1e-8
+    from these (2.69e-8 at nP=219 on an H100): a mixed solve, whose f64
+    polish stops by the same test from other seeds, is held to these, and
+    to the pins within their own distance from these plus 1e-8."""
+    from pymes_tpu_torch.solver import eom_ccsd
+
+    out = {}
+    for label, fock, V, T2, ref, _ in cases:
+        s = eom_ccsd.EOM_CCSD(NO, device, n_excit=2)
+        s.e_epsilon, s.max_iter = 1e-12, 300
+        roots = out[label] = np.sort(np.real(s.solve(fock, V, T2)))
+        print(f"EOM {label}, f64 to |dE| < 1e-12: roots {roots[0]:.13f} "
+              f"{roots[1]:.13f} in {s.n_iterations} iterations, |roots - "
+              f"JAX (|dE| < 1e-8)| = "
+              f"{float(np.abs(roots - np.asarray(ref)).max()):.2e}",
+              flush=True)
+    return out
+
+
+def eom_mixed(cases, tight, lih, walls, device, card):
+    """Phase 25, EOM: ``precision="mixed"`` on the UEG ``cases`` (label,
+    fock, operator, T2, JAX roots) and LiH: the roots within 1e-8 of the
+    converged ones of :func:`eom_tight` and within 1e-8 plus the pin's own
+    distance from those of the JAX package's (LiH 1e-7 of the oracle), the
+    f32 phase's and the polish's iterations (at nP=57 beside the JAX
+    package's mixed run), the wall beside phase 9's f64 solve; each solve
+    must run an f32 phase.  Returns the launches the solves imply."""
+    import torch
+
+    from pymes_tpu_torch.solver import eom_ccsd
+
+    want = {}
+    runs = [(label, fock, V, T2, ref, True)
+            for label, fock, V, T2, ref, _ in cases]
+    runs.append(("LiH", *lih, LIH_EOM_ORACLE, False))
+    for label, fock, V, T2, ref, ladder in runs:
+        no = T2.shape[-1]
+        s = eom_ccsd.EOM_CCSD(no, device, n_excit=2)
+        s.precision = "mixed"
+        s.max_iter = 300 if ladder else 1000
+        t0 = time.time()
+        with sigma_calls() as n:
+            roots = np.sort(np.real(s.solve(fock, V, T2)))
+        wall = time.time() - t0
+        n32, n64 = n[torch.float32], n[torch.float64]
+        err = float(np.abs(roots - np.asarray(ref)).max())
+        check(n32 > 1 and s.n_iterations_f32 >= 1 and n64 >= 1,
+              f"mixed EOM {label}: {n32} f32 and {n64} f64 sigmas")
+        if ladder:
+            conv = float(np.abs(roots - tight[label]).max())
+            pin = float(np.abs(tight[label] - np.asarray(ref)).max())
+            check(conv <= 1e-8 and err <= pin + 1e-8,
+                  f"mixed EOM {label}: roots {roots} vs converged "
+                  f"{tight[label]} and JAX {ref}")
+            jax = f", |roots - converged| = {conv:.2e}"
+        else:
+            check(err <= 1e-7, f"mixed EOM {label}: roots {roots} vs {ref}")
+            jax = ""
+        if label.startswith("nP=57"):
+            jr, j32, j64 = EOM_JAX_MIXED_NP57
+            jax += (f" (JAX mixed {j32} + {j64}, |roots - JAX mixed| = "
+                    f"{float(np.abs(roots - np.asarray(jr)).max()):.2e})")
+        print(f"[{card}] mixed EOM {label}: roots {roots[0]:.13f} "
+              f"{roots[1]:.13f}, |roots - "
+              f"{'JAX f64' if ladder else 'oracle'}| = {err:.2e}, "
+              f"{s.n_iterations_f32} f32 + {s.n_iterations} f64 iterations"
+              f"{jax}; {n32} f32 + {n64} f64 sigmas; wall {wall:.2f} s "
+              f"(phase 9, f64: {walls[label]:.2f} s)", flush=True)
+        for k, v in eom_sigma_launches(n32, n64, ladder).items():
+            want[k] = want.get(k, 0) + v
+    return want
+
+
+def ccd_mixed(problems, results, device, card):
+    """Phase 25, CCD: ``mixed_precision=True`` at nP=57 and nP=219 within
+    1e-8 of the JAX package's f64 energy (nP=57 also of the oracle), the
+    f32 and f64 iterations (nP=57 beside the JAX package's mixed run), the
+    wall beside phase 3/4's f64 solve.  Returns the launches: one f32 K1,
+    K2, K3 and K5 an f32 iteration, one f64 each an f64 one."""
+    from pymes_tpu_torch.solver import ccd
+
+    want = {}
+    for c, p in problems.items():
+        t0 = time.time()
+        s = ccd.CCD(NO, device)
+        res = s.solve(p["fock"], p["blocks"], level_shift=-1.0, max_iter=60,
+                      mixed_precision=True)
+        wall = time.time() - t0
+        e, n32, n64 = res["ccd e"], s.n_iterations_f32, len(res["e history"])
+        check(n32 >= 1 and res["t2 amp"].dtype == p["fock"].dtype,
+              f"mixed CCD nP={p['nP']}: {n32} f32 iterations")
+        check(abs(e - E_JAX[c]) <= 1e-8,
+              f"mixed CCD nP={p['nP']}: E={e:.13f} vs JAX {E_JAX[c]}")
+        jax = ""
+        if c == 5:
+            check(abs(e - ORACLE_NP57) <= 1e-8,
+                  f"mixed CCD nP=57: E={e} vs oracle {ORACLE_NP57}")
+            je, j32, j64 = CCD_JAX_MIXED_NP57
+            jax = (f" (JAX mixed {j32} + {j64}, |E - JAX mixed| = "
+                   f"{abs(e - je):.2e}; |E - oracle| = "
+                   f"{abs(e - ORACLE_NP57):.2e})")
+        print(f"[{card}] mixed CCD nP={p['nP']}: E={e:.13f}, |E - E_jax| = "
+              f"{abs(e - E_JAX[c]):.2e}, {n32} f32 + {n64} f64 iterations"
+              f"{jax}; wall {wall:.2f} s (phase 3/4, f64: "
+              f"{results[c][3]:.2f} s in {results[c][1]} iterations)",
+              flush=True)
+        for k in CCD_KERNELS:
+            want[k + "_f32"] = want.get(k + "_f32", 0) + n32
+            want[k] = want.get(k, 0) + n64
+    return want
+
+
+def ccsd_prec(q, mol, mf_walls, device, card):
+    """Phase 25, CCSD: ``mixed_precision=True`` on LiH/3-21G (an f64 solve
+    beside it) within 1e-8 of the oracle; the seeded non-canonical
+    mf-CCSD at nP=219 with ``mixed_precision=True`` and with
+    ``dress_precision="f32"`` (|dE| < 1e-10) within 1e-8 of the JAX
+    package's f64 energy, walls beside phase 7's.  Returns the launches:
+    per iteration, dense one K2′, K3′, K5; matrix-free one K1, K2′, K3′,
+    K5, 4 K4 gathers and 2 fused traces, in f32 in the mixed f32 pass; with
+    the f32 dressing the gathers f32 and K2′ its f32-ring instance."""
+    from pymes_tpu_torch.solver import ccsd
+
+    e_ref, _, tol = MOLECULES["LiH"][2:]
+    out = {}
+    for mixed in (False, True):
+        t0 = time.time()
+        s = ccsd.CCSD(mol["no"], device)
+        res = s.solve(mol["fock"], mol["V"], mixed_precision=mixed)
+        out[mixed] = (res["ccsd e"], len(res["e history"]),
+                      s.n_iterations_f32 if mixed else 0, time.time() - t0)
+    e, n64, n32, wall = out[True]
+    check(n32 >= 1 and abs(e - e_ref) <= tol,
+          f"mixed CCSD LiH: E={e} vs oracle {e_ref} in {n32} f32 iterations")
+    je, j32, j64 = LIH_JAX_CCSD_MIXED
+    print(f"[{card}] mixed CCSD LiH/3-21G: E={e:.13f}, |E - oracle| = "
+          f"{abs(e - e_ref):.2e}, |E - JAX mixed| = {abs(e - je):.2e}, "
+          f"{n32} f32 + {n64} f64 iterations (JAX mixed {j32} + {j64}); "
+          f"wall {wall:.3f} s (f64: {out[False][3]:.3f} s in "
+          f"{out[False][1]} iterations)", flush=True)
+    dense = ("ccsd_jacobi_diis", "ccsd_mix_energy", "pair_symmetrize")
+    want = {k: n64 + out[False][1] for k in dense}
+    want.update({k + "_f32": n32 for k in dense})
+
+    fock = q["focks"]["non-canonical"]
+    mf = dict(ladder=q["plan_all"], level_shift=-1.0, delta_e=1e-10,
+              max_iter=100)
+    mf_kernels = ("block_ladder", "ccsd_jacobi_diis", "ccsd_mix_energy",
+                  "pair_symmetrize")
+    for label, kw in (("mixed_precision=True", dict(mixed_precision=True)),
+                      ('dress_precision="f32"',
+                       dict(dress_precision="f32"))):
+        t0 = time.time()
+        s = ccsd.CCSD(NO, device)
+        res = s.solve(fock, q["mf_dict"], **mf, **kw)
+        wall = time.time() - t0
+        e, n64 = res["ccsd e"], len(res["e history"])
+        n32 = s.n_iterations_f32 if "mixed_precision" in kw else 0
+        err = abs(e - E_JAX_CCSD_NONCANONICAL)
+        check(err <= 1e-8 and abs(res["dE"]) <= 1e-10
+              and float(res["t1"].abs().max()) > 1e-4,
+              f"mf-CCSD {label} nP={q['nP']}: E={e:.13f} vs JAX "
+              f"{E_JAX_CCSD_NONCANONICAL}, dE {res['dE']:.1e}")
+        check("mixed_precision" not in kw or n32 >= 1,
+              f"mf-CCSD {label}: no f32 iteration")
+        ref = mf_walls["non-canonical"]
+        print(f"[{card}] mf-CCSD non-canonical nP={q['nP']} {label}: "
+              f"E={e:.13f}, |E - E_jax| = {err:.2e}, {n32} f32 + {n64} f64 "
+              f"iterations; wall {wall:.2f} s (phase 7, f64: "
+              f"{ref['wall']:.2f} s in {len(ref['e history'])} iterations)",
+              flush=True)
+        for k in mf_kernels:
+            want[k + "_f32"] = want.get(k + "_f32", 0) + n32
+            want[k] = want.get(k, 0) + n64
+        gathers = {"ovvv_gather": 4 * n64, "ovvv_gather_f32": 4 * n32,
+                   "ovvv_gather_diag": 2 * n64,
+                   "ovvv_gather_diag_f32": 2 * n32}
+        if "dress_precision" in kw:
+            # the corrections' gathers in f32, K2′ on the f32 error ring
+            gathers.update(ovvv_gather=0, ovvv_gather_f32=4 * n64)
+            want["ccsd_jacobi_diis"] -= n64
+            want["ccsd_jacobi_diis_f32_ring"] = n64
+        for k, v in gathers.items():
+            want[k] = want.get(k, 0) + v
+    return want
+
+
+def prec_phase(problems, q, results, mf_res, eom_cases, eom_walls, lih,
+               mols, device, card, launches, compare):
+    """Phase 25: the f32 kernels of the precision modes against their f32
+    twins and timed at nP=219, then the mixed EOM, the mixed CCD and the
+    CCSD modes, each path in a counted window whose launches must equal
+    what its solves imply.  Returns the kernels' times and bounds."""
+    import torch
+
+    t0 = time.time()
+    x = prec_inputs(q, eom_cases[1][2], 61)
+    errs, _ = compare_prec_kernels(x, q)
+    compare.append(errs)
+    t = time_prec_kernels(x, q)
+    b = prec_bounds(q)
+    del x
+    torch.cuda.empty_cache()
+    for name in PREC_KERNELS:
+        print(f"[{card}] nP={q['nP']} {name}: kernel {t[name][0]:.4f} ms, "
+              f"twin {t[name][1]:.4f} ms per call; bound {b[name][0]:.4f} "
+              f"ms ({b[name][1]}), the kernel at {b[name][0] / t[name][0]:.3f}"
+              " of it", flush=True)
+    tight = eom_tight(eom_cases, device)
+    counted_exactly("mixed EOM", lambda: eom_mixed(
+        eom_cases, tight, lih, eom_walls, device, card), launches)
+    counted_exactly("mixed CCD", lambda: ccd_mixed(
+        problems, results, device, card), launches)
+    counted_exactly("CCSD precision modes", lambda: ccsd_prec(
+        q, mols["LiH"], mf_res, device, card), launches)
+    for name in PREC_KERNELS:
+        check(sum(launches[w][name] for w in (
+            "mixed EOM", "mixed CCD", "CCSD precision modes")) > 0,
+              f"kernel {name} never launched on the precision-mode paths")
+    print(f"phase 25 (precision modes): {time.time() - t0:.2f} s",
+          flush=True)
+    return t, b
 
 
 def generic_seed(p5, V, T2, lih, device):
@@ -3674,10 +4192,11 @@ def main():
                   "shape")
             check(abs(e - E_JAX[c]) <= 1e-9,
                   f"nP={p['nP']}: E={e:.13f} vs JAX {E_JAX[c]}")
+            wall = time.time() - t0
             print(f"CCD nP={p['nP']}: E={e:.13f} in {n_it} iterations, "
-                  f"|E - E_jax|={abs(e - E_JAX[c]):.2e}, "
-                  f"{time.time() - t0:.2f} s", flush=True)
-            results[c] = (e, n_it, T)
+                  f"|E - E_jax|={abs(e - E_JAX[c]):.2e}, {wall:.2f} s",
+                  flush=True)
+            results[c] = (e, n_it, T, wall)
 
     launches = {"CCD": path_launches("CCD", run_ccd, CCD_KERNELS)}
     e57, it57 = results[5][:2]
@@ -3708,9 +4227,10 @@ def main():
     lih = lih_dressed(mols["LiH"], device)
     print(f"LiH CCSD + T1 dressing for EOM: {time.time() - t0:.2f} s",
           flush=True)
-    eom_roots = {}
+    eom_roots, eom_walls = {}, {}
     launches["EOM"] = path_launches(
-        "EOM", lambda: eom_roots.update(eom_runs(cases, lih, device)),
+        "EOM", lambda: eom_roots.update(eom_runs(cases, lih, device,
+                                                 eom_walls)),
         EOM_KERNELS)
     r_ccd, r_ccsd = (eom_roots[c[0]] for c in cases[1:])
     for label, r in (("CCD", r_ccd), ("CCSD", r_ccsd)):
@@ -3946,6 +4466,15 @@ def main():
     del mixed
     torch.cuda.empty_cache()
 
+    # phase 25: the ground-state and Davidson precision modes: their f32
+    # kernels against their f32 twins and timed at nP=219, then the mixed
+    # EOM (nP=57, nP=219, LiH), the mixed CCD (nP=57, nP=219) and the CCSD
+    # modes (LiH mixed; nP=219 mf-CCSD mixed and with f32 dressing), each
+    # path in a counted window
+    prec_t, prec_b = prec_phase(problems, q, results, ccsd_res, cases[:2],
+                                eom_walls, lih, mols, device, card,
+                                launches, compare)
+
     # phase 20: the generic FEAST kernel and one CIF step over the card's
     # sigma at nP=57, the adapters over the LiH sigma (the Davidson seeds
     # outside the counted window); phase 21: phase 12's FEAST with its
@@ -4049,10 +4578,13 @@ def main():
     La, R1, n2 = krylov_shapes[feast_label][:3]
     bounds = kernel_bounds(problems[14], q, {"La": La, "R1": R1, "n": n2,
                                              "m": 60}, ring_shape)
-    # the f32 kernels at the FEAST nP=57 lane shape (phase 24)
+    # the f32 kernels at the FEAST nP=57 lane shape (phase 24) and at
+    # nP=219 (phase 25)
     for name in F32_KERNELS:
         kernel_ms[name] = f32_t[feast_label][0][name]
         bounds[name] = f32_b[feast_label][name]
+    kernel_ms.update(prec_t)
+    bounds.update(prec_b)
     # the one PyTorch call of the same function, where there is one: for
     # K7 it computes the fused Krylov combine (its kernel time:
     # combine_ms); K7 also carries its three-pass floor and the RT nP=123

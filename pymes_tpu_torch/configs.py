@@ -4,10 +4,12 @@ Counterpart of ``pymes_tpu/configs.py`` with the same dataclasses, fields
 and defaults, so ``GroundStateConfig(**to_dict(jax_cfg))`` rebuilds a JAX
 package configuration here.  Each ``make*`` builds the port's solver on
 ``device``, the card unless the caller asks for the CPU; without a card,
-:func:`pymes_tpu_torch.config.resolve_device` raises.  The port's
-ground-state solvers are f64 only: ``mixed_precision=True`` raises (the
-FEAST/RT solvers take ``ls_precision="mixed"`` as an attribute, as in the
-JAX package).
+:func:`pymes_tpu_torch.config.resolve_device` raises.  As in the JAX
+package, ``GroundStateConfig.mixed_precision`` is carried and not applied
+by ``make_ccd``/``make_ccsd``: the caller hands it to ``solve`` (the
+precision modes are arguments of ``CCD.solve``/``CCSD.solve`` and
+attributes of the EOM and FEAST/RT solvers, ``precision`` and
+``ls_precision``).
 """
 
 from dataclasses import asdict, dataclass
@@ -26,14 +28,10 @@ class GroundStateConfig:
     is_dcd: bool = False          # distinguishable-cluster approximation
     is_dr_ccd: bool = False       # direct-ring (dRPA) channel only
     is_bruekner: bool = False     # quasi-particle energy updates
-    mixed_precision: bool = False  # not in the port's CCD/CCSD: f64 only
+    mixed_precision: bool = False  # f32 bulk + f64 polish schedule
     log_iterations: bool = False
 
     def _finish(self, s):
-        if self.mixed_precision:
-            raise NotImplementedError(
-                "the port's CCD/CCSD are f64 only: mixed_precision is not "
-                "ported")
         s.max_iter = self.max_iter
         s.dim_space = self.diis_dim
         s.log_iterations = self.log_iterations

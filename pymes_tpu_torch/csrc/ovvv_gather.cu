@@ -46,8 +46,11 @@
 //     d[q, r] = sum_j W[j, r] T1[S[j, q, r], j]
 //
 // i.e. einsum("jajb->ab") and einsum("jjab->ab") of the full gathers: it
-// writes nv^2 doubles instead of 17.6 MB, one thread an output, j summed in
-// order from 0 (products and sums rounded separately, no FMA).
+// writes nv^2 values instead of 17.6 MB, one thread an output, j summed in
+// order from 0 (products and sums rounded separately, no FMA).  It is a
+// template on the element type too: the f32 instance serves the dressing
+// of the f32 bulk of the mixed-precision CCSD (pymes_tpu/solver/
+// ccsd.py:803-816), on a plan whose weights W are cast.
 
 #include <cuda_runtime.h>
 
@@ -104,25 +107,44 @@ ovvv_gather_kernel(const Gather<T> g)
     }
 }
 
+// Products and sums rounded one at a time (no FMA contraction).
+__device__ __forceinline__ double mul_rn(double a, double b)
+{
+    return __dmul_rn(a, b);
+}
+__device__ __forceinline__ float mul_rn(float a, float b)
+{
+    return __fmul_rn(a, b);
+}
+__device__ __forceinline__ double add_rn(double a, double b)
+{
+    return __dadd_rn(a, b);
+}
+__device__ __forceinline__ float add_rn(float a, float b)
+{
+    return __fadd_rn(a, b);
+}
+
 // One thread an output (a, r) of the trace over the plan's j axis.
+template <typename T>
 __global__ void __launch_bounds__(THREADS)
-ovvv_diag_kernel(const int* __restrict__ S, const double* __restrict__ W,
-                 const double* __restrict__ T1, long long ss, long long sj,
-                 double* __restrict__ out, int na, int n1, int n2, int no,
+ovvv_diag_kernel(const int* __restrict__ S, const T* __restrict__ W,
+                 const T* __restrict__ T1, long long ss, long long sj,
+                 T* __restrict__ out, int na, int n1, int n2, int no,
                  int axis)
 {
     const int o = blockIdx.x * THREADS + threadIdx.x;
     if (o >= na * n2) return;
     const int a = o / n2, r = o - a * n2;
-    double acc = 0.0;
+    T acc = T(0);
     for (int j = 0; j < no; ++j) {
         const long long si = axis == 1
             ? (static_cast<long long>(a) * n1 + j) * n2 + r
             : (static_cast<long long>(j) * n1 + a) * n2 + r;
         const int s = S[si];
-        const double w = W[(axis == 1 ? a : j) * n2 + r];
-        const double t = s >= 0 ? T1[s * ss + j * sj] : 0.0;
-        acc = __dadd_rn(acc, __dmul_rn(t, w));
+        const T w = W[(axis == 1 ? a : j) * n2 + r];
+        const T t = s >= 0 ? T1[s * ss + j * sj] : T(0);
+        acc = add_rn(acc, mul_rn(t, w));
     }
     out[o] = acc;
 }
@@ -138,6 +160,19 @@ int gather(const int* S, const T* W, const T* T1, long long sb, long long ss,
                                           / (THREADS * EPT)),
                     (ncol + ct - 1) / ct);
     ovvv_gather_kernel<T><<<grid, THREADS, 0, stream>>>(g);
+    return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int diag(const int* S, const T* W, const T* T1, long long ss, long long sj,
+         T* out, int n0, int n1, int n2, int no, int axis,
+         cudaStream_t stream)
+{
+    const int na = axis == 1 ? n0 : n1;
+    if (na <= 0 || n2 <= 0) return static_cast<int>(cudaSuccess);
+    ovvv_diag_kernel<T><<<(na * n2 + THREADS - 1) / THREADS, THREADS, 0,
+                          stream>>>(S, W, T1, ss, sj, out, na, n1, n2, no,
+                                    axis);
     return static_cast<int>(cudaGetLastError());
 }
 
@@ -170,16 +205,21 @@ extern "C" int pymes_ovvv_gather_f32(const int* S, const float* W,
 
 // The fused trace: S (n0, n1, n2), W (n0, n2), T1 (nv, no) with strides
 // (ss, sj); axis 1 sums j over S's middle axis (out (n0, n2)), axis 0 over
-// its first (out (n1, n2)).
+// its first (out (n1, n2)); doubles (_f32: floats).
 extern "C" int pymes_ovvv_gather_diag(const int* S, const double* W,
                                       const double* T1, long long ss,
                                       long long sj, double* out, int n0,
                                       int n1, int n2, int no, int axis,
                                       cudaStream_t stream)
 {
-    const int na = axis == 1 ? n0 : n1;
-    if (na <= 0 || n2 <= 0) return static_cast<int>(cudaSuccess);
-    ovvv_diag_kernel<<<(na * n2 + THREADS - 1) / THREADS, THREADS, 0,
-                       stream>>>(S, W, T1, ss, sj, out, na, n1, n2, no, axis);
-    return static_cast<int>(cudaGetLastError());
+    return diag(S, W, T1, ss, sj, out, n0, n1, n2, no, axis, stream);
+}
+
+extern "C" int pymes_ovvv_gather_diag_f32(const int* S, const float* W,
+                                          const float* T1, long long ss,
+                                          long long sj, float* out, int n0,
+                                          int n1, int n2, int no, int axis,
+                                          cudaStream_t stream)
+{
+    return diag(S, W, T1, ss, sj, out, n0, n1, n2, no, axis, stream);
 }

@@ -32,10 +32,19 @@ A wrapper given a CUDA tensor launches its kernel (or raises); given a CPU
 tensor it runs the twin.  Each launch of a kernel adds one to its entry in
 :data:`LAUNCHES`, so a run can show that the main path went through it.
 
-K1, K4 (its gather), K5, K7 and K8 also take float32 operands, for the f32
+Every kernel but K9 also takes float32 operands, for the f32 phases of the
+port's precision modes: K1, K4 (its gather), K5, K7 and K8 for the f32
 Krylov solves of the FEAST/RT mixed-precision engine
-(``ls_precision="mixed"``): each has an f32 instantiation on the card and
-an f32 twin, and counts its f32 launches under its name + ``"_f32"``.
+(``ls_precision="mixed"``); K6 for the f32 seed phase of the
+mixed-precision Davidson (``EOM_CCSD.precision="mixed"``, with K1, K4 and
+K5 in its sigma); K2/K3 for the f32 bulk of the mixed-precision CCD and
+K2′/K3′ and K4's fused trace for that of the mixed-precision CCSD
+(``solve(mixed_precision=True)``, with K1, K4 and K5).  Each has an f32
+instantiation on the card and an f32 twin, refuses a mix of types
+(:func:`type_suffix`) and counts its f32 launches under its name +
+``"_f32"``.  K2′ has one mixed-type instance, f64 amplitudes with the f32
+DIIS error ring of the CCSD ``dress_precision="f32"`` (launches under
+``ccsd_jacobi_diis_f32_ring``).
 """
 
 import torch
@@ -46,7 +55,10 @@ LAUNCHES = {"block_ladder": 0, "ccd_jacobi_diis": 0, "ccd_mix_energy": 0,
             "davidson_residual": 0, "arnoldi_cgs2": 0, "shifted_precond": 0,
             "ring_step": 0, "block_ladder_f32": 0, "ovvv_gather_f32": 0,
             "pair_symmetrize_f32": 0, "arnoldi_cgs2_f32": 0,
-            "shifted_precond_f32": 0}
+            "shifted_precond_f32": 0, "davidson_residual_f32": 0,
+            "ccd_jacobi_diis_f32": 0, "ccd_mix_energy_f32": 0,
+            "ccsd_jacobi_diis_f32": 0, "ccsd_mix_energy_f32": 0,
+            "ccsd_jacobi_diis_f32_ring": 0, "ovvv_gather_diag_f32": 0}
 
 # the element types of the kernels with an f32 instantiation, and the
 # suffix of each type's library entries and LAUNCHES names
@@ -61,6 +73,15 @@ def type_suffix(what, *tensors):
         raise TypeError(f"{what} takes float64 or float32 tensors of one "
                         f"type, not {sorted(map(str, types))}")
     return SUFFIX[types.pop()]
+
+
+def tl_type(dtype):
+    """The Triton element type of a :data:`SUFFIX` type, for the Triton
+    kernels whose element type is a constexpr (Triton is imported here, at
+    a launch: the package imports where there is no Triton)."""
+    import triton.language as tl
+
+    return {torch.float64: tl.float64, torch.float32: tl.float32}[dtype]
 
 
 def reset_launches():

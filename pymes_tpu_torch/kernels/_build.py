@@ -131,9 +131,11 @@ def library():
             fn.argtypes = [vp, vp, vp, i64, i64, i64, i32, i32, vp, i64, i64,
                            i32, i32, vp]
             fn.restype = i32
-        lib.pymes_ovvv_gather_diag.argtypes = [vp, vp, vp, i64, i64, vp, i32,
-                                               i32, i32, i32, i32, vp]
-        lib.pymes_ovvv_gather_diag.restype = i32
+        for fn in (lib.pymes_ovvv_gather_diag,
+                   lib.pymes_ovvv_gather_diag_f32):
+            fn.argtypes = [vp, vp, vp, i64, i64, vp, i32, i32, i32, i32, i32,
+                           vp]
+            fn.restype = i32
         lib.pymes_ring_step.argtypes = [vp, i64, i64, vp, i64, vp, i64, i64,
                                         i32, i32, i32, i32, i32, vp, vp]
         lib.pymes_ring_step.restype = i32

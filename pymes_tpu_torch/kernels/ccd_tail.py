@@ -15,10 +15,18 @@ DIIS rings, split around the tiny bordered DIIS solve that runs in torch:
   the energy partials Σ T·V_ijab and Σ T·V_ijba.
 
 What bounds them on an H100: memory bandwidth — per element K2 moves 2
-reads + 2 writes + up to 5 ring reads of f64, K3 up to 6 ring reads + 2
-block reads + 1 write, and neither does any matrix work (hence Triton, with
-all arithmetic in ``tl.float64``).  Cross-block sums are per-block partials
-summed in torch, not atomics, so runs are deterministic.
+reads + 2 writes + up to 5 ring reads, K3 up to 6 ring reads + 2 block
+reads + 1 write, and neither does any matrix work (hence Triton).
+Cross-block sums are per-block partials summed in torch, not atomics, so
+runs are deterministic.
+
+Every operand is float64, or every one float32 for the f32 bulk of the
+mixed-precision CCD (``CCD.solve(mixed_precision=True)``,
+``pymes_tpu/solver/ccd.py:639-656``): the element type is the kernels'
+``DT`` constexpr, and all arithmetic follows it, the per-block partials of
+the Gram row and the energy included (the JAX f32 pass takes its sums in
+f32 too); the f32 launches count under ``ccd_jacobi_diis_f32`` and
+``ccd_mix_energy_f32``.
 
 Triton is imported inside the launching functions: the module must import
 where there is no Triton.
@@ -46,7 +54,8 @@ def _kernels():
         @triton.jit(do_not_specialize=["slot", "n_valid"])
         def jacobi_insert_kernel(R, T, eps_i, eps_a, shift, errs, amps,
                                  part, N, no, nv, slot, n_valid,
-                                 M: tl.constexpr, BLOCK: tl.constexpr):
+                                 M: tl.constexpr, BLOCK: tl.constexpr,
+                                 DT: tl.constexpr):
             pid = tl.program_id(0)
             offs = pid * BLOCK + tl.arange(0, BLOCK)
             mask = offs < N
@@ -72,11 +81,12 @@ def _kernels():
 
         @triton.jit(do_not_specialize=["n_valid"])
         def mix_energy_kernel(amps, coeff, T, V, Vx, part, N, n_valid,
-                              M: tl.constexpr, BLOCK: tl.constexpr):
+                              M: tl.constexpr, BLOCK: tl.constexpr,
+                              DT: tl.constexpr):
             pid = tl.program_id(0)
             offs = pid * BLOCK + tl.arange(0, BLOCK)
             mask = offs < N
-            acc = tl.zeros([BLOCK], dtype=tl.float64)
+            acc = tl.zeros([BLOCK], dtype=DT)
             for k in tl.static_range(M):
                 c = tl.load(coeff + k)
                 amp = tl.load(amps + k * N + offs,
@@ -93,12 +103,16 @@ def _kernels():
 
 
 def _check(*tensors):
+    """The shared refusals of the tail kernels: contiguous tensors of one
+    float type (float64 or float32) on one device.  Returns the type's
+    :data:`~pymes_tpu_torch.kernels.SUFFIX`."""
+    sfx = kernels.type_suffix("the tail kernels", *tensors)
     for t in tensors:
-        if t.dtype != torch.float64 or not t.is_contiguous():
-            raise TypeError("the tail kernels take contiguous float64 "
-                            "tensors")
+        if not t.is_contiguous():
+            raise TypeError("the tail kernels take contiguous tensors")
     if len({t.device for t in tensors}) != 1:
         raise ValueError("tensors lie on different devices")
+    return sfx
 
 
 def jacobi_twin(R, T, eps_i, eps_a, shift, errs, amps, slot, n_valid):
@@ -117,13 +131,14 @@ def jacobi_diis_insert(R, T, eps_i, eps_a, shift, errs, amps, slot: int,
                        n_valid: int, twin=False):
     """Jacobi step + DIIS ring insertion (K2 on a CUDA tensor, its twin on
     a CPU tensor or with ``twin=True``).  ``R``, ``T``: (no, no, nv, nv);
-    rings (m, N).  Writes ``errs[slot] = dT``, ``amps[slot] = T + dT`` and
-    returns the Gram row Re⟨errs[k], dT⟩ (m,), zero past ``n_valid``."""
+    rings (m, N), all float64 or all float32.  Writes ``errs[slot] = dT``,
+    ``amps[slot] = T + dT`` and returns the Gram row Re⟨errs[k], dT⟩ (m,),
+    zero past ``n_valid``."""
     if not kernels.check_device(R) or twin:
         return jacobi_twin(R, T, eps_i, eps_a, shift, errs, amps, slot,
                            n_valid)
     R = R.contiguous()  # a sum with the ladder's strided view may not be
-    _check(R, T, eps_i, eps_a, errs, amps)
+    sfx = _check(R, T, eps_i, eps_a, errs, amps)
     k2, _ = _kernels()
     m, N = errs.shape
     no, nv = eps_i.shape[0], eps_a.shape[0]
@@ -132,11 +147,13 @@ def jacobi_diis_insert(R, T, eps_i, eps_a, shift, errs, amps, slot: int,
         raise ValueError("ring/amplitude sizes do not fit the kernel")
     n_blocks = -(-N // BLOCK)
     part = torch.empty((n_blocks, m), dtype=R.dtype, device=R.device)
-    # the shift goes in as an f64 tensor: Triton passes a Python float as f32
+    # the shift goes in as a tensor of R's type: Triton passes a Python
+    # float as f32
     shift_t = torch.full((1,), float(shift), dtype=R.dtype, device=R.device)
     k2[(n_blocks,)](R, T, eps_i, eps_a, shift_t, errs, amps, part, N,
-                    no, nv, int(slot), int(n_valid), M=m, BLOCK=BLOCK)
-    kernels.LAUNCHES["ccd_jacobi_diis"] += 1
+                    no, nv, int(slot), int(n_valid), M=m, BLOCK=BLOCK,
+                    DT=kernels.tl_type(R.dtype))
+    kernels.LAUNCHES["ccd_jacobi_diis" + sfx] += 1
     return part.sum(dim=0)
 
 
@@ -150,11 +167,12 @@ def mix_energy_twin(amps, coeff, n_valid, T, V, Vx):
 def diis_mix_energy(amps, coeff, n_valid: int, T, V, Vx, twin=False):
     """T ← Σ_k coeff[k] amps[k] (in place) and the CCD energy pieces
     ``(e_dir, e_exc) = (2 Σ T·V_ijab, −Σ T·V_ijba)`` (K3 on a CUDA tensor,
-    its twin on a CPU tensor or with ``twin=True``)."""
+    its twin on a CPU tensor or with ``twin=True``); all float64 or all
+    float32."""
     if not kernels.check_device(T) or twin:
         s_dir, s_exc = mix_energy_twin(amps, coeff, n_valid, T, V, Vx)
     else:
-        _check(amps, coeff, T, V, Vx)
+        sfx = _check(amps, coeff, T, V, Vx)
         _, k3 = _kernels()
         m, N = amps.shape
         if (T.numel() != N or V.numel() != N or Vx.numel() != N
@@ -163,7 +181,7 @@ def diis_mix_energy(amps, coeff, n_valid: int, T, V, Vx, twin=False):
         n_blocks = -(-N // BLOCK)
         part = torch.empty((n_blocks, 2), dtype=T.dtype, device=T.device)
         k3[(n_blocks,)](amps, coeff, T, V, Vx, part, N, int(n_valid),
-                        M=m, BLOCK=BLOCK)
-        kernels.LAUNCHES["ccd_mix_energy"] += 1
+                        M=m, BLOCK=BLOCK, DT=kernels.tl_type(T.dtype))
+        kernels.LAUNCHES["ccd_mix_energy" + sfx] += 1
         s_dir, s_exc = part.sum(dim=0)
     return 2.0 * s_dir, -1.0 * s_exc

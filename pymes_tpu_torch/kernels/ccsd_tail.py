@@ -25,9 +25,21 @@ runs in torch:
 
 What bounds them on an H100: memory bandwidth, as for K2/K3
 (:mod:`.ccd_tail`); the T1 segment adds 0.07 % of the elements at nP=219.
-All arithmetic is ``tl.float64``; cross-block sums are per-block partials
-summed in torch (deterministic).  Triton is imported inside the launching
-functions: the module must import where there is no Triton.
+Cross-block sums are per-block partials summed in torch (deterministic).
+
+Element types.  Every operand is float64, or every one float32 for the f32
+bulk of the mixed-precision CCSD (``CCSD.solve(mixed_precision=True)``,
+``pymes_tpu/solver/ccsd.py:803-816``): the element type is the kernels'
+``DT`` constexpr and all arithmetic follows it, the partials included
+(launches counted under ``ccsd_jacobi_diis_f32`` and
+``ccsd_mix_energy_f32``).  K2′ has one more instance, for the f32 DIIS
+error ring of ``dress_precision="f32"`` (``pymes_tpu/mixer/diis.py:
+83-98``, ``:115-137``): f64 residuals, amplitudes and amplitude ring, dT
+in f64, its f32 rounding written into the f32 error ring (the ring's type
+is the ``ET`` constexpr) and the Gram row taken over the f32 ring in f32,
+as the JAX ``diis.mix`` takes it (``ccsd_jacobi_diis_f32_ring``).  Triton
+is imported inside the launching functions: the module must import where
+there is no Triton.
 """
 
 import torch
@@ -52,7 +64,8 @@ def _kernels():
         def ccsd_jacobi_insert_kernel(R1, T1, R2, T2, eps_i, eps_a, shift,
                                       errs, amps, part, N1, N, no, nv, slot,
                                       n_valid, M: tl.constexpr,
-                                      BLOCK: tl.constexpr):
+                                      BLOCK: tl.constexpr, DT: tl.constexpr,
+                                      ET: tl.constexpr):
             pid = tl.program_id(0)
             offs = pid * BLOCK + tl.arange(0, BLOCK)
             mask = offs < N
@@ -80,19 +93,21 @@ def _kernels():
                          tl.load(T2 + o2, mask=m2, other=0.0))
             D = tl.where(seg1, D1, D2)
             dT = tl.where(mask, r / (D + tl.load(shift)), 0.0)
-            tl.store(errs + slot * N + offs, dT, mask=mask)
+            # the error as the ring holds it (ET = DT: dT itself)
+            de = dT.to(ET)
+            tl.store(errs + slot * N + offs, de, mask=mask)
             tl.store(amps + slot * N + offs, t + dT, mask=mask)
             for k in tl.static_range(M):
                 e = tl.load(errs + k * N + offs,
                             mask=mask & (k < n_valid) & (k != slot),
                             other=0.0)
-                e = tl.where(k == slot, dT, e)
-                tl.store(part + pid * M + k, tl.sum(e * dT, axis=0))
+                e = tl.where(k == slot, de, e)
+                tl.store(part + pid * M + k, tl.sum(e * de, axis=0))
 
         @triton.jit(do_not_specialize=["n_valid"])
         def ccsd_mix_energy_kernel(amps, coeff, T1, T2, F1, V, Vx, part, N1,
                                    N, no, nv, n_valid, M: tl.constexpr,
-                                   BLOCK: tl.constexpr):
+                                   BLOCK: tl.constexpr, DT: tl.constexpr):
             pid = tl.program_id(0)
             offs = pid * BLOCK + tl.arange(0, BLOCK)
             mask = offs < N
@@ -106,9 +121,9 @@ def _kernels():
             i = o2 // (nv * nv * no)
             ai = a * no + i      # flat index of T1[a, i]
             bj = b * no + j      # flat index of T1[b, j]
-            acc = tl.zeros([BLOCK], dtype=tl.float64)
-            t1a = tl.zeros([BLOCK], dtype=tl.float64)
-            t1b = tl.zeros([BLOCK], dtype=tl.float64)
+            acc = tl.zeros([BLOCK], dtype=DT)
+            t1a = tl.zeros([BLOCK], dtype=DT)
+            t1b = tl.zeros([BLOCK], dtype=DT)
             for k in tl.static_range(M):
                 c = tl.load(coeff + k)
                 live = k < n_valid
@@ -142,7 +157,9 @@ def _fits(T1, T2, m, N):
 
 def jacobi_twin(R1, T1, R2, T2, eps_i, eps_a, shift, errs, amps, slot,
                 n_valid):
-    """Plain twin of K2′; returns the Gram row (m,), zero past n_valid."""
+    """Plain twin of K2′; returns the Gram row (m,) in the error ring's
+    type, zero past n_valid (an f32 ring holds dT rounded to f32, and the
+    row is taken over it in f32)."""
     dT1 = R1 / (eps_i[None, :] - eps_a[:, None] + shift)
     D2 = (eps_i[:, None, None, None] + eps_i[None, :, None, None]
           - eps_a[None, None, :, None] - eps_a[None, None, None, :])
@@ -151,7 +168,7 @@ def jacobi_twin(R1, T1, R2, T2, eps_i, eps_a, shift, errs, amps, slot,
     errs[slot] = dT
     amps[slot] = torch.cat([T1.reshape(-1), T2.reshape(-1)]) + dT
     row = errs.new_zeros(errs.shape[0])
-    row[:n_valid] = (errs[:n_valid] * dT[None, :]).sum(dim=1)
+    row[:n_valid] = (errs[:n_valid] * errs[slot][None, :]).sum(dim=1)
     return row
 
 
@@ -162,12 +179,22 @@ def jacobi_diis_insert(R1, T1, R2, T2, eps_i, eps_a, shift, errs, amps,
     ``T1``: (nv, no); ``R2``, ``T2``: (no, no, nv, nv); rings (m, N) with
     N = nv·no + no²nv².  Writes ``errs[slot] = dT``,
     ``amps[slot] = T + dT`` and returns the Gram row Re⟨errs[k], dT⟩ (m,),
-    zero past ``n_valid``."""
+    zero past ``n_valid``, in the error ring's type.  Everything float64,
+    everything float32, or float64 with a float32 error ring ``errs``
+    (its own instance, launches counted under
+    ``ccsd_jacobi_diis_f32_ring``)."""
     if not kernels.check_device(R2) or twin:
         return jacobi_twin(R1, T1, R2, T2, eps_i, eps_a, shift, errs, amps,
                            slot, n_valid)
     R1, R2 = R1.contiguous(), R2.contiguous()
-    _check(R1, T1, R2, T2, eps_i, eps_a, errs, amps)
+    sfx = _check(R1, T1, R2, T2, eps_i, eps_a, amps)
+    if _check(errs) != sfx:
+        if amps.dtype != torch.float64:
+            raise TypeError("K2' takes an f32 error ring only beside f64 "
+                            "amplitudes")
+        sfx = "_f32_ring"
+    if errs.device != amps.device:
+        raise ValueError("tensors lie on different devices")
     m, N = errs.shape
     no, nv = _fits(T1, T2, m, N)
     if (R1.shape != T1.shape or R2.shape != T2.shape
@@ -176,14 +203,16 @@ def jacobi_diis_insert(R1, T1, R2, T2, eps_i, eps_a, shift, errs, amps,
         raise ValueError("ring/amplitude sizes do not fit the kernel")
     k2, _ = _kernels()
     n_blocks = -(-N // BLOCK)
-    part = torch.empty((n_blocks, m), dtype=R2.dtype, device=R2.device)
-    # the shift goes in as an f64 tensor: Triton passes a Python float as f32
+    part = torch.empty((n_blocks, m), dtype=errs.dtype, device=R2.device)
+    # the shift goes in as a tensor of R2's type: Triton passes a Python
+    # float as f32
     shift_t = torch.full((1,), float(shift), dtype=R2.dtype,
                          device=R2.device)
     k2[(n_blocks,)](R1, T1, R2, T2, eps_i, eps_a, shift_t, errs, amps, part,
                     T1.numel(), N, no, nv, int(slot), int(n_valid), M=m,
-                    BLOCK=BLOCK)
-    kernels.LAUNCHES["ccsd_jacobi_diis"] += 1
+                    BLOCK=BLOCK, DT=kernels.tl_type(R2.dtype),
+                    ET=kernels.tl_type(errs.dtype))
+    kernels.LAUNCHES["ccsd_jacobi_diis" + sfx] += 1
     return part.sum(dim=0)
 
 
@@ -205,12 +234,12 @@ def diis_mix_energy(amps, coeff, n_valid: int, T1, T2, F1, V, Vx,
     ``(e_1b, e_dir, e_exc) = (2 Σ f_ia T1[a,i], 2 Σ T_eff·V_ijab,
     −Σ T_eff·V_ijba)`` with ``F1 = f_ovᵀ`` (nv, no) and
     T_eff[i,j,a,b] = T2 + T1[a,i]·T1[b,j] (K3′ on a CUDA tensor, its twin
-    on a CPU tensor or with ``twin=True``)."""
+    on a CPU tensor or with ``twin=True``); all float64 or all float32."""
     if not kernels.check_device(T2) or twin:
         s_1b, s_dir, s_exc = mix_energy_twin(amps, coeff, n_valid, T1, T2,
                                              F1, V, Vx)
     else:
-        _check(amps, coeff, T1, T2, F1, V, Vx)
+        sfx = _check(amps, coeff, T1, T2, F1, V, Vx)
         m, N = amps.shape
         no, nv = _fits(T1, T2, m, N)
         if (F1.shape != T1.shape or V.shape != T2.shape
@@ -220,7 +249,8 @@ def diis_mix_energy(amps, coeff, n_valid: int, T1, T2, F1, V, Vx,
         n_blocks = -(-N // BLOCK)
         part = torch.empty((n_blocks, 3), dtype=T2.dtype, device=T2.device)
         k3[(n_blocks,)](amps, coeff, T1, T2, F1, V, Vx, part, T1.numel(), N,
-                        no, nv, int(n_valid), M=m, BLOCK=BLOCK)
-        kernels.LAUNCHES["ccsd_mix_energy"] += 1
+                        no, nv, int(n_valid), M=m, BLOCK=BLOCK,
+                        DT=kernels.tl_type(T2.dtype))
+        kernels.LAUNCHES["ccsd_mix_energy" + sfx] += 1
         s_1b, s_dir, s_exc = part.sum(dim=0)
     return 2.0 * s_1b, 2.0 * s_dir, -1.0 * s_exc

@@ -20,6 +20,14 @@ rows, accumulates Σ U·v and Σ W·v for all k columns in registers, and
 writes the k preconditioned residuals.  ``m`` is a runtime argument, so the
 zero rows past it are never read.
 
+Every operand is float64, or every one float32 for the f32 seed phase of
+the mixed-precision Davidson (``EOM_CCSD.precision="mixed"``,
+``pymes_tpu/solver/eom_ccsd.py:969-1002``): the element type is the
+kernel's ``DT`` constexpr, and the sums, the clamp and the divide follow
+it, as the JAX f32 phase computes them.  The f32 launches count under
+``davidson_residual_f32``.  In f32 the pass moves half the bytes: 35·N·4
+bytes at nP=219 (m = 16, k = 2).
+
 Triton is imported inside the launching function: the module must import
 where there is no Triton.
 """
@@ -42,14 +50,15 @@ def _kernel():
 
         @triton.jit(do_not_specialize=["m"])
         def davidson_residual_kernel(U, W, v, e, diag, clamp, R, N, m, k,
-                                     KP: tl.constexpr, BLOCK: tl.constexpr):
+                                     KP: tl.constexpr, BLOCK: tl.constexpr,
+                                     DT: tl.constexpr):
             pid = tl.program_id(0)
             offs = pid * BLOCK + tl.arange(0, BLOCK)
             cmask = offs < N
             kk = tl.arange(0, KP)
             kmask = kk < k
-            acc_u = tl.zeros([KP, BLOCK], dtype=tl.float64)
-            acc_w = tl.zeros([KP, BLOCK], dtype=tl.float64)
+            acc_u = tl.zeros([KP, BLOCK], dtype=DT)
+            acc_w = tl.zeros([KP, BLOCK], dtype=DT)
             for l in range(m):
                 vl = tl.load(v + l * k + kk, mask=kmask, other=0.0)
                 u = tl.load(U + l * N + offs, mask=cmask, other=0.0)
@@ -75,7 +84,8 @@ def davidson_residual_twin(U, W, v, e, diag, m):
     Uv = v[:m].t() @ U[:m]
     Wv = v[:m].t() @ W[:m]
     denom = e[:, None] - diag[None, :]
-    c = torch.full_like(denom, CLAMP)   # f64 (a bare scalar pair is f32)
+    c = torch.full_like(denom, CLAMP)   # denom's type (a bare scalar pair
+    #                                     is f32)
     denom = torch.where(denom.abs() < CLAMP, torch.where(denom < 0, -c, c),
                         denom)
     return (Wv - e[:, None] * Uv) / denom
@@ -84,13 +94,15 @@ def davidson_residual_twin(U, W, v, e, diag, m):
 def davidson_residual(U, W, v, e, diag, m: int, twin=False):
     """Preconditioned residuals (k, N) of the k Ritz pairs ``v`` (max_dim,
     k) with values ``e`` (k,) against the H̄ diagonal ``diag`` (N,), reading
-    the first ``m`` rows of ``U`` and ``W`` (max_dim, N): K6 on a CUDA
-    tensor, the twin on a CPU tensor or with ``twin=True``."""
+    the first ``m`` rows of ``U`` and ``W`` (max_dim, N), all float64 or
+    all float32: K6 on a CUDA tensor, the twin on a CPU tensor or with
+    ``twin=True``."""
     if not kernels.check_device(U) or twin:
         return davidson_residual_twin(U, W, v, e, diag, m)
+    sfx = kernels.type_suffix("the Davidson residual", U, W, v, e, diag)
     for t in (U, W, v, e, diag):
-        if t.dtype != torch.float64 or not t.is_contiguous():
-            raise TypeError("the Davidson residual takes contiguous float64 "
+        if not t.is_contiguous():
+            raise TypeError("the Davidson residual takes contiguous "
                             "tensors")
     if len({t.device for t in (U, W, v, e, diag)}) != 1:
         raise ValueError("tensors lie on different devices")
@@ -102,9 +114,11 @@ def davidson_residual(U, W, v, e, diag, m: int, twin=False):
         raise ValueError("Davidson buffer shapes do not fit the kernel")
     R = torch.empty((k, N), dtype=U.dtype, device=U.device)
     KP = max(1 << (k - 1).bit_length(), 2)
-    # the clamp goes in as an f64 tensor: Triton takes a float literal as f32
+    # the clamp goes in as a tensor of U's type: Triton takes a float
+    # literal as f32
     clamp = torch.full((1,), CLAMP, dtype=U.dtype, device=U.device)
     _kernel()[(-(-N // BLOCK),)](U, W, v, e, diag, clamp, R, N, int(m), k,
-                                 KP=KP, BLOCK=BLOCK)
-    kernels.LAUNCHES["davidson_residual"] += 1
+                                 KP=KP, BLOCK=BLOCK,
+                                 DT=kernels.tl_type(U.dtype))
+    kernels.LAUNCHES["davidson_residual" + sfx] += 1
     return R

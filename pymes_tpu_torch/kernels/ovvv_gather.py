@@ -14,7 +14,9 @@ float32 for the f32 sigma of the FEAST/RT mixed-precision engine (an f32
 instantiation of the same kernel, on a plan whose weights W are cast).
 :func:`ovvv_gather_diag` fuses the G_vv trace of the dressing
 (``einsum("jajb->ab")`` / ``einsum("jjab->ab")`` of a full gather) and
-writes nv² doubles; it is float64 only.
+writes nv² values; it takes float64, or float32 for the dressing of the
+f32 bulk of the mixed-precision CCSD (its own f32 instantiation, launches
+counted under ``ovvv_gather_diag_f32``).
 
 The kernel (``pymes_tpu_torch/csrc/ovvv_gather.cu``, built with nvcc for
 sm_90a at first use) is bound by its output write; its source says how the
@@ -155,13 +157,13 @@ def ovvv_gather_diag(S, W, T1, axis, twin=False):
     """``d[a, r] = Σ_j W · T1[S, j]`` over the plan's occupied axis ``axis``
     of S (1: ``d[p,r] = Σ_j W[p,r] T1[S[p,j,r], j]``; 0: ``d[q,r] = Σ_j
     W[j,r] T1[S[j,q,r], j]``): K4's diagonal entry on a CUDA tensor, the
-    twin on a CPU tensor or with ``twin=True``.  ``T1`` (nv, no)."""
+    twin on a CPU tensor or with ``twin=True``.  ``T1`` (nv, no); W and T1
+    both f64 or both f32."""
     if axis not in _DIAG_SPEC:
         raise ValueError(f"axis {axis}: the trace runs over S's axis 0 or 1")
     if twin or not kernels.check_device(T1):
         return ovvv_gather_diag_twin(S, W, T1, axis)
-    if _refuse(S, W, T1):
-        raise TypeError("the fused trace takes float64 T1 and weights")
+    sfx = _refuse(S, W, T1)
     if T1.dim() != 2 or S.shape[axis] != T1.shape[1]:
         raise ValueError(f"S {tuple(S.shape)} axis {axis} does not run over "
                          f"the {T1.shape[-1]} columns of T1 (nv, no)")
@@ -171,11 +173,12 @@ def ovvv_gather_diag(S, W, T1, axis, twin=False):
     if out.numel() == 0:
         return out
     Wc = W.contiguous()
-    rc = _build.launch(T1.device, _build.library().pymes_ovvv_gather_diag,
+    rc = _build.launch(T1.device, getattr(_build.library(),
+                                          "pymes_ovvv_gather_diag" + sfx),
                        S.data_ptr(), Wc.data_ptr(), T1.data_ptr(),
                        T1.stride(0), T1.stride(1), out.data_ptr(), n0, n1,
                        n2, T1.shape[1], axis)
     if rc != 0:
         raise RuntimeError(f"ovvv_gather_diag launch failed: cudaError {rc}")
-    kernels.LAUNCHES["ovvv_gather_diag"] += 1
+    kernels.LAUNCHES["ovvv_gather_diag" + sfx] += 1
     return out

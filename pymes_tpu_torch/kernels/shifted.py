@@ -144,19 +144,13 @@ def _row_sum_kernel():
     return _ROW_SUM
 
 
-def _tl_type(dtype):
-    import triton.language as tl
-
-    return {torch.float64: tl.float64, torch.float32: tl.float32}[dtype]
-
-
 def row_sums(P):
     """Σ over the columns of each row of the partials P (La, nch) in a
     fixed order (the residual mode's norms), on the card."""
     La, nch = P.shape
     out = torch.empty((La,), dtype=P.dtype, device=P.device)
     _row_sum_kernel()[(La,)](P, out, nch, RC=RED_ROWS,
-                             DT=_tl_type(P.dtype))
+                             DT=kernels.tl_type(P.dtype))
     return out
 
 
@@ -238,7 +232,7 @@ def shifted_precond(H1, H2, X, zr, zi, diag, dt=0.0, rt=False, mode="apply",
     _kernel()[(nblk, La)](H1, H2, X, X if B is None else B, zr, zi, diag,
                           consts, out, P, N, n1, nblk, RT=bool(rt),
                           MODE=MODES.index(mode), BLOCK=BLOCK,
-                          DT=_tl_type(X.dtype))
+                          DT=kernels.tl_type(X.dtype))
     kernels.LAUNCHES["shifted_precond" + sfx] += 1
     if mode != "residual":
         return out

@@ -33,8 +33,18 @@ With ``ring_mesh`` the JAX package's default loop is the abij layout
 (``pymes_tpu/solver/ccd.py:617-621``); the port keeps its ijab loop, whose
 math is identical (``tests/test_ccd_layout.py``).
 
-Not ported: the ``abij`` loop layout, the Ozaki/sliced contraction modes
-and mixed precision.
+``CCD.solve(mixed_precision=True)`` is the JAX package's mixed schedule
+(``pymes_tpu/solver/ccd.py:639-656``): the bulk of the fixed point runs in
+f32 on the f32 copy of the Fock, the blocks (the ladder plan's sector
+blocks, a cut ``abcd`` piece by piece) and T to |dE| < max(1e-5,
+``delta_e``), its GEMMs at full f32 (TF32 off) and its kernels in their
+f32 instantiations (K1, K2/K3, K5), and the f64 solve polishes from the
+f32 amplitudes.  Like the JAX f32 pass it takes no ``ring_mesh``: a cut
+``abcd`` runs its f32 pass tensor-parallel.  ``ccd_solve`` and the DIIS
+take the amplitudes' type throughout.
+
+Not ported: the ``abij`` loop layout and the Ozaki/sliced contraction
+modes.
 """
 
 from typing import NamedTuple
@@ -344,7 +354,8 @@ class CCD:
         return torch.as_tensor(x, dtype=DTYPE, device=self.device)
 
     def solve(self, t_fock_pq, t_V_pqrs, level_shift=0.0, amps=None,
-              ring_mesh=None, ring_axis="a", **kwargs):
+              ring_mesh=None, ring_axis="a", mixed_precision=False,
+              **kwargs):
         max_iter = int(kwargs.get("max_iter", self.max_iter))
         delta_e = float(kwargs.get("delta_e", self.delta_e))
         no = self.no
@@ -375,6 +386,21 @@ class CCD:
                            level=1)
         if amps is not None:
             t_T_abij = self._on_device(amps)
+        if mixed_precision and t_T_abij.dtype == torch.float64:
+            from pymes_tpu_torch.solver.feast_eom_ccsd import (
+                _cast_f32, full_f32_matmul)
+            f32 = _cast_f32((t_fock_pq, blocks, t_T_abij))
+            with full_f32_matmul():
+                _, T32, _, _, _, it32, _ = ccd_solve(
+                    *f32[:2], no, f32[2], level_shift=level_shift,
+                    delta_e=max(1e-5, delta_e), max_iter=max_iter,
+                    is_dcd=self.is_dcd, is_diis=self.is_diis,
+                    is_bruekner=self.is_bruekner, dim_space=self.dim_space,
+                    is_dr_ccd=self.is_dr_ccd)
+            print_logging_info(
+                "mixed precision: {} f32 iterations".format(it32), level=1)
+            self.n_iterations_f32 = it32
+            t_T_abij = T32.double()
 
         e, T, eps_i, eps_a, dE, n_iter, e_hist = ccd_solve(
             t_fock_pq, blocks, no, t_T_abij, level_shift=level_shift,

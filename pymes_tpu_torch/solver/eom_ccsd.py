@@ -23,13 +23,28 @@ The m×m eigenproblem, the QR of the Ritz rotation and the maximum-overlap
 (MOM) matching stay in host numpy, exactly as in the JAX package.  On a
 CPU tensor every kernel runs its plain twin.
 
-The default is the JAX package's f64 path with ``root_tracking="guess"``
-(MOM), which is what its own f64 polish runs.  Not ported: the ``"mixed"``
-precision pipeline (an f32 seed phase for the TPU's emulated f64; it comes
-back only if a run on the card shows that the f64 path from unit-vector
-guesses leaves the physical basin), the contraction modes and Ozaki slices
-(``sliced``, ``preslice_sigma_hbar``), and the power-of-two padding of the
-trial batch (it limited XLA compiles).
+``precision`` takes the JAX package's two pipelines
+(``pymes_tpu/solver/eom_ccsd.py:803-810``, ``:962-1013``).  "f64" is the
+JAX package's f64 path with ``root_tracking="guess"`` (MOM), which is what
+its own f64 polish runs.  "mixed" first runs an f32 seed phase: a plain
+solver on the f32 copy of f, the operator and T2 (``_cast_f32``: the f64
+leaves, the ladder plan through ``cast_plan``, the OVVV weights), MOM
+tracking, at most 100 iterations to max(1e-4, ``e_epsilon``), its GEMMs at
+full f32 (TF32 off) and its kernels in their f32 instantiations (K1, K4, K5
+in the sigma, K6 in the residual pass); dead rows there are those below
+``_F32_DEAD`` (3e-6), the f32 rounding floor.  Its Ritz vectors then seed
+the f64 polish (``_seed``: U's first rows are the Q of their QR, and MOM
+starts from R's columns), which converges to ``e_epsilon`` as the f64 path
+does.  The mixed pipeline runs, as in the JAX package, only in the
+fixed-shape solver, from no seed, on an f64 Fock, with the built-in
+``_batched_sigma``; the tiny spaces of ``_solve_dynamic`` stay f64.  The
+port's default stays "f64" (the JAX package's is "mixed"): which is faster
+on the H100 is for the card's times to decide, as for the FEAST/RT engine,
+whose f32 step cost 0.68-0.87 of the f64 one there.
+
+Not ported: the contraction modes and Ozaki slices (``sliced``,
+``preslice_sigma_hbar``), and the power-of-two padding of the trial batch
+(it limited XLA compiles).
 """
 
 import time
@@ -44,8 +59,17 @@ from pymes_tpu_torch.log import print_logging_info, print_title
 from pymes_tpu_torch.ops import ueg_ladder
 from pymes_tpu_torch.ops.ueg_ladder import BlockLadder
 
-# dead-direction threshold of an orthogonalised f64 residual row
+# dead-direction threshold of an orthogonalised residual row: f64, and f32
+# (the f32 phase of the mixed pipeline: a residual orthogonalised down to
+# the f32 rounding floor is noise, and normalising it poisons the subspace;
+# pymes_tpu/solver/eom_ccsd.py:671-676)
 _DEAD = 1e-10
+_F32_DEAD = 3e-6
+PRECISIONS = ("f64", "mixed")
+
+
+def _dead(dtype):
+    return _DEAD if dtype == torch.float64 else _F32_DEAD
 
 
 class HbarIntermediates(NamedTuple):
@@ -556,8 +580,10 @@ def _rotate(U, v):
 def _orth_append(U, R):
     """Orthonormalise the k candidate rows R against all rows of U (its
     invalid rows are zero) by CGS2, then among themselves by an unrolled
-    MGS; rows whose remaining norm is ≤ 1e-10 are zeroed.  Returns
-    (R_orth, norms) (``eom_ccsd.py:657``)."""
+    MGS; rows whose remaining norm is at most the dead-row threshold of
+    U's type (1e-10, f32 3e-6) are zeroed.  Returns (R_orth, norms)
+    (``eom_ccsd.py:657``)."""
+    tiny = _dead(U.dtype)
     for _ in range(2):
         R = R - (R @ U.t()) @ U
     rows = []
@@ -566,7 +592,7 @@ def _orth_append(U, R):
         for j in range(i):
             row = row - torch.dot(rows[j], row) * rows[j]
         norm = torch.sqrt(torch.dot(row, row))
-        rows.append(torch.where(norm > _DEAD, row / norm,
+        rows.append(torch.where(norm > tiny, row / norm,
                                 torch.zeros_like(row)))
     R = torch.stack(rows)
     return R, torch.sqrt((R * R).sum(dim=1))
@@ -616,7 +642,8 @@ def _davidson_fused_step(sigma, U, W, host_pack, diag_vec, m_res, m,
     R_orth, norms = _orth_append(U, R)
     if m + R.shape[0] > max_dim:
         raise ValueError("Davidson append past max_dim")
-    idx = torch.argsort((norms <= _DEAD).to(torch.int32), stable=True)
+    idx = torch.argsort((norms <= _dead(U.dtype)).to(torch.int32),
+                        stable=True)
     _gather_append(U, R_orth, idx, m)
     sigma(U[m:m + idx.shape[0]], W, m)
     out = U.new_zeros((max_dim + 1, max_dim))
@@ -633,8 +660,11 @@ class EOM_CCSD:
     roots (numpy); the Ritz vectors land in ``u_singles``/``u_doubles``.
     ``root_tracking="guess"`` (the default) selects the Ritz pairs by
     maximum overlap with the previous iteration's (MOM); ``None`` selects
-    the lowest real parts.  ``twin=True`` runs K1, K4, K5 and K6 through
-    their plain twins (on-card comparison)."""
+    the lowest real parts.  ``precision``: "f64" (the default) or "mixed"
+    (an f32 seed phase, then the f64 polish; the module docstring), whose
+    f32 phase leaves its iterations in ``n_iterations_f32``.
+    ``twin=True`` runs K1, K4, K5 and K6 through their plain twins
+    (on-card comparison)."""
 
     def __init__(self, no, device, n_excit=3):
         self.algo_name = "EOM-CCSD"
@@ -651,6 +681,7 @@ class EOM_CCSD:
         self.e_epsilon = 1e-8
         self.max_iter = 500
         self.root_tracking = "guess"
+        self.precision = "f64"
         self.twin = False
 
     # --- packing helpers --------------------------------------------------
@@ -711,12 +742,16 @@ class EOM_CCSD:
         return self._hbar
 
     # --- inputs -----------------------------------------------------------
-    def _on_device(self, x):
+    def _on_device(self, x, dtype=DTYPE):
+        """``x`` (a tensor or numpy array) on the solver's device in
+        ``dtype``: f64 for the inputs of :meth:`solve`, the operator's type
+        for what the Davidson makes of it (f32 in the mixed pipeline's
+        seed phase)."""
         if x is None or not isinstance(x, (torch.Tensor, np.ndarray)):
             return x
         if isinstance(x, np.ndarray) and not x.flags.writeable:
             x = np.array(x)
-        return torch.as_tensor(x, dtype=DTYPE, device=self.device)
+        return torch.as_tensor(x, dtype=dtype, device=self.device)
 
     def _operator_on_device(self, dict_t_V):
         out = {}
@@ -729,8 +764,10 @@ class EOM_CCSD:
 
     def _diag(self, f, dict_t_V, T2):
         return torch.cat([
-            self._on_device(self.get_diag_singles(f, dict_t_V, T2)).ravel(),
-            self._on_device(self.get_diag_doubles(f, dict_t_V, T2)).ravel()])
+            self._on_device(self.get_diag_singles(f, dict_t_V, T2),
+                            f.dtype).ravel(),
+            self._on_device(self.get_diag_doubles(f, dict_t_V, T2),
+                            f.dtype).ravel()])
 
     # --- Davidson ---------------------------------------------------------
     @staticmethod
@@ -772,6 +809,9 @@ class EOM_CCSD:
         """Davidson iteration with batched sigma builds: the fixed-shape
         solver, or the variable-shape loop for tiny spaces
         (N < max_dim + n_excit, e.g. H₂/STO-6G)."""
+        if self.precision not in PRECISIONS:
+            raise ValueError(f"precision must be one of {PRECISIONS}, not "
+                             f"{self.precision!r}")
         f = self._on_device(t_fock_dressed_pq)
         V = self._operator_on_device(dict_t_V_dressed)
         T2 = self._on_device(t_T_abij).contiguous()
@@ -789,12 +829,15 @@ class EOM_CCSD:
         n1 = nv * no
         W1, W2 = self._batched_sigma(f, dict_t_V, rows[:, :n1].reshape(
             k, nv, no), rows[:, n1:].reshape(k, nv, nv, no, no), T2)
-        W[at:at + k, :n1] = self._on_device(W1).reshape(k, n1)
-        W[at:at + k, n1:] = self._on_device(W2).reshape(k, -1)
+        W[at:at + k, :n1] = self._on_device(W1, W.dtype).reshape(k, n1)
+        W[at:at + k, n1:] = self._on_device(W2, W.dtype).reshape(k, -1)
 
     def _finish(self, U, v, nv, e, e_imag, converged, time_init):
         n1 = nv * self.no
-        ritz = _rotate(U[: v.shape[0]], self._on_device(v))
+        # the Ritz vectors in f64 from a basis of either type (the f32
+        # phase's seeds are exact combinations of its f32 rows, as the
+        # JAX package's f64 rotation of them promotes, eom_ccsd.py:1204)
+        ritz = _rotate(U[: v.shape[0]].to(DTYPE), self._on_device(v))
         self.u_singles = [ritz[n, :n1].reshape(nv, self.no)
                           for n in range(ritz.shape[0])]
         self.u_doubles = [ritz[n, n1:].reshape(nv, nv, self.no, self.no)
@@ -811,12 +854,50 @@ class EOM_CCSD:
             print_logging_info("EOM-CCSD did NOT converge!", level=1)
         return self.e_excit
 
-    def _solve_fixed(self, f, dict_t_V, T2):
-        """Fixed-shape incremental Davidson (``eom_ccsd.py:962``, its f64
-        path): U and W = H̄U in (max_dim, N) device buffers with a host-side
-        valid-row count; sigma runs only on the newly appended rows; the
-        max_dim restart rotates both buffers through the host-QR'd Ritz
-        rotation."""
+    def _mixed(self, f, dict_t_V, T2):
+        """The mixed pipeline (``eom_ccsd.py:973-1013``): the f32 seed
+        phase on a plain solver, then the f64 polish seeded with its Ritz
+        vectors, tracked from them."""
+        # the f32 machinery lives with the FEAST engine, which imports
+        # this module
+        from pymes_tpu_torch.solver.feast_eom_ccsd import (_cast_f32,
+                                                           full_f32_matmul)
+        pre = EOM_CCSD(self.no, self.device, n_excit=self.n_excit)
+        pre.max_dim = self.max_dim
+        # the f32 phase only supplies seeds: its tolerance sits above the
+        # f32 Ritz-value noise floor and its iterations are capped (past
+        # its rounding floor it wanders instead of converging)
+        pre.max_iter = min(self.max_iter, 100)
+        pre.e_epsilon = max(1e-4, self.e_epsilon)
+        pre.root_tracking = "guess"
+        pre.twin = self.twin
+        with full_f32_matmul():
+            pre._solve_fixed(*_cast_f32((f, dict_t_V, T2)))
+        self.n_iterations_f32 = pre.n_iterations
+        seed = np.stack([np.concatenate([_np(s).ravel(), _np(d).ravel()])
+                         for s, d in zip(pre.u_singles, pre.u_doubles)]
+                        ).astype(np.float64)
+        # the polish stays in the basin the tracked f32 phase found
+        old_tracking = self.root_tracking
+        self.root_tracking = old_tracking or "guess"
+        try:
+            return self._solve_fixed(f, dict_t_V, T2, _seed=seed)
+        finally:
+            self.root_tracking = old_tracking
+
+    def _solve_fixed(self, f, dict_t_V, T2, _seed=None):
+        """Fixed-shape incremental Davidson (``eom_ccsd.py:962``): U and
+        W = H̄U in (max_dim, N) device buffers of the operator's type with
+        a host-side valid-row count; sigma runs only on the newly appended
+        rows; the max_dim restart rotates both buffers through the
+        host-QR'd Ritz rotation.  ``_seed``: (n_excit, N) packed f64 start
+        vectors (the mixed pipeline's polish); without it, with
+        ``precision="mixed"``, an f64 Fock and the built-in sigma, the
+        solve is the mixed pipeline."""
+        if (self.precision == "mixed" and _seed is None
+                and f.dtype == torch.float64
+                and type(self)._batched_sigma is EOM_CCSD._batched_sigma):
+            return self._mixed(f, dict_t_V, T2)
         print_title("EOM-CCSD Solver")
         time_init = time.time()
         no, n_excit, max_dim = self.no, self.n_excit, self.max_dim
@@ -827,14 +908,25 @@ class EOM_CCSD:
         N = nv * no + nv * nv * no * no
         diag_vec = self._diag(f, dict_t_V, T2)
 
-        U = torch.zeros((max_dim, N), dtype=DTYPE, device=self.device)
-        guess_inds = self._guess_indices(eps_i, eps_a)
-        U[torch.arange(n_excit), torch.as_tensor(guess_inds)] = 1.0
+        U = torch.zeros((max_dim, N), dtype=diag_vec.dtype,
+                        device=self.device)
         # maximum-overlap tracking (MOM): the Davidson basis only ever
         # appends orthonormal rows, so ⟨y_new, y_old⟩ = vec_newᴴ[:m_old]·
         # vec_old on the host, from subspace coordinates alone
         track = self.root_tracking == "guess"
-        prev_ritz = np.eye(n_excit) if track else None
+        prev_ritz = None
+        if _seed is not None:
+            q, r_coef = np.linalg.qr(np.asarray(_seed, np.float64).T)
+            U[:q.shape[1]] = self._on_device(q.T, U.dtype)
+            if track:
+                # seed_j = Σ_i q[:, i]·r[i, j]: its coordinates are r[:, j]
+                prev_ritz = (r_coef[:, :n_excit]
+                             / np.linalg.norm(r_coef[:, :n_excit], axis=0))
+        else:
+            guess_inds = self._guess_indices(eps_i, eps_a)
+            U[torch.arange(n_excit), torch.as_tensor(guess_inds)] = 1.0
+            if track:
+                prev_ritz = np.eye(n_excit)
         m = n_excit
         W = torch.zeros_like(U)
         self._sigma_rows(f, dict_t_V, U[:n_excit], T2, W, 0)
@@ -897,15 +989,15 @@ class EOM_CCSD:
                     prev_ritz = q.T @ prev_ritz
                 m = n_excit
             out = _davidson_fused_step(
-                sigma, U, W, self._on_device(host_pack), diag_vec, m_res, m,
-                collapse=collapse, twin=self.twin)
+                sigma, U, W, self._on_device(host_pack, U.dtype), diag_vec,
+                m_res, m, collapse=collapse, twin=self.twin)
             out_np = out.cpu().numpy()
             if collapse:
                 # the Ritz rotation addresses the restarted subspace:
                 # x_n = Σ_j (qᵀv)[j,n] U_new[j]
                 v_pad = np.zeros((max_dim, n_excit))
                 v_pad[:n_excit] = q.T @ v
-            k_good = int((out_np[0, :n_excit] > _DEAD).sum())
+            k_good = int((out_np[0, :n_excit] > _dead(U.dtype)).sum())
             if k_good == 0:
                 print_logging_info("Residuals exhausted — converged.",
                                    level=1)

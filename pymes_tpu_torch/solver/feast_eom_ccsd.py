@@ -110,8 +110,10 @@ def _cast_f32(x):
     ``feast_eom_ccsd.py:250-256``): every f64 tensor of f, the V dict, T2,
     the H̄ intermediates and the diagonal casts to f32, K1's plans through
     :func:`~pymes_tpu_torch.ops.ueg_ladder.cast_plan` (one copy of the
-    packed sector blocks) and K4's plan weights; index arrays and numbers
-    pass through."""
+    packed sector blocks) and K4's plan weights, a block cut over a mesh
+    (:class:`~pymes_tpu_torch.parallel.mesh.Sharded`) piece by piece;
+    index arrays and numbers pass through.  The ground-state and Davidson
+    precision modes cast their inputs with it too."""
     if isinstance(x, torch.Tensor):
         return x.float() if x.dtype == torch.float64 else x
     if isinstance(x, (ueg_ladder.BlockLadder, ueg_ladder.ShardedBlockLadder)):

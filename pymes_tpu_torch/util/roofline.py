@@ -131,12 +131,13 @@ def gather_bound(plan, nv, ncol, elem=8):
                  else FP32_FMA_FLOPS_S)
 
 
-def diag_bound(plan, nv, no):
+def diag_bound(plan, nv, no, elem=8):
     """K4's fused trace on one plan: S, W and T1 (nv, no) read once, the
-    nv² trace written; a multiply and an add per (p, q, r) entry."""
+    nv² trace written; a multiply and an add per (p, q, r) entry
+    (``elem=4``: the f32 trace, at the FP32 rate)."""
     n = plan.S.numel()
-    return bound(4 * n + 8 * plan.W.numel() + 8 * nv * no + 8 * nv * nv,
-                 2 * n, FP64_FMA_FLOPS_S)
+    return bound(4 * n + elem * (plan.W.numel() + nv * no + nv * nv),
+                 2 * n, FP64_FMA_FLOPS_S if elem == 8 else FP32_FMA_FLOPS_S)
 
 
 def ring_bound(ring):

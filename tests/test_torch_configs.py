@@ -1,10 +1,10 @@
 """The port's typed configurations (``configs.py``) against the JAX
 package's: the same fields and defaults (``to_dict`` equal, a JAX dict
 rebuilds the port's config), solvers built with equal settings, the card
-as the default device, the f64-only refusal of ``mixed_precision``, and a
-config-built matrix-free CCD at cutoff 5 (Γ and one twist of the 3³ mesh)
-equal to the JAX package's per iteration, with ``log_iterations`` printing
-each iteration as the JAX solver does.
+as the default device, ``mixed_precision`` carried as in the JAX package,
+and a config-built matrix-free CCD at cutoff 5 (Γ and one twist of the 3³
+mesh) equal to the JAX package's per iteration, with ``log_iterations``
+printing each iteration as the JAX solver does.
 
 Tolerances: per-iteration energies 1e-10 absolute with equal iteration
 counts (as ``tests/test_torch_ccd.py``).
@@ -98,10 +98,18 @@ def test_default_device_is_the_card():
 
 
 def test_mixed_precision_refused():
-    cfg = configs.GroundStateConfig(no=7, mixed_precision=True)
-    for make in (cfg.make_ccd, cfg.make_ccsd):
-        with pytest.raises(NotImplementedError):
-            make(device="cpu")
+    """``mixed_precision=True`` is refused by neither package: it is
+    carried, not applied, by ``make_ccd``/``make_ccsd`` (the caller hands
+    it to ``solve``), so both build solvers with equal settings and equal
+    ``to_dict``."""
+    kw = dict(no=7, mixed_precision=True, delta_e=1e-9, diis_dim=5)
+    tcfg = configs.GroundStateConfig(**kw)
+    jcfg = jconfigs.GroundStateConfig(**kw)
+    assert configs.to_dict(tcfg) == jconfigs.to_dict(jcfg)
+    assert configs.to_dict(tcfg)["mixed_precision"] is True
+    for make in ("make_ccd", "make_ccsd"):
+        t = getattr(tcfg, make)(device="cpu")
+        _same_attrs(t, getattr(jcfg, make)(), ATTRS[make])
 
 
 def test_ueg_model_equal():

@@ -17,9 +17,13 @@ summation order differs); K4's gather (one multiply an element) and K5
 (which sums in its twin's order) must equal their twins bit for bit.  K1,
 K7 and K9 add no atomics, so a second launch must repeat the first bit for
 bit.  The f32 instantiations of K1, K4, K5, K7 and K8 (the FEAST/RT
-mixed-precision engine) are held to their f32 twins within 1e-5·max|twin|
-(f32 rounding, ~6e-8 an operation, over the sums of a few hundred terms;
-K4 and K5 bit for bit), and a mixed FEAST solve on the card to the CPU's.
+mixed-precision engine) and of K2/K3, K2′/K3′ (with K2′'s f32-ring
+instance), K4's fused trace and K6 (the ground-state and Davidson
+precision modes) are held to their f32 twins within 1e-5·max|twin| (f32
+rounding, ~6e-8 an operation, over the sums of a few hundred terms; K4's
+gather and K5 bit for bit), a mixed FEAST solve on the card to the CPU's,
+and LiH's CCSD ``mixed_precision`` and ``dress_precision="f32"`` (1e-10)
+and mixed EOM (1e-8) on the card to the CPU's.
 """
 
 import numpy as np
@@ -1368,3 +1372,187 @@ def test_mixed_feast_on_card_matches_cpu(device):
               "block_ladder", "pair_symmetrize"):
         assert launches[k] > 0, launches
     assert launches["arnoldi_cgs2"] == 0
+
+
+# ---- the f32 instantiations of the ground-state and Davidson precision
+# modes (EOM precision="mixed", CCD/CCSD mixed_precision, CCSD
+# dress_precision="f32") -------------------------------------------------
+
+@pytest.mark.parametrize("m", [1, 9, 16])
+def test_davidson_residual_f32_kernel_matches_twin(device, m):
+    """K6 in f32 (Triton, the element type a constexpr) at the nP=57 EOM
+    width with 16 buffer rows and 2 Ritz pairs; a mix of types is
+    refused."""
+    rng = np.random.default_rng(40 + m)
+    nv = 50
+    N = nv * NO + nv * nv * NO * NO
+    U, W = (_randn32(rng, (16, N), device) for _ in range(2))
+    v = _randn32(rng, (16, 2), device)
+    e = torch.as_tensor([0.5, 0.7], dtype=torch.float32, device=device)
+    diag = _randn32(rng, (N,), device) + 0.6
+    before = dict(kernels.LAUNCHES)
+    got = davidson.davidson_residual(U, W, v, e, diag, m)
+    assert kernels.LAUNCHES["davidson_residual_f32"] == \
+        before["davidson_residual_f32"] + 1
+    assert kernels.LAUNCHES["davidson_residual"] == \
+        before["davidson_residual"]
+    _close32(got, davidson.davidson_residual(U, W, v, e, diag, m, twin=True))
+    with pytest.raises(TypeError):
+        davidson.davidson_residual(U, W.double(), v, e, diag, m)
+
+
+def _tail_case(rng, device, nv, m=6):
+    """nP=57-sized tail operands in f32: (R, T, V, Vx, T1 pieces, eps,
+    rings, coefficients)."""
+    shape = (NO, NO, nv, nv)
+    eps = np.sort(rng.standard_normal(NO + nv))
+    return dict(
+        R=_randn32(rng, shape, device, 0.01), T=_randn32(rng, shape, device,
+                                                          0.01),
+        V=_randn32(rng, shape, device), Vx=_randn32(rng, shape, device),
+        R1=_randn32(rng, (nv, NO), device, 0.01),
+        T1=_randn32(rng, (nv, NO), device, 0.01),
+        F1=_randn32(rng, (nv, NO), device),
+        eps_i=torch.as_tensor(eps[:NO], dtype=torch.float32, device=device),
+        eps_a=torch.as_tensor(eps[NO:], dtype=torch.float32, device=device),
+        coeff=_randn32(rng, (m,), device), m=m)
+
+
+def test_ccd_tail_f32_kernels_match_twins(device):
+    """K2/K3 in f32 at the nP=57 T2: rings, Gram row, mixed T and energies
+    against the f32 twins; launches under the _f32 names; a mix of types
+    is refused."""
+    x = _tail_case(np.random.default_rng(51), device, 50)
+    n = x["T"].numel()
+    rings = _randn32(np.random.default_rng(52), (2, x["m"], n), device, 0.01)
+    outs = []
+    before = dict(kernels.LAUNCHES)
+    for tw in (False, True):
+        errs, amps, T = rings[0].clone(), rings[1].clone(), x["T"].clone()
+        row = ccd_tail.jacobi_diis_insert(x["R"], T, x["eps_i"], x["eps_a"],
+                                          -1.0, errs, amps, 2, 5, twin=tw)
+        e = ccd_tail.diis_mix_energy(amps, x["coeff"], 5, T, x["V"], x["Vx"],
+                                     twin=tw)
+        outs.append((row, errs, amps, T) + tuple(e))
+    assert kernels.LAUNCHES["ccd_jacobi_diis_f32"] == \
+        before["ccd_jacobi_diis_f32"] + 1
+    assert kernels.LAUNCHES["ccd_mix_energy_f32"] == \
+        before["ccd_mix_energy_f32"] + 1
+    assert kernels.LAUNCHES["ccd_jacobi_diis"] == before["ccd_jacobi_diis"]
+    for a, b in zip(*outs):
+        _close32(a, b)
+    with pytest.raises(TypeError):
+        ccd_tail.jacobi_diis_insert(x["R"], x["T"], x["eps_i"], x["eps_a"],
+                                    -1.0, rings[0].double(), rings[1], 2, 5)
+
+
+def test_ccsd_tail_f32_kernels_and_f32_ring_match_twins(device):
+    """K2′/K3′ in f32 over [T1 | T2] at nP=57, and K2′'s f32-ring instance
+    (f64 amplitudes, f32 error ring: the f32 rounding of dT written, the
+    Gram row over the f32 ring in f32), against their twins; launches
+    under their own names; an f64 ring beside f32 amplitudes is
+    refused."""
+    x = _tail_case(np.random.default_rng(53), device, 50)
+    n = x["T1"].numel() + x["T"].numel()
+    rings = _randn32(np.random.default_rng(54), (2, x["m"], n), device, 0.01)
+    outs = []
+    before = dict(kernels.LAUNCHES)
+    for tw in (False, True):
+        errs, amps = rings[0].clone(), rings[1].clone()
+        T1, T2 = x["T1"].clone(), x["T"].clone()
+        row = ccsd_tail.jacobi_diis_insert(x["R1"], T1, x["R"], T2,
+                                           x["eps_i"], x["eps_a"], -1.0,
+                                           errs, amps, 2, 5, twin=tw)
+        e = ccsd_tail.diis_mix_energy(amps, x["coeff"], 5, T1, T2, x["F1"],
+                                      x["V"], x["Vx"], twin=tw)
+        outs.append((row, errs, amps, T1, T2) + tuple(e))
+    for a, b in zip(*outs):
+        _close32(a, b)
+    rows = []
+    for tw in (False, True):
+        errs, amps = rings[0].clone(), rings[1].double()
+        d = {k: x[k].double() for k in ("R1", "T1", "R", "T", "eps_i",
+                                       "eps_a")}
+        rows.append((ccsd_tail.jacobi_diis_insert(
+            d["R1"], d["T1"], d["R"], d["T"], d["eps_i"], d["eps_a"], -1.0,
+            errs, amps, 2, 5, twin=tw), errs, amps))
+    _close32(rows[0][0], rows[1][0])
+    _close32(rows[0][1], rows[1][1])
+    torch.cuda.synchronize()
+    err = float((rows[0][2] - rows[1][2]).abs().max())
+    assert err <= 1e-12 * float(rows[1][2].abs().max()), err
+    want = dict(ccsd_jacobi_diis_f32=1, ccsd_mix_energy_f32=1,
+                ccsd_jacobi_diis_f32_ring=1, ccsd_jacobi_diis=0)
+    assert {k: kernels.LAUNCHES[k] - before[k] for k in want} == want
+    with pytest.raises(TypeError):
+        ccsd_tail.jacobi_diis_insert(x["R1"], x["T1"], x["R"], x["T"],
+                                     x["eps_i"], x["eps_a"], -1.0,
+                                     rings[0].double(), rings[1], 2, 5)
+
+
+@pytest.mark.parametrize("pat,axis", [("vov", 1), ("ovv", 0)])
+def test_ovvv_gather_diag_f32_kernel_matches_twin(device, pat, axis):
+    """K4's fused G_vv trace in f32 on the nP=57 plans (weights cast):
+    within 1e-5 of the f32 twin; f32 T1 on f64 weights is refused."""
+    u = ueg.UEG(14, 7, 7, 0.5)
+    u.init_single_basis(5)
+    plan = ueg_ladder.build_ovvv_t1_plan(u, pat, device)
+    W32 = plan.W.float()
+    T1 = _randn32(np.random.default_rng(60 + axis), (u.n_spatial - NO, NO),
+                  device, 0.05)
+    before = dict(kernels.LAUNCHES)
+    got = k4.ovvv_gather_diag(plan.S, W32, T1, axis)
+    assert kernels.LAUNCHES["ovvv_gather_diag_f32"] == \
+        before["ovvv_gather_diag_f32"] + 1
+    assert kernels.LAUNCHES["ovvv_gather_diag"] == before["ovvv_gather_diag"]
+    _close32(got, k4.ovvv_gather_diag(plan.S, W32, T1, axis, twin=True))
+    with pytest.raises(TypeError):
+        k4.ovvv_gather_diag(plan.S, plan.W, T1, axis)
+
+
+def test_precision_modes_on_card_match_cpu(device):
+    """LiH/3-21G on the card against the CPU: CCSD ``mixed_precision``
+    (the f32 K2′/K3′ and K5, one each an f32 iteration) and
+    ``dress_precision="f32"`` (K2′'s f32-ring instance, one an iteration)
+    within 1e-10 of the CPU's, then the mixed EOM on the dressed operator
+    (the f32 K6 and K5 in its seed phase) within 1e-8."""
+    import os
+
+    from pymes_tpu_torch.util import fcidump
+    n_elec, _, _, _, h, V = fcidump.read(os.path.join(
+        os.path.dirname(__file__), "data", "FCIDUMP.LiH.321g"))
+    no = n_elec // 2
+    fock = hf.construct_hf_matrix(no, torch.as_tensor(h), torch.as_tensor(V))
+    out = {}
+    for dev in (torch.device("cpu"), device):
+        f, Vd = fock.to(dev), torch.as_tensor(V).to(dev)
+        kernels.reset_launches()
+        s = ccsd.CCSD(no, dev)
+        mixed = s.solve(f, Vd, mixed_precision=True)
+        launches = dict(kernels.LAUNCHES)
+        kernels.reset_launches()
+        dress = s.solve(f, Vd, dress_precision="f32", delta_e=1e-12,
+                        max_iter=200)
+        ring = kernels.LAUNCHES["ccsd_jacobi_diis_f32_ring"]
+        dV = part_2_body_int(no, Vd)
+        fd = s.get_T1_dressed_fock(f, dress["t1"], dV)
+        Vdr = s.get_T1_dressed_V(dress["t1"], dV,
+                                 {k: None for k in ccsd.EOM_DRESSED})
+        eom = eom_ccsd.EOM_CCSD(no, dev, n_excit=2)
+        eom.precision, eom.max_iter = "mixed", 1000
+        kernels.reset_launches()
+        roots = np.sort(eom.solve(fd, Vdr, dress["t2"]))
+        out[dev.type] = (mixed["ccsd e"], dress["ccsd e"], roots)
+        if dev.type == "cuda":
+            n32, n64 = s.n_iterations_f32, len(mixed["e history"])
+            assert {k: launches[k] for k in (
+                "ccsd_jacobi_diis_f32", "ccsd_mix_energy_f32",
+                "pair_symmetrize_f32", "ccsd_jacobi_diis")} == dict(
+                ccsd_jacobi_diis_f32=n32, ccsd_mix_energy_f32=n32,
+                pair_symmetrize_f32=n32, ccsd_jacobi_diis=n64)
+            assert ring == len(dress["e history"])
+            assert kernels.LAUNCHES["davidson_residual_f32"] > 0
+            assert kernels.LAUNCHES["davidson_residual"] > 0
+    (mc, dc, rc), (mg, dg, rg) = out["cpu"], out["cuda"]
+    assert abs(mg - mc) <= 1e-10 and abs(dg - dc) <= 1e-10
+    assert float(np.abs(rg - rc).max()) <= 1e-8
