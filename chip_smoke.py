@@ -64,8 +64,7 @@ Drives the port's main paths through its own kernels:
   Davidson (``precision="mixed"``, the JAX package's default: an f32 seed
   phase, then the f64 polish) at nP=57, nP=219 and on LiH, the mixed CCD
   (``mixed_precision=True``) at nP=57 and nP=219, the mixed CCSD on LiH
-  and the nP=219 non-canonical mf-CCSD, and that mf-CCSD with
-  ``dress_precision="f32"``.
+  and the nP=219 non-canonical mf-CCSD.
 
 Kernels: K1 ``block_ladder`` (CUDA C++ on the f64 tensor cores, built with
 nvcc for sm_90a at first use), K4 ``ovvv_gather`` and its fused trace
@@ -79,9 +78,7 @@ and K8 ``shifted_precond`` (Triton); and the f32 instantiations
 ``shifted_precond_f32`` (Triton) of the mixed-precision engine, and those
 of the precision modes: ``davidson_residual_f32``,
 ``ccd_jacobi_diis_f32``, ``ccd_mix_energy_f32``, ``ccsd_jacobi_diis_f32``,
-``ccsd_mix_energy_f32`` and ``ccsd_jacobi_diis_f32_ring`` (K2′ with f64
-amplitudes and an f32 DIIS error ring) in Triton, ``ovvv_gather_diag_f32``
-in CUDA C++.
+``ccsd_mix_energy_f32`` in Triton, ``ovvv_gather_diag_f32`` in CUDA C++.
 
 Phases: (0) card and versions; (1) kernel builds; (2) each kernel against
 its plain twin on the card at the main paths' shapes (K2′/K3′ at nP=219
@@ -194,26 +191,26 @@ f32 K7 per Arnoldi step and cycle end, f32 K8 Mb and f64 sigma + K8
 residual per refinement pass); then ms per Arnoldi step of the f32
 solves (kernels and twins) beside phase 12/13's f64.  Phase 25 runs
 right after phase 24: (25) the f32 kernels of the precision modes (K6,
-K2/K3, K2′/K3′, K2′'s f32-ring instance, K4's fused trace) against their
-f32 twins at the nP=219 shapes (max relative error ≤ F32_REL) and per call
-beside their twins with their bounds; the converged EOM roots at nP=57
+K2/K3, K2′/K3′, K4's fused trace) against their f32 twins at the nP=219
+shapes (max relative error ≤ F32_REL) and per call beside their twins
+with their bounds; the converged EOM roots at nP=57
 and nP=219 (the f64 Davidson to |dE| < 1e-12: the JAX pins, stopped at
 |dE| < 1e-8, lie up to a few 1e-8 from them); then three counted windows:
 the mixed EOM at nP=57 and nP=219 on the CCD amplitudes (roots within
-1e-8 of the converged ones, and of the JAX package's within 1e-8 plus the
-pin's own distance from those) and on LiH (1e-7 of the oracle), each
-solve's sigmas
+1e-8 of the converged ones; at nP=57 within 1e-8 of the JAX package's
+converged roots, at nP=219 of its pin within 1e-8 plus the pin's own
+distance from the converged roots, itself at most 5e-8) and on LiH (1e-7
+of the oracle), each solve's sigmas
 counted by type through the wrapped ``_sigma_batched_hbar`` (each must run
 an f32 phase; launches exactly as :func:`check_eom_launches` per phase),
 the f32-phase and polish iterations beside ``tools/pin_mixed_jax.py``'s
 JAX run at nP=57; the mixed CCD at nP=57 and nP=219 (1e-8 of the JAX
 package's f64 energy, nP=57 also of the oracle; one f32 K1, K2, K3 and K5
 an f32 iteration); the mixed CCSD on LiH (1e-8 of the oracle) and the
-non-canonical mf-CCSD at nP=219 mixed and with ``dress_precision="f32"``
-(|dE| < 1e-10, 1e-8 of the JAX package's f64 energy; 4 K4 gathers, 2
-traces and one K1, K2′, K3′, K5 an iteration, in f32 in the f32 pass, the
-gathers in f32 and K2′ on the f32 ring with the f32 dressing); each solve's
-wall beside its f64 solve's of phases 3/4, 7 and 9.  Every bound comes
+mixed non-canonical mf-CCSD at nP=219 (|dE| < 1e-10, 1e-8 of the JAX
+package's f64 energy; 4 K4 gathers, 2 traces and one K1, K2′, K3′, K5 an
+iteration, in f32 in the f32 pass); each solve's wall beside its f64
+solve's of phases 3/4, 7 and 9.  Every bound comes
 from the helpers of ``pymes_tpu_torch/util/roofline.py``.
 Prints a JSON line of the kernels
 (launches, errors, the TC and drCCD runs as sub-entries,
@@ -307,16 +304,12 @@ KERNELS = {
                   "pymes_tpu/parallel/ring_ladder.py:69"),
 }
 # the f32 instantiations of the mixed-precision engine and of the
-# ground-state and Davidson precision modes: the same sources (K2′'s
-# f32-ring instance replaces diis.mix with an f32 error ring)
+# ground-state and Davidson precision modes: the same sources
 KERNELS.update({name + "_f32": KERNELS[name] for name in (
     "block_ladder", "ovvv_gather", "pair_symmetrize", "arnoldi_cgs2",
     "shifted_precond", "davidson_residual", "ccd_jacobi_diis",
     "ccd_mix_energy", "ccsd_jacobi_diis", "ccsd_mix_energy",
     "ovvv_gather_diag")})
-KERNELS["ccsd_jacobi_diis_f32_ring"] = (
-    "triton", "pymes_tpu_torch/kernels/ccsd_tail.py",
-    "pymes_tpu/mixer/diis.py:115")
 CCD_KERNELS = ("block_ladder", "ccd_jacobi_diis", "ccd_mix_energy",
                "pair_symmetrize")
 DENSE_CCSD_KERNELS = ("ccsd_jacobi_diis", "ccsd_mix_energy",
@@ -429,17 +422,20 @@ F32_KERNELS = ("block_ladder_f32", "ovvv_gather_f32", "pair_symmetrize_f32",
 F32_REL = 1e-5
 MIXED_REFINE_MAX = 8
 # phase 25, the ground-state and Davidson precision modes (EOM
-# precision="mixed", CCD/CCSD mixed_precision, CCSD dress_precision="f32"):
-# their f32 kernels against their f32 twins at the nP=219 shapes (max
-# relative error F32_REL), and the JAX package's mixed numbers on a CPU
-# (tools/pin_mixed_jax.py): the EOM nP=57 roots with the f32 phase's and
-# the polish's iterations, the CCD nP=57 energy with its f32 and f64
-# iterations, the LiH/3-21G CCSD energy likewise
+# precision="mixed", CCD/CCSD mixed_precision): their f32 kernels against
+# their f32 twins at the nP=219 shapes (max relative error F32_REL), and
+# the JAX package's numbers on a CPU (tools/pin_mixed_jax.py): the EOM
+# nP=57 mixed roots with the f32 phase's and the polish's iterations, the
+# EOM nP=57 roots converged to |dE| < 1e-12, the CCD nP=57 mixed energy
+# with its f32 and f64 iterations, the LiH/3-21G CCSD mixed energy
+# likewise; at nP=219, where the only JAX roots are EOM_JAX's (stopped at
+# |dE| < 1e-8), their distance from the port's converged roots is capped
 PREC_KERNELS = ("davidson_residual_f32", "ccd_jacobi_diis_f32",
                 "ccd_mix_energy_f32", "ccsd_jacobi_diis_f32",
-                "ccsd_mix_energy_f32", "ccsd_jacobi_diis_f32_ring",
-                "ovvv_gather_diag_f32")
+                "ccsd_mix_energy_f32", "ovvv_gather_diag_f32")
 EOM_JAX_MIXED_NP57 = ((5.242951899266315, 5.242951901247843), 7, 9)
+EOM_JAX_TIGHT_NP57 = (5.242951902209979, 5.2429519022099935)
+EOM_PIN_CAP = 5e-8
 CCD_JAX_MIXED_NP57 = (-0.5120153549861027, 4, 2)
 LIH_JAX_CCSD_MIXED = (-0.019088328657353434, 5, 8)
 # phase 23, the tensor-parallel dense CCD/CCSD: (devices, 2-D shape or
@@ -735,11 +731,10 @@ def tail_inputs(no, V, seed):
             "Vx": V.transpose(2, 3).contiguous()}
 
 
-def compare_ccsd_tail(x, eps_i, eps_a, label, tol=REL_TOL):
+def compare_ccsd_tail(x, eps_i, eps_a, label):
     """K2′ and K3′ vs their twins on the inputs of :func:`tail_inputs`:
     slot 0 with n_valid 1 (first insertion) and slot 2 with n_valid 6
-    (full ring), each output within ``tol`` of its twin's scale; returns
-    their max abs errors."""
+    (full ring); returns their max abs errors."""
     from pymes_tpu_torch.kernels import ccsd_tail
 
     e_k2 = 0.0
@@ -750,11 +745,11 @@ def compare_ccsd_tail(x, eps_i, eps_a, label, tol=REL_TOL):
             slot, n_valid, twin=tw)
             for (e, a), tw in zip(rings, (False, True))]
         e_k2 = max(e_k2,
-                   rel_err(rows[0], rows[1], f"K2' Gram row, {label}", tol),
+                   rel_err(rows[0], rows[1], f"K2' Gram row, {label}"),
                    rel_err(rings[0][0], rings[1][0],
-                           f"K2' error ring, {label}", tol),
+                           f"K2' error ring, {label}"),
                    rel_err(rings[0][1], rings[1][1],
-                           f"K2' amplitude ring, {label}", tol))
+                           f"K2' amplitude ring, {label}"))
 
     e_k3 = 0.0
     for n_valid in (1, 6):
@@ -763,11 +758,9 @@ def compare_ccsd_tail(x, eps_i, eps_a, label, tol=REL_TOL):
                                         T2, x["F1"], x["V"], x["Vx"],
                                         twin=tw)
               for (T1, T2), tw in zip(Ts, (False, True))]
-        e_k3 = max(e_k3, rel_err(Ts[0][0], Ts[1][0], f"K3' mixed T1, {label}",
-                                 tol),
-                   rel_err(Ts[0][1], Ts[1][1], f"K3' mixed T2, {label}",
-                           tol),
-                   *(rel_err(a, b, f"K3' energy {piece}, {label}", tol)
+        e_k3 = max(e_k3, rel_err(Ts[0][0], Ts[1][0], f"K3' mixed T1, {label}"),
+                   rel_err(Ts[0][1], Ts[1][1], f"K3' mixed T2, {label}"),
+                   *(rel_err(a, b, f"K3' energy {piece}, {label}")
                      for piece, a, b in zip(("e_1b", "e_dir", "e_exc"),
                                             *es)))
     return e_k2, e_k3
@@ -2514,8 +2507,7 @@ def prec_inputs(q, V, seed):
     """Phase 25's f32 operands at the nP=219 shapes: the CCSD tail's of
     :func:`tail_inputs` in f32 (and the CCD tail's, its T2 segment), the
     K6 buffers of :func:`eom_inputs` (16 rows, k = 2) in f32, the f32 OVVV
-    plans (weights cast) and orbital energies; plus the f64 CCSD tail
-    operands for K2′'s f32-ring instance."""
+    plans (weights cast) and orbital energies."""
     import torch
 
     x64 = tail_inputs(NO, q["dict"]["ijab"], seed)
@@ -2530,9 +2522,7 @@ def prec_inputs(q, V, seed):
         W=q["mf_dict"]["_ovvv_plans"][pat].W.float())
         for pat, _ in DIAG_PLANS}
     x["eps_i"], x["eps_a"] = q["eps_i"].float(), q["eps_a"].float()
-    x["x64"] = x64
-    x["ring32"] = x64["errs"].float()
-    del e
+    del e, x64
     torch.cuda.empty_cache()
     return x
 
@@ -2543,7 +2533,6 @@ def prec_calls(x, q):
     from pymes_tpu_torch.kernels import ccd_tail, ccsd_tail, davidson
     from pymes_tpu_torch.ops import ueg_ladder
 
-    x64 = x["x64"]
     return {
         "davidson_residual_f32": lambda tw: davidson.davidson_residual(
             x["k6_U"], x["k6_W"], x["k6_v"], x["k6_e"], x["k6_diag"], 16,
@@ -2560,9 +2549,6 @@ def prec_calls(x, q):
         "ccsd_mix_energy_f32": lambda tw: ccsd_tail.diis_mix_energy(
             x["amps"], x["coeff"], 6, x["R1"], x["R2"], x["F1"], x["V"],
             x["Vx"], twin=tw),
-        "ccsd_jacobi_diis_f32_ring": lambda tw: ccsd_tail.jacobi_diis_insert(
-            x64["R1"], x64["T1"], x64["R2"], x64["T2"], q["eps_i"],
-            q["eps_a"], -1.0, x["ring32"], x64["amps"], 2, 6, twin=tw),
         "ovvv_gather_diag_f32": lambda tw: [ueg_ladder.ovvv_t1_trace(
             x["plans"][pat], x["T1"], axis, twin=tw)
             for pat, axis in DIAG_PLANS]}
@@ -2572,9 +2558,8 @@ def compare_prec_kernels(x, q):
     """Phase 25: each f32 kernel of the precision modes against its f32
     twin at the nP=219 shapes, max relative error ≤ F32_REL: K6 at 16 and
     9 valid rows (the three clamped columns and the rest each to its own
-    scale), K2/K3 and K2′/K3′ (first insertion and full ring), K2′'s
-    f32-ring instance (the f32 error ring and Gram row; the f64 amplitude
-    ring to REL_TOL), K4's fused trace on both plans.  Returns the max abs
+    scale), K2/K3 and K2′/K3′ (first insertion and full ring), K4's fused
+    trace on both plans.  Returns the max abs
     errors and the max relative errors by kernel."""
     import torch
 
@@ -2584,8 +2569,8 @@ def compare_prec_kernels(x, q):
     errs = {k: 0.0 for k in PREC_KERNELS}
     rel = dict(errs)
 
-    def note(name, got, want, what, tol=F32_REL):
-        e = rel_err(got, want, f"{what}, nP={q['nP']}", tol)
+    def note(name, got, want, what):
+        e = rel_err(got, want, f"{what}, nP={q['nP']}", F32_REL)
         errs[name] = max(errs[name], e)
         rel[name] = max(rel[name], e / float(want.abs().max()))
 
@@ -2602,7 +2587,6 @@ def compare_prec_kernels(x, q):
              f"K6 f32 m={m}, clamped columns")
         note("davidson_residual_f32", got[:, 3:], want[:, 3:],
              f"K6 f32 m={m}, the rest")
-    x64 = x["x64"]
     for slot, n_valid in ((0, 1), (2, 6)):
         for name, fn in (
                 ("ccd_jacobi_diis_f32", lambda e, a, tw:
@@ -2612,17 +2596,10 @@ def compare_prec_kernels(x, q):
                 ("ccsd_jacobi_diis_f32", lambda e, a, tw:
                  ccsd_tail.jacobi_diis_insert(
                      x["R1"], x["T1"], x["R2"], x["T2"], x["eps_i"],
-                     x["eps_a"], -1.0, e, a, slot, n_valid, twin=tw)),
-                ("ccsd_jacobi_diis_f32_ring", lambda e, a, tw:
-                 ccsd_tail.jacobi_diis_insert(
-                     x64["R1"], x64["T1"], x64["R2"], x64["T2"], q["eps_i"],
-                     q["eps_a"], -1.0, e, a, slot, n_valid, twin=tw))):
-            if name == "ccd_jacobi_diis_f32":
-                e0, a0 = x["ccd_errs"], x["ccd_amps"]
-            elif name == "ccsd_jacobi_diis_f32":
-                e0, a0 = x["errs"], x["amps"]
-            else:
-                e0, a0 = x["ring32"], x64["amps"]
+                     x["eps_a"], -1.0, e, a, slot, n_valid, twin=tw))):
+            e0, a0 = ((x["ccd_errs"], x["ccd_amps"])
+                      if name == "ccd_jacobi_diis_f32"
+                      else (x["errs"], x["amps"]))
             rings = [(e0.clone(), a0.clone()) for _ in range(2)]
             rows = [fn(e, a, tw) for (e, a), tw in zip(rings, (False, True))]
             check(rows[0].dtype == torch.float32
@@ -2631,8 +2608,7 @@ def compare_prec_kernels(x, q):
             what = f"{name} slot {slot}"
             note(name, rows[0], rows[1], f"{what} Gram row")
             note(name, rings[0][0], rings[1][0], f"{what} error ring")
-            note(name, rings[0][1], rings[1][1], f"{what} amplitude ring",
-                 REL_TOL if a0.dtype == torch.float64 else F32_REL)
+            note(name, rings[0][1], rings[1][1], f"{what} amplitude ring")
     for n_valid in (1, 6):
         Ts = [x["T2"].clone() for _ in range(2)]
         es = [ccd_tail.diis_mix_energy(x["ccd_amps"], x["coeff"], n_valid, T,
@@ -2666,10 +2642,7 @@ def compare_prec_kernels(x, q):
 def prec_bounds(q):
     """Phase 25's kernels' bounds at the timed calls' nP=219 shapes, from
     this run's sizes: the f32 kernels as their f64 twins' rows of
-    :func:`kernel_bounds` at 4 bytes an element and the FP32 FMA rate;
-    K2′'s f32-ring instance reads R and T in f64 and the five other error
-    rows in f32, writes one f32 error row and one f64 amplitude row (48
-    bytes an element), its dT in f64."""
+    :func:`kernel_bounds` at 4 bytes an element and the FP32 FMA rate."""
     nv = q["nv"]
     n = NO * NO * nv * nv
     nc = nv * NO + n
@@ -2683,8 +2656,6 @@ def prec_bounds(q):
         "ccd_mix_energy_f32": bound(4 * 9 * n, 16 * n, f32),
         "ccsd_jacobi_diis_f32": bound(4 * 9 * nc, 17 * nc, f32),
         "ccsd_mix_energy_f32": bound(4 * 9 * nc, 16 * nc, f32),
-        "ccsd_jacobi_diis_f32_ring": bound(48 * nc, 17 * nc,
-                                           roofline.FP64_FMA_FLOPS_S),
         "ovvv_gather_diag_f32": (float(np.mean([b[0] for b in traces])),
                                  traces[0][1])}
 
@@ -2764,8 +2735,11 @@ def eom_tight(cases, device):
 def eom_mixed(cases, tight, lih, walls, device, card):
     """Phase 25, EOM: ``precision="mixed"`` on the UEG ``cases`` (label,
     fock, operator, T2, JAX roots) and LiH: the roots within 1e-8 of the
-    converged ones of :func:`eom_tight` and within 1e-8 plus the pin's own
-    distance from those of the JAX package's (LiH 1e-7 of the oracle), the
+    converged ones of :func:`eom_tight`; at nP=57 within 1e-8 of the JAX
+    package's converged roots (``EOM_JAX_TIGHT_NP57``), at nP=219 within
+    1e-8 plus the pin's own distance from the converged ones of the JAX
+    package's pin, that distance at most ``EOM_PIN_CAP`` (LiH 1e-7 of the
+    oracle); the
     f32 phase's and the polish's iterations (at nP=57 beside the JAX
     package's mixed run), the wall beside phase 9's f64 solve; each solve
     must run an f32 phase.  Returns the launches the solves imply."""
@@ -2793,10 +2767,17 @@ def eom_mixed(cases, tight, lih, walls, device, card):
         if ladder:
             conv = float(np.abs(roots - tight[label]).max())
             pin = float(np.abs(tight[label] - np.asarray(ref)).max())
-            check(conv <= 1e-8 and err <= pin + 1e-8,
+            check(conv <= 1e-8 and pin <= EOM_PIN_CAP
+                  and err <= pin + 1e-8,
                   f"mixed EOM {label}: roots {roots} vs converged "
                   f"{tight[label]} and JAX {ref}")
             jax = f", |roots - converged| = {conv:.2e}"
+            if label.startswith("nP=57"):
+                jt = float(np.abs(roots - np.asarray(
+                    EOM_JAX_TIGHT_NP57)).max())
+                check(jt <= 1e-8, f"mixed EOM {label}: roots {roots} vs "
+                      f"JAX converged {EOM_JAX_TIGHT_NP57}")
+                jax += f", |roots - JAX converged| = {jt:.2e}"
         else:
             check(err <= 1e-7, f"mixed EOM {label}: roots {roots} vs {ref}")
             jax = ""
@@ -2857,12 +2838,11 @@ def ccd_mixed(problems, results, device, card):
 def ccsd_prec(q, mol, mf_walls, device, card):
     """Phase 25, CCSD: ``mixed_precision=True`` on LiH/3-21G (an f64 solve
     beside it) within 1e-8 of the oracle; the seeded non-canonical
-    mf-CCSD at nP=219 with ``mixed_precision=True`` and with
-    ``dress_precision="f32"`` (|dE| < 1e-10) within 1e-8 of the JAX
-    package's f64 energy, walls beside phase 7's.  Returns the launches:
-    per iteration, dense one K2′, K3′, K5; matrix-free one K1, K2′, K3′,
-    K5, 4 K4 gathers and 2 fused traces, in f32 in the mixed f32 pass; with
-    the f32 dressing the gathers f32 and K2′ its f32-ring instance."""
+    mf-CCSD at nP=219 with ``mixed_precision=True`` (|dE| < 1e-10) within
+    1e-8 of the JAX package's f64 energy, the wall beside phase 7's.
+    Returns the launches: per iteration, dense one K2′, K3′, K5;
+    matrix-free one K1, K2′, K3′, K5, 4 K4 gathers and 2 fused traces, in
+    f32 in the f32 pass."""
     from pymes_tpu_torch.solver import ccsd
 
     e_ref, _, tol = MOLECULES["LiH"][2:]
@@ -2891,41 +2871,30 @@ def ccsd_prec(q, mol, mf_walls, device, card):
               max_iter=100)
     mf_kernels = ("block_ladder", "ccsd_jacobi_diis", "ccsd_mix_energy",
                   "pair_symmetrize")
-    for label, kw in (("mixed_precision=True", dict(mixed_precision=True)),
-                      ('dress_precision="f32"',
-                       dict(dress_precision="f32"))):
-        t0 = time.time()
-        s = ccsd.CCSD(NO, device)
-        res = s.solve(fock, q["mf_dict"], **mf, **kw)
-        wall = time.time() - t0
-        e, n64 = res["ccsd e"], len(res["e history"])
-        n32 = s.n_iterations_f32 if "mixed_precision" in kw else 0
-        err = abs(e - E_JAX_CCSD_NONCANONICAL)
-        check(err <= 1e-8 and abs(res["dE"]) <= 1e-10
-              and float(res["t1"].abs().max()) > 1e-4,
-              f"mf-CCSD {label} nP={q['nP']}: E={e:.13f} vs JAX "
-              f"{E_JAX_CCSD_NONCANONICAL}, dE {res['dE']:.1e}")
-        check("mixed_precision" not in kw or n32 >= 1,
-              f"mf-CCSD {label}: no f32 iteration")
-        ref = mf_walls["non-canonical"]
-        print(f"[{card}] mf-CCSD non-canonical nP={q['nP']} {label}: "
-              f"E={e:.13f}, |E - E_jax| = {err:.2e}, {n32} f32 + {n64} f64 "
-              f"iterations; wall {wall:.2f} s (phase 7, f64: "
-              f"{ref['wall']:.2f} s in {len(ref['e history'])} iterations)",
-              flush=True)
-        for k in mf_kernels:
-            want[k + "_f32"] = want.get(k + "_f32", 0) + n32
-            want[k] = want.get(k, 0) + n64
-        gathers = {"ovvv_gather": 4 * n64, "ovvv_gather_f32": 4 * n32,
-                   "ovvv_gather_diag": 2 * n64,
-                   "ovvv_gather_diag_f32": 2 * n32}
-        if "dress_precision" in kw:
-            # the corrections' gathers in f32, K2′ on the f32 error ring
-            gathers.update(ovvv_gather=0, ovvv_gather_f32=4 * n64)
-            want["ccsd_jacobi_diis"] -= n64
-            want["ccsd_jacobi_diis_f32_ring"] = n64
-        for k, v in gathers.items():
-            want[k] = want.get(k, 0) + v
+    t0 = time.time()
+    s = ccsd.CCSD(NO, device)
+    res = s.solve(fock, q["mf_dict"], mixed_precision=True, **mf)
+    wall = time.time() - t0
+    e, n64, n32 = res["ccsd e"], len(res["e history"]), s.n_iterations_f32
+    err = abs(e - E_JAX_CCSD_NONCANONICAL)
+    check(n32 >= 1 and err <= 1e-8 and abs(res["dE"]) <= 1e-10
+          and float(res["t1"].abs().max()) > 1e-4,
+          f"mixed mf-CCSD nP={q['nP']}: E={e:.13f} vs JAX "
+          f"{E_JAX_CCSD_NONCANONICAL}, dE {res['dE']:.1e}, {n32} f32 "
+          "iterations")
+    ref = mf_walls["non-canonical"]
+    print(f"[{card}] mf-CCSD non-canonical nP={q['nP']} "
+          f"mixed_precision=True: E={e:.13f}, |E - E_jax| = {err:.2e}, "
+          f"{n32} f32 + {n64} f64 iterations; wall {wall:.2f} s (phase 7, "
+          f"f64: {ref['wall']:.2f} s in {len(ref['e history'])} "
+          "iterations)", flush=True)
+    for k in mf_kernels:
+        want[k + "_f32"] = want.get(k + "_f32", 0) + n32
+        want[k] = want.get(k, 0) + n64
+    for k, v in {"ovvv_gather": 4 * n64, "ovvv_gather_f32": 4 * n32,
+                 "ovvv_gather_diag": 2 * n64,
+                 "ovvv_gather_diag_f32": 2 * n32}.items():
+        want[k] = want.get(k, 0) + v
     return want
 
 
@@ -4468,9 +4437,8 @@ def main():
 
     # phase 25: the ground-state and Davidson precision modes: their f32
     # kernels against their f32 twins and timed at nP=219, then the mixed
-    # EOM (nP=57, nP=219, LiH), the mixed CCD (nP=57, nP=219) and the CCSD
-    # modes (LiH mixed; nP=219 mf-CCSD mixed and with f32 dressing), each
-    # path in a counted window
+    # EOM (nP=57, nP=219, LiH), the mixed CCD (nP=57, nP=219) and the mixed
+    # CCSD (LiH, the nP=219 mf-CCSD), each path in a counted window
     prec_t, prec_b = prec_phase(problems, q, results, ccsd_res, cases[:2],
                                 eom_walls, lih, mols, device, card,
                                 launches, compare)

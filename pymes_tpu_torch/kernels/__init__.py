@@ -42,9 +42,7 @@ K2′/K3′ and K4's fused trace for that of the mixed-precision CCSD
 (``solve(mixed_precision=True)``, with K1, K4 and K5).  Each has an f32
 instantiation on the card and an f32 twin, refuses a mix of types
 (:func:`type_suffix`) and counts its f32 launches under its name +
-``"_f32"``.  K2′ has one mixed-type instance, f64 amplitudes with the f32
-DIIS error ring of the CCSD ``dress_precision="f32"`` (launches under
-``ccsd_jacobi_diis_f32_ring``).
+``"_f32"``.
 """
 
 import torch
@@ -58,7 +56,7 @@ LAUNCHES = {"block_ladder": 0, "ccd_jacobi_diis": 0, "ccd_mix_energy": 0,
             "shifted_precond_f32": 0, "davidson_residual_f32": 0,
             "ccd_jacobi_diis_f32": 0, "ccd_mix_energy_f32": 0,
             "ccsd_jacobi_diis_f32": 0, "ccsd_mix_energy_f32": 0,
-            "ccsd_jacobi_diis_f32_ring": 0, "ovvv_gather_diag_f32": 0}
+            "ovvv_gather_diag_f32": 0}
 
 # the element types of the kernels with an f32 instantiation, and the
 # suffix of each type's library entries and LAUNCHES names

@@ -32,14 +32,8 @@ bulk of the mixed-precision CCSD (``CCSD.solve(mixed_precision=True)``,
 ``pymes_tpu/solver/ccsd.py:803-816``): the element type is the kernels'
 ``DT`` constexpr and all arithmetic follows it, the partials included
 (launches counted under ``ccsd_jacobi_diis_f32`` and
-``ccsd_mix_energy_f32``).  K2′ has one more instance, for the f32 DIIS
-error ring of ``dress_precision="f32"`` (``pymes_tpu/mixer/diis.py:
-83-98``, ``:115-137``): f64 residuals, amplitudes and amplitude ring, dT
-in f64, its f32 rounding written into the f32 error ring (the ring's type
-is the ``ET`` constexpr) and the Gram row taken over the f32 ring in f32,
-as the JAX ``diis.mix`` takes it (``ccsd_jacobi_diis_f32_ring``).  Triton
-is imported inside the launching functions: the module must import where
-there is no Triton.
+``ccsd_mix_energy_f32``).  Triton is imported inside the launching
+functions: the module must import where there is no Triton.
 """
 
 import torch
@@ -64,8 +58,8 @@ def _kernels():
         def ccsd_jacobi_insert_kernel(R1, T1, R2, T2, eps_i, eps_a, shift,
                                       errs, amps, part, N1, N, no, nv, slot,
                                       n_valid, M: tl.constexpr,
-                                      BLOCK: tl.constexpr, DT: tl.constexpr,
-                                      ET: tl.constexpr):
+                                      BLOCK: tl.constexpr,
+                                      DT: tl.constexpr):
             pid = tl.program_id(0)
             offs = pid * BLOCK + tl.arange(0, BLOCK)
             mask = offs < N
@@ -93,16 +87,14 @@ def _kernels():
                          tl.load(T2 + o2, mask=m2, other=0.0))
             D = tl.where(seg1, D1, D2)
             dT = tl.where(mask, r / (D + tl.load(shift)), 0.0)
-            # the error as the ring holds it (ET = DT: dT itself)
-            de = dT.to(ET)
-            tl.store(errs + slot * N + offs, de, mask=mask)
+            tl.store(errs + slot * N + offs, dT, mask=mask)
             tl.store(amps + slot * N + offs, t + dT, mask=mask)
             for k in tl.static_range(M):
                 e = tl.load(errs + k * N + offs,
                             mask=mask & (k < n_valid) & (k != slot),
                             other=0.0)
-                e = tl.where(k == slot, de, e)
-                tl.store(part + pid * M + k, tl.sum(e * de, axis=0))
+                e = tl.where(k == slot, dT, e)
+                tl.store(part + pid * M + k, tl.sum(e * dT, axis=0))
 
         @triton.jit(do_not_specialize=["n_valid"])
         def ccsd_mix_energy_kernel(amps, coeff, T1, T2, F1, V, Vx, part, N1,
@@ -157,9 +149,7 @@ def _fits(T1, T2, m, N):
 
 def jacobi_twin(R1, T1, R2, T2, eps_i, eps_a, shift, errs, amps, slot,
                 n_valid):
-    """Plain twin of K2′; returns the Gram row (m,) in the error ring's
-    type, zero past n_valid (an f32 ring holds dT rounded to f32, and the
-    row is taken over it in f32)."""
+    """Plain twin of K2′; returns the Gram row (m,), zero past n_valid."""
     dT1 = R1 / (eps_i[None, :] - eps_a[:, None] + shift)
     D2 = (eps_i[:, None, None, None] + eps_i[None, :, None, None]
           - eps_a[None, None, :, None] - eps_a[None, None, None, :])
@@ -168,7 +158,7 @@ def jacobi_twin(R1, T1, R2, T2, eps_i, eps_a, shift, errs, amps, slot,
     errs[slot] = dT
     amps[slot] = torch.cat([T1.reshape(-1), T2.reshape(-1)]) + dT
     row = errs.new_zeros(errs.shape[0])
-    row[:n_valid] = (errs[:n_valid] * errs[slot][None, :]).sum(dim=1)
+    row[:n_valid] = (errs[:n_valid] * dT[None, :]).sum(dim=1)
     return row
 
 
@@ -179,22 +169,12 @@ def jacobi_diis_insert(R1, T1, R2, T2, eps_i, eps_a, shift, errs, amps,
     ``T1``: (nv, no); ``R2``, ``T2``: (no, no, nv, nv); rings (m, N) with
     N = nv·no + no²nv².  Writes ``errs[slot] = dT``,
     ``amps[slot] = T + dT`` and returns the Gram row Re⟨errs[k], dT⟩ (m,),
-    zero past ``n_valid``, in the error ring's type.  Everything float64,
-    everything float32, or float64 with a float32 error ring ``errs``
-    (its own instance, launches counted under
-    ``ccsd_jacobi_diis_f32_ring``)."""
+    zero past ``n_valid``; all float64 or all float32."""
     if not kernels.check_device(R2) or twin:
         return jacobi_twin(R1, T1, R2, T2, eps_i, eps_a, shift, errs, amps,
                            slot, n_valid)
     R1, R2 = R1.contiguous(), R2.contiguous()
-    sfx = _check(R1, T1, R2, T2, eps_i, eps_a, amps)
-    if _check(errs) != sfx:
-        if amps.dtype != torch.float64:
-            raise TypeError("K2' takes an f32 error ring only beside f64 "
-                            "amplitudes")
-        sfx = "_f32_ring"
-    if errs.device != amps.device:
-        raise ValueError("tensors lie on different devices")
+    sfx = _check(R1, T1, R2, T2, eps_i, eps_a, errs, amps)
     m, N = errs.shape
     no, nv = _fits(T1, T2, m, N)
     if (R1.shape != T1.shape or R2.shape != T2.shape
@@ -203,15 +183,14 @@ def jacobi_diis_insert(R1, T1, R2, T2, eps_i, eps_a, shift, errs, amps,
         raise ValueError("ring/amplitude sizes do not fit the kernel")
     k2, _ = _kernels()
     n_blocks = -(-N // BLOCK)
-    part = torch.empty((n_blocks, m), dtype=errs.dtype, device=R2.device)
+    part = torch.empty((n_blocks, m), dtype=R2.dtype, device=R2.device)
     # the shift goes in as a tensor of R2's type: Triton passes a Python
     # float as f32
     shift_t = torch.full((1,), float(shift), dtype=R2.dtype,
                          device=R2.device)
     k2[(n_blocks,)](R1, T1, R2, T2, eps_i, eps_a, shift_t, errs, amps, part,
                     T1.numel(), N, no, nv, int(slot), int(n_valid), M=m,
-                    BLOCK=BLOCK, DT=kernels.tl_type(R2.dtype),
-                    ET=kernels.tl_type(errs.dtype))
+                    BLOCK=BLOCK, DT=kernels.tl_type(R2.dtype))
     kernels.LAUNCHES["ccsd_jacobi_diis" + sfx] += 1
     return part.sum(dim=0)
 

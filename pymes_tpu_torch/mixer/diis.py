@@ -11,14 +11,11 @@ checks the returned ``info`` once, at the end of a solve.
 
 Unlike the JAX state, the rings are updated in place (a copy of the 6×N
 ring per iteration would double the tail's memory traffic); ``count`` is a
-host integer, so no device value is read to find the slot.
-
-Every ring takes the amplitudes' type (float64, or float32 in the f32
-bulk of the mixed-precision CCD/CCSD), and the error ring may take a lower
-one (``init_state(err_dtype=...)``, ``pymes_tpu/mixer/diis.py:83-98``):
-the inserted error is rounded to it and the Gram row taken over the ring
-in it, then stored into the Gram matrix of the amplitudes' type
-(``:115-137``).
+host integer, so no device value is read to find the slot.  Every ring
+takes the amplitudes' type (``init_state``'s ``dtype``): float64, or
+float32 in the f32 bulk of the mixed-precision CCD/CCSD.  The JAX
+package's f32 error ring beside f64 amplitudes (``err_dtype``) serves its
+f32 dressing carriers, which the port leaves out with the Ozaki modes.
 """
 
 from typing import NamedTuple
@@ -36,17 +33,10 @@ class DIISState(NamedTuple):
     B: torch.Tensor      # (m, m) real Gram matrix of errs
 
 
-def init_state(dim_space: int, n_flat: int, dtype, device,
-               err_dtype=None) -> DIISState:
-    """Empty rings of ``dtype``; ``err_dtype`` (default ``dtype``) is the
-    error ring's type: the errors only feed the Gram matrix, so an f32
-    ring perturbs the DIIS coefficients at ~1e-7 relative (the JAX
-    package's ``init_state``), while the amplitude ring, the solver's
-    state, stays in ``dtype``."""
+def init_state(dim_space: int, n_flat: int, dtype, device) -> DIISState:
     return DIISState(
         amps=torch.zeros((dim_space, n_flat), dtype=dtype, device=device),
-        errs=torch.zeros((dim_space, n_flat), dtype=err_dtype or dtype,
-                         device=device),
+        errs=torch.zeros((dim_space, n_flat), dtype=dtype, device=device),
         count=0,
         B=torch.zeros((dim_space, dim_space), dtype=dtype, device=device))
 
@@ -54,10 +44,8 @@ def init_state(dim_space: int, n_flat: int, dtype, device,
 def coefficients(B_prev, row, slot: int, n_valid: int):
     """DIIS coefficients after inserting an error in ``slot``: its Gram
     ``row`` (m,) against the ring (zero past ``n_valid``) refreshes row and
-    column ``slot`` of ``B_prev`` (in ``B_prev``'s type: a row of an f32
-    error ring is stored into the f64 Gram matrix).  Returns
-    ``(B_raw, c, info)`` with ``c`` (m,) zero on invalid slots and
-    ``info`` from ``solve_ex``.
+    column ``slot`` of ``B_prev``.  Returns ``(B_raw, c, info)`` with ``c``
+    (m,) zero on invalid slots and ``info`` from ``solve_ex``.
 
     The ring fills slots 0, 1, … in order, so the valid window is the
     leading ``n_valid`` slots and the masked, bordered (m+1)² system of the
@@ -94,11 +82,8 @@ def mix(state: DIISState, err_flat, amp_flat):
     n_valid = min(state.count + 1, m)
     state.amps[slot] = amp_flat
     state.errs[slot] = err_flat
-    # the row in the error ring's type (the inserted error as the ring
-    # holds it); B takes it in its own
-    row = state.errs.new_zeros(m)
-    row[:n_valid] = (state.errs[:n_valid]
-                     * state.errs[slot][None, :]).sum(dim=1)
+    row = state.amps.new_zeros(m)
+    row[:n_valid] = (state.errs[:n_valid] * err_flat[None, :]).sum(dim=1)
     B_raw, c, info = coefficients(state.B, row, slot, n_valid)
     if int(info) != 0:
         raise RuntimeError(f"DIIS system singular (info={int(info)})")

@@ -40,8 +40,10 @@ blocks, a cut ``abcd`` piece by piece) and T to |dE| < max(1e-5,
 ``delta_e``), its GEMMs at full f32 (TF32 off) and its kernels in their
 f32 instantiations (K1, K2/K3, K5), and the f64 solve polishes from the
 f32 amplitudes.  Like the JAX f32 pass it takes no ``ring_mesh``: a cut
-``abcd`` runs its f32 pass tensor-parallel.  ``ccd_solve`` and the DIIS
-take the amplitudes' type throughout.
+``abcd`` runs its f32 pass tensor-parallel, and with ``ring_mesh`` any
+other ``abcd`` (a whole tensor or a list of shards, which the ring alone
+takes) raises.  ``ccd_solve`` and the DIIS take the amplitudes' type
+throughout.
 
 Not ported: the ``abij`` loop layout and the Ozaki/sliced contraction
 modes.
@@ -62,6 +64,7 @@ from pymes_tpu_torch.parallel import tensor_parallel
 from pymes_tpu_torch.parallel.mesh import Sharded
 from pymes_tpu_torch.parallel.ring_ladder import ring_ladder_inside_ij
 from pymes_tpu_torch.solver import drccd, mp2
+from pymes_tpu_torch.util.precision import cast_f32, full_f32_matmul
 
 
 class CCDBlocks(NamedTuple):
@@ -366,6 +369,12 @@ class CCD:
             blocks = t_V_pqrs
         else:
             blocks = blocks_from_full(no, self._on_device(t_V_pqrs))
+        if (mixed_precision and ring_mesh is not None
+                and not isinstance(blocks.abcd, Sharded)):
+            # the f32 pass runs without the ring: only a cut abcd keeps it
+            # off one card (tensor-parallel)
+            raise ValueError("mixed_precision with ring_mesh takes abcd cut "
+                             "by mesh.shard_blocks")
         fields = ("klij", "ijab", "abij", "iajb", "iabj")
         if ring_mesh is None and not isinstance(blocks.abcd, Sharded):
             fields += ("abcd",)
@@ -387,9 +396,7 @@ class CCD:
         if amps is not None:
             t_T_abij = self._on_device(amps)
         if mixed_precision and t_T_abij.dtype == torch.float64:
-            from pymes_tpu_torch.solver.feast_eom_ccsd import (
-                _cast_f32, full_f32_matmul)
-            f32 = _cast_f32((t_fock_pq, blocks, t_T_abij))
+            f32 = cast_f32((t_fock_pq, blocks, t_T_abij))
             with full_f32_matmul():
                 _, T32, _, _, _, it32, _ = ccd_solve(
                     *f32[:2], no, f32[2], level_shift=level_shift,

@@ -17,29 +17,27 @@ T2 stacked with T1⊗T1) and K4 (ovvv gathers), and every path runs the tail
 K2′/K3′ (:mod:`pymes_tpu_torch.kernels`); on a CPU tensor all of them run
 their plain twins.
 
-Two precision modes of the JAX package (``pymes_tpu/solver/ccsd.py:
-755-827``), each an f32 computation corrected in f64:
+``solve(mixed_precision=True)`` is the JAX package's mixed schedule
+(``pymes_tpu/solver/ccsd.py:755-816``), an f32 computation corrected in
+f64: the bulk of the fixed point runs in f32 on the f32 copy of the V dict
+(its f64 tensors, the OVVV plans' weights, the ladder plan through
+``cast_plan``) and of T1/T2 to |dE| < max(1e-5, ``delta_e``), GEMMs at
+full f32 and the kernels in their f32 instantiations (K1, K4 and its
+fused trace, K2′/K3′, K5); the f64 solve polishes from there.  Two
+departures from the JAX code, both faults there: it casts every dict
+value (``:805``, which fails on the matrix-free dict, whose plans are a
+dict) and hands its f32 pass the f64 ladder plan (``:806-810``, which
+promotes the ladder to f64); the port casts the f64 leaves only and passes
+the f32 plan, as the JAX CCD does.
 
-* ``solve(mixed_precision=True)``: the bulk of the fixed point runs in
-  f32 on the f32 copy of the V dict (its f64 tensors, the OVVV plans'
-  weights, the ladder plan through ``cast_plan``) and of T1/T2 to |dE| <
-  max(1e-5, ``delta_e``), GEMMs at full f32 and the kernels in their f32
-  instantiations (K1, K4 and its fused trace, K2′/K3′, K5); the f64 solve
-  polishes from there.  Two departures from the JAX code, both faults
-  there: it casts every dict value (``:805``, which fails on the
-  matrix-free dict, whose plans are a dict) and hands its f32 pass the f64
-  ladder plan (``:806-810``, which promotes the ladder to f64); the port
-  casts the f64 leaves only and passes the f32 plan, as the JAX CCD does.
-* ``dress_precision="f32"`` (``None`` means "f64": the JAX package's
-  automatic choice picks f32 only under an Ozaki contraction mode, which
-  the port has none of): the DIIS error ring is f32 (K2′'s f32-ring
-  instance; the amplitude ring stays f64), and on the matrix-free path the
-  T1-dressing corrections (``skip_identity``) and the half-symmetric
-  ``ex_half`` run in f32 on a loop-invariant f32 copy of the dict and are
-  added onto the f64 bare blocks (``:518-531``, ``:553-566``).
+``solve(dress_precision=...)`` takes None or "f64" (the f64 dressing) and
+raises on "f32": the JAX package's f32 dressing carriers (``:518-566``,
+``:681-713``) serve its Ozaki contraction modes, which alone choose them
+(``:818-820``), and are not ported with them.
 
 Not ported: the ``abij`` loop layout (``singles_residual``,
-``ccsd_energy``), the contraction modes and Ozaki slicing.
+``ccsd_energy``), the contraction modes and Ozaki slicing, and with them
+the f32 dressing carriers (``dress_precision="f32"``).
 """
 
 import itertools
@@ -57,13 +55,12 @@ from pymes_tpu_torch.parallel import tensor_parallel
 from pymes_tpu_torch.parallel.mesh import Sharded
 from pymes_tpu_torch.solver import ccd as ccd_mod
 from pymes_tpu_torch.solver import mp2
+from pymes_tpu_torch.util.precision import cast_f32, full_f32_matmul
 
 # blocks the doubles residual needs in dressed form
 DOUBLES_DRESSED = ("abij", "klij", "ijab", "iajb", "iabj", "abcd")
 # additional dressed blocks needed by the EOM-CCSD sigma builds
 EOM_DRESSED = DOUBLES_DRESSED + ("ijka", "ijak", "iabc", "abic", "iajk")
-# the values of CCSD.solve's dress_precision (None means "f64")
-DRESS_PRECISIONS = ("f64", "f32", None)
 
 
 def _pattern_key(pattern):
@@ -354,7 +351,7 @@ def ccsd_energy_ij(t_fock_ia, t_T_ai, t_T_ijab, t_V_ijab):
 
 
 def ccsd_residuals(t_fock_pq, dict_t_V, no, T1, T2, is_dcsd=False,
-                   ladder_all=None, twin=False, dict_V32=None):
+                   ladder_all=None, twin=False):
     """(R1 (nv, no), R2 (no, no, nv, nv)) of one CCSD iteration: dress →
     singles and doubles residuals (``pymes_tpu/solver/ccsd.py:450-614``).
 
@@ -366,9 +363,7 @@ def ccsd_residuals(t_fock_pq, dict_t_V, no, T1, T2, is_dcsd=False,
     corrections of ``abij`` go in half-symmetric through ``ex_half``.  That
     branch reads the bare ``abij`` in the ``ijab`` order from
     ``dict_t_V["abij_t"]``, which :func:`ccsd_solve` hoists out of the
-    loop.  ``dict_V32`` (the f32 copy of the dict, matrix-free branch
-    only) runs the T1 corrections of the dressed blocks and ``ex_half`` in
-    f32 (``dress_precision="f32"``)."""
+    loop."""
     es = torch.einsum
     fd = get_T1_dressed_fock(t_fock_pq, T1, dict_t_V, no=no, twin=twin)
     ladder_W = W_X = None
@@ -392,25 +387,13 @@ def ccsd_residuals(t_fock_pq, dict_t_V, no, T1, T2, is_dcsd=False,
         return R1, R2
 
     keys = tuple(k for k in DOUBLES_DRESSED if k not in ("abcd", "abij"))
+    Vd = {k: dressed_block(k, dict_t_V, T1, twin=twin) for k in keys}
     # dressed abij in the ijab order: the bare block (hoisted transpose)
     # plus the ladder image of T1⊗T1, both P-symmetric, stay in R; the
     # other T1 corrections enter Ex half-symmetric
-    half = dict(skip_sources=("abcd",), out_perm=(2, 3, 0, 1),
-                skip_identity=True, half_symmetric=True, twin=twin)
-    if dict_V32 is None:
-        Vd = {k: dressed_block(k, dict_t_V, T1, twin=twin) for k in keys}
-        ex_half = dressed_block("abij", dict_t_V, T1, **half)
-    else:
-        # the corrections in f32 on the f32 dict, onto the f64 bare blocks
-        from pymes_tpu_torch.solver.feast_eom_ccsd import full_f32_matmul
-        t1_32 = T1.float()
-        with full_f32_matmul():
-            corr = {k: dressed_block(k, dict_V32, t1_32, skip_identity=True,
-                                     twin=twin) for k in keys}
-            ex_half = dressed_block("abij", dict_V32, t1_32,
-                                    **half).to(T1.dtype)
-        Vd = {k: dict_t_V[k] if c is None else dict_t_V[k] + c.to(T1.dtype)
-              for k, c in corr.items()}
+    ex_half = dressed_block("abij", dict_t_V, T1, skip_sources=("abcd",),
+                            out_perm=(2, 3, 0, 1), skip_identity=True,
+                            half_symmetric=True, twin=twin)
     V_ij = ccd_mod.CCDBlocksIJ(
         klij=Vd["klij"], ijab=Vd["ijab"], ijab_x=None,
         abij_t=dict_t_V["abij_t"] + W_X[:, :, no:, no:],
@@ -433,7 +416,7 @@ def energy_blocks(t_fock_pq, dict_t_V, no):
 def ccsd_iteration(t_fock_pq, dict_t_V, no, T1, T2, eps_i, eps_a,
                    level_shift, diis_state, e_last, is_dcsd=False,
                    is_diis=True, ladder_all=None, e_blocks=None,
-                   twin=False, dict_V32=None):
+                   twin=False):
     """One CCSD iteration: dress → residuals → Jacobi → DIIS → energy
     (``pymes_tpu/solver/ccsd.py:414``, ``layout="ijab"``).
 
@@ -443,15 +426,13 @@ def ccsd_iteration(t_fock_pq, dict_t_V, no, T1, T2, eps_i, eps_a,
     ``diis_state`` (its ``count`` is a host int).  Without DIIS the ring has
     one slot and the coefficient 1, so the tail writes T + dT exactly.
     ``e_blocks`` are :func:`energy_blocks` (computed when None).  With
-    ``ladder_all`` the dict carries ``"abij_t"`` (:func:`ccsd_residuals`,
-    which takes ``dict_V32`` too).  The error ring of ``diis_state`` may be
-    f32 beside f64 amplitudes (K2′'s f32-ring instance).
+    ``ladder_all`` the dict carries ``"abij_t"`` (:func:`ccsd_residuals`).
 
     Returns ``(diis_state, e, dE, info)``: ``info`` is the bordered DIIS
     solve's, checked by the caller (0 when ``is_diis`` is False)."""
     R1, R2 = ccsd_residuals(t_fock_pq, dict_t_V, no, T1, T2,
                             is_dcsd=is_dcsd, ladder_all=ladder_all,
-                            twin=twin, dict_V32=dict_V32)
+                            twin=twin)
     if e_blocks is None:
         e_blocks = energy_blocks(t_fock_pq, dict_t_V, no)
     m = diis_state.amps.shape[0]
@@ -477,7 +458,7 @@ def ccsd_iteration(t_fock_pq, dict_t_V, no, T1, T2, eps_i, eps_a,
 def ccsd_solve(t_fock_pq, dict_t_V, no, t_T1_0, t_T2_0, level_shift=0.0,
                delta_e=1e-8, max_iter=50, is_dcsd=False, is_diis=True,
                dim_space=6, ladder_all=None, twin=False,
-               log_iterations=False, dress_f32=False):
+               log_iterations=False):
     """CCSD fixed point, Jacobi + DIIS, T2 carried ``[i,j,a,b]``.
 
     Loop semantics of ``pymes_tpu.solver.ccsd.ccsd_solve_jit``: iterate
@@ -488,11 +469,8 @@ def ccsd_solve(t_fock_pq, dict_t_V, no, t_T1_0, t_T2_0, level_shift=0.0,
     ``info`` is checked once, after the loop.  ``twin=True`` runs K1, K4
     and the tail through their plain twins (on-card comparison).
     ``log_iterations`` prints E and dE each iteration (a host read of
-    both).  ``dress_f32`` (``dress_precision="f32"``, on f64 amplitudes):
-    the DIIS error ring in f32, and with ``ladder_all`` the T1-dressing
-    corrections in f32 on a loop-invariant f32 copy of the dict
-    (``pymes_tpu/solver/ccsd.py:681-713``).  The whole loop takes the
-    amplitudes' type: f32 inputs run it in f32.
+    both).  The whole loop takes the amplitudes' type: f32 inputs run it
+    in f32.
 
     ``t_T2_0`` is ``abij``-ordered.  Returns ``(e, T1, T2_abij, dE, n_iter,
     e_hist)`` with device tensors and ``n_iter`` a Python int.
@@ -505,11 +483,6 @@ def ccsd_solve(t_fock_pq, dict_t_V, no, t_T1_0, t_T2_0, level_shift=0.0,
     nv = eps_a.shape[0]
     T1 = t_T1_0.clone().contiguous()
     T2 = t_T2_0.permute(2, 3, 0, 1).contiguous()
-    dress_f32 = dress_f32 and T2.dtype == torch.float64
-    dict_V32 = None
-    if dress_f32 and ladder_all is not None:
-        from pymes_tpu_torch.solver.feast_eom_ccsd import _cast_f32
-        dict_V32 = _cast_f32(dict_t_V)
     if ladder_all is not None:
         # the matrix-free branch's loop-invariant transpose, hoisted
         dict_t_V = {**dict_t_V,
@@ -521,10 +494,7 @@ def ccsd_solve(t_fock_pq, dict_t_V, no, t_T1_0, t_T2_0, level_shift=0.0,
     dE = torch.abs(e_last) + 1.0
 
     m = dim_space if is_diis else 1
-    # the f32 error ring of dress_f32 (the errors only feed the Gram
-    # matrix; mixer/diis.py)
-    state = diis.init_state(m, nv * no + T2.numel(), T2.dtype, T2.device,
-                            err_dtype=torch.float32 if dress_f32 else None)
+    state = diis.init_state(m, nv * no + T2.numel(), T2.dtype, T2.device)
     info = torch.zeros((), dtype=torch.int32, device=T2.device)
     e_hist = torch.full((max_iter + 1,), float("nan"), dtype=T2.dtype,
                         device=T2.device)
@@ -535,8 +505,7 @@ def ccsd_solve(t_fock_pq, dict_t_V, no, t_T1_0, t_T2_0, level_shift=0.0,
         state, e, dE, info_it = ccsd_iteration(
             t_fock_pq, dict_t_V, no, T1, T2, eps_i, eps_a, level_shift,
             state, e_last, is_dcsd=is_dcsd, is_diis=is_diis,
-            ladder_all=ladder_all, e_blocks=e_blocks, twin=twin,
-            dict_V32=dict_V32)
+            ladder_all=ladder_all, e_blocks=e_blocks, twin=twin)
         info = torch.maximum(info, info_it.abs())
         e_last = e
         e_hist[min(it, max_iter)] = e
@@ -558,7 +527,7 @@ class CCSD(ccd_mod.CCD):
     mixed_precision=False, dress_precision=None, **kwargs)`` returns
     ``{"ccsd e", "t1", "t2" (abij), "hole e", "particle e", "dE",
     "e history"}``; the precision modes are the module docstring's
-    (``dress_precision`` "f64", "f32" or None, which means "f64").
+    (``dress_precision`` None or "f64"; "f32" raises).
     ``t_V_pqrs`` is the full tensor or a dict of named blocks (optionally
     with ``"_ovvv_plans"``); ``ladder`` an all-bra BlockLadder for the
     matrix-free path; ``amps`` a pair (T1, T2 abij) to start from, whole
@@ -592,9 +561,9 @@ class CCSD(ccd_mod.CCD):
               **kwargs):
         max_iter = int(kwargs.get("max_iter", self.max_iter))
         delta_e = float(kwargs.get("delta_e", self.delta_e))
-        if dress_precision not in DRESS_PRECISIONS:
-            raise ValueError(f"dress_precision must be one of "
-                             f"{DRESS_PRECISIONS}, not {dress_precision!r}")
+        if dress_precision not in (None, "f64"):
+            raise ValueError(f"dress_precision {dress_precision!r}: the port "
+                             f"has the f64 dressing only (None or 'f64')")
         no = self.no
         t_fock_pq = self._on_device(t_fock_pq)
         dict_t_V = self._dict_on_device(t_V_pqrs)
@@ -614,9 +583,7 @@ class CCSD(ccd_mod.CCD):
         if amps is not None:
             t_T1, t_T2 = (self._on_device(a) for a in amps)
         if mixed_precision and t_T2.dtype == torch.float64:
-            from pymes_tpu_torch.solver.feast_eom_ccsd import (
-                _cast_f32, full_f32_matmul)
-            f32 = _cast_f32((t_fock_pq, dict_t_V, t_T1, t_T2, ladder))
+            f32 = cast_f32((t_fock_pq, dict_t_V, t_T1, t_T2, ladder))
             with full_f32_matmul():
                 _, T1_32, T2_32, _, it32, _ = ccsd_solve(
                     *f32[:2], no, *f32[2:4], level_shift=level_shift,
@@ -632,8 +599,7 @@ class CCSD(ccd_mod.CCD):
             t_fock_pq, dict_t_V, no, t_T1, t_T2, level_shift=level_shift,
             delta_e=delta_e, max_iter=max_iter, is_dcsd=self.is_dcd,
             is_diis=self.is_diis, dim_space=self.dim_space,
-            ladder_all=ladder, log_iterations=self.log_iterations,
-            dress_f32=dress_precision == "f32")
+            ladder_all=ladder, log_iterations=self.log_iterations)
         if n_iter > max_iter:
             print_logging_info("A converged solution is not found!", level=1)
         print_logging_info(

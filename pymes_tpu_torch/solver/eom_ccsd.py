@@ -27,7 +27,7 @@ CPU tensor every kernel runs its plain twin.
 (``pymes_tpu/solver/eom_ccsd.py:803-810``, ``:962-1013``).  "f64" is the
 JAX package's f64 path with ``root_tracking="guess"`` (MOM), which is what
 its own f64 polish runs.  "mixed" first runs an f32 seed phase: a plain
-solver on the f32 copy of f, the operator and T2 (``_cast_f32``: the f64
+solver on the f32 copy of f, the operator and T2 (``cast_f32``: the f64
 leaves, the ladder plan through ``cast_plan``, the OVVV weights), MOM
 tracking, at most 100 iterations to max(1e-4, ``e_epsilon``), its GEMMs at
 full f32 (TF32 off) and its kernels in their f32 instantiations (K1, K4, K5
@@ -58,6 +58,7 @@ from pymes_tpu_torch.kernels import davidson, pair_sym
 from pymes_tpu_torch.log import print_logging_info, print_title
 from pymes_tpu_torch.ops import ueg_ladder
 from pymes_tpu_torch.ops.ueg_ladder import BlockLadder
+from pymes_tpu_torch.util.precision import cast_f32, full_f32_matmul
 
 # dead-direction threshold of an orthogonalised residual row: f64, and f32
 # (the f32 phase of the mixed pipeline: a residual orthogonalised down to
@@ -858,10 +859,6 @@ class EOM_CCSD:
         """The mixed pipeline (``eom_ccsd.py:973-1013``): the f32 seed
         phase on a plain solver, then the f64 polish seeded with its Ritz
         vectors, tracked from them."""
-        # the f32 machinery lives with the FEAST engine, which imports
-        # this module
-        from pymes_tpu_torch.solver.feast_eom_ccsd import (_cast_f32,
-                                                           full_f32_matmul)
         pre = EOM_CCSD(self.no, self.device, n_excit=self.n_excit)
         pre.max_dim = self.max_dim
         # the f32 phase only supplies seeds: its tolerance sits above the
@@ -872,7 +869,7 @@ class EOM_CCSD:
         pre.root_tracking = "guess"
         pre.twin = self.twin
         with full_f32_matmul():
-            pre._solve_fixed(*_cast_f32((f, dict_t_V, T2)))
+            pre._solve_fixed(*cast_f32((f, dict_t_V, T2)))
         self.n_iterations_f32 = pre.n_iterations
         seed = np.stack([np.concatenate([_np(s).ravel(), _np(d).ravel()])
                          for s, d in zip(pre.u_singles, pre.u_doubles)]

@@ -43,7 +43,8 @@ and the memory, never a result beyond the rounding of the batched sigma.
 (``feast_eom_ccsd.py:585-800``): the Krylov solves run in f32 inside an f64
 iterative refinement.  The operator is cast to f32 once per operator
 (f, every V block, T2, the H̄ intermediates, the diagonal, K1's packed
-sector blocks and K4's plan weights; ``_cast_f32`` :250), and each pass
+sector blocks and K4's plan weights; ``_cast_f32`` :250, here
+:func:`pymes_tpu_torch.util.precision.cast_f32`), and each pass
 solves (z − H̄)dx = r in f32 through the f32 sigma (K1, K4, K5 in f32, its
 GEMMs at full f32: TF32 is switched off for the engine's scope and the
 caller's settings restored), the f32 lane-batched GMRES (K7 and K8 in f32)
@@ -71,7 +72,6 @@ package keeps the stale slots past ``len(eigvals)``
 (``feast_eom_ccsd.py:951-958``).
 """
 
-import contextlib
 import time
 import warnings
 
@@ -83,10 +83,10 @@ from torch.utils import _pytree
 from pymes_tpu_torch.kernels import shifted
 from pymes_tpu_torch.log import print_logging_info, print_title
 from pymes_tpu_torch.ops import gmres as _gmres
-from pymes_tpu_torch.ops import ueg_ladder
 from pymes_tpu_torch.parallel import mesh as _mesh
 from pymes_tpu_torch.parallel import sharding as _sharding
 from pymes_tpu_torch.solver.eom_ccsd import EOM_CCSD
+from pymes_tpu_torch.util.precision import cast_f32, full_f32_matmul
 
 LS_PRECISIONS = ("f64", "mixed")
 # the f32 Krylov stalls near f32 rounding: its tolerance, at least this,
@@ -103,52 +103,6 @@ def normalize_amps(u_singles, u_doubles):
     norm += np.tensordot(np.conj(u_doubles), u_doubles, axes=4)
     scale = np.sqrt(norm)
     return u_singles / scale, u_doubles / scale
-
-
-def _cast_f32(x):
-    """f32 copy of an operator structure (``_cast_f32``,
-    ``feast_eom_ccsd.py:250-256``): every f64 tensor of f, the V dict, T2,
-    the H̄ intermediates and the diagonal casts to f32, K1's plans through
-    :func:`~pymes_tpu_torch.ops.ueg_ladder.cast_plan` (one copy of the
-    packed sector blocks) and K4's plan weights, a block cut over a mesh
-    (:class:`~pymes_tpu_torch.parallel.mesh.Sharded`) piece by piece;
-    index arrays and numbers pass through.  The ground-state and Davidson
-    precision modes cast their inputs with it too."""
-    if isinstance(x, torch.Tensor):
-        return x.float() if x.dtype == torch.float64 else x
-    if isinstance(x, (ueg_ladder.BlockLadder, ueg_ladder.ShardedBlockLadder)):
-        return ueg_ladder.cast_plan(x, torch.float32)
-    if isinstance(x, dict):
-        return {k: _cast_f32(v) for k, v in x.items()}
-    if isinstance(x, tuple):
-        items = [_cast_f32(v) for v in x]
-        return type(x)(*items) if hasattr(x, "_fields") else tuple(items)
-    return x
-
-
-@contextlib.contextmanager
-def full_f32_matmul():
-    """f32 GEMMs at full f32 in the block, the counterpart of the JAX
-    engine's ``jax.default_matmul_precision("float32")``
-    (``feast_eom_ccsd.py:753-756``): matmul precision "highest" and TF32
-    off for matmuls and cuDNN (TF32 keeps about three decimal digits, and a
-    refinement pass then contracts only ~1e-3); the caller's settings come
-    back on exit (the legacy ``allow_tf32`` flag is written only where the
-    precision alone does not restore it: PyTorch refuses to read a
-    precision set through both interfaces at odds)."""
-    cuda, cudnn = torch.backends.cuda.matmul, torch.backends.cudnn
-    saved = (torch.get_float32_matmul_precision(), cuda.allow_tf32,
-             cudnn.allow_tf32)
-    torch.set_float32_matmul_precision("highest")
-    cuda.allow_tf32 = False
-    cudnn.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.set_float32_matmul_precision(saved[0])
-        if cuda.allow_tf32 != saved[1]:
-            cuda.allow_tf32 = saved[1]
-        cudnn.allow_tf32 = saved[2]
 
 
 class _NodeOps:
@@ -272,8 +226,8 @@ class FEAST_EOM_CCSD(EOM_CCSD):
         (``_get_f32_operator``, ``feast_eom_ccsd.py:723-730``), built at the
         first mixed solve of an operator."""
         if self._op32 is None:
-            self._hbar32 = _cast_f32(self._hbar_of(*op[:3]))
-            self._op32 = _cast_f32(op)
+            self._hbar32 = cast_f32(self._hbar_of(*op[:3]))
+            self._op32 = cast_f32(op)
         return self._op32
 
     def _hbar_of(self, f, dict_t_V, T2):

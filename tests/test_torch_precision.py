@@ -7,10 +7,10 @@ and x64, its f32 parts at full f32):
   with its Ritz vectors, on the UEG nP=19 no-ovvv operator and on dressed
   LiH/3-21G; the polish alone from one f64 seed; the f32 ``_orth_append``;
 * CCD and CCSD ``solve(mixed_precision=True)`` (an f32 bulk, then f64),
-  and the CCSD ``dress_precision="f32"`` (f32 dressing corrections and an
-  f32 DIIS error ring), with the DIIS f32 error ring alone;
-* the f32 twins of K2/K3, K2′/K3′ (and K2′'s f32-ring instance), K4's
-  fused trace and K6 against their f64 twins.
+  the DIIS on f32 rings, CCD's mixed bulk beside ``ring_mesh``, and the
+  CCSD ``dress_precision``, which takes the f64 dressing only;
+* the f32 twins of K2/K3, K2′/K3′, K4's fused trace and K6 against their
+  f64 twins.
 
 Inputs come from numpy seeds or the JAX package's set-up, and each
 package gets the same ones.  Tolerances: roots within 1e-8 (the Davidson
@@ -372,54 +372,47 @@ def test_ccsd_mixed_matrix_free_matches_jax_f64(mf_ccsd, monkeypatch):
     assert abs(rt["ccsd e"] - e64) <= 1e-8
 
 
-def test_ccsd_dress_f32_matches_f64_and_jax(mf_ccsd, monkeypatch):
-    """``dress_precision="f32"`` on the matrix-free non-canonical UEG: f32
-    dressing corrections and the f32 DIIS error ring (K2′'s f32-ring
-    instance: f64 amplitudes, f32 errors) within 1e-9 of the port's f64
-    dressing and of the JAX package's f32 run; None is "f64" and a wrong
-    value raises."""
+def test_ccsd_dress_precision_takes_f64_only(mf_ccsd):
+    """``dress_precision`` None and "f64" are the f64 dressing: on the
+    matrix-free non-canonical UEG the energy of each within 1e-10 of the
+    JAX package's ``dress_precision="f64"`` run.  "f32" raises: the JAX
+    package's f32 dressing carriers serve its Ozaki contraction modes,
+    which alone choose them, and the port leaves both out."""
     x = mf_ccsd
-    rj = _logged(lambda: jccsd.CCSD(NO).solve(
-        x["fock"], dict(x["jd"]), ladder=x["jl"], dress_precision="f32",
-        **x["kw"]))[0]
-    out = {}
-    for prec in (None, "f32"):
-        k2 = _spy(monkeypatch, ccsd_tail, "jacobi_diis_insert")
-        out[prec] = _logged(lambda: tccsd.CCSD(NO, "cpu").solve(
+    ej = _logged(lambda: jccsd.CCSD(NO).solve(
+        x["fock"], dict(x["jd"]), ladder=x["jl"], dress_precision="f64",
+        **x["kw"]))[0]["ccsd e"]
+    for prec in (None, "f64"):
+        e = _logged(lambda: tccsd.CCSD(NO, "cpu").solve(
             torch.as_tensor(x["fock"]), dict(x["td"]), ladder=x["tl"],
             dress_precision=prec, **x["kw"]))[0]["ccsd e"]
-        # (R1, T1, R2, T2, eps_i, eps_a, errs, amps)
-        ring = torch.float32 if prec == "f32" else torch.float64
-        assert {c[6:] for c in k2} == {(ring, torch.float64)}
-    assert abs(out["f32"] - out[None]) <= 1e-9
-    assert abs(out["f32"] - rj["ccsd e"]) <= 1e-9
-    with pytest.raises(ValueError):
-        tccsd.CCSD(NO, "cpu").solve(torch.as_tensor(x["fock"]),
-                                    dict(x["td"]), ladder=x["tl"],
-                                    dress_precision="bf16")
+        assert abs(e - ej) <= 1e-10
+    for prec in ("f32", "bf16"):
+        with pytest.raises(ValueError):
+            tccsd.CCSD(NO, "cpu").solve(torch.as_tensor(x["fock"]),
+                                        dict(x["td"]), ladder=x["tl"],
+                                        dress_precision=prec)
 
 
-def test_diis_f32_error_ring_matches_jax():
-    """``init_state(err_dtype=float32)``: the errors rounded into an f32
-    ring, the Gram row taken there and kept in the f64 B; over 9 insertions
-    into a ring of 4 (wrapping once) the coefficients within 1e-6 of the
-    JAX package's ``diis.mix`` (each amplitude is one-hot on its slot in
-    the first m entries, so the mixed vector's first m entries are the
-    coefficients)."""
+def test_diis_f32_rings_match_jax():
+    """The DIIS of the f32 ground-state bulk: every ring, the Gram matrix
+    and the mixed vector in f32 (``init_state(..., float32)``); over 7
+    insertions into a ring of 4 (wrapping once) the coefficients within
+    1e-6 of the JAX package's f32 ``diis.mix`` (each amplitude is one-hot
+    on its slot in the first m entries, so the mixed vector's first m
+    entries are the coefficients)."""
     rng = np.random.default_rng(17)
     m, n = 4, 300
-    sj = jdiis.init_state(m, n, jnp.float64, err_dtype=jnp.float32)
-    st = tdiis.init_state(m, n, torch.float64, "cpu",
-                          err_dtype=torch.float32)
-    assert st.errs.dtype == torch.float32 and st.B.dtype == torch.float64
+    sj = jdiis.init_state(m, n, jnp.float32)
+    st = tdiis.init_state(m, n, torch.float32, "cpu")
     for t in range(7):
-        err = rng.standard_normal(n) * 0.5 ** t
-        amp = rng.standard_normal(n)
+        err = rng.standard_normal(n).astype(np.float32) * 0.5 ** t
+        amp = rng.standard_normal(n).astype(np.float32)
         amp[:m] = 0.0
         amp[t % m] = 1.0
         sj, mj = jdiis.mix(sj, jnp.asarray(err), jnp.asarray(amp))
         st, mt = tdiis.mix(st, torch.as_tensor(err), torch.as_tensor(amp))
-        assert mt.dtype == torch.float64
+        assert mt.dtype == torch.float32 and st.B.dtype == torch.float32
         assert np.abs(mt.numpy()[:m] - np.asarray(mj)[:m]).max() <= 1e-6
         assert np.abs(mt.numpy() - np.asarray(mj)).max() <= 1e-5
 
@@ -438,10 +431,9 @@ def _pair(x):
 
 
 def test_f32_tail_twins_match_f64():
-    """K2/K3 and K2′/K3′ in f32 (and K2′ with an f32 error ring beside
-    f64 amplitudes) against f64 on the same f32-representable values:
-    rings, Gram rows, mixed amplitudes and energies within 1e-5
-    relative."""
+    """K2/K3 and K2′/K3′ in f32 against f64 on the same
+    f32-representable values: rings, Gram rows, mixed amplitudes and
+    energies within 1e-5 relative."""
     rng = np.random.default_rng(23)
     no, nv, m = 3, 8, 5
     eps = np.sort(rng.standard_normal(no + nv))
@@ -478,14 +470,6 @@ def test_f32_tail_twins_match_f64():
         for got, want in zip(*outs):
             assert got.dtype == torch.float32
             assert abs(float(got) - float(want)) <= F32_REL * abs(float(want))
-    # K2′'s f32 error ring: f64 amplitudes, the row over the f32 ring
-    ring32 = errs[1].float()
-    row = ccsd_tail.jacobi_diis_insert(R1[1], T1[1], R[1], T[1], ei[1],
-                                       ea[1], -1.0, ring32, amps[1].clone(),
-                                       2, 4)
-    assert row.dtype == torch.float32
-    assert _rel(row, rows[1]) <= F32_REL
-    assert _rel(ring32, errs[1]) <= 1e-7
 
 
 def test_f32_trace_and_davidson_twins_match_f64(ueg19):
@@ -537,3 +521,36 @@ def test_mixed_precision_on_cut_blocks_matches_whole(lih, solver):
         out.append((e, s.n_iterations_f32))
     assert out[1][1] == out[0][1] > 1
     assert abs(out[1][0] - out[0][0]) <= 1e-10
+
+
+@pytest.mark.parametrize("abcd", ["cut", "whole", "shards"])
+def test_ccd_mixed_precision_with_ring_mesh(lih, abcd):
+    """CCD ``mixed_precision=True`` with ``ring_mesh`` on LiH/3-21G over
+    three (repeated) CPU devices.  The f32 pass runs without the ring (as
+    the JAX package's does), so only an ``abcd`` cut by
+    ``mesh.shard_blocks`` keeps it off one device: that one runs
+    tensor-parallel in f32 and with the ring in f64, within 1e-10 of the
+    whole blocks' mixed solve with the same f32 iterations; a whole
+    ``abcd`` or a list of its shards raises."""
+    from pymes_tpu_torch.integral.partition import part_2_body_int
+    from pymes_tpu_torch.parallel import mesh as tmesh
+
+    no = lih["no"]
+    fock = torch.as_tensor(lih["fock"])
+    d = part_2_body_int(no, torch.as_tensor(lih["V"]))
+    m = tmesh.make_mesh(3, "cpu", devices=["cpu"] * 3)
+    cut = tmesh.shard_blocks(m, d)
+    V = {"cut": cut, "whole": d,
+         "shards": {**d, "abcd": list(cut["abcd"].shards)}}[abcd]
+    s = tccd.CCD(no, "cpu")
+    if abcd != "cut":
+        with pytest.raises(ValueError):
+            s.solve(fock, V, ring_mesh=m, mixed_precision=True)
+        return
+    e = _logged(lambda: s.solve(fock, V, ring_mesh=m,
+                                mixed_precision=True))[0]["ccd e"]
+    whole = tccd.CCD(no, "cpu")
+    e0 = _logged(lambda: whole.solve(fock, d,
+                                     mixed_precision=True))[0]["ccd e"]
+    assert s.n_iterations_f32 == whole.n_iterations_f32 > 1
+    assert abs(e - e0) <= 1e-10

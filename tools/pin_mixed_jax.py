@@ -7,6 +7,8 @@
   mf-CCD amplitudes of ``benchmarks/_setup.build_ueg_mf(5,
   contract_mode="xla")`` (n_excit 2, max_dim 16, ``contract_mode="xla"``):
   the sorted roots, the f32 seed phase's iterations and the f64 polish's.
+* ``eom_tight``: the converged roots of the same problem, the JAX
+  package's f64 Davidson (``precision="f64"``, MOM) to |dE| < 1e-12.
 * ``ccd``: ``CCD.solve(mixed_precision=True)`` at nP=57 on the virtual
   ladder plan (the blocks and diagonal HF Fock of ``chip_smoke.setup``,
   DIIS, level shift −1, ``max_iter`` 60, |dE| < 1e-8): the energy, the f32
@@ -15,8 +17,8 @@
   1e-8): the energy, the f32 iterations and the polish's.
 
 Run from the repository root:
-``python3 tools/pin_mixed_jax.py [--parts eom,ccd,lih]`` (a few minutes on
-one core, most of it the JAX compiles of the EOM).
+``python3 tools/pin_mixed_jax.py [--parts eom,eom_tight,ccd,lih]`` (a few
+minutes on one core, most of it the JAX compiles of the EOM).
 """
 
 import argparse
@@ -77,6 +79,20 @@ def eom():
           flush=True)
 
 
+def eom_tight():
+    t0 = time.time()
+    x = build_ueg_mf(5, contract_mode="xla", verbose=False)
+    s = eom_ccsd.EOM_CCSD(NO, n_excit=2)
+    s.max_dim = 16
+    s.contract_mode = "xla"
+    s.precision, s.root_tracking = "f64", "guess"
+    s.e_epsilon, s.max_iter = 1e-12, 300
+    e, _ = logged(lambda: s.solve(x["fock"], x["Vd"], x["T2"]))
+    print(f"eom nP={x['n_p']}: f64 roots to |dE| < 1e-12 "
+          f"{[float(r) for r in np.sort(np.real(e))]} in {s.n_iterations} "
+          f"iterations ({time.time() - t0:.1f} s)", flush=True)
+
+
 def ccd_np57():
     t0 = time.time()
     u = ueg.UEG(14, NO, NO, 0.5)
@@ -113,7 +129,7 @@ def lih():
           f"({time.time() - t0:.1f} s)", flush=True)
 
 
-PARTS = {"eom": eom, "ccd": ccd_np57, "lih": lih}
+PARTS = {"eom": eom, "eom_tight": eom_tight, "ccd": ccd_np57, "lih": lih}
 
 
 def main():
