@@ -69,16 +69,18 @@ Drives the port's main paths through its own kernels:
 Kernels: K1 ``block_ladder`` (CUDA C++ on the f64 tensor cores, built with
 nvcc for sm_90a at first use), K4 ``ovvv_gather`` and its fused trace
 ``ovvv_gather_diag``, K5 ``pair_symmetrize``, K7 ``arnoldi_cgs2`` (the
-CGS2 projection and the fused Krylov combine) and K9 ``ring_step`` (CUDA
-C++, built with K1); K2 ``ccd_jacobi_diis``, K3 ``ccd_mix_energy``, K2′
-``ccsd_jacobi_diis``, K3′ ``ccsd_mix_energy``, K6 ``davidson_residual``
-and K8 ``shifted_precond`` (Triton); and the f32 instantiations
-``block_ladder_f32`` (CUDA C++ on the CUDA cores), ``ovvv_gather_f32``,
-``pair_symmetrize_f32``, ``arnoldi_cgs2_f32`` (CUDA C++) and
-``shifted_precond_f32`` (Triton) of the mixed-precision engine, and those
-of the precision modes: ``davidson_residual_f32``,
-``ccd_jacobi_diis_f32``, ``ccd_mix_energy_f32``, ``ccsd_jacobi_diis_f32``,
-``ccsd_mix_energy_f32`` in Triton, ``ovvv_gather_diag_f32`` in CUDA C++.
+CGS2 projection and the fused Krylov combine), K9 ``ring_step``, and the
+tail passes K2 ``ccd_jacobi_diis``, K3 ``ccd_mix_energy``, K2′
+``ccsd_jacobi_diis`` and K3′ ``ccsd_mix_energy`` (one source,
+``csrc/cc_tail.cu``: CCD is its case without a T1 segment) (CUDA C++,
+built with K1); K6 ``davidson_residual`` and K8 ``shifted_precond``
+(Triton); and the f32 instantiations ``block_ladder_f32`` (CUDA C++ on the
+CUDA cores), ``ovvv_gather_f32``, ``pair_symmetrize_f32``,
+``arnoldi_cgs2_f32`` (CUDA C++) and ``shifted_precond_f32`` (Triton) of
+the mixed-precision engine, and those of the precision modes:
+``davidson_residual_f32`` in Triton, ``ccd_jacobi_diis_f32``,
+``ccd_mix_energy_f32``, ``ccsd_jacobi_diis_f32``, ``ccsd_mix_energy_f32``
+and ``ovvv_gather_diag_f32`` in CUDA C++.
 
 Phases: (0) card and versions; (1) kernel builds; (2) each kernel against
 its plain twin on the card at the main paths' shapes (K2′/K3′ at nP=219
@@ -103,6 +105,9 @@ per-call time can be the host's); K4 bit for bit and per call (also on
 the card alone) at the widths its callers give it: the CCSD dressing (7
 columns) and the EOM batch (14) at nP=219, and the FEAST nP=57 (896) and
 RT nP=123 (448) lane batches of phase 11, its fused trace at nP=219; the
+tails K2/K3 and K2′/K3′, f64 and f32, on the card alone at nP=219 (every
+device operation of a call, the per-call times of phases 5, 8 and 25
+beside them); the
 set-up scatter of the nP=219 blocks (B8); (11) K7/K8 against their twins
 (K7's projection and fused combine also rerun bit for bit) and per call at
 the FEAST nP=57 and RT nP=123 lane shapes, the fused combine beside one
@@ -280,17 +285,17 @@ DIAG_PLANS = (("vov", 1), ("ovv", 0))
 KERNELS = {
     "block_ladder": ("cuda", "pymes_tpu_torch/csrc/block_ladder.cu",
                      "pymes_tpu/ops/ueg_ladder.py:450"),
-    "ccd_jacobi_diis": ("triton", "pymes_tpu_torch/kernels/ccd_tail.py",
+    "ccd_jacobi_diis": ("cuda", "pymes_tpu_torch/csrc/cc_tail.cu",
                         "pymes_tpu/solver/ccd.py:525"),
-    "ccd_mix_energy": ("triton", "pymes_tpu_torch/kernels/ccd_tail.py",
+    "ccd_mix_energy": ("cuda", "pymes_tpu_torch/csrc/cc_tail.cu",
                        "pymes_tpu/mixer/diis.py:107"),
     "ovvv_gather": ("cuda", "pymes_tpu_torch/csrc/ovvv_gather.cu",
                     "pymes_tpu/ops/ueg_ladder.py:150"),
     "ovvv_gather_diag": ("cuda", "pymes_tpu_torch/csrc/ovvv_gather.cu",
                          "pymes_tpu/solver/ccsd.py:271"),
-    "ccsd_jacobi_diis": ("triton", "pymes_tpu_torch/kernels/ccsd_tail.py",
+    "ccsd_jacobi_diis": ("cuda", "pymes_tpu_torch/csrc/cc_tail.cu",
                          "pymes_tpu/solver/ccsd.py:615"),
-    "ccsd_mix_energy": ("triton", "pymes_tpu_torch/kernels/ccsd_tail.py",
+    "ccsd_mix_energy": ("cuda", "pymes_tpu_torch/csrc/cc_tail.cu",
                         "pymes_tpu/solver/ccsd.py:393"),
     "pair_symmetrize": ("cuda", "pymes_tpu_torch/csrc/pair_sym.cu",
                         "pymes_tpu/solver/ccd.py:349"),
@@ -584,7 +589,8 @@ def rel_err(got, want, what, tol=REL_TOL):
 
 
 def bit_equal(got, want, what):
-    """K5 takes the twin's sum in the twin's order: the bits must agree.
+    """A kernel that computes each element in the twin's order (K4's
+    gather, K5's sum, the ring rows of K2/K2′): the bits must agree.
     Returns the max abs error (0)."""
     import torch
 
@@ -617,8 +623,9 @@ def compare_kernels(p, seed):
             x["R"], x["T"], p["eps_i"], p["eps_a"], -1.0, e, a, slot,
             n_valid, twin=tw) for (e, a), tw in zip(rings, (False, True))]
         e_k2 = max(e_k2, rel_err(rows[0], rows[1], "K2 Gram row"),
-                   rel_err(rings[0][0], rings[1][0], "K2 error ring"),
-                   rel_err(rings[0][1], rings[1][1], "K2 amplitude ring"))
+                   bit_equal(rings[0][0], rings[1][0], "K2 error ring"),
+                   bit_equal(rings[0][1], rings[1][1],
+                             "K2 amplitude ring"))
     errs["ccd_jacobi_diis"] = e_k2
 
     e_k3 = 0.0
@@ -746,10 +753,10 @@ def compare_ccsd_tail(x, eps_i, eps_a, label):
             for (e, a), tw in zip(rings, (False, True))]
         e_k2 = max(e_k2,
                    rel_err(rows[0], rows[1], f"K2' Gram row, {label}"),
-                   rel_err(rings[0][0], rings[1][0],
-                           f"K2' error ring, {label}"),
-                   rel_err(rings[0][1], rings[1][1],
-                           f"K2' amplitude ring, {label}"))
+                   bit_equal(rings[0][0], rings[1][0],
+                             f"K2' error ring, {label}"),
+                   bit_equal(rings[0][1], rings[1][1],
+                             f"K2' amplitude ring, {label}"))
 
     e_k3 = 0.0
     for n_valid in (1, 6):
@@ -843,6 +850,44 @@ def ccsd_k4_alone(q, seed):
     trace = card_ms(lambda: [ueg_ladder.ovvv_t1_trace(plans[pat], T1, axis)
                              for pat, axis in DIAG_PLANS], "ovvv_diag")
     return gather / len(plans), trace / len(DIAG_PLANS)
+
+
+def tail_calls(p, q, seed, dtype):
+    """The four tail passes at nP=219 as calls of no argument, on seeded
+    inputs of type ``dtype`` made as :func:`time_kernels` (K2/K3) and
+    :func:`time_ccsd_kernels` (K2′/K3′) make theirs: slot 2 of a 6-slot
+    ring, all slots valid."""
+    from pymes_tpu_torch.kernels import ccd_tail, ccsd_tail
+
+    x = {k: v.to(dtype) for k, v in inputs(p, seed).items()}
+    y = {k: v.to(dtype) for k, v in tail_inputs(NO, q["dict"]["ijab"],
+                                                seed).items()}
+    eps_i, eps_a = q["eps_i"].to(dtype), q["eps_a"].to(dtype)
+    return {
+        "ccd_jacobi_diis": lambda: ccd_tail.jacobi_diis_insert(
+            x["R"], x["T"], eps_i, eps_a, -1.0, x["errs"], x["amps"], 2, 6),
+        "ccd_mix_energy": lambda: ccd_tail.diis_mix_energy(
+            x["amps"], x["coeff"], 6, x["R"], y["V"], y["Vx"]),
+        "ccsd_jacobi_diis": lambda: ccsd_tail.jacobi_diis_insert(
+            y["R1"], y["T1"], y["R2"], y["T2"], eps_i, eps_a, -1.0,
+            y["errs"], y["amps"], 2, 6),
+        "ccsd_mix_energy": lambda: ccsd_tail.diis_mix_energy(
+            y["amps"], y["coeff"], 6, y["R1"], y["R2"], y["F1"], y["V"],
+            y["Vx"])}
+
+
+def tails_alone(p, q, seed):
+    """K2/K3 and K2′/K3′, f64 and f32, on the card alone (profiler: every
+    device operation of a wrapper call, the ticket reset included), ms per
+    call at nP=219 on :func:`tail_calls`."""
+    import torch
+
+    out = {}
+    for sfx, dtype in (("", torch.float64), ("_f32", torch.float32)):
+        for name, fn in tail_calls(p, q, seed, dtype).items():
+            out[name + sfx] = card_ms(fn, "")
+        torch.cuda.empty_cache()
+    return out
 
 
 def print_k4(card, label, t):
@@ -2558,8 +2603,8 @@ def compare_prec_kernels(x, q):
     """Phase 25: each f32 kernel of the precision modes against its f32
     twin at the nP=219 shapes, max relative error ≤ F32_REL: K6 at 16 and
     9 valid rows (the three clamped columns and the rest each to its own
-    scale), K2/K3 and K2′/K3′ (first insertion and full ring), K4's fused
-    trace on both plans.  Returns the max abs
+    scale), K2/K3 and K2′/K3′ (first insertion and full ring; their ring
+    rows bit for bit), K4's fused trace on both plans.  Returns the max abs
     errors and the max relative errors by kernel."""
     import torch
 
@@ -2607,8 +2652,10 @@ def compare_prec_kernels(x, q):
                   f"{name}: Gram row or error ring not f32")
             what = f"{name} slot {slot}"
             note(name, rows[0], rows[1], f"{what} Gram row")
-            note(name, rings[0][0], rings[1][0], f"{what} error ring")
-            note(name, rings[0][1], rings[1][1], f"{what} amplitude ring")
+            for k, ring in enumerate(("error", "amplitude")):
+                e = bit_equal(rings[0][k], rings[1][k],
+                              f"{what} {ring} ring, nP={q['nP']}")
+                errs[name] = max(errs[name], e)
     for n_valid in (1, 6):
         Ts = [x["T2"].clone() for _ in range(2)]
         es = [ccd_tail.diis_mix_energy(x["ccd_amps"], x["coeff"], n_valid, T,
@@ -4114,22 +4161,22 @@ def main():
     from pymes_tpu_torch.kernels import _build
     from pymes_tpu_torch.solver import ccd
 
-    # phase 1: builds (nvcc for K1, K4, K5, K7 and K9; Triton JIT for the
-    # others at their first launch, which phase 2 makes)
+    # phase 1: builds (nvcc for K1-K5, K7 and K9; Triton JIT for K6 and K8
+    # at their first launch)
     t0 = time.time()
     _build.library()
-    print(f"K1 + K4 + K5 + K7 + K9 nvcc build + load: {time.time() - t0:.2f} "
-          "s", flush=True)
+    print(f"K1 + K2/K3 + K4 + K5 + K7 + K9 nvcc build + load: "
+          f"{time.time() - t0:.2f} s", flush=True)
     problems = {c: setup(c, device) for c in (5, 14)}
     q = setup_ccsd(problems[14], device)
     t0 = time.time()
     compare = [compare_kernels(problems[5], 1)]
-    print(f"first CCD kernel launches (Triton JIT of K2/K3 included): "
-          f"{time.time() - t0:.2f} s", flush=True)
+    print(f"first CCD kernel launches: {time.time() - t0:.2f} s",
+          flush=True)
     t0 = time.time()
     compare.append(compare_ccsd_kernels(q, 4))
-    print(f"first CCSD kernel launches at nP={q['nP']} (Triton JIT of K2' "
-          f"and K3' included): {time.time() - t0:.2f} s", flush=True)
+    print(f"first CCSD kernel launches at nP={q['nP']}: "
+          f"{time.time() - t0:.2f} s", flush=True)
     # phase 2: kernel vs twin at the nP=219 CCD plan and at the dense
     # CCSD path's molecular shapes too
     compare.append(compare_kernels(problems[14], 2))
@@ -4249,6 +4296,10 @@ def main():
           "ms/iter", flush=True)
     k4_dev, diag_dev = ccsd_k4_alone(q, 5)
     kernel_ms[14]["ovvv_gather_diag device"] = diag_dev
+    tails_dev = tails_alone(problems[14], q, 5)
+    print(f"[{card}] nP={q['nP']} tails on the card alone (profiler, every "
+          "device op of a call): " + ", ".join(
+              f"{k} {v:.4f} ms" for k, v in tails_dev.items()), flush=True)
     k4_t = {"CCSD dressing, 7 columns": (*k4_7[:2], k4_dev, *k4_7[3:])}
     print_k4(card, f"nP={q['nP']} CCSD dressing, 7 columns",
              k4_t["CCSD dressing, 7 columns"])
@@ -4582,6 +4633,7 @@ def main():
                if label != "CCSD dressing, 7 columns"}},
         "ovvv_gather_diag": {
             "device_ms": kernel_ms["ovvv_gather_diag device"]},
+        **{name: {"device_ms": ms} for name, ms in tails_dev.items()},
         "block_ladder": {
             "device_ms": k1_alone,
             **{label: sub(*t) for label, t in ladder_t.items()},

@@ -5,13 +5,15 @@
   ``pymes_tpu_torch/csrc/block_ladder.cu``; every ``csrc/*.cu`` is built by
   :mod:`._build`).
 * :mod:`.ccd_tail` — K2/K3, the per-iteration Jacobi + DIIS + energy passes
-  over T2 (Triton).
+  over T2 (CUDA C++, ``pymes_tpu_torch/csrc/cc_tail.cu``, the K2′/K3′
+  kernels without a T1 segment).
 * :mod:`.ovvv_gather` — K4, the momentum gather of T1 that replaces the
   ovvv blocks of the matrix-free CCSD dressing and the EOM sigmas, and its
   diagonal entry, the fused G_vv trace of the dressing (CUDA C++,
   ``pymes_tpu_torch/csrc/ovvv_gather.cu``).
 * :mod:`.ccsd_tail` — K2′/K3′, the Jacobi + DIIS + energy passes over the
-  CCSD carry [T1 | T2] (Triton).
+  CCSD carry [T1 | T2], and their launch plan (CUDA C++,
+  ``pymes_tpu_torch/csrc/cc_tail.cu``).
 * :mod:`.pair_sym` — K5, the P(ab,ij) pair symmetrisation ``Y + X + P(X)``
   of the CCD/CCSD residual and the EOM doubles sigma (CUDA C++,
   ``pymes_tpu_torch/csrc/pair_sym.cu``).

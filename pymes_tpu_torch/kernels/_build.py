@@ -5,7 +5,8 @@ sharing ``csrc/*.cuh``, no PyTorch headers, so the build takes seconds; one
 process per source, all started together) for ``sm_90a`` and links them
 into one library in ``build/torch_kernels/`` of the checkout; the library
 is loaded with ``ctypes``.  Pointers and the stream are passed as
-``c_void_p``, strides and column counts as ``c_longlong``; every entry
+``c_void_p``, strides and column counts as ``c_longlong``, the tails' level
+shift as ``c_double`` (by value: no device tensor a call); every entry
 point returns a ``cudaError_t`` that the wrapper checks.  A failed build
 raises — there is no fallback.
 """
@@ -153,6 +154,18 @@ def library():
             fn = getattr(lib, "pymes_krylov_combine" + sfx)
             fn.argtypes = [vp, vp, vp, vp, i32, vp, vp, vp, i64, i64, i32,
                            i64, i32, i32, vp]
+            fn.restype = i32
+        # K2/K3, K2'/K3': the Jacobi/insert pass (R1, T1, R2, T2, eps_i,
+        # eps_a, the shift, errs, amps, out, N1, N, no, nv, m, slot,
+        # n_valid, then the plan: vector width, head, vectors, tail, grid)
+        # and the mix/energy pass (amps, coeff, T1, T2, F1, V, Vx, out, N1,
+        # N, no, nv, n_valid, the plan and the T1 mix's grid); _f32 alike
+        for sfx in ("", "_f32"):
+            fn = getattr(lib, "pymes_cc_jacobi" + sfx)
+            fn.argtypes = [vp] * 6 + [f64] + [vp] * 3 + [i32] * 12 + [vp]
+            fn.restype = i32
+            fn = getattr(lib, "pymes_cc_mix" + sfx)
+            fn.argtypes = [vp] * 8 + [i32] * 11 + [vp]
             fn.restype = i32
         _LIB = lib
     return _LIB

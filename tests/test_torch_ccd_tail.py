@@ -3,7 +3,7 @@ mixer) against the JAX package, over a recorded sequence of 8 steps so that
 the 6-slot ring wraps twice.
 
 K2 (Jacobi step + ring insertion + Gram row) and K3 (mix + energy) are
-Triton kernels that run only on the card (``test_torch_cuda.py``); their
+CUDA C++ kernels that run only on the card (``test_torch_cuda.py``); their
 plain twins, which the CPU path runs, are held here to JAX's Jacobi step,
 ``diis.mix`` and ``ccd_energy_ij``.  Tolerance 1e-12 relative: f64 on both
 sides, only the summation order and the small solve (LU here, Gaussian

@@ -1,26 +1,31 @@
 """The port's hand-written kernels on the card, each against its plain twin.
 
-K1 (CUDA C++ ladder), K2/K3 (Triton CCD tail), K4 (CUDA C++ ovvv gather
-and its fused trace), K2′/K3′ (Triton CCSD tail), K5 (CUDA C++ pair
-symmetrisation), K6 (Triton Davidson residual), K7 (CUDA C++ Arnoldi CGS2
-and Krylov combines) and K8 (Triton shifted operator and preconditioner)
-and K9 (CUDA C++ ring step; with the ring over a repeated card and over two
-cards, and the sector-sharded K1) run only on an NVIDIA card:
-these tests carry the ``cuda`` marker and skip where torch sees no card.  The card has no
-jax, so this file imports only the port; run it there without the
+K1 (CUDA C++ ladder), K2/K3 (CUDA C++ CCD tail), K4 (CUDA C++ ovvv
+gather and its fused trace), K2′/K3′ (the same CUDA C++ source, with T1),
+K5 (CUDA C++ pair symmetrisation), K6 (Triton Davidson residual), K7
+(CUDA C++ Arnoldi CGS2 and Krylov combines) and K8 (Triton shifted operator
+and preconditioner) and K9 (CUDA C++ ring step; with the ring over a
+repeated card and over two cards, and the sector-sharded K1) run only on an
+NVIDIA card: these tests carry the ``cuda`` marker and skip where torch
+sees no card.  The card has no jax, so this file imports only the port; run
+it there without the
 repository's conftest (which sets up jax):
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
 Tolerance: max|kernel − twin| ≤ 1e-12·max|twin| (both f64; only the
-summation order differs); K4's gather (one multiply an element) and K5
-(which sums in its twin's order) must equal their twins bit for bit.  K1,
+summation order and FMA contraction differ); K4's gather (one multiply an
+element), K5 (which sums in its twin's order) and the ring rows that K2/K2′
+write (one division and one add an element, in the twin's order) must equal
+their twins bit for bit, and the tails' sums repeat bit for bit from launch
+to launch (the last block adds the blocks' partials in block order).  K1,
 K7 and K9 add no atomics, so a second launch must repeat the first bit for
 bit.  The f32 instantiations of K1, K4, K5, K7 and K8 (the FEAST/RT
 mixed-precision engine) and of K2/K3, K2′/K3′, K4's fused trace and K6
-(the ground-state and Davidson precision modes) are held to their f32 twins within 1e-5·max|twin| (f32
-rounding, ~6e-8 an operation, over the sums of a few hundred terms; K4's
-gather and K5 bit for bit), a mixed FEAST solve on the card to the CPU's,
+(the ground-state and Davidson precision modes) are held to their f32
+twins within 1e-5·max|twin| (f32 rounding, ~6e-8 an operation, over the
+sums of a few hundred terms; K4's gather, K5 and the tails' ring rows bit
+for bit), a mixed FEAST solve on the card to the CPU's,
 and LiH's CCSD ``mixed_precision`` (1e-10) and mixed EOM (1e-8) on the
 card to the CPU's.
 """
@@ -97,43 +102,135 @@ def test_block_ladder_kernel_matches_twin(device, cutoff, bra):
     _close(got, want)
 
 
-@pytest.mark.parametrize("slot,n_valid", [(0, 1), (3, 4), (2, 6)])
-def test_jacobi_diis_kernel_matches_twin(device, slot, n_valid):
-    _, _, eps_i, eps_a = _problem(2, device)
-    rng = np.random.default_rng(slot)
-    nv = eps_a.shape[0]
-    shape, n = (NO, NO, nv, nv), NO * NO * nv * nv
-    R, T = _randn(rng, shape, device), _randn(rng, shape, device)
+def _same(got, want):
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype and torch.equal(got, want), \
+        float((got - want).abs().max())
+
+
+def _offset(t, k):
+    """``t`` copied into a contiguous view that starts ``k`` elements into
+    its storage (operands off the 16-byte grid: the kernels' scalar head)."""
+    buf = torch.empty(t.numel() + k, dtype=t.dtype, device=t.device)
+    out = buf[k:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def _tail_eps(rng, no, nv, device, dtype=torch.float64):
+    eps = np.sort(rng.standard_normal(no + nv))
+    return (torch.as_tensor(eps[:no] - 1.0, dtype=dtype, device=device),
+            torch.as_tensor(eps[no:] + 1.0, dtype=dtype, device=device))
+
+
+def _jacobi_runs(call, ring, name, close):
+    """K2/K2′ (``call(errs, amps, twin)``) against its twin on copies of
+    ``ring``: the ring rows bit for bit, the Gram row within ``close``; a
+    second launch repeats the first bit for bit (the last block sums the
+    blocks' partials in block order)."""
+    before = kernels.LAUNCHES[name]
+    rings = [tuple(r.clone() for r in ring) for _ in range(3)]
+    rows = [call(e, a, tw) for (e, a), tw in zip(rings, (False, True, False))]
+    assert kernels.LAUNCHES[name] == before + 2
+    close(rows[0], rows[1])
+    for k in range(2):
+        _same(rings[0][k], rings[1][k])
+        _same(rings[2][k], rings[0][k])
+    _same(rows[2], rows[0])
+    return rows[0]
+
+
+# (no, nv, operand offset): the nP=19 shape (nv = 12, 16-byte vectors);
+# nv = 13 (odd N1 = 91 for CCSD, odd N = 8281 for CCD: scalars); operands
+# one element off the 16-byte grid (a scalar head and tail)
+TAIL_SHAPES = [(NO, 12, 0), (NO, 13, 0), (NO, 12, 1)]
+
+
+@pytest.mark.parametrize("shape", TAIL_SHAPES)
+@pytest.mark.parametrize("slot,n_valid,m", [(0, 1, 6), (3, 4, 6), (2, 6, 6),
+                                            (16, 17, 17), (5, 17, 17)])
+def test_jacobi_diis_kernel_matches_twin(device, slot, n_valid, m, shape):
+    """K2 (the CCD pass, no T1 segment): slot 0 of a fresh ring, a
+    part-filled ring, a wrapped slot, and a 17-slot ring (several Gram
+    groups)."""
+    no, nv, off = shape
+    rng = np.random.default_rng(slot + 7 * m)
+    eps_i, eps_a = _tail_eps(rng, no, nv, device)
+    t2, n = (no, no, nv, nv), no * no * nv * nv
+    R, T = (_offset(_randn(rng, t2, device), off) for _ in range(2))
+    ring = tuple(_offset(_randn(rng, (m, n), device), off) for _ in range(2))
+    row = _jacobi_runs(
+        lambda e, a, tw: ccd_tail.jacobi_diis_insert(
+            R, T, eps_i, eps_a, -1.0, e, a, slot, n_valid, twin=tw),
+        ring, "ccd_jacobi_diis", _close)
+    assert bool((row[n_valid:] == 0).all())
+
+
+def _mix_runs(call, outs, name, close):
+    """K3/K3′ (``call(outs, twin)``, writing the tensors ``outs``) against
+    its twin: the mixed amplitudes and energies within ``close``; a second
+    launch repeats the first bit for bit."""
+    before = kernels.LAUNCHES[name]
+    ts = [tuple(t.clone() for t in outs) for _ in range(3)]
+    es = [call(t, tw) for t, tw in zip(ts, (False, True, False))]
+    assert kernels.LAUNCHES[name] == before + 2
+    for a, b in zip(ts[0], ts[1]):
+        close(a, b)
+    for a, b in zip(es[0], es[1]):
+        close(a, b)
+    for a, b in zip(ts[2] + tuple(es[2]), ts[0] + tuple(es[0])):
+        _same(a, b)
+
+
+@pytest.mark.parametrize("shape", TAIL_SHAPES)
+@pytest.mark.parametrize("n_valid,m", [(1, 6), (4, 6), (6, 6), (17, 17)])
+def test_mix_energy_kernel_matches_twin(device, n_valid, m, shape):
+    no, nv, off = shape
+    rng = np.random.default_rng(n_valid + 7 * m)
+    t2, n = (no, no, nv, nv), no * no * nv * nv
+    amps = _offset(_randn(rng, (m, n), device), off)
+    coeff = _randn(rng, (m,), device)
+    V = _offset(_randn(rng, t2, device), off)
+    Vx = _offset(V.transpose(2, 3).contiguous(), off)
+    T = _offset(torch.zeros(t2, dtype=torch.float64, device=device), off)
+    _mix_runs(lambda o, tw: ccd_tail.diis_mix_energy(
+        amps, coeff, n_valid, o[0], V, Vx, twin=tw), (T,),
+        "ccd_mix_energy", _close)
+
+
+def test_tail_kernels_right_after_a_failed_call(device):
+    """A call that raises, in the wrapper (a slot outside the ring) or in
+    the library (a vector width the kernels do not take), leaves the next
+    calls right: K2 and K3 against their twins."""
+    from pymes_tpu_torch.kernels import _build
+
+    rng = np.random.default_rng(99)
+    eps_i, eps_a = _tail_eps(rng, NO, 12, device)
+    t2, n = (NO, NO, 12, 12), NO * NO * 144
+    R, T, V = (_randn(rng, t2, device) for _ in range(3))
     ring = (_randn(rng, (6, n), device), _randn(rng, (6, n), device))
-    rings = [tuple(r.clone() for r in ring) for _ in range(2)]
-    before = kernels.LAUNCHES["ccd_jacobi_diis"]
-    rows = [ccd_tail.jacobi_diis_insert(R, T, eps_i, eps_a, -1.0, e, a,
-                                        slot, n_valid, twin=tw)
-            for (e, a), tw in zip(rings, (False, True))]
-    assert kernels.LAUNCHES["ccd_jacobi_diis"] == before + 1
-    _close(rows[0], rows[1])
-    assert bool((rows[0][n_valid:] == 0).all())
-    _close(rings[0][0], rings[1][0])
-    _close(rings[0][1], rings[1][1])
-
-
-@pytest.mark.parametrize("n_valid", [1, 4, 6])
-def test_mix_energy_kernel_matches_twin(device, n_valid):
-    rng = np.random.default_rng(n_valid)
-    nv, n = 12, NO * NO * 12 * 12
-    amps = _randn(rng, (6, n), device)
     coeff = _randn(rng, (6,), device)
-    V = _randn(rng, (NO, NO, nv, nv), device)
-    Vx = V.transpose(2, 3).contiguous()
-    Ts = [torch.zeros((NO, NO, nv, nv), dtype=torch.float64, device=device)
-          for _ in range(2)]
-    before = kernels.LAUNCHES["ccd_mix_energy"]
-    es = [ccd_tail.diis_mix_energy(amps, coeff, n_valid, T, V, Vx, twin=tw)
-          for T, tw in zip(Ts, (False, True))]
-    assert kernels.LAUNCHES["ccd_mix_energy"] == before + 1
-    _close(Ts[0], Ts[1])
-    for a, b in zip(*es):
-        _close(a, b)
+    with pytest.raises(ValueError):
+        ccd_tail.jacobi_diis_insert(R, T, eps_i, eps_a, -1.0, *ring, 6, 6)
+    lib = _build.library()
+    out = torch.empty(6 + 6 + 1, dtype=torch.float64, device=device)
+    rc = _build.launch(R.device, lib.pymes_cc_jacobi, None, None,
+                       R.data_ptr(), T.data_ptr(), eps_i.data_ptr(),
+                       eps_a.data_ptr(), -1.0, ring[0].data_ptr(),
+                       ring[1].data_ptr(), out.data_ptr(), 0, n, NO, 12, 6,
+                       2, 6, 3, 0, n // 3, 0, 1)
+    assert rc != 0
+    rc = _build.launch(R.device, lib.pymes_cc_mix, ring[1].data_ptr(),
+                       coeff.data_ptr(), None, T.data_ptr(), None,
+                       V.data_ptr(), V.data_ptr(), out.data_ptr(), 0, n, NO,
+                       12, 6, 3, 0, n // 3, 0, 1, 0)
+    assert rc != 0
+    _jacobi_runs(lambda e, a, tw: ccd_tail.jacobi_diis_insert(
+        R, T, eps_i, eps_a, -1.0, e, a, 2, 6, twin=tw), ring,
+        "ccd_jacobi_diis", _close)
+    _mix_runs(lambda o, tw: ccd_tail.diis_mix_energy(
+        ring[1], coeff, 6, o[0], V, V, twin=tw), (T,),
+        "ccd_mix_energy", _close)
 
 
 def test_solve_on_card_matches_cpu(device):
@@ -270,53 +367,47 @@ def test_block_ladder_kernel_stacked_operand_np219(device):
     _close(got, want)
 
 
-def _ccsd_ring(rng, nv, m, device):
-    n = nv * NO + NO * NO * nv * nv
-    return (_randn(rng, (m, n), device), _randn(rng, (m, n), device))
+@pytest.mark.parametrize("shape", TAIL_SHAPES)
+@pytest.mark.parametrize("slot,n_valid,m", [(0, 1, 6), (3, 4, 6), (2, 6, 6),
+                                            (16, 17, 17)])
+def test_ccsd_jacobi_diis_kernel_matches_twin(device, slot, n_valid, m,
+                                              shape):
+    """K2′ over [T1 | T2]: N1 = 84 (aligned), N1 = 91 (odd: scalars), and
+    operands one element off the 16-byte grid."""
+    no, nv, off = shape
+    rng = np.random.default_rng(slot + 7 * m)
+    eps_i, eps_a = _tail_eps(rng, no, nv, device)
+    n = nv * no + no * no * nv * nv
+    R1, T1 = (_randn(rng, (nv, no), device) for _ in range(2))
+    R2, T2 = (_offset(_randn(rng, (no, no, nv, nv), device), off)
+              for _ in range(2))
+    ring = tuple(_offset(_randn(rng, (m, n), device), off) for _ in range(2))
+    row = _jacobi_runs(
+        lambda e, a, tw: ccsd_tail.jacobi_diis_insert(
+            R1, T1, R2, T2, eps_i, eps_a, -1.0, e, a, slot, n_valid,
+            twin=tw), ring, "ccsd_jacobi_diis", _close)
+    assert bool((row[n_valid:] == 0).all())
 
 
-@pytest.mark.parametrize("slot,n_valid", [(0, 1), (3, 4), (2, 6)])
-def test_ccsd_jacobi_diis_kernel_matches_twin(device, slot, n_valid):
-    _, _, eps_i, eps_a = _problem(2, device)
-    rng = np.random.default_rng(slot)
-    nv = eps_a.shape[0]
-    R1, T1 = _randn(rng, (nv, NO), device), _randn(rng, (nv, NO), device)
-    R2 = _randn(rng, (NO, NO, nv, nv), device)
-    T2 = _randn(rng, (NO, NO, nv, nv), device)
-    ring = _ccsd_ring(rng, nv, 6, device)
-    rings = [tuple(r.clone() for r in ring) for _ in range(2)]
-    before = kernels.LAUNCHES["ccsd_jacobi_diis"]
-    rows = [ccsd_tail.jacobi_diis_insert(R1, T1, R2, T2, eps_i, eps_a, -1.0,
-                                         e, a, slot, n_valid, twin=tw)
-            for (e, a), tw in zip(rings, (False, True))]
-    assert kernels.LAUNCHES["ccsd_jacobi_diis"] == before + 1
-    _close(rows[0], rows[1])
-    assert bool((rows[0][n_valid:] == 0).all())
-    _close(rings[0][0], rings[1][0])
-    _close(rings[0][1], rings[1][1])
-
-
-@pytest.mark.parametrize("n_valid", [1, 4, 6])
-def test_ccsd_mix_energy_kernel_matches_twin(device, n_valid):
-    rng = np.random.default_rng(n_valid)
-    nv = 12
-    amps, _ = _ccsd_ring(rng, nv, 6, device)
-    coeff = _randn(rng, (6,), device)
-    F1 = _randn(rng, (nv, NO), device)
-    V = _randn(rng, (NO, NO, nv, nv), device)
-    Vx = V.transpose(2, 3).contiguous()
-    outs = [(torch.zeros((nv, NO), dtype=torch.float64, device=device),
-             torch.zeros((NO, NO, nv, nv), dtype=torch.float64,
-                         device=device)) for _ in range(2)]
-    before = kernels.LAUNCHES["ccsd_mix_energy"]
-    es = [ccsd_tail.diis_mix_energy(amps, coeff, n_valid, T1, T2, F1, V, Vx,
-                                    twin=tw)
-          for (T1, T2), tw in zip(outs, (False, True))]
-    assert kernels.LAUNCHES["ccsd_mix_energy"] == before + 1
-    _close(outs[0][0], outs[1][0])
-    _close(outs[0][1], outs[1][1])
-    for a, b in zip(*es):
-        _close(a, b)
+@pytest.mark.parametrize("shape", TAIL_SHAPES)
+@pytest.mark.parametrize("n_valid,m", [(1, 6), (4, 6), (6, 6), (17, 17)])
+def test_ccsd_mix_energy_kernel_matches_twin(device, n_valid, m, shape):
+    """K3′: the T1 segment mixed in its own launch, the T2 elements reading
+    the mixed T1 factors of T_eff; the one-body energy seeded."""
+    no, nv, off = shape
+    rng = np.random.default_rng(n_valid + 7 * m)
+    t2, n = (no, no, nv, nv), nv * no + no * no * nv * nv
+    amps = _offset(_randn(rng, (m, n), device), off)
+    coeff = _randn(rng, (m,), device)
+    F1 = _randn(rng, (nv, no), device)
+    V = _offset(_randn(rng, t2, device), off)
+    Vx = _offset(V.transpose(2, 3).contiguous(), off)
+    outs = (torch.zeros((nv, no), dtype=torch.float64, device=device),
+            _offset(torch.zeros(t2, dtype=torch.float64, device=device),
+                    off))
+    _mix_runs(lambda o, tw: ccsd_tail.diis_mix_energy(
+        amps, coeff, n_valid, o[0], o[1], F1, V, Vx, twin=tw), outs,
+        "ccsd_mix_energy", _close)
 
 
 def test_mf_ccsd_on_card_matches_cpu(device):
@@ -1416,57 +1507,47 @@ def _tail_case(rng, device, nv, m=6):
         coeff=_randn32(rng, (m,), device), m=m)
 
 
-def test_ccd_tail_f32_kernels_match_twins(device):
-    """K2/K3 in f32 at the nP=57 T2: rings, Gram row, mixed T and energies
-    against the f32 twins; launches under the _f32 names; a mix of types
-    is refused."""
-    x = _tail_case(np.random.default_rng(51), device, 50)
+@pytest.mark.parametrize("slot,n_valid,m", [(2, 5, 6), (16, 17, 17)])
+def test_ccd_tail_f32_kernels_match_twins(device, slot, n_valid, m):
+    """K2/K3 in f32 at the nP=57 T2 (float4 vectors): ring rows bit for bit,
+    Gram row, mixed T and energies within 1e-5 of the f32 twins, a second
+    launch bit for bit; launches under the _f32 names; a mix of types is
+    refused."""
+    x = _tail_case(np.random.default_rng(51), device, 50, m)
     n = x["T"].numel()
-    rings = _randn32(np.random.default_rng(52), (2, x["m"], n), device, 0.01)
-    outs = []
+    rings = _randn32(np.random.default_rng(52), (2, m, n), device, 0.01)
     before = dict(kernels.LAUNCHES)
-    for tw in (False, True):
-        errs, amps, T = rings[0].clone(), rings[1].clone(), x["T"].clone()
-        row = ccd_tail.jacobi_diis_insert(x["R"], T, x["eps_i"], x["eps_a"],
-                                          -1.0, errs, amps, 2, 5, twin=tw)
-        e = ccd_tail.diis_mix_energy(amps, x["coeff"], 5, T, x["V"], x["Vx"],
-                                     twin=tw)
-        outs.append((row, errs, amps, T) + tuple(e))
-    assert kernels.LAUNCHES["ccd_jacobi_diis_f32"] == \
-        before["ccd_jacobi_diis_f32"] + 1
-    assert kernels.LAUNCHES["ccd_mix_energy_f32"] == \
-        before["ccd_mix_energy_f32"] + 1
+    _jacobi_runs(lambda e, a, tw: ccd_tail.jacobi_diis_insert(
+        x["R"], x["T"], x["eps_i"], x["eps_a"], -1.0, e, a, slot, n_valid,
+        twin=tw), (rings[0], rings[1]), "ccd_jacobi_diis_f32", _close32)
+    _mix_runs(lambda o, tw: ccd_tail.diis_mix_energy(
+        rings[1], x["coeff"], n_valid, o[0], x["V"], x["Vx"], twin=tw),
+        (x["T"],), "ccd_mix_energy_f32", _close32)
     assert kernels.LAUNCHES["ccd_jacobi_diis"] == before["ccd_jacobi_diis"]
-    for a, b in zip(*outs):
-        _close32(a, b)
     with pytest.raises(TypeError):
         ccd_tail.jacobi_diis_insert(x["R"], x["T"], x["eps_i"], x["eps_a"],
                                     -1.0, rings[0].double(), rings[1], 2, 5)
 
 
-def test_ccsd_tail_f32_kernels_match_twins(device):
-    """K2′/K3′ in f32 over [T1 | T2] at nP=57 against their f32 twins;
-    launches under the _f32 names; an f64 ring beside f32 amplitudes is
+@pytest.mark.parametrize("slot,n_valid,m", [(2, 5, 6), (16, 17, 17)])
+def test_ccsd_tail_f32_kernels_match_twins(device, slot, n_valid, m):
+    """K2′/K3′ in f32 over [T1 | T2] at nP=57 (N1 = 350: float2 vectors)
+    against their f32 twins, as K2/K3; an f64 ring beside f32 amplitudes is
     refused."""
-    x = _tail_case(np.random.default_rng(53), device, 50)
+    x = _tail_case(np.random.default_rng(53), device, 50, m)
     n = x["T1"].numel() + x["T"].numel()
-    rings = _randn32(np.random.default_rng(54), (2, x["m"], n), device, 0.01)
-    outs = []
+    rings = _randn32(np.random.default_rng(54), (2, m, n), device, 0.01)
     before = dict(kernels.LAUNCHES)
-    for tw in (False, True):
-        errs, amps = rings[0].clone(), rings[1].clone()
-        T1, T2 = x["T1"].clone(), x["T"].clone()
-        row = ccsd_tail.jacobi_diis_insert(x["R1"], T1, x["R"], T2,
-                                           x["eps_i"], x["eps_a"], -1.0,
-                                           errs, amps, 2, 5, twin=tw)
-        e = ccsd_tail.diis_mix_energy(amps, x["coeff"], 5, T1, T2, x["F1"],
-                                      x["V"], x["Vx"], twin=tw)
-        outs.append((row, errs, amps, T1, T2) + tuple(e))
-    for a, b in zip(*outs):
-        _close32(a, b)
-    want = dict(ccsd_jacobi_diis_f32=1, ccsd_mix_energy_f32=1,
-                ccsd_jacobi_diis=0)
-    assert {k: kernels.LAUNCHES[k] - before[k] for k in want} == want
+    _jacobi_runs(lambda e, a, tw: ccsd_tail.jacobi_diis_insert(
+        x["R1"], x["T1"], x["R"], x["T"], x["eps_i"], x["eps_a"], -1.0, e, a,
+        slot, n_valid, twin=tw), (rings[0], rings[1]),
+        "ccsd_jacobi_diis_f32", _close32)
+    _mix_runs(lambda o, tw: ccsd_tail.diis_mix_energy(
+        rings[1], x["coeff"], n_valid, o[0], o[1], x["F1"], x["V"],
+        x["Vx"], twin=tw), (x["T1"], x["T"]), "ccsd_mix_energy_f32",
+        _close32)
+    assert kernels.LAUNCHES["ccsd_jacobi_diis"] == \
+        before["ccsd_jacobi_diis"]
     with pytest.raises(TypeError):
         ccsd_tail.jacobi_diis_insert(x["R1"], x["T1"], x["R"], x["T"],
                                      x["eps_i"], x["eps_a"], -1.0,

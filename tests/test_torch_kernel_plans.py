@@ -1,12 +1,15 @@
 """The Python planners of K1 (``kernels/block_ladder.py``), K7
-(``kernels/arnoldi.py``) and K9 (``kernels/ring_step.py``), and the CPU side
-of the fused Krylov combine.
+(``kernels/arnoldi.py``), K9 (``kernels/ring_step.py``) and the tail passes
+K2/K3, K2′/K3′ (``kernels/ccsd_tail.py``), and the CPU side of the fused
+Krylov combine.
 
 The kernels themselves run only on the card (``tests/test_torch_cuda.py``);
 what they are handed — K1's work units, bins and column tile, K9's tile
 width and contraction splits, K7's column ranges and tile widths — is
 decided here in plain Python, so these tests hold the plans to covering the
-work exactly once and to fitting the kernels' shared memory.  The lane-batched GMRES through the fused combine's
+work exactly once and to fitting the kernels' shared memory.  The tail
+plans are walked here as ``csrc/cc_tail.cu`` walks them (grid-stride loops,
+the digits of each T2 position stepped by carries).  The lane-batched GMRES through the fused combine's
 twin is held to the JAX package's ``gmres`` (x within 1e-10, ``rel_res``
 within 1e-12: the same algorithm, only the reductions' order differs).
 """
@@ -17,7 +20,7 @@ import pytest
 import torch
 
 from pymes_tpu.ops import gmres as jgmres
-from pymes_tpu_torch.kernels import arnoldi, ring_step
+from pymes_tpu_torch.kernels import arnoldi, ccsd_tail, ring_step
 from pymes_tpu_torch.kernels import block_ladder as k1
 from pymes_tpu_torch.models import ueg as tueg
 from pymes_tpu_torch.ops import gmres as tgmres
@@ -271,3 +274,139 @@ def test_gmres_lanes_match_jax_gmres(precond):
         np.testing.assert_allclose(x[l].numpy(), np.asarray(xj), rtol=0,
                                    atol=1e-10)
         assert abs(rel[l] - float(rj)) <= 1e-12
+
+
+def _digits(p, no, nv):
+    """(i, j, a, b) of T2 positions p; i unreduced, as ``digits``."""
+    r, q = np.divmod(p, nv * nv)
+    i, j = np.divmod(r, no)
+    a, b = np.divmod(q, nv)
+    return [i, j, a, b]
+
+
+def _step1(x, no, nv):
+    i, j, a, b = (t.copy() for t in x)
+    b += 1
+    c = b == nv
+    b[c] = 0
+    a[c] += 1
+    c &= a == nv
+    a[c] = 0
+    j[c] += 1
+    c &= j == no
+    j[c] = 0
+    i[c] += 1
+    return [i, j, a, b]
+
+
+def _stepd(x, d, no, nv):
+    i, j, a, b = x
+    b = b + d[3]
+    c = b >= nv
+    b = b - np.where(c, nv, 0)
+    a = a + d[2] + c
+    c = a >= nv
+    a = a - np.where(c, nv, 0)
+    j = j + d[1] + c
+    c = j >= no
+    j = j - np.where(c, no, 0)
+    return [i + d[0] + c, j, a, b]
+
+
+def _tail_walk(p, n1, no, nv, jacobi):
+    """Every flat position a tail pass touches, with the T2 digits it
+    computes there, as ``csrc/cc_tail.cu`` walks them: the scalar loop
+    (the T1 segment in the Jacobi pass, the T2 head and tail), the T1 mix
+    launch (the mix pass), and each thread's vectors from its first
+    position's digits stepped by the grid stride."""
+    S, W = p.grid * ccsd_tail.THREADS, p.vec
+    pos, dig = [], []
+    s = np.arange((n1 if jacobi else 0) + p.head + p.tail)
+    if jacobi:
+        pos.append(s[s < n1])
+        s = s[s >= n1] - n1
+    else:
+        assert (p.grid1 >= 1) == (n1 > 0)     # a grid-stride loop of n1
+        pos.append(np.arange(n1))
+    t2 = np.where(s < p.head, s, s + p.nvec * W)
+    pos.append(n1 + t2)
+    dig.append((t2, _digits(t2, no, nv)))
+    v = np.arange(S)
+    x = _digits(p.head + v * W, no, nv)
+    d = _digits(np.asarray(S * W), no, nv)
+    while (v < p.nvec).any():
+        live = v < p.nvec
+        y = [t[live] for t in x]
+        for w in range(W):
+            t2 = p.head + v[live] * W + w
+            pos.append(n1 + t2)
+            dig.append((t2, y))
+            y = _step1(y, no, nv)
+        x = _stepd(x, d, no, nv)
+        v = v + S
+    return np.concatenate(pos), dig
+
+
+@pytest.mark.parametrize("sms", [1, 132])
+@pytest.mark.parametrize("bases", [(0, 0), (3, 1), (1, 1)])
+@pytest.mark.parametrize("no,nv,t1", [(3, 23, False), (3, 23, True),
+                                      (4, 22, True), (2, 9, True)])
+@pytest.mark.parametrize("elem", [8, 4])
+def test_tail_plan_covers_every_element_once(elem, no, nv, t1, bases, sms):
+    """Both tail passes touch every element of [T1 | T2] once, with the
+    digits (i, j, a, b) of its T2 position, for N1 = 0 (no T1 segment; N
+    = 4761, odd: scalars), N1 odd (69: the rings' and the flat operands'
+    phases differ), N1 aligned (88) and a short vector (N1 = 18), the
+    operands at one phase or several (``bases``: the rings' and the flat
+    operands' first element, in elements), a grid of one wave or of
+    several strides; every vector lies aligned in every operand."""
+    n1 = nv * no if t1 else 0
+    n = n1 + no * no * nv * nv
+    w = ccsd_tail.VECTOR_BYTES // elem
+    ring, flat = bases
+    phases = ((ring + n1) % w,) * 2 + (flat % w,) * 3
+    p = ccsd_tail.plan(n1, n, 6, elem, phases, sms)
+    assert p.vec in (1, 2, 4) and p.vec * elem <= ccsd_tail.VECTOR_BYTES
+    assert n % p.vec == 0
+    assert all((ph + p.head) % p.vec == 0 for ph in phases)
+    assert p.head + p.nvec * p.vec + p.tail == n - n1
+    assert 0 <= p.head < max(p.vec, 1) and 0 <= p.tail < p.vec
+    assert 1 <= p.grid <= ccsd_tail.BLOCKS_PER_SM * sms
+    if len({ph % w for ph in phases}) == 1 and n % w == 0:
+        assert p.vec == w                        # the widest load
+    for jacobi in (True, False):
+        pos, dig = _tail_walk(p, n1, no, nv, jacobi)
+        assert np.array_equal(np.sort(pos), np.arange(n))
+        for t2, y in dig:
+            for got, want in zip(y, _digits(t2, no, nv)):
+                assert np.array_equal(got, want)
+
+
+@pytest.mark.parametrize("m", [1, 6, 17])
+def test_tail_slot_groups_cover_the_valid_slots_once(m):
+    """The Gram sums take the valid slots in groups of at most SLOTS held
+    in registers: every slot below n_valid once, in order; m = 17 takes
+    more than one group."""
+    for n_valid in range(1, m + 1):
+        groups = ccsd_tail.plan(0, 4096, n_valid, 8, (0, 0, 0, 0),
+                                132).groups
+        slots = [g0 + k for g0, ng in groups for k in range(ng)]
+        assert slots == list(range(n_valid))
+        assert all(1 <= ng <= ccsd_tail.SLOTS for _, ng in groups)
+    assert len(groups) == -(-m // ccsd_tail.SLOTS)
+
+
+@pytest.mark.parametrize("elem", [8, 4])
+@pytest.mark.parametrize("t1", [False, True])
+def test_tail_plan_at_the_main_path_shapes(elem, t1):
+    """At nP=219 (no = 7, nv = 212) on fresh allocations both passes load
+    16-byte vectors with no scalar head or tail, on a persistent grid of
+    BLOCKS_PER_SM blocks an SM of the H100's 132; the T1 segment (1484
+    elements) takes 6 blocks of the T1 mix."""
+    no, nv = 7, 212
+    n1 = nv * no if t1 else 0
+    n = n1 + no * no * nv * nv
+    p = ccsd_tail.plan(n1, n, 6, elem, (n1 % 4,) * 2 + (0,) * 3, 132)
+    assert (p.vec, p.head, p.tail) == (16 // elem, 0, 0)
+    assert p.grid == ccsd_tail.BLOCKS_PER_SM * 132
+    assert p.grid1 == (6 if t1 else 0)
