@@ -74,8 +74,9 @@ tail passes K2 ``ccd_jacobi_diis``, K3 ``ccd_mix_energy``, K2′
 ``ccsd_jacobi_diis`` and K3′ ``ccsd_mix_energy`` (one source,
 ``csrc/cc_tail.cu``: CCD is its case without a T1 segment) (CUDA C++,
 built with K1); K6 ``davidson_residual`` and K8 ``shifted_precond``
-(Triton); and the f32 instantiations ``block_ladder_f32`` (CUDA C++ on the
-CUDA cores), ``ovvv_gather_f32``, ``pair_symmetrize_f32``,
+(Triton); and the f32 kernels ``block_ladder_f32`` (CUDA C++, pipelined
+FFMA on the CUDA cores), ``ovvv_gather_f32`` (CUDA C++, its own gather),
+``pair_symmetrize_f32``,
 ``arnoldi_cgs2_f32`` (CUDA C++) and ``shifted_precond_f32`` (Triton) of
 the mixed-precision engine, and those of the precision modes:
 ``davidson_residual_f32`` in Triton, ``ccd_jacobi_diis_f32``,
@@ -198,14 +199,19 @@ solves (kernels and twins) beside phase 12/13's f64.  Phase 25 runs
 right after phase 24: (25) the f32 kernels of the precision modes (K6,
 K2/K3, K2′/K3′, K4's fused trace) against their f32 twins at the nP=219
 shapes (max relative error ≤ F32_REL) and per call beside their twins
-with their bounds; the converged EOM roots at nP=57
-and nP=219 (the f64 Davidson to |dE| < 1e-12: the JAX pins, stopped at
-|dE| < 1e-8, lie up to a few 1e-8 from them); then three counted windows:
+with their bounds; f32 K1 at N = no² (the nP=219 virtual plan) and
+2 no² (all-bra) and f32 K4 at 7 and 14 columns against their f32 twins
+(K1 within F32_REL and a rerun bit for bit, K4 bit for bit), then per
+call and on the card alone beside the f64 kernels at the same widths,
+each with its bound and its share of it; the converged EOM roots at nP=57
+and nP=219 (the f64 Davidson to |dE| < 1e-12, within 1e-9 of the JAX
+package's converged roots: the JAX pins, stopped at |dE| < 1e-8, lie up
+to a few 1e-8 from them); then three counted windows:
 the mixed EOM at nP=57 and nP=219 on the CCD amplitudes (roots within
-1e-8 of the converged ones; at nP=57 within 1e-8 of the JAX package's
-converged roots, at nP=219 of its pin within 1e-8 plus the pin's own
-distance from the converged roots, itself at most 5e-8) and on LiH (1e-7
-of the oracle), each solve's sigmas
+1e-8 of the converged ones and of the JAX package's converged roots, and
+of its pin within 1e-8 plus the pin's own distance from the converged
+roots, itself at most 5e-8) and on LiH (1e-7 of the oracle), each
+solve's sigmas
 counted by type through the wrapped ``_sigma_batched_hbar`` (each must run
 an f32 phase; launches exactly as :func:`check_eom_launches` per phase),
 the f32-phase and polish iterations beside ``tools/pin_mixed_jax.py``'s
@@ -431,15 +437,17 @@ MIXED_REFINE_MAX = 8
 # their f32 twins at the nP=219 shapes (max relative error F32_REL), and
 # the JAX package's numbers on a CPU (tools/pin_mixed_jax.py): the EOM
 # nP=57 mixed roots with the f32 phase's and the polish's iterations, the
-# EOM nP=57 roots converged to |dE| < 1e-12, the CCD nP=57 mixed energy
-# with its f32 and f64 iterations, the LiH/3-21G CCSD mixed energy
-# likewise; at nP=219, where the only JAX roots are EOM_JAX's (stopped at
-# |dE| < 1e-8), their distance from the port's converged roots is capped
+# EOM roots converged to |dE| < 1e-12 at nP=57 and nP=219 (``--parts
+# eom_tight --cutoff 14``: 16 iterations), the CCD nP=57 mixed energy with
+# its f32 and f64 iterations, the LiH/3-21G CCSD mixed energy likewise;
+# the distance of EOM_JAX's nP=219 pin (stopped at |dE| < 1e-8) from the
+# port's converged roots is capped
 PREC_KERNELS = ("davidson_residual_f32", "ccd_jacobi_diis_f32",
                 "ccd_mix_energy_f32", "ccsd_jacobi_diis_f32",
                 "ccsd_mix_energy_f32", "ovvv_gather_diag_f32")
 EOM_JAX_MIXED_NP57 = ((5.242951899266315, 5.242951901247843), 7, 9)
-EOM_JAX_TIGHT_NP57 = (5.242951902209979, 5.2429519022099935)
+EOM_JAX_TIGHT = {57: (5.242951902209979, 5.2429519022099935),
+                 219: (5.239661296835245, 5.23970120475561)}
 EOM_PIN_CAP = 5e-8
 CCD_JAX_MIXED_NP57 = (-0.5120153549861027, 4, 2)
 LIH_JAX_CCSD_MIXED = (-0.019088328657353434, 5, 8)
@@ -919,7 +927,8 @@ def time_k4(plans, T, label, alone=True):
     t = [cuda_ms(lambda: fn(tw)) for tw in (True, False, False, True)]
     dev = card_ms(lambda: fn(False), "ovvv_gather") / k if alone else None
     ncol = T.shape[-1] * (T.shape[0] if T.dim() == 3 else 1)
-    b = [gather_bound(plan, T.shape[-2], ncol) for plan in plans.values()]
+    b = [gather_bound(plan, T.shape[-2], ncol, elem=T.element_size())
+         for plan in plans.values()]
     return ((t[1] + t[2]) / 2 / k, (t[0] + t[3]) / 2 / k, dev,
             (float(np.mean([x[0] for x in b])), b[0][1]), err)
 
@@ -2720,6 +2729,95 @@ def time_prec_kernels(x, q):
     return out
 
 
+def prec_ladder_gather(p14, q, seed, card):
+    """Phase 25: f32 K1 at the nP=219 widths of the precision modes (N =
+    no² on the virtual plan: the mixed CCD's f32 bulk; N = 2 no² on the
+    all-bra plan: an EOM batch of two in the mixed Davidson's seed phase)
+    and f32 K4 at the dressing's 7 and the EOM batch's 14 columns, each
+    against its f32 twin (K1 within F32_REL and a rerun bit for bit, K4
+    bit for bit on every plan), then per call and on the card alone beside
+    the f64 kernel at the same width, each with its bound and its share of
+    it.  Returns the max abs errors and the kernels line's sub-entries."""
+    import torch
+
+    from pymes_tpu_torch.kernels import block_ladder as k1
+    from pymes_tpu_torch.ops import ueg_ladder
+    from pymes_tpu_torch.util.roofline import FP32_FMA_FLOPS_S
+
+    rng = np.random.default_rng(seed)
+    dev = p14["fock"].device
+    n2 = NO * NO
+    errs = {"block_ladder_f32": 0.0, "ovvv_gather_f32": 0.0}
+    sub = {"block_ladder_f32": {}, "ovvv_gather_f32": {}}
+    for label, plan, N in (
+            (f"nP={q['nP']} virtual plan, N = no^2 (mixed CCD)",
+             p14["blocks"].ladder, n2),
+            (f"nP={q['nP']} all-bra plan, N = 2 no^2 (EOM batch of 2)",
+             q["plan_all"], 2 * n2)):
+        T = torch.as_tensor(rng.standard_normal((plan.nv ** 2, N)) * 0.01,
+                            device=dev)
+        p32, T32 = ueg_ladder.cast_plan(plan, torch.float32), T.float()
+        got = k1.block_ladder_cd(p32, T32)
+        again = k1.block_ladder_cd(p32, T32)
+        torch.cuda.synchronize()
+        check(torch.equal(got, again), f"K1 f32 {label}: a rerun differs")
+        errs["block_ladder_f32"] = max(errs["block_ladder_f32"], rel_err(
+            got, k1.block_ladder_cd(p32, T32, twin=True), f"K1 f32 {label}",
+            tol=F32_REL))
+        row = {}
+        for tag, P, X, kw in (("f32", p32, T32, dict(
+                elem=4, flops_s=FP32_FMA_FLOPS_S)), ("f64", plan, T, {})):
+            def fn(tw, P=P, X=X):
+                return k1.block_ladder_cd(P, X, twin=tw)
+
+            t = [cuda_ms(lambda: fn(tw)) for tw in (True, False, False,
+                                                    True)]
+            row[tag] = ((t[1] + t[2]) / 2, (t[0] + t[3]) / 2,
+                        ladder_bound(plan, N, **kw),
+                        card_ms(lambda: fn(False), "block_ladder"))
+        sub["block_ladder_f32"][label] = precision_entry(row)
+        print_f32_row(card, f"block_ladder {label}", row)
+    plans = q["mf_dict"]["_ovvv_plans"]
+    p32 = {pat: p._replace(W=p.W.float()) for pat, p in plans.items()}
+    nv = q["nv"]
+    rows = torch.as_tensor(rng.standard_normal((2, nv * NO + nv * nv * n2)),
+                           device=dev)
+    for label, T in (
+            (f"nP={q['nP']} CCSD dressing, 7 columns",
+             torch.as_tensor(rng.standard_normal((nv, NO)), device=dev)),
+            (f"nP={q['nP']} EOM batch of 2, 14 columns",
+             rows[:, :nv * NO].reshape(2, nv, NO))):
+        T32 = (T.float() if T.dim() == 2
+               else rows.float()[:, :nv * NO].reshape(2, nv, NO))
+        r32 = time_k4(p32, T32, f"f32 {label}")
+        r64 = time_k4(plans, T, label)
+        errs["ovvv_gather_f32"] = max(errs["ovvv_gather_f32"], r32[4])
+        row = {"f32": (r32[0], r32[1], r32[3], r32[2]),
+               "f64": (r64[0], r64[1], r64[3], r64[2])}
+        sub["ovvv_gather_f32"][label] = precision_entry(row)
+        print_f32_row(card, f"ovvv_gather {label}", row)
+    torch.cuda.empty_cache()
+    return errs, sub
+
+
+def precision_entry(row):
+    """A kernels-line sub-entry of an f32 kernel timed beside its f64
+    kernel: ``row`` holds (ms, plain_ms, bound, device_ms) of each."""
+    (ms, plain, b, dev), (ms64, _, b64, dev64) = row["f32"], row["f64"]
+    return {"ms": ms, "plain_ms": plain, "bound_ms": b[0], "bound_by": b[1],
+            "library_ms": None, "device_ms": dev, "f64_ms": ms64,
+            "f64_device_ms": dev64, "f64_bound_ms": b64[0]}
+
+
+def print_f32_row(card, label, row):
+    (ms, plain, b, dev), (ms64, _, b64, dev64) = row["f32"], row["f64"]
+    print(f"[{card}] {label}: f32 kernel {ms:.4f} ms per call ({dev:.4f} "
+          f"on the card alone), twin {plain:.4f} ms; f32 bound {b[0]:.4f} "
+          f"ms ({b[1]}), the kernel alone at {b[0] / dev:.3f} of it; f64 "
+          f"kernel {ms64:.4f} ms per call ({dev64:.4f} alone), bound "
+          f"{b64[0]:.4f} ms", flush=True)
+
+
 @contextlib.contextmanager
 def sigma_calls():
     """Counts the EOM sigmas by the trial batch's type: the module
@@ -2771,22 +2869,25 @@ def eom_tight(cases, device):
         s = eom_ccsd.EOM_CCSD(NO, device, n_excit=2)
         s.e_epsilon, s.max_iter = 1e-12, 300
         roots = out[label] = np.sort(np.real(s.solve(fock, V, T2)))
+        jt = EOM_JAX_TIGHT[int(label.split()[0][3:])]
+        both = float(np.abs(roots - np.asarray(jt)).max())
+        check(both <= 1e-9, f"EOM {label} to |dE| < 1e-12: roots {roots} "
+              f"vs the JAX package's {jt}")
         print(f"EOM {label}, f64 to |dE| < 1e-12: roots {roots[0]:.13f} "
               f"{roots[1]:.13f} in {s.n_iterations} iterations, |roots - "
               f"JAX (|dE| < 1e-8)| = "
-              f"{float(np.abs(roots - np.asarray(ref)).max()):.2e}",
-              flush=True)
+              f"{float(np.abs(roots - np.asarray(ref)).max()):.2e}, |roots "
+              f"- JAX converged| = {both:.2e}", flush=True)
     return out
 
 
 def eom_mixed(cases, tight, lih, walls, device, card):
     """Phase 25, EOM: ``precision="mixed"`` on the UEG ``cases`` (label,
     fock, operator, T2, JAX roots) and LiH: the roots within 1e-8 of the
-    converged ones of :func:`eom_tight`; at nP=57 within 1e-8 of the JAX
-    package's converged roots (``EOM_JAX_TIGHT_NP57``), at nP=219 within
-    1e-8 plus the pin's own distance from the converged ones of the JAX
-    package's pin, that distance at most ``EOM_PIN_CAP`` (LiH 1e-7 of the
-    oracle); the
+    converged ones of :func:`eom_tight` and of the JAX package's converged
+    roots (``EOM_JAX_TIGHT``), and within 1e-8 plus the pin's own distance
+    from the converged ones of the JAX package's pin, that distance at
+    most ``EOM_PIN_CAP`` (LiH 1e-7 of the oracle); the
     f32 phase's and the polish's iterations (at nP=57 beside the JAX
     package's mixed run), the wall beside phase 9's f64 solve; each solve
     must run an f32 phase.  Returns the launches the solves imply."""
@@ -2819,12 +2920,11 @@ def eom_mixed(cases, tight, lih, walls, device, card):
                   f"mixed EOM {label}: roots {roots} vs converged "
                   f"{tight[label]} and JAX {ref}")
             jax = f", |roots - converged| = {conv:.2e}"
-            if label.startswith("nP=57"):
-                jt = float(np.abs(roots - np.asarray(
-                    EOM_JAX_TIGHT_NP57)).max())
-                check(jt <= 1e-8, f"mixed EOM {label}: roots {roots} vs "
-                      f"JAX converged {EOM_JAX_TIGHT_NP57}")
-                jax += f", |roots - JAX converged| = {jt:.2e}"
+            tight_jax = EOM_JAX_TIGHT[int(label.split()[0][3:])]
+            jt = float(np.abs(roots - np.asarray(tight_jax)).max())
+            check(jt <= 1e-8, f"mixed EOM {label}: roots {roots} vs JAX "
+                  f"converged {tight_jax}")
+            jax += f", |roots - JAX converged| = {jt:.2e}"
         else:
             check(err <= 1e-7, f"mixed EOM {label}: roots {roots} vs {ref}")
             jax = ""
@@ -2948,9 +3048,11 @@ def ccsd_prec(q, mol, mf_walls, device, card):
 def prec_phase(problems, q, results, mf_res, eom_cases, eom_walls, lih,
                mols, device, card, launches, compare):
     """Phase 25: the f32 kernels of the precision modes against their f32
-    twins and timed at nP=219, then the mixed EOM, the mixed CCD and the
-    CCSD modes, each path in a counted window whose launches must equal
-    what its solves imply.  Returns the kernels' times and bounds."""
+    twins and timed at nP=219 (f32 K1 and K4 at their nP=219 widths beside
+    the f64 kernels, :func:`prec_ladder_gather`), then the mixed EOM, the
+    mixed CCD and the CCSD modes, each path in a counted window whose
+    launches must equal what its solves imply.  Returns the kernels' times
+    and bounds and the f32 K1/K4 sub-entries of the kernels line."""
     import torch
 
     t0 = time.time()
@@ -2966,6 +3068,8 @@ def prec_phase(problems, q, results, mf_res, eom_cases, eom_walls, lih,
               f"twin {t[name][1]:.4f} ms per call; bound {b[name][0]:.4f} "
               f"ms ({b[name][1]}), the kernel at {b[name][0] / t[name][0]:.3f}"
               " of it", flush=True)
+    errs, sub = prec_ladder_gather(problems[14], q, 62, card)
+    compare.append(errs)
     tight = eom_tight(eom_cases, device)
     counted_exactly("mixed EOM", lambda: eom_mixed(
         eom_cases, tight, lih, eom_walls, device, card), launches)
@@ -2979,7 +3083,7 @@ def prec_phase(problems, q, results, mf_res, eom_cases, eom_walls, lih,
               f"kernel {name} never launched on the precision-mode paths")
     print(f"phase 25 (precision modes): {time.time() - t0:.2f} s",
           flush=True)
-    return t, b
+    return t, b, sub
 
 
 def generic_seed(p5, V, T2, lih, device):
@@ -4490,9 +4594,9 @@ def main():
     # kernels against their f32 twins and timed at nP=219, then the mixed
     # EOM (nP=57, nP=219, LiH), the mixed CCD (nP=57, nP=219) and the mixed
     # CCSD (LiH, the nP=219 mf-CCSD), each path in a counted window
-    prec_t, prec_b = prec_phase(problems, q, results, ccsd_res, cases[:2],
-                                eom_walls, lih, mols, device, card,
-                                launches, compare)
+    prec_t, prec_b, prec_sub = prec_phase(
+        problems, q, results, ccsd_res, cases[:2], eom_walls, lih, mols,
+        device, card, launches, compare)
 
     # phase 20: the generic FEAST kernel and one CIF step over the card's
     # sigma at nP=57, the adapters over the LiH sigma (the Davidson seeds
@@ -4687,6 +4791,8 @@ def main():
                 "bound_by": f32_b[label][name][1],
                 **(k7 if name == "arnoldi_cgs2_f32" else
                    k5 if name == "pair_symmetrize_f32" else {})}
+    for name, entries in prec_sub.items():
+        library.setdefault(name, {}).update(entries)
     print(json.dumps({"kernels": [
         {"name": name, "route": route, "source": src, "replaces": rep,
          "launches": total[name], "max_abs_err": max_err[name],

@@ -1,6 +1,6 @@
 // K1: momentum-sector ladder GEMM for the UEG CCD residual (sm_90a), in
-// f64 on the tensor cores and, for the f32 sigma of the FEAST/RT
-// mixed-precision engine, in f32 on the CUDA cores (block_ladder_f32 below).
+// f64 on the tensor cores and, for the f32 sigmas and ground-state bulk of
+// the precision modes, in f32 on the CUDA cores (namespace f32k below).
 //
 // Replaces B1 of the JAX package: pymes_tpu/ops/ueg_ladder.py:450
 // block_ladder_apply_ij (and its integer-MXU form block_ladder_apply_ij_ozaki,
@@ -395,118 +395,413 @@ cudaError_t launch(const Args& a, int n_bins, cudaStream_t stream)
 
 // ---- f32 ----------------------------------------------------------------
 //
-// The f32 instantiation: the same function on float amplitudes and sector
-// blocks, over the same plan (the units, stage table and bins of
-// kernels/block_ladder.py plan_units), with f32 accumulation.  DMMA has no
-// f32 form, and the tensor cores take f32 only as TF32 (about three
-// decimal digits), which the mixed engine's f32 solves cannot use: this is
-// an FFMA tile loop on the CUDA cores (67 TFLOP/s f32 on an H100 SXM5).
-// At the FEAST nP=57 lane batch (N = 6272) it does 2 flops a block element
-// a column; the bytes (T in, the output out) still bind, but only once the
-// loop runs near the FFMA rate, which this simple form does not try for.
+// The f32 kernel: the same function on float amplitudes and sector blocks
+// (a plan in f32), f32 sums.  DMMA has no f32 form, and the tensor cores
+// take f32 only as TF32 (about three decimal digits), which the f32 solves
+// of the precision modes cannot use, so the products run as FFMA on the
+// CUDA cores (67 TFLOP/s f32 on an H100 SXM5).
 //
-// Design: block (x, y) walks the units of bin x in order on the 64-column
-// tile y of the operand, so the grid fills the card (132 bins x N / 64
-// tiles).  For each stage of a unit the block loads the stage's A columns
-// of its up to four slots (16 rows x kd each) and the TK gathered B rows
-// (the planned ket rows of Tt, columns n0..n0+63) into shared memory, then
-// warp w, owning slot w, adds the products of its 16 rows x 64 columns: a
-// lane holds 4 rows x 8 columns (rows 4 (lane / 8) + i, columns lane % 8 +
-// 8 j) in registers.  A row's sum runs over k in order from zero; the
-// rows map one-to-one onto output rows, so there are no atomics, and zero
-// rows are written by the blocks in turn, each on its column tile.
-constexpr int F_NC = 64;                   // columns of a block's tile
-constexpr int F_THREADS = 32 * CW;         // a warp a slot
+// What bounds it.  At the FEAST nP=57 lane batch (N = 6272) the bytes
+// (T read, the output written: 144 MB, 0.043 ms at 3.35 TB/s) take three
+// times the flops at the FFMA rate (0.92 GFLOP, 0.014 ms), so the kernel
+// stays bytes-bound as long as the FFMA loop runs at a third of its peak
+// and the loads keep HBM busy.  At N = 49 (nP=219) the blocks weigh most
+// (14 of the 32 MB), and the latency of a unit's few stages.  (Measured
+// on an H100: 53-55 % of the byte bound at N = 3136 and 6272, 29-35 % at
+// N = 98 and 49, there faster than the f64 DMMA kernel: PERF.md.)
+//
+// Design, against what held the first form (synchronous loads, scalar
+// shared loads, four-byte stores, one block an SM at narrow widths):
+// * Work items, planned in Python (kernels/block_ladder.py f32_plan, per
+//   plan and width): an item is one unit of the plan (plan_units: up to
+//   four m16 slots, one ket panel each) on one column tile of NC = 64 or
+//   128 columns.  The items are dealt largest first onto the least loaded
+//   of two bins an SM, so the column tiles of a large unit spread over the
+//   card and no bin is empty.  An item's record (REC ints) holds all that
+//   its copies need (first stage-table row, n0, the unit's fields), so no
+//   copy waits on a dependent load but the stage table's ket ids; the
+//   producers load the next item's record while they issue this one's.
+// * A ring of shared stages (3 to 6 of them), filled by four producer
+//   warps with 16-byte cp.async (4-byte copies where a Tt row is not
+//   16-byte aligned: ldt % 4 or the base) completing on per-stage full
+//   mbarriers; the four consumer warps release a stage through its empty
+//   mbarrier.  The block is persistent over its bin: the producers run on
+//   into the next item while the consumers finish the last.  A stage holds
+//   the item's record and its slots' bra ids (first stage of an item), the
+//   A columns of its slots (k-contiguous rows, padded to LDA = 36 floats)
+//   and TK gathered ket rows of Tt (NC columns).
+// * Register tile: a consumer warp owns one slot (16 rows) and the tile's
+//   NC columns; lane (rg, cg) = (lane / 8, lane % 8) holds rows rg + 4 i
+//   (i < 4) and the column runs 4 cg + 32 j .. + 3: 32 (NC = 64) or 64
+//   (NC = 128) accumulators.  Per 4 k a lane loads its 4 rows' A as four
+//   16-byte words (4 k of one row each) and, per k, one 16-byte word a
+//   column run: 2.7 (NC = 64) or 3.2 (NC = 128) FFMA per loaded word.  The
+//   rows a lane reads lie LDA = 36 (4 mod 32 banks) apart and the eight
+//   lanes of a quarter warp read 128 contiguous bytes of a B row, so the
+//   shared loads are free of bank conflicts.  (Two consumer warps a slot
+//   at NC = 128, 32 accumulators each, spilled under the register cap of
+//   two blocks an SM and ran slower.)
+// * Stores: where N % 4 == 0 a lane stores its column runs as 16-byte
+//   words (eight lanes, 128 contiguous bytes of a row), scalars past N.
+//   Else each row of the warp's slot goes through a shared staging row
+//   shifted by the row's misalignment, and leaves as 16-byte words with
+//   scalar heads and tails.  Zero rows are written by the blocks in turn, in the
+//   same launch, the same way.
+// * A row's sum runs over k in order from zero, one fmaf a k, whatever
+//   item, slot, tile or shard holds it: reruns and the sector-sharded plan
+//   give the same bits.
 
-struct ArgsF {
-    const float* Tt; long long ldt;
+namespace f32k {
+
+constexpr int CW = 4;                       // consumer warps = m16 slots
+constexpr int PT = 128;                     // four producer warps
+constexpr int NTH = 32 * CW + PT;
+constexpr int TK = 32;                      // B rows of a stage (the plan's)
+constexpr int LDA = TK + 4;                 // padded A row, floats
+constexpr int REC = 24;                     // ints of an item record
+constexpr int HDR = REC + 16 * CW;          // ints of a stage's header
+constexpr int BLOCK_SMEM = 113 * 1024;      // two blocks an SM
+constexpr int MAX_STAGES = 6;
+
+// An item record (kernels/block_ladder.py f32_plan): [0] its first row of
+// the stage table, [1] n0, [2] mK, [3] kd, [4] stages, [5] the unit,
+// [8 + w] slot w's first A element, [12 + w] its live rows (0: idle),
+// [16 + w] its first bra_of_row entry, [20 + w] its panel's first B row.
+
+template <int NC>
+__host__ __device__ constexpr int stage_floats()
+{
+    return HDR + 64 * LDA + TK * NC;
+}
+
+template <int NC, bool STAGED>
+__host__ __device__ constexpr int staging_floats()
+{
+    return STAGED ? CW * 16 * (NC + 4) + CW * 16 : 0;
+}
+
+template <int NC, bool STAGED>
+__host__ __device__ constexpr int n_stages()
+{
+    return (BLOCK_SMEM - 4 * staging_floats<NC, STAGED>() - 256)
+        / (4 * stage_floats<NC>()) < MAX_STAGES
+        ? (BLOCK_SMEM - 4 * staging_floats<NC, STAGED>() - 256)
+            / (4 * stage_floats<NC>())
+        : MAX_STAGES;
+}
+
+template <int NC, bool STAGED>
+constexpr int smem_bytes()
+{
+    return 4 * (n_stages<NC, STAGED>() * stage_floats<NC>()
+                + staging_floats<NC, STAGED>())
+        + 2 * n_stages<NC, STAGED>() * static_cast<int>(sizeof(uint64_t));
+}
+
+struct Args {
+    const float* Tt; long long ldt; int vec4;
     const float* blocks;
-    const int* bra;
-    const int* units;
-    const int* stages;
-    const int* bins;
+    const int* bra;                         // 16 entries of padding after
+    const int* items;                       // (n_items, REC), bin by bin
+    const int* stages;                      // (n_stages, TK) ket rows
+    const int* bins;                        // (n_bins + 1): first item
     const int* zero_rows; int n_zero;
     float* out; int N;
 };
 
-__global__ void __launch_bounds__(F_THREADS)
-block_ladder_f32_kernel(ArgsF a)
+// An item record's first 20 ints, as the producers read them.
+struct Rec {
+    int4 h;                                 // first stage row, n0, mK, kd
+    int4 s;                                 // stages, unit
+    int4 off, live, bra;                    // per slot
+};
+
+__device__ __forceinline__ Rec load_rec(const int* items, int it)
 {
-    __shared__ float As[CW][16][TK + 1];
-    __shared__ float Bs[TK][F_NC];
-    __shared__ int U[UNIT];
-    const int n0 = blockIdx.y * F_NC, ncols = min(F_NC, a.N - n0);
-    for (int z = blockIdx.x; z < a.n_zero; z += gridDim.x) {
-        float* orow = a.out + static_cast<long long>(a.zero_rows[z]) * a.N
-            + n0;
-        for (int c = threadIdx.x; c < ncols; c += F_THREADS) orow[c] = 0.0f;
-    }
-    const int u0 = a.bins[2 * blockIdx.x], u1 = a.bins[2 * blockIdx.x + 2];
-    int st = a.bins[2 * blockIdx.x + 1];
-    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-    const int rg = 4 * (lane / 8), cg = lane % 8;
-    for (int u = u0; u < u1; ++u) {
-        __syncthreads();                 // the last unit's U is read
-        if (threadIdx.x < UNIT)
-            U[threadIdx.x] = a.units[static_cast<long long>(u) * UNIT
-                                     + threadIdx.x];
-        __syncthreads();
-        const int mK = U[0], kd = U[1], nst = U[2];
-        const int alive = U[8 + warp], b_row = U[16 + warp];
-        float acc[4][8];
+    const int4* R = reinterpret_cast<const int4*>(
+        items + static_cast<long long>(it) * REC);
+    return {__ldg(R), __ldg(R + 1), __ldg(R + 2), __ldg(R + 3),
+            __ldg(R + 4)};
+}
+
+// Producer thread p of PT: per stage, chunk p % 8 (4 k) of A rows p / 8 +
+// 16 i (slot i), and chunk p % (NC / 4) of B rows p / (NC / 4) + RPP i.
+template <int NC, bool STAGED>
+__device__ void produce(const Args& a, float* smem, uint64_t* full,
+                        uint64_t* empty, int i0, int i1, int p)
+{
+    constexpr int SD = stage_floats<NC>(), S = n_stages<NC, STAGED>();
+    constexpr int CPR = NC / 4, RPP = PT / CPR, NPASS = TK / RPP;
+    const int bc = 4 * (p % CPR), br = p / CPR;
+    const int ac = 4 * (p & 7), ar = p >> 3;
+    int ring = 0;
+    // the next item's record is loaded while this item's stages are
+    // issued, so an item's first copies wait only on its ket ids
+    Rec cur = i0 < i1 ? load_rec(a.items, i0) : Rec{};
+    for (int it = i0; it < i1; ++it) {
+        const Rec nxt = it + 1 < i1 ? load_rec(a.items, it + 1) : cur;
+        const int* R = a.items + static_cast<long long>(it) * REC;
+        const int st0 = cur.h.x, n0 = cur.h.y, mK = cur.h.z, kd = cur.h.w;
+        const int nst = cur.s.x;
+        const int a_off[CW] = {cur.off.x, cur.off.y, cur.off.z, cur.off.w};
+        const int alive[CW] = {cur.live.x, cur.live.y, cur.live.z,
+                               cur.live.w};
+        const int bra_off[CW] = {cur.bra.x, cur.bra.y, cur.bra.z,
+                                 cur.bra.w};
+        const int ncols = min(NC, a.N - n0);
+        for (int t = 0; t < nst; ++t, ++ring) {
+            // the ket ids first: their load overlaps the wait for a slot
+            int kr[NPASS];
+            const int* srow = a.stages + static_cast<long long>(st0 + t) * TK
+                + br;
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
-        for (int t = 0; t < nst; ++t, ++st) {
-            const int k0 = t * kd, kv = min(kd, mK - k0);
-            // A: rows m < live rows of each slot, columns k0 .. k0 + kd
-            for (int e = threadIdx.x; e < CW * 16 * kd; e += F_THREADS) {
-                const int s4 = e / (16 * kd), r = e - s4 * 16 * kd;
-                const int m = r / kd, kk = r - m * kd;
-                As[s4][m][kk] = m < U[8 + s4] && kk < kv
-                    ? __ldg(a.blocks + U[4 + s4]
-                            + static_cast<long long>(m) * mK + k0 + kk)
-                    : 0.0f;
-            }
-            // B: the stage's TK planned ket rows (-1: none), this tile
-            for (int e = threadIdx.x; e < TK * F_NC; e += F_THREADS) {
-                const int i = e / F_NC, c = e - i * F_NC;
-                const int k = __ldg(a.stages + static_cast<long long>(st)
-                                    * TK + i);
-                Bs[i][c] = k >= 0 && c < ncols
-                    ? __ldg(a.Tt + a.ldt * k + n0 + c) : 0.0f;
-            }
-            __syncthreads();
-            if (alive > 0) {
-                for (int kk = 0; kk < kv; ++kk) {
-                    float av[4], bv[8];
-#pragma unroll
-                    for (int i = 0; i < 4; ++i) av[i] = As[warp][rg + i][kk];
-#pragma unroll
-                    for (int j = 0; j < 8; ++j)
-                        bv[j] = Bs[b_row + kk][cg + 8 * j];
-#pragma unroll
-                    for (int i = 0; i < 4; ++i)
-#pragma unroll
-                        for (int j = 0; j < 8; ++j)
-                            acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+            for (int i = 0; i < NPASS; ++i) kr[i] = __ldg(srow + RPP * i);
+            const int slot = ring % S;
+            pymes::mbar_wait(&empty[slot], ((ring / S) & 1) ^ 1);
+            float* stg = smem + slot * SD;
+            float* As = stg + HDR;
+            float* Bs = As + 64 * LDA;
+            if (t == 0) {
+                int* hdr = reinterpret_cast<int*>(stg);
+                if (p < REC / 4) {
+                    pymes::cp_async16(hdr + 4 * p, R + 4 * p);
+                } else if (p >= 8 && p < 8 + 4 * CW) {
+                    const int w = (p - 8) / 4, c = 4 * ((p - 8) % 4);
+                    if (alive[w] > 0)
+                        pymes::cp_async16(hdr + REC + 16 * w + c,
+                                          a.bra + bra_off[w] + c);
                 }
             }
-            __syncthreads();
+            const int k0 = t * kd, kv = min(kd, mK - k0);
+            if (ac < kv) {
+#pragma unroll
+                for (int w = 0; w < CW; ++w)
+                    if (ar < alive[w])
+                        pymes::cp_async16(
+                            As + (16 * w + ar) * LDA + ac,
+                            a.blocks + a_off[w]
+                                + static_cast<long long>(ar) * mK + k0 + ac);
+            }
+#pragma unroll
+            for (int i = 0; i < NPASS; ++i) {
+                if (kr[i] < 0 || bc >= ncols) continue;
+                const float* src = a.Tt + a.ldt * kr[i] + n0 + bc;
+                float* dst = Bs + (br + RPP * i) * NC + bc;
+                if (a.vec4 && bc + 4 <= ncols) {
+                    pymes::cp_async16(dst, src);
+                } else {
+#pragma unroll
+                    for (int e = 0; e < 4; ++e)
+                        if (bc + e < ncols) pymes::cp_async4(dst + e, src + e);
+                }
+            }
+            pymes::cp_async_arrive_noinc(&full[slot]);
         }
+        cur = nxt;
+    }
+}
+
+// One row of the output: columns [0, n) of out + off, a 16-byte word
+// where the address allows, from src (shifted by the row's misalignment
+// h: src[h + c] is column c); lanes `lane` of `nl`.
+__device__ __forceinline__ void store_row(float* out, long long off,
+                                          const float* src, int h, int n,
+                                          int lane, int nl)
+{
+    for (int q = lane; 4 * q < n + h; q += nl) {
+        const int lo = 4 * q - h;
+        float* dst = out + off + lo;
+        if (lo >= 0 && lo + 4 <= n) {
+            *reinterpret_cast<float4*>(dst) =
+                *reinterpret_cast<const float4*>(src + 4 * q);
+        } else {
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-            if (rg + i >= alive) break;
-            const int b = a.bra[U[12 + warp] + rg + i];
-            if (b < 0) continue;
-            float* orow = a.out + static_cast<long long>(b) * a.N + n0;
-#pragma unroll
-            for (int j = 0; j < 8; ++j)
-                if (cg + 8 * j < ncols) orow[cg + 8 * j] = acc[i][j];
+            for (int e = 0; e < 4; ++e)
+                if (lo + e >= 0 && lo + e < n) dst[e] = src[4 * q + e];
         }
     }
 }
+
+// Consumer warp w: its slot of every item of the bin.
+template <int NC, bool STAGED>
+__device__ void consume(const Args& a, const float* smem, float* staging,
+                        uint64_t* full, uint64_t* empty, int i0, int i1,
+                        int w, int lane)
+{
+    constexpr int SD = stage_floats<NC>(), S = n_stages<NC, STAGED>();
+    constexpr int NJ = NC / 32, LDS = NC + 4;
+    const int rg = lane >> 3, cg = lane & 7;
+    float* sw = staging + w * 16 * LDS;             // STAGED only
+    int* sbra = reinterpret_cast<int*>(staging + CW * 16 * LDS) + 16 * w;
+    int u = 0;
+    for (int it = i0; it < i1; ++it) {
+        pymes::mbar_wait(&full[u % S], (u / S) & 1);
+        const int* hdr = reinterpret_cast<const int*>(smem + (u % S) * SD);
+        const int n0 = hdr[1], mK = hdr[2], kd = hdr[3], nst = hdr[4];
+        const int alive = hdr[12 + w], b_row = hdr[20 + w];
+        int bra[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+            bra[i] = rg + 4 * i < alive ? hdr[REC + 16 * w + rg + 4 * i] : -1;
+        float acc[4][NJ][4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int j = 0; j < NJ; ++j)
+#pragma unroll
+                for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.0f;
+        for (int st = 0; st < nst; ++st, ++u) {
+            const int slot = u % S;
+            if (st > 0) pymes::mbar_wait(&full[slot], (u / S) & 1);
+            if (alive > 0) {
+                const float* As = smem + slot * SD + HDR + 16 * w * LDA
+                    + rg * LDA;
+                const float* Bs = smem + slot * SD + HDR + 64 * LDA
+                    + b_row * NC + 4 * cg;
+                const int kv = min(kd, mK - st * kd);
+#pragma unroll 2
+                for (int kk = 0; kk < kv; kk += 4) {
+                    float4 av[4];
+#pragma unroll
+                    for (int i = 0; i < 4; ++i)
+                        av[i] = *reinterpret_cast<const float4*>(
+                            As + 4 * i * LDA + kk);
+#pragma unroll
+                    for (int kq = 0; kq < 4; ++kq) {
+                        float4 bv[NJ];
+#pragma unroll
+                        for (int j = 0; j < NJ; ++j)
+                            bv[j] = *reinterpret_cast<const float4*>(
+                                Bs + (kk + kq) * NC + 32 * j);
+#pragma unroll
+                        for (int i = 0; i < 4; ++i) {
+                            const float x = kq == 0 ? av[i].x
+                                : kq == 1 ? av[i].y
+                                : kq == 2 ? av[i].z : av[i].w;
+#pragma unroll
+                            for (int j = 0; j < NJ; ++j) {
+                                acc[i][j][0] = fmaf(x, bv[j].x, acc[i][j][0]);
+                                acc[i][j][1] = fmaf(x, bv[j].y, acc[i][j][1]);
+                                acc[i][j][2] = fmaf(x, bv[j].z, acc[i][j][2]);
+                                acc[i][j][3] = fmaf(x, bv[j].w, acc[i][j][3]);
+                            }
+                        }
+                    }
+                }
+            }
+            __syncwarp();
+            if (lane == 0) pymes::mbar_arrive(&empty[slot]);
+        }
+        const int ncols = min(NC, a.N - n0);
+        if constexpr (!STAGED) {
+            // N % 4 == 0: every row and column run is 16-byte aligned
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+                if (bra[i] < 0) continue;
+                float* orow = a.out + static_cast<long long>(bra[i]) * a.N
+                    + n0;
+#pragma unroll
+                for (int j = 0; j < NJ; ++j) {
+                    const int c = 4 * cg + 32 * j;
+                    if (c + 4 <= ncols) {
+                        *reinterpret_cast<float4*>(orow + c) = make_float4(
+                            acc[i][j][0], acc[i][j][1], acc[i][j][2],
+                            acc[i][j][3]);
+                    } else {
+#pragma unroll
+                        for (int e = 0; e < 4; ++e)
+                            if (c + e < ncols) orow[c + e] = acc[i][j][e];
+                    }
+                }
+            }
+        } else {
+            // the slot's rows through the staging rows, each shifted by
+            // its misalignment h, then out in 16-byte words
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+                const int r = rg + 4 * i;
+                const int h = bra[i] < 0 ? 0 : static_cast<int>(
+                    (static_cast<long long>(bra[i]) * a.N + n0) & 3);
+                float* srow = sw + r * LDS + h + 4 * cg;
+#pragma unroll
+                for (int j = 0; j < NJ; ++j)
+#pragma unroll
+                    for (int e = 0; e < 4; ++e)
+                        srow[32 * j + e] = acc[i][j][e];
+                if (cg == 0) sbra[r] = bra[i];
+            }
+            __syncwarp();
+            // half a warp a row, two rows at a time
+            for (int r = lane >> 4; r < 16; r += 2) {
+                const int b = sbra[r];
+                if (b < 0) continue;
+                const long long off = static_cast<long long>(b) * a.N + n0;
+                store_row(a.out, off, sw + r * LDS,
+                          static_cast<int>(off & 3), ncols, lane & 15, 16);
+            }
+            __syncwarp();
+        }
+    }
+}
+
+// Block x: the items of bin x, and zeros on every gridDim.x-th zero row.
+template <int NC, bool STAGED>
+__global__ void __launch_bounds__(NTH, 2) block_ladder_f32_kernel(Args a)
+{
+    constexpr int SD = stage_floats<NC>(), S = n_stages<NC, STAGED>();
+    extern __shared__ __align__(128) float fsmem[];
+    float* staging = fsmem + S * SD;
+    uint64_t* full = reinterpret_cast<uint64_t*>(
+        staging + staging_floats<NC, STAGED>());
+    uint64_t* empty = full + S;
+    if (threadIdx.x == 0) {
+        for (int s = 0; s < S; ++s) {
+            pymes::mbar_init(&full[s], PT);
+            pymes::mbar_init(&empty[s], CW);
+        }
+    }
+    // zero rows: 16-byte words where the row allows, a warp a row
+    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+    const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    for (int z = blockIdx.x * (NTH / 32) + warp; z < a.n_zero;
+         z += gridDim.x * (NTH / 32)) {
+        const long long off = static_cast<long long>(a.zero_rows[z]) * a.N;
+        const int h = static_cast<int>(off & 3);
+        for (int q = lane; 4 * q < a.N + h; q += 32) {
+            const int lo = 4 * q - h;
+            float* dst = a.out + off + lo;
+            if (lo >= 0 && lo + 4 <= a.N) {
+                *reinterpret_cast<float4*>(dst) = zero;
+            } else {
+                for (int e = 0; e < 4; ++e)
+                    if (lo + e >= 0 && lo + e < a.N) dst[e] = 0.0f;
+            }
+        }
+    }
+    __syncthreads();
+    const int i0 = a.bins[blockIdx.x], i1 = a.bins[blockIdx.x + 1];
+    if (warp >= CW)
+        produce<NC, STAGED>(a, fsmem, full, empty, i0, i1,
+                            threadIdx.x - 32 * CW);
+    else
+        consume<NC, STAGED>(a, fsmem, staging, full, empty, i0, i1, warp,
+                            lane);
+}
+
+template <int NC, bool STAGED>
+cudaError_t launch(const Args& a, int n_bins, cudaStream_t stream)
+{
+    cudaError_t err = cudaFuncSetAttribute(
+        block_ladder_f32_kernel<NC, STAGED>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem_bytes<NC, STAGED>());
+    if (err != cudaSuccess) return err;
+    block_ladder_f32_kernel<NC, STAGED>
+        <<<n_bins, NTH, smem_bytes<NC, STAGED>(), stream>>>(a);
+    return cudaGetLastError();
+}
+
+}  // namespace f32k
 
 }  // namespace
 
@@ -551,21 +846,41 @@ extern "C" int pymes_block_ladder(const double* Tt, long long ldt,
     }
 }
 
-// The f32 instantiation (same plan and arguments, f32 operand, blocks and
-// output); returns the cudaError_t of the launch.
+// Shared memory of an f32 block at column tile nc (64 or 128), staged
+// stores (N % 4 != 0) or not, or -1 for a tile the library was not built
+// for; the wrapper holds its planner to it.
+extern "C" int pymes_block_ladder_f32_smem(int nc, int staged)
+{
+    if (nc == 64) return staged ? f32k::smem_bytes<64, true>()
+                                : f32k::smem_bytes<64, false>();
+    if (nc == 128) return staged ? f32k::smem_bytes<128, true>()
+                                 : f32k::smem_bytes<128, false>();
+    return -1;
+}
+
+// The f32 kernel: the f32 operand (16-byte copies where vec4), the f32
+// blocks, the plan's bra_of_row and stage table, the width's item records
+// and bins (kernels/block_ladder.py f32_plan), the zero rows, the f32
+// output, its width and column tile; returns the cudaError_t of the launch.
 extern "C" int pymes_block_ladder_f32(const float* Tt, long long ldt,
-                                      const float* blocks,
+                                      int vec4, const float* blocks,
                                       const int* bra_of_row,
-                                      const int* units, const int* stages,
+                                      const int* items, const int* stages,
                                       const int* bins, int n_bins,
                                       const int* zero_rows, int n_zero,
-                                      float* outT, int N,
+                                      float* outT, int N, int nc,
                                       cudaStream_t stream)
 {
     if (n_bins <= 0 || N <= 0) return static_cast<int>(cudaSuccess);
-    const ArgsF a{Tt, ldt, blocks, bra_of_row, units, stages, bins,
-                  zero_rows, n_zero, outT, N};
-    const dim3 grid(n_bins, (N + F_NC - 1) / F_NC);
-    block_ladder_f32_kernel<<<grid, F_THREADS, 0, stream>>>(a);
-    return static_cast<int>(cudaGetLastError());
+    const f32k::Args a{Tt, ldt, vec4, blocks, bra_of_row, items, stages,
+                       bins, zero_rows, n_zero, outT, N};
+    const bool staged = N % 4 != 0;
+    cudaError_t err = cudaErrorInvalidValue;
+    if (nc == 64)
+        err = staged ? f32k::launch<64, true>(a, n_bins, stream)
+                     : f32k::launch<64, false>(a, n_bins, stream);
+    else if (nc == 128)
+        err = staged ? f32k::launch<128, true>(a, n_bins, stream)
+                     : f32k::launch<128, false>(a, n_bins, stream);
+    return static_cast<int>(err);
 }

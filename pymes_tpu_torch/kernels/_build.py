@@ -117,10 +117,16 @@ def library():
         lib.pymes_block_ladder.restype = i32
         lib.pymes_block_ladder_smem.argtypes = [i32]
         lib.pymes_block_ladder_smem.restype = i32
-        # K1 in f32: the same, without the column tile
-        lib.pymes_block_ladder_f32.argtypes = [vp, i64, vp, vp, vp, vp, vp,
-                                               i32, vp, i32, vp, i32, vp]
+        # K1 in f32: the operand, its row stride and whether its rows take
+        # 16-byte copies, the f32 blocks, bra_of_row, the width's item
+        # records, the stage table, the bins and their count, zero rows and
+        # their count, the output, its width and column tile
+        lib.pymes_block_ladder_f32.argtypes = [vp, i64, i32, vp, vp, vp, vp,
+                                               vp, i32, vp, i32, vp, i32, i32,
+                                               vp]
         lib.pymes_block_ladder_f32.restype = i32
+        lib.pymes_block_ladder_f32_smem.argtypes = [i32, i32]
+        lib.pymes_block_ladder_f32_smem.restype = i32
         # K5: X, Y or null, out, batch, P, R (f64; _f32 alike)
         for fn in (lib.pymes_pair_sym, lib.pymes_pair_sym_f32):
             fn.argtypes = [vp, vp, vp, i32, i32, i32, vp]

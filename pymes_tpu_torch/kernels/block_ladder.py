@@ -3,10 +3,11 @@
 Replaces B1, ``pymes_tpu/ops/ueg_ladder.py:450`` ``block_ladder_apply_ij``
 (TPU form ``block_ladder_apply_ij_ozaki``, :533).  The kernel is CUDA C++
 on the f64 tensor cores (``pymes_tpu_torch/csrc/block_ladder.cu``, built
-with nvcc for sm_90a at first use), with an f32 instantiation on the CUDA
-cores over the same plan for the f32 sigma of the FEAST/RT mixed-precision
-engine (a plan in f32: :func:`pymes_tpu_torch.ops.ueg_ladder.cast_plan`);
-its source says what bounds each and how the design answers.
+with nvcc for sm_90a at first use), with an f32 kernel of its own on the
+CUDA cores (FFMA) over the same units for the f32 sigmas and ground-state
+bulk of the precision modes (a plan in f32:
+:func:`pymes_tpu_torch.ops.ueg_ladder.cast_plan`); its source says what
+bounds each and how the design answers.
 
 :class:`LadderPack` is the kernel's view of a plan: every group's blocks,
 ``perm_ket`` and ``bra_of_row`` in three flat device buffers (the plan's
@@ -14,7 +15,9 @@ per-group tensors are views into them), the work units with the ket row
 of every B row of every pipeline stage, binned one bin per SM, and the
 rows that no sector writes.  :func:`plan_units` (at plan-build time) and :func:`plan`
 (the column tile of an operand width, at launch) are plain Python, so the
-CPU tests reach them.
+CPU tests reach them; so is :func:`f32_plan`, the f32 kernel's work items
+(a unit on a column tile) dealt to two bins an SM, built once per plan and
+width and kept on the pack.
 """
 
 import functools
@@ -44,8 +47,19 @@ DEFAULT_SMS = 132
 # planner's cost of a pipeline stage beyond its bytes (the block's turn
 # through the barriers), in bytes
 STAGE_COST = 2048
-F32_COLS = 64          # columns of a block's tile in the f32 kernel
-MAX_GRID_Y = 65535
+# the f32 kernel's geometry; must equal csrc/block_ladder.cu namespace f32k
+F32_TILES = (64, 128)  # column tiles built
+F32_WIDE = 384         # the width from which the 128-column tile is taken
+F32_REC = 24           # ints of an item record
+F32_HDR = F32_REC + 16 * CW          # ints of a stage's header
+F32_LDA = TK + 4       # padded A row of a stage, floats
+F32_BLOCK_SMEM = 113 * 1024          # two blocks an SM
+F32_MAX_STAGES = 6
+F32_BLOCKS_PER_SM = 2
+# planner's cost of an f32 stage beyond its bytes, and the FFMA count that
+# costs an SM as long as one byte of its share of HBM
+F32_STAGE_COST = 1024
+F32_FMA_PER_BYTE = 8
 
 
 class LadderPack(NamedTuple):
@@ -57,6 +71,7 @@ class LadderPack(NamedTuple):
     bins: torch.Tensor        # int32 (n_bins + 1, 2): first unit, stage
     zero_rows: torch.Tensor   # int32: output rows no sector writes
     n_rows: int               # output rows (n_bra², or a shard's rows)
+    f32_plans: dict           # (width, SMs) → the f32 kernel's items
 
 
 def smem_bytes(nt):
@@ -79,6 +94,77 @@ def plan(N):
     else:
         nt = min((16, 8), key=lambda t: -(-N // (8 * t)) * 8 * t - N)
     return nt, -(-N // (8 * nt))
+
+
+def f32_smem_bytes(nc, staged):
+    """Shared memory of an f32 block at a column tile of ``nc`` columns:
+    as many stages of (header + 64 A rows × F32_LDA + TK B rows × nc)
+    floats as fit F32_BLOCK_SMEM beside the staging rows of the unaligned
+    stores (``staged``: 16 rows of nc + 4 floats and 16 bra ids a consumer
+    warp), at most F32_MAX_STAGES, and two mbarriers a stage."""
+    sf = F32_HDR + CW * 16 * F32_LDA + TK * nc
+    stg = CW * 16 * (nc + 4) + CW * 16 if staged else 0
+    stages = min(F32_MAX_STAGES, (F32_BLOCK_SMEM - 4 * stg - 256) // (4 * sf))
+    return 4 * (stages * sf + stg) + 16 * stages
+
+
+def f32_tile(N):
+    """(column tile, tiles) of the f32 kernel at width N: 64 columns below
+    F32_WIDE (one or two tiles at the EOM and ground-state widths), 128
+    from it (half the A re-reads and item turns a column)."""
+    nc = F32_TILES[1] if N >= F32_WIDE else F32_TILES[0]
+    return nc, -(-N // nc)
+
+
+def f32_items(work, N):
+    """The f32 kernel's items at width N, unit by unit (``work`` in pack
+    order, :func:`plan_units`) and column tile by tile (:func:`f32_tile`):
+    (records (n_items, F32_REC), costs, column tile).  A record: [0] the
+    unit's first stage-table row, [1] n0, [2] mK, [3] kd, [4] stages, [5]
+    the unit, [8:24] its descriptor's [4:20] (each slot's first A element,
+    live rows, first bra_of_row entry and panel's first B row).  An item's
+    cost is its bytes (A rows, ket panels and output rows of its tile),
+    F32_STAGE_COST a stage and its FFMAs at F32_FMA_PER_BYTE."""
+    work = np.asarray(work, np.int64).reshape(-1, UNIT)
+    nc, tiles = f32_tile(N)
+    nu = len(work)
+    busy = work[:, 8:12] > 0
+    slots = busy.sum(1)
+    panels = np.array([len(set(r[16:20][b])) for r, b in zip(work, busy)],
+                      np.int64)
+    u = np.repeat(np.arange(nu), tiles)
+    n0 = np.tile(np.arange(tiles), nu) * nc
+    cols = np.minimum(nc, N - n0)
+    mK, nst = work[u, 0], work[u, 2]
+    cost = (4 * mK * (16 * slots[u] + cols * panels[u])
+            + 4 * 16 * slots[u] * cols + F32_STAGE_COST * nst
+            + 16 * slots[u] * mK * nc // F32_FMA_PER_BYTE)
+    rec = np.zeros((len(u), F32_REC), np.int64)
+    rec[:, 0] = (np.cumsum(work[:, 2]) - work[:, 2])[u]
+    rec[:, 1], rec[:, 2], rec[:, 3], rec[:, 4], rec[:, 5] = (
+        n0, mK, work[u, 1], nst, u)
+    rec[:, 8:24] = work[u, 4:20]
+    return rec, cost, nc
+
+
+def f32_plan(work, N, sms):
+    """The f32 kernel's work at width N on ``sms`` SMs: the items of
+    :func:`f32_items` dealt largest first onto the least loaded of
+    ``F32_BLOCKS_PER_SM·sms`` bins (at most one an item, at least one),
+    each kept in dealt order.  Returns (records bin by bin, bins (n_bins +
+    1,): each bin's first record, column tile), int32."""
+    rec, cost, nc = f32_items(work, N)
+    n_bins = max(1, min(F32_BLOCKS_PER_SM * sms, len(rec)))
+    heap = [(0, b) for b in range(n_bins)]
+    members = [[] for _ in range(n_bins)]
+    for i in np.argsort(-cost, kind="stable"):
+        load, b = heapq.heappop(heap)
+        members[b].append(i)
+        heapq.heappush(heap, (load + int(cost[i]), b))
+    order = np.asarray([i for m in members for i in m], np.int64)
+    bins = np.concatenate([[0], np.cumsum([len(m) for m in members])])
+    return (rec[order].astype(np.int32).reshape(-1, F32_REC),
+            bins.astype(np.int32), nc)
 
 
 def _parts_cost(mK, parts):
@@ -223,7 +309,7 @@ def pack_groups(group_arrays, device, n_rows):
                                                          np.int32)])),
         work=dev(work), stages=dev(stages), bins=dev(bins),
         zero_rows=dev(np.nonzero(~written)[0].astype(np.int32)),
-        n_rows=int(n_rows))
+        n_rows=int(n_rows), f32_plans={})
     views, o_b, o_p, o_r = [], 0, 0, 0
     for nS, mB, mK in shapes:
         views.append((pack.blocks[o_b:o_b + nS * mB * mK].view(nS, mB, mK),
@@ -292,21 +378,40 @@ def block_ladder_kernel_cd(pack: LadderPack, Tt, n_out, nv):
     return outT
 
 
+_SMEM_CHECKED_F32 = set()
+
+
 def _block_ladder_f32(lib, pack, Tt, n_out):
-    """K1's f32 instantiation on the checked operand: one block a bin and
-    column tile of ``F32_COLS``."""
-    n = Tt.shape[1]
-    if -(-n // F32_COLS) > MAX_GRID_Y:
-        raise ValueError(f"an operand of {n} columns: too many column "
-                         "tiles for the f32 kernel")
-    outT = torch.empty((n_out, n), dtype=Tt.dtype, device=Tt.device)
-    rc = _build.launch(Tt.device, lib.pymes_block_ladder_f32, Tt.data_ptr(),
-                       Tt.stride(0), pack.blocks.data_ptr(),
-                       pack.bra_of_row.data_ptr(), pack.work.data_ptr(),
-                       pack.stages.data_ptr(), pack.bins.data_ptr(),
-                       int(pack.bins.shape[0]) - 1,
-                       pack.zero_rows.data_ptr(),
-                       int(pack.zero_rows.shape[0]), outT.data_ptr(), int(n))
+    """The f32 kernel on the checked operand, with the width's items (built
+    at its first launch on the plan, then kept on the pack)."""
+    n, dev = Tt.shape[1], Tt.device
+    sms = _build.sm_count(dev)
+    fp = pack.f32_plans.get((n, sms))
+    if fp is None:
+        items, bins, nc = f32_plan(pack.work.cpu().numpy(), n, sms)
+        for staged in (False, True):
+            if (nc, staged) not in _SMEM_CHECKED_F32:
+                if (lib.pymes_block_ladder_f32_smem(nc, int(staged))
+                        != f32_smem_bytes(nc, staged)):
+                    raise RuntimeError("f32_smem_bytes differs from "
+                                       "csrc/block_ladder.cu")
+                _SMEM_CHECKED_F32.add((nc, staged))
+        fp = pack.f32_plans[(n, sms)] = (
+            torch.as_tensor(items, device=dev),
+            torch.as_tensor(bins, device=dev), nc)
+    items, bins, nc = fp
+    if pack.blocks.data_ptr() % 16:
+        raise ValueError("the f32 kernel copies the sector blocks 16 bytes "
+                         "at a time: their buffer must be 16-byte aligned")
+    vec4 = int(Tt.data_ptr() % 16 == 0 and Tt.stride(0) % 4 == 0)
+    outT = torch.empty((n_out, n), dtype=Tt.dtype, device=dev)
+    rc = _build.launch(dev, lib.pymes_block_ladder_f32, Tt.data_ptr(),
+                       Tt.stride(0), vec4, pack.blocks.data_ptr(),
+                       pack.bra_of_row.data_ptr(), items.data_ptr(),
+                       pack.stages.data_ptr(), bins.data_ptr(),
+                       int(bins.shape[0]) - 1, pack.zero_rows.data_ptr(),
+                       int(pack.zero_rows.shape[0]), outT.data_ptr(), int(n),
+                       nc)
     if rc != 0:
         raise RuntimeError(f"block_ladder_f32 launch failed: cudaError {rc}")
     kernels.LAUNCHES["block_ladder_f32"] += 1
@@ -316,13 +421,14 @@ def _block_ladder_f32(lib, pack, Tt, n_out):
 def block_ladder_kernel(pack: LadderPack, T2, n_out, nv):
     """Launch K1 on ``T2`` (no², nv²), a CUDA f64 or f32 tensor; returns
     the (no², n_out) result as the transposed view of the bra-major output.
-    The cd-major copy of T2 gets an even row stride, so every gathered
-    row starts 16-byte aligned."""
+    The cd-major copy of T2 gets a row stride of whole 16-byte words, so
+    every gathered row starts 16-byte aligned."""
     if T2.dim() != 2 or T2.shape[1] != nv * nv:
         raise ValueError(f"amplitudes of shape {tuple(T2.shape)} do not "
                          f"fit a plan with nv={nv}")
     n = T2.shape[0]
-    Tt = torch.empty((nv * nv, n + n % 2), dtype=T2.dtype,
+    per16 = 16 // T2.element_size()
+    Tt = torch.empty((nv * nv, n + -n % per16), dtype=T2.dtype,
                      device=T2.device)[:, :n]
     Tt.copy_(T2.t())
     return block_ladder_kernel_cd(pack, Tt, n_out, nv).t()

@@ -21,9 +21,10 @@ counted under ``ovvv_gather_diag_f32``).
 The kernel (``pymes_tpu_torch/csrc/ovvv_gather.cu``, built with nvcc for
 sm_90a at first use) is bound by its output write; its source says how the
 design answers.  :func:`plan` chooses its grid (tiles of the flat (p, q, r)
-index × tiles of columns) from the width; it is plain Python so that the
-CPU tests reach it.  The gather is one multiply an element, as the twin's,
-so kernel and twin agree bit for bit.
+index × tiles of columns) from the width, :func:`plan_f32` the f32
+kernel's; they are plain Python so that the CPU tests reach them.  The
+gather is one multiply an element, as the twin's, so kernel and twin agree
+bit for bit.
 """
 
 import functools
@@ -39,6 +40,10 @@ NARROW_TILE = 4             # columns of a tile when the columns fill the card
 WIDE_TILE = 16              # columns of a tile when the entries fill it
 FILL_BLOCKS_PER_SM = 3      # the card: at least this many blocks an SM
 MAX_GRID_Y = 65535
+# the f32 kernel: entries a thread and a block, its widest column tile
+F32_EPT = 4
+F32_ENT = THREADS * F32_EPT
+F32_WIDE_TILE = 8
 
 
 def _even(ncol, ct):
@@ -65,6 +70,25 @@ def plan(n, ncol, sms):
             ct = _even(ncol, ct)
             if tiles_n * -(-ncol // ct) >= fill:
                 break
+    if -(-ncol // ct) > MAX_GRID_Y:
+        raise ValueError(f"{ncol} columns: too many column tiles")
+    return ct
+
+
+@functools.lru_cache(maxsize=64)
+def plan_f32(n, ncol, sms):
+    """The column tile of one f32 launch on ``sms`` SMs: the widest up to
+    ``F32_WIDE_TILE`` whose column tiles, with the ⌈n / F32_ENT⌉ entry
+    tiles, give every SM ``FILL_BLOCKS_PER_SM`` blocks (else 1), cut
+    evenly.  Its tiles at the main widths (4 at 7 columns, 7 at 14, 8 at
+    448 and 896) ran within 1 % of the fastest of 4-32 measured on an
+    H100 (PERF.md §6)."""
+    tiles_n = -(-n // F32_ENT)
+    fill = FILL_BLOCKS_PER_SM * sms
+    ct = min(F32_WIDE_TILE, ncol)
+    while ct > 1 and tiles_n * -(-ncol // ct) < fill:
+        ct -= 1
+    ct = _even(ncol, ct)
     if -(-ncol // ct) > MAX_GRID_Y:
         raise ValueError(f"{ncol} columns: too many column tiles")
     return ct
@@ -132,7 +156,7 @@ def ovvv_gather(S, W, T1, twin=False):
     if n == 0 or ncol == 0:
         return out
     dev, Wc = T1.device, W.contiguous()
-    ct = plan(n, ncol, _build.sm_count(dev))
+    ct = (plan_f32 if sfx else plan)(n, ncol, _build.sm_count(dev))
     rc = _build.launch(dev, getattr(_build.library(),
                                     "pymes_ovvv_gather" + sfx),
                        S.data_ptr(), Wc.data_ptr(), T1.data_ptr(),

@@ -1263,9 +1263,10 @@ def _randn32(rng, shape, device, scale=1.0):
 @pytest.mark.parametrize("N", [1, 33, 49, 98, 3136, 6272])
 @pytest.mark.parametrize("bra", ["virtual", "all"])
 def test_block_ladder_f32_kernel_matches_twin(device, bra, N):
-    """K1 in f32 (FFMA tiles over the DMMA kernel's plan) on the nP=57
-    plans at the RT (64 no²) and FEAST (128 no²) lane batches, the EOM
-    widths and odd ones; a rerun repeats the bits."""
+    """K1's f32 kernel (pipelined FFMA items over the DMMA kernel's units)
+    on the nP=57 plans at the RT (64 no²) and FEAST (128 no²) lane
+    batches (16-byte stores), the EOM widths and odd ones (staged stores);
+    a rerun repeats the bits."""
     u = ueg.UEG(14, 7, 7, 0.5)
     u.init_single_basis(5)
     plan = ueg_ladder.cast_plan(
@@ -1284,6 +1285,75 @@ def test_block_ladder_f32_kernel_matches_twin(device, bra, N):
     _close32(got, want)
 
 
+@pytest.mark.parametrize("N", [49, 98])
+@pytest.mark.parametrize("bra", ["virtual", "all"])
+def test_block_ladder_f32_kernel_np219_widths(device, bra, N):
+    """K1's f32 kernel on the nP=219 plans at the mixed CCD's N = no² and
+    an EOM batch's 2 no² (two and four bins' worth of items an SM), and
+    through the ijab entry (its cd-major copy padded to 16 bytes a row)."""
+    u = ueg.UEG(14, 7, 7, 0.5)
+    u.init_single_basis(14)
+    plan = ueg_ladder.cast_plan(
+        ueg_ladder.build_block_ladder(u, device, bra=bra), torch.float32)
+    nv = u.n_spatial - NO
+    rng = np.random.default_rng(N)
+    Tt = _randn32(rng, (nv * nv, N), device, 0.01)
+    got, again = k1.block_ladder_cd(plan, Tt), k1.block_ladder_cd(plan, Tt)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    _close32(got, k1.block_ladder_cd(plan, Tt, twin=True))
+    T = _randn32(rng, (N // (NO * NO), NO, NO, nv, nv), device, 0.01)
+    _close32(ueg_ladder.block_ladder_apply_ij(plan, T[0]),
+             ueg_ladder.block_ladder_apply_ij(plan, T[0], twin=True))
+
+
+@pytest.mark.parametrize("flags", [{"is_only_2b": True},
+                                   {"is_only_hermi_2b": True}],
+                         ids=lambda f: next(iter(f)))
+@pytest.mark.parametrize("N", [49, 6272])
+def test_block_ladder_f32_kernel_on_tc_plans(device, N, flags):
+    """K1's f32 kernel on the TC sector blocks cast to f32 (the
+    non-hermitian virtual plan, the hermitian all-bra one)."""
+    u = _tc_model(5)
+    plan = ueg_ladder.cast_plan(ueg_ladder.build_block_ladder(
+        u, device, correlator=u.gaskell,
+        bra="virtual" if "is_only_2b" in flags else "all", **flags),
+        torch.float32)
+    nv = u.n_spatial - NO
+    Tt = _randn32(np.random.default_rng(N + 7), (nv * nv, N), device)
+    _close32(k1.block_ladder_cd(plan, Tt),
+             k1.block_ladder_cd(plan, Tt, twin=True))
+
+
+def test_sharded_block_ladder_f32_kernel_bit_equal(device):
+    """K1's f32 kernel on the sector-sharded all-bra plan cast to f32 (4
+    shards of one card, one launch each) equals it on the whole padded
+    f32 plan bit for bit, at N = no² (staged stores) and the FEAST lane
+    batch 128 no² (16-byte stores): a row's sum runs over k in order
+    wherever it lies."""
+    from pymes_tpu_torch.parallel import mesh
+    u = ueg.UEG(14, 7, 7, 0.5)
+    u.init_single_basis(5)
+    nv = u.n_spatial - NO
+    plan = ueg_ladder.build_block_ladder(u, device, bra="all", pad_sectors=4)
+    sh = ueg_ladder.cast_plan(ueg_ladder.shard_block_ladder(
+        plan, mesh.make_mesh(4, "cuda", devices=[device] * 4)),
+        torch.float32)
+    p32 = ueg_ladder.cast_plan(plan, torch.float32)
+    rng = np.random.default_rng(17)
+    T = _randn32(rng, (NO, NO, nv, nv), device)
+    Tb = _randn32(rng, (128, nv, nv, NO, NO), device, 0.01)
+    kernels.reset_launches()
+    for apply, X in ((ueg_ladder.block_ladder_apply_ij, T),
+                     (ueg_ladder.block_ladder_apply, Tb)):
+        got, want = apply(sh, X), apply(p32, X)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+        _close32(got, apply(sh, X, twin=True))
+    assert kernels.LAUNCHES["block_ladder_f32"] == 2 * 4 + 2
+    assert kernels.LAUNCHES["block_ladder"] == 0
+
+
 def test_block_ladder_f32_kernel_strided_operand_and_mixed_types(device):
     """A row stride past the width, as the sigma's batch view gives it;
     an f32 operand on an f64 plan is refused."""
@@ -1299,11 +1369,12 @@ def test_block_ladder_f32_kernel_strided_operand_and_mixed_types(device):
              k1.block_ladder_cd(p32, Tt, twin=True))
 
 
-@pytest.mark.parametrize("ncol", [7, 448, 896])
+@pytest.mark.parametrize("ncol", [7, 448, 896, 14])
 @pytest.mark.parametrize("pat", ["vvo", "ovv", "vov"])
 def test_ovvv_gather_f32_kernel_matches_twin(device, pat, ncol):
-    """K4 in f32 at the dressing's and the RT/FEAST lane batches' widths
-    (a strided view of Krylov rows): one multiply, bit for bit."""
+    """K4's f32 gather at the dressing's, an EOM batch's and the RT/FEAST
+    lane batches' widths (a strided view of Krylov rows): one multiply,
+    bit for bit."""
     u = ueg.UEG(14, 7, 7, 0.5)
     u.init_single_basis(5)
     plan = ueg_ladder.build_ovvv_t1_plan(u, pat, device)
@@ -1319,6 +1390,29 @@ def test_ovvv_gather_f32_kernel_matches_twin(device, pat, ncol):
     torch.cuda.synchronize()
     assert got.dtype == torch.float32 and float(want.abs().max()) > 0
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("ncol", [7, 14, 448])
+@pytest.mark.parametrize("cutoff", [14, 2])
+def test_ovvv_gather_f32_kernel_np219_widths(device, cutoff, ncol):
+    """K4's f32 gather at nP=219 (7 and 14 columns on its planned tiles of
+    4 and 7, and 448) and at nP=19 (n = 1008: one short entry tile,
+    one-column tiles), on a (nv, no) T1 and a strided batch: bit for
+    bit."""
+    u = ueg.UEG(14, 7, 7, 0.5)
+    u.init_single_basis(cutoff)
+    nv = u.n_spatial - NO
+    rng = np.random.default_rng(ncol + cutoff)
+    k = ncol // NO
+    T1 = (_randn32(rng, (nv, NO), device) if k == 1 else
+          _randn32(rng, (k, nv * NO + 1), device)[:, :nv * NO].reshape(
+              k, nv, NO))
+    for pat in ("vvo", "ovv", "vov"):
+        plan = ueg_ladder.build_ovvv_t1_plan(u, pat, device)
+        W = plan.W.float()
+        got = k4.ovvv_gather(plan.S, W, T1)
+        torch.cuda.synchronize()
+        assert torch.equal(got, k4.ovvv_gather(plan.S, W, T1, twin=True))
 
 
 @pytest.mark.parametrize("shape,with_y", K5_SHAPES)

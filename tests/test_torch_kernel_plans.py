@@ -1,4 +1,6 @@
-"""The Python planners of K1 (``kernels/block_ladder.py``), K7
+"""The Python planners of K1 (``kernels/block_ladder.py``, the f64 kernel's
+units and bins and the f32 kernel's items), the f32 K4's column tiles
+(``kernels/ovvv_gather.py`` ``plan_f32``), K7
 (``kernels/arnoldi.py``), K9 (``kernels/ring_step.py``) and the tail passes
 K2/K3, K2′/K3′ (``kernels/ccsd_tail.py``), and the CPU side of the fused
 Krylov combine.
@@ -22,6 +24,7 @@ import torch
 from pymes_tpu.ops import gmres as jgmres
 from pymes_tpu_torch.kernels import arnoldi, ccsd_tail, ring_step
 from pymes_tpu_torch.kernels import block_ladder as k1
+from pymes_tpu_torch.kernels import ovvv_gather as k4
 from pymes_tpu_torch.models import ueg as tueg
 from pymes_tpu_torch.ops import gmres as tgmres
 from pymes_tpu_torch.ops import ueg_ladder as tladder
@@ -163,6 +166,176 @@ def test_k1_pack_takes_only_buckets_padded_to_8(mB, mK):
     else:
         pack, _ = k1.pack_groups([group], "cpu", 2 * mB)
         assert pack.n_rows == 2 * mB and pack.zero_rows.numel() == 0
+
+
+# ---- the f32 K1: items (a unit on a column tile) dealt to bins ------------
+
+K1_F32_WIDTHS = [1, 33, 49, 98, 3136, 6272]
+
+
+def _f32_walk(plan, N, sms):
+    """The f32 kernel's plan at width N, walked as the kernel walks it:
+    returns (records, bins, column tile, coverage) where coverage[row,
+    tile] counts the stores of output row ``row`` in column tile
+    ``tile`` (each live slot row of each item, and the zero rows)."""
+    pk = plan.packed
+    rec, bins, nc = k1.f32_plan(pk.work.numpy(), N, sms)
+    bra_rows = pk.bra_of_row.numpy()
+    tiles = -(-N // nc)
+    cover = np.zeros((pk.n_rows, tiles), int)
+    for w in range(k1.CW):
+        alive, first = rec[:, 12 + w].astype(int), rec[:, 16 + w]
+        item = np.repeat(np.arange(len(rec)), alive)
+        offs = np.repeat(first, alive) + np.arange(alive.sum()) - np.repeat(
+            np.cumsum(alive) - alive, alive)
+        b = bra_rows[offs]
+        np.add.at(cover, (b[b >= 0], rec[item[b >= 0], 1] // nc), 1)
+    cover[pk.zero_rows.numpy()] += 1
+    return rec, bins, nc, cover
+
+
+@pytest.mark.parametrize("N", K1_F32_WIDTHS)
+@pytest.mark.parametrize("bra", ["virtual", "all"])
+@pytest.mark.parametrize("cutoff", [2, 5, 14])
+def test_k1_f32_items_store_every_output_once(cutoff, bra, N):
+    """Every output row is stored exactly once in every column tile (by
+    one slot of one item, or as a zero row); each record carries its
+    unit's descriptor, its first stage-table row and the tile's n0."""
+    plan = _k1_plan(cutoff, bra, 1)
+    rec, bins, nc, cover = _f32_walk(plan, N, 132)
+    assert nc in k1.F32_TILES and (cover == 1).all()
+    work = plan.packed.work.numpy()
+    u = rec[:, 5]
+    st0 = np.cumsum(work[:, 2]) - work[:, 2]
+    assert (rec[:, 0] == st0[u]).all() and (rec[:, 2:5] == work[u, :3]).all()
+    assert (rec[:, 8:24] == work[u, 4:20]).all()
+    assert (rec[:, 1] % nc == 0).all() and (rec[:, 1] < N).all()
+    # each (unit, tile) once
+    assert len({(a, b) for a, b in rec[:, [5, 1]]}) == len(rec) == \
+        len(work) * -(-N // nc)
+
+
+@pytest.mark.parametrize("sms", [132, 8])
+@pytest.mark.parametrize("N", K1_F32_WIDTHS)
+@pytest.mark.parametrize("cutoff", [5, 14])
+def test_k1_f32_bins_fill_every_sm_largest_first(cutoff, N, sms):
+    """Two bins an SM whenever there are items enough (none empty), each
+    bin's items largest first, and no bin's load above another's by more
+    than the largest item's (largest first onto the least loaded)."""
+    plan = _k1_plan(cutoff, "all", 1)
+    rec, bins, _ = k1.f32_plan(plan.packed.work.numpy(), N, sms)
+    items, cost, _ = k1.f32_items(plan.packed.work.numpy(), N)
+    n_bins = len(bins) - 1
+    assert n_bins == min(k1.F32_BLOCKS_PER_SM * sms, len(items))
+    assert bins[0] == 0 and bins[-1] == len(rec) and (np.diff(bins) > 0).all()
+    # the records are the items, dealt
+    key = {(a, b): c for (a, b), c in zip(items[:, [5, 1]], cost)}
+    c = np.array([key[(a, b)] for a, b in rec[:, [5, 1]]])
+    loads = [c[bins[b]:bins[b + 1]].sum() for b in range(n_bins)]
+    for b in range(n_bins):
+        assert (np.diff(c[bins[b]:bins[b + 1]]) <= 0).all()
+    assert max(loads) - min(loads) <= c.max()
+    if len(items) >= k1.F32_BLOCKS_PER_SM * sms:
+        assert n_bins == k1.F32_BLOCKS_PER_SM * sms
+
+
+@pytest.mark.parametrize("N", [1, 33, 98])
+@pytest.mark.parametrize("bra", ["virtual", "all"])
+def test_k1_f32_plan_computes_the_twin(bra, N):
+    """The f32 kernel's arithmetic walked in numpy (f64) over its records:
+    per item and live slot, each stage's kv A columns of the slot's rows
+    times the planned ket rows of its panel, summed over the stages, then
+    stored to the slot's bra rows on the item's columns; zero rows zero.
+    It equals the twin (nP=19 and nP=57 plans)."""
+    for cutoff in (2, 5):
+        plan = _k1_plan(cutoff, bra, 1)
+        pk = plan.packed
+        Tt = np.random.default_rng(N).standard_normal((plan.nv ** 2, N))
+        rec, _, nc = k1.f32_plan(pk.work.numpy(), N, 8)
+        blocks, stages = pk.blocks.numpy(), pk.stages.numpy()
+        bra_rows = pk.bra_of_row.numpy()
+        out = np.full((pk.n_rows, N), np.nan)
+        out[pk.zero_rows.numpy()] = 0.0
+        for r in rec:
+            st0, n0, mK, kd, nst = r[:5]
+            cols = slice(n0, min(N, n0 + nc))
+            for w in range(k1.CW):
+                alive = r[12 + w]
+                if alive == 0:
+                    continue
+                acc = np.zeros((alive, cols.stop - n0))
+                for t in range(nst):
+                    kv = min(kd, mK - t * kd)
+                    A = np.stack([blocks[r[8 + w] + m * mK + t * kd:
+                                         r[8 + w] + m * mK + t * kd + kv]
+                                  for m in range(alive)])
+                    kets = stages[st0 + t, r[20 + w]:r[20 + w] + kv]
+                    acc += A @ Tt[kets, cols]
+                for m in range(alive):
+                    b = bra_rows[r[16 + w] + m]
+                    if b >= 0:
+                        out[b, cols] = acc[m]
+        assert not np.isnan(out).any()
+        # the kernel's row b is the twin's output column b
+        want = k1.block_ladder_twin(plan.groups, plan.inv_bra,
+                                    torch.as_tensor(Tt.T)).T.numpy()
+        np.testing.assert_allclose(out, want, rtol=0,
+                                   atol=1e-12 * np.abs(want).max())
+
+
+@pytest.mark.parametrize("staged", [False, True])
+@pytest.mark.parametrize("nc", k1.F32_TILES)
+def test_k1_f32_block_fits_two_an_sm(nc, staged):
+    """Each f32 block holds at least 3 stages (the ring) in its share of
+    two blocks an SM; A rows lie 4 banks apart, so the 16-byte A loads of
+    a quarter warp's four rows are free of conflicts."""
+    smem = k1.f32_smem_bytes(nc, staged)
+    sf = 4 * (k1.F32_HDR + k1.CW * 16 * k1.F32_LDA + k1.TK * nc)
+    assert 3 * sf <= smem <= k1.F32_BLOCK_SMEM
+    assert 2 * (smem + 1024) <= 228 * 1024
+    assert k1.F32_LDA % 32 == 4 and (4 * k1.F32_HDR) % 16 == 0
+    assert k1.f32_tile(49) == (64, 1) and k1.f32_tile(98) == (64, 2)
+    assert k1.f32_tile(3136) == (128, 25) and k1.f32_tile(6272) == (128, 49)
+
+
+# ---- the f32 K4: column tiles ------------------------------------------------
+
+# (entries n = nv² no of a plan, columns, planned tile): the dressing (7)
+# and an EOM batch (14) at nP=219, the RT nP=123 (448) and FEAST nP=57
+# (896) lane batches
+K4_F32_WIDTHS = [(212 * 212 * 7, 7, 4), (212 * 212 * 7, 14, 7),
+                 (116 * 116 * 7, 448, 8), (50 * 50 * 7, 896, 8)]
+
+
+@pytest.mark.parametrize("n,ncol,want", K4_F32_WIDTHS)
+def test_k4_f32_plan_fills_the_card(n, ncol, want):
+    """The f32 gather's column tile at the main widths: the widest up to
+    F32_WIDE_TILE whose tiles with the entry tiles of F32_ENT give every
+    SM three blocks, cut evenly."""
+    ct = k4.plan_f32(n, ncol, 132)
+    assert ct == want
+    tiles_n, tiles_c = -(-n // k4.F32_ENT), -(-ncol // ct)
+    fill = k4.FILL_BLOCKS_PER_SM * 132
+    assert tiles_n * tiles_c >= fill
+    # no wider tile with fewer column tiles fills the card
+    assert all(tiles_n * -(-ncol // c) < fill
+               for c in range(ct + 1, k4.F32_WIDE_TILE + 1)
+               if -(-ncol // c) < tiles_c)
+    assert ct * (tiles_c - 1) < ncol <= ct * tiles_c
+
+
+@pytest.mark.parametrize("ncol", [1, 3, 7, 33, 129, 896])
+@pytest.mark.parametrize("n", [1, 175, 17500, 314608])
+@pytest.mark.parametrize("sms", [132, 8])
+def test_k4_f32_plan_tiles_any_width(n, ncol, sms):
+    """Any width gets tiles of at most F32_WIDE_TILE columns that cut it
+    evenly (tiles differ by at most one column) in a launchable grid."""
+    ct = k4.plan_f32(n, ncol, sms)
+    tiles_c = -(-ncol // ct)
+    assert 1 <= ct <= min(ncol, k4.F32_WIDE_TILE)
+    assert ct * (tiles_c - 1) < ncol <= ct * tiles_c
+    assert ncol - ct * (tiles_c - 1) >= ct - tiles_c + 1
+    assert tiles_c <= k4.MAX_GRID_Y
 
 
 RING_SHAPES = [(49, 11236, 11236), (49, 500, 500), (9, 100, 37),

@@ -8,7 +8,10 @@
   contract_mode="xla")`` (n_excit 2, max_dim 16, ``contract_mode="xla"``):
   the sorted roots, the f32 seed phase's iterations and the f64 polish's.
 * ``eom_tight``: the converged roots of the same problem, the JAX
-  package's f64 Davidson (``precision="f64"``, MOM) to |dE| < 1e-12.
+  package's f64 Davidson (``precision="f64"``, MOM) to |dE| < 1e-12;
+  ``--cutoff 14`` takes the nP=219 problem instead (the mf-CCD of
+  ``build_ueg_mf(14, ...)`` included: 280 s on two cores, 241 s of it
+  the Davidson's 16 iterations).
 * ``ccd``: ``CCD.solve(mixed_precision=True)`` at nP=57 on the virtual
   ladder plan (the blocks and diagonal HF Fock of ``chip_smoke.setup``,
   DIIS, level shift −1, ``max_iter`` 60, |dE| < 1e-8): the energy, the f32
@@ -17,8 +20,9 @@
   1e-8): the energy, the f32 iterations and the polish's.
 
 Run from the repository root:
-``python3 tools/pin_mixed_jax.py [--parts eom,eom_tight,ccd,lih]`` (a few
-minutes on one core, most of it the JAX compiles of the EOM).
+``python3 tools/pin_mixed_jax.py [--parts eom,eom_tight,ccd,lih]
+[--cutoff C]`` (a few minutes on one core at cutoff 5, most of it the JAX
+compiles of the EOM; ``--cutoff`` applies to ``eom_tight`` alone).
 """
 
 import argparse
@@ -79,18 +83,20 @@ def eom():
           flush=True)
 
 
-def eom_tight():
+def eom_tight(cutoff=5):
     t0 = time.time()
-    x = build_ueg_mf(5, contract_mode="xla", verbose=False)
+    x = build_ueg_mf(cutoff, contract_mode="xla", verbose=False)
     s = eom_ccsd.EOM_CCSD(NO, n_excit=2)
     s.max_dim = 16
     s.contract_mode = "xla"
     s.precision, s.root_tracking = "f64", "guess"
     s.e_epsilon, s.max_iter = 1e-12, 300
+    t1 = time.time()
     e, _ = logged(lambda: s.solve(x["fock"], x["Vd"], x["T2"]))
     print(f"eom nP={x['n_p']}: f64 roots to |dE| < 1e-12 "
           f"{[float(r) for r in np.sort(np.real(e))]} in {s.n_iterations} "
-          f"iterations ({time.time() - t0:.1f} s)", flush=True)
+          f"iterations ({time.time() - t0:.1f} s, the Davidson "
+          f"{time.time() - t1:.1f} s)", flush=True)
 
 
 def ccd_np57():
@@ -135,8 +141,14 @@ PARTS = {"eom": eom, "eom_tight": eom_tight, "ccd": ccd_np57, "lih": lih}
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parts", default=",".join(PARTS))
-    for part in ap.parse_args().parts.split(","):
-        PARTS[part]()
+    ap.add_argument("--cutoff", type=int, default=5,
+                    help="the UEG cutoff of eom_tight (5: nP=57, 14: nP=219)")
+    args = ap.parse_args()
+    for part in args.parts.split(","):
+        if part == "eom_tight":
+            eom_tight(args.cutoff)
+        else:
+            PARTS[part]()
 
 
 if __name__ == "__main__":
