@@ -184,7 +184,11 @@ runs after phase 14's timing, before phase 20: (24) the f32 kernels
 against their f32 twins at the FEAST nP=57 and RT nP=123 lane shapes
 (max relative error ≤ 1e-5; K4 and K5 bit for bit) and per call beside
 their twins, their f32 bounds, ``torch.add`` (K5) and ``torch.baddbmm``
-(K7's combine) in f32; then phase 12's window and phase 13's three steps
+(K7's combine) in f32 (f32 K7 with the L2 flushed before each call); f32
+K7's projection of all lanes at each m of K7_F32_SWEEP against its twin
+and per call with the L2 flushed beside its three-pass floor and
+once-read bound, and one call with the lanes at uneven m on both sides of
+16 against the twin and rerun bit for bit; then phase 12's window and phase 13's three steps
 with ``ls_precision="mixed"`` (up to MIXED_REFINE_MAX refinement passes
 a chunk) in one counted window: the in-window roots within 1e-7 of the
 JAX level and of phase 12's, the phase energies within 1e-7 of the root
@@ -432,6 +436,11 @@ F32_KERNELS = ("block_ladder_f32", "ovvv_gather_f32", "pair_symmetrize_f32",
                "arnoldi_cgs2_f32", "shifted_precond_f32")
 F32_REL = 1e-5
 MIXED_REFINE_MAX = 8
+# f32 K7's projection sweep of phase 24 by lane shape, per call after a
+# write of FLUSH_BYTES that evicts the 50 MB L2 (in the solver a sigma
+# runs between two projections)
+K7_F32_SWEEP = {"FEAST": (8, 16, 30, 60, 90, 120), "RT": (4, 10, 16, 20)}
+FLUSH_BYTES = 256 << 20
 # phase 25, the ground-state and Davidson precision modes (EOM
 # precision="mixed", CCD/CCSD mixed_precision): their f32 kernels against
 # their f32 twins at the nP=219 shapes (max relative error F32_REL), and
@@ -664,6 +673,25 @@ def cuda_ms(fn, n=20, warmup=3):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / n
+
+
+def flushed_ms(fn, flush, n=10, warmup=2):
+    """Mean device time of ``fn`` over ``n`` calls (CUDA events around each
+    call), each after a write of ``flush`` that evicts the L2."""
+    import torch
+
+    for _ in range(warmup):
+        flush.add_(1)
+        fn()
+    ev = [(torch.cuda.Event(enable_timing=True),
+           torch.cuda.Event(enable_timing=True)) for _ in range(n)]
+    for start, end in ev:
+        flush.add_(1)
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    return sum(s.elapsed_time(e) for s, e in ev) / n
 
 
 def card_ms(fn, name, n=20, warmup=3):
@@ -2362,13 +2390,20 @@ def time_f32_kernels(x, m):
 
     calls = f32_calls(x, m)
     out = {}
+    flush = torch.zeros(FLUSH_BYTES // 4, dtype=torch.float32,
+                        device=x["V"].device)
     for name in ("arnoldi_cgs2_f32", "krylov_combine_f32",
                  "shifted_precond_f32", "block_ladder_f32",
                  "pair_symmetrize_f32", *(k for k in calls
                                           if k.startswith("ovvv"))):
-        t = [cuda_ms(lambda: calls[name](tw), n=10)
-             for tw in (True, False, False, True)]
+        if name in ("arnoldi_cgs2_f32", "krylov_combine_f32"):
+            t = [flushed_ms(lambda: calls[name](tw), flush, n=5)
+                 for tw in (True, False, False, True)]
+        else:
+            t = [cuda_ms(lambda: calls[name](tw), n=10)
+                 for tw in (True, False, False, True)]
         out[name] = ((t[1] + t[2]) / 2, (t[0] + t[3]) / 2)
+    del flush
     k4 = [out.pop(k) for k in list(out) if k.startswith("ovvv")]
     out["ovvv_gather_f32"] = tuple(float(np.mean(v)) for v in zip(*k4))
     X5 = x["X5"]
@@ -2397,8 +2432,72 @@ def time_f32_kernels(x, m):
     return out, b, kb
 
 
+def k7_f32_sweep(x, sweep, card):
+    """Phase 24: f32 K7's projection of all lanes of ``x`` at each m of
+    ``sweep`` against its twin (F32_REL; h, the norm and the row) and per
+    call with the L2 flushed before each call, beside its three-pass floor
+    and once-read bound; then one call with the lanes at uneven m on both
+    sides of 16 (the register and the tile paths in one launch), against
+    the twin and rerun bit for bit.  Returns the max abs error and the
+    times by m."""
+    import torch
+
+    from pymes_tpu_torch.kernels import arnoldi
+
+    V, lanes = x["V"], x["lanes"]
+    La, R1, n = V.shape
+    flush = torch.zeros(FLUSH_BYTES // 4, dtype=torch.float32,
+                        device=V.device)
+    err, out = 0.0, {}
+    for m in sweep:
+        g = torch.Generator(device=V.device).manual_seed(2000 + m)
+        w = torch.randn((La, n), generator=g, dtype=V.dtype, device=V.device)
+        mt = torch.full_like(lanes, m)
+        hk = arnoldi.arnoldi_cgs2(V, w.clone(), lanes, mt)
+        row = V[lanes, mt].clone()
+        ht = arnoldi.arnoldi_cgs2(V, w.clone(), lanes, mt, twin=True)
+        what = f"K7 f32 sweep m={m}, {x['label']}"
+        err = max(err, rel_err(hk[:, :m], ht[:, :m], what + " h", F32_REL),
+                  rel_err(hk[:, m], ht[:, m], what + " norm", F32_REL),
+                  rel_err(row, V[lanes, mt], what + " row", F32_REL))
+        ws = [w.clone() for _ in range(7)]
+        ms = flushed_ms(lambda: arnoldi.arnoldi_cgs2(V, ws.pop(), lanes, mt),
+                        flush, n=5)
+        kb = krylov_bounds(La, m, n, elem=4)
+        out[m] = (ms, kb["floor_ms"], kb["bound"][0])
+        print(f"[{card}] {x['label']} K7 f32 projection m={m}, L2 flushed: "
+              f"{ms:.4f} ms, three-pass floor {kb['floor_ms']:.4f} ms "
+              f"({kb['floor_ms'] / ms:.3f} of it), once-read bound "
+              f"{kb['bound'][0]:.4f} ms ({kb['bound'][0] / ms:.3f})",
+              flush=True)
+        del ws, w
+    ms = [(8 + 3 * a) % (R1 - 1) + 1 for a in range(La)]
+    check(min(ms) <= 16 < max(ms), "uneven lanes straddle 16")
+    mt = torch.as_tensor(ms, device=V.device)
+    g = torch.Generator(device=V.device).manual_seed(2999)
+    w = torch.randn((La, n), generator=g, dtype=V.dtype, device=V.device)
+    hk = arnoldi.arnoldi_cgs2(V, w.clone(), lanes, mt)
+    row = V[lanes, mt].clone()
+    hk2 = arnoldi.arnoldi_cgs2(V, w.clone(), lanes, mt)
+    torch.cuda.synchronize()
+    check(torch.equal(hk, hk2) and torch.equal(row, V[lanes, mt]),
+          f"K7 f32 uneven m, {x['label']}: a rerun changed the bits")
+    ht = arnoldi.arnoldi_cgs2(V, w, lanes, mt, twin=True)
+    for a, m in enumerate(ms):
+        what = f"K7 f32 uneven m, lane {a} (m={m}), {x['label']}"
+        err = max(err, rel_err(hk[a, :m], ht[a, :m], what + " h", F32_REL),
+                  rel_err(hk[a, m:], ht[a, m:], what + " norm", F32_REL),
+                  rel_err(row[a], V[a, m], what + " row", F32_REL))
+    del flush
+    print(f"[{card}] {x['label']} K7 f32 uneven m {min(ms)}..{max(ms)}: "
+          f"within {F32_REL} of the twin, rerun bit for bit; max abs err "
+          f"{err:.3e}", flush=True)
+    return err, out
+
+
 def f32_phase(label, plan, plans, shape, seed, device, card):
-    """Phase 24 at one lane shape: compare and time the f32 kernels."""
+    """Phase 24 at one lane shape: compare and time the f32 kernels, and
+    sweep f32 K7's projection over m."""
     import torch
 
     t0 = time.time()
@@ -2406,6 +2505,9 @@ def f32_phase(label, plan, plans, shape, seed, device, card):
     ms = shape[4]
     errs, rel = compare_f32_kernels(x, ms)
     t, b, kb = time_f32_kernels(x, ms[len(ms) // 2])
+    e7, sweep = k7_f32_sweep(x, K7_F32_SWEEP[label.split()[0]], card)
+    errs["arnoldi_cgs2_f32"] = max(errs["arnoldi_cgs2_f32"], e7)
+    kb["sweep"] = sweep
     del x
     torch.cuda.empty_cache()
     for name in F32_KERNELS:
@@ -4771,6 +4873,7 @@ def main():
     for label in (feast_label, rt_label):
         t, kb = f32_t[label]
         k7 = {"floor_ms": kb["floor_ms"],
+              "sweep_ms": {str(m): v[0] for m, v in kb["sweep"].items()},
               "combine_ms": t["krylov_combine_f32"][0],
               "combine_plain_ms": t["krylov_combine_f32"][1],
               "combine_bound_ms": kb["combine"][0],

@@ -42,9 +42,9 @@ mixed-precision Davidson (``EOM_CCSD.precision="mixed"``, with K1, K4 and
 K5 in its sigma); K2/K3 for the f32 bulk of the mixed-precision CCD and
 K2′/K3′ and K4's fused trace for that of the mixed-precision CCSD
 (``solve(mixed_precision=True)``, with K1, K4 and K5).  Each has an f32
-kernel on the card (K1's and K4's gather designed for f32 on their own,
-the others instantiations of the f64 source) and an f32 twin, refuses a
-mix of types
+kernel on the card (K1's, K4's gather and K7's designed for f32 on their
+own, the others instantiations of the f64 source) and an f32 twin,
+refuses a mix of types
 (:func:`type_suffix`) and counts its f32 launches under its name +
 ``"_f32"``.
 """

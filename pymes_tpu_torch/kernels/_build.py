@@ -146,20 +146,25 @@ def library():
         lib.pymes_ring_step.argtypes = [vp, i64, i64, vp, i64, vp, i64, i64,
                                         i32, i32, i32, i32, i32, vp, vp]
         lib.pymes_ring_step.restype = i32
-        # K7: the three CGS2 passes, the guarded scale, the Krylov combine
-        # (f64 basis; _f32 alike on an f32 basis)
-        for sfx in ("", "_f32"):
-            fn = getattr(lib, "pymes_arnoldi_pass" + sfx)
-            fn.argtypes = [i32, vp, vp, vp, vp, vp, vp, vp, i64, i64, i32,
-                           i64, i32, i32, vp]
-            fn.restype = i32
-            fn = getattr(lib, "pymes_arnoldi_scale" + sfx)
-            fn.argtypes = [vp, vp, vp, vp, vp, i64, i64, i32, i64, i32, i32,
-                           f64, vp]
-            fn.restype = i32
-            fn = getattr(lib, "pymes_krylov_combine" + sfx)
-            fn.argtypes = [vp, vp, vp, vp, i32, vp, vp, vp, i64, i64, i32,
-                           i64, i32, i32, vp]
+        # K7 on an f64 basis: the three CGS2 passes, the guarded scale, the
+        # Krylov combine
+        lib.pymes_arnoldi_pass.argtypes = [i32, vp, vp, vp, vp, vp, vp, vp,
+                                           i64, i64, i32, i64, i32, i32, vp]
+        lib.pymes_arnoldi_scale.argtypes = [vp, vp, vp, vp, vp, i64, i64, i32,
+                                            i64, i32, i32, f64, vp]
+        lib.pymes_krylov_combine.argtypes = [vp, vp, vp, vp, i32, vp, vp, vp,
+                                             i64, i64, i32, i64, i32, i32, vp]
+        # K7 on an f32 basis: the projection (V, w, lanes, m, the share, P,
+        # S, H, the sync words, n, lane stride, R1, La, maxg, the partials'
+        # row stride, the grid, the guard) and the combine (V, lanes, m, C,
+        # nout, x0, out0, out1, n, lane stride, ldc, La)
+        lib.pymes_arnoldi_cgs2_f32.argtypes = [vp] * 4 + [i64] + [vp] * 4 \
+            + [i64, i64] + [i32] * 5 + [f64, vp]
+        lib.pymes_krylov_combine_f32.argtypes = [vp, vp, vp, vp, i32, vp, vp,
+                                                 vp, i64, i64, i32, i32, vp]
+        for fn in (lib.pymes_arnoldi_pass, lib.pymes_arnoldi_scale,
+                   lib.pymes_krylov_combine, lib.pymes_arnoldi_cgs2_f32,
+                   lib.pymes_krylov_combine_f32):
             fn.restype = i32
         # K2/K3, K2'/K3': the Jacobi/insert pass (R1, T1, R2, T2, eps_i,
         # eps_a, the shift, errs, amps, out, N1, N, no, nv, m, slot,

@@ -20,13 +20,23 @@ projection coefficients h, the norm and the combine coefficients are
 float64 in both (the source says where an f32 basis rounds).
 
 The kernels are CUDA C++ (``pymes_tpu_torch/csrc/arnoldi.cu``, built with
-nvcc for sm_90a at first use): exact CGS2 in three dependent streaming
-passes over the m_a valid rows and a guarded scale (4 launches a
-projection), and one pass over V for both cycle-end combines
-(:func:`krylov_combine_xr`).  The source says what bounds them and how the
-design answers.  :func:`plan` cuts each lane's columns into the blocks'
-ranges; it and :func:`tile_cols` (the tile width the kernel takes for m
-rows) are plain Python so that the CPU tests reach them.
+nvcc for sm_90a at first use), of two designs:
+
+* f64: exact CGS2 in three dependent streaming passes over the m_a valid
+  rows and a guarded scale (4 launches a projection), all lanes in one
+  wave; one pass over V for both cycle-end combines
+  (:func:`krylov_combine_xr`).  :func:`plan` cuts each lane's columns into
+  the blocks' ranges; it and :func:`tile_cols` (the tile width the kernel
+  takes for m rows) are plain Python so that the CPU tests reach them.
+* f32: the three passes and the scale in one cooperative launch of one
+  block an SM over every lane at once, each block an equal share of the
+  lanes' rows laid end to end (:func:`f32_plan`); a block keeps its share
+  for the three passes and walks its tiles (:func:`f32_steps`) forward,
+  backward, forward (:func:`f32_walk`), so each pass starts on what the L2
+  holds of the one before.  The f32 combine streams the rows with 16-byte
+  loads and stores.
+
+The source says what bounds each and how the design answers.
 
 The twins (``*_twin``) loop over the lanes with ``torch.mv`` products in
 the JAX order, in float64 on the widened basis, rounding to the basis type
@@ -35,6 +45,7 @@ lanes, so the lane-batched GMRES on the CPU equals one-lane solves bit for
 bit.
 """
 
+import collections
 import functools
 
 import torch
@@ -51,6 +62,13 @@ COMB_TILE = 4096
 MAX_ROWS = 128        # basis rows a projection or combine takes
 BLOCKS_PER_SM = 2     # two ~99 KB blocks share an SM's shared memory
 MIN_SPAN = 2048       # columns a block takes at least
+# the f32 projection (csrc/arnoldi.cu namespace f32k)
+F32_BLOCKS_PER_SM = 1         # one 201 KB block an SM, all resident at once
+F32_PART_ROWS = 16            # rows a thread holds at most
+F32_RING_FLOATS = 48 * 1024   # the tiles' ring: 192 KB ...
+F32_MAX_BUF = 8               # ... of at most 8 buffers
+F32_SMEM = 4 * F32_RING_FLOATS + 8 * (128 + 8 * 128) + 8 * F32_MAX_BUF \
+    + 16                      # the block's shared memory (csrc SMEM)
 
 
 def breakdown(dtype):
@@ -60,8 +78,8 @@ def breakdown(dtype):
 
 def tile_cols(rows, tile=PROJ_TILE):
     """Columns of the kernel's tile of ``rows`` rows (the m valid rows,
-    plus w's row in a projection) in a buffer of ``tile`` doubles (of an
-    f64 basis; an f32 tile holds twice the columns): a multiple of 16."""
+    plus w's row in a projection) of the f64 kernels in a buffer of
+    ``tile`` doubles: a multiple of 16."""
     return tile // max(rows, 1) // 16 * 16
 
 
@@ -88,6 +106,82 @@ def block_tiles(n, G, span, rows, tile=PROJ_TILE):
         cb, ce = g * span, min(n, (g + 1) * span)
         out.append([(c, min(ce, c + C)) for c in range(cb, ce, C)])
     return out
+
+
+F32Plan = collections.namedtuple("F32Plan", "share blocks maxg")
+F32Plan.__doc__ = """The f32 projection's plan for one call: each block takes
+``share`` columns of the active lanes' rows laid end to end, ``blocks``
+blocks have some, and ``maxg`` is the most blocks whose shares meet one
+lane (the partials' layout)."""
+
+
+def f32_parts(m):
+    """Threads that share a column quad of the f32 projection's tiles for
+    m valid rows, each with every G-th row: G = 1, 2, 4, 8, so that a thread
+    holds at most ``F32_PART_ROWS`` rows (csrc ``parts_of``)."""
+    return 1 if m < 16 else 2 if m < 32 else 4 if m < 64 else 8
+
+
+@functools.lru_cache(maxsize=256)
+def f32_plan(n, La, nb):
+    """The f32 projection's plan for ``La`` active lanes with rows of ``n``
+    columns on a grid of ``nb`` resident blocks (the SMs ×
+    ``F32_BLOCKS_PER_SM``): the lanes' rows laid end to end are cut into
+    equal shares, a multiple of 4 columns, one a block, so every block
+    streams the same columns a pass (the same bytes where the lanes share
+    m, as the GMRES's do) and, where n is a multiple of 4, every row
+    segment stays 16-byte aligned.  A share may end one lane and start the
+    next.  The plan does not depend on the lanes' row counts, so the
+    wrapper needs no host copy of them (the kernel takes each lane's tile
+    shape from its m on the card).  (Lanes taken a few at a time, so that
+    passes 1 and 2 read from the L2, lost on the H100: each lane's three
+    meetings of its blocks cost more than the L2 saved; PERF.md.)"""
+    total = La * n
+    share = -(-total // nb)
+    share = -(-share // 4) * 4
+    maxg = max(((a + 1) * n - 1) // share - a * n // share + 1
+               for a in range(La))
+    return F32Plan(share, -(-total // share), maxg)
+
+
+def f32_tile_cols(m):
+    """Columns of the f32 projection's tiles for m valid rows: 256
+    threads, G of them a quad of 4 columns."""
+    return 1024 // f32_parts(m)
+
+
+def f32_steps(cb, ce, m):
+    """The column tiles [c0, c1) of a block's range [cb, ce) in the
+    forward walk of a lane with m valid rows."""
+    w = f32_tile_cols(m)
+    return [(c, min(ce, c + w)) for c in range(cb, ce, w)]
+
+
+def f32_walk(plan, n, ms):
+    """The f32 kernel's walk of ``plan`` for lanes of ``ms`` valid rows:
+    for each block, its items (lane, (cb, ce)) and, pass by pass in the
+    order the block takes them, (pass, lane, the column tiles in the order
+    walked).  Odd passes take the items, and each item's tiles, in
+    reverse."""
+    out = []
+    total = len(ms) * n
+    for b in range(plan.blocks):
+        t0, t1 = b * plan.share, min(total, (b + 1) * plan.share)
+        items = [(a, (max(t0, a * n) - a * n, min(t1, (a + 1) * n) - a * n))
+                 for a in range(t0 // n, (t1 - 1) // n + 1)]
+        walk = []
+        for p in range(3):
+            for a, (cb, ce) in (items[::-1] if p == 1 else items):
+                tiles = f32_steps(cb, ce, ms[a])
+                walk.append((p, a, tiles[::-1] if p == 1 else tiles))
+        out.append((items, walk))
+    return out
+
+
+def f32_ring_buffers(m):
+    """Tile buffers of the f32 ring for m valid rows: as many (m + 1)-row
+    tiles as fit, at most ``F32_MAX_BUF``."""
+    return min(F32_MAX_BUF, F32_RING_FLOATS // ((m + 1) * f32_tile_cols(m)))
 
 
 def _check(V, lanes, m, *rows):
@@ -169,6 +263,8 @@ def arnoldi_cgs2(V, w, lanes, m, twin=False):
     La = lanes.shape[0]
     if w.shape != (La, n):
         raise ValueError("w must be (active lanes, n)")
+    if sfx:
+        return _cgs2_f32(V, w, lanes, m)
     lib, (G, span) = _launch(V, La)
     dev = V.device
     f64 = torch.float64
@@ -184,6 +280,28 @@ def arnoldi_cgs2(V, w, lanes, m, twin=False):
         breakdown(V.dtype))
     kernels.LAUNCHES["arnoldi_cgs2" + sfx] += 1
     return H
+
+
+def _cgs2_f32(V, w, lanes, m):
+    """The f32 projection: one cooperative launch over :func:`f32_plan`'s
+    lane groups; H, the partials, the lane sums and the meeting words in
+    one allocation."""
+    L, R1, n = V.shape
+    La = lanes.shape[0]
+    dev = V.device
+    if La == 0:
+        return torch.empty((0, R1), dtype=torch.float64, device=dev)
+    nb = _build.sm_count(dev) * F32_BLOCKS_PER_SM
+    plan = f32_plan(n, La, nb)
+    sizes = (La * R1, 3 * La * plan.maxg * R1, La * 3 * MAX_ROWS, 3 * La)
+    buf = torch.empty(sum(sizes), dtype=torch.float64, device=dev)
+    H, P, S, sync = torch.split(buf, sizes)
+    ptr = [t.data_ptr() for t in (V, w, lanes, m, P, S, H, sync)]
+    _rc(dev, _build.library().pymes_arnoldi_cgs2_f32, "K7 f32 projection",
+        *ptr[:4], plan.share, *ptr[4:], n, R1 * n, R1, La, plan.maxg, R1,
+        plan.blocks, BREAK_F32)
+    kernels.LAUNCHES["arnoldi_cgs2_f32"] += 1
+    return H.view(La, R1)
 
 
 def krylov_combine_twin(V, coeffs, m, lanes, x0=None):
@@ -218,12 +336,16 @@ def _combine(V, coeffs, m, lanes, x0):
     C = torch.zeros((La, nout, R1), dtype=torch.float64, device=V.device)
     C[:, :, :coeffs.shape[2]] = coeffs
     out = torch.empty((nout, La, n), dtype=V.dtype, device=V.device)
-    lib, (G, span) = _launch(V, La)
-    _rc(V.device, getattr(lib, "pymes_krylov_combine" + sfx), "K7 combine",
-        V.data_ptr(), lanes.data_ptr(), m.data_ptr(), C.data_ptr(), nout,
-        None if x0 is None else x0.data_ptr(), out[0].data_ptr(),
-        out[nout - 1].data_ptr() if nout > 1 else None, n, R1 * n, R1, span,
-        G, La)
+    ptrs = (V.data_ptr(), lanes.data_ptr(), m.data_ptr(), C.data_ptr(), nout,
+            None if x0 is None else x0.data_ptr(), out[0].data_ptr(),
+            out[nout - 1].data_ptr() if nout > 1 else None, n, R1 * n, R1)
+    if sfx:
+        _rc(V.device, _build.library().pymes_krylov_combine_f32,
+            "K7 f32 combine", *ptrs, La)
+    else:
+        lib, (G, span) = _launch(V, La)
+        _rc(V.device, lib.pymes_krylov_combine, "K7 combine", *ptrs, span,
+            G, La)
     kernels.LAUNCHES["arnoldi_cgs2" + sfx] += 1
     return out
 

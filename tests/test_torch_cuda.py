@@ -19,8 +19,9 @@ element), K5 (which sums in its twin's order) and the ring rows that K2/K2′
 write (one division and one add an element, in the twin's order) must equal
 their twins bit for bit, and the tails' sums repeat bit for bit from launch
 to launch (the last block adds the blocks' partials in block order).  K1,
-K7 and K9 add no atomics, so a second launch must repeat the first bit for
-bit.  The f32 instantiations of K1, K4, K5, K7 and K8 (the FEAST/RT
+K7 and K9 add no values by atomics (f32 K7's tickets only count the
+blocks that arrived), so a second launch must repeat the first bit for
+bit.  The f32 kernels of K1, K4, K5, K7 and K8 (the FEAST/RT
 mixed-precision engine) and of K2/K3, K2′/K3′, K4's fused trace and K6
 (the ground-state and Davidson precision modes) are held to their f32
 twins within 1e-5·max|twin| (f32 rounding, ~6e-8 an operation, over the
@@ -1432,18 +1433,24 @@ def test_pair_symmetrize_f32_kernel_bit_equal(device, shape, with_y):
         pair_sym.pair_symmetrize(X, torch.zeros_like(X, dtype=torch.float64))
 
 
-@pytest.mark.parametrize("R1,n", [(121, 9000), (21, 70004), (21, 70001)])
+@pytest.mark.parametrize("R1,n", [(121, 9000), (128, 9000), (21, 70004),
+                                  (21, 70001)])
 def test_arnoldi_cgs2_f32_kernel_matches_twin(device, R1, n):
     """K7 on an f32 basis (the wide 16-byte copies, and the one-float ones
     where n is odd): the f64 Hessenberg column and the f32 row against the
-    twin at m = 1, small m (the register pass), m = R; reruns bit-equal;
-    the fused combine."""
+    twin at m = 1, lanes at uneven m on both sides of 16 (the register
+    and the tile paths in one launch), m = R; reruns bit-equal; the f64
+    K7 beside it on the same rows, bit-equal on a rerun and within its
+    own tolerance; the fused combine."""
     from pymes_tpu_torch.kernels import arnoldi
     rng = np.random.default_rng(R1 + n)
     L = 4
     V0, w, lanes = _krylov(rng, L, R1, n, device)
+    V64, w64 = V0.float().double(), w.float().double()
     V0, w = V0.float(), w.float()
-    for ms in ([1, 1, 1, 1], [1, 7, R1 // 2, R1 - 1]):
+    for ms in ([1, 1, 1, 1], [1, 7, R1 // 2, R1 - 1], [15, 16, 17, 16],
+               [R1 - 1] * 4):
+        ms = [min(k, R1 - 1) for k in ms]
         m = torch.as_tensor(ms, device=device)
         Vk, Vk2, Vt = V0.clone(), V0.clone(), V0.clone()
         before = kernels.LAUNCHES["arnoldi_cgs2_f32"]
@@ -1457,13 +1464,95 @@ def test_arnoldi_cgs2_f32_kernel_matches_twin(device, R1, n):
         err = float((hk - ht).abs().max())
         assert err <= F32_REL * float(ht.abs().max()), err
         _close32(Vk[lanes, m], Vt[lanes, m])
+        # only row m of each active lane moved
+        Vk[lanes, m] = V0[lanes, m]
+        assert torch.equal(Vk, V0)
+        # the f64 K7 on the same rows
+        before = kernels.LAUNCHES["arnoldi_cgs2"]
+        V1, V2, V3 = V64.clone(), V64.clone(), V64.clone()
+        h1 = arnoldi.arnoldi_cgs2(V1, w64.clone(), lanes, m)
+        h2 = arnoldi.arnoldi_cgs2(V2, w64.clone(), lanes, m)
+        h3 = arnoldi.arnoldi_cgs2(V3, w64.clone(), lanes, m, twin=True)
+        assert kernels.LAUNCHES["arnoldi_cgs2"] == before + 2
+        torch.cuda.synchronize()
+        assert torch.equal(h1, h2) and torch.equal(V1, V2)
+        _close(h1, h3)
+        _close(V1[lanes, m], V3[lanes, m])
     C = _randn(rng, (L, 2, R1), device)
-    m = torch.as_tensor([1, R1, 60 % R1 + 1, 2], device=device)
+    m = torch.as_tensor([1, R1, 60 % R1 + 1, 17], device=device)
     x0 = _randn32(rng, (L, n), device)
     got = arnoldi.krylov_combine_xr(V0, C, m, lanes, x0=x0)
+    again = arnoldi.krylov_combine_xr(V0, C, m, lanes, x0=x0)
     want = arnoldi.krylov_combine_xr(V0, C, m, lanes, x0=x0, twin=True)
-    for a, b in zip(got, want):
-        _close32(a, b)
+    for a, b, c in zip(got, again, want):
+        assert torch.equal(a, b)
+        _close32(a, c)
+    for x in (None, x0):
+        _close32(arnoldi.krylov_combine(V0, C[:, 0].contiguous(), m, lanes,
+                                        x0=x),
+                 arnoldi.krylov_combine(V0, C[:, 0].contiguous(), m, lanes,
+                                        x0=x, twin=True))
+
+
+@pytest.mark.parametrize("n,R1", [(4096, 21), (300_001, 21), (245_700, 121)])
+def test_arnoldi_cgs2_f32_lane_groups(device, n, R1):
+    """Many lanes at uneven m in one wave: 62 lanes of n = 4096 (several a
+    block), at 300 001 (odd) and at the FEAST row length a few lanes of
+    many blocks, shares crossing lanes; the lanes are a permuted subset of
+    the bases.  Each lane against the twin, reruns bit-equal, the rows
+    outside untouched."""
+    from pymes_tpu_torch.kernels import arnoldi
+    rng = np.random.default_rng(n)
+    L = 64 if n < 100_000 else 8
+    g = torch.Generator(device=device).manual_seed(n)
+    V0 = torch.randn((L, R1, n), generator=g, dtype=torch.float32,
+                     device=device) / float(np.sqrt(n))
+    La = L - 2
+    lanes = torch.as_tensor(rng.permutation(L)[:La], device=device)
+    m = torch.as_tensor(rng.integers(1, R1, La), device=device)
+    w = _randn32(rng, (La, n), device)
+    plan = arnoldi.f32_plan(n, La, arnoldi.F32_BLOCKS_PER_SM
+                            * torch.cuda.get_device_properties(device)
+                            .multi_processor_count)
+    # some blocks' shares end one lane and start the next
+    assert plan.share % n != 0
+    Vk, Vk2, Vt = V0.clone(), V0.clone(), V0.clone()
+    hk = arnoldi.arnoldi_cgs2(Vk, w.clone(), lanes, m)
+    hk2 = arnoldi.arnoldi_cgs2(Vk2, w.clone(), lanes, m)
+    ht = arnoldi.arnoldi_cgs2(Vt, w.clone(), lanes, m, twin=True)
+    torch.cuda.synchronize()
+    assert torch.equal(hk, hk2) and torch.equal(Vk, Vk2)
+    for a in range(La):
+        err = float((hk[a] - ht[a]).abs().max())
+        assert err <= F32_REL * float(ht[a].abs().max()), (a, err)
+    _close32(Vk[lanes, m], Vt[lanes, m])
+    Vk[lanes, m] = V0[lanes, m]
+    assert torch.equal(Vk, V0)
+
+
+def test_arnoldi_cgs2_f32_int64_offsets(device):
+    """L·(restart+1)·n > 2³¹ floats: the last lane's rows lie past the
+    int32 range of elements (8.7 GB of f32 basis)."""
+    from pymes_tpu_torch.kernels import arnoldi
+    L, R1, n = 2, 121, 9_000_000
+    assert L * R1 * n > 2 ** 31
+    V = torch.zeros((L, R1, n), dtype=torch.float32, device=device)
+    rng = np.random.default_rng(32)
+    lanes = torch.as_tensor([1, 0], device=device)
+    for mm in (3, 20):
+        m = torch.as_tensor([mm, mm], device=device)
+        V[:, :mm] = _randn32(rng, (L, mm, n), device) / 3000.0
+        w = _randn32(rng, (L, n), device)
+        Vt = V[:, :mm + 1].clone()
+        hk = arnoldi.arnoldi_cgs2(V, w.clone(), lanes, m)
+        ht = arnoldi.arnoldi_cgs2(Vt, w.clone(), lanes, m, twin=True)
+        torch.cuda.synchronize()
+        err = float((hk[:, :mm + 1] - ht).abs().max())
+        assert err <= F32_REL * float(ht.abs().max()), err
+        _close32(V[1, mm], Vt[1, mm])
+        C = _randn(rng, (L, R1), device)
+        _close32(arnoldi.krylov_combine(V, C, m, lanes),
+                 arnoldi.krylov_combine(V, C, m, lanes, twin=True))
 
 
 def test_arnoldi_cgs2_f32_breakdown_row(device):

@@ -402,6 +402,163 @@ def test_k7_tile_fits_shared_memory(m):
     assert m + 1 <= arnoldi.MAX_ROWS
 
 
+# ---- the f32 K7: equal shares of the lanes' rows laid end to end ------------
+
+# (n, La, m of each lane): the FEAST nP=57 and RT nP=123 lane shapes at the
+# timed m and at uneven m on both sides of every G threshold, odd n, a
+# lane count past the grid, single lanes
+K7_F32_SHAPES = [(245700, 64, (60,)), (1320312, 32, (10,)),
+                 (245700, 64, (1, 15, 16, 31, 32, 63, 64, 120)),
+                 (1320312, 32, (4, 16, 20, 9)), (300001, 6, (17, 3, 90)),
+                 (4096, 62, (2, 40)), (9000, 200, (5,)), (7, 1, (1,)),
+                 (70001, 1, (120,))]
+
+
+def _k7_ms(La, pattern):
+    return tuple(pattern[a % len(pattern)] for a in range(La))
+
+
+@pytest.mark.parametrize("sms", [132, 8])
+@pytest.mark.parametrize("n,La,pattern", K7_F32_SHAPES)
+def test_k7_f32_walk_covers_every_lane_column_once_a_pass(n, La, pattern,
+                                                          sms):
+    """Each pass of the f32 plan's walk stores every column of every active
+    lane once; a block keeps its items in all three passes, takes them and
+    their tiles forward, backward, forward; the grid is no larger than the
+    resident blocks, and every block streams an equal share."""
+    ms = _k7_ms(La, pattern)
+    nb = arnoldi.F32_BLOCKS_PER_SM * sms
+    plan = arnoldi.f32_plan(n, La, nb)
+    assert plan.blocks <= nb and plan.share % 4 == 0
+    # equal shares: every block but the last has share columns
+    assert (plan.blocks - 1) * plan.share < La * n <= plan.blocks * plan.share
+    walk = arnoldi.f32_walk(plan, n, ms)
+    assert len(walk) == plan.blocks
+    cover = np.zeros((3, La, n), dtype=np.int64)
+    blocks_of = [set() for _ in range(La)]
+    for b, (items, steps) in enumerate(walk):
+        assert sum(ce - cb for _, (cb, ce) in items) <= plan.share
+        for a, _ in items:
+            blocks_of[a].add(b)
+        for p in range(3):
+            mine = [s for s in steps if s[0] == p]
+            order = [a for _, a, _ in mine]
+            want = [a for a, _ in items]
+            assert order == (want[::-1] if p == 1 else want)
+            for (_, a, tiles), (_, (cb, ce)) in zip(
+                    mine, items[::-1] if p == 1 else items):
+                starts = [c0 for c0, _ in tiles]
+                assert starts == sorted(starts, reverse=(p == 1))
+                for c0, c1 in tiles:
+                    assert cb <= c0 < c1 <= ce
+                    assert c1 - c0 <= arnoldi.f32_tile_cols(ms[a])
+                    cover[p, a, c0:c1] += 1
+    assert (cover == 1).all()
+    # the partials' layout holds every lane's blocks, numbered from its
+    # first
+    assert max(len(s) for s in blocks_of) <= plan.maxg
+    for s_ in blocks_of:
+        assert sorted(s_) == list(range(min(s_), max(s_) + 1))
+
+
+@pytest.mark.parametrize("n,La,pattern", K7_F32_SHAPES)
+def test_k7_f32_row_segments_stay_16_byte_aligned(n, La, pattern):
+    """Where n is a multiple of 4 every tile of every block starts on a
+    multiple of 4 columns of its lane, so every row segment of the 16-byte
+    copies is 16-byte aligned; else the kernel takes 4-byte copies."""
+    ms = _k7_ms(La, pattern)
+    walk = arnoldi.f32_walk(arnoldi.f32_plan(n, La, 132), n, ms)
+    starts = {c0 for _, steps in walk for _, _, tiles in steps
+              for c0, _ in tiles}
+    if n % 4 == 0:
+        assert all(c0 % 4 == 0 for c0 in starts)
+    # the shares' cut points in the lanes' rows laid end to end
+    plan = arnoldi.f32_plan(n, La, 132)
+    assert all((b * plan.share) % 4 == 0 for b in range(plan.blocks))
+
+
+@pytest.mark.parametrize("m", [0, 1, 10, 15, 16, 20, 31, 32, 60, 63, 64, 90,
+                               120, 127])
+def test_k7_f32_tile_fits_the_ring(m):
+    """G threads a column quad keep a thread at most 16 rows; the (m + 1)
+    row tile of 1024/G columns leaves the 192 KB ring at least 3 buffers
+    (2 in flight while one is summed); the block fits one an SM."""
+    G = arnoldi.f32_parts(m)
+    assert G in (1, 2, 4, 8) and -(-m // G) <= arnoldi.F32_PART_ROWS
+    assert arnoldi.f32_tile_cols(m) == 1024 // G
+    nbuf = arnoldi.f32_ring_buffers(m)
+    assert 3 <= nbuf <= arnoldi.F32_MAX_BUF
+    assert nbuf * (m + 1) * arnoldi.f32_tile_cols(m) <= arnoldi.F32_RING_FLOATS
+    assert arnoldi.F32_SMEM <= 227 * 1024
+    assert m + 1 <= arnoldi.MAX_ROWS
+
+
+@pytest.mark.parametrize("n,La,pattern", [(4096, 62, (2, 40)),
+                                          (3001, 5, (17, 3, 30)),
+                                          (20000, 3, (70, 1, 16))])
+def test_k7_f32_walk_computes_the_twin(n, La, pattern):
+    """The f32 kernel's arithmetic walked in numpy over the plan (sm = 8):
+    each block's partial row dots of its items a pass, summed over the
+    lane's blocks; w1 and the new row rounded to f32 where the kernel
+    stores them; the guarded scale.  It equals the twin: the rows within
+    one f32 rounding, the Hessenberg column within 1e-7 of its largest
+    entry (the sums' order differs from the twin's, so w1's rounding to
+    f32, 6e-8 relative, flips in some columns and enters h2)."""
+    rng = np.random.default_rng(n + La)
+    ms = _k7_ms(La, pattern)
+    R1 = max(ms) + 2
+    L = La + 1
+    V = rng.standard_normal((L, R1, n)).astype(np.float32) / np.sqrt(n)
+    w = rng.standard_normal((La, n)).astype(np.float32)
+    lanes = rng.permutation(L)[:La]
+    plan = arnoldi.f32_plan(n, La, 8)
+    walk = arnoldi.f32_walk(plan, n, ms)
+    Vd = V.astype(np.float64)
+    H = np.zeros((La, R1))
+    wk = w.astype(np.float64)
+    h = [np.zeros(m) for m in ms]
+    nrm2 = np.zeros(La)
+    row = np.zeros((La, n))
+    for p in range(3):
+        part = [np.zeros(max(m, 1)) for m in ms]
+        for _, steps in walk:
+            for q, a, tiles in steps:
+                if q != p:
+                    continue
+                Vl, m = Vd[lanes[a], :ms[a]], ms[a]
+                for c0, c1 in tiles:
+                    if p == 0:
+                        part[a][:m] += Vl[:, c0:c1] @ wk[a, c0:c1]
+                        continue
+                    x = wk[a, c0:c1] - h[a] @ Vl[:, c0:c1]
+                    if p == 1:
+                        wk[a, c0:c1] = x.astype(np.float32)
+                        part[a][:m] += Vl[:, c0:c1] @ wk[a, c0:c1]
+                    else:
+                        row[a, c0:c1] = x
+                        part[a][0] += x @ x
+        for a, m in enumerate(ms):
+            if p < 2:
+                h[a] = part[a][:m]
+                H[a, :m] += h[a]
+            else:
+                nrm2[a] = part[a][0]
+    twin_V = torch.as_tensor(V.copy())
+    want = arnoldi.arnoldi_cgs2_twin(twin_V, torch.as_tensor(w),
+                                     torch.as_tensor(lanes),
+                                     torch.as_tensor(ms)).numpy()
+    for a, m in enumerate(ms):
+        H[a, m] = np.sqrt(nrm2[a])
+        brk = arnoldi.BREAK_F32
+        scale = 1.0 / max(H[a, m], brk) if H[a, m] > brk else 0.0
+        got = (scale * row[a].astype(np.float32).astype(np.float64)).astype(
+            np.float32)
+        np.testing.assert_allclose(got, twin_V[lanes[a], m].numpy(),
+                                   rtol=0, atol=2e-7 * np.abs(got).max())
+    np.testing.assert_allclose(H, want, rtol=0,
+                               atol=1e-7 * np.abs(want).max())
+
+
 @pytest.mark.parametrize("with_x0", [False, True])
 def test_fused_combine_twin_equals_two_single_combines(with_x0):
     rng = np.random.default_rng(7 + with_x0)

@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
-"""Time the f32 kernels of K1 (the sector ladder) and K4 (the ovvv T1
-gather) of one checkout, beside their f64 kernels at the same widths, on
-one CUDA card.
+"""Time the f32 kernels of K1 (the sector ladder), K4 (the ovvv T1
+gather) and K7 (the CGS2 projection and the Krylov combine) of one
+checkout, beside their f64 kernels at the same widths, on one CUDA card.
 
-    python3 tools/time_f32.py [--tree DIR] [--out FILE]
+    python3 tools/time_f32.py [--tree DIR] [--parts k1,k4,k7] [--out FILE]
 
 Imports ``pymes_tpu_torch`` from ``DIR`` (default: the checkout this file
 lies in), so that two trees, a parent and a change, can be timed in one
@@ -23,9 +23,20 @@ electrons, rs = 0.5, through the entries the precision modes call:
   plan's weights cast, and f64;
 * K4′, the fused G_vv trace of the dressing (``ovvv_t1_trace`` on the vov
   and ovv plans at nP=219), f32 and f64: launch-bound (its bound, 2 MB of
-  reads, is below the time of one launch).
+  reads, is below the time of one launch);
+* K7 on an f32 basis at the FEAST nP=57 lane shape (64 lanes, 121 basis
+  rows of 245 700) and the RT nP=123 one (32 lanes, 21 rows of
+  1 320 312): the projection of all lanes at each m of ``K7_SWEEP``, and
+  the fused x/r combine at m + 1 of the shape's middle m (60, 10); every
+  call follows a write of ``FLUSH_BYTES`` that evicts the 50 MB L2 (in the
+  solver a sigma runs between two projections).  Each m is held to the
+  twin (1e-5 relative).  Beside each time: the three-pass floor and the
+  once-read bound (``util/roofline.py`` ``krylov_bounds``).  Also a digest
+  of the f64 K7's outputs (projection and combine) on seeded inputs, so
+  that two trees can show the same f64 bits.
 
-Each f32 call is first held to its f32 twin (K1 within 1e-5 relative and
+``--parts`` picks the sections (default: all).  Each f32 call of K1 and
+K4 is first held to its f32 twin (K1 within 1e-5 relative and
 a rerun bit for bit, K4 bit for bit).  Per call: ms through the wrapper
 (CUDA events, mean of 20 calls after 3 warm-ups; K4 the mean over the
 three plans), on the card alone (``torch.profiler``, the kernels whose
@@ -52,6 +63,12 @@ K1_WIDTHS = (("N = 49, nP=219 virtual plan", 14, "virtual", 49),
              ("N = 3136, nP=123 all-bra plan (RT lanes)", 10, "all", 3136),
              ("N = 6272, nP=57 all-bra plan (FEAST lanes)", 5, "all", 6272))
 # (label, cutoff, trials): None trials = the dressing's (nv, no) T1
+# K7: (label, lanes, basis rows, n, the projection's m sweep, the timed m)
+K7_SHAPES = (("FEAST nP=57", 64, 121, 245700, (8, 16, 30, 60, 90, 120), 60),
+             ("RT nP=123", 32, 21, 1320312, (4, 10, 16, 20), 10))
+FLUSH_BYTES = 256 << 20
+K7_KERNELS = {"projection": ("arnoldi_pass", "arnoldi_scale", "cgs2"),
+              "combine": ("krylov_combine", "combine_kernel")}
 K4_WIDTHS = (("7 columns, nP=219 (CCSD dressing)", 14, None),
              ("14 columns, nP=219 (EOM batch)", 14, 2),
              ("448 columns, RT nP=123", 10, 64),
@@ -93,6 +110,135 @@ def card_ms(torch, fn, name, n=20, warmup=3):
         if us > 0:
             return us / 1e3 / n
     return None
+
+
+def flushed_ms(torch, fn, flush, n=10, warmup=2):
+    """Mean ms of ``fn`` over n calls (CUDA events around each call), each
+    after a write of ``flush`` that evicts the L2."""
+    for _ in range(warmup):
+        flush.add_(1)
+        fn()
+    ev = [(torch.cuda.Event(enable_timing=True),
+           torch.cuda.Event(enable_timing=True)) for _ in range(n)]
+    for start, end in ev:
+        flush.add_(1)
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    return sum(s.elapsed_time(e) for s, e in ev) / n
+
+
+def flushed_card_ms(torch, fn, flush, names, n=10):
+    """Mean time on the card of the kernels whose name holds one of
+    ``names`` in a call of ``fn`` after an L2 flush (``torch.profiler``;
+    None when a session's trace holds no such kernel three times)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    flush.add_(1)
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                flush.add_(1)
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.self_cuda_time_total
+                 if getattr(e, "self_device_time_total", None) is None
+                 else e.self_device_time_total
+                 for e in prof.key_averages()
+                 if any(k in e.key for k in names))
+        if us > 0:
+            return us / 1e3 / n
+    return None
+
+
+def time_k7(torch, dev, g):
+    import hashlib
+
+    from pymes_tpu_torch.kernels import arnoldi
+    from pymes_tpu_torch.util.roofline import krylov_bounds
+
+    flush = torch.zeros(FLUSH_BYTES // 4, dtype=torch.float32, device=dev)
+    out = {}
+    for label, La, R1, n, sweep, mid in K7_SHAPES:
+        V = torch.randn((La, R1, n), generator=g, dtype=torch.float32,
+                        device=dev) / float(n ** 0.5)
+        lanes = torch.arange(La, device=dev)
+        entry = {}
+        for m in sweep:
+            # a fresh w per m: the row an earlier m wrote lies in the span
+            # of its w, which a projection would reduce to rounding noise
+            w0 = torch.randn((La, n), generator=g, dtype=torch.float32,
+                             device=dev)
+            mt = torch.full_like(lanes, m)
+            hk = arnoldi.arnoldi_cgs2(V, w0.clone(), lanes, mt)
+            row = V[:, m].clone()
+            again = arnoldi.arnoldi_cgs2(V, w0.clone(), lanes, mt)
+            torch.cuda.synchronize()
+            assert torch.equal(hk, again) and torch.equal(row, V[:, m]), \
+                f"K7 f32 {label} m={m}: a rerun changed the bits"
+            ht = arnoldi.arnoldi_cgs2(V, w0.clone(), lanes, mt, twin=True)
+            rel = max(float((hk - ht).abs().max() / ht.abs().max()),
+                      float((row.double() - V[:, m].double()).abs().max()
+                            / V[:, m].double().abs().max()))
+            assert rel <= 1e-5, f"K7 f32 {label} m={m}: {rel:.2e}"
+            ws = [w0.clone() for _ in range(12)]
+
+            def proj(ws=ws, mt=mt):
+                return arnoldi.arnoldi_cgs2(V, ws.pop() if ws else
+                                            w0.clone(), lanes, mt)
+
+            kb = krylov_bounds(La, m, n, elem=4)
+            ms = flushed_ms(torch, proj, flush)
+            entry[f"m={m}"] = {
+                "ms": ms, "device_ms": flushed_card_ms(
+                    torch, proj, flush, K7_KERNELS["projection"]),
+                "floor_ms": kb["floor_ms"], "bound_ms": kb["bound"][0],
+                "floor_share": kb["floor_ms"] / ms,
+                "bound_share": kb["bound"][0] / ms, "max_rel_err": rel}
+            del ws
+        m1 = torch.full_like(lanes, mid + 1)
+        C = torch.randn((La, 2, R1), generator=g, dtype=torch.float64,
+                        device=dev)
+        x0 = torch.randn((La, n), generator=g, dtype=torch.float32,
+                         device=dev)
+
+        def comb(tw=False):
+            return arnoldi.krylov_combine_xr(V, C, m1, lanes, x0=x0, twin=tw)
+
+        got, want = comb(), comb(True)
+        rel = max(float((a.double() - b.double()).abs().max()
+                        / b.double().abs().max()) for a, b in zip(got, want))
+        assert rel <= 1e-5, f"K7 f32 combine {label}: {rel:.2e}"
+        kb = krylov_bounds(La, mid + 1, n, elem=4)
+        ms = flushed_ms(torch, comb, flush)
+        entry["combine"] = {
+            "m": mid + 1, "ms": ms, "device_ms": flushed_card_ms(
+                torch, comb, flush, K7_KERNELS["combine"]),
+            "bound_ms": kb["combine"][0],
+            "bound_share": kb["combine"][0] / ms, "max_rel_err": rel}
+        out[label] = entry
+        del V, w0, got, want, x0, hk, ht, again
+        torch.cuda.empty_cache()
+    # the f64 K7's bits on seeded inputs (lanes at uneven m)
+    g64 = torch.Generator(device=dev).manual_seed(64)
+    V = torch.randn((6, 21, 70001), generator=g64, dtype=torch.float64,
+                    device=dev)
+    w = torch.randn((5, 70001), generator=g64, dtype=torch.float64,
+                    device=dev)
+    C = torch.randn((5, 2, 21), generator=g64, dtype=torch.float64,
+                    device=dev)
+    lanes = torch.as_tensor([4, 0, 2, 5, 1], device=dev)
+    m = torch.as_tensor([1, 7, 16, 17, 20], device=dev)
+    H = arnoldi.arnoldi_cgs2(V, w, lanes, m)
+    x, r = arnoldi.krylov_combine_xr(V, C, m + 1, lanes, x0=w)
+    digest = hashlib.sha1()
+    for t in (H, V, x, r):
+        digest.update(t.cpu().numpy().tobytes())
+    out["f64 K7 digest"] = digest.hexdigest()
+    return out
 
 
 def per_plan(ms, n):
@@ -237,8 +383,10 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--tree", default=str(Path(__file__).resolve().parent
                                           .parent))
+    ap.add_argument("--parts", default="k1,k4,k7")
     ap.add_argument("--out")
     args = ap.parse_args()
+    parts = set(args.parts.split(","))
     tree = str(Path(args.tree).resolve())
     sys.path.insert(0, tree)
 
@@ -257,13 +405,17 @@ def main():
     dev = torch.device("cuda", 0)
     g = torch.Generator(device=dev).manual_seed(17)
     models = {}
-    for cutoff in (5, 10, 14):
+    for cutoff in (5, 10, 14) if parts & {"k1", "k4"} else ():
         u = models[cutoff] = ueg.UEG(14, 7, 7, 0.5)
         u.init_single_basis(cutoff)
-    out = {"tree": tree, "card": card.strip(),
-           "K1": time_k1(torch, models, dev, g),
-           "K4": time_k4(torch, models, dev, g),
-           "K4'": time_trace(torch, models, dev, g)}
+    out = {"tree": tree, "card": card.strip()}
+    if "k1" in parts:
+        out["K1"] = time_k1(torch, models, dev, g)
+    if "k4" in parts:
+        out["K4"] = time_k4(torch, models, dev, g)
+        out["K4'"] = time_trace(torch, models, dev, g)
+    if "k7" in parts:
+        out["K7"] = time_k7(torch, dev, g)
     print(card.strip())
     line = json.dumps(out)
     print(line)
