@@ -3,6 +3,8 @@
 
 Drives the port's main paths through its own kernels:
 
+* set-up — the UEG integral lists of nP=57 and nP=219 scattered into the
+  named o/v blocks on the card through K10, counted as a path of its own;
 * CCD — UEG 14 electrons, rs = 0.5: integrals → named o/v blocks on the
   card → HF orbital energies → momentum-sector ladder plan → MP2 guess →
   matrix-free CCD to |dE| < 1e-8, at cutoff 5 (nP=57) and cutoff 14
@@ -81,9 +83,13 @@ FFMA on the CUDA cores), ``ovvv_gather_f32`` (CUDA C++, its own gather),
 the mixed-precision engine, and those of the precision modes:
 ``davidson_residual_f32`` in Triton, ``ccd_jacobi_diis_f32``,
 ``ccd_mix_energy_f32``, ``ccsd_jacobi_diis_f32``, ``ccsd_mix_energy_f32``
-and ``ovvv_gather_diag_f32`` in CUDA C++.
+and ``ovvv_gather_diag_f32`` in CUDA C++; and K10 ``block_scatter``
+(CUDA C++), the set-up scatter of a sparse integral list into the named
+blocks.
 
-Phases: (0) card and versions; (1) kernel builds; (2) each kernel against
+Phases: (0) card and versions; (1) kernel builds, then the set-up path
+(the nP=57 and nP=219 blocks, K10 launched in its counted window); (2)
+each kernel against
 its plain twin on the card at the main paths' shapes (K2′/K3′ at nP=219
 and at each molecule's; K5 at the CCD and the EOM shapes, K6 and the
 batched K1/K4 entries at the nP=219 EOM shapes), seeded inputs, bound
@@ -109,7 +115,13 @@ RT nP=123 (448) lane batches of phase 11, its fused trace at nP=219; the
 tails K2/K3 and K2′/K3′, f64 and f32, on the card alone at nP=219 (every
 device operation of a call, the per-call times of phases 5, 8 and 25
 beside them); the
-set-up scatter of the nP=219 blocks (B8); (11) K7/K8 against their twins
+set-up scatter of the nP=219 blocks (B8): K10 bit for bit against its
+twin, both per call (twin, kernel, kernel, twin), the upload alone
+(int16-packed and pinned, as K10 reads it, and the int64 list as given),
+the zero fills + K10 and K10 alone on the card, its bound; then one block
+past 2³¹ elements, ``sparse_to_dense`` at nP=219 (18.40 GB) read back
+entry by entry with its nonzero count matched, per call beside one
+``index_put_``; (11) K7/K8 against their twins
 (K7's projection and fused combine also rerun bit for bit) and per call at
 the FEAST nP=57 and RT nP=123 lane shapes, the fused combine beside one
 batched ``torch.baddbmm``; (12) FEAST nP=57,
@@ -317,6 +329,8 @@ KERNELS = {
                         "pymes_tpu/solver/feast_eom_ccsd.py:67"),
     "ring_step": ("cuda", "pymes_tpu_torch/csrc/ring_step.cu",
                   "pymes_tpu/parallel/ring_ladder.py:69"),
+    "block_scatter": ("cuda", "pymes_tpu_torch/csrc/block_scatter.cu",
+                      "pymes_tpu/models/ueg.py:688"),
 }
 # the f32 instantiations of the mixed-precision engine and of the
 # ground-state and Davidson precision modes: the same sources
@@ -510,35 +524,123 @@ def setup(cutoff, device, u=None):
             "ueg": u, "dict": d, "sparse": (idx, vals)}
 
 
+def kept_entries(idx, n_p, no, names):
+    """How many entries of the list ``idx`` land in the blocks ``names``
+    (the rest the scatter drops): what K10's bound counts."""
+    from pymes_tpu_torch.kernels import block_scatter as k10
+
+    pl = k10.plan(n_p, no, names)
+    cls = (idx < no).astype(np.int64) @ np.array([8, 4, 2, 1])
+    return int(np.isin(cls, [c for c, k in enumerate(pl.slot)
+                             if k >= 0]).sum())
+
+
 def time_scatter(p):
-    """B8, the set-up scatter of the sparse integrals into the named blocks
-    (``models/ueg.py`` ``sparse_to_blocks``: host masks, copies and one
-    ``index_put_`` a block): the wall of one call (host clock,
-    synchronised, min of 3), its card time alone (every kernel and copy
-    under the profiler) and the bound of its device work (the index and
-    value lists of the nnz nonzero entries read once, the blocks written
-    once)."""
+    """B8, the set-up scatter of the nP=219 sparse integrals into the
+    ``NEED`` blocks (``models/ueg.py`` ``sparse_to_blocks``), through K10
+    and through its twin (host masks, copies and one ``index_put_`` a
+    block): K10 held to the twin bit for bit, then the wall of one call of
+    each (host clock, synchronised; twin, kernel, kernel, twin, min of 3
+    each), the upload alone (host clock, min of 5: the int16-packed list
+    K10 reads, and the int64 list as ``eval_2b_integrals`` gives it,
+    pageable), the card time of the scatter from the uploaded list (zero
+    fills + K10) and of K10 alone (profiler), and K10's bound
+    (:func:`roofline.scatter_bound`)."""
     import torch
 
+    from pymes_tpu_torch.kernels import block_scatter as k10
+
+    idx, vals = p["sparse"]
+    n_p, dev = p["nP"], p["fock"].device
+
+    def run(twin):
+        return k10.block_scatter(idx, vals, n_p, NO, NEED, dev, twin=twin)
+
+    got, want = run(False), run(True)
+    torch.cuda.synchronize()
+    err = max(float((got[k] - want[k]).abs().max()) for k in NEED)
+    check(all(torch.equal(got[k], want[k]) for k in NEED),
+          f"block_scatter: K10 differs from its twin at nP={n_p} ({err:.3e})")
+    check(all(bool(got[k].any()) for k in NEED),
+          "block_scatter: a compared block is all zero")
+    del got, want
+
+    def wall(fn, n=3):
+        ms = []
+        for _ in range(n):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        return min(ms)
+
+    walls = {True: [], False: []}
+    for twin in (True, False, False, True):
+        walls[twin].append(wall(lambda: run(twin)))
+    up = k10.upload(idx, vals, dev)
+
+    def scatter():
+        return k10.scatter(*up, n_p, NO, NEED, dev)
+
+    pl = k10.plan(n_p, NO, NEED)
+    out = {"wall": min(walls[False]), "twin_wall": min(walls[True]),
+           "upload": wall(lambda: k10.upload(idx, vals, dev), 5),
+           "upload_int64": wall(lambda: (torch.as_tensor(idx).to(dev),
+                                         torch.as_tensor(vals).to(dev)), 5),
+           "device": card_ms(scatter, "", n=5, warmup=1),
+           "kernel": card_ms(scatter, "block_scatter", n=5, warmup=1),
+           "bound": roofline.scatter_bound(len(vals),
+                                           kept_entries(idx, n_p, NO, NEED),
+                                           pl.sizes),
+           "nnz": len(vals), "err": err}
+    return out
+
+
+def dense_past_2_31(p):
+    """K10 on one block past 2³¹ elements: ``sparse_to_dense`` of the
+    nP=219 list (18.40 GB) on the card, every entry of the list read back
+    from it and its nonzero count matched to the list's (so every other
+    element is zero), instead of a twin's second copy; then the wall of
+    one call (min of 3), the card time of K10 alone, the bound and one
+    ``index_put_`` of the list's flat indices on the card."""
+    import torch
+
+    from pymes_tpu_torch.kernels import block_scatter as k10
     from pymes_tpu_torch.models import ueg
 
     idx, vals = p["sparse"]
-    dev = p["fock"].device
-
-    def run():
-        return ueg.sparse_to_blocks(idx, vals, p["nP"], NO, dev, names=NEED)
-
-    walls = []
+    n_p, dev = p["nP"], p["fock"].device
+    torch.cuda.empty_cache()
+    V = ueg.sparse_to_dense(idx, vals, n_p, dev).view(-1)
+    check(V.numel() >= 2 ** 31, f"dense nP={n_p}: {V.numel()} elements")
+    ii = torch.as_tensor(idx, device=dev)
+    flat = ((ii[:, 0] * n_p + ii[:, 1]) * n_p + ii[:, 2]) * n_p + ii[:, 3]
+    del ii
+    vd = torch.as_tensor(vals, device=dev)
+    n_nz = int(torch.count_nonzero(V))
+    check(torch.equal(V[flat], vd) and n_nz == int(torch.count_nonzero(vd)),
+          f"dense nP={n_p}: K10's tensor does not hold the list")
+    check(int(flat.max()) >= 2 ** 31, "dense: no offset past 2^31")
+    lib = cuda_ms(lambda: V.index_put_((flat,), vd), n=5, warmup=1)
+    del V
+    torch.cuda.empty_cache()
+    ms = []
     for _ in range(3):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        run()
+        ueg.sparse_to_dense(idx, vals, n_p, dev)
         torch.cuda.synchronize()
-        walls.append((time.perf_counter() - t0) * 1e3)
-    out_bytes = sum(b.numel() * 8 for b in p["dict"].values())
-    nnz = sum(b.count_nonzero().item() for b in p["dict"].values())
-    return (min(walls), card_ms(run, "", n=3, warmup=1),
-            bound(out_bytes + 16 * nnz, 0), nnz)
+        ms.append((time.perf_counter() - t0) * 1e3)
+    up = k10.upload(idx, vals, dev)
+    kernel = card_ms(lambda: k10.scatter(*up, n_p, 0, ("abcd",), dev),
+                     "block_scatter", n=3, warmup=1)
+    torch.cuda.empty_cache()
+    return {"wall": min(ms), "kernel": kernel, "library": lib,
+            "bound": roofline.scatter_bound(len(vals), len(vals),
+                                            (n_p ** 4,)),
+            "elements": n_p ** 4, "max_offset": int(flat.max()),
+            "nonzero": n_nz}
 
 
 def setup_ccsd(p, device):
@@ -4373,7 +4475,13 @@ def main():
     _build.library()
     print(f"K1 + K2/K3 + K4 + K5 + K7 + K9 nvcc build + load: "
           f"{time.time() - t0:.2f} s", flush=True)
-    problems = {c: setup(c, device) for c in (5, 14)}
+    # the set-up path: the integral lists of nP=57 and nP=219 scattered
+    # into the named blocks on the card (K10), counted as a path
+    problems = {}
+    launches = {"set-up": path_launches(
+        "set-up", lambda: problems.update({c: setup(c, device)
+                                           for c in (5, 14)}),
+        ("block_scatter",))}
     q = setup_ccsd(problems[14], device)
     t0 = time.time()
     compare = [compare_kernels(problems[5], 1)]
@@ -4420,7 +4528,7 @@ def main():
                   flush=True)
             results[c] = (e, n_it, T, wall)
 
-    launches = {"CCD": path_launches("CCD", run_ccd, CCD_KERNELS)}
+    launches["CCD"] = path_launches("CCD", run_ccd, CCD_KERNELS)
     e57, it57 = results[5][:2]
     check(it57 == 6, f"nP=57 took {it57} iterations, expected 6")
     check(abs(e57 - ORACLE_NP57) <= 1e-8,
@@ -4556,11 +4664,29 @@ def main():
     print(f"[{card}] nP={q['nP']} EOM-CCSD Davidson (k=2, max_dim=16), mean "
           f"of 2: kernels {np.mean(it_ms[False]):.3f} ms/iter, twins "
           f"{np.mean(it_ms[True]):.3f} ms/iter", flush=True)
-    wall, dev, b, nnz = time_scatter(problems[14])
+    b8 = time_scatter(problems[14])
+    compare.append({"block_scatter": b8["err"]})
+    share = b8["bound"][0] / b8["device"]
     print(f"[{card}] nP={problems[14]['nP']} set-up scatter (B8, "
-          f"sparse_to_blocks of {len(NEED)} blocks, {nnz} nonzero entries): "
-          f"{wall:.3f} ms a call (min of 3), {dev:.4f} ms on the card alone; "
-          f"bound of the device work {b[0]:.4f} ms ({b[1]})", flush=True)
+          f"sparse_to_blocks of {len(NEED)} blocks, {b8['nnz']} entries): "
+          f"K10 {b8['wall']:.3f} ms a call, twin {b8['twin_wall']:.3f} ms "
+          f"(min of 3, twin-kernel-kernel-twin); upload alone (min of 5) "
+          f"{b8['upload']:.3f} ms (int16-packed, pinned), the int64 list as "
+          f"given {b8['upload_int64']:.3f} ms (pageable); on the card alone: "
+          f"zero fills + K10 {b8['device']:.4f} ms, K10 {b8['kernel']:.4f} "
+          f"ms; bound {b8['bound'][0]:.4f} ms ({b8['bound'][1]}; the packed "
+          f"list, the kept values and the blocks written once), the card's "
+          f"work at {share:.3f} of it", flush=True)
+    b8_dense = dense_past_2_31(problems[14])
+    print(f"[{card}] nP={problems[14]['nP']} sparse_to_dense through K10: "
+          f"{b8_dense['elements']} elements "
+          f"({b8_dense['elements'] * 8 / 1e9:.2f} GB), offsets up to "
+          f"{b8_dense['max_offset']}, every entry "
+          f"read back, {b8_dense['nonzero']} nonzero as in the list; "
+          f"{b8_dense['wall']:.3f} ms a call (min of 3), K10 alone "
+          f"{b8_dense['kernel']:.4f} ms, bound {b8_dense['bound'][0]:.4f} ms "
+          f"({b8_dense['bound'][1]}), one index_put_ of the flat indices on "
+          f"the card {b8_dense['library']:.4f} ms", flush=True)
 
     # phase 13 set-up (outside every counted window): nP=123 CCD, its
     # no-ovvv operator and the port's Davidson, the RT seed
@@ -4810,6 +4936,8 @@ def main():
         bounds[name] = f32_b[feast_label][name]
     kernel_ms.update(prec_t)
     bounds.update(prec_b)
+    kernel_ms["block_scatter"] = (b8["wall"], b8["twin_wall"])
+    bounds["block_scatter"] = b8["bound"]
     # the one PyTorch call of the same function, where there is one: for
     # K7 it computes the fused Krylov combine (its kernel time:
     # combine_ms); K7 also carries its three-pass floor and the RT nP=123
@@ -4896,6 +5024,16 @@ def main():
                    k5 if name == "pair_symmetrize_f32" else {})}
     for name, entries in prec_sub.items():
         library.setdefault(name, {}).update(entries)
+    library["block_scatter"] = {
+        "device_ms": b8["device"], "kernel_device_ms": b8["kernel"],
+        "upload_ms": b8["upload"], "upload_int64_ms": b8["upload_int64"],
+        "dense nP=219": {
+            "ms": b8_dense["wall"], "device_ms": b8_dense["kernel"],
+            "bound_ms": b8_dense["bound"][0],
+            "bound_by": b8_dense["bound"][1],
+            "library_ms": b8_dense["library"],
+            "library_call": "index_put_ of the flat indices and values "
+                            "on the card"}}
     print(json.dumps({"kernels": [
         {"name": name, "route": route, "source": src, "replaces": rep,
          "launches": total[name], "max_abs_err": max_err[name],

@@ -29,14 +29,19 @@
   device mesh: the held T shard against a c-panel of the local V block,
   accumulated into R in place (CUDA C++ on the f64 tensor cores,
   ``pymes_tpu_torch/csrc/ring_step.cu``).
+* :mod:`.block_scatter` — K10, the set-up scatter of a sparse integral
+  list into the named o/v blocks (or the dense tensor), each entry sorted
+  into its block on the card in one launch (CUDA C++,
+  ``pymes_tpu_torch/csrc/block_scatter.cu``).
 
-A wrapper given a CUDA tensor launches its kernel (or raises); given a CPU
-tensor it runs the twin.  Each launch of a kernel adds one to its entry in
-:data:`LAUNCHES`, so a run can show that the main path went through it.
+A wrapper given a CUDA tensor (K10: a CUDA device) launches its kernel
+(or raises); given a CPU tensor it runs the twin.  Each launch of a
+kernel adds one to its entry in :data:`LAUNCHES`, so a run can show that
+the main path went through it.
 
-Every kernel but K9 also takes float32 operands, for the f32 phases of the
-port's precision modes: K1, K4 (its gather), K5, K7 and K8 for the f32
-Krylov solves of the FEAST/RT mixed-precision engine
+Every kernel but K9 and K10 also takes float32 operands, for the f32
+phases of the port's precision modes: K1, K4 (its gather), K5, K7 and K8
+for the f32 Krylov solves of the FEAST/RT mixed-precision engine
 (``ls_precision="mixed"``); K6 for the f32 seed phase of the
 mixed-precision Davidson (``EOM_CCSD.precision="mixed"``, with K1, K4 and
 K5 in its sigma); K2/K3 for the f32 bulk of the mixed-precision CCD and
@@ -60,7 +65,7 @@ LAUNCHES = {"block_ladder": 0, "ccd_jacobi_diis": 0, "ccd_mix_energy": 0,
             "shifted_precond_f32": 0, "davidson_residual_f32": 0,
             "ccd_jacobi_diis_f32": 0, "ccd_mix_energy_f32": 0,
             "ccsd_jacobi_diis_f32": 0, "ccsd_mix_energy_f32": 0,
-            "ovvv_gather_diag_f32": 0}
+            "ovvv_gather_diag_f32": 0, "block_scatter": 0}
 
 # the element types of the kernels with an f32 instantiation, and the
 # suffix of each type's library entries and LAUNCHES names

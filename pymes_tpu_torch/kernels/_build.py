@@ -178,5 +178,10 @@ def library():
             fn = getattr(lib, "pymes_cc_mix" + sfx)
             fn.argtypes = [vp] * 8 + [i32] * 11 + [vp]
             fn.restype = i32
+        # K10: the packed list (idx, vals, nnz), n_p, no, the per-class
+        # block pointers, strides and shifts, the bad-index counter
+        lib.pymes_block_scatter.argtypes = [vp, vp, i64, i32, i32, vp, vp, vp,
+                                            vp, vp]
+        lib.pymes_block_scatter.restype = i32
         _LIB = lib
     return _LIB

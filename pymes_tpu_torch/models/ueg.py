@@ -12,10 +12,14 @@ and ``calcGamma``.  The port carries its own copy because importing
 ``tests/test_torch_tc_ueg.py`` hold the two copies' results identical.
 
 Device part: :func:`sparse_to_dense` / :func:`sparse_to_blocks` scatter the
-momentum-sparse (indices, values) list onto the device with one flat
-``index_put_`` per block.  The indices are unique, so no accumulate is
-needed, and int64 indices are fine (the JAX package's int32 guard existed
-only for a TPU scatter miscompile).
+momentum-sparse (indices, values) list into the named blocks (the dense
+tensor is the one block of no occupied orbitals) through
+:func:`pymes_tpu_torch.kernels.block_scatter.block_scatter`: on the card
+K10, one upload of the list and one launch that sorts each entry into its
+block; on the CPU its twin, host masks and one flat ``index_put_`` a
+block.  The indices are unique, so no accumulate is needed, and offsets
+are int64 (the JAX package's int32 guard existed only for a TPU scatter
+miscompile).
 
 Notes carried over from the JAX package:
 
@@ -29,12 +33,11 @@ Notes carried over from the JAX package:
 """
 
 import numpy as np
-import torch
 from scipy import special
 
 from pymes_tpu_torch.basis_set import planewave
-from pymes_tpu_torch.config import DTYPE, resolve_device
-from pymes_tpu_torch.integral.partition import BLOCK_NAMES, OCC_LETTERS
+from pymes_tpu_torch.config import resolve_device
+from pymes_tpu_torch.kernels.block_scatter import block_scatter
 from pymes_tpu_torch.log import print_logging_info
 
 
@@ -612,14 +615,10 @@ def _scatter_dense(idx, vals, n_p, dtype):
 
 def sparse_to_dense(idx, vals, n_p, device):
     """Scatter a sparse (indices, values) integral set to the dense
-    (nP,)*4 tensor on ``device`` (one flat ``index_put_``)."""
-    dev = resolve_device(device)
-    idx = np.asarray(idx, dtype=np.int64)
-    flat = ((idx[:, 0] * n_p + idx[:, 1]) * n_p + idx[:, 2]) * n_p + idx[:, 3]
-    V = torch.zeros(n_p ** 4, dtype=DTYPE, device=dev)
-    V.index_put_((torch.as_tensor(flat, device=dev),),
-                  torch.as_tensor(np.asarray(vals), dtype=DTYPE, device=dev))
-    return V.reshape((n_p,) * 4)
+    (nP,)*4 tensor on ``device``: :func:`sparse_to_blocks` with no
+    occupied orbitals, whose one block ``abcd`` is the whole tensor."""
+    return block_scatter(idx, vals, n_p, 0, ("abcd",),
+                         resolve_device(device))["abcd"]
 
 
 def sparse_to_blocks(idx, vals, n_p, no, device, names=None):
@@ -627,29 +626,7 @@ def sparse_to_blocks(idx, vals, n_p, no, device, names=None):
     ``device``, never building the dense nP⁴ tensor.  Returns a dict
     name → tensor (the block of ``V[p,q,r,s]`` whose slots follow the
     letters of the name: i..l occupied, a..d virtual)."""
-    dev = resolve_device(device)
-    if names is None:
-        names = BLOCK_NAMES
-    idx = np.asarray(idx, dtype=np.int64)
-    vals = np.asarray(vals)
-    is_occ = idx < no
-    out = {}
-    for name in names:
-        want = [c in OCC_LETTERS for c in name]
-        mask = np.ones(len(vals), dtype=bool)
-        for slot, w in enumerate(want):
-            mask &= (is_occ[:, slot] == w)
-        sub = idx[mask]
-        dims = [no if w else n_p - no for w in want]
-        flat = np.zeros(len(sub), dtype=np.int64)
-        for slot, w in enumerate(want):
-            flat = flat * dims[slot] + (sub[:, slot] if w
-                                        else sub[:, slot] - no)
-        block = torch.zeros(int(np.prod(dims)), dtype=DTYPE, device=dev)
-        block.index_put_((torch.as_tensor(flat, device=dev),),
-                         torch.as_tensor(vals[mask], dtype=DTYPE, device=dev))
-        out[name] = block.reshape(dims)
-    return out
+    return block_scatter(idx, vals, n_p, no, names, resolve_device(device))
 
 
 def _call_correlator(correlator, kSquare, scalar_path=False):

@@ -145,3 +145,12 @@ def ring_bound(ring):
     and T (M, K) read, R (M, N) read and written; 2·M·N·K flops."""
     M, N, K = ring["M"], ring["N"], ring["K"]
     return bound(8 * (N * K + M * K + 2 * M * N), 2 * M * N * K)
+
+
+def scatter_bound(nnz, kept, sizes):
+    """K10 on a list of ``nnz`` entries of which ``kept`` land in the
+    blocks of ``sizes`` elements: the packed indices (4 int16, 8 bytes an
+    entry) all read, the values of the kept entries read, and the blocks
+    written once (zero fill and stores together); no floating-point
+    operations."""
+    return bound(8 * nnz + 8 * kept + 8 * sum(sizes), 0)

@@ -4,8 +4,9 @@ K1 (CUDA C++ ladder), K2/K3 (CUDA C++ CCD tail), K4 (CUDA C++ ovvv
 gather and its fused trace), K2′/K3′ (the same CUDA C++ source, with T1),
 K5 (CUDA C++ pair symmetrisation), K6 (Triton Davidson residual), K7
 (CUDA C++ Arnoldi CGS2 and Krylov combines) and K8 (Triton shifted operator
-and preconditioner) and K9 (CUDA C++ ring step; with the ring over a
-repeated card and over two cards, and the sector-sharded K1) run only on an
+and preconditioner), K9 (CUDA C++ ring step; with the ring over a
+repeated card and over two cards, and the sector-sharded K1) and K10 (CUDA
+C++ set-up scatter of the sparse integrals into the blocks) run only on an
 NVIDIA card: these tests carry the ``cuda`` marker and skip where torch
 sees no card.  The card has no jax, so this file imports only the port; run
 it there without the
@@ -17,8 +18,10 @@ Tolerance: max|kernel − twin| ≤ 1e-12·max|twin| (both f64; only the
 summation order and FMA contraction differ); K4's gather (one multiply an
 element), K5 (which sums in its twin's order) and the ring rows that K2/K2′
 write (one division and one add an element, in the twin's order) must equal
-their twins bit for bit, and the tails' sums repeat bit for bit from launch
-to launch (the last block adds the blocks' partials in block order).  K1,
+their twins bit for bit, and so must K10's blocks (one store a kept
+entry, the twin's cast of the values), and the tails' sums repeat bit for
+bit from launch to launch (the last block adds the blocks' partials in
+block order).  K1,
 K7 and K9 add no values by atomics (f32 K7's tickets only count the
 blocks that arrived), so a second launch must repeat the first bit for
 bit.  The f32 kernels of K1, K4, K5, K7 and K8 (the FEAST/RT
@@ -235,7 +238,8 @@ def test_tail_kernels_right_after_a_failed_call(device):
 
 
 def test_solve_on_card_matches_cpu(device):
-    """The whole nP=19 solve: card (through the kernels) vs CPU (twins)."""
+    """The whole nP=19 solve: card (through the kernels) vs CPU (twins);
+    on the card the set-up scatters its blocks through K10 once."""
     out = {}
     kernels.reset_launches()
     for dev in (device, torch.device("cpu")):
@@ -253,8 +257,9 @@ def test_solve_on_card_matches_cpu(device):
     ccd_kernels = ("block_ladder", "ccd_jacobi_diis", "ccd_mix_energy",
                    "pair_symmetrize")
     assert all(launches[k] == n_it for k in ccd_kernels), launches
+    assert launches["block_scatter"] == 1, launches
     assert all(launches[k] == 0 for k in launches
-               if k not in ccd_kernels), launches
+               if k not in ccd_kernels + ("block_scatter",)), launches
 
 
 def test_kernels_refuse_what_they_do_not_take(device):
@@ -1798,3 +1803,60 @@ def test_precision_modes_on_card_match_cpu(device):
     (mc, dc, rc), (mg, dg, rg) = out["cpu"], out["cuda"]
     assert abs(mg - mc) <= 1e-10 and abs(dg - dc) <= 1e-10
     assert float(np.abs(rg - rc).max()) <= 1e-8
+
+
+SCATTER_NEED = ("klij", "ijab", "abij", "iajb", "iabj", "aibj", "aijb",
+                "ijka", "ijak", "iajk")
+
+
+def _scatter_list(cutoff):
+    u = ueg.UEG(14, 7, 7, 0.5)
+    u.init_single_basis(cutoff)
+    idx, vals = u.eval_2b_integrals(sp=2)
+    return idx, vals, u.n_spatial
+
+
+@pytest.mark.parametrize("names", [SCATTER_NEED, ("abcd",)],
+                         ids=["need", "abcd"])
+@pytest.mark.parametrize("cutoff", [2, 5, 14])
+def test_block_scatter_kernel_bit_equal(device, cutoff, names):
+    from pymes_tpu_torch.kernels import block_scatter as k10
+
+    idx, vals, n_p = _scatter_list(cutoff)
+    before = kernels.LAUNCHES["block_scatter"]
+    got = ueg.sparse_to_blocks(idx, vals, n_p, NO, device, names=names)
+    assert kernels.LAUNCHES["block_scatter"] == before + 1
+    want = k10.block_scatter(idx, vals, n_p, NO, names, device, twin=True)
+    assert kernels.LAUNCHES["block_scatter"] == before + 1
+    assert tuple(got) == tuple(want) == names
+    for name in names:
+        assert got[name].shape == want[name].shape
+        assert bool(want[name].any()), name
+        _same(got[name], want[name])
+
+
+def test_block_scatter_kernel_dense_np57(device):
+    from pymes_tpu_torch.kernels import block_scatter as k10
+
+    idx, vals, n_p = _scatter_list(5)
+    got = ueg.sparse_to_dense(idx, vals, n_p, device)
+    want = k10.block_scatter(idx, vals, n_p, 0, ("abcd",), device,
+                             twin=True)["abcd"]
+    assert got.shape == (n_p,) * 4
+    _same(got, want)
+
+
+def test_block_scatter_kernel_empty_and_bad_index(device):
+    from pymes_tpu_torch.kernels import block_scatter as k10
+
+    idx, vals, n_p = _scatter_list(2)
+    before = kernels.LAUNCHES["block_scatter"]
+    got = ueg.sparse_to_blocks(idx[:0], vals[:0], n_p, NO, device,
+                               names=SCATTER_NEED)
+    assert kernels.LAUNCHES["block_scatter"] == before
+    for name, block in got.items():
+        assert block.device.type == "cuda" and not bool(block.any()), name
+    bad = idx.copy()
+    bad[3, 2] = n_p
+    with pytest.raises(ValueError, match="outside"):
+        k10.block_scatter(bad, vals, n_p, NO, SCATTER_NEED, device)
