@@ -41,6 +41,12 @@ def init_state(dim_space: int, n_flat: int, dtype, device) -> DIISState:
         B=torch.zeros((dim_space, dim_space), dtype=dtype, device=device))
 
 
+def gram_from_errs(errs):
+    """Rebuild the carried Gram matrix ``Re(errs^* errsᵀ)`` from the error
+    ring (the restore path; ``pymes_tpu/mixer/diis.py:102``)."""
+    return (errs.conj() @ errs.T).real
+
+
 def coefficients(B_prev, row, slot: int, n_valid: int):
     """DIIS coefficients after inserting an error in ``slot``: its Gram
     ``row`` (m,) against the ring (zero past ``n_valid``) refreshes row and

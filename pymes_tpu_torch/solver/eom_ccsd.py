@@ -10,6 +10,10 @@ ladder (``abcd_t1`` with an all-bra ``abcd_ladder``) and the matrix-free
 "no-ovvv" UEG operator (no ``abcd`` and no ovvv-class block on the device:
 the all-bra ladder plan and the OVVV gather plans under ``"_ovvv_plans"``,
 optionally T1-dressed with ``abcd_t1`` and the bare blocks ``"_bare"``).
+The port has this one sigma: the reference's term lists (``sigma_singles``,
+``sigma_doubles``) are not carried, and the reference-name wrappers
+``EOM_CCSD.update_singles`` / ``update_doubles`` build the intermediates
+and call the factorised sigma on one trial vector.
 
 The sigma of a batch of k trial vectors is one call
 (:func:`_sigma_batched_hbar`): the GEMMs carry a leading batch axis (cuBLAS
@@ -359,115 +363,6 @@ def sigma_doubles_hbar(t_fock_pq, dict_t_V, hbar, t_u_ai, t_u_abij,
     return d[0] if single else d
 
 
-def sigma_singles(t_fock_pq, dict_t_V, t_u_ai, t_u_abij, t_T_abij):
-    """Singles block of H̄·u as the reference's term list
-    (``pymes_tpu/solver/eom_ccsd.py:374``; dense blocks)."""
-    es = torch.einsum
-    no = t_u_ai.shape[1]
-    f = t_fock_pq
-    V = dict_t_V
-    u1, u2, T = t_u_ai, t_u_abij, t_T_abij
-
-    w = 2.0 * es("jb,baji->ai", f[:no, no:], u2)
-    w = w - es("ji,aj->ai", f[:no, :no], u1)
-    w = w - es("jb,abji->ai", f[:no, no:], u2)
-    w = w + es("ab,bi->ai", f[no:, no:], u1)
-
-    w = w + 2.0 * es("jabi,bj->ai", V["iabj"], u1)
-    w = w - es("jaib,bj->ai", V["iajb"], u1)
-
-    w = w - 2.0 * es("jkib,abjk->ai", V["ijka"], u2)
-    w = w + 2.0 * es("jabc,bcji->ai", V["iabc"], u2)
-    w = w + es("jkib,bajk->ai", V["ijka"], u2)
-    w = w - es("jacb,bcji->ai", V["iabc"], u2)
-
-    X_jb = (2.0 * es("jkbc,ck->jb", V["ijab"], u1)
-            - es("jkcb,ck->jb", V["ijab"], u1))
-    w = w + es("jb,baji->ai", X_jb, 2.0 * T)
-    w = w - es("jb,abji->ai", X_jb, T)
-    w = w - 2.0 * es("jkbc,bajk,ci->ai", V["ijab"], T, u1)
-    w = w - 2.0 * es("jkbc,bcji,ak->ai", V["ijab"], T, u1)
-    w = w + es("jkbc,abjk,ci->ai", V["ijab"], T, u1)
-    w = w + es("jkcb,bcji,ak->ai", V["ijab"], T, u1)
-    return w
-
-
-def sigma_doubles(t_fock_pq, dict_t_V, t_u_ai, t_u_abij, t_T_abij,
-                  twin=False):
-    """Doubles block of H̄·u as the reference's term list
-    (``pymes_tpu/solver/eom_ccsd.py:409``): the P(ijab, jiba)-symmetrised
-    terms are accumulated, symmetrised once, and the non-symmetrised terms
-    added after.  The ladder tail takes ``abcd``, ``abcd_t1`` (dressed, on
-    the all-bra plan) or the bare plan."""
-    es = torch.einsum
-    no = t_u_ai.shape[1]
-    f = t_fock_pq
-    V = dict_t_V
-    u1, u2, T = t_u_ai, t_u_abij, t_T_abij
-    Voovv = V["ijab"]
-
-    d = -2.0 * es("klid,abkj,dl->abij", V["ijka"], T, u1)
-    d = d - 2.0 * es("klci,cbkj,al->abij", V["ijak"], T, u1)
-    d = d + 2.0 * es("kacd,cbkj,di->abij", V["iabc"], T, u1)
-    d = d + 2.0 * es("ladc,cbij,dl->abij", V["iabc"], T, u1)
-    d = d - es("kd,abkj,di->abij", f[:no, no:], T, u1)
-    d = d - es("lc,cbij,al->abij", f[:no, no:], T, u1)
-    d = d + es("klid,abkl,dj->abij", V["ijka"], T, u1)
-    d = d + es("klic,cbkj,al->abij", V["ijka"], T, u1)
-    d = d + es("klid,adkj,bl->abij", V["ijka"], T, u1)
-    d = d - es("kbij,ak->abij", V["iajk"], u1)
-    d = d + es("kldi,bdkj,al->abij", V["ijak"], T, u1)
-    d = d - es("kacd,bckj,di->abij", V["iabc"], T, u1)
-    d = d + es("kldi,abkj,dl->abij", V["ijak"], T, u1)
-    d = d - es("kadc,cbkj,di->abij", V["iabc"], T, u1)
-    d = d - es("kadc,bcki,dj->abij", V["iabc"], T, u1)
-    d = d - es("lacd,cdji,bl->abij", V["iabc"], T, u1)
-    d = d - es("lacd,cbij,dl->abij", V["iabc"], T, u1)
-    d = d + es("abic,cj->abij", V["abic"], u1)
-
-    d = d + 4.0 * es("klcd,caki,dblj->abij", Voovv, T, u2)
-    d = d - 2.0 * es("klcd,cakl,dbij->abij", Voovv, T, u2)
-    d = d - 2.0 * es("klcd,cdki,ablj->abij", Voovv, T, u2)
-    d = d - 2.0 * es("klcd,caki,bdlj->abij", Voovv, T, u2)
-    d = d + 2.0 * es("kaci,cbkj->abij", V["iabj"], u2)
-    d = d - 2.0 * es("klcd,acki,dblj->abij", Voovv, T, u2)
-    d = d - 2.0 * es("kldc,caki,dblj->abij", Voovv, T, u2)
-    d = d - 2.0 * es("kldc,abkj,dcil->abij", Voovv, T, u2)
-    d = d - 2.0 * es("lkcd,cbij,adlk->abij", Voovv, T, u2)
-    d = d - es("ki,abkj->abij", f[:no, :no], u2)
-    d = d + es("ac,cbij->abij", f[no:, no:], u2)
-    d = d - es("kaic,cbkj->abij", V["iajb"], u2)
-    d = d - es("kbic,ackj->abij", V["iajb"], u2)
-    d = d + es("klcd,ackl,dbij->abij", Voovv, T, u2)
-    d = d + es("kldc,cdki,ablj->abij", Voovv, T, u2)
-    d = d + es("klcd,acki,bdlj->abij", Voovv, T, u2)
-    d = d - es("kaci,bckj->abij", V["iabj"], u2)
-    d = d + es("kldc,acki,dblj->abij", Voovv, T, u2)
-    d = d + es("kldc,abkj,dcli->abij", Voovv, T, u2)
-    d = d + es("kldc,caki,dbjl->abij", Voovv, T, u2)
-    d = d + es("kldc,ackj,dbil->abij", Voovv, T, u2)
-    d = d + es("lkcd,cbij,dalk->abij", Voovv, T, u2)
-
-    d = d + es("abij->baji", d)
-
-    d = d + es("klij,abkl->abij", V["klij"], u2)
-    d = d + es("kldc,abkl,dcij->abij", Voovv, T, u2)
-    d = d + es("lkcd,cdij,ablk->abij", Voovv, T, u2)
-    if V.get("abcd") is not None:
-        d = d + es("abcd,cdij->abij", V["abcd"], u2)
-    elif V.get("abcd_t1") is not None:
-        d = d + ueg_ladder.dressed_ladder_apply(V["abcd_ladder"],
-                                                V["abcd_t1"], u2, no,
-                                                twin=twin)
-    else:
-        W = ueg_ladder.ladder_apply(V["abcd_ladder"], u2, twin=twin)
-        nv = u2.shape[0]
-        if W.shape[0] != nv:
-            W = W[-nv:, -nv:]
-        d = d + W
-    return d
-
-
 def get_diag_singles(t_fock_pq, dict_t_V, t_T_abij):
     """Diagonal of the singles block of H̄ (``eom_ccsd.py:495``)."""
     es = torch.einsum
@@ -712,12 +607,23 @@ class EOM_CCSD:
     # --- reference-name sigma wrappers -----------------------------------
     def update_singles(self, t_fock_pq, dict_t_V, t_u_ai, t_u_abij,
                        t_T_abij):
-        return sigma_singles(t_fock_pq, dict_t_V, t_u_ai, t_u_abij, t_T_abij)
+        """Singles block of H̄·u for one trial vector, the reference class's
+        API (``pymes_tpu/solver/eom_ccsd.py:844``) over the factorised
+        sigma, on any operator form it takes (dense ``abcd``, ``abcd_t1``
+        on the all-bra plan, the bare plan, no-ovvv).  Each call builds
+        H̄'s intermediates anew (a K1 launch on a no-ovvv operator): no
+        solver calls it, they all go through :meth:`_batched_sigma`."""
+        hbar = build_hbar(t_fock_pq, dict_t_V, t_T_abij, twin=self.twin)
+        return sigma_singles_hbar(t_fock_pq, dict_t_V, hbar, t_u_ai,
+                                  t_u_abij, t_T_abij, twin=self.twin)
 
     def update_doubles(self, t_fock_pq, dict_t_V, t_u_ai, t_u_abij,
                        t_T_abij):
-        return sigma_doubles(t_fock_pq, dict_t_V, t_u_ai, t_u_abij, t_T_abij,
-                             twin=self.twin)
+        """Doubles block of H̄·u for one trial vector, as
+        :meth:`update_singles` (``pymes_tpu/solver/eom_ccsd.py:848``)."""
+        hbar = build_hbar(t_fock_pq, dict_t_V, t_T_abij, twin=self.twin)
+        return sigma_doubles_hbar(t_fock_pq, dict_t_V, hbar, t_u_ai,
+                                  t_u_abij, t_T_abij, twin=self.twin)
 
     def get_diag_singles(self, t_fock_pq, dict_t_V, t_T_abij):
         return get_diag_singles(t_fock_pq, dict_t_V, t_T_abij)

@@ -42,14 +42,15 @@ class SolverCheckpoint:
     def diis_state(self, device):
         """The DIIS ring as the port's :class:`~pymes_tpu_torch.mixer.diis.
         DIISState` on ``device``: ``count`` a host int, ``B`` the Gram
-        matrix errs·errsᵀ of the ring."""
+        matrix ``diis.gram_from_errs`` of the ring."""
         if self.diis_amps is None:
             return None
         dev = resolve_device(device)
         errs = torch.as_tensor(self.diis_errs, dtype=DTYPE, device=dev)
         return diis_mod.DIISState(
             amps=torch.as_tensor(self.diis_amps, dtype=DTYPE, device=dev),
-            errs=errs, count=int(self.diis_count), B=errs @ errs.T)
+            errs=errs, count=int(self.diis_count),
+            B=diis_mod.gram_from_errs(errs))
 
 
 def _base(path):

@@ -59,6 +59,25 @@ def test_diis_mix_matches_jax(record):
     assert st.count % M == STEPS % M    # the ring wrapped
 
 
+@pytest.mark.parametrize("dtype", [np.float64, np.complex128])
+def test_gram_from_errs_matches_jax(dtype):
+    """The Gram matrix rebuilt from a ring of errors (the restore path),
+    real and complex, against the JAX package's; also the carried ``B``
+    of the port's ring after 8 insertions."""
+    rng = np.random.default_rng(7)
+    errs = rng.standard_normal((M, 40))
+    if dtype is np.complex128:
+        errs = errs + 1j * rng.standard_normal((M, 40))
+    got = tdiis.gram_from_errs(torch.as_tensor(errs))
+    assert got.dtype == torch.float64
+    _close(got.numpy(), jdiis.gram_from_errs(jnp.asarray(errs)))
+    st = tdiis.init_state(M, 40, torch.float64, "cpu")
+    for k in range(STEPS):
+        st, _ = tdiis.mix(st, torch.as_tensor(errs.real[k % M] + k),
+                          torch.as_tensor(errs.real[k % M]))
+    _close(tdiis.gram_from_errs(st.errs).numpy(), st.B.numpy())
+
+
 def test_diis_class_list_api_matches_jax(record):
     dj, dt = jdiis.DIIS(), tdiis.DIIS()          # default dim_space 5
     for R, T in zip(record["R"], record["T"]):

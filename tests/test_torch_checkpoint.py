@@ -68,6 +68,9 @@ def test_diis_state_equal():
     assert np.array_equal(st.errs.numpy(), np.asarray(ref.errs))
     B, Bj = st.B.numpy(), np.asarray(ref.B)
     assert np.abs(B - Bj).max() <= 1e-12 * np.abs(Bj).max()
+    # the restored Gram matrix is the ring's errs·errsᵀ, bit for bit
+    errs = torch.as_tensor(ck.diis_errs)
+    assert torch.equal(st.B, errs @ errs.T)
     assert checkpoint.SolverCheckpoint(t2=ck.t2).diis_state("cpu") is None
 
 

@@ -1115,11 +1115,13 @@ def test_checkpoint_round_trip_of_card_tensors(device, tmp_path):
 
 # ---- the last solver slice: the generic FEAST kernel, the node fan-out ----
 
-def _np19_operator(dev):
-    """The nP=19 no-ovvv operator on ``dev`` with MP2 amplitudes, as in
+def _no_ovvv_operator(dev, rs=1.0, cutoff=2):
+    """The no-ovvv operator of the UEG 14e at ``rs`` and ``cutoff`` on
+    ``dev`` (small blocks, no ``abcd``, the all-bra plan, the OVVV plans)
+    with the HF Fock and MP2 amplitudes; by default nP=19, as in
     :func:`test_feast_on_card_matches_cpu`."""
-    u = ueg.UEG(14, 7, 7, 1.0)
-    u.init_single_basis(2)
+    u = ueg.UEG(14, 7, 7, rs)
+    u.init_single_basis(cutoff)
     V = torch.as_tensor(u.eval_2b_integrals())
     fock = hf.construct_hf_matrix(
         NO, torch.diag(torch.as_tensor(u.kinetic_energies())), V)
@@ -1141,7 +1143,7 @@ def test_packed_sigma_on_card_matches_cpu(device):
     rng = np.random.default_rng(20)
     out, x, y = {}, None, None
     for dev in (device, torch.device("cpu")):
-        f, d, T2 = _np19_operator(dev)
+        f, d, T2 = _no_ovvv_operator(dev)
         kernels.reset_launches()
         op = eom_ccsd.PackedSigma(eom_ccsd.EOM_CCSD(NO, dev), f, d, T2)
         if x is None:
@@ -1155,6 +1157,38 @@ def test_packed_sigma_on_card_matches_cpu(device):
         assert np.abs(got - want).max() <= REL * np.abs(want).max()
     assert (launches["block_ladder"], launches["ovvv_gather"],
             launches["pair_symmetrize"]) == (3, 6, 2), launches
+
+
+def test_eom_reference_wrappers_on_card_match_cpu(device):
+    """``EOM_CCSD.update_singles`` / ``update_doubles`` (the factorised
+    sigma on one trial, H̄'s intermediates built in each call) on the nP=57
+    no-ovvv operator (rs=0.5, cutoff 5, MP2 amplitudes): the card (K1, K4,
+    K5) equals the CPU (twins) within 1e-12 relative.  Each call launches
+    K1 twice (H̄'s W_laji and the trial's ladder image), update_doubles
+    also K4 three times and K5 once."""
+    rng = np.random.default_rng(21)
+    out, u1, u2 = {}, None, None
+    for dev in (device, torch.device("cpu")):
+        f, d, T2 = _no_ovvv_operator(dev, 0.5, 5)
+        if u1 is None:
+            nv = T2.shape[0]
+            u1 = rng.standard_normal((nv, NO))
+            u2 = rng.standard_normal((nv, nv, NO, NO))
+        args = (f, d, torch.as_tensor(u1, device=dev),
+                torch.as_tensor(u2, device=dev), T2)
+        solver = eom_ccsd.EOM_CCSD(NO, dev, n_excit=2)
+        got, launches = [], []
+        for name in ("update_singles", "update_doubles"):
+            kernels.reset_launches()
+            got.append(getattr(solver, name)(*args).cpu())
+            launches.append(tuple(kernels.LAUNCHES[k] for k in (
+                "block_ladder", "ovvv_gather", "pair_symmetrize")))
+        out[dev.type] = got, launches
+    for got, want in zip(out["cuda"][0], out["cpu"][0]):
+        assert got.shape == want.shape
+        _close(got, want)
+    assert out["cuda"][1] == [(2, 0, 0), (2, 3, 1)], out["cuda"][1]
+    assert out["cpu"][1] == [(0, 0, 0), (0, 0, 0)], out["cpu"][1]
 
 
 def _lih_dressed(dev):
@@ -1201,7 +1235,7 @@ def test_node_mesh_feast_on_a_repeated_card_matches_unsharded(device):
     2)`` equals the unsharded card run within 1e-10 in its iterations."""
     from pymes_tpu_torch.parallel import sharding
     from pymes_tpu_torch.solver import feast_eom_ccsd
-    f, d, T2 = _np19_operator(device)
+    f, d, T2 = _no_ovvv_operator(device)
     e0 = float(eom_ccsd.EOM_CCSD(NO, device, n_excit=1).solve(f, d, T2)[0])
     out = {}
     for P in (None, 2):

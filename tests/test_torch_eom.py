@@ -1,8 +1,10 @@
 """The port's EOM-CCSD building blocks against the JAX package: the H̄
-intermediates, the factorised and the term-list sigmas, the H̄ diagonals,
-the batched sigma in every operator mode, the abij ladder entries and the
-batched ovvv gather, and the plain twins of K5 (pair symmetrisation) and K6
-(Davidson residual).
+intermediates, the factorised sigma (against the JAX package's factorised
+sigma and, in each operator form they take, its term lists, also through
+the reference-name wrappers ``EOM_CCSD.update_singles`` /
+``update_doubles``), the H̄ diagonals, the batched sigma in every operator
+mode, the abij ladder entries and the batched ovvv gather, and the plain
+twins of K5 (pair symmetrisation) and K6 (Davidson residual).
 
 Systems: fully asymmetric random blocks (no=3, nv=6; any wrong term or
 index order shows there), and the UEG 14e, rs=1.0, cutoff 2 (nP=19), dense
@@ -80,7 +82,10 @@ def test_build_hbar_matches_jax(random_blocks):
 @pytest.mark.parametrize("which", ["singles_hbar", "doubles_hbar",
                                    "singles", "doubles"])
 def test_sigma_matches_jax(random_blocks, which):
-    """Factorised and term-list sigmas equal the JAX package's."""
+    """The factorised sigmas equal the JAX package's, and the port's
+    reference-name wrappers (``EOM_CCSD.update_singles`` /
+    ``update_doubles``, routed through the factorised sigma) equal the JAX
+    package's term lists."""
     s = random_blocks
     jargs = [jnp.asarray(s[k]) for k in ("u1", "u2", "T")]
     targs = [_t(s[k]) for k in ("u1", "u2", "T")]
@@ -90,22 +95,57 @@ def test_sigma_matches_jax(random_blocks, which):
         got = getattr(teom, "sigma_" + which)(ft, s["dt"], s["ht"], *targs)
     else:
         want = getattr(jeom, "sigma_" + which)(fj, s["dj"], *jargs)
-        got = getattr(teom, "sigma_" + which)(ft, s["dt"], *targs)
+        tc = teom.EOM_CCSD(s["u1"].shape[1], "cpu")
+        got = getattr(tc, "update_" + which)(ft, s["dt"], *targs)
     _close(got, want)
 
 
-def test_factorised_sigma_equals_term_list(random_blocks):
-    s = random_blocks
-    f, T, u1, u2 = (_t(s[k]) for k in ("f", "T", "u1", "u2"))
-    _close(teom.sigma_singles_hbar(f, s["dt"], s["ht"], u1, u2, T),
-           teom.sigma_singles(f, s["dt"], u1, u2, T).numpy())
-    _close(teom.sigma_doubles_hbar(f, s["dt"], s["ht"], u1, u2, T),
-           teom.sigma_doubles(f, s["dt"], u1, u2, T).numpy())
+def _term_list_form(request, form):
+    """(fock, JAX operator dict, T, u1, u2) of one operator form that the
+    JAX package's term lists take: dense blocks with ``abcd`` (the random
+    blocks), the T1-dressed blocks with ``abcd_t1`` on the all-bra plan in
+    place of ``abcd``, and the bare blocks with the bare all-bra plan
+    (T1 = 0; the sigma cuts the plan's virtual corner)."""
+    if form == "dense":
+        s = request.getfixturevalue("random_blocks")
+        return s["f"], s["dj"], s["T"], s["u1"], s["u2"]
+    s = request.getfixturevalue("ueg19")
+    if form == "abcd_t1":
+        fock, Vop = _modes(s)["abcd_t1"]
+    else:
+        fock = s["fock"]
+        Vop = {**{k: np.asarray(v) for k, v in s["dict_V"].items()},
+               "abcd": None,
+               "abcd_ladder": jladder.build_block_ladder(s["u"], bra="all")}
+    return fock, Vop, s["T2"], s["U1"][0], s["U2"][0]
+
+
+@pytest.mark.parametrize("form", ["dense", "abcd_t1", "bare_plan"])
+def test_factorised_sigma_equals_term_list(request, form):
+    """In each operator form of the JAX term lists, the port's factorised
+    sigma and its reference-name wrappers equal the JAX package's
+    ``sigma_singles`` / ``sigma_doubles``."""
+    fock, Vop, T, u1, u2 = _term_list_form(request, form)
+    no = u1.shape[1]
+    Vt = interop.eom_operator_from_numpy(Vop, "cpu")
+    if form != "dense":
+        assert Vt["abcd"] is None and Vt.get("iabc") is not None
+    jargs = [jnp.asarray(x) for x in (u1, u2, T)]
+    targs = [_t(x) for x in (u1, u2, T)]
+    fj, ft = jnp.asarray(fock), _t(fock)
+    hbar = teom.build_hbar(ft, Vt, targs[2])
+    tc = teom.EOM_CCSD(no, "cpu", n_excit=2)
+    for which in ("singles", "doubles"):
+        want = getattr(jeom, "sigma_" + which)(fj, Vop, *jargs)
+        _close(getattr(teom, "sigma_" + which + "_hbar")(ft, Vt, hbar,
+                                                         *targs), want)
+        _close(getattr(tc, "update_" + which)(ft, Vt, *targs), want)
 
 
 def test_eom_class_helpers_match_jax(random_blocks):
-    """EOM_CCSD.update_singles / update_doubles (the term-list sigmas) and
-    the QR of a packed subspace equal the JAX class's."""
+    """EOM_CCSD.update_singles / update_doubles (the factorised sigma,
+    H̄'s intermediates built in the call) and the QR of a packed subspace
+    equal the JAX class's (whose wrappers run its term lists)."""
     s = random_blocks
     no = s["u1"].shape[1]
     jc = jeom.EOM_CCSD(no, n_excit=2)
