@@ -30,7 +30,7 @@ Drives the port's main paths through its own kernels:
   (32 nodes as lanes of GMRES(20)) seeded with its Ritz vector, each
   step's phase energy against the root;
 * ring CCD — the dense ``abcd`` scattered on the card and cut on its a axis
-  over a mesh that lists the one card P times (``make_mesh(P, "cuda",
+  over a mesh that lists the one card P times (``make_mesh(P,
   devices=["cuda:0"] * P)``, the counterpart of the JAX package's virtual
   devices): the ring-accumulated ladder at nP=57 (5 shards) and nP=219
   (4 shards, 16.2 GB of ``abcd``), every shard, step and copy at full
@@ -53,7 +53,7 @@ Drives the port's main paths through its own kernels:
   batched sigma a matvec) in the nP=57 window, one CIF step, and the
   PySCF-shaped adapters of ``solver/feast_eom_rccsd.py`` over LiH;
 * the FEAST node fan-out — the nP=57 window with its contour nodes over
-  ``node_mesh(P, "cuda", devices=["cuda:0"] * P)``, P = 2 and 4;
+  ``node_mesh(P, devices=["cuda:0"] * P)``, P = 2 and 4;
 * the native FCIDUMP/TCDUMP record parser (C++, ``_native.py``);
 * tensor-parallel dense CCD and CCSD — every block scattered on the card
   and cut by ``mesh.shard_blocks`` over 4 shards and 2 x 2 of the card
@@ -237,7 +237,21 @@ an f32 iteration); the mixed CCSD on LiH (1e-8 of the oracle) and the
 mixed non-canonical mf-CCSD at nP=219 (|dE| < 1e-10, 1e-8 of the JAX
 package's f64 energy; 4 K4 gathers, 2 traces and one K1, K2′, K3′, K5 an
 iteration, in f32 in the f32 pass); each solve's wall beside its f64
-solve's of phases 3/4, 7 and 9.  Every bound comes
+solve's of phases 3/4, 7 and 9.  Phase 26 runs last, after phase 19:
+(26) the JAX package's own ``examples/*.py``, read as text with
+``pymes_tpu`` replaced by ``pymes_tpu_torch`` in their import lines and
+nothing else changed, each ``main`` run with no device argument (so on
+the card) in a temporary working directory (the molecular example on
+``tests/data/FCIDUMP.LiH.321g``, RT for 3 steps, the TC twist average
+on the 3³ mesh; its ``/tmp`` checkpoint redirected into that directory
+and read back), in one path window (K2′, K3′, K5, K6, K7 and K8 must
+launch); every tensor that the port's calls return to them on the card;
+the LiH CCSD energy within 1e-10 of phase 19's JAX pin and 1e-8 of the
+oracle, the HF energy within 1e-8, the EOM roots within 1e-8, c(t)
+within 1e-7, each twist's HF and TC-MP2 energies and the twist-averaged
+TC-MP2 within 1e-12 relative; then the reference's ``ladder_apply(plan,
+T, 1)`` (``chunk`` spelled out) on the nP=57 plan: exactly one K1 launch,
+bit-equal to ``ladder_apply(plan, T)``.  Every bound comes
 from the helpers of ``pymes_tpu_torch/util/roofline.py``.
 Prints a JSON line of the kernels
 (launches, errors, the TC and drCCD runs as sub-entries,
@@ -504,12 +518,12 @@ def setup(cutoff, device, u=None):
         u.init_single_basis(cutoff)
     idx, vals = u.eval_2b_integrals(sp=2)
     n_p = u.n_spatial
-    d = ueg.sparse_to_blocks(idx, vals, n_p, NO, device, names=NEED)
+    d = ueg.sparse_to_blocks(idx, vals, n_p, NO, device=device, names=NEED)
     kin = u.kinetic_energies()
     eps_i = hf.calcOccupiedOrbE(kin, d["klij"], NO)
     eps_a = hf.calcVirtualOrbE(kin, d["aibj"], d["aijb"], NO, n_p - NO)
     fock = torch.diag(torch.cat([eps_i, eps_a]))
-    plan = build_block_ladder(u, device)
+    plan = build_block_ladder(u, device=device)
     blocks = ccd.CCDBlocks(klij=d["klij"], ijab=d["ijab"], abij=d["abij"],
                            iajb=d["iajb"], iabj=d["iabj"], abcd=None,
                            ladder=plan)
@@ -612,7 +626,7 @@ def dense_past_2_31(p):
     idx, vals = p["sparse"]
     n_p, dev = p["nP"], p["fock"].device
     torch.cuda.empty_cache()
-    V = ueg.sparse_to_dense(idx, vals, n_p, dev).view(-1)
+    V = ueg.sparse_to_dense(idx, vals, n_p, device=dev).view(-1)
     check(V.numel() >= 2 ** 31, f"dense nP={n_p}: {V.numel()} elements")
     ii = torch.as_tensor(idx, device=dev)
     flat = ((ii[:, 0] * n_p + ii[:, 1]) * n_p + ii[:, 2]) * n_p + ii[:, 3]
@@ -629,7 +643,7 @@ def dense_past_2_31(p):
     for _ in range(3):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        ueg.sparse_to_dense(idx, vals, n_p, dev)
+        ueg.sparse_to_dense(idx, vals, n_p, device=dev)
         torch.cuda.synchronize()
         ms.append((time.perf_counter() - t0) * 1e3)
     up = k10.upload(idx, vals, dev)
@@ -656,8 +670,8 @@ def setup_ccsd(p, device):
     t0 = time.time()
     u, n_p = p["ueg"], p["nP"]
     d = dict(p["dict"])
-    d["_ovvv_plans"] = ueg_ladder.build_ovvv_plans(u, device)
-    plan = ueg_ladder.build_block_ladder(u, device, bra="all")
+    d["_ovvv_plans"] = ueg_ladder.build_ovvv_plans(u, device=device)
+    plan = ueg_ladder.build_block_ladder(u, device=device, bra="all")
     eps = torch.cat([p["eps_i"], p["eps_a"]]).cpu().numpy()
     noise = np.random.default_rng(5).standard_normal((n_p, n_p)) * 0.02
     focks = {"canonical": p["fock"],
@@ -803,8 +817,9 @@ def card_ms(fn, name, n=20, warmup=3):
     :func:`cuda_ms` it leaves out the host time between launches, which a
     call whose kernels take less time than its Python wrapper shows.  A
     session whose trace holds no such kernel is run again, up to three
-    sessions (one of ``chip_smoke.py``'s calls on an H100 lost the CUDA
-    activity of one session)."""
+    sessions; when all three lose the CUDA activity (seen on an H100, in
+    one session and in three running), the time is :func:`queued_ms`'s,
+    and a line says so."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -824,7 +839,36 @@ def card_ms(fn, name, n=20, warmup=3):
                  for e in prof.key_averages() if name in e.key)
         if us > 0:
             return us / 1e3 / n
-    check(False, f"the profiler saw no kernel named {name} in 3 sessions")
+    ms = queued_ms(fn, n)
+    print(f"the profiler saw no kernel named {name!r} in 3 sessions: "
+          f"{ms:.4f} ms is every device op of a call, by CUDA events behind "
+          "a queued spin", flush=True)
+    return ms
+
+
+def queued_ms(fn, n=20):
+    """Mean device time of ``fn`` over ``n`` calls, every device op of a
+    call, by CUDA events with the calls queued behind a spin on the card
+    (``torch.cuda._sleep``) that outlasts their launches, so that the card
+    runs them back to back and no host time between launches is counted.
+    The spin is sized from one synchronised call's host time."""
+    import torch
+
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    # cycles at the H100's 1.98 GHz boost clock; 2x the host time of the n
+    # launches, at least 5 ms, at most 2 s
+    torch.cuda._sleep(int(min(max(2 * n * host_s, 5e-3), 2.0) * 1.98e9))
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / n
 
 
 def time_kernels(p, seed):
@@ -1160,7 +1204,7 @@ def molecular_ccsd(mols, device):
         if hf_ref is not None:
             check(abs(hf_e - hf_ref) <= 1e-8,
                   f"{name}: HF {hf_e} vs oracle {hf_ref}")
-        res = ccsd.CCSD(no, device).solve(fock, m["V"], **m["kw"])
+        res = ccsd.CCSD(no, device=device).solve(fock, m["V"], **m["kw"])
         e = out[name] = res["ccsd e"]
         check(bool(torch.isfinite(res["t2"]).all())
               and res["t1"].shape == (fock.shape[0] - no, no),
@@ -1189,7 +1233,7 @@ def mf_ccsd(q, device):
     for kind, fock in q["focks"].items():
         t0 = time.time()
         before = dict(kernels.LAUNCHES)
-        res = out[kind] = ccsd.CCSD(NO, device).solve(
+        res = out[kind] = ccsd.CCSD(NO, device=device).solve(
             fock, q["mf_dict"], level_shift=-1.0, ladder=q["plan_all"],
             delta_e=1e-10 if kind == "non-canonical" else 1e-8,
             max_iter=100)
@@ -1229,8 +1273,9 @@ def eom_operator(p, device, plan_all=None, plans=None):
     V = {k: p["dict"][k] for k in EOM_KEYS}
     V["abcd"] = None
     V["abcd_ladder"] = plan_all or ueg_ladder.build_block_ladder(
-        p["ueg"], device, bra="all")
-    V["_ovvv_plans"] = plans or ueg_ladder.build_ovvv_plans(p["ueg"], device)
+        p["ueg"], device=device, bra="all")
+    V["_ovvv_plans"] = plans or ueg_ladder.build_ovvv_plans(
+        p["ueg"], device=device)
     return V
 
 
@@ -1445,7 +1490,7 @@ def eom_solver(no, device):
             self.n_sigma += 1
             return super()._batched_sigma(*args)
 
-    return Counted(no, device, n_excit=2)
+    return Counted(no, device=device, n_excit=2)
 
 
 def eom_solve(fock, V, T2, device, max_iter=300, twin=False, eps=None,
@@ -1467,7 +1512,7 @@ def lih_dressed(m, device):
     from pymes_tpu_torch.integral.partition import part_2_body_int
     from pymes_tpu_torch.solver import ccsd
 
-    cc = ccsd.CCSD(m["no"], device)
+    cc = ccsd.CCSD(m["no"], device=device)
     res = cc.solve(m["fock"], m["V"], delta_e=1e-12, max_iter=200)
     dV = part_2_body_int(m["no"], m["V"])
     return (cc.get_T1_dressed_fock(m["fock"], res["t1"], dV),
@@ -1648,7 +1693,7 @@ def ring_mesh(nv, device):
     from pymes_tpu_torch.parallel import mesh
 
     P = mesh.largest_dividing_mesh(nv, 8)
-    return mesh.make_mesh(P, device, devices=[device] * P)
+    return mesh.make_mesh(P, device=device, devices=[device] * P)
 
 
 def ring_inputs(nv, P, seed, device):
@@ -1783,7 +1828,7 @@ def ring_setup(p, device):
 
     t0 = time.time()
     m = ring_mesh(p["nv"], device)
-    abcd = ueg.sparse_to_blocks(*p["sparse"], p["nP"], NO, device,
+    abcd = ueg.sparse_to_blocks(*p["sparse"], p["nP"], NO, device=device,
                                 names=("abcd",))["abcd"]
     blocks = p["blocks"]._replace(
         abcd=pmesh.shard_blocks(m, {"abcd": abcd})["abcd"], ladder=None)
@@ -1810,8 +1855,8 @@ def ring_ccd(p, m, blocks, n_ref, device):
     c, P = p["cutoff"], m.shape["a"]
     torch.cuda.reset_peak_memory_stats()
     before = dict(kernels.LAUNCHES)
-    res = ccd.CCD(NO, device).solve(p["fock"], blocks, level_shift=-1.0,
-                                    max_iter=60, ring_mesh=m)
+    res = ccd.CCD(NO, device=device).solve(p["fock"], blocks, level_shift=-1.0,
+                                           max_iter=60, ring_mesh=m)
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated()
     n_it, e, T = len(res["e history"]), res["ccd e"], res["t2 amp"]
@@ -1852,7 +1897,7 @@ def sharded_plans(q, device, seed):
     from pymes_tpu_torch.parallel import mesh
 
     t0 = time.time()
-    m = mesh.make_mesh(SECTOR_SHARDS, device,
+    m = mesh.make_mesh(SECTOR_SHARDS, device=device,
                        devices=[device] * SECTOR_SHARDS)
     rng = np.random.default_rng(seed)
     nv = q["nv"]
@@ -1861,7 +1906,8 @@ def sharded_plans(q, device, seed):
     out = {}
     for bra, whole in (("virtual", q["blocks"].ladder),
                        ("all", q["plan_all"])):
-        padded = ueg_ladder.build_block_ladder(q["ueg"], device, bra=bra,
+        padded = ueg_ladder.build_block_ladder(q["ueg"], device=device,
+                                               bra=bra,
                                                pad_sectors=SECTOR_SHARDS)
         sh = out[bra] = ueg_ladder.shard_block_ladder(padded, m)
         for X in ops:
@@ -1900,12 +1946,12 @@ def sharded_mf(q, plans, device, results):
         t0 = time.time()
         before = dict(kernels.LAUNCHES)
         if kind == "CCD":
-            res = ccd.CCD(NO, device).solve(
+            res = ccd.CCD(NO, device=device).solve(
                 q["fock"], q["blocks"]._replace(ladder=plans["virtual"]),
                 level_shift=-1.0, max_iter=60)
             e, ref, T = res["ccd e"], E_JAX[q["cutoff"]], res["t2 amp"]
         else:
-            res = ccsd.CCSD(NO, device).solve(
+            res = ccsd.CCSD(NO, device=device).solve(
                 q["focks"]["non-canonical"], q["mf_dict"], level_shift=-1.0,
                 ladder=plans["all"], delta_e=1e-10, max_iter=100)
             e, ref, T = res["ccsd e"], E_JAX_CCSD_NONCANONICAL, res["t2"]
@@ -2131,7 +2177,7 @@ def feast_run(fock, V, T2, device, cfg, gmres_cfg, no=NO):
     """FEAST through :func:`counted`; returns the solver and its roots."""
     from pymes_tpu_torch.solver import feast_eom_ccsd
 
-    s = counted(feast_eom_ccsd.FEAST_EOM_CCSD, no, device, **cfg)
+    s = counted(feast_eom_ccsd.FEAST_EOM_CCSD, no, device=device, **cfg)
     s.ls_restart, s.ls_max_iter = gmres_cfg
     roots = np.sort_complex(np.asarray(s.solve(fock, V, T2)))
     return s, roots
@@ -2187,8 +2233,9 @@ def rt123_seed(device):
 
     t0 = time.time()
     p = setup(RT123["cutoff"], device)
-    res = ccd.CCD(NO, device).solve(p["fock"], p["blocks"], level_shift=-1.0,
-                                    max_iter=60)
+    res = ccd.CCD(NO, device=device).solve(p["fock"], p["blocks"],
+                                           level_shift=-1.0,
+                                           max_iter=60)
     V = eom_operator(p, device)
     solver, roots = eom_solve(p["fock"], V, res["t2 amp"], device, eps=1e-10)
     err = abs(roots[0] - RT_RECORDED_NP123)
@@ -2211,7 +2258,7 @@ def rt123(p, V, T2, root, u0, device, out):
 
     dt = RT123["dt"]
     before = dict(kernels.LAUNCHES)
-    s = counted(rt_eom_ccsd.RT_EOM_CCSD, NO, device, e_c=root,
+    s = counted(rt_eom_ccsd.RT_EOM_CCSD, NO, device=device, e_c=root,
                 e_r=RT123["e_r"], n_quad=RT123["n_quad"],
                 ls_conv_tol=RT123["ls_conv_tol"])
     s.ls_restart = RT123["ls_restart"]
@@ -2666,7 +2713,7 @@ def feast57_mixed(p5, V, T2, device, ref, card):
     t0 = time.time()
     torch.cuda.reset_peak_memory_stats()
     cfg = dict(FEAST57, ls_precision="mixed")
-    s = counted(feast_eom_ccsd.FEAST_EOM_CCSD, NO, device, **cfg)
+    s = counted(feast_eom_ccsd.FEAST_EOM_CCSD, NO, device=device, **cfg)
     s.ls_restart, s.ls_max_iter = FEAST57_GMRES
     s.ls_refine_max = MIXED_REFINE_MAX
     roots = np.sort_complex(np.asarray(s.solve(p5["fock"], V, T2)))
@@ -2724,7 +2771,7 @@ def rt123_mixed(p, V, T2, root, u0, ref, device, card):
     from pymes_tpu_torch.solver import rt_eom_ccsd
 
     dt = RT123["dt"]
-    s = counted(rt_eom_ccsd.RT_EOM_CCSD, NO, device, e_c=root,
+    s = counted(rt_eom_ccsd.RT_EOM_CCSD, NO, device=device, e_c=root,
                 e_r=RT123["e_r"], n_quad=RT123["n_quad"],
                 ls_conv_tol=RT123["ls_conv_tol"], ls_precision="mixed")
     s.ls_restart = RT123["ls_restart"]
@@ -3070,7 +3117,7 @@ def eom_tight(cases, device):
 
     out = {}
     for label, fock, V, T2, ref, _ in cases:
-        s = eom_ccsd.EOM_CCSD(NO, device, n_excit=2)
+        s = eom_ccsd.EOM_CCSD(NO, device=device, n_excit=2)
         s.e_epsilon, s.max_iter = 1e-12, 300
         roots = out[label] = np.sort(np.real(s.solve(fock, V, T2)))
         jt = EOM_JAX_TIGHT[int(label.split()[0][3:])]
@@ -3105,7 +3152,7 @@ def eom_mixed(cases, tight, lih, walls, device, card):
     runs.append(("LiH", *lih, LIH_EOM_ORACLE, False))
     for label, fock, V, T2, ref, ladder in runs:
         no = T2.shape[-1]
-        s = eom_ccsd.EOM_CCSD(no, device, n_excit=2)
+        s = eom_ccsd.EOM_CCSD(no, device=device, n_excit=2)
         s.precision = "mixed"
         s.max_iter = 300 if ladder else 1000
         t0 = time.time()
@@ -3158,7 +3205,7 @@ def ccd_mixed(problems, results, device, card):
     want = {}
     for c, p in problems.items():
         t0 = time.time()
-        s = ccd.CCD(NO, device)
+        s = ccd.CCD(NO, device=device)
         res = s.solve(p["fock"], p["blocks"], level_shift=-1.0, max_iter=60,
                       mixed_precision=True)
         wall = time.time() - t0
@@ -3200,7 +3247,7 @@ def ccsd_prec(q, mol, mf_walls, device, card):
     out = {}
     for mixed in (False, True):
         t0 = time.time()
-        s = ccsd.CCSD(mol["no"], device)
+        s = ccsd.CCSD(mol["no"], device=device)
         res = s.solve(mol["fock"], mol["V"], mixed_precision=mixed)
         out[mixed] = (res["ccsd e"], len(res["e history"]),
                       s.n_iterations_f32 if mixed else 0, time.time() - t0)
@@ -3223,7 +3270,7 @@ def ccsd_prec(q, mol, mf_walls, device, card):
     mf_kernels = ("block_ladder", "ccsd_jacobi_diis", "ccsd_mix_energy",
                   "pair_symmetrize")
     t0 = time.time()
-    s = ccsd.CCSD(NO, device)
+    s = ccsd.CCSD(NO, device=device)
     res = s.solve(fock, q["mf_dict"], mixed_precision=True, **mf)
     wall = time.time() - t0
     e, n64, n32 = res["ccsd e"], len(res["e history"]), s.n_iterations_f32
@@ -3301,7 +3348,7 @@ def generic_seed(p5, V, T2, lih, device):
         from pymes_tpu_torch.solver import eom_ccsd
 
         t0 = time.time()
-        s = eom_ccsd.EOM_CCSD(T2_.shape[-1], device, n_excit=n_excit)
+        s = eom_ccsd.EOM_CCSD(T2_.shape[-1], device=device, n_excit=n_excit)
         s.e_epsilon = 1e-10
         s.max_iter = 1000
         roots = np.sort(np.real(s.solve(fock, V_, T2_)))
@@ -3423,7 +3470,7 @@ def generic_phase(p5, V, T2, lih, seeds, feast_roots, device, card):
 
 def mesh_phase(p5, V, T2, ref, device):
     """Phase 21: phase 12's FEAST nP=57 with its nodes fanned out over
-    ``node_mesh(P, "cuda", devices=["cuda:0"] * P)``, P = 2 and 4: roots
+    ``node_mesh(P, devices=["cuda:0"] * P)``, P = 2 and 4: roots
     within 1e-10 of phase 12's in its iterations, one lane chunk a device
     and iteration (64 / P lanes), and K7/K8 held exactly to those
     chunks."""
@@ -3436,7 +3483,7 @@ def mesh_phase(p5, V, T2, ref, device):
     for P in NODE_MESHES:
         t0 = time.time()
         before = dict(kernels.LAUNCHES)
-        mesh = sharding.node_mesh(P, device, axis="a",
+        mesh = sharding.node_mesh(P, device=device, axis="a",
                                   devices=[f"{device}:0"] * P)
         torch.cuda.reset_peak_memory_stats()
         s, roots = feast_run(p5["fock"], V, T2, device,
@@ -3562,13 +3609,15 @@ def setup_tc(cutoff, device):
         "integrals is_only_hermi_2b": lambda u: u.eval_2b_integrals(
             correlator=u.gaskell, sp=2, **herm),
         "virtual non-hermitian plan": lambda u:
-            ueg_ladder.build_block_ladder(u, device, correlator=u.gaskell,
+            ueg_ladder.build_block_ladder(u, device=device,
+                                          correlator=u.gaskell,
                                           **nh),
         "all-bra hermitian plan": lambda u: ueg_ladder.build_block_ladder(
-            u, device, correlator=u.gaskell, bra="all", **herm),
+            u, device=device, correlator=u.gaskell, bra="all", **herm),
         **{f"OVVV plan {pat}": (lambda u, pat=pat:
                                 ueg_ladder.build_ovvv_t1_plan(
-                                    u, pat, device, u.gaskell, **herm))
+                                    u, pat, device=device,
+                                    correlator=u.gaskell, **herm))
            for pat in ("vvo", "ovv", "vov")}}
     t0 = time.time()
     with ThreadPoolExecutor(max_workers=len(builds)) as pool:
@@ -3584,7 +3633,7 @@ def setup_tc(cutoff, device):
     for kind, flags_name in (("nh", "is_only_2b"),
                              ("herm", "is_only_hermi_2b")):
         idx, vals = out[f"integrals {flags_name}"][0]
-        d = ueg.sparse_to_blocks(idx, vals, n_p, NO, device, names=NEED)
+        d = ueg.sparse_to_blocks(idx, vals, n_p, NO, device=device, names=NEED)
         eps_i = hf.calcOccupiedOrbE(kin, d["klij"], NO)
         eps_a = hf.calcVirtualOrbE(kin, d["aibj"], d["aijb"], NO, nv)
         tc[kind] = {"dict": d, "sparse": (idx, vals), "eps_i": eps_i,
@@ -3670,8 +3719,8 @@ def tc_mf_ccd(tc, device, out):
     t0 = time.time()
     p, (e_ref, n_ref) = tc["nh"], TC_JAX[tc["cutoff"]]["ccd"]
     before = dict(kernels.LAUNCHES)
-    res = ccd.CCD(NO, device).solve(p["fock"], p["blocks"],
-                                    level_shift=-1.0, max_iter=60)
+    res = ccd.CCD(NO, device=device).solve(p["fock"], p["blocks"],
+                                           level_shift=-1.0, max_iter=60)
     e, n, T = res["ccd e"], len(res["e history"]), res["t2 amp"]
     got = {k: kernels.LAUNCHES[k] - before[k] for k in KERNELS}
     want = dict.fromkeys(KERNELS, 0)
@@ -3704,7 +3753,7 @@ def tc_dense_ccd(tc, e_hist, device):
 
     t0 = time.time()
     p = tc["nh"]
-    abcd = ueg.sparse_to_blocks(*p["sparse"], tc["nP"], NO, device,
+    abcd = ueg.sparse_to_blocks(*p["sparse"], tc["nP"], NO, device=device,
                                 names=("abcd",))["abcd"]
     gb = abcd.numel() * 8 / 1e9
     out = ccd.ccd_solve(p["fock"], ccd_blocks(p["dict"], abcd=abcd), NO,
@@ -3736,7 +3785,7 @@ def tc_mf_ccsd(tc, device, out):
     t0 = time.time()
     q, (e_ref, n_ref) = tc["herm"], TC_JAX[tc["cutoff"]]["ccsd"]
     before = dict(kernels.LAUNCHES)
-    res = ccsd.CCSD(NO, device).solve(
+    res = ccsd.CCSD(NO, device=device).solve(
         q["fock_nc"], q["mf_dict"], level_shift=-1.0, ladder=q["plan_all"],
         delta_e=1e-10, max_iter=100)
     e, n = res["ccsd e"], len(res["e history"])
@@ -3774,7 +3823,7 @@ def drccd_np57(p, device, out):
 
     t0 = time.time()
     before = dict(kernels.LAUNCHES)
-    res = ccd.CCD(NO, device, is_dr_ccd=True).solve(
+    res = ccd.CCD(NO, device=device, is_dr_ccd=True).solve(
         p["fock"], ccd_blocks(p["dict"]), level_shift=-1.0, max_iter=60)
     e, n, T = res["ccd e"], len(res["e history"]), res["t2 amp"]
     got = {k: kernels.LAUNCHES[k] - before[k] for k in KERNELS}
@@ -3914,7 +3963,7 @@ def tp_mesh(n, shape, device):
     from pymes_tpu_torch.parallel import mesh
 
     axes = ("a",) if shape is None else ("a", "b")
-    return mesh.make_mesh(n, device, axis_names=axes, shape=shape,
+    return mesh.make_mesh(n, device=device, axis_names=axes, shape=shape,
                           devices=[device] * n)
 
 
@@ -3956,7 +4005,7 @@ def tp_ccd(p, n_ref, device, launches):
     torch.cuda.empty_cache()
     base = torch.cuda.memory_allocated()
     t0 = time.time()
-    abcd = ueg.sparse_to_blocks(*p["sparse"], p["nP"], NO, device,
+    abcd = ueg.sparse_to_blocks(*p["sparse"], p["nP"], NO, device=device,
                                 names=("abcd",))["abcd"]
     torch.cuda.synchronize()
     size = abcd.numel() * 8
@@ -3975,11 +4024,13 @@ def tp_ccd(p, n_ref, device, launches):
         if n is None:
             # the gathering path: abcd put together on the card, whole
             cut["abcd"] = cut["abcd"].gather(device)
-            res, ms, peak = timed_solve(ccd.CCD(NO, device), p["fock"], cut,
+            res, ms, peak = timed_solve(ccd.CCD(NO, device=device), p["fock"],
+                                        cut,
                                         **kw)
         else:
             def run():
-                out["run"] = timed_solve(ccd.CCD(NO, device), p["fock"], cut,
+                out["run"] = timed_solve(ccd.CCD(NO, device=device), p["fock"],
+                                         cut,
                                          **kw)
                 k = len(out["run"][0]["e history"])
                 return {"ccd_jacobi_diis": k, "ccd_mix_energy": k,
@@ -4029,7 +4080,7 @@ def tp_ccsd(p, q, abcd, base, device, launches):
 
     more = [k for k in BLOCK_NAMES if k not in p["dict"] and k != "abcd"]
     d = {k: p["dict"][k] for k in BLOCK_NAMES if k in p["dict"]}
-    d.update(ueg.sparse_to_blocks(*p["sparse"], p["nP"], NO, device,
+    d.update(ueg.sparse_to_blocks(*p["sparse"], p["nP"], NO, device=device,
                                   names=more))
     d["abcd"] = abcd
     fock = q["focks"]["non-canonical"]
@@ -4040,7 +4091,8 @@ def tp_ccsd(p, q, abcd, base, device, launches):
         cut = pmesh.shard_blocks(tp_mesh(n, shape, device), d)
 
         def run():
-            out["run"] = timed_solve(ccsd.CCSD(NO, device), fock, cut, **kw)
+            out["run"] = timed_solve(ccsd.CCSD(NO, device=device), fock, cut,
+                                     **kw)
             k = len(out["run"][0]["e history"])
             return {"ccsd_jacobi_diis": k, "ccsd_mix_energy": k,
                     "pair_symmetrize": k}
@@ -4069,7 +4121,8 @@ def tp_ccsd(p, q, abcd, base, device, launches):
               f"({(peak - base) / 1e9:.3f} GB above the phase's start)",
               flush=True)
     try:
-        res, ms, peak = timed_solve(ccsd.CCSD(NO, device), fock, d, **kw)
+        res, ms, peak = timed_solve(ccsd.CCSD(NO, device=device), fock, d,
+                                    **kw)
     except torch.cuda.OutOfMemoryError as err:
         res, why = None, str(err).splitlines()[0]
     if res is None:   # the failed solve's frames are released by now
@@ -4111,7 +4164,7 @@ def tp_lih(mol, e_one, device, launches):
 
         def run():
             out["res"], out["ms"], out["peak"] = timed_solve(
-                ccsd.CCSD(no, device), mol["fock"], cut, **mol["kw"])
+                ccsd.CCSD(no, device=device), mol["fock"], cut, **mol["kw"])
             k = len(out["res"]["e history"])
             return {"ccsd_jacobi_diis": k, "ccsd_mix_energy": k,
                     "pair_symmetrize": k}
@@ -4211,7 +4264,8 @@ def resume_mf_ccsd(q, device, tmp, launches, records):
 
     fock = q["focks"]["non-canonical"]
     kw = dict(level_shift=-1.0, ladder=q["plan_all"], delta_e=1e-10)
-    part = ccsd.CCSD(NO, device).solve(fock, q["mf_dict"], max_iter=2, **kw)
+    part = ccsd.CCSD(NO, device=device).solve(fock, q["mf_dict"], max_iter=2,
+                                              **kw)
     n0 = len(part["e history"])
     check(n0 == 3, f"the stopped mf-CCSD ran {n0} iterations, not 3")
     ck = dataclasses.replace(checkpoint.from_result(
@@ -4232,8 +4286,9 @@ def resume_mf_ccsd(q, device, tmp, launches, records):
 
     def run():
         t0 = time.perf_counter()
-        res = ccsd.CCSD(NO, device).solve(fock, q["mf_dict"], max_iter=100,
-                                          amps=ck.amps, **kw)
+        res = ccsd.CCSD(NO, device=device).solve(fock, q["mf_dict"],
+                                                 max_iter=100,
+                                                 amps=ck.amps, **kw)
         wall = time.perf_counter() - t0
         e, n = res["ccsd e"], len(res["e history"])
         err = abs(e - E_JAX_CCSD_NONCANONICAL)
@@ -4368,15 +4423,15 @@ def examples_run(device, tmp, launches):
               f"{roots.tolist()}, |roots - JAX| {d_root:.2e} "
               f"({time.time() - t0:.2f} s)", flush=True)
         t0 = time.time()
-        _, c_t = rt_autocorrelation.main(3, 0.1, device,
-                                         out=os.path.join(tmp, "ct.npy"))
+        _, c_t = rt_autocorrelation.main(3, 0.1, os.path.join(tmp, "ct.npy"),
+                                         device=device)
         want = np.array([complex(*c) for c in EX_JAX["c(t)"]])
         d_c = float(np.abs(c_t - want).max())
         check(d_c <= 1e-7, f"RT example: c(t) {c_t.tolist()}")
         print(f"example rt_autocorrelation (H2/STO-6G, 3 steps): |c(t) - "
               f"JAX| {d_c:.2e} ({time.time() - t0:.2f} s)", flush=True)
         t0 = time.time()
-        rows, total = ueg_tc_twist_average.main(3, device)
+        rows, total = ueg_tc_twist_average.main(3, device=device)
         d_tc = max(float(np.abs(np.array(row[2:]) - np.array(ref)).max()
                          / np.abs(ref).max())
                    for row, ref in zip(rows, EX_JAX["tc"]))
@@ -4412,7 +4467,7 @@ def observability(p, records, device, tmp):
         for row, (solver, _, res, _) in zip(rows, records)),
         "the run records do not read back the solves' energies")
     log_dir = os.path.join(tmp, "trace")
-    with profile(log_dir, device):
+    with profile(log_dir, device=device):
         ccd.ccd_solve(p["fock"], p["blocks"], NO, p["T0"], level_shift=-1.0,
                       delta_e=-1.0, max_iter=2)
     path = os.path.join(log_dir, "trace.json")
@@ -4447,6 +4502,211 @@ def utilities_phase(p14, q, ccd_wall, device, card, launches):
     print(f"phase 19 (configs, checkpoint, twists, structure factor, "
           f"roofline, examples, observability): {time.time() - t19:.2f} s",
           flush=True)
+
+
+# phase 26: the JAX package's own drivers, examples/*.py, read as text
+# with their import lines pointed at pymes_tpu_torch and run with no
+# device argument (the card): (file, main's arguments)
+REFERENCE_EXAMPLES = (
+    ("molecular_ccsd_eom", (str(DATA / "FCIDUMP.LiH.321g"),)),
+    ("rt_autocorrelation", (3, 0.1)),
+    ("ueg_tc_twist_average", (3,)))
+
+
+def reference_example(name):
+    """The module of the JAX package's ``examples/<name>.py`` with
+    ``pymes_tpu`` replaced by ``pymes_tpu_torch`` in its import lines and
+    nothing else of its text changed; ``__file__`` stays the example's, so
+    its paths (``tests/data``) resolve as in the repository."""
+    import re
+    import types
+
+    path = DATA.parent.parent / "examples" / f"{name}.py"
+    lines = path.read_text(encoding="utf-8").splitlines(keepends=True)
+    pat = re.compile(r"^(\s*(?:from|import)\s+)pymes_tpu\b")
+    text = "".join(pat.sub(r"\1pymes_tpu_torch", line) for line in lines)
+    changed = sum(a != b for a, b in zip(lines, text.splitlines(True)))
+    check(changed > 0 and not re.search(r"^\s*(from|import)\s+pymes_tpu\b"
+                                        r"(?!_torch)", text, re.M),
+          f"examples/{name}.py: import lines not repointed")
+    mod = types.ModuleType(f"reference_example_{name}")
+    mod.__file__ = str(path)
+    exec(compile(text, str(path), "exec"), mod.__dict__)
+    return mod
+
+
+@contextlib.contextmanager
+def recording(targets, tmp):
+    """Wrap each ``(owner, attribute)`` of ``targets`` so that every call's
+    result is appended to ``out["<owner>.<attribute>"]`` (the owner's last
+    dotted name), restored on exit; the
+    checkpoint writer is pointed into ``tmp`` (the molecular example's
+    ``/tmp/ccsd_ckpt`` becomes ``<tmp>/ccsd_ckpt``), and ``out["saved"]``
+    lists the paths it wrote."""
+    import os
+
+    from pymes_tpu_torch.util import checkpoint
+
+    out = {"saved": []}
+    saved = [(o, a, getattr(o, a)) for o, a in targets]
+    saved.append((checkpoint, "save", checkpoint.save))
+
+    def wrap(fn, key):
+        def rec(*args, **kw):
+            res = fn(*args, **kw)
+            out.setdefault(key, []).append(res)
+            return res
+        return rec
+
+    def save(path, ck):
+        path = os.path.join(tmp, os.path.basename(str(path)))
+        out["saved"].append(path)
+        return saved[-1][2](path, ck)
+
+    try:
+        for o, a, fn in saved[:-1]:
+            setattr(o, a, wrap(fn, f"{o.__name__.rsplit('.', 1)[-1]}.{a}"))
+        checkpoint.save = save
+        yield out
+    finally:
+        for o, a, fn in saved:
+            setattr(o, a, fn)
+
+
+def tensors_in(x):
+    """Every torch tensor in a (nested) result."""
+    import torch
+
+    if isinstance(x, torch.Tensor):
+        return [x]
+    if isinstance(x, dict):
+        x = list(x.values())
+    if isinstance(x, (list, tuple)):
+        return [t for y in x for t in tensors_in(y)]
+    return []
+
+
+def reference_examples_phase(p5, card, launches):
+    """Phase 26: each of ``REFERENCE_EXAMPLES`` run through the port (its
+    ``main`` with no device argument, in a temporary working directory),
+    held to the pins of phase 19 (``EX_JAX``), every tensor the port's
+    calls return to it on the card; its launches in one counted window.
+    Then the reference's ``ladder_apply(plan, T, 1)`` (``chunk`` spelled
+    out) on the nP=57 plan: one K1 launch, equal to the default call bit
+    for bit."""
+    import os
+    import tempfile
+
+    import torch
+
+    from pymes_tpu_torch import kernels
+    from pymes_tpu_torch.mean_field import hf
+    from pymes_tpu_torch.ops import ueg_ladder
+    from pymes_tpu_torch.solver import ccsd, eom_ccsd, mp2, rt_eom_ccsd
+    from pymes_tpu_torch.util import checkpoint
+    from pymes_tpu_torch.util.kpoints import gen_ir_ks
+
+    t26 = time.time()
+    targets = ((hf, "calc_hf_e"), (hf, "construct_hf_matrix"),
+               (mp2, "solve"), (ccsd.CCSD, "solve"),
+               (ccsd.CCSD, "get_T1_dressed_fock"),
+               (ccsd.CCSD, "get_T1_dressed_V"),
+               (eom_ccsd.EOM_CCSD, "solve"), (rt_eom_ccsd.RT_EOM_CCSD,
+                                               "solve"))
+    results, walls = {}, {}
+    cwd = os.getcwd()
+
+    def run():
+        for name, args in REFERENCE_EXAMPLES:
+            with tempfile.TemporaryDirectory() as tmp:
+                os.chdir(tmp)
+                try:
+                    mod = reference_example(name)
+                    with recording(targets, tmp) as out:
+                        t0 = time.time()
+                        mod.main(*args)
+                        torch.cuda.synchronize()
+                        walls[name] = time.time() - t0
+                    if name == "molecular_ccsd_eom":
+                        out["checkpoint"] = checkpoint.load(out["saved"][0])
+                    if name == "rt_autocorrelation":
+                        out["ct"] = np.load(os.path.join(tmp, "ct.npy"))
+                finally:
+                    os.chdir(cwd)
+            results[name] = out
+
+    launches["reference examples"] = path_launches(
+        "reference examples", run, ("ccsd_jacobi_diis", "ccsd_mix_energy",
+                                    "pair_symmetrize", "davidson_residual",
+                                    "arnoldi_cgs2", "shifted_precond"))
+    for name, out in results.items():
+        ts = [t for key, res in out.items() if key not in ("saved", "ct")
+              for t in tensors_in(res)]
+        check(ts and all(t.is_cuda for t in ts),
+              f"{name}: {sum(not t.is_cuda for t in ts)} of {len(ts)} "
+              "returned tensors off the card")
+        print(f"reference example {name}: {len(ts)} returned tensors, all "
+              f"on {ts[0].device}; wall {walls[name]:.2f} s", flush=True)
+
+    mol = results["molecular_ccsd_eom"]
+    e = mol["CCSD.solve"][0]["ccsd e"]
+    roots = np.asarray(mol["EOM_CCSD.solve"][0])
+    e_hf = float(mol["hf.calc_hf_e"][0])
+    d_root = float(np.abs(roots - np.array(EX_JAX["roots"])).max())
+    check(abs(e - EX_JAX["ccsd e"]) <= 1e-10
+          and abs(e - MOLECULES["LiH"][2]) <= 1e-8
+          and abs(e_hf - MOLECULES["LiH"][3]) <= 1e-8 and d_root <= 1e-8
+          and mol["checkpoint"].energy == e,
+          f"reference molecular example: E={e!r}, roots {roots.tolist()}")
+    print(f"reference examples/molecular_ccsd_eom.py through the port "
+          f"(LiH/3-21G): HF {e_hf:.12f}, CCSD E={e:.13f}, |E - E_jax|="
+          f"{abs(e - EX_JAX['ccsd e']):.2e}; EOM roots {roots.tolist()}, "
+          f"|roots - JAX| {d_root:.2e}; checkpoint {mol['saved'][0]!r} "
+          "read back", flush=True)
+
+    ct = results["rt_autocorrelation"]["ct"]
+    c_t = ct[:, 1] + 1j * ct[:, 2]
+    want = np.array([complex(*c) for c in EX_JAX["c(t)"]])
+    d_c = float(np.abs(c_t - want).max())
+    check(len(results["rt_autocorrelation"]["RT_EOM_CCSD.solve"]) == len(want)
+          and d_c <= 1e-7, f"reference RT example: c(t) {c_t.tolist()}")
+    print(f"reference examples/rt_autocorrelation.py through the port "
+          f"(H2/STO-6G, 3 steps): |c(t) - JAX| {d_c:.2e}", flush=True)
+
+    tc = results["ueg_tc_twist_average"]
+    e_mp2 = np.array([float(r[0]) for r in tc["mp2.solve"]])
+    e_hf = np.array([float(e) for e in tc["hf.calc_hf_e"]])
+    ref = np.array(EX_JAX["tc"])
+    _, weights = gen_ir_ks(3)
+    mean, mean_ref = float(weights @ e_mp2), float(weights @ ref[:, 2])
+    d_tc = max(float(np.abs(e_mp2 - ref[:, 2]).max() / np.abs(ref[:, 2])
+                     .max()),
+               float(np.abs(e_hf - ref[:, 0]).max() / np.abs(ref[:, 0])
+                     .max()))
+    check(len(e_mp2) == len(ref) and d_tc <= 1e-12
+          and abs(mean - mean_ref) <= 1e-12 * abs(mean_ref),
+          f"reference TC twist example: MP2 {e_mp2.tolist()}")
+    print(f"reference examples/ueg_tc_twist_average.py through the port "
+          f"(mesh 3): twist-averaged TC-MP2 {mean:.12f}, JAX "
+          f"{mean_ref:.12f}, |rows - JAX| {d_tc:.2e} relative", flush=True)
+
+    # the reference's chunk of ladder_apply: K1, not the twin
+    plan = p5["blocks"].ladder
+    T = torch.as_tensor(np.random.default_rng(26).standard_normal(
+        (plan.nv, plan.nv, NO, NO)), device=plan.inv_bra.device)
+    kernels.reset_launches()
+    W1 = ueg_ladder.ladder_apply(plan, T, 1)
+    torch.cuda.synchronize()
+    got = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    W0 = ueg_ladder.ladder_apply(plan, T)
+    check(got == {"block_ladder": 1} and torch.equal(W1, W0),
+          f"ladder_apply(plan, T, 1): launches {got}, bit-equal "
+          f"{torch.equal(W1, W0)}")
+    print(f"ladder_apply(plan, T, 1) at nP={p5['nP']}: launches {got}, "
+          "equal to ladder_apply(plan, T) bit for bit", flush=True)
+    print(f"[{card}] phase 26 (the JAX package's examples through the "
+          f"port): {time.time() - t26:.2f} s; walls " + ", ".join(
+              f"{k} {v:.2f} s" for k, v in walls.items()), flush=True)
 
 
 def main():
@@ -4511,8 +4771,8 @@ def main():
     def run_ccd():
         for c, p in problems.items():
             t0 = time.time()
-            res = ccd.CCD(NO, device).solve(p["fock"], p["blocks"],
-                                            level_shift=-1.0, max_iter=60)
+            res = ccd.CCD(NO, device=device).solve(
+                p["fock"], p["blocks"], level_shift=-1.0, max_iter=60)
             n_it = len(res["e history"])
             e = res["ccd e"]
             T = res["t2 amp"]
@@ -4919,6 +5179,8 @@ def main():
     # phase 19: configs, checkpoint/resume, the twist average, the structure
     # factor, the roofline line, the examples, and observability last
     utilities_phase(problems[14], q, ccd_wall[14], device, card, launches)
+    # phase 26: the JAX package's examples with the import root changed
+    reference_examples_phase(problems[5], card, launches)
 
     total = {k: sum(run.get(k, 0) for run in launches.values())
              for k in KERNELS}

@@ -8,8 +8,11 @@ imports ``torch`` and never ``jax``: the host-numpy modules it needs
 generator) are carried as copies, held equal to the originals by
 ``tests/test_torch_*.py``.
 
-Every entry point takes an explicit ``device``; nothing falls back to the CPU
-when a card was asked for.  On a CUDA tensor the hot kernels
+Every public callable takes the JAX package's calls (its positional order,
+defaults and keywords), so a ``pymes_tpu`` driver runs here with only its
+import root changed.  Entry points run on the card unless the caller asks
+for the CPU with the keyword-only ``device="cpu"``; without a card they
+raise, and nothing falls back to the CPU.  On a CUDA tensor the hot kernels
 (:mod:`pymes_tpu_torch.kernels`) run hand-written Hopper code; on a CPU
 tensor they run their plain PyTorch twins.
 """

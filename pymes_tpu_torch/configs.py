@@ -3,10 +3,11 @@
 Counterpart of ``pymes_tpu/configs.py`` with the same dataclasses, fields
 and defaults, so ``GroundStateConfig(**to_dict(jax_cfg))`` rebuilds a JAX
 package configuration here.  Each ``make*`` builds the port's solver on
-``device``, the card unless the caller asks for the CPU; without a card,
-:func:`pymes_tpu_torch.config.resolve_device` raises.  As in the JAX
-package, ``GroundStateConfig.mixed_precision`` is carried and not applied
-by ``make_ccd``/``make_ccsd``: the caller hands it to ``solve`` (the
+``device`` (keyword-only), the card unless the caller asks for the CPU;
+without a card, :func:`pymes_tpu_torch.config.resolve_device` raises.  As
+in the JAX package, ``GroundStateConfig.mixed_precision`` is carried and
+not applied by ``make_ccd``/``make_ccsd``: the caller hands it to
+``solve`` (the
 precision modes are arguments of ``CCD.solve``/``CCSD.solve`` and
 attributes of the EOM and FEAST/RT solvers, ``precision`` and
 ``ls_precision``).
@@ -37,19 +38,20 @@ class GroundStateConfig:
         s.log_iterations = self.log_iterations
         return s
 
-    def make_ccd(self, device="cuda"):
+    def make_ccd(self, *, device=None):
         from pymes_tpu_torch.solver.ccd import CCD
 
-        return self._finish(CCD(self.no, device, delta_e=self.delta_e,
+        return self._finish(CCD(self.no, delta_e=self.delta_e,
                                 is_dcd=self.is_dcd, is_diis=self.is_diis,
                                 is_dr_ccd=self.is_dr_ccd,
-                                is_bruekner=self.is_bruekner))
+                                is_bruekner=self.is_bruekner, device=device))
 
-    def make_ccsd(self, device="cuda"):
+    def make_ccsd(self, *, device=None):
         from pymes_tpu_torch.solver.ccsd import CCSD
 
-        return self._finish(CCSD(self.no, device, is_diis=self.is_diis,
-                                 delta_e=self.delta_e, is_dcsd=self.is_dcd))
+        return self._finish(CCSD(self.no, is_diis=self.is_diis,
+                                 delta_e=self.delta_e, is_dcsd=self.is_dcd,
+                                 device=device))
 
 
 @dataclass
@@ -62,10 +64,10 @@ class EOMConfig:
     e_epsilon: float = 1e-8
     max_dim_factor: int = 4
 
-    def make(self, device="cuda"):
+    def make(self, *, device=None):
         from pymes_tpu_torch.solver.eom_ccsd import EOM_CCSD
 
-        s = EOM_CCSD(self.no, device, n_excit=self.n_excit)
+        s = EOM_CCSD(self.no, n_excit=self.n_excit, device=device)
         s.max_iter = self.max_iter
         s.e_epsilon = self.e_epsilon
         s.max_dim = self.n_excit * self.max_dim_factor
@@ -86,12 +88,13 @@ class FEASTConfig:
     ls_max_iter: int = 20
     seed: int = None
 
-    def make(self, device="cuda"):
+    def make(self, *, device=None):
         from pymes_tpu_torch.solver.feast_eom_ccsd import FEAST_EOM_CCSD
 
-        s = FEAST_EOM_CCSD(self.no, device, e_c=self.e_c, e_r=self.e_r,
+        s = FEAST_EOM_CCSD(self.no, e_c=self.e_c, e_r=self.e_r,
                            n_trial=self.n_trial, max_iter=self.max_iter,
-                           tol=self.tol, n_quad=self.n_quad, seed=self.seed)
+                           tol=self.tol, n_quad=self.n_quad, seed=self.seed,
+                           device=device)
         s.ls_max_iter = self.ls_max_iter
         return s
 
@@ -107,11 +110,11 @@ class RTConfig:
     n_quad: int = 16
     ls_max_iter: int = 100
 
-    def make(self, device="cuda"):
+    def make(self, *, device=None):
         from pymes_tpu_torch.solver.rt_eom_ccsd import RT_EOM_CCSD
 
-        s = RT_EOM_CCSD(self.no, device, e_c=self.e_c, e_r=self.e_r,
-                        dt=self.dt, n_quad=self.n_quad)
+        s = RT_EOM_CCSD(self.no, e_c=self.e_c, e_r=self.e_r, dt=self.dt,
+                        n_quad=self.n_quad, device=device)
         s.ls_max_iter = self.ls_max_iter
         return s
 

@@ -1,10 +1,11 @@
 """CIF real-time EOM-CCSD dynamics: propagate a state and record the
-autocorrelation c(t) = <u(0), u(t)>, as ``examples/rt_autocorrelation.py``
-of the JAX package (H₂/STO-6G, CCSD to |dE| < 1e-12, a seeded singles
-state, 32 contour nodes).
+autocorrelation c(t) = <u(0), u(t)>, ``examples/rt_autocorrelation.py``
+of the JAX package with the import root changed (H₂/STO-6G, CCSD to
+|dE| < 1e-12, a seeded singles state, 32 contour nodes).  Runs on the
+card unless ``device="cpu"``.
 
     python -m pymes_tpu_torch.examples.rt_autocorrelation [nt=50] [dt=0.1]
-        [--device cuda] [--out ct.npy]
+        [--device cpu] [--out ct.npy]
 
 Writes ``out`` with columns (t, Re c, Im c).
 """
@@ -13,9 +14,7 @@ import argparse
 from pathlib import Path
 
 import numpy as np
-import torch
 
-from pymes_tpu_torch.config import DTYPE, resolve_device
 from pymes_tpu_torch.integral.partition import part_2_body_int
 from pymes_tpu_torch.mean_field import hf
 from pymes_tpu_torch.solver import ccsd
@@ -26,16 +25,13 @@ DUMP = (Path(__file__).resolve().parents[2] / "tests" / "data"
         / "FCIDUMP.H2.sto6g")
 
 
-def main(nt=50, dt=0.1, device="cuda", out="ct.npy"):
+def main(nt=50, dt=0.1, out="ct.npy", *, device=None):
     """Returns (t, c_t) and writes them to ``out`` (when not None)."""
-    dev = resolve_device(device)
     n_elec, n_orb, e_core, eps, h, V = fcidump.read(str(DUMP))
     no = n_elec // 2
-    h = torch.as_tensor(h, dtype=DTYPE, device=dev)
-    V = torch.as_tensor(V, dtype=DTYPE, device=dev)
 
-    fock = hf.construct_hf_matrix(no, h, V)
-    cc = ccsd.CCSD(no, dev)
+    fock = hf.construct_hf_matrix(no, h, V, device=device)
+    cc = ccsd.CCSD(no, device=device)
     result = cc.solve(fock, V, delta_e=1e-12, max_iter=100)
     dict_V = part_2_body_int(no, V)
     fd = cc.get_T1_dressed_fock(fock, result["t1"], dict_V)
@@ -49,7 +45,7 @@ def main(nt=50, dt=0.1, device="cuda", out="ct.npy"):
     norm = np.sqrt(np.sum(u1_0 ** 2))
     u1_0 /= norm
 
-    rt = RT_EOM_CCSD(no, dev, e_c=0.5, e_r=0.6, n_quad=32)
+    rt = RT_EOM_CCSD(no, e_c=0.5, e_r=0.6, n_quad=32, device=device)
     rt.ls_max_iter = 100
 
     t = np.arange(1, nt + 1) * dt
@@ -70,7 +66,7 @@ if __name__ == "__main__":
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("nt", nargs="?", type=int, default=50)
     ap.add_argument("dt", nargs="?", type=float, default=0.1)
-    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--device", default=None, help="default: the card")
     ap.add_argument("--out", default="ct.npy")
     args = ap.parse_args()
-    main(args.nt, args.dt, args.device, args.out)
+    main(args.nt, args.dt, args.out, device=args.device)

@@ -22,6 +22,8 @@ from typing import NamedTuple
 
 import torch
 
+from pymes_tpu_torch.config import resolve_device
+
 
 class DIISState(NamedTuple):
     """Ring buffers of flattened amplitudes/errors, the insertion count and
@@ -33,7 +35,15 @@ class DIISState(NamedTuple):
     B: torch.Tensor      # (m, m) real Gram matrix of errs
 
 
-def init_state(dim_space: int, n_flat: int, dtype, device) -> DIISState:
+def init_state(dim_space: int, n_flat: int, dtype, err_dtype=None, *,
+               device=None) -> DIISState:
+    """Empty rings on ``device`` (None: the card).  ``err_dtype``, the JAX
+    package's carrier of the error ring, must be None or ``dtype``: the
+    port keeps the errors in the amplitudes' precision."""
+    if err_dtype is not None and err_dtype != dtype:
+        raise ValueError(f"err_dtype {err_dtype}: the port keeps the DIIS "
+                         f"errors in the amplitudes' dtype {dtype}")
+    device = resolve_device(device)
     return DIISState(
         amps=torch.zeros((dim_space, n_flat), dtype=dtype, device=device),
         errs=torch.zeros((dim_space, n_flat), dtype=dtype, device=device),
@@ -117,7 +127,7 @@ class DIIS:
         if self._state is None:
             self._shapes = [a.shape for a in amplitude]
             self._state = init_state(self.dim_space, amp_flat.numel(),
-                                     amp_flat.dtype, amp_flat.device)
+                                     amp_flat.dtype, device=amp_flat.device)
         self._state, mixed = mix(self._state, err_flat, amp_flat)
         out, off = [], 0
         for shape in self._shapes:

@@ -36,7 +36,7 @@ import numpy as np
 from scipy import special
 
 from pymes_tpu_torch.basis_set import planewave
-from pymes_tpu_torch.config import resolve_device
+from pymes_tpu_torch.config import check_f64, resolve_device
 from pymes_tpu_torch.kernels.block_scatter import block_scatter
 from pymes_tpu_torch.log import print_logging_info
 
@@ -613,19 +613,24 @@ def _scatter_dense(idx, vals, n_p, dtype):
     return V
 
 
-def sparse_to_dense(idx, vals, n_p, device):
+def sparse_to_dense(idx, vals, n_p, dtype=None, *, device=None):
     """Scatter a sparse (indices, values) integral set to the dense
-    (nP,)*4 tensor on ``device``: :func:`sparse_to_blocks` with no
-    occupied orbitals, whose one block ``abcd`` is the whole tensor."""
+    (nP,)*4 tensor on ``device`` (None: the card): :func:`sparse_to_blocks`
+    with no occupied orbitals, whose one block ``abcd`` is the whole
+    tensor.  ``dtype`` other than f64 raises ValueError."""
+    check_f64(dtype, "sparse_to_dense")
     return block_scatter(idx, vals, n_p, 0, ("abcd",),
                          resolve_device(device))["abcd"]
 
 
-def sparse_to_blocks(idx, vals, n_p, no, device, names=None):
+def sparse_to_blocks(idx, vals, n_p, no, names=None, dtype=None, *,
+                     device=None):
     """Scatter a sparse integral set directly into the named o/v blocks on
-    ``device``, never building the dense nP⁴ tensor.  Returns a dict
-    name → tensor (the block of ``V[p,q,r,s]`` whose slots follow the
-    letters of the name: i..l occupied, a..d virtual)."""
+    ``device`` (None: the card), never building the dense nP⁴ tensor.
+    Returns a dict name → tensor (the block of ``V[p,q,r,s]`` whose slots
+    follow the letters of the name: i..l occupied, a..d virtual).
+    ``dtype`` other than f64 raises ValueError."""
+    check_f64(dtype, "sparse_to_blocks")
     return block_scatter(idx, vals, n_p, no, names, resolve_device(device))
 
 

@@ -201,7 +201,7 @@ def gmres_lanes(apply, b, precond=None, tol=1e-5, restart=20, max_outer=20,
                              "calls": calls, "cycle_ends": cycle_ends}
 
 
-def gmres(matvec, b, precond=None, tol=1e-5, restart=20, max_outer=20,
+def gmres(matvec, b, precond=None, tol=1e-5, restart=20, max_outer=20, *,
           twin=False):
     """Solve A x = b (``pymes_tpu/ops/gmres.py:40``); returns ``(x,
     rel_res)`` with rel_res the preconditioned residual norm from the

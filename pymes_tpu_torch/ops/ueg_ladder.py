@@ -47,7 +47,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from pymes_tpu_torch.config import resolve_device
+from pymes_tpu_torch.config import check_f64, resolve_device
 from pymes_tpu_torch.kernels import block_ladder as _k1
 from pymes_tpu_torch.kernels import ovvv_gather as _k4
 from pymes_tpu_torch.models.ueg import _call_correlator
@@ -183,11 +183,16 @@ def plan_from_arrays(group_arrays, inv_bra, n_bra, nv, w0, device):
         n_bra=int(n_bra), nv=int(nv), w0=float(w0), packed=packed)
 
 
-def build_block_ladder(ueg_model, device, correlator=None, bra="virtual",
-                       pad_sectors=1, **integral_flags):
-    """Build a :class:`BlockLadder` on ``device`` (host numpy build, the
-    algorithm of ``pymes_tpu.ops.ueg_ladder.build_block_ladder`` with
-    ``preslice=None``; its leaves are held identical by the tests).
+def build_block_ladder(ueg_model, correlator=None, dtype=np.float64,
+                       bra="virtual", preslice=9, pad_sectors=1, pad="fine",
+                       *, device=None, **integral_flags):
+    """Build a :class:`BlockLadder` on ``device`` (None: the card; host
+    numpy build, the algorithm of
+    ``pymes_tpu.ops.ueg_ladder.build_block_ladder`` with ``preslice=None``;
+    its leaves are held identical by the tests).  ``preslice`` (the JAX
+    package's Ozaki slices, exact f64) is accepted and ignored; ``dtype``
+    other than f64 and ``pad`` other than "fine" (K1's sector padding)
+    raise ValueError.
 
     ``correlator`` and ``integral_flags`` select the integral class as in
     ``UEG.eval_2b_integrals``: every transfer-only class, plus the
@@ -199,6 +204,10 @@ def build_block_ladder(ueg_model, device, correlator=None, bra="virtual",
     bucket's sector count up to a multiple (zero blocks, all-(−1)
     ``bra_of_row``), so the sector axis divides a mesh of that size
     (:func:`shard_block_ladder`)."""
+    check_f64(dtype, "build_block_ladder")
+    if pad != "fine":
+        raise ValueError(f"pad={pad!r}: K1 takes sectors padded to a "
+                         "multiple of 8 ket pairs, the 'fine' padding only")
     no = ueg_model.n_ele // 2
     n_p = ueg_model.n_spatial
     nv = n_p - no
@@ -377,7 +386,7 @@ def _ladder_ij(plan, T2, twin):
     return _ladder_cd(plan, T2.t(), twin).t()
 
 
-def block_ladder_apply_ij(plan: BlockLadder, T_ijab, twin=False):
+def block_ladder_apply_ij(plan: BlockLadder, T_ijab, *, twin=False):
     """``R_ijpq = Σ_cd V_pqcd T_ijcd`` with T carried ``[i,j,c,d]``.
 
     K1 on a CUDA tensor (``twin=True`` forces the plain twin, for the
@@ -389,7 +398,7 @@ def block_ladder_apply_ij(plan: BlockLadder, T_ijab, twin=False):
     return R.reshape(no_i, no_j, plan.n_bra, plan.n_bra)
 
 
-def block_ladder_apply(plan: BlockLadder, T_abij, twin=False):
+def block_ladder_apply(plan: BlockLadder, T_abij, *, twin=False):
     """abij-layout variant: ``R_pqij = Σ_cd V_pqcd T_cdij`` with T carried
     ``[..., c, d, i, j]`` (any leading batch axes).  The batch goes to K1
     as ONE cd-major operand (nv², batch·no²) — no copy without a batch, one
@@ -406,17 +415,19 @@ def block_ladder_apply(plan: BlockLadder, T_abij, twin=False):
     return R.reshape(lead + (plan.n_bra, plan.n_bra, no_i, no_j))
 
 
-def ladder_apply(plan, T_abij, twin=False):
+def ladder_apply(plan, T_abij, chunk=1, *, twin=False):
     """abij-layout dispatch on the plan type (only :class:`BlockLadder` is
-    ported, whole or sharded)."""
+    ported, whole or sharded).  ``chunk`` (the gather-scan ladder's batch
+    split, which the port does not have) is accepted and ignored."""
     if not isinstance(plan, (BlockLadder, ShardedBlockLadder)):
         raise TypeError(f"unsupported ladder plan {type(plan).__name__}")
     return block_ladder_apply(plan, T_abij, twin=twin)
 
 
-def ladder_apply_ij(plan, T_ijab, twin=False):
+def ladder_apply_ij(plan, T_ijab, chunk=1, *, twin=False):
     """Occupied-leading dispatch on the plan type (only
-    :class:`BlockLadder` is ported, whole or sharded)."""
+    :class:`BlockLadder` is ported, whole or sharded); ``chunk`` as in
+    :func:`ladder_apply`."""
     if not isinstance(plan, (BlockLadder, ShardedBlockLadder)):
         raise TypeError(f"unsupported ladder plan {type(plan).__name__}")
     return block_ladder_apply_ij(plan, T_ijab, twin=twin)
@@ -433,14 +444,16 @@ class OVVVPlan(NamedTuple):
     W: torch.Tensor   # (n0, n2) f64 — w(k_r − k_p)
 
 
-def build_ovvv_t1_plan(ueg_model, ranges, device, correlator=None,
-                       **integral_flags):
-    """Build an :class:`OVVVPlan` on ``device`` for leading-axis orbital
+def build_ovvv_t1_plan(ueg_model, ranges, correlator=None, dtype=np.float64,
+                       *, device=None, **integral_flags):
+    """Build an :class:`OVVVPlan` on ``device`` (None: the card; ``dtype``
+    other than f64 raises ValueError) for leading-axis orbital
     ``ranges`` (3-char string of 'o'/'v'/'a'; the contracted 4th axis is
     virtual).  Host numpy, the algorithm of
     ``pymes_tpu.ops.ueg_ladder.build_ovvv_t1_plan``; the weights take the
     transfer-only classes (:func:`_transfer_weights`, which raises
     ``NotImplementedError`` for the non-hermitian ones)."""
+    check_f64(dtype, "build_ovvv_t1_plan")
     dev = resolve_device(device)
     no = ueg_model.n_ele // 2
     k_int = ueg_model.basis.k_int
@@ -461,23 +474,24 @@ def build_ovvv_t1_plan(ueg_model, ranges, device, correlator=None,
         W=torch.as_tensor(W, dtype=torch.float64, device=dev))
 
 
-def build_ovvv_plans(ueg_model, device, correlator=None, **integral_flags):
+def build_ovvv_plans(ueg_model, correlator=None, dtype=np.float64, *,
+                     device=None, **integral_flags):
     """The three ovvv gather plans the matrix-free CCSD dressing needs
-    (leading-range patterns vvo/ovv/vov), keyed for
-    ``dict_t_V["_ovvv_plans"]``."""
-    return {pat: build_ovvv_t1_plan(ueg_model, pat, device, correlator,
-                                    **integral_flags)
+    (leading-range patterns vvo/ovv/vov) on ``device`` (None: the card),
+    keyed for ``dict_t_V["_ovvv_plans"]``."""
+    return {pat: build_ovvv_t1_plan(ueg_model, pat, correlator, dtype,
+                                    device=device, **integral_flags)
             for pat in ("vvo", "ovv", "vov")}
 
 
-def ovvv_t1_apply_j(plan: OVVVPlan, T1, twin=False):
+def ovvv_t1_apply_j(plan: OVVVPlan, T1, *, twin=False):
     """``out[j,p,q,r] = Σ_s V[p,q,r,s] T1[s,j]`` through the gather plan:
     K4 on a CUDA tensor (``twin=True`` forces the plain twin), the twin on a
     CPU tensor.  ``T1`` is (nv, no); returns (no, n0, n1, n2)."""
     return _k4.ovvv_gather(plan.S, plan.W, T1, twin=twin)
 
 
-def ovvv_t1_apply(plan: OVVVPlan, T1, twin=False):
+def ovvv_t1_apply(plan: OVVVPlan, T1, *, twin=False):
     """``out[..., p,q,r,j] = Σ_s V[p,q,r,s] T1[..., s,j]`` (the JAX
     package's ``[p,q,r,j]`` layout, any leading batch axes of T1): one K4
     launch on the batch as batch·no columns, T1 read in place through its
@@ -489,7 +503,7 @@ def ovvv_t1_apply(plan: OVVVPlan, T1, twin=False):
     return out.reshape(lead + (no,) + tuple(plan.S.shape)).movedim(-4, -1)
 
 
-def ovvv_t1_trace(plan: OVVVPlan, T1, axis, twin=False):
+def ovvv_t1_trace(plan: OVVVPlan, T1, axis, *, twin=False):
     """The (j′ = j) trace of :func:`ovvv_t1_apply_j` over the plan's
     occupied axis ``axis`` (1: ``einsum("jajb->ab")`` on the vov plan; 0:
     ``einsum("jjab->ab")`` on ovv), without the full gather: K4's diagonal
@@ -498,16 +512,18 @@ def ovvv_t1_trace(plan: OVVVPlan, T1, axis, twin=False):
     return _k4.ovvv_gather_diag(plan.S, plan.W, T1, axis, twin=twin)
 
 
-def dressed_ladder_apply(plan, T_ai, T_abij, no, W=None, twin=False):
+def dressed_ladder_apply(ladder_all, T_ai, T_abij, no, W=None, *,
+                         twin=False):
     """T1-dressed ladder ``R_abij = Σ_cd V̄_abcd T_cdij`` in the abij layout
     (any leading batch axes): with the all-bra ``W[..., p,q,i,j]``
 
     ``R = W_vv − T1·W_ov − W_vo·T1 + T1·W_oo·T1``
 
     (``pymes_tpu/ops/ueg_ladder.py:643``).  ``W`` may come precomputed (the
-    EOM sigma shares it with the singles); otherwise K1 computes it."""
+    EOM sigma shares it with the singles); otherwise K1 computes it on
+    the all-bra plan ``ladder_all``."""
     if W is None:
-        W = ladder_apply(plan, T_abij, twin=twin)
+        W = ladder_apply(ladder_all, T_abij, twin=twin)
     W_vv = W[..., no:, no:, :, :]
     W_ov = W[..., :no, no:, :, :]
     W_vo = W[..., no:, :no, :, :]
@@ -519,7 +535,8 @@ def dressed_ladder_apply(plan, T_ai, T_abij, no, W=None, twin=False):
     return R
 
 
-def dressed_ladder_apply_ij(plan, T_ai, T_ijab, no, W=None, twin=False):
+def dressed_ladder_apply_ij(ladder_all, T_ai, T_ijab, no, W=None, *,
+                            twin=False):
     """T1-dressed ladder ``R_ijab = Σ_cd V̄_abcd T_ijcd`` without V̄_abcd:
     the bra dressing is rank-1, so with the all-bra
     ``W[i,j,p,q] = Σ_cd V_pqcd T_ijcd``
@@ -527,9 +544,10 @@ def dressed_ladder_apply_ij(plan, T_ai, T_ijab, no, W=None, twin=False):
     ``R = W_vv − T1·W_ov − W_vo·T1 + T1·W_oo·T1``.
 
     ``W`` may come precomputed (the CCSD iteration shares it with the
-    singles residual); otherwise K1 computes it on ``plan`` (all-bra)."""
+    singles residual); otherwise K1 computes it on the all-bra plan
+    ``ladder_all``."""
     if W is None:
-        W = ladder_apply_ij(plan, T_ijab, twin=twin)
+        W = ladder_apply_ij(ladder_all, T_ijab, twin=twin)
     W_vv = W[:, :, no:, no:]
     W_ov = W[:, :, :no, no:]
     W_vo = W[:, :, no:, :no]

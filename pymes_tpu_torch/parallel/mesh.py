@@ -70,16 +70,16 @@ class Mesh:
         self.shape = dict(zip(self.axis_names, self.grid))
 
 
-def make_mesh(n_devices, device, axis_names=("a",), shape=None,
-              devices=None):
-    """A :class:`Mesh` over ``n_devices`` devices.
+def make_mesh(n_devices=None, axis_names=("a",), shape=None, devices=None, *,
+              device=None):
+    """A :class:`Mesh` over ``n_devices`` devices (None: all of them).
 
     Without ``devices`` it takes the first ``n_devices`` cards of
-    ``device="cuda"`` and raises when fewer are visible (``device="cpu"``
-    has one device).  ``devices`` lists the devices explicitly; a device
-    may repeat there (one card standing in for several).  ``axis_names=
-    ("a", "b")`` makes a 2-D mesh of ``shape`` (default near-square)."""
-    n_devices = int(n_devices)
+    ``device`` (None: the cards) and raises when fewer are visible
+    (``device="cpu"`` has one device).  ``devices`` lists the devices
+    explicitly; a device may repeat there (one card standing in for
+    several).  ``axis_names=("a", "b")`` makes a 2-D mesh of ``shape``
+    (default near-square)."""
     if devices is None:
         dev = resolve_device(device)
         if dev.type == "cuda":
@@ -88,6 +88,7 @@ def make_mesh(n_devices, device, axis_names=("a",), shape=None,
         else:
             devices = [dev]
     devices = [resolve_device(d) for d in devices]
+    n_devices = len(devices) if n_devices is None else int(n_devices)
     if len(devices) < n_devices:
         raise RuntimeError(
             f"a mesh of {n_devices} devices asked for, {len(devices)} "

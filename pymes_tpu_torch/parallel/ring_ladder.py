@@ -73,11 +73,14 @@ def _split(n_dev, nv):
     return nv // n_dev
 
 
-def ring_ladder_inside_ij(V_abcd, T_ijcd, mesh, axis="a", twin=False):
+def ring_ladder_inside_ij(V_abcd, T_ijcd, mesh, axis="a", n_slices=None, *,
+                          twin=False):
     """Occupied-leading ring ladder ``R_ijab = Σ_cd V_abcd T_ijcd``: V cut
     on axis 0 over the mesh (see :func:`_v_shards`), ``T_ijcd`` whole on
     ``mesh.devices[0]`` and cut on its c axis here; returns ``R_ijab`` on
-    ``mesh.devices[0]``.  ``twin=True`` runs K9's plain twin on the card."""
+    ``mesh.devices[0]``.  ``twin=True`` runs K9's plain twin on the card.
+    ``n_slices`` (the JAX package's Ozaki slices of V, exact f64) is
+    accepted and ignored."""
     devs = mesh.devices
     n_dev = mesh.shape[axis]
     no_i, no_j, nv = T_ijcd.shape[0], T_ijcd.shape[1], T_ijcd.shape[2]
@@ -93,7 +96,7 @@ def ring_ladder_inside_ij(V_abcd, T_ijcd, mesh, axis="a", twin=False):
     return torch.cat([r.to(devs[0]) for r in R_loc], dim=2)
 
 
-def ring_ladder_inside(V_abcd, T_cdij, mesh, axis="a", twin=False):
+def ring_ladder_inside(V_abcd, T_cdij, mesh, axis="a", *, twin=False):
     """abij ring ladder ``R_abij = Σ_cd V_abcd T_cdij``: V cut on axis 0,
     ``T_cdij`` whole on ``mesh.devices[0]`` or a :class:`Sharded` cut on
     axis 0; returns ``R_abij`` on ``mesh.devices[0]``.  K9 reads the
@@ -118,7 +121,7 @@ def ring_ladder_inside(V_abcd, T_cdij, mesh, axis="a", twin=False):
     return torch.cat([r.to(devs[0]) for r in R_loc], dim=0)
 
 
-def ring_ladder(V_abcd, T_cdij, mesh, axis="a", twin=False):
+def ring_ladder(V_abcd, T_cdij, mesh, axis="a", *, twin=False):
     """Standalone form: cut both operands on axis 0 over the mesh, then
     ring-contract (:func:`ring_ladder_inside`)."""
     return ring_ladder_inside(shard_tensor(mesh, V_abcd, 0),

@@ -48,18 +48,12 @@ def replicate(tree, mesh):
     return _pytree.tree_map(put, tree)
 
 
-def node_mesh(n_devices=None, device="cuda", axis="n", devices=None):
+def node_mesh(n_devices=None, axis="n", *, device=None, devices=None):
     """A 1-D mesh for the node fan-out over the first ``n_devices`` of the
-    visible devices of ``device`` (None: all of them), through
+    visible devices of ``device`` (None: the cards; ``n_devices`` None: all
+    of them), through
     :func:`~pymes_tpu_torch.parallel.mesh.make_mesh` and its rules: it
     raises when fewer are visible, and a device repeats only where
     ``devices`` lists it so (``devices=["cuda:0"] * 2``)."""
-    if n_devices is None:
-        if devices is not None:
-            n_devices = len(devices)
-        elif torch.device(device).type == "cuda":
-            n_devices = torch.cuda.device_count()
-        else:
-            n_devices = 1
-    return _mesh.make_mesh(n_devices, device, axis_names=(axis,),
-                           devices=devices)
+    return _mesh.make_mesh(n_devices, (axis,), devices=devices,
+                           device=device)

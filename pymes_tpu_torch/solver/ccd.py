@@ -130,7 +130,8 @@ def blocks_ij_from(blocks: CCDBlocks):
 
 def doubles_residual_ij(t_fock_ab, t_fock_ij, t_T_ijab, V: CCDBlocksIJ,
                         is_dcd=False, is_bruekner=False, t_T_ai=None,
-                        twin=False, ring_mesh=None, ring_axis="a"):
+                        contract_mode="xla", abcd_presliced=None,
+                        ring_mesh=None, ring_axis="a", *, twin=False):
     """CCD/DCD doubles residual R_ijab in the occupied-leading layout (the
     diagrams of ``pymes_tpu.solver.ccd.doubles_residual_ij``).  With
     ``t_T_ai`` (CCSD) the ladder is T1-dressed on the all-bra plan; with
@@ -139,7 +140,9 @@ def doubles_residual_ij(t_fock_ab, t_fock_ij, t_T_ijab, V: CCDBlocksIJ,
     without, a cut ``V.abcd`` gives the ladder piece by piece, each tile
     put together on the device of ``t_T_ijab`` before K5.
     ``twin`` routes the ladder (K1, K9) and the symmetrisation (K5) through
-    their plain twins on the card."""
+    their plain twins on the card.  ``contract_mode`` and
+    ``abcd_presliced`` (the JAX package's Ozaki contraction modes, exact
+    f64) are accepted and ignored."""
     es = torch.einsum
     t = t_T_ijab
     tilde = 2.0 * t - t.transpose(2, 3)  # 2T - T^(a<->b)
@@ -263,7 +266,7 @@ def ccd_solve(t_fock_pq, blocks: CCDBlocks, no, t_T0_abij,
     # without DIIS the ring has one slot and the coefficient 1: the tail
     # then writes T + dT (exactly) through the same two passes
     m = dim_space if is_diis else 1
-    state = diis.init_state(m, T.numel(), T.dtype, T.device)
+    state = diis.init_state(m, T.numel(), T.dtype, device=T.device)
     ones = torch.ones(1, dtype=T.dtype, device=T.device)
     info = torch.zeros((), dtype=torch.int32, device=T.device)
     e_hist = torch.full((max_iter + 1,), float("nan"), dtype=T.dtype,
@@ -321,11 +324,17 @@ def ccd_solve(t_fock_pq, blocks: CCDBlocks, no, t_T0_abij,
 
 
 class CCD:
-    """Reference-API CCD/DCD solver on ``device``.
+    """Reference-API CCD/DCD solver on ``device`` (keyword-only; None: the
+    card).
 
-    ``solve(t_fock_pq, t_V_pqrs, level_shift=0, amps=None, ring_mesh=None,
-    ring_axis="a", **kwargs)`` returns ``{"ccd e", "t2 amp" (abij),
-    "hole e", "particle e", "dE", "e history"}``.  ``t_V_pqrs`` is the full
+    ``solve(t_fock_pq, t_V_pqrs, level_shift=0, sp=0, amps=None,
+    mixed_precision=False, contract_mode=None, ring_mesh=None,
+    ring_axis="a", layout=None, **kwargs)``, the JAX package's signature,
+    returns ``{"ccd e", "t2 amp" (abij), "hole e", "particle e", "dE",
+    "e history"}``; ``sp`` (the reference's sparse-tensor flag),
+    ``contract_mode`` (the Ozaki modes, exact f64) and ``layout`` (the loop
+    runs in ijab, which gives the abij loop's numbers) are accepted and
+    ignored.  Host arrays are moved onto ``device``.  ``t_V_pqrs`` is the full
     tensor, a dict of named blocks (optionally with ``"ladder"``; blocks
     may come as :class:`~pymes_tpu_torch.parallel.mesh.Sharded`, e.g. from
     ``mesh.shard_blocks`` on a 1-D or 2-D mesh) or :class:`CCDBlocks`.  A
@@ -336,8 +345,8 @@ class CCD:
     block (at most two virtual slots, O(o²v²)) is gathered onto
     ``device`` once per solve."""
 
-    def __init__(self, no, device, delta_e=1e-8, is_dcd=False, is_diis=True,
-                 is_dr_ccd=False, is_bruekner=False):
+    def __init__(self, no, delta_e=1e-8, is_dcd=False, is_diis=True,
+                 is_dr_ccd=False, is_bruekner=False, *, device=None):
         self.no = int(no)
         self.device = resolve_device(device)
         self.delta_e = delta_e
@@ -356,9 +365,9 @@ class CCD:
             return x
         return torch.as_tensor(x, dtype=DTYPE, device=self.device)
 
-    def solve(self, t_fock_pq, t_V_pqrs, level_shift=0.0, amps=None,
-              ring_mesh=None, ring_axis="a", mixed_precision=False,
-              **kwargs):
+    def solve(self, t_fock_pq, t_V_pqrs, level_shift=0.0, sp=0, amps=None,
+              mixed_precision=False, contract_mode=None, ring_mesh=None,
+              ring_axis="a", layout=None, **kwargs):
         max_iter = int(kwargs.get("max_iter", self.max_iter))
         delta_e = float(kwargs.get("delta_e", self.delta_e))
         no = self.no
@@ -424,3 +433,24 @@ class CCD:
         return {"ccd e": float(e), "t2 amp": T, "hole e": eps_i,
                 "particle e": eps_a, "dE": float(dE),
                 "e history": e_hist[:n_iter].cpu().numpy()}
+
+    # the pure residual and energy with the reference's method signatures
+    # (T2 and R abij-ordered), through the ijab path
+    def get_residual(self, t_fock_pq, t_T_abij, t_V_klij, t_V_ijab,
+                     t_V_abij, t_V_iajb, t_V_iabj, t_V_abcd):
+        no = self.no
+        f, T, *V = (self._on_device(x) for x in (
+            t_fock_pq, t_T_abij, t_V_klij, t_V_ijab, t_V_abij, t_V_iajb,
+            t_V_iabj, t_V_abcd))
+        V_ij = blocks_ij_from(CCDBlocks(*V))
+        R = doubles_residual_ij(f[no:, no:], f[:no, :no],
+                                T.permute(2, 3, 0, 1), V_ij,
+                                is_dcd=self.is_dcd,
+                                is_bruekner=self.is_bruekner)
+        return R.permute(2, 3, 0, 1)
+
+    def get_energy(self, t_T_abij, t_V_ijab):
+        """(direct, exchange) energy pieces."""
+        T, V = self._on_device(t_T_abij), self._on_device(t_V_ijab)
+        return ccd_energy_ij(T.permute(2, 3, 0, 1), V,
+                             V.permute(0, 1, 3, 2))

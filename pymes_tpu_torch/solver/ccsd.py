@@ -45,6 +45,7 @@ import string
 
 import torch
 
+from pymes_tpu_torch.config import on_one_device
 from pymes_tpu_torch.integral.partition import (BLOCK_NAMES, OCC_LETTERS,
                                                 part_2_body_int)
 from pymes_tpu_torch.kernels import ccsd_tail
@@ -116,8 +117,9 @@ def _cut_term(cur, lookup, cur_letters, chain, t_T_ai, target_letters):
                                       target_letters, t_T_ai.device)
 
 
-def dressed_block(name, dict_t_V, t_T_ai, skip_sources=(), out_perm=None,
-                  skip_identity=False, half_symmetric=False, twin=False):
+def dressed_block(name, dict_t_V, t_T_ai, skip_sources=(), contract_mode="xla",
+                  out_perm=None, skip_identity=False, half_symmetric=False,
+                  *, twin=False):
     """T1-dress one named block by expanding the bra/ket rank-1 transforms.
 
     bra slots (0,1): virtual target ← {virtual source (id), occupied source
@@ -254,22 +256,30 @@ def dressed_block(name, dict_t_V, t_T_ai, skip_sources=(), out_perm=None,
     return total
 
 
-def get_T1_dressed_V(t_T_ai, dict_t_V, keys=None, twin=False):
+def get_T1_dressed_V(t_T_ai, dict_t_V, keys=None, contract_mode="xla", *,
+                     twin=False, device=None):
     """Dress the requested blocks (default: every named block of the dict;
     ``"_ovvv_plans"`` and other non-block keys are skipped); returns a new
-    dict."""
+    dict.  Host arrays go to the device of the first tensor argument, else
+    to ``device`` (None: the card); ``contract_mode`` (the JAX package's
+    Ozaki modes, exact f64) is accepted and ignored."""
+    t_T_ai, dict_t_V = on_one_device(t_T_ai, dict_t_V, device=device)
     if keys is None:
         keys = tuple(k for k in dict_t_V if k in BLOCK_NAMES)
     return {k: dressed_block(k, dict_t_V, t_T_ai, twin=twin) for k in keys}
 
 
-def get_T1_dressed_fock(t_fock_pq, t_T_ai, dict_t_V, no=None, twin=False):
+def get_T1_dressed_fock(t_fock_pq, t_T_ai, dict_t_V, no=None,
+                        contract_mode="xla", *, twin=False, device=None):
     """Dressed Fock matrix ``f̄ = Λ_bra (f + G) Λ_ket`` with the dressing
     mean field ``G_pq = Σ_bj T_bj (2 V_pjqb − V_pjbq)``; the (ov) block
     keeps the reference's non-Hermitian index pairing
     (``pymes_tpu/solver/ccsd.py:279-281``).  Without ``aibc`` in the dict,
     G_vv comes from K4's diagonal entry (the traced gathers) on the
-    vov/ovv plans."""
+    vov/ovv plans.  Host arrays and ``contract_mode`` as in
+    :func:`get_T1_dressed_V`."""
+    t_fock_pq, t_T_ai, dict_t_V = on_one_device(t_fock_pq, t_T_ai, dict_t_V,
+                                                device=device)
     es = torch.einsum
     if no is None:
         no = dict_t_V["ijab"].shape[0]
@@ -313,11 +323,12 @@ def get_T1_dressed_fock(t_fock_pq, t_T_ai, dict_t_V, no=None, twin=False):
 
 
 def singles_residual_ij(t_fock_dressed_pq, t_T_ai, t_T_ijab, dict_t_V,
-                        ladder_W=None):
+                        contract_mode="xla", ladder_W=None):
     """Singles residual R_ai with T2 carried ``[i,j,a,b]``; uses the
     dressed Fock and the bare V blocks.  Without ``aibc`` in the dict the
     ovvv term comes from the (v,o) corner of the all-bra ladder
-    ``ladder_W`` (W[i,j,p,q] = Σ_cd V_pqcd T_ijcd)."""
+    ``ladder_W`` (W[i,j,p,q] = Σ_cd V_pqcd T_ijcd).  ``contract_mode`` is
+    accepted and ignored, as in :func:`get_T1_dressed_V`."""
     es = torch.einsum
     no = t_T_ai.shape[1]
     t = t_T_ijab
@@ -415,7 +426,7 @@ def energy_blocks(t_fock_pq, dict_t_V, no):
 
 def ccsd_iteration(t_fock_pq, dict_t_V, no, T1, T2, eps_i, eps_a,
                    level_shift, diis_state, e_last, is_dcsd=False,
-                   is_diis=True, ladder_all=None, e_blocks=None,
+                   is_diis=True, ladder_all=None, *, e_blocks=None,
                    twin=False):
     """One CCSD iteration: dress → residuals → Jacobi → DIIS → energy
     (``pymes_tpu/solver/ccsd.py:414``, ``layout="ijab"``).
@@ -494,7 +505,8 @@ def ccsd_solve(t_fock_pq, dict_t_V, no, t_T1_0, t_T2_0, level_shift=0.0,
     dE = torch.abs(e_last) + 1.0
 
     m = dim_space if is_diis else 1
-    state = diis.init_state(m, nv * no + T2.numel(), T2.dtype, T2.device)
+    state = diis.init_state(m, nv * no + T2.numel(), T2.dtype,
+                            device=T2.device)
     info = torch.zeros((), dtype=torch.int32, device=T2.device)
     e_hist = torch.full((max_iter + 1,), float("nan"), dtype=T2.dtype,
                         device=T2.device)
@@ -520,14 +532,19 @@ def ccsd_solve(t_fock_pq, dict_t_V, no, t_T1_0, t_T2_0, level_shift=0.0,
 
 
 class CCSD(ccd_mod.CCD):
-    """Reference-API CCSD/DCSD solver on ``device``
-    (``pymes_tpu/solver/ccsd.py:738``, ``layout="ijab"``).
+    """Reference-API CCSD/DCSD solver on ``device`` (keyword-only; None:
+    the card; ``pymes_tpu/solver/ccsd.py:738``, ``layout="ijab"``).
+    ``is_non_canonical`` is accepted and ignored, as the JAX package does
+    (the T1-dressed equations hold for any Fock matrix).
 
-    ``solve(t_fock_pq, t_V_pqrs, level_shift=0, amps=None, ladder=None,
-    mixed_precision=False, dress_precision=None, **kwargs)`` returns
+    ``solve(t_fock_pq, t_V_pqrs, level_shift=0, amps=None, sp=0,
+    ladder=None, mixed_precision=False, contract_mode=None, layout=None,
+    dress_precision=None, **kwargs)``, the JAX package's signature, returns
     ``{"ccsd e", "t1", "t2" (abij), "hole e", "particle e", "dE",
     "e history"}``; the precision modes are the module docstring's
-    (``dress_precision`` None or "f64"; "f32" raises).
+    (``dress_precision`` None or "f64"; "f32" raises); ``sp``,
+    ``contract_mode`` and ``layout`` are accepted and ignored, as in
+    :meth:`CCD.solve <pymes_tpu_torch.solver.ccd.CCD.solve>`.
     ``t_V_pqrs`` is the full tensor or a dict of named blocks (optionally
     with ``"_ovvv_plans"``); ``ladder`` an all-bra BlockLadder for the
     matrix-free path; ``amps`` a pair (T1, T2 abij) to start from, whole
@@ -542,10 +559,10 @@ class CCSD(ccd_mod.CCD):
     of the mesh); the others are gathered onto ``device``, which must be
     the home device of a cut ``abcd`` (its first piece's)."""
 
-    def __init__(self, no, device, delta_e=1e-8, is_dcsd=False,
-                 is_diis=True):
-        super().__init__(no, device, delta_e=delta_e, is_dcd=is_dcsd,
-                         is_diis=is_diis)
+    def __init__(self, no, is_diis=True, delta_e=1e-8,
+                 is_non_canonical=False, is_dcsd=False, *, device=None):
+        super().__init__(no, delta_e=delta_e, is_dcd=is_dcsd,
+                         is_diis=is_diis, device=device)
 
     def _dict_on_device(self, t_V_pqrs):
         if not isinstance(t_V_pqrs, dict):
@@ -556,9 +573,9 @@ class CCSD(ccd_mod.CCD):
             d["_abcd_dressing"] = tensor_parallel.dressing_operands(d)
         return d
 
-    def solve(self, t_fock_pq, t_V_pqrs, level_shift=0.0, amps=None,
-              ladder=None, mixed_precision=False, dress_precision=None,
-              **kwargs):
+    def solve(self, t_fock_pq, t_V_pqrs, level_shift=0.0, amps=None, sp=0,
+              ladder=None, mixed_precision=False, contract_mode=None,
+              layout=None, dress_precision=None, **kwargs):
         max_iter = int(kwargs.get("max_iter", self.max_iter))
         delta_e = float(kwargs.get("delta_e", self.delta_e))
         if dress_precision not in (None, "f64"):
@@ -613,11 +630,12 @@ class CCSD(ccd_mod.CCD):
     def get_T1_dressed_fock(self, t_fock_pq, t_T_ai, dict_t_V):
         return get_T1_dressed_fock(self._on_device(t_fock_pq),
                                    self._on_device(t_T_ai), dict_t_V,
-                                   no=self.no)
+                                   no=self.no, device=self.device)
 
     def get_T1_dressed_V(self, t_T_ai, dict_t_V, dict_t_V_dressed=None):
         keys = tuple(dict_t_V_dressed) if dict_t_V_dressed else None
-        return get_T1_dressed_V(self._on_device(t_T_ai), dict_t_V, keys=keys)
+        return get_T1_dressed_V(self._on_device(t_T_ai), dict_t_V, keys=keys,
+                                device=self.device)
 
     def get_singles_residual(self, t_fock_pq, t_T_ai, t_T_abij, dict_t_V):
         return singles_residual_ij(t_fock_pq, t_T_ai,

@@ -7,6 +7,6 @@ from pymes_tpu_torch.solver.ccd import CCD
 
 
 class DCD(CCD):
-    def __init__(self, no, device, **kwargs):
+    def __init__(self, no, **kwargs):
         kwargs.pop("is_dcd", None)
-        super().__init__(no, device, is_dcd=True, **kwargs)
+        super().__init__(no, is_dcd=True, **kwargs)

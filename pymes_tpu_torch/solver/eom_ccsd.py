@@ -108,9 +108,12 @@ def _check_all_bra(W, no, nv):
                          "(bra='all')")
 
 
-def build_hbar(t_fock_pq, dict_t_V, t_T_abij, twin=False):
+def build_hbar(t_fock_pq, dict_t_V, t_T_abij, contract_mode="xla", *,
+               twin=False):
     """Precompute the T2-dependent H̄ intermediates (once per solve).  In the
-    no-ovvv mode ``W_laji`` comes from K1 on T2 (all-bra plan)."""
+    no-ovvv mode ``W_laji`` comes from K1 on T2 (all-bra plan).
+    ``contract_mode`` (the JAX package's Ozaki modes, exact f64) is
+    accepted and ignored."""
     es = torch.einsum
     V = dict_t_V["ijab"]
     T = t_T_abij
@@ -171,13 +174,14 @@ def _batch(u1, u2):
 
 
 def sigma_singles_hbar(t_fock_pq, dict_t_V, hbar, t_u_ai, t_u_abij,
-                       t_T_abij, Wu=None, twin=False):
+                       t_T_abij, contract_mode="xla", *, Wu=None,
+                       twin=False):
     """Singles block of H̄·u through the intermediates
     (``pymes_tpu/solver/eom_ccsd.py:120``).  ``t_u_ai`` (nv, no) and
     ``t_u_abij`` (nv, nv, no, no), or a batch of each with a leading axis;
     ``Wu`` is the batched all-bra ladder image of the trial doubles from
     :func:`_ladders` (computed here when the no-ovvv mode needs it and it
-    is not given)."""
+    is not given).  ``contract_mode`` as in :func:`build_hbar`."""
     es = torch.einsum
     u1, u2, single = _batch(t_u_ai, t_u_abij)
     no = u1.shape[-1]
@@ -222,12 +226,15 @@ def sigma_singles_hbar(t_fock_pq, dict_t_V, hbar, t_u_ai, t_u_abij,
 
 
 def sigma_doubles_hbar(t_fock_pq, dict_t_V, hbar, t_u_ai, t_u_abij,
-                       t_T_abij, Wu=None, WX=None, twin=False):
+                       t_T_abij, contract_mode="xla", sliced=None, *,
+                       Wu=None, WX=None, twin=False):
     """Doubles block of H̄·u through the intermediates
     (``pymes_tpu/solver/eom_ccsd.py:180``), single or batched as
     :func:`sigma_singles_hbar`.  ``Wu``/``WX`` are the ladder images of
     :func:`_ladders` (computed here when needed and not given).  The
-    P(ab,ij) symmetrisation runs through K5."""
+    P(ab,ij) symmetrisation runs through K5.  ``contract_mode`` and
+    ``sliced`` (the JAX package's Ozaki modes and their preslices, exact
+    f64) are accepted and ignored."""
     es = torch.einsum
     u1, u2, single = _batch(t_u_ai, t_u_abij)
     no = u1.shape[-1]
@@ -562,7 +569,7 @@ class EOM_CCSD:
     ``twin=True`` runs K1, K4, K5 and K6 through their plain twins
     (on-card comparison)."""
 
-    def __init__(self, no, device, n_excit=3):
+    def __init__(self, no, n_excit=3, *, device=None):
         self.algo_name = "EOM-CCSD"
         self.no = int(no)
         self.device = resolve_device(device)
@@ -765,7 +772,7 @@ class EOM_CCSD:
         """The mixed pipeline (``eom_ccsd.py:973-1013``): the f32 seed
         phase on a plain solver, then the f64 polish seeded with its Ritz
         vectors, tracked from them."""
-        pre = EOM_CCSD(self.no, self.device, n_excit=self.n_excit)
+        pre = EOM_CCSD(self.no, device=self.device, n_excit=self.n_excit)
         pre.max_dim = self.max_dim
         # the f32 phase only supplies seeds: its tolerance sits above the
         # f32 Ritz-value noise floor and its iterations are capped (past

@@ -160,10 +160,10 @@ class FEAST_EOM_CCSD(EOM_CCSD):
     nodes over its ``node_axis`` (module docstring).  ``twin=True`` runs
     every kernel through its plain twin."""
 
-    def __init__(self, no, device, e_c=0.0, e_r=1.0, n_trial=5, max_iter=20,
+    def __init__(self, no, e_c=0.0, e_r=1.0, n_trial=5, max_iter=20,
                  tol=1e-12, n_quad=8, seed=None, n_excit=2, ls_conv_tol=1e-4,
-                 node_mesh=None, ls_precision="f64"):
-        super().__init__(no, device, n_excit=int(n_excit))
+                 node_mesh=None, *, device=None, ls_precision="f64"):
+        super().__init__(no, n_excit=int(n_excit), device=device)
         self.algo_name = "FEAST-EOM-CCSD"
         self.e_c = e_c
         self.e_r = e_r
@@ -205,6 +205,10 @@ class FEAST_EOM_CCSD(EOM_CCSD):
         self._ls_precision = value
 
     # --- operator ---------------------------------------------------------
+    def dump_log(self):
+        """The reference class's log hook: a no-op, as in the JAX package
+        (``ls_stats`` holds the solves' counts)."""
+
     def _operator(self, f, dict_t_V, T2):
         """(f, V, T2, diag) on the device, built once per (f, V, T2) triple
         with the H̄ intermediates and the f32 copy of both: the RT

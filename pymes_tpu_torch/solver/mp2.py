@@ -8,6 +8,8 @@ the first virtual axis in a Python loop (the JAX package's ``lax.map``).
 
 import torch
 
+from pymes_tpu_torch.config import on_one_device
+
 
 def _denominator(eps_i, eps_a_rows, eps_a):
     return (eps_i[None, None, :, None] + eps_i[None, None, None, :]
@@ -15,10 +17,14 @@ def _denominator(eps_i, eps_a_rows, eps_a):
 
 
 def solve(t_epsilon_i, t_epsilon_a, t_V_ijab, t_V_abij, level_shift=0.0,
-          **kwargs):
+          *, device=None, **kwargs):
     """MP2 energy and amplitudes: T_abij = V_abij / (D_abij + shift).
 
-    Returns ``[e_mp2, T_abij]`` like the reference."""
+    Host arrays are computed on the device of a tensor argument, else on
+    ``device`` (None: the card).  Returns ``[e_mp2, T_abij]`` like the
+    reference."""
+    t_epsilon_i, t_epsilon_a, t_V_ijab, t_V_abij = on_one_device(
+        t_epsilon_i, t_epsilon_a, t_V_ijab, t_V_abij, device=device)
     t_T_abij = t_V_abij / (_denominator(t_epsilon_i, t_epsilon_a,
                                         t_epsilon_a) + level_shift)
     e_dir = 2.0 * torch.einsum("abij,ijab->", t_T_abij, t_V_ijab)

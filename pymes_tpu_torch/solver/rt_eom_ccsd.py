@@ -28,12 +28,12 @@ from pymes_tpu_torch.solver.feast_eom_ccsd import (
 
 class RT_EOM_CCSD(FEAST_EOM_CCSD):
     """One CIF real-time propagation step per ``solve`` call on ``device``
-    (reference API: ``rt_eom_ccsd.py:28``)."""
+    (keyword-only; None: the card; reference API: ``rt_eom_ccsd.py:28``)."""
 
-    def __init__(self, no, device, e_c=0.0, e_r=1.0, dt=0.1, tol=1e-12,
+    def __init__(self, no, e_c=0.0, e_r=1.0, dt=0.1, tol=1e-12,
                  max_iter=100, n_quad=8, **kwargs):
-        super().__init__(no, device, e_c=e_c, e_r=e_r, max_iter=max_iter,
-                         tol=tol, n_quad=n_quad, **kwargs)
+        super().__init__(no, e_c=e_c, e_r=e_r, max_iter=max_iter, tol=tol,
+                         n_quad=n_quad, **kwargs)
         self.dt = dt
         self.u_singles = None
         self.u_doubles = None

@@ -39,10 +39,10 @@ class SolverCheckpoint:
             return self.t2
         return (self.t1, self.t2)
 
-    def diis_state(self, device):
+    def diis_state(self, *, device=None):
         """The DIIS ring as the port's :class:`~pymes_tpu_torch.mixer.diis.
-        DIISState` on ``device``: ``count`` a host int, ``B`` the Gram
-        matrix ``diis.gram_from_errs`` of the ring."""
+        DIISState` on ``device`` (None: the card): ``count`` a host int,
+        ``B`` the Gram matrix ``diis.gram_from_errs`` of the ring."""
         if self.diis_amps is None:
             return None
         dev = resolve_device(device)

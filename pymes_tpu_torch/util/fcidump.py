@@ -134,13 +134,14 @@ def read(fcidump_file="FCIDUMP", is_tc=False):
     return n_elec, n_orb, e_core, epsilon_p, h_pq, V_pqrs
 
 
-def read_blocks(fcidump_file, no, device, names=("klij", "ijab", "abij",
-                                                 "iajb", "iabj", "abcd"),
-                is_tc=False):
+def read_blocks(fcidump_file, no, names=("klij", "ijab", "abij", "iajb",
+                                         "iabj", "abcd"),
+                is_tc=False, *, device=None):
     """Stream an FCIDUMP straight into named occ/vir blocks.
 
     Returns ``(n_elec, n_orb, e_core, epsilon_p, h_pq, dict_of_blocks)``
-    with the blocks as f64 tensors on ``device`` (the rest numpy), without
+    with the blocks as f64 tensors on ``device`` (None: the card; the rest
+    numpy), without
     the dense nb⁴ ``V_pqrs``: peak host memory is the nonzero list plus
     one block.  Block names use the reference's convention: letters i–l
     map to the occupied range ``[0, no)``, a–d to the virtual range

@@ -22,9 +22,10 @@ from pymes_tpu_torch.config import resolve_device
 
 
 @contextlib.contextmanager
-def profile(log_dir, device):
-    """Trace the enclosed block with ``torch.profiler`` and export it to
-    ``<log_dir>/trace.json`` (Chrome trace format).  Yields the profiler
+def profile(log_dir="/tmp/pymes_tpu_profile", *, device=None):
+    """Trace the enclosed block with ``torch.profiler`` on ``device`` (None:
+    the card) and export it to ``<log_dir>/trace.json`` (Chrome trace
+    format; the default directory is the JAX package's).  Yields the profiler
     (``key_averages()`` sums time by op).  The profiler stops when the
     block raises too; the trace is then not written."""
     dev = resolve_device(device)

@@ -76,9 +76,11 @@ def achieved_tflops(flops, seconds):
     return flops / seconds / 1e12
 
 
-def report(tag, seconds, eff_flops):
+def report(tag, seconds, eff_flops, raw_flops=None):
     """One formatted roofline line: achieved f64 TFLOP/s and its share of
-    the H100's FP64 tensor-core peak."""
+    the H100's FP64 tensor-core peak.  ``raw_flops`` (the JAX package's
+    Ozaki slice-product count on the TPU's MXU) is accepted and ignored:
+    the port runs f64 natively, so its raw and effective counts are one."""
     eff = achieved_tflops(eff_flops, seconds)
     return (f"{tag}: {seconds * 1e3:.3f} ms, {eff:.3f} f64 TFLOP/s = "
             f"{100 * eff * 1e12 / FP64_TENSOR_FLOPS_S:.2f}% of the H100 "

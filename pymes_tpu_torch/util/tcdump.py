@@ -108,9 +108,12 @@ def read_sparse(file_name="TCDUMP"):
     return SparseL(idx=rows, vals=v, nb=nb)
 
 
-def read(file_name="TCDUMP"):
+def read(file_name="TCDUMP", sym=True, sp=1):
     """Read a TCDUMP into the dense (nb,)*6 array ``L[o,r,p,s,q,t]``
-    (−3× file values, 6-fold symmetry restored)."""
+    (−3× file values, 6-fold symmetry restored).  ``sym`` and ``sp`` (the
+    reference's symmetry and sparse-tensor flags) are accepted and
+    ignored, as in the JAX package: the 6-fold symmetry is always
+    restored and the array is dense."""
     print_logging_info("Reading in TCDUMP", level=1)
     vals, idx, nb = _read_records(file_name)
     return _scatter_6_fold(np.zeros([nb] * 6), idx, vals)
@@ -120,11 +123,13 @@ def unique_index(p, q):
     return int(min(p, q) + (max(p, q) - 1) * max(p, q) / 2)
 
 
-def write(t_L_orpsqt, file_name="TCDUMP"):
+def write(t_L_orpsqt, file_name="TCDUMP", sym=True, type="r", sp=1):
     """Write one canonical representative per 6-fold permutation orbit of a
     dense 6-index L tensor (numpy; the inverse of :func:`read`, values
     stored as ``−L/3``): the lexicographically smallest (o,p,q,r,s,t)
-    under the 6 joint pair permutations."""
+    under the 6 joint pair permutations.  ``sym``, ``type`` and ``sp``
+    (the reference's flags) are accepted and ignored, as in the JAX
+    package."""
     nb = t_L_orpsqt.shape[0]
     o, r, p, s, q, t = np.nonzero(np.abs(t_L_orpsqt) > 1e-10)
     vals = t_L_orpsqt[o, r, p, s, q, t]

@@ -65,11 +65,11 @@ def _ueg(cutoff, dense=False):
                               abij=dj["abij"], iajb=dj["iajb"],
                               iabj=dj["iabj"], abcd=dj.get("abcd"),
                               ladder=lad))
-    dt = tueg.sparse_to_blocks(idx, vals, n_p, NO, "cpu", names=names)
+    dt = tueg.sparse_to_blocks(idx, vals, n_p, NO, device="cpu", names=names)
     ei = thf.calcOccupiedOrbE(ut.kinetic_energies(), dt["klij"], NO)
     ea = thf.calcVirtualOrbE(ut.kinetic_energies(), dt["aibj"], dt["aijb"],
                              NO, n_p - NO)
-    lad = None if dense else tladder.build_block_ladder(ut, "cpu")
+    lad = None if dense else tladder.build_block_ladder(ut, device="cpu")
     out["torch"] = dict(
         eps_i=ei, eps_a=ea, fock=torch.diag(torch.cat([ei, ea])),
         blocks=tccd.CCDBlocks(klij=dt["klij"], ijab=dt["ijab"],
@@ -189,14 +189,14 @@ def test_main_path_np57_matches_jax_and_oracle():
     # the user entry point: the CCD class on a dict of blocks + plan
     t = p["torch"]
     blocks = {f: getattr(t["blocks"], f) for f in t["blocks"]._fields}
-    res = tccd.CCD(NO, "cpu").solve(t["fock"], blocks, level_shift=-1.0,
-                                    max_iter=60)
+    res = tccd.CCD(NO, device="cpu").solve(t["fock"], blocks, level_shift=-1.0,
+                                           max_iter=60)
     assert abs(res["ccd e"] - float(out_t[0])) <= 1e-12
     assert res["t2 amp"].shape == (p["nv"], p["nv"], NO, NO)
     assert len(res["e history"]) == 6
-    dcd = tccd.CCD(NO, "cpu", is_dcd=True).solve(t["fock"], blocks,
-                                                 level_shift=-1.0,
-                                                 max_iter=60)
+    dcd = tccd.CCD(NO, device="cpu", is_dcd=True).solve(t["fock"], blocks,
+                                                        level_shift=-1.0,
+                                                        max_iter=60)
     assert abs(dcd["ccd e"] - ORACLE["ueg57_dcd"]) <= 1e-6
 
 
@@ -204,7 +204,7 @@ def test_lih_dense_ccd_oracle(lih):
     no = lih["no"]
     h, V = torch.as_tensor(lih["h"]), torch.as_tensor(lih["V"])
     fock = thf.construct_hf_matrix(no, h, V)
-    res = tccd.CCD(no, "cpu").solve(fock.numpy(), lih["V"])
+    res = tccd.CCD(no, device="cpu").solve(fock.numpy(), lih["V"])
     # the oracle's own tolerance (np.isclose, as tests/test_ccsd.py): the
     # solve stops at |dE| < 1e-8, so E carries an error of that order
     assert np.isclose(res["ccd e"], ORACLE["lih_ccd"])

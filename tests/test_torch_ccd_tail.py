@@ -48,7 +48,7 @@ def record():
 def test_diis_mix_matches_jax(record):
     n = NO * NO * NV * NV
     sj = jdiis.init_state(M, n, jnp.float64)
-    st = tdiis.init_state(M, n, torch.float64, "cpu")
+    st = tdiis.init_state(M, n, torch.float64, device="cpu")
     for R, T in zip(record["R"], record["T"]):
         err, amp = R.reshape(-1), T.reshape(-1)
         sj, mj = jdiis.mix(sj, jnp.asarray(err), jnp.asarray(amp))
@@ -71,7 +71,7 @@ def test_gram_from_errs_matches_jax(dtype):
     got = tdiis.gram_from_errs(torch.as_tensor(errs))
     assert got.dtype == torch.float64
     _close(got.numpy(), jdiis.gram_from_errs(jnp.asarray(errs)))
-    st = tdiis.init_state(M, 40, torch.float64, "cpu")
+    st = tdiis.init_state(M, 40, torch.float64, device="cpu")
     for k in range(STEPS):
         st, _ = tdiis.mix(st, torch.as_tensor(errs.real[k % M] + k),
                           torch.as_tensor(errs.real[k % M]))
@@ -101,7 +101,7 @@ def test_tail_twins_match_jax_step(record, shift):
     Vx = V.transpose(0, 1, 3, 2)
     n = V.size
     sj = jdiis.init_state(M, n, jnp.float64)
-    st = tdiis.init_state(M, n, torch.float64, "cpu")
+    st = tdiis.init_state(M, n, torch.float64, device="cpu")
     D = (eps_i[:, None, None, None] + eps_i[None, :, None, None]
          - eps_a[None, None, :, None] - eps_a[None, None, None, :])
     tt = {k: torch.as_tensor(record[k]) for k in ("eps_i", "eps_a", "V")}
@@ -142,7 +142,7 @@ def test_tail_without_diis_is_the_plain_jacobi_step(record):
          + record["eps_i"][None, :, None, None]
          - record["eps_a"][None, None, :, None]
          - record["eps_a"][None, None, None, :])
-    state = tdiis.init_state(1, T.size, torch.float64, "cpu")
+    state = tdiis.init_state(1, T.size, torch.float64, device="cpu")
     T_t = torch.as_tensor(T.copy())
     ccd_tail.jacobi_diis_insert(torch.as_tensor(R), T_t, eps_i, eps_a, 0.0,
                                 state.errs, state.amps, 0, 1)

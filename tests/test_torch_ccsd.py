@@ -80,7 +80,7 @@ def _same_history(got, want, tol=1e-10):
 def test_molecular_ccsd_matches_jax_and_oracle(name):
     no, fock, V, hf_e = _molecule(name)
     kw = {"delta_e": 1e-11} if name.startswith("tc") else {}
-    res = ccsd.CCSD(no, "cpu").solve(fock, V, **kw)
+    res = ccsd.CCSD(no, device="cpu").solve(fock, V, **kw)
     assert abs(res["ccsd e"] - ORACLE[name]) <= TOL[name]
     if name.startswith("tc"):
         assert abs(hf_e - ORACLE[name + "_hf"]) <= 1e-8
@@ -100,7 +100,7 @@ def test_lih_variants_same_trajectory_as_jax(kw):
     no, fock, V, _ = _molecule("lih")
     flags = {k: kw[k] for k in ("is_dcsd", "is_diis") if k in kw}
     solve_kw = {k: kw[k] for k in ("delta_e", "max_iter") if k in kw}
-    res = ccsd.CCSD(no, "cpu", **flags).solve(fock, V, **solve_kw)
+    res = ccsd.CCSD(no, device="cpu", **flags).solve(fock, V, **solve_kw)
     ref = jccsd.CCSD(no, **flags).solve(jnp.asarray(fock), jnp.asarray(V),
                                         **solve_kw)
     _same_history(res, ref)
@@ -116,7 +116,7 @@ def test_h2_nonsingular_ring_same_trajectory_as_jax(is_diis, dim_space):
     JAX package to 1e-10 per iteration, so the 1e-7 allowance of the
     6-slot solve above is the singular bordered solve's rounding alone."""
     no, fock, V, _ = _molecule("h2")
-    solvers = [ccsd.CCSD(no, "cpu", is_diis=is_diis),
+    solvers = [ccsd.CCSD(no, device="cpu", is_diis=is_diis),
                jccsd.CCSD(no, is_diis=is_diis)]
     for s in solvers:
         s.dim_space = dim_space
@@ -137,13 +137,13 @@ def test_ueg_matrix_free_ccsd_matches_dense_and_jax():
     fock = fock + torch.as_tensor(0.02 * noise + 0.02 * noise.T)
     kw = dict(delta_e=1e-10, max_iter=200)
 
-    dense = ccsd.CCSD(no, "cpu").solve(fock, V, **kw)
+    dense = ccsd.CCSD(no, device="cpu").solve(fock, V, **kw)
     assert float(dense["t1"].abs().max()) > 1e-3
     d_mf = {k: v for k, v in tpart(no, V).items()
             if k not in ("abcd", "abci", "iabc", "aibc", "abic")}
-    d_mf["_ovvv_plans"] = ueg_ladder.build_ovvv_plans(u, "cpu")
-    plan = ueg_ladder.build_block_ladder(u, "cpu", bra="all")
-    mf = ccsd.CCSD(no, "cpu").solve(fock, d_mf, ladder=plan, **kw)
+    d_mf["_ovvv_plans"] = ueg_ladder.build_ovvv_plans(u, device="cpu")
+    plan = ueg_ladder.build_block_ladder(u, device="cpu", bra="all")
+    mf = ccsd.CCSD(no, device="cpu").solve(fock, d_mf, ladder=plan, **kw)
     assert abs(mf["ccsd e"] - dense["ccsd e"]) <= 1e-9
     assert float((mf["t1"] - dense["t1"]).abs().max()) <= 1e-9
 
@@ -166,7 +166,7 @@ def test_ccsd_reference_helpers_match_jax():
     rng = np.random.default_rng(9)
     T1 = rng.standard_normal((nv, no)) * 0.05
     T2 = rng.standard_normal((nv, nv, no, no)) * 0.05
-    mt, mj = ccsd.CCSD(no, "cpu"), jccsd.CCSD(no)
+    mt, mj = ccsd.CCSD(no, device="cpu"), jccsd.CCSD(no)
     dt, dj = tpart(no, torch.as_tensor(V)), jpart(no, jnp.asarray(V))
     ft, fj = torch.as_tensor(fock), jnp.asarray(fock)
     T1t, T2t = torch.as_tensor(T1), torch.as_tensor(T2)

@@ -87,7 +87,7 @@ def test_ovvv_plans_match_jax(cutoff):
     uj, ut = jueg.UEG(14, 7, 7, 0.5), tueg.UEG(14, 7, 7, 0.5)
     uj.init_single_basis(cutoff)
     ut.init_single_basis(cutoff)
-    got = tladder.build_ovvv_plans(ut, "cpu")
+    got = tladder.build_ovvv_plans(ut, device="cpu")
     want = jladder.build_ovvv_plans(uj)
     assert got.keys() == want.keys() == {"vvo", "ovv", "vov"}
     carried = interop.ovvv_plans_from_numpy(want, "cpu")

@@ -60,7 +60,7 @@ def test_checkpoint_files_load_across_packages(direction, tmp_path):
 
 def test_diis_state_equal():
     ck = _full(checkpoint)
-    st = ck.diis_state("cpu")
+    st = ck.diis_state(device="cpu")
     ref = jcheckpoint.SolverCheckpoint(**vars(ck)).diis_state()
     assert st.count == 7 and isinstance(st.count, int)
     assert st.amps.dtype == torch.float64
@@ -71,7 +71,8 @@ def test_diis_state_equal():
     # the restored Gram matrix is the ring's errs·errsᵀ, bit for bit
     errs = torch.as_tensor(ck.diis_errs)
     assert torch.equal(st.B, errs @ errs.T)
-    assert checkpoint.SolverCheckpoint(t2=ck.t2).diis_state("cpu") is None
+    assert checkpoint.SolverCheckpoint(t2=ck.t2).diis_state(
+        device="cpu") is None
 
 
 def test_checkpoint_roundtrip_and_warm_start(tmp_path):
@@ -82,7 +83,7 @@ def test_checkpoint_roundtrip_and_warm_start(tmp_path):
     no = n_elec // 2
     h, V = torch.as_tensor(h), torch.as_tensor(V)
     fock = hf.construct_hf_matrix(no, h, V)
-    res = ccd.CCD(no, "cpu").solve(fock, V)
+    res = ccd.CCD(no, device="cpu").solve(fock, V)
     ck = checkpoint.from_result(res, meta={"system": "LiH"})
     assert isinstance(ck.t2, np.ndarray)
     checkpoint.save(str(tmp_path / "ccd_ckpt"), ck)
@@ -91,7 +92,7 @@ def test_checkpoint_roundtrip_and_warm_start(tmp_path):
     assert np.array_equal(ck2.t2, res["t2 amp"].numpy())
     assert ck2.meta["system"] == "LiH"
     assert abs(ck2.energy - res["ccd e"]) < 1e-14
-    res2 = ccd.CCD(no, "cpu").solve(fock, V, amps=ck2.amps)
+    res2 = ccd.CCD(no, device="cpu").solve(fock, V, amps=ck2.amps)
     assert abs(res2["ccd e"] - res["ccd e"]) < 5e-8
     assert len(res2["e history"]) < len(res["e history"])
 
@@ -101,16 +102,16 @@ def _port_problem():
     u.init_single_basis(5)
     idx, vals = u.eval_2b_integrals(sp=2)
     n_p = u.n_spatial
-    d = ueg.sparse_to_blocks(idx, vals, n_p, NO, "cpu", names=NEED)
+    d = ueg.sparse_to_blocks(idx, vals, n_p, NO, device="cpu", names=NEED)
     kin = u.kinetic_energies()
     eps = torch.cat([hf.calcOccupiedOrbE(kin, d["klij"], NO),
                      hf.calcVirtualOrbE(kin, d["aibj"], d["aijb"], NO,
                                         n_p - NO)]).numpy()
     noise = np.random.default_rng(5).standard_normal((n_p, n_p)) * 0.02
     fock = np.diag(eps) + noise + noise.T
-    d["_ovvv_plans"] = ueg_ladder.build_ovvv_plans(u, "cpu")
+    d["_ovvv_plans"] = ueg_ladder.build_ovvv_plans(u, device="cpu")
     return (torch.as_tensor(fock), d,
-            ueg_ladder.build_block_ladder(u, "cpu", bra="all"))
+            ueg_ladder.build_block_ladder(u, device="cpu", bra="all"))
 
 
 def _jax_problem(fock, d_port):
@@ -130,11 +131,13 @@ def test_mf_ccsd_resume_across_packages(tmp_path):
     kw = dict(level_shift=-1.0, delta_e=1e-10)
     fock, d, plan = _port_problem()
     jfock, jd, jplan = _jax_problem(fock, d)
-    full = ccsd.CCSD(NO, "cpu").solve(fock, d, ladder=plan, max_iter=100,
-                                      **kw)
+    full = ccsd.CCSD(NO, device="cpu").solve(fock, d, ladder=plan,
+                                             max_iter=100,
+                                             **kw)
     assert float(full["t1"].abs().max()) > 1e-3
 
-    part = ccsd.CCSD(NO, "cpu").solve(fock, d, ladder=plan, max_iter=2, **kw)
+    part = ccsd.CCSD(NO, device="cpu").solve(fock, d, ladder=plan, max_iter=2,
+                                             **kw)
     jpart = jccsd.CCSD(NO).solve(jfock, jd, ladder=jplan, max_iter=2,
                                  contract_mode="xla", **kw)
     assert len(part["e history"]) == len(jpart["e history"]) == 3
@@ -142,8 +145,8 @@ def test_mf_ccsd_resume_across_packages(tmp_path):
     jcheckpoint.save(str(tmp_path / "jax"), jcheckpoint.from_result(jpart))
 
     ck = checkpoint.load(str(tmp_path / "jax"))
-    res = ccsd.CCSD(NO, "cpu").solve(fock, d, ladder=plan, max_iter=100,
-                                     amps=ck.amps, **kw)
+    res = ccsd.CCSD(NO, device="cpu").solve(fock, d, ladder=plan, max_iter=100,
+                                            amps=ck.amps, **kw)
     jck = jcheckpoint.load(str(tmp_path / "port"))
     ref = jccsd.CCSD(NO).solve(jfock, jd, ladder=jplan, max_iter=100,
                                amps=jck.amps, contract_mode="xla", **kw)

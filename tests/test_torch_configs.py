@@ -150,16 +150,16 @@ def _port_mf_ccd(shift):
                           k_shift=tuple(shift)).make()
     idx, vals = u.eval_2b_integrals(sp=2)
     n_p = u.n_spatial
-    d = ueg.sparse_to_blocks(idx, vals, n_p, NO, "cpu", names=NEED)
+    d = ueg.sparse_to_blocks(idx, vals, n_p, NO, device="cpu", names=NEED)
     kin = u.kinetic_energies()
     eps_i = hf.calcOccupiedOrbE(kin, d["klij"], NO)
     eps_a = hf.calcVirtualOrbE(kin, d["aibj"], d["aijb"], NO, n_p - NO)
     blocks = ccd.CCDBlocks(
         klij=d["klij"], ijab=d["ijab"], abij=d["abij"], iajb=d["iajb"],
         iabj=d["iabj"], abcd=None,
-        ladder=ueg_ladder.build_block_ladder(u, "cpu"))
-    solver = configs.GroundStateConfig(no=NO, max_iter=60,
-                                       log_iterations=True).make_ccd("cpu")
+        ladder=ueg_ladder.build_block_ladder(u, device="cpu"))
+    solver = configs.GroundStateConfig(
+        no=NO, max_iter=60, log_iterations=True).make_ccd(device="cpu")
     return solver.solve(torch.diag(torch.cat([eps_i, eps_a])), blocks,
                         level_shift=-1.0)
 

@@ -74,13 +74,14 @@ def _problem(cutoff, device):
     u.init_single_basis(cutoff)
     idx, vals = u.eval_2b_integrals(sp=2)
     n_p = u.n_spatial
-    d = ueg.sparse_to_blocks(idx, vals, n_p, NO, device, names=NEED)
+    d = ueg.sparse_to_blocks(idx, vals, n_p, NO, device=device, names=NEED)
     eps_i = hf.calcOccupiedOrbE(u.kinetic_energies(), d["klij"], NO)
     eps_a = hf.calcVirtualOrbE(u.kinetic_energies(), d["aibj"], d["aijb"],
                                NO, n_p - NO)
     blocks = ccd.CCDBlocks(klij=d["klij"], ijab=d["ijab"], abij=d["abij"],
                            iajb=d["iajb"], iabj=d["iabj"], abcd=None,
-                           ladder=ueg_ladder.build_block_ladder(u, device))
+                           ladder=ueg_ladder.build_block_ladder(
+                               u, device=device))
     return u, blocks, eps_i, eps_a
 
 
@@ -94,7 +95,7 @@ def _randn(rng, shape, device, scale=1.0):
 def test_block_ladder_kernel_matches_twin(device, cutoff, bra):
     u = ueg.UEG(14, 7, 7, 0.5)
     u.init_single_basis(cutoff)
-    plan = ueg_ladder.build_block_ladder(u, device, bra=bra)
+    plan = ueg_ladder.build_block_ladder(u, device=device, bra=bra)
     nv = u.n_spatial - NO
     T = _randn(np.random.default_rng(cutoff), (NO, NO, nv, nv), device)
     before = kernels.LAUNCHES["block_ladder"]
@@ -265,7 +266,7 @@ def test_solve_on_card_matches_cpu(device):
 def test_kernels_refuse_what_they_do_not_take(device):
     u = ueg.UEG(14, 7, 7, 0.5)
     u.init_single_basis(2)
-    plan = ueg_ladder.build_block_ladder(u, device)
+    plan = ueg_ladder.build_block_ladder(u, device=device)
     nv = u.n_spatial - NO
     T32 = torch.zeros((NO, NO, nv, nv), dtype=torch.float32, device=device)
     with pytest.raises(TypeError):
@@ -302,7 +303,7 @@ def test_ovvv_gather_kernel_matches_twin(device, cutoff, pat, ncol):
     column count, with one (p) row of the plan all outside the basis."""
     u = ueg.UEG(14, 7, 7, 0.5)
     u.init_single_basis(cutoff)
-    plan = ueg_ladder.build_ovvv_t1_plan(u, pat, device)
+    plan = ueg_ladder.build_ovvv_t1_plan(u, pat, device=device)
     S = plan.S.clone()
     S[-1] = -1
     T1 = _columns(np.random.default_rng(cutoff + ncol), u.n_spatial - NO,
@@ -323,7 +324,7 @@ def test_ovvv_batched_apply_reads_strided_trials(device, pat):
     FEAST/RT layout, read in place) equals the per-trial gathers."""
     u = ueg.UEG(14, 7, 7, 0.5)
     u.init_single_basis(10)
-    plan = ueg_ladder.build_ovvv_t1_plan(u, pat, device)
+    plan = ueg_ladder.build_ovvv_t1_plan(u, pat, device=device)
     nv = u.n_spatial - NO
     rows = _randn(np.random.default_rng(123), (5, nv * NO + nv), device)
     U1 = rows[:, :nv * NO].reshape(5, nv, NO)
@@ -341,7 +342,7 @@ def test_ovvv_gather_diag_kernel_matches_twin(device, cutoff, pat, axis):
     """The fused G_vv trace against the full gather and its einsum."""
     u = ueg.UEG(14, 7, 7, 0.5)
     u.init_single_basis(cutoff)
-    plan = ueg_ladder.build_ovvv_t1_plan(u, pat, device)
+    plan = ueg_ladder.build_ovvv_t1_plan(u, pat, device=device)
     T1 = _randn(np.random.default_rng(cutoff), (u.n_spatial - NO, NO),
                 device)
     before = dict(kernels.LAUNCHES)
@@ -359,7 +360,7 @@ def test_block_ladder_kernel_stacked_operand_np219(device):
     the operand of the matrix-free CCSD iteration."""
     u = ueg.UEG(14, 7, 7, 0.5)
     u.init_single_basis(14)
-    plan = ueg_ladder.build_block_ladder(u, device, bra="all")
+    plan = ueg_ladder.build_block_ladder(u, device=device, bra="all")
     nv = u.n_spatial - NO
     rng = np.random.default_rng(219)
     T2 = _randn(rng, (NO, NO, nv, nv), device, 0.01)
@@ -430,10 +431,10 @@ def test_mf_ccsd_on_card_matches_cpu(device):
     for dev in (device, torch.device("cpu")):
         d = {k: v.to(dev) for k, v in part_2_body_int(NO, V).items()
              if k not in ("abcd", "abci", "iabc", "aibc", "abic")}
-        d["_ovvv_plans"] = ueg_ladder.build_ovvv_plans(u, dev)
-        plan = ueg_ladder.build_block_ladder(u, dev, bra="all")
+        d["_ovvv_plans"] = ueg_ladder.build_ovvv_plans(u, device=dev)
+        plan = ueg_ladder.build_block_ladder(u, device=dev, bra="all")
         kernels.reset_launches()
-        out[dev.type] = ccsd.CCSD(NO, dev).solve(
+        out[dev.type] = ccsd.CCSD(NO, device=dev).solve(
             fock.to(dev), d, ladder=plan, delta_e=1e-10, max_iter=100)
         if dev.type == "cuda":
             launches = dict(kernels.LAUNCHES)
@@ -453,7 +454,7 @@ def test_mf_ccsd_on_card_matches_cpu(device):
 def test_ovvv_gather_refuses_what_it_does_not_take(device):
     u = ueg.UEG(14, 7, 7, 0.5)
     u.init_single_basis(2)
-    plan = ueg_ladder.build_ovvv_t1_plan(u, "vvo", device)
+    plan = ueg_ladder.build_ovvv_t1_plan(u, "vvo", device=device)
     T1 = torch.zeros((u.n_spatial - NO, NO), dtype=torch.float64,
                      device=device)
     with pytest.raises(TypeError):
@@ -462,7 +463,7 @@ def test_ovvv_gather_refuses_what_it_does_not_take(device):
         ueg_ladder.ovvv_t1_apply_j(plan, T1.float())
     with pytest.raises(ValueError):
         ueg_ladder.ovvv_t1_apply_j(plan._replace(W=plan.W[:, :-1]), T1)
-    vov = ueg_ladder.build_ovvv_t1_plan(u, "vov", device)
+    vov = ueg_ladder.build_ovvv_t1_plan(u, "vov", device=device)
     with pytest.raises(TypeError):
         ueg_ladder.ovvv_t1_trace(vov._replace(S=vov.S.long()), T1, 1)
     with pytest.raises(TypeError):
@@ -562,13 +563,14 @@ def test_eom_on_card_matches_cpu(device):
         d = {k: v.to(dev) for k, v in part_2_body_int(NO, V).items()
              if k not in ("abcd", "abci", "iabc", "aibc", "abic")}
         d["abcd"] = None
-        d["abcd_ladder"] = ueg_ladder.build_block_ladder(u, dev, bra="all")
-        d["_ovvv_plans"] = ueg_ladder.build_ovvv_plans(u, dev)
+        d["abcd_ladder"] = ueg_ladder.build_block_ladder(u, device=dev,
+                                                         bra="all")
+        d["_ovvv_plans"] = ueg_ladder.build_ovvv_plans(u, device=dev)
         f = fock.to(dev)
         eps = torch.diagonal(f)
         _, T2 = mp2.solve(eps[:NO], eps[NO:], d["ijab"], d["abij"], 0.0)
         kernels.reset_launches()
-        solver = eom_ccsd.EOM_CCSD(NO, dev, n_excit=2)
+        solver = eom_ccsd.EOM_CCSD(NO, device=dev, n_excit=2)
         out[dev.type] = (np.sort(solver.solve(f, d, T2)),
                          solver.n_iterations)
         if dev.type == "cuda":
@@ -691,14 +693,16 @@ def test_feast_on_card_matches_cpu(device):
         d = {k: v.to(dev) for k, v in part_2_body_int(NO, V).items()
              if k not in ("abcd", "abci", "iabc", "aibc", "abic")}
         d["abcd"] = None
-        d["abcd_ladder"] = ueg_ladder.build_block_ladder(u, dev, bra="all")
-        d["_ovvv_plans"] = ueg_ladder.build_ovvv_plans(u, dev)
+        d["abcd_ladder"] = ueg_ladder.build_block_ladder(u, device=dev,
+                                                         bra="all")
+        d["_ovvv_plans"] = ueg_ladder.build_ovvv_plans(u, device=dev)
         f = fock.to(dev)
         eps = torch.diagonal(f)
         _, T2 = mp2.solve(eps[:NO], eps[NO:], d["ijab"], d["abij"], 0.0)
-        e0 = float(eom_ccsd.EOM_CCSD(NO, dev, n_excit=1).solve(f, d, T2)[0])
+        e0 = float(eom_ccsd.EOM_CCSD(NO, device=dev, n_excit=1).solve(
+            f, d, T2)[0])
         kernels.reset_launches()
-        s = feast_eom_ccsd.FEAST_EOM_CCSD(NO, dev, e_c=e0, e_r=0.3,
+        s = feast_eom_ccsd.FEAST_EOM_CCSD(NO, device=dev, e_c=e0, e_r=0.3,
                                           n_trial=2, max_iter=2, tol=-1.0,
                                           seed=3, ls_conv_tol=1e-8)
         s.ls_restart, s.ls_max_iter = 40, 4
@@ -755,7 +759,7 @@ def test_ring_ladder_on_a_repeated_card_matches_twin(device):
     no, nv, P = 3, 16, 4
     V = _randn(rng, (nv, nv, nv, nv), device)
     T = _randn(rng, (no, no, nv, nv), device)
-    m = mesh.make_mesh(P, "cuda", devices=[device] * P)
+    m = mesh.make_mesh(P, device="cuda", devices=[device] * P)
     Vs = mesh.shard_blocks(m, {"abcd": V})["abcd"]
     kernels.reset_launches()
     got = ring_ladder.ring_ladder_inside_ij(Vs, T, m)
@@ -774,7 +778,7 @@ def test_ring_ladder_over_two_cards(device):
         pytest.skip("needs two cards")
     rng = np.random.default_rng(4)
     no, nv = 3, 16
-    m = mesh.make_mesh(2, "cuda")
+    m = mesh.make_mesh(2, device="cuda")
     V = _randn(rng, (nv, nv, nv, nv), m.devices[0])
     T = _randn(rng, (no, no, nv, nv), m.devices[0])
     Vs = mesh.shard_tensor(m, V, 0)
@@ -806,7 +810,7 @@ def test_block_ladder_kernel_widths(device, bra, N):
     widths and one column."""
     u = ueg.UEG(14, 7, 7, 0.5)
     u.init_single_basis(5)
-    plan = ueg_ladder.build_block_ladder(u, device, bra=bra)
+    plan = ueg_ladder.build_block_ladder(u, device=device, bra=bra)
     nv = u.n_spatial - NO
     Tt = _randn(np.random.default_rng(N), (nv * nv, N), device)
     _close(*_k1_cd(plan, Tt))
@@ -818,7 +822,7 @@ def test_block_ladder_kernel_row_stride(device, N, ld):
     copies; even: 16-byte ones) gives the contiguous operand's bits."""
     u = ueg.UEG(14, 7, 7, 0.5)
     u.init_single_basis(5)
-    plan = ueg_ladder.build_block_ladder(u, device, bra="all")
+    plan = ueg_ladder.build_block_ladder(u, device=device, bra="all")
     nv = u.n_spatial - NO
     buf = _randn(np.random.default_rng(ld), (nv * nv, ld), device)
     got, want = _k1_cd(plan, buf[:, :N])
@@ -855,7 +859,7 @@ def test_block_ladder_kernel_np219_widths(device):
     entry's even-stride copy) and the stacked N = 98 cd-major operand."""
     u = ueg.UEG(14, 7, 7, 0.5)
     u.init_single_basis(14)
-    plan = ueg_ladder.build_block_ladder(u, device, bra="all")
+    plan = ueg_ladder.build_block_ladder(u, device=device, bra="all")
     nv = u.n_spatial - NO
     rng = np.random.default_rng(49)
     T = _randn(rng, (NO, NO, nv, nv), device, 0.01)
@@ -871,9 +875,10 @@ def test_sharded_block_ladder_kernel_bit_equal(device):
     u = ueg.UEG(14, 7, 7, 0.5)
     u.init_single_basis(5)
     nv = u.n_spatial - NO
-    plan = ueg_ladder.build_block_ladder(u, device, bra="all", pad_sectors=4)
+    plan = ueg_ladder.build_block_ladder(u, device=device, bra="all",
+                                         pad_sectors=4)
     sh = ueg_ladder.shard_block_ladder(
-        plan, mesh.make_mesh(4, "cuda", devices=[device] * 4))
+        plan, mesh.make_mesh(4, device="cuda", devices=[device] * 4))
     rng = np.random.default_rng(5)
     T = _randn(rng, (NO, NO, nv, nv), device)
     Tb = _randn(rng, (2, nv, nv, NO, NO), device)
@@ -1022,7 +1027,8 @@ def test_block_ladder_kernel_matches_twin_on_tc_plans(device, bra, flags):
     time), through the ijab and the cd-major entries; the all-bra
     non-hermitian plan is the one a transposed block would fail."""
     u = _tc_model(5)
-    plan = ueg_ladder.build_block_ladder(u, device, correlator=u.gaskell,
+    plan = ueg_ladder.build_block_ladder(u, device=device,
+                                         correlator=u.gaskell,
                                          bra=bra, **flags)
     nv = u.n_spatial - NO
     T = _randn(np.random.default_rng(29), (NO, NO, nv, nv), device)
@@ -1042,7 +1048,8 @@ def test_ovvv_gather_kernel_matches_twin_on_tc_plans(device, pat, ncol):
     """K4 on the hermitian-TC OVVV plans (their W carries the Σ∇u·∇u
     convolution and q²u): bit for bit, and the fused trace to 1e-12."""
     u = _tc_model(5)
-    plan = ueg_ladder.build_ovvv_t1_plan(u, pat, device, u.gaskell,
+    plan = ueg_ladder.build_ovvv_t1_plan(u, pat, device=device,
+                                         correlator=u.gaskell,
                                          is_only_hermi_2b=True)
     nv = u.n_spatial - NO
     T1 = _columns(np.random.default_rng(ncol), nv, ncol, device)
@@ -1055,6 +1062,39 @@ def test_ovvv_gather_kernel_matches_twin_on_tc_plans(device, pat, ncol):
         T1o = _randn(np.random.default_rng(3), (nv, NO), device)
         _close(ueg_ladder.ovvv_t1_trace(plan, T1o, axis),
                ueg_ladder.ovvv_t1_trace(plan, T1o, axis, twin=True))
+
+
+def test_entry_points_default_to_the_card(device):
+    """Given no device, the entry points place their tensors on the card;
+    the HF functions take numpy there and give tensors that numpy reads
+    back; the reference's ``ladder_apply(plan, T, 1)`` (its ``chunk``) is
+    one K1 launch, bit-equal to the default call."""
+    assert ccd.CCD(NO).device.type == "cuda"
+    assert ccsd.CCSD(NO).device.type == "cuda"
+    assert eom_ccsd.EOM_CCSD(NO, n_excit=2).device.type == "cuda"
+    u = ueg.UEG(14, NO, NO, 0.5)
+    u.init_single_basis(2)
+    plan = ueg_ladder.build_block_ladder(u)
+    assert plan.inv_bra.is_cuda and all(g.blocks.is_cuda
+                                        for g in plan.groups)
+    idx, vals = u.eval_2b_integrals(sp=2)
+    d = ueg.sparse_to_blocks(idx, vals, u.n_spatial, NO)
+    assert all(t.is_cuda for t in d.values())
+    V = u.eval_2b_integrals()
+    h = np.diag(u.kinetic_energies())
+    f = hf.construct_hf_matrix(NO, h, V)
+    want = hf.construct_hf_matrix(NO, h, V, device="cpu")
+    assert f.is_cuda and not want.is_cuda
+    assert np.abs(np.asarray(f) - np.asarray(want)).max() <= \
+        REL * np.abs(np.asarray(want)).max()
+    T = torch.as_tensor(np.random.default_rng(26).standard_normal(
+        (plan.nv, plan.nv, NO, NO)), device=device)
+    kernels.reset_launches()
+    W1 = ueg_ladder.ladder_apply(plan, T, 1)
+    torch.cuda.synchronize()
+    assert {k: v for k, v in kernels.LAUNCHES.items() if v} == {
+        "block_ladder": 1}
+    assert torch.equal(W1, ueg_ladder.ladder_apply(plan, T))
 
 
 def test_configs_build_solvers_on_the_card_by_default(device):
@@ -1072,7 +1112,7 @@ def test_configs_build_solvers_on_the_card_by_default(device):
     for dev in ("cuda", "cpu"):
         _, blocks, eps_i, eps_a = _problem(5, dev)
         before = dict(kernels.LAUNCHES)
-        runs[dev] = cfg.make_ccd(dev).solve(
+        runs[dev] = cfg.make_ccd(device=dev).solve(
             torch.diag(torch.cat([eps_i, eps_a])), blocks, level_shift=-1.0)
         if dev == "cuda":
             n = len(runs[dev]["e history"])
@@ -1093,7 +1133,7 @@ def test_checkpoint_round_trip_of_card_tensors(device, tmp_path):
     u, blocks, eps_i, eps_a = _problem(2, device)
     fock = torch.diag(torch.cat([eps_i, eps_a]))
     V = torch.as_tensor(u.eval_2b_integrals(), device=device)
-    res = ccsd.CCSD(NO, device).solve(fock, V, max_iter=3)
+    res = ccsd.CCSD(NO, device=device).solve(fock, V, max_iter=3)
     ck = checkpoint.from_result(res, meta={"nP": u.n_spatial})
     assert isinstance(ck.t2, np.ndarray) and isinstance(ck.t1, np.ndarray)
     rng = np.random.default_rng(8)
@@ -1103,13 +1143,13 @@ def test_checkpoint_round_trip_of_card_tensors(device, tmp_path):
     back = checkpoint.load(str(tmp_path / "ck"))
     assert np.array_equal(back.t2, res["t2"].cpu().numpy())
     assert np.array_equal(back.t1, res["t1"].cpu().numpy())
-    st = back.diis_state(device)
+    st = back.diis_state(device=device)
     assert st.amps.device.type == torch.device(device).type
     assert st.count == 9
     _close(st.B, torch.as_tensor(back.diis_errs @ back.diis_errs.T,
                                  device=device))
-    warm = ccsd.CCSD(NO, device).solve(fock, V, amps=back.amps)
-    cold = ccsd.CCSD(NO, device).solve(fock, V)
+    warm = ccsd.CCSD(NO, device=device).solve(fock, V, amps=back.amps)
+    cold = ccsd.CCSD(NO, device=device).solve(fock, V)
     assert abs(warm["ccsd e"] - cold["ccsd e"]) <= 1e-8
 
 
@@ -1128,8 +1168,8 @@ def _no_ovvv_operator(dev, rs=1.0, cutoff=2):
     d = {k: v.to(dev) for k, v in part_2_body_int(NO, V).items()
          if k not in ("abcd", "abci", "iabc", "aibc", "abic")}
     d["abcd"] = None
-    d["abcd_ladder"] = ueg_ladder.build_block_ladder(u, dev, bra="all")
-    d["_ovvv_plans"] = ueg_ladder.build_ovvv_plans(u, dev)
+    d["abcd_ladder"] = ueg_ladder.build_block_ladder(u, device=dev, bra="all")
+    d["_ovvv_plans"] = ueg_ladder.build_ovvv_plans(u, device=dev)
     f = fock.to(dev)
     eps = torch.diagonal(f)
     _, T2 = mp2.solve(eps[:NO], eps[NO:], d["ijab"], d["abij"], 0.0)
@@ -1145,7 +1185,7 @@ def test_packed_sigma_on_card_matches_cpu(device):
     for dev in (device, torch.device("cpu")):
         f, d, T2 = _no_ovvv_operator(dev)
         kernels.reset_launches()
-        op = eom_ccsd.PackedSigma(eom_ccsd.EOM_CCSD(NO, dev), f, d, T2)
+        op = eom_ccsd.PackedSigma(eom_ccsd.EOM_CCSD(NO, device=dev), f, d, T2)
         if x is None:
             x = rng.standard_normal(op.vector_size())
             y = rng.standard_normal(op.vector_size())
@@ -1176,7 +1216,7 @@ def test_eom_reference_wrappers_on_card_match_cpu(device):
             u2 = rng.standard_normal((nv, nv, NO, NO))
         args = (f, d, torch.as_tensor(u1, device=dev),
                 torch.as_tensor(u2, device=dev), T2)
-        solver = eom_ccsd.EOM_CCSD(NO, dev, n_excit=2)
+        solver = eom_ccsd.EOM_CCSD(NO, device=dev, n_excit=2)
         got, launches = [], []
         for name in ("update_singles", "update_doubles"):
             kernels.reset_launches()
@@ -1199,7 +1239,7 @@ def _lih_dressed(dev):
     no = n_elec // 2
     h, V = torch.as_tensor(h, device=dev), torch.as_tensor(V, device=dev)
     fock = hf.construct_hf_matrix(no, h, V)
-    cc = ccsd.CCSD(no, dev)
+    cc = ccsd.CCSD(no, device=dev)
     res = cc.solve(fock, V, delta_e=1e-12, max_iter=200)
     dV = part_2_body_int(no, V)
     return (cc.get_T1_dressed_fock(fock, res["t1"], dV),
@@ -1216,7 +1256,8 @@ def test_generic_feast_over_card_sigma_matches_cpu(device):
     out = {}
     for dev in (device, torch.device("cpu")):
         fd, Vd, t2 = _lih_dressed(dev)
-        op = eom_ccsd.PackedSigma(eom_ccsd.EOM_CCSD(t2.shape[-1], dev), fd,
+        op = eom_ccsd.PackedSigma(eom_ccsd.EOM_CCSD(t2.shape[-1], device=dev),
+                                  fd,
                                   Vd, t2)
         kernels.reset_launches()
         ev, _ = feast_kernel.feast(op.matvec, op.diag, nroots=3, e_c=0.136,
@@ -1236,12 +1277,13 @@ def test_node_mesh_feast_on_a_repeated_card_matches_unsharded(device):
     from pymes_tpu_torch.parallel import sharding
     from pymes_tpu_torch.solver import feast_eom_ccsd
     f, d, T2 = _no_ovvv_operator(device)
-    e0 = float(eom_ccsd.EOM_CCSD(NO, device, n_excit=1).solve(f, d, T2)[0])
+    e0 = float(eom_ccsd.EOM_CCSD(NO, device=device, n_excit=1).solve(
+        f, d, T2)[0])
     out = {}
     for P in (None, 2):
         mesh = None if P is None else sharding.node_mesh(
-            P, "cuda", axis="a", devices=["cuda:0"] * P)
-        s = feast_eom_ccsd.FEAST_EOM_CCSD(NO, device, e_c=e0, e_r=0.3,
+            P, device="cuda", axis="a", devices=["cuda:0"] * P)
+        s = feast_eom_ccsd.FEAST_EOM_CCSD(NO, device=device, e_c=e0, e_r=0.3,
                                           n_trial=2, max_iter=3, tol=-1.0,
                                           seed=3, ls_conv_tol=1e-8,
                                           node_mesh=mesh)
@@ -1268,11 +1310,11 @@ def test_tensor_parallel_lih_ccsd_on_a_repeated_card_matches_cpu(device):
     fock = hf.construct_hf_matrix(no, torch.as_tensor(h), torch.as_tensor(V))
     d = part_2_body_int(no, torch.as_tensor(V))
     kw = dict(delta_e=1e-10, max_iter=100)
-    ref = ccsd.CCSD(no, "cpu").solve(fock, d, **kw)
-    m = mesh.make_mesh(3, "cuda", devices=[device] * 3)
+    ref = ccsd.CCSD(no, device="cpu").solve(fock, d, **kw)
+    m = mesh.make_mesh(3, device="cuda", devices=[device] * 3)
     cut = mesh.shard_blocks(m, {k: v.to(device) for k, v in d.items()})
     kernels.reset_launches()
-    res = ccsd.CCSD(no, device).solve(fock.to(device), cut, **kw)
+    res = ccsd.CCSD(no, device=device).solve(fock.to(device), cut, **kw)
     torch.cuda.synchronize()
     n_it = len(ref["e history"])
     assert len(res["e history"]) == n_it
@@ -1310,7 +1352,8 @@ def test_block_ladder_f32_kernel_matches_twin(device, bra, N):
     u = ueg.UEG(14, 7, 7, 0.5)
     u.init_single_basis(5)
     plan = ueg_ladder.cast_plan(
-        ueg_ladder.build_block_ladder(u, device, bra=bra), torch.float32)
+        ueg_ladder.build_block_ladder(u, device=device, bra=bra),
+        torch.float32)
     nv = u.n_spatial - NO
     Tt = _randn32(np.random.default_rng(N + 1), (nv * nv, N), device)
     before = dict(kernels.LAUNCHES)
@@ -1334,7 +1377,8 @@ def test_block_ladder_f32_kernel_np219_widths(device, bra, N):
     u = ueg.UEG(14, 7, 7, 0.5)
     u.init_single_basis(14)
     plan = ueg_ladder.cast_plan(
-        ueg_ladder.build_block_ladder(u, device, bra=bra), torch.float32)
+        ueg_ladder.build_block_ladder(u, device=device, bra=bra),
+        torch.float32)
     nv = u.n_spatial - NO
     rng = np.random.default_rng(N)
     Tt = _randn32(rng, (nv * nv, N), device, 0.01)
@@ -1356,7 +1400,7 @@ def test_block_ladder_f32_kernel_on_tc_plans(device, N, flags):
     non-hermitian virtual plan, the hermitian all-bra one)."""
     u = _tc_model(5)
     plan = ueg_ladder.cast_plan(ueg_ladder.build_block_ladder(
-        u, device, correlator=u.gaskell,
+        u, device=device, correlator=u.gaskell,
         bra="virtual" if "is_only_2b" in flags else "all", **flags),
         torch.float32)
     nv = u.n_spatial - NO
@@ -1375,9 +1419,10 @@ def test_sharded_block_ladder_f32_kernel_bit_equal(device):
     u = ueg.UEG(14, 7, 7, 0.5)
     u.init_single_basis(5)
     nv = u.n_spatial - NO
-    plan = ueg_ladder.build_block_ladder(u, device, bra="all", pad_sectors=4)
+    plan = ueg_ladder.build_block_ladder(u, device=device, bra="all",
+                                         pad_sectors=4)
     sh = ueg_ladder.cast_plan(ueg_ladder.shard_block_ladder(
-        plan, mesh.make_mesh(4, "cuda", devices=[device] * 4)),
+        plan, mesh.make_mesh(4, device="cuda", devices=[device] * 4)),
         torch.float32)
     p32 = ueg_ladder.cast_plan(plan, torch.float32)
     rng = np.random.default_rng(17)
@@ -1399,7 +1444,7 @@ def test_block_ladder_f32_kernel_strided_operand_and_mixed_types(device):
     an f32 operand on an f64 plan is refused."""
     u = ueg.UEG(14, 7, 7, 0.5)
     u.init_single_basis(5)
-    plan = ueg_ladder.build_block_ladder(u, device, bra="all")
+    plan = ueg_ladder.build_block_ladder(u, device=device, bra="all")
     nv = u.n_spatial - NO
     Tt = _randn32(np.random.default_rng(3), (nv * nv, 101), device)[:, :98]
     with pytest.raises(TypeError):
@@ -1417,7 +1462,7 @@ def test_ovvv_gather_f32_kernel_matches_twin(device, pat, ncol):
     bit for bit."""
     u = ueg.UEG(14, 7, 7, 0.5)
     u.init_single_basis(5)
-    plan = ueg_ladder.build_ovvv_t1_plan(u, pat, device)
+    plan = ueg_ladder.build_ovvv_t1_plan(u, pat, device=device)
     plan = plan._replace(W=plan.W.float())
     nv = u.n_spatial - NO
     k = ncol // NO
@@ -1448,7 +1493,7 @@ def test_ovvv_gather_f32_kernel_np219_widths(device, cutoff, ncol):
           _randn32(rng, (k, nv * NO + 1), device)[:, :nv * NO].reshape(
               k, nv, NO))
     for pat in ("vvo", "ovv", "vov"):
-        plan = ueg_ladder.build_ovvv_t1_plan(u, pat, device)
+        plan = ueg_ladder.build_ovvv_t1_plan(u, pat, device=device)
         W = plan.W.float()
         got = k4.ovvv_gather(plan.S, W, T1)
         torch.cuda.synchronize()
@@ -1662,14 +1707,16 @@ def test_mixed_feast_on_card_matches_cpu(device):
         d = {k: v.to(dev) for k, v in part_2_body_int(NO, V).items()
              if k not in ("abcd", "abci", "iabc", "aibc", "abic")}
         d["abcd"] = None
-        d["abcd_ladder"] = ueg_ladder.build_block_ladder(u, dev, bra="all")
-        d["_ovvv_plans"] = ueg_ladder.build_ovvv_plans(u, dev)
+        d["abcd_ladder"] = ueg_ladder.build_block_ladder(u, device=dev,
+                                                         bra="all")
+        d["_ovvv_plans"] = ueg_ladder.build_ovvv_plans(u, device=dev)
         f = fock.to(dev)
         eps = torch.diagonal(f)
         _, T2 = mp2.solve(eps[:NO], eps[NO:], d["ijab"], d["abij"], 0.0)
-        e0 = float(eom_ccsd.EOM_CCSD(NO, dev, n_excit=1).solve(f, d, T2)[0])
+        e0 = float(eom_ccsd.EOM_CCSD(NO, device=dev, n_excit=1).solve(
+            f, d, T2)[0])
         kernels.reset_launches()
-        s = feast_eom_ccsd.FEAST_EOM_CCSD(NO, dev, e_c=e0, e_r=0.3,
+        s = feast_eom_ccsd.FEAST_EOM_CCSD(NO, device=dev, e_c=e0, e_r=0.3,
                                           n_trial=2, max_iter=3, tol=-1.0,
                                           seed=3, ls_conv_tol=1e-9,
                                           ls_precision="mixed")
@@ -1782,7 +1829,7 @@ def test_ovvv_gather_diag_f32_kernel_matches_twin(device, pat, axis):
     within 1e-5 of the f32 twin; f32 T1 on f64 weights is refused."""
     u = ueg.UEG(14, 7, 7, 0.5)
     u.init_single_basis(5)
-    plan = ueg_ladder.build_ovvv_t1_plan(u, pat, device)
+    plan = ueg_ladder.build_ovvv_t1_plan(u, pat, device=device)
     W32 = plan.W.float()
     T1 = _randn32(np.random.default_rng(60 + axis), (u.n_spatial - NO, NO),
                   device, 0.05)
@@ -1812,7 +1859,7 @@ def test_precision_modes_on_card_match_cpu(device):
     for dev in (torch.device("cpu"), device):
         f, Vd = fock.to(dev), torch.as_tensor(V).to(dev)
         kernels.reset_launches()
-        s = ccsd.CCSD(no, dev)
+        s = ccsd.CCSD(no, device=dev)
         mixed = s.solve(f, Vd, mixed_precision=True)
         launches = dict(kernels.LAUNCHES)
         dress = s.solve(f, Vd, delta_e=1e-12, max_iter=200)
@@ -1820,7 +1867,7 @@ def test_precision_modes_on_card_match_cpu(device):
         fd = s.get_T1_dressed_fock(f, dress["t1"], dV)
         Vdr = s.get_T1_dressed_V(dress["t1"], dV,
                                  {k: None for k in ccsd.EOM_DRESSED})
-        eom = eom_ccsd.EOM_CCSD(no, dev, n_excit=2)
+        eom = eom_ccsd.EOM_CCSD(no, device=dev, n_excit=2)
         eom.precision, eom.max_iter = "mixed", 1000
         kernels.reset_launches()
         roots = np.sort(eom.solve(fd, Vdr, dress["t2"]))
@@ -1858,7 +1905,7 @@ def test_block_scatter_kernel_bit_equal(device, cutoff, names):
 
     idx, vals, n_p = _scatter_list(cutoff)
     before = kernels.LAUNCHES["block_scatter"]
-    got = ueg.sparse_to_blocks(idx, vals, n_p, NO, device, names=names)
+    got = ueg.sparse_to_blocks(idx, vals, n_p, NO, device=device, names=names)
     assert kernels.LAUNCHES["block_scatter"] == before + 1
     want = k10.block_scatter(idx, vals, n_p, NO, names, device, twin=True)
     assert kernels.LAUNCHES["block_scatter"] == before + 1
@@ -1873,7 +1920,7 @@ def test_block_scatter_kernel_dense_np57(device):
     from pymes_tpu_torch.kernels import block_scatter as k10
 
     idx, vals, n_p = _scatter_list(5)
-    got = ueg.sparse_to_dense(idx, vals, n_p, device)
+    got = ueg.sparse_to_dense(idx, vals, n_p, device=device)
     want = k10.block_scatter(idx, vals, n_p, 0, ("abcd",), device,
                              twin=True)["abcd"]
     assert got.shape == (n_p,) * 4
@@ -1885,7 +1932,7 @@ def test_block_scatter_kernel_empty_and_bad_index(device):
 
     idx, vals, n_p = _scatter_list(2)
     before = kernels.LAUNCHES["block_scatter"]
-    got = ueg.sparse_to_blocks(idx[:0], vals[:0], n_p, NO, device,
+    got = ueg.sparse_to_blocks(idx[:0], vals[:0], n_p, NO, device=device,
                                names=SCATTER_NEED)
     assert kernels.LAUNCHES["block_scatter"] == before
     for name, block in got.items():

@@ -5,8 +5,8 @@ Riccati residual of the amplitudes to 1e-6 (``tests/test_drccd.py``), the
 port's ``[i,j,a,b]`` residual against the JAX package's ``[a,b,i,j]`` one,
 transposed, to 1e-12 (derived and explicit ``aijb``, a non-hermitian
 vertex), and the solve's per-iteration energies against the JAX package's
-abij loop to 1e-10.  DCD: ``DCD(no, device)`` is ``CCD(no, device,
-is_dcd=True)``.
+abij loop to 1e-10.  DCD: ``DCD(no, device=device)`` is ``CCD(no,
+is_dcd=True, device=device)``.
 """
 
 import numpy as np
@@ -58,7 +58,7 @@ def test_drccd_equals_drpa_plasmon():
     omega = np.sqrt(np.abs(eigvalsh(S @ (A + B) @ S)))
     e_plasmon = 0.5 * (omega.sum() - np.trace(A))
 
-    res = ccd.CCD(NO, "cpu", is_dr_ccd=True).solve(
+    res = ccd.CCD(NO, device="cpu", is_dr_ccd=True).solve(
         fock, torch.as_tensor(V), level_shift=-0.5, max_iter=200,
         delta_e=1e-10)
     assert abs(res["ccd e"] - e_plasmon) < 1e-7
@@ -128,8 +128,8 @@ def test_drccd_solve_matches_jax_per_iteration():
     CPU) against the JAX package's abij loop, energy by energy."""
     _, V, fock, _, _ = _ueg()
     kw = dict(level_shift=-1.0, max_iter=60, delta_e=1e-10)
-    res = ccd.CCD(NO, "cpu", is_dr_ccd=True).solve(fock, torch.as_tensor(V),
-                                                   **kw)
+    res = ccd.CCD(NO, device="cpu", is_dr_ccd=True).solve(
+        fock, torch.as_tensor(V), **kw)
     ref = jccd.CCD(NO, is_dr_ccd=True).solve(
         jnp.asarray(fock.numpy()), jnp.asarray(V), contract_mode="xla", **kw)
     want = np.asarray(ref["e history"])
@@ -149,11 +149,11 @@ def test_drccd_takes_no_ladder_and_no_ring():
                         max_iter=3, is_dr_ccd=True)
     assert np.isfinite(float(out[0]))
     # ... and a ladder plan or a ring mesh with it raises
-    plan = ueg_ladder.build_block_ladder(u, "cpu")
+    plan = ueg_ladder.build_block_ladder(u, device="cpu")
     with pytest.raises(ValueError):
         ccd.ccd_solve(fock, blocks._replace(ladder=plan), NO, T0,
                       is_dr_ccd=True)
-    m = mesh.make_mesh(2, "cpu", devices=["cpu"] * 2)
+    m = mesh.make_mesh(2, device="cpu", devices=["cpu"] * 2)
     with pytest.raises(ValueError):
         ccd.ccd_solve(fock, blocks._replace(abcd=Vt[NO:, NO:, NO:, NO:]),
                       NO, T0, is_dr_ccd=True, ring_mesh=m)
@@ -164,14 +164,15 @@ def test_drccd_takes_no_ladder_and_no_ring():
 
 def test_dcd_wrapper_is_ccd_with_is_dcd():
     _, V, fock, _, _ = _ueg()
-    s = dcd.DCD(NO, "cpu", is_dcd=False, is_diis=True)
+    s = dcd.DCD(NO, device="cpu", is_dcd=False, is_diis=True)
     assert s.is_dcd and isinstance(s, ccd.CCD) and s.no == NO
     assert s.device == torch.device("cpu")
     Vt = torch.as_tensor(V)
     a = s.solve(fock, Vt, level_shift=-1.0)
-    b = ccd.CCD(NO, "cpu", is_dcd=True).solve(fock, Vt, level_shift=-1.0)
+    b = ccd.CCD(NO, device="cpu", is_dcd=True).solve(fock, Vt,
+                                                     level_shift=-1.0)
     assert a["ccd e"] == b["ccd e"]
     assert np.array_equal(a["e history"], b["e history"])
     assert torch.equal(a["t2 amp"], b["t2 amp"])
-    c = ccd.CCD(NO, "cpu").solve(fock, Vt, level_shift=-1.0)
+    c = ccd.CCD(NO, device="cpu").solve(fock, Vt, level_shift=-1.0)
     assert abs(a["ccd e"] - c["ccd e"]) > 1e-6

@@ -95,7 +95,7 @@ def test_sigma_matches_jax(random_blocks, which):
         got = getattr(teom, "sigma_" + which)(ft, s["dt"], s["ht"], *targs)
     else:
         want = getattr(jeom, "sigma_" + which)(fj, s["dj"], *jargs)
-        tc = teom.EOM_CCSD(s["u1"].shape[1], "cpu")
+        tc = teom.EOM_CCSD(s["u1"].shape[1], device="cpu")
         got = getattr(tc, "update_" + which)(ft, s["dt"], *targs)
     _close(got, want)
 
@@ -134,7 +134,7 @@ def test_factorised_sigma_equals_term_list(request, form):
     targs = [_t(x) for x in (u1, u2, T)]
     fj, ft = jnp.asarray(fock), _t(fock)
     hbar = teom.build_hbar(ft, Vt, targs[2])
-    tc = teom.EOM_CCSD(no, "cpu", n_excit=2)
+    tc = teom.EOM_CCSD(no, device="cpu", n_excit=2)
     for which in ("singles", "doubles"):
         want = getattr(jeom, "sigma_" + which)(fj, Vop, *jargs)
         _close(getattr(teom, "sigma_" + which + "_hbar")(ft, Vt, hbar,
@@ -149,7 +149,7 @@ def test_eom_class_helpers_match_jax(random_blocks):
     s = random_blocks
     no = s["u1"].shape[1]
     jc = jeom.EOM_CCSD(no, n_excit=2)
-    tc = teom.EOM_CCSD(no, "cpu", n_excit=2)
+    tc = teom.EOM_CCSD(no, device="cpu", n_excit=2)
     jargs = [jnp.asarray(s[k]) for k in ("u1", "u2", "T")]
     targs = [_t(s[k]) for k in ("u1", "u2", "T")]
     for name in ("update_singles", "update_doubles"):
@@ -259,14 +259,14 @@ def test_batched_sigma_ueg_matches_jax_and_dense(ueg19, mode):
     W1j, W2j = jeom.EOM_CCSD(NO, n_excit=2)._batched_sigma(
         jnp.asarray(fock), Vop, U1, U2, jnp.asarray(T2))
     Vt = interop.eom_operator_from_numpy(Vop, "cpu")
-    W1, W2 = teom.EOM_CCSD(NO, "cpu", n_excit=2)._batched_sigma(
+    W1, W2 = teom.EOM_CCSD(NO, device="cpu", n_excit=2)._batched_sigma(
         _t(fock), Vt, _t(U1), _t(U2), _t(T2))
     _close(W1, W1j, 1e-11)
     _close(W2, W2j, 1e-11)
     # the same Hamiltonian with dense blocks
     dense = (s["dict_V"] if mode == "no_ovvv" else s["Vd"])
     Vdense = interop.eom_operator_from_numpy(dense, "cpu")
-    W1d, W2d = teom.EOM_CCSD(NO, "cpu", n_excit=2)._batched_sigma(
+    W1d, W2d = teom.EOM_CCSD(NO, device="cpu", n_excit=2)._batched_sigma(
         _t(fock), Vdense, _t(U1), _t(U2), _t(T2))
     _close(W1, W1d.numpy(), 1e-11)
     _close(W2, W2d.numpy(), 1e-11)

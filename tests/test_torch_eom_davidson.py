@@ -75,7 +75,7 @@ class _TorchMatrixEOM(eom_ccsd.EOM_CCSD):
     ritz = []
 
     def __init__(self, no, n_excit, ham):
-        super().__init__(no, "cpu", n_excit=n_excit)
+        super().__init__(no, n_excit=n_excit, device="cpu")
         self.ham = ham
 
     def _batched_sigma(self, f, dict_t_V, U1, U2, T2):
@@ -170,8 +170,8 @@ def test_max_dim_floor_on_near_degenerate_pair():
     to both roots of the pair, and in fewer iterations than the reference's
     4·n_excit = 8 rows, which restart every 6 iterations and discard the
     slowly separating partner direction (48 against 70 iterations here)."""
-    assert eom_ccsd.EOM_CCSD(1, "cpu", n_excit=2).max_dim == 16
-    assert eom_ccsd.EOM_CCSD(1, "cpu", n_excit=5).max_dim == 20
+    assert eom_ccsd.EOM_CCSD(1, device="cpu", n_excit=2).max_dim == 16
+    assert eom_ccsd.EOM_CCSD(1, device="cpu", n_excit=5).max_dim == 20
     rng = np.random.default_rng(19)
     no, nv = 1, 8
     dim = nv * no + nv * nv * no * no
@@ -198,7 +198,7 @@ def _dressed(name):
     no = n_elec // 2
     h, V = torch.as_tensor(h), torch.as_tensor(V)
     fock = hf.construct_hf_matrix(no, h, V)
-    cc = ccsd.CCSD(no, "cpu")
+    cc = ccsd.CCSD(no, device="cpu")
     res = cc.solve(fock, V, delta_e=1e-12, max_iter=200)
     dV = tpart(no, V)
     fd = cc.get_T1_dressed_fock(fock, res["t1"], dV)
@@ -211,7 +211,7 @@ def test_h2_dynamic_path_exact():
     """H₂/STO-6G: N = 2 < max_dim + n_excit runs the dynamic loop; the
     roots equal the eigenvalues of the exact 2×2 H̄ from the sigma."""
     no, fd, Vd, T2 = _dressed("FCIDUMP.H2.sto6g")
-    dav = eom_ccsd.EOM_CCSD(no, "cpu", n_excit=2)
+    dav = eom_ccsd.EOM_CCSD(no, device="cpu", n_excit=2)
     U1 = torch.eye(2, dtype=torch.float64)[:, :1].reshape(2, 1, 1)
     U2 = torch.eye(2, dtype=torch.float64)[:, 1:].reshape(2, 1, 1, 1, 1)
     W1, W2 = dav._batched_sigma(fd, Vd, U1, U2, T2.contiguous())
@@ -226,7 +226,7 @@ def test_lih_oracle_roots():
     """LiH/3-21G on the dressed CCSD operator, f64 with MOM (the port's
     default) from unit-vector guesses: the oracle roots to 1e-7."""
     no, fd, Vd, T2 = _dressed("FCIDUMP.LiH.321g")
-    solver = eom_ccsd.EOM_CCSD(no, "cpu", n_excit=2)
+    solver = eom_ccsd.EOM_CCSD(no, device="cpu", n_excit=2)
     solver.max_iter = 1000
     e = solver.solve(fd, Vd, T2)
     np.testing.assert_allclose(np.sort(e), LIH_ROOTS, atol=1e-7)

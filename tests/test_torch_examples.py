@@ -75,7 +75,7 @@ def test_rt_example_matches_jax(tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
     _jax_example("rt_autocorrelation").main(2, 0.1)
     want = np.load("ct.npy")
-    t, c_t = rt_autocorrelation.main(2, 0.1, "cpu", out="port_ct.npy")
+    t, c_t = rt_autocorrelation.main(2, 0.1, out="port_ct.npy", device="cpu")
     got = np.load("port_ct.npy")
     assert np.array_equal(got[:, 0], want[:, 0])
     assert np.abs(got[:, 1:] - want[:, 1:]).max() <= 1e-7
@@ -84,7 +84,7 @@ def test_rt_example_matches_jax(tmp_path, monkeypatch):
 
 def test_tc_twist_example_matches_jax():
     jex = _jax_example("ueg_tc_twist_average")
-    rows, total = ueg_tc_twist_average.main(2, "cpu")
+    rows, total = ueg_tc_twist_average.main(2, device="cpu")
     ks, weights = gen_ir_ks(2)
     want = np.zeros(3)
     for (k, w, *got), kj, wj in zip(rows, ks, weights):

@@ -83,7 +83,7 @@ def test_h2_window_same_roots_as_jax():
     kw = dict(e_c=e_dav, e_r=0.2, n_trial=2, max_iter=3, tol=-1.0, seed=1,
               ls_conv_tol=1e-10)
     js = _jax_feast(no, **kw)
-    ts = tfeast.FEAST_EOM_CCSD(no, "cpu", **kw)
+    ts = tfeast.FEAST_EOM_CCSD(no, device="cpu", **kw)
     for s in (js, ts):
         s.ls_restart = 20
         s.ls_max_iter = 50
@@ -103,7 +103,7 @@ def test_h2_window_other_backends(backend):
     (lane-batched Richardson) find the H₂ window root, as the JAX
     package's backends do (tests/test_feast_rt.py)."""
     no, fd, Vd, t2, e_dav = _h2_dressed()
-    s = tfeast.FEAST_EOM_CCSD(no, "cpu", e_c=e_dav, e_r=0.2, n_trial=2,
+    s = tfeast.FEAST_EOM_CCSD(no, device="cpu", e_c=e_dav, e_r=0.2, n_trial=2,
                               max_iter=50, tol=1e-10, seed=1)
     s.ls_backend = backend
     s.ls_max_iter = 50
@@ -118,7 +118,8 @@ def test_h2_krylov_budget_changes_batching_not_roots():
     Vt = interop.eom_operator_from_numpy(Vd, "cpu")
     out = {}
     for budget in (None, 1.0):
-        s = tfeast.FEAST_EOM_CCSD(no, "cpu", e_c=e_dav, e_r=0.2, n_trial=2,
+        s = tfeast.FEAST_EOM_CCSD(no, device="cpu", e_c=e_dav, e_r=0.2,
+                                  n_trial=2,
                                   max_iter=8, tol=1e-10, seed=1)
         s.ls_max_iter = 50
         s.krylov_mem_budget_bytes = budget
@@ -130,13 +131,17 @@ def test_h2_krylov_budget_changes_batching_not_roots():
 
 
 def test_explicit_device_required():
+    """The device defaults to the card: without one, the default, None
+    and "cuda" all raise RuntimeError (no CPU fallback)."""
     from pymes_tpu_torch.solver import rt_eom_ccsd
-    with pytest.raises(ValueError):
-        tfeast.FEAST_EOM_CCSD(1, None)
-    if not torch.cuda.is_available():
-        for cls in (tfeast.FEAST_EOM_CCSD, rt_eom_ccsd.RT_EOM_CCSD):
+    for cls in (tfeast.FEAST_EOM_CCSD, rt_eom_ccsd.RT_EOM_CCSD):
+        assert cls(1, device="cpu").device.type == "cpu"
+        if torch.cuda.is_available():
+            assert cls(1).device.type == "cuda"
+            continue
+        for kw in ({}, {"device": None}, {"device": "cuda"}):
             with pytest.raises(RuntimeError):
-                cls(1, "cuda")
+                cls(1, **kw)
 
 
 def _fake_nonsym_ham(rng, dim):
@@ -160,7 +165,7 @@ class _MatrixFEAST(tfeast.FEAST_EOM_CCSD):
     """The port's FEAST on a dense fake H̄ through the EOM hooks."""
 
     def __init__(self, no, ham, **kw):
-        super().__init__(no, "cpu", **kw)
+        super().__init__(no, device="cpu", **kw)
         self.ham = ham
 
     def _batched_sigma(self, f, dict_t_V, U1, U2, T2):
@@ -291,7 +296,7 @@ def test_ueg19_shifted_solve_and_residual_match_jax(ueg19, rt):
         linear_solver="inhouse", **kw)
     xj = np.concatenate([np.asarray(xr), np.asarray(xi)])
 
-    s = tfeast.FEAST_EOM_CCSD(NO, "cpu")
+    s = tfeast.FEAST_EOM_CCSD(NO, device="cpu")
     op = s._operator(f, interop.eom_operator_from_numpy(Vj, "cpu"), T2)
     node = tfeast._NodeOps(s, op, torch.tensor([z.real], dtype=torch.float64),
                            torch.tensor([z.imag], dtype=torch.float64), rt,
@@ -327,11 +332,11 @@ def test_ueg19_no_ovvv_feast_equals_dense(ueg19):
     f, T2 = ueg19["fock"], ueg19["T2"]
     ops = {"dense": interop.eom_operator_from_numpy(ueg19["dense"], "cpu"),
            "no_ovvv": interop.eom_operator_from_numpy(ueg19["mf"], "cpu")}
-    dav = teom.EOM_CCSD(NO, "cpu", n_excit=1)
+    dav = teom.EOM_CCSD(NO, device="cpu", n_excit=1)
     e0 = float(dav.solve(f, ops["no_ovvv"], T2)[0])
     roots = {}
     for name, V in ops.items():
-        s = tfeast.FEAST_EOM_CCSD(NO, "cpu", e_c=e0, e_r=0.3, n_trial=2,
+        s = tfeast.FEAST_EOM_CCSD(NO, device="cpu", e_c=e0, e_r=0.3, n_trial=2,
                                   max_iter=2, tol=-1.0, seed=3,
                                   ls_conv_tol=1e-8)
         s.ls_restart = 40
@@ -362,9 +367,9 @@ def test_h2_node_mesh_feast_matches_unsharded_and_jax(n_dev):
     Vt = interop.eom_operator_from_numpy(Vd, "cpu")
     kw = dict(e_c=e_dav, e_r=0.2, n_trial=2, max_iter=50, tol=1e-10, seed=1)
     out = {}
-    for mesh in (None, tmesh.make_mesh(n_dev, "cpu",
+    for mesh in (None, tmesh.make_mesh(n_dev, device="cpu",
                                        devices=["cpu"] * n_dev)):
-        s = tfeast.FEAST_EOM_CCSD(no, "cpu", node_mesh=mesh, **kw)
+        s = tfeast.FEAST_EOM_CCSD(no, device="cpu", node_mesh=mesh, **kw)
         s.ls_max_iter = 50
         out[mesh is None] = (np.sort_complex(s.solve(fd, Vt, t2)), s)
     (ref, s0), (got, s) = out[True], out[False]
@@ -396,9 +401,9 @@ def test_h2_node_mesh_rt_matches_unsharded_and_jax(n_dev):
     Vt = interop.eom_operator_from_numpy(Vd, "cpu")
     kw = dict(e_c=omega, e_r=0.5, n_quad=32, ls_conv_tol=1e-12)
     solvers = {
-        "ref": trt.RT_EOM_CCSD(no, "cpu", **kw),
-        "mesh": trt.RT_EOM_CCSD(no, "cpu", node_mesh=tmesh.make_mesh(
-            n_dev, "cpu", devices=["cpu"] * n_dev), **kw),
+        "ref": trt.RT_EOM_CCSD(no, device="cpu", **kw),
+        "mesh": trt.RT_EOM_CCSD(no, device="cpu", node_mesh=tmesh.make_mesh(
+            n_dev, device="cpu", devices=["cpu"] * n_dev), **kw),
         "jax": _f64(jrt.RT_EOM_CCSD(no, node_mesh=jmesh.make_mesh(
             n_dev, axis_names=("a",)), **kw))}
     q = {k: u for k in solvers}
@@ -418,9 +423,9 @@ def test_h2_node_mesh_rt_matches_unsharded_and_jax(n_dev):
 
 def test_node_mesh_needs_its_axis():
     no, fd, Vd, t2, e_dav = _h2_dressed()
-    s = tfeast.FEAST_EOM_CCSD(no, "cpu", e_c=e_dav, e_r=0.2, n_trial=2,
+    s = tfeast.FEAST_EOM_CCSD(no, device="cpu", e_c=e_dav, e_r=0.2, n_trial=2,
                               max_iter=2, node_mesh=tmesh.make_mesh(
-                                  2, "cpu", axis_names=("n",),
+                                  2, device="cpu", axis_names=("n",),
                                   devices=["cpu"] * 2))
     with pytest.raises(ValueError, match="node_axis"):
         s.solve(fd, interop.eom_operator_from_numpy(Vd, "cpu"), t2)

@@ -172,7 +172,7 @@ def _counted(no):
             self.n_sigma += 1
             return super()._batched_sigma(*a)
 
-    return Counted(no, "cpu", n_excit=1)
+    return Counted(no, device="cpu", n_excit=1)
 
 
 def test_packed_sigma_matches_jax_sigma():

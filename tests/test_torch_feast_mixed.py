@@ -123,7 +123,7 @@ def test_f32_sigma_matches_jax_cast_f32_and_f64(ueg19):
         wj = jeom._sigma_batched_hbar(f3, V3, h3, jnp.asarray(U1),
                                       jnp.asarray(U2), T3)
 
-    s = tfeast.FEAST_EOM_CCSD(NO, "cpu")
+    s = tfeast.FEAST_EOM_CCSD(NO, device="cpu")
     op = s._operator(ueg19["fock"], ueg19["Vt"], T2)
     op32 = s._operator32(op)
     assert op32[0].dtype == op32[2].dtype == op32[3].dtype == torch.float32
@@ -316,7 +316,7 @@ def _refine_both(ueg19, z, rt, dt, phases):
     finally:
         jfeast._shifted_solve_nodes_scan = scan
 
-    s = tfeast.FEAST_EOM_CCSD(NO, "cpu", ls_precision="mixed", **kw)
+    s = tfeast.FEAST_EOM_CCSD(NO, device="cpu", ls_precision="mixed", **kw)
     for k, v in settings.items():
         setattr(s, k, v)
     op = s._operator(ueg19["fock"], ueg19["Vt"], ueg19["T2"])
@@ -391,7 +391,7 @@ def test_h2_window_mixed_matches_jax_mixed_and_f64():
     Vt = interop.eom_operator_from_numpy(Vd, "cpu")
     roots = {}
     for prec in ("mixed", "f64"):
-        s = tfeast.FEAST_EOM_CCSD(no, "cpu", ls_precision=prec, **kw)
+        s = tfeast.FEAST_EOM_CCSD(no, device="cpu", ls_precision=prec, **kw)
         s.ls_max_iter, s.ls_restart = 50, 20
         roots[prec] = _window_root(s.solve(fd, Vt, t2), e_dav)
         assert bool(s.ls_stats["passes"]) == (prec == "mixed")
@@ -406,7 +406,7 @@ def test_h2_rt_mixed_matches_jax_default():
     no, fd, Vd, t2, omega, u = _h2_dressed()
     kw = dict(e_c=omega, e_r=0.5, n_quad=32, ls_conv_tol=1e-10)
     js = jrt.RT_EOM_CCSD(no, **kw)
-    ts = trt.RT_EOM_CCSD(no, "cpu", ls_precision="mixed", **kw)
+    ts = trt.RT_EOM_CCSD(no, device="cpu", ls_precision="mixed", **kw)
     assert js.ls_precision == ts.ls_precision == "mixed"
     for s in (js, ts):
         s.ls_restart = 20
@@ -433,9 +433,10 @@ def test_node_mesh_takes_the_f64_path():
     out = {}
     for prec in ("mixed", "f64"):
         s = tfeast.FEAST_EOM_CCSD(
-            no, "cpu", e_c=e_dav, e_r=0.2, n_trial=2, max_iter=4, tol=-1.0,
+            no, device="cpu", e_c=e_dav, e_r=0.2, n_trial=2, max_iter=4,
+            tol=-1.0,
             seed=1, ls_precision=prec,
-            node_mesh=tmesh.make_mesh(2, "cpu", devices=["cpu"] * 2))
+            node_mesh=tmesh.make_mesh(2, device="cpu", devices=["cpu"] * 2))
         s.ls_max_iter = 50
         out[prec] = (np.asarray(s.solve(fd, Vt, t2)), s.ls_stats["passes"])
     assert np.array_equal(out["mixed"][0], out["f64"][0])
@@ -446,7 +447,7 @@ def test_stalled_refinement_stops_and_warns(ueg19):
     """GMRES(2) inner solves barely contract a near-axis node: refinement
     stops at the stall (the worst lane above half its last residual)
     before ``ls_refine_max``, and the unconverged solves warn."""
-    s = tfeast.FEAST_EOM_CCSD(NO, "cpu", e_c=1.4, e_r=0.3, n_trial=1,
+    s = tfeast.FEAST_EOM_CCSD(NO, device="cpu", e_c=1.4, e_r=0.3, n_trial=1,
                               n_quad=4, max_iter=1, seed=2, n_excit=1,
                               ls_conv_tol=1e-10, ls_precision="mixed")
     s.ls_restart, s.ls_max_iter, s.ls_refine_max = 2, 1, 10
@@ -459,8 +460,8 @@ def test_stalled_refinement_stops_and_warns(ueg19):
 
 def test_unknown_ls_precision_raises():
     with pytest.raises(ValueError, match="ls_precision"):
-        tfeast.FEAST_EOM_CCSD(1, "cpu", ls_precision="f32")
-    s = trt.RT_EOM_CCSD(1, "cpu")
+        tfeast.FEAST_EOM_CCSD(1, device="cpu", ls_precision="f32")
+    s = trt.RT_EOM_CCSD(1, device="cpu")
     assert s.ls_precision == "f64" and s.ls_refine_max == 4
     for bad in ("bf16", None, "MIXED"):
         with pytest.raises(ValueError, match="ls_precision"):
@@ -482,7 +483,8 @@ def test_matmul_settings_scoped_to_the_engine():
         caller = (torch.get_float32_matmul_precision(),
                   torch.backends.cuda.matmul.allow_tf32,
                   torch.backends.cudnn.allow_tf32)
-        s = tfeast.FEAST_EOM_CCSD(no, "cpu", e_c=e_dav, e_r=0.2, n_trial=2,
+        s = tfeast.FEAST_EOM_CCSD(no, device="cpu", e_c=e_dav, e_r=0.2,
+                                  n_trial=2,
                                   max_iter=2, seed=1, ls_precision="mixed")
         with warnings.catch_warnings():
             warnings.simplefilter("ignore")
@@ -505,7 +507,8 @@ def test_krylov_budget_counts_the_element_size():
     n2 = 2 * 2                     # 2N for H₂ (N = 2)
     chunks = {}
     for prec in ("f64", "mixed"):
-        s = tfeast.FEAST_EOM_CCSD(no, "cpu", e_c=e_dav, e_r=0.2, n_trial=2,
+        s = tfeast.FEAST_EOM_CCSD(no, device="cpu", e_c=e_dav, e_r=0.2,
+                                  n_trial=2,
                                   max_iter=1, seed=1, ls_precision=prec)
         s.ls_restart = 20
         s.krylov_mem_budget_bytes = 21 * n2 * 8     # one f64 lane

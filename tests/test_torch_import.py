@@ -188,11 +188,11 @@ def test_sparse_scatter_matches_jax():
     n_p, no = ut.n_spatial, 7
     names = ("klij", "ijab", "abij", "iajb", "iabj", "aibj", "aijb", "abcd")
     dj = jueg.sparse_to_blocks(idx, vals, n_p, no, names=names)
-    dt = tueg.sparse_to_blocks(idx, vals, n_p, no, "cpu", names=names)
+    dt = tueg.sparse_to_blocks(idx, vals, n_p, no, device="cpu", names=names)
     for name in names:
         assert dt[name].dtype == torch.float64
         assert np.array_equal(np.asarray(dj[name]), dt[name].numpy()), name
-    Vt = tueg.sparse_to_dense(idx, vals, n_p, "cpu")
+    Vt = tueg.sparse_to_dense(idx, vals, n_p, device="cpu")
     assert np.array_equal(np.asarray(jueg.sparse_to_dense(idx, vals, n_p)),
                           Vt.numpy())
 
@@ -202,7 +202,7 @@ def test_sparse_scatter_matches_jax():
 def test_build_block_ladder_identical(cutoff, bra):
     uj, ut = _models(cutoff)
     pj = jladder.build_block_ladder(uj, bra=bra, preslice=None)
-    pt = tladder.build_block_ladder(ut, "cpu", bra=bra)
+    pt = tladder.build_block_ladder(ut, device="cpu", bra=bra)
     assert (pt.n_bra, pt.nv, pt.w0) == (pj.n_bra, pj.nv, pj.w0)
     assert len(pt.groups) == len(pj.groups)
     for gj, gt in zip(pj.groups, pt.groups):
@@ -212,9 +212,14 @@ def test_build_block_ladder_identical(cutoff, bra):
 
 
 def test_explicit_device_required():
+    """The device defaults to the card: without one, the default, None
+    and "cuda" all raise RuntimeError (no CPU fallback); the CPU takes
+    ``device="cpu"``."""
     _, ut = _models(2)
-    with pytest.raises(ValueError):
-        tladder.build_block_ladder(ut, None)
-    if not torch.cuda.is_available():
+    assert tladder.build_block_ladder(ut, device="cpu").inv_bra.is_cpu
+    if torch.cuda.is_available():
+        assert tladder.build_block_ladder(ut).inv_bra.is_cuda
+        return
+    for kw in ({}, {"device": None}, {"device": "cuda"}):
         with pytest.raises(RuntimeError):
-            tladder.build_block_ladder(ut, "cuda")
+            tladder.build_block_ladder(ut, **kw)

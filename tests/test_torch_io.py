@@ -57,7 +57,7 @@ def test_read_blocks_equal(name):
     path, is_tc = _read(name)
     names = ("klij", "ijab", "abij", "iajb", "iabj", "abcd", "aibc")
     jr = jfcidump.read_blocks(path, 2, names=names, is_tc=is_tc)
-    tr = tfcidump.read_blocks(path, 2, "cpu", names=names, is_tc=is_tc)
+    tr = tfcidump.read_blocks(path, 2, device="cpu", names=names, is_tc=is_tc)
     assert jr[:3] == tr[:3]
     assert np.array_equal(jr[3], tr[3]) and np.array_equal(jr[4], tr[4])
     for k in names:
@@ -90,7 +90,7 @@ def test_readers_agree_with_jax_read(path, is_tc):
         assert np.array_equal(g, w)
     no = want[0] // 2
     names = ("klij", "ijab", "aibj", "abcd")
-    tr = tfcidump.read_blocks(path, no, "cpu", names=names, is_tc=is_tc)
+    tr = tfcidump.read_blocks(path, no, device="cpu", names=names, is_tc=is_tc)
     assert tr[:3] == want[:3]
     assert np.array_equal(tr[3], want[3]) and np.array_equal(tr[4], want[4])
     for k in names:

@@ -40,7 +40,7 @@ def _k1_plan(cutoff, bra, pad):
     if key not in _K1_PLANS:
         u = tueg.UEG(14, 7, 7, 0.5)
         u.init_single_basis(cutoff)
-        _K1_PLANS[key] = tladder.build_block_ladder(u, "cpu", bra=bra,
+        _K1_PLANS[key] = tladder.build_block_ladder(u, device="cpu", bra=bra,
                                                     pad_sectors=pad)
     return _K1_PLANS[key]
 

@@ -98,7 +98,7 @@ def test_structure_factor_mf_ccd_twist_equal():
     uj.init_single_basis(5, list(k))
     idx, vals = u.eval_2b_integrals(sp=2)
     n_p = u.n_spatial
-    d = ueg.sparse_to_blocks(idx, vals, n_p, NO, "cpu", names=NEED)
+    d = ueg.sparse_to_blocks(idx, vals, n_p, NO, device="cpu", names=NEED)
     kin = u.kinetic_energies()
     fock = torch.diag(torch.cat([
         hf.calcOccupiedOrbE(kin, d["klij"], NO),
@@ -106,7 +106,7 @@ def test_structure_factor_mf_ccd_twist_equal():
     blocks = ccd.CCDBlocks(
         klij=d["klij"], ijab=d["ijab"], abij=d["abij"], iajb=d["iajb"],
         iabj=d["iabj"], abcd=None,
-        ladder=ueg_ladder.build_block_ladder(u, "cpu"))
+        ladder=ueg_ladder.build_block_ladder(u, device="cpu"))
     res = configs.GroundStateConfig(no=NO, max_iter=60).make_ccd(
-        "cpu").solve(fock, blocks, level_shift=-1.0)
+        device="cpu").solve(fock, blocks, level_shift=-1.0)
     _sf_equal(u, uj, res["t2 amp"])

@@ -47,7 +47,7 @@ def _close(got, want):
 @pytest.mark.parametrize("cutoff", [2, 3])
 def test_twin_matches_jax_and_dense(cutoff, bra):
     uj, ut, T, R_dense = _case(cutoff, bra, seed=cutoff)
-    plan = tladder.build_block_ladder(ut, "cpu", bra=bra)
+    plan = tladder.build_block_ladder(ut, device="cpu", bra=bra)
     R_t = tladder.block_ladder_apply_ij(plan, torch.as_tensor(T)).numpy()
     _close(R_t, R_dense)
     for preslice in (None, 9):   # XLA f64 and the Ozaki form
@@ -64,7 +64,7 @@ def test_interop_plan_matches_port_plan(bra):
     uj, ut, T, R_dense = _case(2, bra, seed=11)
     pj = jladder.build_block_ladder(uj, bra=bra)   # with Ozaki slices
     p_int = interop.block_ladder_from_numpy(pj, "cpu")
-    p_own = tladder.build_block_ladder(ut, "cpu", bra=bra)
+    p_own = tladder.build_block_ladder(ut, device="cpu", bra=bra)
     for a, b in zip(p_int.groups, p_own.groups):
         for x, y in zip(a, b):
             assert torch.equal(x, y)
@@ -85,7 +85,7 @@ def test_blocks_from_numpy():
 @pytest.mark.parametrize("bra", ["virtual", "all"])
 def test_bra_of_row_inverts_inv_bra(bra):
     _, ut, _, _ = _case(3, bra, seed=0)
-    plan = tladder.build_block_ladder(ut, "cpu", bra=bra)
+    plan = tladder.build_block_ladder(ut, device="cpu", bra=bra)
     rows = torch.cat([g.bra_of_row.reshape(-1) for g in plan.groups])
     n_cols = rows.numel()
     live = plan.inv_bra < n_cols
@@ -136,7 +136,7 @@ def _k1_walk(pack, T2, n_bra):
 @pytest.mark.parametrize("bra", ["virtual", "all"])
 def test_k1_launch_plan_covers_each_row_once(bra):
     _, ut, T, R_dense = _case(3, bra, seed=5)
-    plan = tladder.build_block_ladder(ut, "cpu", bra=bra)
+    plan = tladder.build_block_ladder(ut, device="cpu", bra=bra)
     pack = plan.packed
     assert pack.work.dtype == pack.stages.dtype == torch.int32
     assert pack.work.shape[1] == k1.UNIT
@@ -160,7 +160,7 @@ def test_wrapper_refuses_other_devices():
 
 def test_twin_does_not_count_launches():
     _, ut, T, _ = _case(2, "virtual", seed=1)
-    plan = tladder.build_block_ladder(ut, "cpu")
+    plan = tladder.build_block_ladder(ut, device="cpu")
     before = kernels.LAUNCHES["block_ladder"]
     tladder.block_ladder_apply_ij(plan, torch.as_tensor(T))
     assert kernels.LAUNCHES["block_ladder"] == before

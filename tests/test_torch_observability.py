@@ -32,7 +32,7 @@ def _lih():
 
 def test_run_record_equal_to_jax(tmp_path):
     no, fock, V = _lih()
-    res = ccd.CCD(no, "cpu").solve(fock, V)
+    res = ccd.CCD(no, device="cpu").solve(fock, V)
     rows = []
     for cls, name in ((RunRecord, "port"), (JRunRecord, "jax")):
         rec = cls(str(tmp_path / name / "runs.jsonl"))
@@ -50,8 +50,8 @@ def test_run_record_equal_to_jax(tmp_path):
 def test_profile_writes_a_trace(tmp_path):
     os.chdir(REPO)  # an earlier test may leave the cwd deleted
     no, fock, V = _lih()
-    with profile(str(tmp_path / "prof"), "cpu") as prof:
-        ccd.CCD(no, "cpu").solve(fock, V, max_iter=2)
+    with profile(str(tmp_path / "prof"), device="cpu") as prof:
+        ccd.CCD(no, device="cpu").solve(fock, V, max_iter=2)
     trace = tmp_path / "prof" / "trace.json"
     events = json.loads(trace.read_text())["traceEvents"]
     assert any("einsum" in e.get("name", "") for e in events)
@@ -61,12 +61,12 @@ def test_profile_writes_a_trace(tmp_path):
 def test_profile_stops_when_the_block_raises(tmp_path):
     os.chdir(REPO)  # an earlier test may leave the cwd deleted
     with pytest.raises(RuntimeError, match="inside"):
-        with profile(str(tmp_path / "a"), "cpu"):
+        with profile(str(tmp_path / "a"), device="cpu"):
             torch.ones(3).sum()
             raise RuntimeError("inside")
     assert not (tmp_path / "a" / "trace.json").exists()
     assert not torch._C._autograd._profiler_enabled()
     # a second session starts, which a running one would refuse
-    with profile(str(tmp_path / "b"), "cpu"):
+    with profile(str(tmp_path / "b"), device="cpu"):
         torch.ones(3).sum()
     assert (tmp_path / "b" / "trace.json").stat().st_size > 0

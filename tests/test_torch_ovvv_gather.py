@@ -167,8 +167,8 @@ def test_mf_ccsd_dressing_runs_the_diag_entry_and_matches_jax(monkeypatch):
     fock = fock + torch.as_tensor(0.02 * noise + 0.02 * noise.T)
     drop = ("abcd", "abci", "iabc", "aibc", "abic")
     d = {k: v for k, v in tpart(NO, V).items() if k not in drop}
-    d["_ovvv_plans"] = ueg_ladder.build_ovvv_plans(u, "cpu")
-    plan = ueg_ladder.build_block_ladder(u, "cpu", bra="all")
+    d["_ovvv_plans"] = ueg_ladder.build_ovvv_plans(u, device="cpu")
+    plan = ueg_ladder.build_block_ladder(u, device="cpu", bra="all")
     calls = {"full": 0, "diag": 0}
     full, diag = k4.ovvv_gather, k4.ovvv_gather_diag
 
@@ -181,7 +181,7 @@ def test_mf_ccsd_dressing_runs_the_diag_entry_and_matches_jax(monkeypatch):
     monkeypatch.setattr(k4, "ovvv_gather", spy("full", full))
     monkeypatch.setattr(k4, "ovvv_gather_diag", spy("diag", diag))
     kw = dict(delta_e=1e-10, max_iter=200)
-    res = ccsd.CCSD(NO, "cpu").solve(fock, d, ladder=plan, **kw)
+    res = ccsd.CCSD(NO, device="cpu").solve(fock, d, ladder=plan, **kw)
     n_it = len(res["e history"])
     assert calls == {"full": 4 * n_it, "diag": 2 * n_it}
 

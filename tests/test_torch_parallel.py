@@ -50,7 +50,7 @@ ORACLE_NP57 = -0.5120153512190824
 
 
 def _cpu_mesh(n):
-    return tmesh.make_mesh(n, "cpu", devices=["cpu"] * n)
+    return tmesh.make_mesh(n, device="cpu", devices=["cpu"] * n)
 
 
 def _jax_mesh(n, axis="a"):
@@ -76,14 +76,14 @@ def test_make_mesh_takes_only_visible_cards():
     """More cards than torch sees raises (here: no card at all); the mesh
     never falls back to the CPU or folds shards onto one card."""
     with pytest.raises(RuntimeError):
-        tmesh.make_mesh(torch.cuda.device_count() + 1, "cuda")
+        tmesh.make_mesh(torch.cuda.device_count() + 1, device="cuda")
 
 
 def test_repeated_device_only_from_an_explicit_list():
     with pytest.raises(RuntimeError):
-        tmesh.make_mesh(4, "cpu")
-    assert tmesh.make_mesh(1, "cpu").devices == (torch.device("cpu"),)
-    m = tmesh.make_mesh(4, "cpu", devices=["cpu"] * 5)
+        tmesh.make_mesh(4, device="cpu")
+    assert tmesh.make_mesh(1, device="cpu").devices == (torch.device("cpu"),)
+    m = tmesh.make_mesh(4, device="cpu", devices=["cpu"] * 5)
     assert m.devices == (torch.device("cpu"),) * 4 and m.shape == {"a": 4}
     # a 2-D mesh takes a shape that holds its devices, and no third axis
     assert tmesh.Mesh(["cpu"] * 4, axis_names=("a", "b")).grid == (2, 2)
@@ -234,9 +234,9 @@ def test_ring_ccd_np57_matches_jax_and_oracle(ueg57):
 
     m = _cpu_mesh(n_dev)
     dt = tmesh.shard_blocks(m, tpart(NO, torch.as_tensor(V)))
-    res = tccd.CCD(NO, "cpu").solve(torch.as_tensor(fock), dt,
-                                    level_shift=-1.0, max_iter=60,
-                                    ring_mesh=m)
+    res = tccd.CCD(NO, device="cpu").solve(torch.as_tensor(fock), dt,
+                                           level_shift=-1.0, max_iter=60,
+                                           ring_mesh=m)
     hist, want = res["e history"], np.asarray(ref_ij["e history"])
     assert len(hist) == len(want) == 6
     assert np.abs(hist - want).max() <= 1e-10
@@ -248,7 +248,7 @@ def test_ring_ccd_refuses_a_plan_or_no_abcd(ueg57):
     fock, V = ueg57
     m = _cpu_mesh(5)
     d = tpart(NO, torch.as_tensor(V))
-    solver = tccd.CCD(NO, "cpu")
+    solver = tccd.CCD(NO, device="cpu")
     with pytest.raises(ValueError):
         solver.solve(torch.as_tensor(fock), {**d, "abcd": None},
                      ring_mesh=m, max_iter=1)
@@ -256,7 +256,8 @@ def test_ring_ccd_refuses_a_plan_or_no_abcd(ueg57):
     u.init_single_basis(5)
     with pytest.raises(ValueError):
         solver.solve(torch.as_tensor(fock),
-                     {**d, "ladder": tladder.build_block_ladder(u, "cpu")},
+                     {**d, "ladder": tladder.build_block_ladder(
+                         u, device="cpu")},
                      ring_mesh=m, max_iter=1)
 
 
@@ -273,7 +274,7 @@ def test_padded_plan_matches_jax_leaf_for_leaf(pad, bra):
     uj, ut = _models()
     pj = jladder.build_block_ladder(uj, bra=bra, preslice=None,
                                     pad_sectors=pad)
-    pt = tladder.build_block_ladder(ut, "cpu", bra=bra, pad_sectors=pad)
+    pt = tladder.build_block_ladder(ut, device="cpu", bra=bra, pad_sectors=pad)
     pi = interop.block_ladder_from_numpy(pj, "cpu")
     assert any(g.blocks.shape[0] % pad == 0 and g.blocks.shape[0] > 0
                for g in pt.groups)
@@ -295,7 +296,7 @@ def test_padded_plan_matches_jax_leaf_for_leaf(pad, bra):
 
     T = torch.as_tensor(np.random.default_rng(pad).standard_normal(
         (NO, NO, ut.n_spatial - NO, ut.n_spatial - NO)))
-    unpadded = tladder.build_block_ladder(ut, "cpu", bra=bra)
+    unpadded = tladder.build_block_ladder(ut, device="cpu", bra=bra)
     assert torch.equal(tladder.block_ladder_apply_ij(pt, T),
                        tladder.block_ladder_apply_ij(unpadded, T))
 
@@ -308,7 +309,8 @@ def test_sharded_apply_bit_equal_and_matches_jax(pad, bra):
     rng = np.random.default_rng(10 + pad)
     T = rng.standard_normal((NO, NO, nv, nv))
     Tb = rng.standard_normal((2, nv, nv, NO, NO))
-    plan = tladder.build_block_ladder(ut, "cpu", bra=bra, pad_sectors=pad)
+    plan = tladder.build_block_ladder(ut, device="cpu", bra=bra,
+                                      pad_sectors=pad)
     sh = tladder.shard_block_ladder(plan, _cpu_mesh(pad))
     assert len(sh.shards) == pad
     # every live bra row belongs to exactly one shard
@@ -331,7 +333,7 @@ def test_sharded_apply_bit_equal_and_matches_jax(pad, bra):
 
 def test_shard_block_ladder_needs_a_padded_plan():
     _, ut = _models()
-    plan = tladder.build_block_ladder(ut, "cpu")
+    plan = tladder.build_block_ladder(ut, device="cpu")
     with pytest.raises(ValueError):
         tladder.shard_block_ladder(plan, _cpu_mesh(8))
 
@@ -361,14 +363,16 @@ def test_sharded_mf_ccsd_noncanonical_matches_jax():
 
     dt = {k: v for k, v in tpart(NO, torch.as_tensor(V)).items()
           if k not in drop}
-    dt["_ovvv_plans"] = tladder.build_ovvv_plans(ut, "cpu")
-    plan = tladder.build_block_ladder(ut, "cpu", bra="all", pad_sectors=8)
+    dt["_ovvv_plans"] = tladder.build_ovvv_plans(ut, device="cpu")
+    plan = tladder.build_block_ladder(ut, device="cpu", bra="all",
+                                      pad_sectors=8)
     sh = tladder.shard_block_ladder(plan, _cpu_mesh(8))
-    res = tccsd.CCSD(NO, "cpu").solve(torch.as_tensor(fock), dt, ladder=sh,
-                                      **kw)
-    one = tccsd.CCSD(NO, "cpu").solve(
+    res = tccsd.CCSD(NO, device="cpu").solve(torch.as_tensor(fock), dt,
+                                             ladder=sh,
+                                             **kw)
+    one = tccsd.CCSD(NO, device="cpu").solve(
         torch.as_tensor(fock), dt,
-        ladder=tladder.build_block_ladder(ut, "cpu", bra="all"), **kw)
+        ladder=tladder.build_block_ladder(ut, device="cpu", bra="all"), **kw)
     assert float(res["t1"].abs().max()) > 1e-4
     assert abs(res["ccsd e"] - ref["ccsd e"]) <= 1e-10
     assert abs(res["ccsd e"] - one["ccsd e"]) <= 1e-10
@@ -384,7 +388,7 @@ def _per_node(z, y):
 def test_shard_over_nodes_fan_out_matches_whole_and_jax():
     """Per-node work on node-sharded inputs equals the whole computation
     (``tests/test_parallel.py:154``) and the JAX package's."""
-    m = tsharding.node_mesh(4, "cpu", devices=["cpu"] * 4)
+    m = tsharding.node_mesh(4, device="cpu", devices=["cpu"] * 4)
     assert m.axis_names == ("n",) and m.shape == {"n": 4}
     rng = np.random.default_rng(0)
     ys, zs = rng.standard_normal((8, 64)), rng.standard_normal(8)
@@ -435,10 +439,10 @@ def test_replicate_keeps_one_tensor_per_device():
 
 def test_node_mesh_takes_only_visible_devices():
     with pytest.raises(RuntimeError):
-        tsharding.node_mesh(2, "cpu")
-    assert tsharding.node_mesh(None, "cpu").shape == {"n": 1}
-    assert tsharding.node_mesh(None, "cpu", axis="a",
+        tsharding.node_mesh(2, device="cpu")
+    assert tsharding.node_mesh(None, device="cpu").shape == {"n": 1}
+    assert tsharding.node_mesh(None, device="cpu", axis="a",
                                devices=["cpu"] * 3).shape == {"a": 3}
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):
-            tsharding.node_mesh(1, "cuda")
+            tsharding.node_mesh(1, device="cuda")

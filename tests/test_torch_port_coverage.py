@@ -1,24 +1,42 @@
 """Every public name of ``pymes_tpu`` has a counterpart in ``pymes_tpu_torch``
-or a written reason.
+that accepts the reference's calls, or a written reason.
 
-For each module of the JAX package, the module at the same relative path
-must exist in the port, and each top-level public ``def`` and ``class`` of
-the JAX module (a name without a leading ``_``) must be a top-level
-``def``, ``class``, assignment or import of the port's module.  What the
-port leaves out by design is listed in :data:`NOT_PORTED` with the design
-decision of ``ROADMAP.md`` that it rests on; a whole module is keyed
-``"path:*"``.  A new public name in the JAX package therefore needs a
-counterpart in the port or an entry here.  Class methods and private names
-are out of scope.
+Names: for each module of the JAX package, the module at the same relative
+path must exist in the port, and each top-level public ``def`` and
+``class`` of the JAX module (a name without a leading ``_``) must be a
+top-level ``def``, ``class``, assignment or import of the port's module.
+
+Signatures: each public function of such a module, and each public method
+(``__init__`` included) defined in the body of a public class there, is
+held to its counterpart in the port (a method found through the port
+class's bases too) by the binding rule: a call the JAX package accepts
+binds in the port to the same parameter names or raises ``TypeError``.
+
+* the port's positional parameters are a prefix of the JAX ones, in the
+  same order and with the same defaults (a parameter the port leaves out
+  makes every later one keyword-only);
+* the port takes every JAX parameter name, by position or keyword;
+* a parameter the JAX callable does not have (``device``, ``twin``, …) is
+  keyword-only in the port, and the port has no ``*args`` where the JAX
+  callable has more positional parameters.
+
+What the port leaves out by design is listed in :data:`NOT_PORTED` with
+the design decision of ``ROADMAP.md`` that it rests on: a whole module is
+keyed ``"path:*"``, a name ``"path:name"``, one JAX parameter of a
+callable ``"path:Qual.name(param)"`` and a whole signature
+``"path:Qual.name()"``.  A new public name, method or parameter in the JAX
+package therefore needs a counterpart in the port or an entry here, and
+each entry is checked to be live.  Private names are out of scope.
 
 Both packages are read with :mod:`ast`, so nothing of either is imported
-(and no jax): the whole file runs in well under a second.
+(and no jax): the whole file runs in about a second.
 
     python -m pytest -q tests/test_torch_port_coverage.py
 """
 
 import ast
 from pathlib import Path
+from typing import NamedTuple
 
 import pytest
 
@@ -38,6 +56,10 @@ _JIT = ("jit-only carriers and lax.while_loop solvers: the port's loops "
 _SCAN = ("the gather-scan UEGLadder, which only tests and probes use "
          "(ROADMAP, 'Port behaviour, not TPU workarounds'); the port's "
          "ladder is the BlockLadder through kernel K1")
+
+_DRCCD = ("drCCD's amplitudes are t_T_ijab, not t_T_abij: the layout "
+          "really differs, since the port's CCD loop is ijab only (ROADMAP, "
+          "design decisions: CCD/CCSD loop in ijab only)")
 
 NOT_PORTED = {
     "config.py:enable_x64": (
@@ -84,6 +106,15 @@ NOT_PORTED = {
         "design decisions: one EOM sigma, A14)"),
     "util/flops.py:ozaki_raw_factor": _OZAKI,
     "util/roofline.py:block_ladder_mxu_flops": _OZAKI,
+    # signatures
+    "solver/ccsd.py:ccsd_iteration()": (
+        "the port's iteration takes eps_i, eps_a and level_shift, from "
+        "which K2' builds the Jacobi denominators, in place of the D_ai and "
+        "D_abij tensors, and T2 in ijab (ROADMAP, design decisions: CCD/CCSD "
+        "loop in ijab only; K2'/K3' fused tails)"),
+    "solver/drccd.py:residual()": _DRCCD,
+    "solver/drccd.py:get_residual()": _DRCCD,
+    "solver/drccd.py:getEnergy()": _DRCCD,
 }
 
 JAX_MODULES = sorted(p.relative_to(JAX_PKG).as_posix()
@@ -160,9 +191,30 @@ def test_jax_module_has_port_counterpart(module):
 @pytest.mark.parametrize("key", sorted(NOT_PORTED))
 def test_not_ported_entry_is_live(key):
     """Each excused name still exists in the JAX package and still has no
-    counterpart in the port, so no entry goes stale."""
+    counterpart in the port, each excused parameter is still a JAX one the
+    port lacks, and each excused signature still breaks the binding rule,
+    so no entry goes stale."""
     module, name = key.split(":")
     assert (JAX_PKG / module).is_file(), key
+    if name.endswith(")"):
+        qual, param = name[:-1].split("(")
+        jax_def = _jax_callables(module).get(qual)
+        assert jax_def is not None, (
+            f"{key}: pymes_tpu/{module} has no public callable {qual}")
+        port_def = _port_callable(module, qual)
+        assert port_def is not None, f"{key}: the port has no {qual}"
+        jax_sig, port_sig = _sig(jax_def), _sig(port_def)
+        if param:
+            assert param in jax_sig.names, (
+                f"{key}: the JAX {qual} has no parameter {param}")
+            assert param not in port_sig.names, (
+                f"{key}: the port's {qual} takes {param}; drop the entry")
+        else:
+            assert _binding_faults(module, qual, jax_sig, port_sig,
+                                   excused=False), (
+                f"{key}: the port's {qual} now follows the binding rule; "
+                "drop the entry")
+        return
     if name == "*":
         assert not (PORT_PKG / module).exists(), (
             f"{key}: the port now has the module; drop the entry")
@@ -172,6 +224,210 @@ def test_not_ported_entry_is_live(key):
     port = PORT_PKG / module
     assert not (port.is_file() and name in _top_level_names(port)), (
         f"{key}: the port now binds {name}; drop the entry")
+
+
+class _Sig(NamedTuple):
+    pos: tuple        # positional parameter names, self/cls dropped
+    defaults: dict    # name -> unparsed default, positional ones
+    kwonly: tuple
+    varargs: bool
+    names: frozenset  # every named parameter
+
+
+def _sig(fn):
+    a = fn.args
+    params = a.posonlyargs + a.args
+    defaults = dict(zip([p.arg for p in params][len(params)
+                                                  - len(a.defaults):],
+                        [ast.unparse(d) for d in a.defaults]))
+    pos = [p.arg for p in params]
+    is_static = any(isinstance(d, ast.Name) and d.id == "staticmethod"
+                    for d in fn.decorator_list)
+    if fn.is_method and not is_static:
+        pos = pos[1:]
+    kwonly = tuple(p.arg for p in a.kwonlyargs)
+    return _Sig(tuple(pos), defaults, kwonly, a.vararg is not None,
+                frozenset(pos) | frozenset(kwonly))
+
+
+def _is_property(fn):
+    return any(isinstance(d, ast.Name) and d.id == "property"
+               or isinstance(d, ast.Attribute) and d.attr in ("setter",
+                                                             "deleter")
+               for d in fn.decorator_list)
+
+
+def _defs(body):
+    return {n.name: n for n in body
+            if isinstance(n, (ast.FunctionDef, ast.AsyncFunctionDef,
+                              ast.ClassDef))}
+
+
+def _jax_callables(module):
+    """Qualified name -> def of the public functions of a JAX module and
+    the public methods (``__init__`` included) defined in the bodies of
+    its public classes."""
+    out = {}
+    for name, node in _defs(_tree(JAX_PKG / module).body).items():
+        if name.startswith("_"):
+            continue
+        if isinstance(node, ast.ClassDef):
+            for m, fn in _defs(node.body).items():
+                if (isinstance(fn, ast.ClassDef) or _is_property(fn)
+                        or (m.startswith("_") and m != "__init__")):
+                    continue
+                fn.is_method = True
+                out[f"{name}.{m}"] = fn
+        else:
+            node.is_method = False
+            out[name] = node
+    return out
+
+
+def _port_module(dotted):
+    """Path of a ``pymes_tpu_torch`` module named ``dotted``, or None."""
+    rel = Path(*dotted.split(".")[1:])
+    for p in (PORT_PKG / rel.with_suffix(".py"), PORT_PKG / rel
+              / "__init__.py"):
+        if p.is_file():
+            return p
+    return None
+
+
+def _port_binding(path, name, depth=0):
+    """The def or class that ``name`` is bound to at the top level of the
+    port module ``path`` (through imports from the port and plain
+    aliases), as ``(path, node)``, or None."""
+    if depth > 8 or path is None:
+        return None
+    body = _tree(path).body
+    if name in _defs(body):
+        return path, _defs(body)[name]
+    for n in body:
+        if (isinstance(n, ast.ImportFrom) and n.module
+                and n.module.startswith("pymes_tpu_torch")):
+            for a in n.names:
+                if (a.asname or a.name) == name:
+                    return _port_binding(_port_module(n.module), a.name,
+                                         depth + 1)
+        if (isinstance(n, ast.Assign) and isinstance(n.value, ast.Name)
+                and any(isinstance(t, ast.Name) and t.id == name
+                        for t in n.targets)):
+            return _port_binding(path, n.value.id, depth + 1)
+    return None
+
+
+def _port_module_alias(path, alias):
+    """The port module that ``alias`` names in ``path`` (``from
+    pymes_tpu_torch.x import mod``), or None."""
+    for n in _tree(path).body:
+        if (isinstance(n, ast.ImportFrom) and n.module
+                and n.module.startswith("pymes_tpu_torch")):
+            for a in n.names:
+                if (a.asname or a.name) == alias:
+                    return _port_module(f"{n.module}.{a.name}")
+    return None
+
+
+def _port_method(path, cls, name, depth=0):
+    """A method of the port class ``cls`` of module ``path``: from its
+    body, else from its bases, in order."""
+    if depth > 8:
+        return None
+    fn = _defs(cls.body).get(name)
+    if isinstance(fn, (ast.FunctionDef, ast.AsyncFunctionDef)):
+        return fn
+    for base in cls.bases:
+        if isinstance(base, ast.Name):
+            found = _port_binding(path, base.id)
+        elif isinstance(base, ast.Attribute) and isinstance(base.value,
+                                                            ast.Name):
+            found = _port_binding(_port_module_alias(path, base.value.id),
+                                  base.attr)
+        else:
+            found = None
+        if found and isinstance(found[1], ast.ClassDef):
+            fn = _port_method(found[0], found[1], name, depth + 1)
+            if fn is not None:
+                return fn
+    return None
+
+
+def _port_callable(module, qual):
+    """The port's def for the JAX callable ``qual`` of ``module``."""
+    head, _, meth = qual.partition(".")
+    found = _port_binding(PORT_PKG / module, head)
+    if found is None:
+        return None
+    path, node = found
+    if meth:
+        if not isinstance(node, ast.ClassDef):
+            return None
+        fn = _port_method(path, node, meth)
+        if fn is not None:
+            fn.is_method = True
+        return fn
+    if isinstance(node, ast.ClassDef):
+        return None
+    node.is_method = False
+    return node
+
+
+def _binding_faults(module, qual, jax_sig, port_sig, excused=True):
+    """The ways the port's signature breaks the binding rule (the JAX
+    parameters excused in NOT_PORTED left out when ``excused``)."""
+    faults = []
+    n = len(port_sig.pos)
+    if port_sig.pos != jax_sig.pos[:n]:
+        faults.append(f"positional {list(port_sig.pos)} is not a prefix of "
+                      f"the JAX {list(jax_sig.pos)}")
+    else:
+        for p in port_sig.pos:
+            if port_sig.defaults.get(p) != jax_sig.defaults.get(p):
+                faults.append(f"default of {p}: {port_sig.defaults.get(p)} "
+                              f"!= the JAX {jax_sig.defaults.get(p)}")
+    if port_sig.varargs and n < len(jax_sig.pos):
+        faults.append("*args takes JAX positional parameters")
+    missing = sorted(p for p in jax_sig.names - port_sig.names
+                     if not (excused
+                             and f"{module}:{qual}({p})" in NOT_PORTED))
+    if missing:
+        faults.append(f"does not take the JAX parameters {missing}")
+    only = sorted(p for p in port_sig.pos if p not in jax_sig.names)
+    if only:
+        faults.append(f"port-only parameters {only} are positional")
+    return faults
+
+
+SIGNATURES = sorted(
+    f"{module}:{qual}" for module in JAX_MODULES
+    if f"{module}:*" not in NOT_PORTED
+    for qual in _jax_callables(module)
+    if f"{module}:{qual.partition('.')[0]}" not in NOT_PORTED)
+
+
+def test_every_signature_is_listed():
+    assert len(SIGNATURES) >= 190
+    assert "solver/ccsd.py:CCSD.solve" in SIGNATURES
+    assert "solver/ccd.py:CCD.get_residual" in SIGNATURES
+
+
+@pytest.mark.parametrize("key", SIGNATURES)
+def test_port_signature_accepts_the_jax_calls(key):
+    """The port's counterpart of a JAX callable follows the binding rule
+    of the module docstring, or its signature is excused in NOT_PORTED."""
+    module, qual = key.split(":")
+    port_def = _port_callable(module, qual)
+    assert port_def is not None, (
+        f"pymes_tpu/{module}: no counterpart of {qual} in pymes_tpu_torch/"
+        f"{module}")
+    if f"{key}()" in NOT_PORTED:
+        return
+    faults = _binding_faults(module, qual,
+                             _sig(_jax_callables(module)[qual]),
+                             _sig(port_def))
+    assert not faults, (f"pymes_tpu_torch/{module} {qual}: "
+                        + "; ".join(faults))
 
 
 def test_not_ported_reasons_are_given():

@@ -157,7 +157,7 @@ def _port_mixed_eom(monkeypatch, fock, V, T2, no):
     """The port's EOM with precision="mixed": roots, f32-phase and polish
     iterations, and the dtypes K6 (its twin here) saw."""
     k6 = _spy(monkeypatch, davidson, "davidson_residual")
-    s = teom.EOM_CCSD(no, "cpu", n_excit=2)
+    s = teom.EOM_CCSD(no, device="cpu", n_excit=2)
     assert s.precision == "f64"       # the port's default
     s.precision = "mixed"
     s.max_iter = 1000
@@ -182,7 +182,7 @@ def test_eom_mixed_ueg_matches_jax_default(ueg19, monkeypatch):
     assert k6 == {torch.float32, torch.float64}
     assert np.abs(e_t - e_j).max() <= 1e-8
     assert abs(it32_t - it32_j) <= 2 and abs(it_t - it_j) <= 2
-    s = teom.EOM_CCSD(NO, "cpu", n_excit=2)
+    s = teom.EOM_CCSD(NO, device="cpu", n_excit=2)
     e64 = np.sort(_logged(lambda: s.solve(
         torch.as_tensor(fock), ueg19["Vt"], torch.as_tensor(T2)))[0])
     assert np.abs(e_t - e64).max() <= 1e-8
@@ -211,12 +211,12 @@ def test_seed_polish_matches_jax_per_iteration(ueg19):
     as the JAX package's at every iteration (1e-10), in the same count."""
     fock, T2 = ueg19["fock"], ueg19["T2"]
     tf, tT = torch.as_tensor(fock), torch.as_tensor(T2).contiguous()
-    pre = teom.EOM_CCSD(NO, "cpu", n_excit=2)
+    pre = teom.EOM_CCSD(NO, device="cpu", n_excit=2)
     pre.e_epsilon = 1e-4
     _logged(lambda: pre.solve(tf, ueg19["Vt"], tT))
     seed = np.stack([np.concatenate([s.numpy().ravel(), d.numpy().ravel()])
                      for s, d in zip(pre.u_singles, pre.u_doubles)])
-    ts = teom.EOM_CCSD(NO, "cpu", n_excit=2)
+    ts = teom.EOM_CCSD(NO, device="cpu", n_excit=2)
     js = jeom.EOM_CCSD(NO, n_excit=2)
     js.max_dim = 16
     js.root_tracking = "guess"
@@ -276,7 +276,7 @@ def _ccd_inputs(name, lih, ueg19):
                                                           preslice=None))
     tb = {k: torch.as_tensor(d[k])
           for k in ("klij", "ijab", "abij", "iajb", "iabj")}
-    tb["ladder"] = tladder.build_block_ladder(ueg19["tu"], "cpu")
+    tb["ladder"] = tladder.build_block_ladder(ueg19["tu"], device="cpu")
     kw = dict(level_shift=-1.0, max_iter=60)
     return (ueg19["fock"], jb, torch.as_tensor(ueg19["fock"]), tb,
             dict(kw, contract_mode="xla"), kw)
@@ -294,7 +294,7 @@ def test_ccd_mixed_matches_jax(name, lih, ueg19, monkeypatch):
                                                  mixed_precision=True, **jkw))
     e64 = _logged(lambda: jccd.CCD(no).solve(jf, jV, **jkw))[0]["ccd e"]
     k2 = _spy(monkeypatch, ccd_tail, "jacobi_diis_insert")
-    s = tccd.CCD(no, "cpu")
+    s = tccd.CCD(no, device="cpu")
     rt, tlog = _logged(lambda: s.solve(tf, tV, mixed_precision=True, **tkw))
     it32 = _f32_iterations(tlog)
     assert it32 == s.n_iterations_f32 > 1
@@ -315,7 +315,7 @@ def test_ccsd_mixed_lih_matches_jax(lih, monkeypatch):
                                                    mixed_precision=True))
     e64 = _logged(lambda: jccsd.CCSD(no).solve(fock, V))[0]["ccsd e"]
     k3 = _spy(monkeypatch, ccsd_tail, "diis_mix_energy")
-    s = tccsd.CCSD(no, "cpu")
+    s = tccsd.CCSD(no, device="cpu")
     rt, tlog = _logged(lambda: s.solve(torch.as_tensor(fock),
                                        torch.as_tensor(V),
                                        mixed_precision=True))
@@ -338,10 +338,10 @@ def mf_ccsd(ueg19):
     d = {k: v for k, v in ueg19["dense"].items() if k not in MF_DROP}
     jd = dict(d, _ovvv_plans=jladder.build_ovvv_plans(ueg19["u"]))
     td = {k: torch.as_tensor(v) for k, v in d.items()}
-    td["_ovvv_plans"] = tladder.build_ovvv_plans(ueg19["tu"], "cpu")
+    td["_ovvv_plans"] = tladder.build_ovvv_plans(ueg19["tu"], device="cpu")
     return dict(fock=fock, jd=jd, jl=jladder.build_block_ladder(
         ueg19["u"], bra="all"), td=td,
-        tl=tladder.build_block_ladder(ueg19["tu"], "cpu", bra="all"),
+        tl=tladder.build_block_ladder(ueg19["tu"], device="cpu", bra="all"),
         kw=dict(delta_e=1e-10, max_iter=200))
 
 
@@ -360,7 +360,7 @@ def test_ccsd_mixed_matrix_free_matches_jax_f64(mf_ccsd, monkeypatch):
             x["fock"], dict(x["jd"]), ladder=x["jl"], mixed_precision=True,
             **x["kw"]))
     diag = _spy(monkeypatch, ovvv_gather, "ovvv_gather_diag")
-    s = tccsd.CCSD(NO, "cpu")
+    s = tccsd.CCSD(NO, device="cpu")
     rt = _logged(lambda: s.solve(torch.as_tensor(x["fock"]), dict(x["td"]),
                                  ladder=x["tl"], mixed_precision=True,
                                  **x["kw"]))[0]
@@ -383,15 +383,15 @@ def test_ccsd_dress_precision_takes_f64_only(mf_ccsd):
         x["fock"], dict(x["jd"]), ladder=x["jl"], dress_precision="f64",
         **x["kw"]))[0]["ccsd e"]
     for prec in (None, "f64"):
-        e = _logged(lambda: tccsd.CCSD(NO, "cpu").solve(
+        e = _logged(lambda: tccsd.CCSD(NO, device="cpu").solve(
             torch.as_tensor(x["fock"]), dict(x["td"]), ladder=x["tl"],
             dress_precision=prec, **x["kw"]))[0]["ccsd e"]
         assert abs(e - ej) <= 1e-10
     for prec in ("f32", "bf16"):
         with pytest.raises(ValueError):
-            tccsd.CCSD(NO, "cpu").solve(torch.as_tensor(x["fock"]),
-                                        dict(x["td"]), ladder=x["tl"],
-                                        dress_precision=prec)
+            tccsd.CCSD(NO, device="cpu").solve(torch.as_tensor(x["fock"]),
+                                               dict(x["td"]), ladder=x["tl"],
+                                               dress_precision=prec)
 
 
 def test_diis_f32_rings_match_jax():
@@ -404,7 +404,7 @@ def test_diis_f32_rings_match_jax():
     rng = np.random.default_rng(17)
     m, n = 4, 300
     sj = jdiis.init_state(m, n, jnp.float32)
-    st = tdiis.init_state(m, n, torch.float32, "cpu")
+    st = tdiis.init_state(m, n, torch.float32, device="cpu")
     for t in range(7):
         err = rng.standard_normal(n).astype(np.float32) * 0.5 ** t
         amp = rng.standard_normal(n).astype(np.float32)
@@ -478,7 +478,7 @@ def test_f32_trace_and_davidson_twins_match_f64(ueg19):
     relative."""
     rng = np.random.default_rng(29)
     nv = ueg19["nv"]
-    plans = tladder.build_ovvv_plans(ueg19["tu"], "cpu")
+    plans = tladder.build_ovvv_plans(ueg19["tu"], device="cpu")
     T1 = _pair(rng.standard_normal((nv, NO)) * 0.05)
     for pat, axis in (("vov", 1), ("ovv", 0)):
         p = plans[pat]
@@ -510,13 +510,14 @@ def test_mixed_precision_on_cut_blocks_matches_whole(lih, solver):
     no = lih["no"]
     fock = torch.as_tensor(lih["fock"])
     d = part_2_body_int(no, torch.as_tensor(lih["V"]))
-    cut = tmesh.shard_blocks(tmesh.make_mesh(3, "cpu", devices=["cpu"] * 3),
+    cut = tmesh.shard_blocks(tmesh.make_mesh(3, device="cpu",
+                                             devices=["cpu"] * 3),
                              d)
     cls, key = ((tccd.CCD, "ccd e") if solver == "ccd"
                 else (tccsd.CCSD, "ccsd e"))
     out = []
     for V in (d, cut):
-        s = cls(no, "cpu")
+        s = cls(no, device="cpu")
         e = _logged(lambda: s.solve(fock, V, mixed_precision=True))[0][key]
         out.append((e, s.n_iterations_f32))
     assert out[1][1] == out[0][1] > 1
@@ -538,18 +539,18 @@ def test_ccd_mixed_precision_with_ring_mesh(lih, abcd):
     no = lih["no"]
     fock = torch.as_tensor(lih["fock"])
     d = part_2_body_int(no, torch.as_tensor(lih["V"]))
-    m = tmesh.make_mesh(3, "cpu", devices=["cpu"] * 3)
+    m = tmesh.make_mesh(3, device="cpu", devices=["cpu"] * 3)
     cut = tmesh.shard_blocks(m, d)
     V = {"cut": cut, "whole": d,
          "shards": {**d, "abcd": list(cut["abcd"].shards)}}[abcd]
-    s = tccd.CCD(no, "cpu")
+    s = tccd.CCD(no, device="cpu")
     if abcd != "cut":
         with pytest.raises(ValueError):
             s.solve(fock, V, ring_mesh=m, mixed_precision=True)
         return
     e = _logged(lambda: s.solve(fock, V, ring_mesh=m,
                                 mixed_precision=True))[0]["ccd e"]
-    whole = tccd.CCD(no, "cpu")
+    whole = tccd.CCD(no, device="cpu")
     e0 = _logged(lambda: whole.solve(fock, d,
                                      mixed_precision=True))[0]["ccd e"]
     assert s.n_iterations_f32 == whole.n_iterations_f32 > 1

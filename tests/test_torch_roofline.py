@@ -24,7 +24,7 @@ def _plans(cutoff, bra):
     uj.init_single_basis(cutoff)
     ut.init_single_basis(cutoff)
     return (jladder.build_block_ladder(uj, bra=bra, preslice=None),
-            ueg_ladder.build_block_ladder(ut, "cpu", bra=bra),
+            ueg_ladder.build_block_ladder(ut, device="cpu", bra=bra),
             ut.n_spatial - NO)
 
 
@@ -96,8 +96,8 @@ def test_kernel_bounds_from_plans():
     ut = ueg.UEG(14, NO, NO, 0.5)
     ut.init_single_basis(2)
     nv = ut.n_spatial - NO
-    plan = ueg_ladder.build_block_ladder(ut, "cpu")
-    plans = ueg_ladder.build_ovvv_plans(ut, "cpu")
+    plan = ueg_ladder.build_block_ladder(ut, device="cpu")
+    plans = ueg_ladder.build_ovvv_plans(ut, device="cpu")
     pk = plan.packed
     assert roofline.ladder_bound(plan, 49) == (pytest.approx(
         (8 * (nv * nv * 49 + pk.n_rows * 49 + pk.blocks.numel())
@@ -121,8 +121,8 @@ def test_cuda_core_helpers_use_the_fma_rate(monkeypatch):
     ut = ueg.UEG(14, NO, NO, 0.5)
     ut.init_single_basis(2)
     nv = ut.n_spatial - NO
-    plan = ueg_ladder.build_block_ladder(ut, "cpu")
-    ovvv = next(iter(ueg_ladder.build_ovvv_plans(ut, "cpu").values()))
+    plan = ueg_ladder.build_block_ladder(ut, device="cpu")
+    ovvv = next(iter(ueg_ladder.build_ovvv_plans(ut, device="cpu").values()))
     fma, tc = roofline.FP64_FMA_FLOPS_S, roofline.FP64_TENSOR_FLOPS_S
     n = ovvv.S.numel()
     assert roofline.gather_bound(ovvv, nv, NO) == (
@@ -154,8 +154,8 @@ def test_f32_bounds_count_four_bytes_and_the_fp32_rate(monkeypatch):
     ut = ueg.UEG(14, NO, NO, 0.5)
     ut.init_single_basis(2)
     nv = ut.n_spatial - NO
-    plan = ueg_ladder.build_block_ladder(ut, "cpu")
-    ovvv = next(iter(ueg_ladder.build_ovvv_plans(ut, "cpu").values()))
+    plan = ueg_ladder.build_block_ladder(ut, device="cpu")
+    ovvv = next(iter(ueg_ladder.build_ovvv_plans(ut, device="cpu").values()))
     pk, n = plan.packed, ovvv.S.numel()
     assert roofline.ladder_bound(plan, 49, elem=4) == (pytest.approx(
         (4 * (nv * nv * 49 + pk.n_rows * 49 + pk.blocks.numel())

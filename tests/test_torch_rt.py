@@ -34,7 +34,7 @@ class _MatrixRT(trt.RT_EOM_CCSD):
     """The port's RT step on a dense model H̄ through the EOM hooks."""
 
     def __init__(self, no, ham, **kw):
-        super().__init__(no, "cpu", **kw)
+        super().__init__(no, device="cpu", **kw)
         self.ham = ham
 
     def _batched_sigma(self, f, dict_t_V, U1, U2, T2):
@@ -120,7 +120,7 @@ def test_rt_h2_steps_match_jax():
     js.ls_precision = "f64"
     js.ls_backend = "inhouse"
     js.max_nodes_per_dispatch = None
-    ts = trt.RT_EOM_CCSD(no, "cpu", **kw)
+    ts = trt.RT_EOM_CCSD(no, device="cpu", **kw)
     for s in (js, ts):
         s.ls_restart = 20
         s.ls_max_iter = 100

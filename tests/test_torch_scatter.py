@@ -85,12 +85,13 @@ def test_scatter_matches_jax(case):
         vals = vals.astype(np.float32)
     before = dict(kernels.LAUNCHES)
     if names is None:
-        got = tueg.sparse_to_dense(idx, vals, n_p, "cpu")
+        got = tueg.sparse_to_dense(idx, vals, n_p, device="cpu")
         assert got.dtype == torch.float64 and got.shape == (n_p,) * 4
         want = np.asarray(jueg.sparse_to_dense(idx, vals, n_p))
         assert np.array_equal(want, got.numpy())
     else:
-        got = tueg.sparse_to_blocks(idx, vals, n_p, NO, "cpu", names=names)
+        got = tueg.sparse_to_blocks(idx, vals, n_p, NO, device="cpu",
+                                    names=names)
         want = jueg.sparse_to_blocks(idx, vals, n_p, NO, names=names)
         assert tuple(got) == tuple(names)
         for name in names:

@@ -245,9 +245,10 @@ def test_tc_effective_2body_ccd_dcd_oracles():
         u.double_contractions_in_3_body()))
     assert abs(u.triple_contractions_in_3_body()
                - 0.002887307509129971) < 1e-12
-    res = ccd.CCD(NO, "cpu").solve(fock, V, level_shift=-1.0, max_iter=80)
+    res = ccd.CCD(NO, device="cpu").solve(fock, V, level_shift=-1.0,
+                                          max_iter=80)
     assert abs(res["ccd e"] - (-7.725879708981945e-06)) < 1e-10
-    res_dcd = ccd.CCD(NO, "cpu", is_dcd=True).solve(
+    res_dcd = ccd.CCD(NO, device="cpu", is_dcd=True).solve(
         fock, V, level_shift=-1.0, max_iter=80, amps=res["t2 amp"])
     assert abs(res_dcd["ccd e"] - (-7.725880035329113e-06)) < 1e-10
 
@@ -279,7 +280,7 @@ def test_tc_block_ladder_identical_and_exact(flags, bra, shift):
     uj, ut = _pair(shift=shift, k_cutoff=None)
     pj = jladder.build_block_ladder(uj, correlator=uj.yukawa, bra=bra,
                                     preslice=None, **flags)
-    pt = tladder.build_block_ladder(ut, "cpu", correlator=ut.yukawa,
+    pt = tladder.build_block_ladder(ut, device="cpu", correlator=ut.yukawa,
                                     bra=bra, **flags)
     _plans_equal(pj, pt)
     p_int = interop.block_ladder_from_numpy(pj, "cpu")
@@ -313,10 +314,10 @@ def test_sharded_tc_plan_matches_whole(bra):
 
     _, ut = _pair(shift=SHIFTS[1], k_cutoff=None)
     kw = dict(correlator=ut.yukawa, bra=bra, is_only_2b=True)
-    whole = tladder.build_block_ladder(ut, "cpu", **kw)
+    whole = tladder.build_block_ladder(ut, device="cpu", **kw)
     sharded = tladder.shard_block_ladder(
-        tladder.build_block_ladder(ut, "cpu", pad_sectors=4, **kw),
-        mesh.make_mesh(4, "cpu", devices=["cpu"] * 4))
+        tladder.build_block_ladder(ut, device="cpu", pad_sectors=4, **kw),
+        mesh.make_mesh(4, device="cpu", devices=["cpu"] * 4))
     nv = ut.n_spatial - NO
     T = torch.as_tensor(np.random.default_rng(5).standard_normal(
         (NO, NO, nv, nv)))
@@ -330,7 +331,8 @@ def test_tc_ovvv_plans_identical(flags):
     uj, ut = _pair(shift=SHIFTS[1])
     corr = "gaskell" if flags else None
     pj = jladder.build_ovvv_plans(uj, corr and getattr(uj, corr), **flags)
-    pt = tladder.build_ovvv_plans(ut, "cpu", corr and getattr(ut, corr),
+    pt = tladder.build_ovvv_plans(ut, device="cpu",
+                                  correlator=corr and getattr(ut, corr),
                                   **flags)
     p_int = interop.ovvv_plans_from_numpy(pj, "cpu")
     for pat in ("vvo", "ovv", "vov"):
@@ -348,9 +350,11 @@ def test_non_hermitian_ovvv_plan_raises_as_in_jax(flags):
     with pytest.raises(NotImplementedError):
         jladder.build_ovvv_t1_plan(uj, "vvo", uj.gaskell, **flags)
     with pytest.raises(NotImplementedError):
-        tladder.build_ovvv_t1_plan(ut, "vvo", "cpu", ut.gaskell, **flags)
+        tladder.build_ovvv_t1_plan(ut, "vvo", device="cpu",
+                                   correlator=ut.gaskell, **flags)
     with pytest.raises(NotImplementedError):
-        tladder.build_ovvv_plans(ut, "cpu", ut.gaskell, **flags)
+        tladder.build_ovvv_plans(ut, device="cpu", correlator=ut.gaskell,
+                                 **flags)
 
 
 # --- TC solves ------------------------------------------------------------
@@ -369,11 +373,11 @@ def test_tc_ccd_matrix_free_trajectory_matches_dense_and_jax():
     Vt = torch.as_tensor(V)
     fock = hf.construct_hf_matrix(NO, torch.diag(torch.as_tensor(kin)), Vt)
     kw = dict(level_shift=-3.0, max_iter=6, delta_e=1e-30)
-    dense = ccd.CCD(NO, "cpu", is_diis=False).solve(fock, Vt, **kw)
+    dense = ccd.CCD(NO, device="cpu", is_diis=False).solve(fock, Vt, **kw)
     blocks = ccd.blocks_from_full(NO, Vt)._replace(
         abcd=None, ladder=tladder.build_block_ladder(
-            ut, "cpu", correlator=ut.yukawa, is_only_2b=True))
-    mf = ccd.CCD(NO, "cpu", is_diis=False).solve(fock, blocks, **kw)
+            ut, device="cpu", correlator=ut.yukawa, is_only_2b=True))
+    mf = ccd.CCD(NO, device="cpu", is_diis=False).solve(fock, blocks, **kw)
     jb = jccd.blocks_from_full(NO, jnp.asarray(V))._replace(
         abcd=None, ladder=jladder.build_block_ladder(
             uj, correlator=uj.yukawa, preslice=None, is_only_2b=True))
@@ -403,7 +407,8 @@ def _tc_blocks(u, flags, mod_ueg, device=None):
             jhf.calcOccupiedOrbE(kin, d["klij"], NO),
             jhf.calcVirtualOrbE(kin, d["aibj"], d["aijb"], NO, n_p - NO)])
         return d, np.asarray(eps)
-    d = mod_ueg.sparse_to_blocks(idx, vals, n_p, NO, device, names=NEED)
+    d = mod_ueg.sparse_to_blocks(idx, vals, n_p, NO, names=NEED,
+                                 device=device)
     kin = u.kinetic_energies()
     eps = torch.cat([hf.calcOccupiedOrbE(kin, d["klij"], NO),
                      hf.calcVirtualOrbE(kin, d["aibj"], d["aijb"], NO,
@@ -425,7 +430,7 @@ def test_tc_gaskell_ccd_dcd_non_hermitian_plan_matches_jax(is_dcd):
     dj, eps_j = _tc_blocks(uj, flags, jueg)
     assert np.array_equal(eps, eps_j)
     fock = np.diag(eps)
-    pt = tladder.build_block_ladder(ut, "cpu", correlator=ut.gaskell,
+    pt = tladder.build_block_ladder(ut, device="cpu", correlator=ut.gaskell,
                                     **flags)
     pj = jladder.build_block_ladder(uj, correlator=uj.gaskell,
                                     preslice=None, **flags)
@@ -433,7 +438,7 @@ def test_tc_gaskell_ccd_dcd_non_hermitian_plan_matches_jax(is_dcd):
     bt = ccd.CCDBlocks(**{k: dt[k] for k in names}, abcd=None, ladder=pt)
     bj = jccd.CCDBlocks(**{k: dj[k] for k in names}, abcd=None, ladder=pj)
     kw = dict(level_shift=-1.0, max_iter=60)
-    res = ccd.CCD(NO, "cpu", is_dcd=is_dcd).solve(fock, bt, **kw)
+    res = ccd.CCD(NO, device="cpu", is_dcd=is_dcd).solve(fock, bt, **kw)
     ref = jccd.CCD(NO, is_dcd=is_dcd).solve(jnp.asarray(fock), bj,
                                             contract_mode="xla", **kw)
     want = np.asarray(ref["e history"])
@@ -455,13 +460,14 @@ def test_hermitian_tc_matrix_free_ccsd_matches_jax():
     n_p = ut.n_spatial
     noise = np.random.default_rng(5).standard_normal((n_p, n_p)) * 0.02
     fock = np.diag(eps) + noise + noise.T
-    dt["_ovvv_plans"] = tladder.build_ovvv_plans(ut, "cpu", ut.gaskell,
+    dt["_ovvv_plans"] = tladder.build_ovvv_plans(ut, device="cpu",
+                                                 correlator=ut.gaskell,
                                                  **flags)
     dj["_ovvv_plans"] = jladder.build_ovvv_plans(uj, uj.gaskell, **flags)
     kw = dict(level_shift=-1.0, max_iter=100, delta_e=1e-10)
-    res = ccsd.CCSD(NO, "cpu").solve(
+    res = ccsd.CCSD(NO, device="cpu").solve(
         torch.as_tensor(fock), dt, ladder=tladder.build_block_ladder(
-            ut, "cpu", correlator=ut.gaskell, bra="all", **flags), **kw)
+            ut, device="cpu", correlator=ut.gaskell, bra="all", **flags), **kw)
     ref = jccsd.CCSD(NO).solve(
         jnp.asarray(fock), dj, ladder=jladder.build_block_ladder(
             uj, correlator=uj.gaskell, bra="all", preslice=None, **flags),

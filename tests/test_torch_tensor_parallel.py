@@ -49,7 +49,7 @@ ORACLE_LIH = -0.01908832712812761
 
 def _cpu_mesh(n, shape=None):
     axes = ("a",) if shape is None else ("a", "b")
-    return tmesh.make_mesh(n, "cpu", axis_names=axes, shape=shape,
+    return tmesh.make_mesh(n, device="cpu", axis_names=axes, shape=shape,
                            devices=["cpu"] * n)
 
 
@@ -74,12 +74,12 @@ def test_vblock_axes_equal_vblock_pspec(axes):
 def test_make_mesh_2d_shape_matches_jax():
     for n in range(1, 9):
         mj = jmesh.make_mesh(n, axis_names=("a", "b"))
-        mt = tmesh.make_mesh(n, "cpu", axis_names=("a", "b"),
+        mt = tmesh.make_mesh(n, device="cpu", axis_names=("a", "b"),
                              devices=["cpu"] * n)
         assert mt.grid == mj.devices.shape
         assert mt.shape == dict(zip(("a", "b"), mj.devices.shape))
     with pytest.raises(ValueError):
-        tmesh.make_mesh(6, "cpu", axis_names=("a", "b"), shape=(4, 2),
+        tmesh.make_mesh(6, device="cpu", axis_names=("a", "b"), shape=(4, 2),
                         devices=["cpu"] * 6)
 
 
@@ -175,7 +175,7 @@ def _port_step(no, f, dict_V, T1, T2):
     eps = torch.diagonal(f)
     T1 = torch.as_tensor(T1).clone()
     T2 = torch.as_tensor(T2).permute(2, 3, 0, 1).contiguous()
-    state = diis.init_state(6, T1.numel() + T2.numel(), T2.dtype, "cpu")
+    state = diis.init_state(6, T1.numel() + T2.numel(), T2.dtype, device="cpu")
     _, e, _, info = ccsd.ccsd_iteration(
         f, dict_V, no, T1, T2, eps[:no].contiguous(), eps[no:].contiguous(),
         0.0, state, torch.zeros((), dtype=T2.dtype))
@@ -203,7 +203,8 @@ def test_ccsd_step_matches_jax_sharded_step(synthetic, shape, t1):
     whole = {k: torch.as_tensor(v) for k, v in dict_V.items()}
     one = _port_step(no, f, whole, T1, T2)
     m = _cpu_mesh(8, shape)
-    d = ccsd.CCSD(no, "cpu")._dict_on_device(tmesh.shard_blocks(m, whole))
+    d = ccsd.CCSD(no, device="cpu")._dict_on_device(
+        tmesh.shard_blocks(m, whole))
     assert all(isinstance(d[k], tmesh.Sharded)
                for k in ("abcd", "iabc", "aibc", "abic", "abci"))
     got = _port_step(no, f, d, T1, T2)
@@ -232,8 +233,8 @@ def ueg57():
 def test_dense_ccd_np57_on_a_cut_abcd(ueg57, n, shape, flags):
     fock, d = ueg57
     kw = dict(level_shift=-1.0, max_iter=60)
-    one = ccd.CCD(7, "cpu", **flags).solve(fock, d, **kw)
-    res = ccd.CCD(7, "cpu", **flags).solve(
+    one = ccd.CCD(7, device="cpu", **flags).solve(fock, d, **kw)
+    res = ccd.CCD(7, device="cpu", **flags).solve(
         fock, tmesh.shard_blocks(_cpu_mesh(n, shape), d), **kw)
     assert len(res["e history"]) == len(one["e history"])
     _close(res["e history"], one["e history"], 1e-10)
@@ -269,21 +270,22 @@ def test_lih_ccsd_on_a_cut_mesh(lih, lih_jax, n, shape):
     d = tpart(no, torch.as_tensor(V))
     m = _cpu_mesh(n, shape)
     kw = dict(delta_e=1e-10, max_iter=100)
-    res = ccsd.CCSD(no, "cpu").solve(fock, tmesh.shard_blocks(m, d), **kw)
+    res = ccsd.CCSD(no, device="cpu").solve(fock, tmesh.shard_blocks(m, d),
+                                            **kw)
     assert abs(res["ccsd e"] - ORACLE_LIH) <= 1e-8
     assert float(res["t1"].abs().max()) > 1e-4
     assert len(res["e history"]) == len(lih_jax["e history"])
     _close(res["e history"], lih_jax["e history"], 1e-10)
     _close(res["t1"], lih_jax["t1"], 1e-9)
     # amplitudes given cut (shard_amplitudes) start the same solve
-    again = ccsd.CCSD(no, "cpu").solve(
+    again = ccsd.CCSD(no, device="cpu").solve(
         fock, tmesh.shard_blocks(m, d), max_iter=3, delta_e=-1.0,
         amps=tmesh.shard_amplitudes(m, res["t1"], res["t2"]))
-    ref = ccsd.CCSD(no, "cpu").solve(fock, d, max_iter=3, delta_e=-1.0,
-                                     amps=(res["t1"], res["t2"]))
+    ref = ccsd.CCSD(no, device="cpu").solve(fock, d, max_iter=3, delta_e=-1.0,
+                                            amps=(res["t1"], res["t2"]))
     _close(again["e history"], ref["e history"], 1e-12)
     # the DCSD flag against the unsharded port
-    dcsd = ccsd.CCSD(no, "cpu", is_dcsd=True)
+    dcsd = ccsd.CCSD(no, device="cpu", is_dcsd=True)
     got = dcsd.solve(fock, tmesh.shard_blocks(m, d), **kw)
     one = dcsd.solve(fock, d, **kw)
     assert len(got["e history"]) == len(one["e history"])
@@ -308,8 +310,8 @@ def test_tc_lih_ccsd_on_a_cut_mesh(n, shape):
     assert float((d["iabc"] - d["abci"].permute(3, 2, 1, 0)).abs().max()) \
         > 1e-6  # not Hermitian
     kw = dict(delta_e=1e-11)
-    one = ccsd.CCSD(no, "cpu").solve(fock, d, **kw)
-    res = ccsd.CCSD(no, "cpu").solve(
+    one = ccsd.CCSD(no, device="cpu").solve(fock, d, **kw)
+    res = ccsd.CCSD(no, device="cpu").solve(
         fock, tmesh.shard_blocks(_cpu_mesh(n, shape), d), **kw)
     assert len(res["e history"]) == len(one["e history"])
     _close(res["e history"], one["e history"], 1e-10)
@@ -367,7 +369,7 @@ def test_no_v4_block_is_put_together(synthetic, no_v4_cat, shape):
     fock = torch.as_tensor(f)
     m = _cpu_mesh(8, shape)
     kw = dict(max_iter=4, delta_e=-1.0)
-    for solver in (ccd.CCD(no, "cpu"), ccsd.CCSD(no, "cpu")):
+    for solver in (ccd.CCD(no, device="cpu"), ccsd.CCSD(no, device="cpu")):
         got = solver.solve(fock, _guarded(d, m), **kw)
         one = solver.solve(fock, d, **kw)
         _close(got["e history"], one["e history"], 1e-12)
@@ -384,7 +386,7 @@ def test_bare_pieces_unchanged_after_a_ccsd_solve(lih, n, shape):
     d = {k: v.contiguous() for k, v in tpart(no, torch.as_tensor(V)).items()}
     ds = tmesh.shard_blocks(_cpu_mesh(n, shape), d)
     before = {k: [s.clone() for s in ds[k].shards] for k in ds}
-    ccsd.CCSD(no, "cpu").solve(fock, ds, max_iter=4, delta_e=-1.0)
+    ccsd.CCSD(no, device="cpu").solve(fock, ds, max_iter=4, delta_e=-1.0)
     for k, pieces in before.items():
         for s, b in zip(ds[k].shards, pieces):
             assert torch.equal(s, b), k

@@ -49,20 +49,22 @@ def operator():
     u.init_single_basis(2)
     idx, vals = u.eval_2b_integrals(sp=2)
     n_p = u.n_spatial
-    d = ueg.sparse_to_blocks(idx, vals, n_p, NO, "cpu", names=BLOCKS)
+    d = ueg.sparse_to_blocks(idx, vals, n_p, NO, device="cpu", names=BLOCKS)
     kin = u.kinetic_energies()
     eps_i = hf.calcOccupiedOrbE(kin, d["klij"], NO)
     eps_a = hf.calcVirtualOrbE(kin, d["aibj"], d["aijb"], NO, n_p - NO)
     fock = torch.diag(torch.cat([eps_i, eps_a]))
     blocks = ccd.CCDBlocks(klij=d["klij"], ijab=d["ijab"], abij=d["abij"],
                            iajb=d["iajb"], iabj=d["iabj"], abcd=None,
-                           ladder=ueg_ladder.build_block_ladder(u, "cpu"))
-    T2 = ccd.CCD(NO, "cpu").solve(fock, blocks, level_shift=-1.0,
-                                  max_iter=60)["t2 amp"]
+                           ladder=ueg_ladder.build_block_ladder(
+                               u, device="cpu"))
+    T2 = ccd.CCD(NO, device="cpu").solve(fock, blocks, level_shift=-1.0,
+                                         max_iter=60)["t2 amp"]
     V = {k: d[k] for k in BLOCKS if k not in ("aibj", "aijb")}
     V.update(abcd=None,
-             abcd_ladder=ueg_ladder.build_block_ladder(u, "cpu", bra="all"),
-             _ovvv_plans=ueg_ladder.build_ovvv_plans(u, "cpu"))
+             abcd_ladder=ueg_ladder.build_block_ladder(u, device="cpu",
+                                                       bra="all"),
+             _ovvv_plans=ueg_ladder.build_ovvv_plans(u, device="cpu"))
     return fock, V, T2
 
 
@@ -72,13 +74,13 @@ def steps(st):
 
 def main():
     fock, V, T2 = operator()
-    dav = eom_ccsd.EOM_CCSD(NO, "cpu", n_excit=2)
+    dav = eom_ccsd.EOM_CCSD(NO, device="cpu", n_excit=2)
     dav.e_epsilon = 1e-10
     e0 = float(np.sort(np.real(dav.solve(fock, V, T2)))[0])
     print(f"nP=19 Davidson root {e0:.13f}")
     for prec in ("f64", "mixed"):
         s = feast_eom_ccsd.FEAST_EOM_CCSD(
-            NO, "cpu", e_c=e0, e_r=0.05, n_trial=2, n_quad=4, n_excit=2,
+            NO, device="cpu", e_c=e0, e_r=0.05, n_trial=2, n_quad=4, n_excit=2,
             max_iter=2, tol=1e-10, seed=7, ls_conv_tol=1e-10,
             ls_precision=prec)
         s.ls_restart, s.ls_max_iter, s.ls_refine_max = 30, 4, 8
@@ -89,7 +91,8 @@ def main():
     u = (dav.u_singles[0].numpy().astype(complex),
          dav.u_doubles[0].numpy().astype(complex))
     for prec in ("f64", "mixed"):
-        s = rt_eom_ccsd.RT_EOM_CCSD(NO, "cpu", e_c=e0, e_r=0.5, n_quad=32,
+        s = rt_eom_ccsd.RT_EOM_CCSD(NO, device="cpu", e_c=e0, e_r=0.5,
+                                    n_quad=32,
                                     ls_conv_tol=1e-10, ls_precision=prec)
         s.ls_restart = 20
         s.solve(fock, V, T2, dt=0.1, u_singles=u[0], u_doubles=u[1])

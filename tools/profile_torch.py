@@ -152,7 +152,7 @@ def main():
     q = cs.setup_ccsd(problems[14], "cuda")
     V_eom = cs.eom_operator(problems[14], "cuda", q["plan_all"],
                             q["mf_dict"]["_ovvv_plans"])
-    T2_eom = ccd.CCD(cs.NO, "cuda").solve(
+    T2_eom = ccd.CCD(cs.NO, device="cuda").solve(
         q["fock"], q["blocks"], level_shift=-1.0, max_iter=60)["t2 amp"]
     runs = {f"CCD nP={p['nP']}": (lambda tw, n, p=p: cs.solve_fixed(p, tw, n))
             for p in problems.values()}

@@ -257,7 +257,7 @@ def time_k1(torch, models, dev, g):
     out = {}
     for label, cutoff, bra, N in K1_WIDTHS:
         u = models[cutoff]
-        plan = ueg_ladder.build_block_ladder(u, dev, bra=bra)
+        plan = ueg_ladder.build_block_ladder(u, device=dev, bra=bra)
         p32 = ueg_ladder.cast_plan(plan, torch.float32)
         nv = u.n_spatial - NO
         T = torch.randn((nv * nv, N), generator=g, dtype=torch.float64,
@@ -301,7 +301,7 @@ def time_k4(torch, models, dev, g):
     for label, cutoff, k in K4_WIDTHS:
         u = models[cutoff]
         if cutoff not in plans_of:
-            plans_of[cutoff] = ueg_ladder.build_ovvv_plans(u, dev)
+            plans_of[cutoff] = ueg_ladder.build_ovvv_plans(u, device=dev)
         plans = plans_of[cutoff]
         nv = u.n_spatial - NO
         N = nv * NO + nv * nv * NO * NO
@@ -353,7 +353,7 @@ def time_trace(torch, models, dev, g):
     from pymes_tpu_torch.ops import ueg_ladder
 
     u = models[14]
-    plans = ueg_ladder.build_ovvv_plans(u, dev)
+    plans = ueg_ladder.build_ovvv_plans(u, device=dev)
     nv = u.n_spatial - NO
     T = torch.randn((nv, NO), generator=g, dtype=torch.float64, device=dev)
     out = {}

@@ -106,7 +106,7 @@ def main():
             u = ueg.UEG(14, 7, 7, 0.5)
             u.init_single_basis(cutoff)
             plans_of[cutoff] = (u.n_spatial - NO,
-                                ueg_ladder.build_ovvv_plans(u, dev))
+                                ueg_ladder.build_ovvv_plans(u, device=dev))
         nv, plans = plans_of[cutoff]
         N = nv * NO + nv * nv * NO * NO
         if k is None:
