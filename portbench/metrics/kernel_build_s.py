@@ -1,0 +1,22 @@
+"""``kernel_build_s``: the set-up's seconds in the first call of the CUDA
+library (``kernels/_build.py`` ``library``): its ``nvcc`` build where the
+checkout has no library yet, and its load; the total of every
+``kernels.build`` span of the run. The spans are the program's tracer's
+(``pymes_tpu_torch/util/observability.py``, host ``perf_counter_ns``).
+Loading this reader turns the tracer on: the harness loads per-layer readers
+only in traced runs, before set-up, so untraced runs keep it off. A program
+without the tracer, or without such spans, gives nothing."""
+
+from pymes_tpu_torch.util import observability as obs
+
+TRACER = hasattr(obs, "enable")
+if TRACER:
+    obs.enable()
+SPANS = ("kernels.build",)
+
+
+def read(ctx):
+    if not TRACER:
+        return None
+    found = [s for name, s in obs.summary().items() if name in SPANS]
+    return sum(s["total_ns"] for s in found) / 1e9 if found else None

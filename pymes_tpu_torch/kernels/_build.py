@@ -21,6 +21,8 @@ from pathlib import Path
 
 import torch
 
+from pymes_tpu_torch.util.observability import span
+
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
@@ -103,10 +105,12 @@ def launch(device, fn, *args):
 
 
 def library():
-    """The loaded kernel library (built on first call)."""
+    """The loaded kernel library (built on first call; the build and the
+    load are the span ``kernels.build``)."""
     global _LIB
     if _LIB is None:
-        lib = ctypes.CDLL(str(build()))
+        with span("kernels.build"):
+            lib = ctypes.CDLL(str(build()))
         vp, i32, f64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
         i64 = ctypes.c_longlong
         # K1: cd-major operand and row stride, the pack (blocks,

@@ -39,6 +39,7 @@ from pymes_tpu_torch.basis_set import planewave
 from pymes_tpu_torch.config import check_f64, resolve_device
 from pymes_tpu_torch.kernels.block_scatter import block_scatter
 from pymes_tpu_torch.log import print_logging_info
+from pymes_tpu_torch.util.observability import traced
 
 
 class UEG:
@@ -106,6 +107,7 @@ class UEG:
         return self.basis.kinetic.copy()
 
     # --- 2-body integrals ------------------------------------------------
+    @traced("ueg.integrals")
     def eval_2b_integrals(self, correlator=None,
                           is_rpa_approx=False,
                           is_only_2b=False,
@@ -623,6 +625,7 @@ def sparse_to_dense(idx, vals, n_p, dtype=None, *, device=None):
                          resolve_device(device))["abcd"]
 
 
+@traced("ueg.blocks")
 def sparse_to_blocks(idx, vals, n_p, no, names=None, dtype=None, *,
                      device=None):
     """Scatter a sparse integral set directly into the named o/v blocks on

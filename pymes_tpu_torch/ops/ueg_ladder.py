@@ -51,6 +51,7 @@ from pymes_tpu_torch.config import check_f64, resolve_device
 from pymes_tpu_torch.kernels import block_ladder as _k1
 from pymes_tpu_torch.kernels import ovvv_gather as _k4
 from pymes_tpu_torch.models.ueg import _call_correlator
+from pymes_tpu_torch.util.observability import traced
 
 
 class BlockGroup(NamedTuple):
@@ -183,6 +184,7 @@ def plan_from_arrays(group_arrays, inv_bra, n_bra, nv, w0, device):
         n_bra=int(n_bra), nv=int(nv), w0=float(w0), packed=packed)
 
 
+@traced("ladder.plan")
 def build_block_ladder(ueg_model, correlator=None, dtype=np.float64,
                        bra="virtual", preslice=9, pad_sectors=1, pad="fine",
                        *, device=None, **integral_flags):
@@ -474,6 +476,7 @@ def build_ovvv_t1_plan(ueg_model, ranges, correlator=None, dtype=np.float64,
         W=torch.as_tensor(W, dtype=torch.float64, device=dev))
 
 
+@traced("ovvv.plan")
 def build_ovvv_plans(ueg_model, correlator=None, dtype=np.float64, *,
                      device=None, **integral_flags):
     """The three ovvv gather plans the matrix-free CCSD dressing needs

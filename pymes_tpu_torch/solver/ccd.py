@@ -58,6 +58,7 @@ from pymes_tpu_torch.config import DTYPE, resolve_device
 from pymes_tpu_torch.kernels import ccd_tail, pair_sym
 from pymes_tpu_torch.log import print_logging_info
 from pymes_tpu_torch.mixer import diis
+from pymes_tpu_torch.util.observability import span, traced
 from pymes_tpu_torch.ops.ueg_ladder import (dressed_ladder_apply_ij,
                                             ladder_apply_ij)
 from pymes_tpu_torch.parallel import tensor_parallel
@@ -274,49 +275,57 @@ def ccd_solve(t_fock_pq, blocks: CCDBlocks, no, t_T0_abij,
     eps_i, eps_a = eps_i0, eps_a0
     it = 0
     while it <= max_iter:
-        if delta_e >= 0 and not float(torch.abs(dE)) > delta_e:
-            break
-        if is_dr_ccd:
-            R = drccd.residual(eps_i, eps_a, T, blocks.abij, blocks.iabj,
-                               blocks.ijab)
-        else:
-            R = doubles_residual_ij(f_ab, f_ij, T, V_ij, is_dcd=is_dcd,
-                                    is_bruekner=is_bruekner, twin=twin,
-                                    ring_mesh=ring_mesh, ring_axis=ring_axis)
-        if is_bruekner:
-            # quasi-particle energies from the CURRENT amplitudes on top of
-            # the canonical ε₀ (as the JAX package; the reference compounds
-            # the correction and diverges)
-            tilde = 2.0 * T - T.transpose(2, 3)
-            eps_i = eps_i0 + 0.5 * torch.einsum("ilcd,ilcd->i",
-                                                V_ij.ijab, tilde)
-            eps_a = eps_a0 - 0.5 * torch.einsum("klad,klad->a",
-                                                V_ij.ijab, tilde)
-
-        slot = state.count % m
-        n_valid = min(state.count + 1, m)
-        row = ccd_tail.jacobi_diis_insert(R, T, eps_i, eps_a, level_shift,
-                                          state.errs, state.amps, slot,
-                                          n_valid, twin=twin)
-        if is_diis:
-            B, coeff, info_it = diis.coefficients(state.B, row, slot,
-                                                  n_valid)
-            info = torch.maximum(info, info_it.abs())
-        else:
-            B, coeff = state.B, ones
-        state = diis.DIISState(amps=state.amps, errs=state.errs,
-                               count=state.count + 1, B=B)
-        e_dir, e_exc = ccd_tail.diis_mix_energy(
-            state.amps, coeff, n_valid, T, V_ij.ijab, V_ij.ijab_x, twin=twin)
-        # drCCD/dRPA energy is the direct ring alone
-        e = e_dir if is_dr_ccd else e_dir + e_exc
-        dE = e - e_last
-        e_last = e
-        e_hist[min(it, max_iter)] = e
-        it += 1
-        if log_iterations:
-            print(f"    CCD it {it}: E = {float(e):.12f}  "
-                  f"dE = {float(dE):.3e}")
+        if delta_e >= 0:
+            with span("cc.wait"):
+                done = not float(torch.abs(dE)) > delta_e
+            if done:
+                break
+        with span("cc.iter"):
+            with span("cc.residual"):
+                if is_dr_ccd:
+                    R = drccd.residual(eps_i, eps_a, T, blocks.abij,
+                                       blocks.iabj, blocks.ijab)
+                else:
+                    R = doubles_residual_ij(f_ab, f_ij, T, V_ij,
+                                            is_dcd=is_dcd,
+                                            is_bruekner=is_bruekner,
+                                            twin=twin, ring_mesh=ring_mesh,
+                                            ring_axis=ring_axis)
+                if is_bruekner:
+                    # quasi-particle energies from the CURRENT amplitudes
+                    # on top of the canonical ε₀ (as the JAX package; the
+                    # reference compounds the correction and diverges)
+                    tilde = 2.0 * T - T.transpose(2, 3)
+                    eps_i = eps_i0 + 0.5 * torch.einsum("ilcd,ilcd->i",
+                                                        V_ij.ijab, tilde)
+                    eps_a = eps_a0 - 0.5 * torch.einsum("klad,klad->a",
+                                                        V_ij.ijab, tilde)
+            with span("cc.tail"):
+                slot = state.count % m
+                n_valid = min(state.count + 1, m)
+                row = ccd_tail.jacobi_diis_insert(
+                    R, T, eps_i, eps_a, level_shift, state.errs, state.amps,
+                    slot, n_valid, twin=twin)
+                if is_diis:
+                    B, coeff, info_it = diis.coefficients(state.B, row, slot,
+                                                          n_valid)
+                    info = torch.maximum(info, info_it.abs())
+                else:
+                    B, coeff = state.B, ones
+                state = diis.DIISState(amps=state.amps, errs=state.errs,
+                                       count=state.count + 1, B=B)
+                e_dir, e_exc = ccd_tail.diis_mix_energy(
+                    state.amps, coeff, n_valid, T, V_ij.ijab, V_ij.ijab_x,
+                    twin=twin)
+                # drCCD/dRPA energy is the direct ring alone
+                e = e_dir if is_dr_ccd else e_dir + e_exc
+                dE = e - e_last
+                e_last = e
+                e_hist[min(it, max_iter)] = e
+            it += 1
+            if log_iterations:
+                print(f"    CCD it {it}: E = {float(e):.12f}  "
+                      f"dE = {float(dE):.3e}")
 
     if int(info) != 0:
         raise RuntimeError("DIIS bordered system singular during the solve")
@@ -365,6 +374,7 @@ class CCD:
             return x
         return torch.as_tensor(x, dtype=DTYPE, device=self.device)
 
+    @traced("cc.solve")
     def solve(self, t_fock_pq, t_V_pqrs, level_shift=0.0, sp=0, amps=None,
               mixed_precision=False, contract_mode=None, ring_mesh=None,
               ring_axis="a", layout=None, **kwargs):
@@ -398,8 +408,9 @@ class CCD:
         print_logging_info("Using DIIS mixer: ", self.is_diis, level=1)
         print_logging_info("Using Brueckner: ", self.is_bruekner, level=1)
 
-        e_mp2, t_T_abij = mp2.solve(eps_i, eps_a, blocks.ijab, blocks.abij,
-                                    level_shift)
+        with span("cc.guess"):
+            e_mp2, t_T_abij = mp2.solve(eps_i, eps_a, blocks.ijab,
+                                        blocks.abij, level_shift)
         print_logging_info("MP2 energy = {:.12f}".format(float(e_mp2)),
                            level=1)
         if amps is not None:

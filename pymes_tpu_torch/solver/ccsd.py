@@ -56,6 +56,7 @@ from pymes_tpu_torch.parallel import tensor_parallel
 from pymes_tpu_torch.parallel.mesh import Sharded
 from pymes_tpu_torch.solver import ccd as ccd_mod
 from pymes_tpu_torch.solver import mp2
+from pymes_tpu_torch.util.observability import span, traced
 from pymes_tpu_torch.util.precision import cast_f32, full_f32_matmul
 
 # blocks the doubles residual needs in dressed form
@@ -441,28 +442,33 @@ def ccsd_iteration(t_fock_pq, dict_t_V, no, T1, T2, eps_i, eps_a,
 
     Returns ``(diis_state, e, dE, info)``: ``info`` is the bordered DIIS
     solve's, checked by the caller (0 when ``is_diis`` is False)."""
-    R1, R2 = ccsd_residuals(t_fock_pq, dict_t_V, no, T1, T2,
-                            is_dcsd=is_dcsd, ladder_all=ladder_all,
-                            twin=twin)
-    if e_blocks is None:
-        e_blocks = energy_blocks(t_fock_pq, dict_t_V, no)
-    m = diis_state.amps.shape[0]
-    slot = diis_state.count % m
-    n_valid = min(diis_state.count + 1, m)
-    row = ccsd_tail.jacobi_diis_insert(
-        R1, T1, R2, T2, eps_i, eps_a, level_shift, diis_state.errs,
-        diis_state.amps, slot, n_valid, twin=twin)
-    if is_diis:
-        B, coeff, info = diis.coefficients(diis_state.B, row, slot, n_valid)
-    else:
-        B = diis_state.B
-        coeff = torch.ones(1, dtype=T2.dtype, device=T2.device)
-        info = torch.zeros((), dtype=torch.int32, device=T2.device)
-    diis_state = diis.DIISState(amps=diis_state.amps, errs=diis_state.errs,
-                                count=diis_state.count + 1, B=B)
-    e1, ed, ex = ccsd_tail.diis_mix_energy(diis_state.amps, coeff, n_valid,
-                                           T1, T2, *e_blocks, twin=twin)
-    e = e1 + ed + ex
+    with span("cc.residual"):
+        R1, R2 = ccsd_residuals(t_fock_pq, dict_t_V, no, T1, T2,
+                                is_dcsd=is_dcsd, ladder_all=ladder_all,
+                                twin=twin)
+    with span("cc.tail"):
+        if e_blocks is None:
+            e_blocks = energy_blocks(t_fock_pq, dict_t_V, no)
+        m = diis_state.amps.shape[0]
+        slot = diis_state.count % m
+        n_valid = min(diis_state.count + 1, m)
+        row = ccsd_tail.jacobi_diis_insert(
+            R1, T1, R2, T2, eps_i, eps_a, level_shift, diis_state.errs,
+            diis_state.amps, slot, n_valid, twin=twin)
+        if is_diis:
+            B, coeff, info = diis.coefficients(diis_state.B, row, slot,
+                                               n_valid)
+        else:
+            B = diis_state.B
+            coeff = torch.ones(1, dtype=T2.dtype, device=T2.device)
+            info = torch.zeros((), dtype=torch.int32, device=T2.device)
+        diis_state = diis.DIISState(amps=diis_state.amps,
+                                    errs=diis_state.errs,
+                                    count=diis_state.count + 1, B=B)
+        e1, ed, ex = ccsd_tail.diis_mix_energy(diis_state.amps, coeff,
+                                               n_valid, T1, T2, *e_blocks,
+                                               twin=twin)
+        e = e1 + ed + ex
     return diis_state, e, e - e_last, info
 
 
@@ -512,19 +518,23 @@ def ccsd_solve(t_fock_pq, dict_t_V, no, t_T1_0, t_T2_0, level_shift=0.0,
                         device=T2.device)
     it = 0
     while it <= max_iter:
-        if delta_e >= 0 and not float(torch.abs(dE)) > delta_e:
-            break
-        state, e, dE, info_it = ccsd_iteration(
-            t_fock_pq, dict_t_V, no, T1, T2, eps_i, eps_a, level_shift,
-            state, e_last, is_dcsd=is_dcsd, is_diis=is_diis,
-            ladder_all=ladder_all, e_blocks=e_blocks, twin=twin)
-        info = torch.maximum(info, info_it.abs())
-        e_last = e
-        e_hist[min(it, max_iter)] = e
-        it += 1
-        if log_iterations:
-            print(f"    CCSD it {it}: E = {float(e):.14f}  "
-                  f"dE = {float(dE):.3e}")
+        if delta_e >= 0:
+            with span("cc.wait"):
+                done = not float(torch.abs(dE)) > delta_e
+            if done:
+                break
+        with span("cc.iter"):
+            state, e, dE, info_it = ccsd_iteration(
+                t_fock_pq, dict_t_V, no, T1, T2, eps_i, eps_a, level_shift,
+                state, e_last, is_dcsd=is_dcsd, is_diis=is_diis,
+                ladder_all=ladder_all, e_blocks=e_blocks, twin=twin)
+            info = torch.maximum(info, info_it.abs())
+            e_last = e
+            e_hist[min(it, max_iter)] = e
+            it += 1
+            if log_iterations:
+                print(f"    CCSD it {it}: E = {float(e):.14f}  "
+                      f"dE = {float(dE):.3e}")
 
     if int(info) != 0:
         raise RuntimeError("DIIS bordered system singular during the solve")
@@ -573,6 +583,7 @@ class CCSD(ccd_mod.CCD):
             d["_abcd_dressing"] = tensor_parallel.dressing_operands(d)
         return d
 
+    @traced("cc.solve")
     def solve(self, t_fock_pq, t_V_pqrs, level_shift=0.0, amps=None, sp=0,
               ladder=None, mixed_precision=False, contract_mode=None,
               layout=None, dress_precision=None, **kwargs):
@@ -591,8 +602,9 @@ class CCSD(ccd_mod.CCD):
         print_logging_info("Using DCSD: ", self.is_dcd, level=1)
         print_logging_info("Using DIIS mixer: ", self.is_diis, level=1)
 
-        e_mp2, t_T2 = mp2.solve(eps_i, eps_a, dict_t_V["ijab"],
-                                dict_t_V["abij"], level_shift)
+        with span("cc.guess"):
+            e_mp2, t_T2 = mp2.solve(eps_i, eps_a, dict_t_V["ijab"],
+                                    dict_t_V["abij"], level_shift)
         print_logging_info("MP2 energy = {:.12f}".format(float(e_mp2)),
                            level=1)
         t_T1 = torch.zeros((eps_a.shape[0], no), dtype=t_T2.dtype,

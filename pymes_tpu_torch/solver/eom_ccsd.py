@@ -62,6 +62,7 @@ from pymes_tpu_torch.kernels import davidson, pair_sym
 from pymes_tpu_torch.log import print_logging_info, print_title
 from pymes_tpu_torch.ops import ueg_ladder
 from pymes_tpu_torch.ops.ueg_ladder import BlockLadder
+from pymes_tpu_torch.util.observability import span, traced
 from pymes_tpu_torch.util.precision import cast_f32, full_f32_matmul
 
 # dead-direction threshold of an orthogonalised residual row: f64, and f32
@@ -652,7 +653,8 @@ class EOM_CCSD:
         call after ``_hbar`` was reset (one K1 launch on the matrix-free
         UEG operator)."""
         if getattr(self, "_hbar", None) is None:
-            self._hbar = build_hbar(f, dict_t_V, T2, twin=self.twin)
+            with span("eom.hbar"):
+                self._hbar = build_hbar(f, dict_t_V, T2, twin=self.twin)
         return self._hbar
 
     # --- inputs -----------------------------------------------------------
@@ -677,11 +679,12 @@ class EOM_CCSD:
         return out
 
     def _diag(self, f, dict_t_V, T2):
-        return torch.cat([
-            self._on_device(self.get_diag_singles(f, dict_t_V, T2),
-                            f.dtype).ravel(),
-            self._on_device(self.get_diag_doubles(f, dict_t_V, T2),
-                            f.dtype).ravel()])
+        with span("eom.hbar"):
+            return torch.cat([
+                self._on_device(self.get_diag_singles(f, dict_t_V, T2),
+                                f.dtype).ravel(),
+                self._on_device(self.get_diag_doubles(f, dict_t_V, T2),
+                                f.dtype).ravel()])
 
     # --- Davidson ---------------------------------------------------------
     @staticmethod
@@ -719,6 +722,7 @@ class EOM_CCSD:
             guess_inds = np.concatenate([guess_inds, nv * no + extra])
         return guess_inds
 
+    @traced("eom.solve")
     def solve(self, t_fock_dressed_pq, dict_t_V_dressed, t_T_abij):
         """Davidson iteration with batched sigma builds: the fixed-shape
         solver, or the variable-shape loop for tiny spaces
@@ -845,7 +849,8 @@ class EOM_CCSD:
         # there is no fused production step to select (the JAX package's
         # `type(self)._batched_sigma is EOM_CCSD._batched_sigma` test)
         def sigma(rows, W, at):
-            self._sigma_rows(f, dict_t_V, rows, T2, W, at)
+            with span("eom.sigma"):
+                self._sigma_rows(f, dict_t_V, rows, T2, W, at)
 
         self.e_excit = np.zeros(n_excit)
         e = np.zeros(n_excit)
@@ -854,70 +859,76 @@ class EOM_CCSD:
         B_full = _subspace_matrix(U, W).cpu().numpy()
         converged = False
         for it in range(self.max_iter):
-            ev, vec = np.linalg.eig(B_full[:m, :m])
-            if track:
-                # greedy one-to-one matching of the subspace eigvecs with
-                # the previous tracked Ritz vectors (zero-padded)
-                mp = prev_ritz.shape[0]
-                O = np.abs(vec[:mp].conj().T @ prev_ritz) ** 2
-                O = O / np.maximum((np.abs(vec) ** 2).sum(axis=0),
-                                   1e-300)[:, None]
-                sel = np.empty(n_excit, dtype=int)
-                for _ in range(n_excit):
-                    k, j = np.unravel_index(np.argmax(O), O.shape)
-                    sel[j] = k
-                    O[k, :] = -1.0
-                    O[:, j] = -1.0
-                order = sel[np.argsort(ev[sel])]
-                prev_ritz = vec[:, order]
-            else:
-                order = np.argsort(ev)[: n_excit]
-            e_new = np.real(ev[order])
-            e_imag = np.imag(ev[order])
-            v = self._realify_ritz(ev, vec, order)
-            v_pad = np.zeros((max_dim, n_excit))
-            v_pad[:m] = v
+            with span("eom.iter"):
+                with span("eom.subspace"):
+                    ev, vec = np.linalg.eig(B_full[:m, :m])
+                    if track:
+                        # greedy one-to-one matching of the subspace
+                        # eigvecs with the previous tracked Ritz vectors
+                        # (zero-padded)
+                        mp = prev_ritz.shape[0]
+                        O = np.abs(vec[:mp].conj().T @ prev_ritz) ** 2
+                        O = O / np.maximum((np.abs(vec) ** 2).sum(axis=0),
+                                           1e-300)[:, None]
+                        sel = np.empty(n_excit, dtype=int)
+                        for _ in range(n_excit):
+                            k, j = np.unravel_index(np.argmax(O), O.shape)
+                            sel[j] = k
+                            O[k, :] = -1.0
+                            O[:, j] = -1.0
+                        order = sel[np.argsort(ev[sel])]
+                        prev_ritz = vec[:, order]
+                    else:
+                        order = np.argsort(ev)[: n_excit]
+                    e_new = np.real(ev[order])
+                    e_imag = np.imag(ev[order])
+                    v = self._realify_ritz(ev, vec, order)
+                    v_pad = np.zeros((max_dim, n_excit))
+                    v_pad[:m] = v
 
-            diff_e_norm = np.linalg.norm(self.e_excit - e_new)
-            self.e_excit = e_new
-            e = e_new
-            if it > 0 and diff_e_norm < self.e_epsilon:
-                print_logging_info("Iterative solver converged.", level=1)
-                converged = True
-                break
+                    diff_e_norm = np.linalg.norm(self.e_excit - e_new)
+                    self.e_excit = e_new
+                    e = e_new
+                    if it > 0 and diff_e_norm < self.e_epsilon:
+                        print_logging_info("Iterative solver converged.",
+                                           level=1)
+                        converged = True
+                        break
 
-            collapse = m + n_excit > max_dim
-            host_pack = np.zeros((2 * max_dim + 1, n_excit))
-            host_pack[:max_dim] = v_pad
-            host_pack[max_dim] = e_new
-            m_res = m
-            if collapse:
-                q = np.linalg.qr(v)[0]
-                host_pack[max_dim + 1: max_dim + 1 + m] = q
-                if track:
-                    # tracked states live in span(v) = span(q)
-                    prev_ritz = q.T @ prev_ritz
-                m = n_excit
-            out = _davidson_fused_step(
-                sigma, U, W, self._on_device(host_pack, U.dtype), diag_vec,
-                m_res, m, collapse=collapse, twin=self.twin)
-            out_np = out.cpu().numpy()
-            if collapse:
-                # the Ritz rotation addresses the restarted subspace:
-                # x_n = Σ_j (qᵀv)[j,n] U_new[j]
-                v_pad = np.zeros((max_dim, n_excit))
-                v_pad[:n_excit] = q.T @ v
-            k_good = int((out_np[0, :n_excit] > _dead(U.dtype)).sum())
-            if k_good == 0:
-                print_logging_info("Residuals exhausted — converged.",
-                                   level=1)
-                converged = True
-                break
-            m += k_good
-            B_full = out_np[1: 1 + max_dim]
-            print_logging_info("Iteration = ", it, level=1)
-            print_logging_info("Norm of energy difference = ", diff_e_norm,
-                               level=2)
+                    collapse = m + n_excit > max_dim
+                    host_pack = np.zeros((2 * max_dim + 1, n_excit))
+                    host_pack[:max_dim] = v_pad
+                    host_pack[max_dim] = e_new
+                    m_res = m
+                    if collapse:
+                        q = np.linalg.qr(v)[0]
+                        host_pack[max_dim + 1: max_dim + 1 + m] = q
+                        if track:
+                            # tracked states live in span(v) = span(q)
+                            prev_ritz = q.T @ prev_ritz
+                        m = n_excit
+                    pack = self._on_device(host_pack, U.dtype)
+                out = _davidson_fused_step(
+                    sigma, U, W, pack, diag_vec, m_res, m,
+                    collapse=collapse, twin=self.twin)
+                with span("eom.wait"):
+                    out_np = out.cpu().numpy()
+                if collapse:
+                    # the Ritz rotation addresses the restarted subspace:
+                    # x_n = Σ_j (qᵀv)[j,n] U_new[j]
+                    v_pad = np.zeros((max_dim, n_excit))
+                    v_pad[:n_excit] = q.T @ v
+                k_good = int((out_np[0, :n_excit] > _dead(U.dtype)).sum())
+                if k_good == 0:
+                    print_logging_info("Residuals exhausted — converged.",
+                                       level=1)
+                    converged = True
+                    break
+                m += k_good
+                B_full = out_np[1: 1 + max_dim]
+                print_logging_info("Iteration = ", it, level=1)
+                print_logging_info("Norm of energy difference = ",
+                                   diff_e_norm, level=2)
 
         self.n_iterations = it + 1
         return self._finish(U, v_pad, nv, e, e_imag, converged, time_init)
@@ -948,60 +959,61 @@ class EOM_CCSD:
         max_dim = min(self.max_dim, N)
         converged = False
         for it in range(self.max_iter):
-            U = _orthonormalize(U)
-            # drop null rows (an exactly converged trial's zero residual)
-            row_norms = (U * U).sum(dim=1).cpu().numpy()
-            if (row_norms < 1e-20).any():
-                U = U[torch.as_tensor(np.nonzero(row_norms >= 1e-20)[0])]
-            if U.shape[0] < n_excit:
-                # top the space back up to n_excit rows with random
-                # orthogonalised directions
-                rng = np.random.default_rng(it)
-                extra = rng.standard_normal((n_excit - U.shape[0], N))
-                extra /= np.linalg.norm(extra, axis=1, keepdims=True)
-                U = _orthonormalize(torch.cat([U, self._on_device(extra)]))
-            m = U.shape[0]
-            W = torch.empty_like(U)
-            self._sigma_rows(f, dict_t_V, U, T2, W, 0)
-            B = _subspace_matrix(U, W).cpu().numpy()
+            with span("eom.iter"):
+                U = _orthonormalize(U)
+                # drop null rows (an exactly converged trial's zero residual)
+                row_norms = (U * U).sum(dim=1).cpu().numpy()
+                if (row_norms < 1e-20).any():
+                    U = U[torch.as_tensor(np.nonzero(row_norms >= 1e-20)[0])]
+                if U.shape[0] < n_excit:
+                    # top the space back up to n_excit rows with random
+                    # orthogonalised directions
+                    rng = np.random.default_rng(it)
+                    extra = rng.standard_normal((n_excit - U.shape[0], N))
+                    extra /= np.linalg.norm(extra, axis=1, keepdims=True)
+                    U = _orthonormalize(torch.cat([U, self._on_device(extra)]))
+                m = U.shape[0]
+                W = torch.empty_like(U)
+                self._sigma_rows(f, dict_t_V, U, T2, W, 0)
+                B = _subspace_matrix(U, W).cpu().numpy()
 
-            ev, vec = np.linalg.eig(B)
-            order = np.argsort(ev)[: n_excit]
-            e_new = np.real(ev[order])
-            e_imag = np.imag(ev[order])
-            v = self._realify_ritz(ev, vec, order)
+                ev, vec = np.linalg.eig(B)
+                order = np.argsort(ev)[: n_excit]
+                e_new = np.real(ev[order])
+                e_imag = np.imag(ev[order])
+                v = self._realify_ritz(ev, vec, order)
 
-            if m >= max_dim:
-                # collapse to the current Ritz vectors
-                U = _rotate(U, self._on_device(v))
-                v = np.eye(n_excit)
-                if m >= N:
-                    # the subspace spans the full excitation space: the
-                    # projected values are exact
-                    self.e_excit = e_new
-                    e = e_new
-                    print_logging_info("Full space spanned — exact.",
-                                       level=1)
+                if m >= max_dim:
+                    # collapse to the current Ritz vectors
+                    U = _rotate(U, self._on_device(v))
+                    v = np.eye(n_excit)
+                    if m >= N:
+                        # the subspace spans the full excitation space: the
+                        # projected values are exact
+                        self.e_excit = e_new
+                        e = e_new
+                        print_logging_info("Full space spanned — exact.",
+                                           level=1)
+                        converged = True
+                        break
+                    continue
+
+                # residuals with the per-component H̄-diagonal preconditioner
+                diff_e_norm = np.linalg.norm(self.e_excit - e_new)
+                R = _residual_precond(U, W, self._on_device(v),
+                                      self._on_device(e_new), diag_vec, m,
+                                      twin=self.twin)
+                n_add = min(n_excit, max_dim - m)
+                U = torch.cat([U, R[:n_add]])
+                self.e_excit = e_new
+                e = e_new
+                if diff_e_norm < self.e_epsilon:
+                    print_logging_info("Iterative solver converged.", level=1)
                     converged = True
                     break
-                continue
-
-            # residuals with the per-component H̄-diagonal preconditioner
-            diff_e_norm = np.linalg.norm(self.e_excit - e_new)
-            R = _residual_precond(U, W, self._on_device(v),
-                                  self._on_device(e_new), diag_vec, m,
-                                  twin=self.twin)
-            n_add = min(n_excit, max_dim - m)
-            U = torch.cat([U, R[:n_add]])
-            self.e_excit = e_new
-            e = e_new
-            if diff_e_norm < self.e_epsilon:
-                print_logging_info("Iterative solver converged.", level=1)
-                converged = True
-                break
-            print_logging_info("Iteration = ", it, level=1)
-            print_logging_info("Norm of energy difference = ", diff_e_norm,
-                               level=2)
+                print_logging_info("Iteration = ", it, level=1)
+                print_logging_info("Norm of energy difference = ", diff_e_norm,
+                                   level=2)
 
         self.n_iterations = it + 1
         return self._finish(U, v, nv, e, e_imag, converged, time_init)
